@@ -31,7 +31,6 @@ from building_llm_from_scratch_tpu_torch.ops.attention import xla_attention
 from building_llm_from_scratch_tpu_torch.ops.decode_step import (
     fused_decode_step,
     fused_decode_step_plain,
-    kernel_supports,
 )
 from building_llm_from_scratch_tpu_torch.ops.norms import layernorm, rmsnorm
 from building_llm_from_scratch_tpu_torch.ops.rope import (
@@ -319,16 +318,15 @@ def decode_slots(model: Transformer, tokens: torch.Tensor,
     """One decode tick for the whole slot batch: ``tokens`` (S, 1) are each
     slot's last accepted token and ``lengths`` (S,) int32 its valid prefix.
     Each layer appends its k/v at the row's length and attends, in one fused
-    step (the kernel on the card, its twin on the CPU); the caches are
+    step: the kernel for a cache on the card (which raises on a shape it
+    cannot take), its plain twin for a cache on the CPU. The caches are
     updated IN PLACE. Returns fp32 logits (S, V). Free slots compute rows the
     engine ignores; the shapes never change."""
     cfg = model.cfg
     S = tokens.shape[0]
     positions = lengths.long()[:, None]
     x = _embed(model, tokens, positions)
-    Tmax = cache["k"][0].shape[2]
-    step = (fused_decode_step
-            if kernel_supports(1, Tmax, cfg.head_dim, cache["k"][0].dtype)
+    step = (fused_decode_step if cache["k"][0].is_cuda
             else fused_decode_step_plain)
     for blk, K, V in zip(model.blocks, cache["k"], cache["v"]):
         h = blk.norm1(x)

@@ -19,7 +19,7 @@ from building_llm_from_scratch_tpu_torch.ops.attention import decode_attention
 #: dtype codes of the C entry point (csrc/decode_step.cu)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 #: head dims the kernel is instantiated for
-KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (64, 128)
 
 
 def slot_cache_append(cache: torch.Tensor, new: torch.Tensor,
@@ -47,11 +47,19 @@ def supports_shape(Tq: int, Tmax: int, hd: int) -> bool:
             and Tmax % 8 == 0)
 
 
-def kernel_supports(Tq: int, Tmax: int, hd: int, dtype: torch.dtype) -> bool:
-    """What the CUDA kernel takes: ``supports_shape`` narrowed to the head
-    dims and dtypes it is instantiated for."""
-    return (supports_shape(Tq, Tmax, hd) and hd in KERNEL_HEAD_DIMS
-            and dtype in _DTYPE_CODES)
+def check_kernel_shape(Tmax: int, hd: int, dtype: torch.dtype) -> None:
+    """Raise ValueError unless the CUDA kernel takes a single-token step
+    over a (.., Tmax, hd) cache of ``dtype``: ``supports_shape`` narrowed to
+    the head dims and dtypes the kernel is instantiated for. The wrapper
+    runs it before every launch; the serving engine runs it once, when it
+    is built on the card, so a model it cannot serve fails before any
+    request is admitted."""
+    if not (supports_shape(1, Tmax, hd) and hd in _KERNEL_HEAD_DIMS
+            and dtype in _DTYPE_CODES):
+        raise ValueError(
+            f"the CUDA decode-step kernel takes head dims {_KERNEL_HEAD_DIMS}, "
+            f"dtypes {list(_DTYPE_CODES)} and a cache length Tmax that is a "
+            f"multiple of 8 and <= 8192; got hd={hd}, {dtype}, Tmax={Tmax}")
 
 
 def fused_decode_step_plain(q, k_new, v_new, k_cache, v_cache, lengths):
@@ -118,9 +126,7 @@ def fused_decode_step(q, k_new, v_new, k_cache, v_cache, lengths):
         raise ValueError(f"fused_decode_step runs on cpu or cuda, not {q.device}")
     S, _, Hq, hd = q.shape
     _, Hkv, Tmax, _ = k_cache.shape
-    if not kernel_supports(1, Tmax, hd, q.dtype):
-        raise ValueError(f"the CUDA kernel takes head dims {KERNEL_HEAD_DIMS} "
-                         f"and dtypes {list(_DTYPE_CODES)}; got hd={hd} {q.dtype}")
+    check_kernel_shape(Tmax, hd, q.dtype)
     if not torch.is_tensor(lengths) or lengths.dtype != torch.int32 \
             or tuple(lengths.shape) != (S,):
         raise TypeError("on the card lengths must be an int32 (S,) tensor")

@@ -42,6 +42,9 @@ from building_llm_from_scratch_tpu_torch.models.transformer import (
     init_slot_cache,
     prefill_into_slot,
 )
+from building_llm_from_scratch_tpu_torch.ops.decode_step import (
+    check_kernel_shape,
+)
 from building_llm_from_scratch_tpu_torch.serving.queue import (
     PromptTooLongError,
     QueueFullError,
@@ -81,6 +84,10 @@ class DecodeEngine:
         self.max_len = min(int(max_len or cfg.context_length),
                            cfg.context_length)
         self.max_prompt = self.max_len - 1
+        if self.device.type == "cuda":
+            # every decode tick launches the kernel: refuse a model or a
+            # slot length it cannot take now, not at the first tick
+            check_kernel_shape(self.max_len, cfg.head_dim, cfg.torch_dtype)
         self.max_top_k = min(int(max_top_k), cfg.vocab_size)
         self.default_max_new_tokens = int(default_max_new_tokens)
         self.queue = RequestQueue(max_queue)

@@ -11,15 +11,20 @@ exits non-zero):
   2. build: compiles the package's CUDA kernels from ``csrc/`` with nvcc.
   3. kernel vs twin: the fused decode-step kernel against its plain PyTorch
      twin at the serving shapes of LLaMA-3.2-1B (bf16), GPT-2-124M (fp32) and
-     LLaMA-3-8B (bf16): caches bit-equal, outputs within tolerance; times of
-     the kernel, the twin and ``scaled_dot_product_attention`` on the same
-     cache, beside the bound the card's memory rate sets.
-  4. serving: the continuous-batching engine at full width (LLaMA-3.2-1B in
-     bf16 with its 16 layers, then GPT-2-124M in fp32), random weights from a
-     seed, ~24 requests over 8 slots; every request finishes its budget, the
-     kernel's launch count equals layers x decode ticks, and three greedy
-     requests re-run alone in a fresh engine give the same tokens.
-  5. the ``kernels`` line, then the card line and the result line.
+     LLaMA-3-8B (bf16): caches bit-equal, outputs within tolerance of the
+     twin and within one unit in the last place of the exact (fp32) result;
+     times of the kernel, the twin and ``scaled_dot_product_attention`` on
+     the same cache, beside the bound the card's memory rate sets.
+  4. serving: the continuous-batching engine at full width, random weights
+     from a seed: LLaMA-3.2-1B in bf16 with its 16 layers and GPT-2-124M in
+     fp32 (24 requests over 8 slots of 1024), then LLaMA-3-8B in bf16 cut to
+     2 layers (12 requests over 4 slots of 4096). Every request finishes its
+     budget, the kernel's launch count equals layers x decode ticks, three
+     greedy requests re-run alone in a fresh engine give the same tokens,
+     and the card's logits agree with an fp32 CPU reference more closely
+     than a reference without decode attention does.
+  5. the ``kernels`` line (one row per shape, each with the launches of the
+     serving run at that shape), then the card line and the result line.
 
 It exits non-zero without printing a result when no CUDA device is present
 or when the package is not beside it.
@@ -103,11 +108,23 @@ def phase_build() -> None:
 # ---------------------------------------------------------------------------
 
 KERNEL_SHAPES = [
-    # name, S, Hq, Hkv, hd, Tmax, dtype
+    # name (the model served at this shape in phase 4), S, Hq, Hkv, hd,
+    # Tmax, dtype
     ("llama3_2-1B", 8, 32, 8, 64, 1024, "bf16"),
     ("gpt2-124M", 8, 12, 12, 64, 1024, "fp32"),
     ("llama3-8B", 4, 32, 8, 128, 4096, "bf16"),
 ]
+
+# (atol, rtol) of the kernel against its twin, which rounds the softmax
+# weights to the model dtype before P.V as the JAX package does (the
+# kernel keeps them in fp32): the JAX kernel test's tolerance for 16-bit
+# types.
+TWIN_TOL = {"fp32": (1e-5, 1e-5), "fp16": (2e-2, 2e-2), "bf16": (2e-2, 2e-2)}
+# (atol, rtol) of the kernel against the exact result (the twin on the same
+# inputs in fp32): the kernel rounds only its output, so one unit in the
+# last place of the output dtype, plus fp32 summation noise near 0.
+EXACT_TOL = {"fp32": (1e-5, 1e-5), "fp16": (1e-5, 2.0 ** -10),
+             "bf16": (1e-5, 2.0 ** -7)}
 
 
 def device_time_ms(torch, fn, flush, runs: int = 25, warmup: int = 5) -> float:
@@ -166,10 +183,19 @@ def phase_kernel(torch, card: dict) -> list:
             raise AssertionError("the kernel must return its cache tensors")
         if not (torch.equal(Kk, Kt) and torch.equal(Vk, Vt)):
             raise AssertionError(f"{name}: kernel caches differ from the twin's")
-        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        atol, rtol = TWIN_TOL[dt]
         err = (out_k.float() - out_t.float()).abs().max().item()
-        if not torch.allclose(out_k.float(), out_t.float(), atol=tol, rtol=tol):
+        if not torch.allclose(out_k.float(), out_t.float(), atol=atol, rtol=rtol):
             raise AssertionError(f"{name}: kernel output off the twin by {err}")
+        f32 = lambda t: t.float().clone()  # noqa: E731
+        out_x, _, _ = fused_decode_step_plain(f32(q), f32(kn), f32(vn), f32(K),
+                                              f32(V), lens)
+        ex_atol, ex_rtol = EXACT_TOL[dt]
+        exact_err = (out_k.float() - out_x).abs().max().item()
+        if not torch.allclose(out_k.float(), out_x, atol=ex_atol, rtol=ex_rtol):
+            raise AssertionError(f"{name}: kernel output off the exact result "
+                                 f"by {exact_err}")
+        del out_x
         if not torch.isfinite(out_k).all():
             raise AssertionError(f"{name}: non-finite kernel output")
 
@@ -183,9 +209,11 @@ def phase_kernel(torch, card: dict) -> list:
                                                   enable_gqa=True)
 
         lib_out = library().transpose(1, 2)
-        if not torch.allclose(lib_out.float(), out_t.float(), atol=tol * 5,
-                              rtol=tol * 5):
-            raise AssertionError(f"{name}: the library call disagrees")
+        lib_err = (lib_out.float() - out_t.float()).abs().max().item()
+        if not torch.allclose(lib_out.float(), out_t.float(), atol=atol * 5,
+                              rtol=rtol * 5):
+            raise AssertionError(f"{name}: the library call disagrees by "
+                                 f"{lib_err}")
 
         ms = device_time_ms(torch, lambda: fused_decode_step(q, kn, vn, Kk, Vk, lens),
                             flush)
@@ -202,7 +230,11 @@ def phase_kernel(torch, card: dict) -> list:
         t_bytes, t_ops = bytes_moved / fig["bw"], ops / peak
         row = dict(shape=name, S=S, Hq=Hq, Hkv=Hkv, hd=hd, Tmax=Tmax, dtype=dt,
                    lengths=[int(x) for x in lens.tolist()],
-                   max_abs_err=err, tolerance=tol, ms=ms, plain_ms=plain_ms,
+                   max_abs_err=err, atol=atol, rtol=rtol,
+                   exact_max_abs_err=exact_err, exact_atol=ex_atol,
+                   exact_rtol=ex_rtol,
+                   out_rms=out_t.float().pow(2).mean().sqrt().item(),
+                   library_max_abs_err=lib_err, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bytes=bytes_moved, ops=ops,
                    bound_ms=max(t_bytes, t_ops) * 1e3,
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -216,15 +248,22 @@ def phase_kernel(torch, card: dict) -> list:
 # ---------------------------------------------------------------------------
 
 SERVE_MODELS = [
-    # model, size, dtype, layers; full width, seeded random weights
-    ("llama3_2", "1B", "bf16"),
-    ("GPT2", "124M", "fp32"),
+    # full width, seeded random weights; each serves at one KERNEL_SHAPES
+    # row: slots = S, max_len = Tmax. LLaMA-3-8B is cut to 2 of its 32
+    # layers to keep the run short.
+    dict(model="llama3_2", size="1B", dtype="bf16", context=1024, layers=None,
+         slots=8, requests=24, max_prompt=768),
+    dict(model="GPT2", size="124M", dtype="fp32", context=1024, layers=None,
+         slots=8, requests=24, max_prompt=768),
+    dict(model="llama3", size="8B", dtype="bf16", context=4096, layers=2,
+         slots=4, requests=12, max_prompt=3072),
 ]
 
 
-def make_requests(cfg, seed: int, n: int = 24) -> list:
-    """~n requests: prompts of 16-768 tokens, budgets of 32-128 new tokens,
-    eos ignored; every sixth samples with top-k, the rest are greedy."""
+def make_requests(cfg, seed: int, n: int, max_prompt: int) -> list:
+    """n requests: prompts of 16-max_prompt tokens, budgets of 32-128 new
+    tokens, eos ignored; every sixth samples with top-k, the rest are
+    greedy."""
     import numpy as np
 
     from building_llm_from_scratch_tpu_torch.serving.request import (
@@ -234,7 +273,7 @@ def make_requests(cfg, seed: int, n: int = 24) -> list:
     rng = np.random.default_rng(seed)
     out = []
     for i in range(n):
-        tp = int(rng.integers(16, 769))
+        tp = int(rng.integers(16, max_prompt + 1))
         sampled = i % 6 == 5
         sp = SamplingParams(max_new_tokens=int(rng.integers(32, 129)),
                             temperature=0.8 if sampled else 0.0,
@@ -256,10 +295,33 @@ def serve(engine, requests: list) -> list:
     return handles
 
 
+def _agreement(torch, pairs) -> dict:
+    """Worst cosine and largest abs difference over (logits, reference)
+    pairs, beside the smallest rms of the reference logits."""
+    cos = min(torch.nn.functional.cosine_similarity(
+        a.reshape(1, -1).double(), b.reshape(1, -1).double()).item()
+        for a, b in pairs)
+    diff = max((a - b).abs().max().item() for a, b in pairs)
+    rms = min(b.pow(2).mean().sqrt().item() for _, b in pairs)
+    return dict(cosine_min=cos, max_abs_diff=diff, ref_rms=rms)
+
+
+def _within(cfg, m: dict) -> bool:
+    """fp32 on the card must match the fp32 CPU reference to 1e-3; bf16
+    to within a tenth of the logits' rms and a cosine of 0.9995."""
+    if cfg.dtype == "fp32":
+        return m["max_abs_diff"] <= 1e-3
+    return m["cosine_min"] >= 0.9995 and m["max_abs_diff"] <= 0.1 * m["ref_rms"]
+
+
 def reference_check(torch, model, cfg) -> dict:
     """A small input through the card's serving functions (prefill, then
     decode ticks through the kernel) against the same functions on the CPU
-    in fp32 (the plain twin), teacher-forced on the card's greedy tokens."""
+    in fp32 (the plain twin), teacher-forced on the card's greedy tokens.
+
+    A control shows the bound can fail: the CPU reference run again with
+    the decode steps' attention output zeroed must fall outside it."""
+    import building_llm_from_scratch_tpu_torch.models.transformer as ttf
     from building_llm_from_scratch_tpu_torch.models.transformer import (
         Transformer,
         decode_slots,
@@ -276,45 +338,54 @@ def reference_check(torch, model, cfg) -> dict:
     prompt[0, Tp:] = 0
     dev_cache = init_slot_cache(cfg, S, Tmax, "cuda")
     ref_cache = init_slot_cache(ref_cfg, S, Tmax, "cpu")
-    worst = 1.0
-    max_err = 0.0
     for slot in range(S):
         a = prefill_into_slot(model, prompt.cuda(), Tp, slot, dev_cache)
         b = prefill_into_slot(ref, prompt, Tp, slot, ref_cache)
+    ablated_cache = {k: [t.clone() for t in v] for k, v in ref_cache.items()}
     toks = a.argmax().cpu().view(1, 1).repeat(S, 1)
     lengths = torch.full((S,), Tp, dtype=torch.int32)
-    pairs = [(a.cpu(), b)]
+    pairs, ablated = [(a.cpu(), b)], []
+    twin = ttf.fused_decode_step_plain
+
+    def no_attention(*args):
+        out, k, v = twin(*args)
+        return torch.zeros_like(out), k, v
+
     for _ in range(4):
         a = decode_slots(model, toks.cuda(), lengths.cuda(), dev_cache)
         b = decode_slots(ref, toks, lengths, ref_cache)
+        ttf.fused_decode_step_plain = no_attention
+        try:
+            c = decode_slots(ref, toks, lengths, ablated_cache)
+        finally:
+            ttf.fused_decode_step_plain = twin
         pairs.append((a.cpu(), b))
+        ablated.append((c, b))
         toks = a.argmax(-1).cpu().view(S, 1)
         lengths += 1
-    for a, b in pairs:
-        worst = min(worst, torch.nn.functional.cosine_similarity(
-            a.reshape(1, -1), b.reshape(1, -1)).item())
-        max_err = max(max_err, (a - b).abs().max().item())
-    if cfg.dtype == "fp32":
-        if max_err > 1e-3:
-            raise AssertionError(f"{cfg.name}: card logits off the fp32 CPU "
-                                 f"reference by {max_err}")
-    elif worst < 0.99:
-        raise AssertionError(f"{cfg.name}: card logits diverge from the fp32 "
-                             f"CPU reference (cosine {worst})")
-    return dict(cosine_min=worst, max_abs_diff=max_err,
-                tolerance="max_abs<=1e-3" if cfg.dtype == "fp32" else "cosine>=0.99")
+    card, control = _agreement(torch, pairs), _agreement(torch, ablated)
+    result = dict(card=card, no_attention_control=control,
+                  bound="max_abs<=1e-3" if cfg.dtype == "fp32"
+                  else "cosine>=0.9995 and max_abs<=0.1*rms(ref)")
+    if not _within(cfg, card):
+        raise AssertionError(f"{cfg.name}: card logits off the fp32 CPU "
+                             f"reference: {result}")
+    if _within(cfg, control):
+        raise AssertionError(f"{cfg.name}: the reference bound does not "
+                             f"catch a model without decode attention: {result}")
+    return result
 
 
 def tick_profile(torch, engine_cls, model, requests: list, tick_ms: float,
-                 n_ticks: int = 12) -> dict:
+                 slots: int, max_len: int, n_ticks: int = 12) -> dict:
     """Device time by kernel over a window of steady decode ticks
     (torch.profiler). Runs after the main path and outside its count. The
     profiler slows the host, so the idle share is taken against the
     unprofiled mean tick ``tick_ms`` of the main run."""
     from torch.profiler import ProfilerActivity, profile
 
-    eng = engine_cls(model, n_slots=8, max_len=1024, max_queue=64)
-    for p, sp in requests[:8]:
+    eng = engine_cls(model, n_slots=slots, max_len=max_len, max_queue=64)
+    for p, sp in requests[:slots]:
         eng.submit(p, sp)
     eng.step()                      # admission (prefill) + first tick
     for _ in range(2):
@@ -353,15 +424,21 @@ def phase_serve(torch) -> dict:
     )
     from building_llm_from_scratch_tpu_torch.serving.engine import DecodeEngine
 
-    launches = {}
-    for model_name, size, dt in SERVE_MODELS:
-        cfg = get_config(model_name, size, dtype=dt)
+    served = {}
+    for m in SERVE_MODELS:
+        dt, slots, max_len = m["dtype"], m["slots"], m["context"]
+        cfg = get_config(m["model"], m["size"], dtype=dt,
+                         target_context_length=m["context"])
+        if m["layers"]:
+            cfg = cfg.replace(n_layers=m["layers"])
         t0 = time.perf_counter()
         model = build_model(cfg, seed=0, device="cuda")
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        requests = make_requests(cfg, seed=1)
-        engine = DecodeEngine(model, n_slots=8, max_len=1024, max_queue=64)
+        requests = make_requests(cfg, seed=1, n=m["requests"],
+                                 max_prompt=m["max_prompt"])
+        engine = DecodeEngine(model, n_slots=slots, max_len=max_len,
+                              max_queue=64)
 
         fused_decode_step.launches = 0          # the main path's count
         t0 = time.perf_counter()
@@ -383,11 +460,14 @@ def phase_serve(torch) -> dict:
         if n_launch != cfg.n_layers * st["n_ticks"] or n_launch == 0:
             raise AssertionError(f"{cfg.name}: {n_launch} kernel launches for "
                                  f"{cfg.n_layers} layers x {st['n_ticks']} ticks")
-        launches[cfg.name] = n_launch
+        served[cfg.name] = dict(
+            launches=n_launch,
+            shape=(slots, cfg.n_heads, cfg.n_kv_groups, cfg.head_dim, max_len,
+                   dt))
 
         # slot independence: three greedy requests alone in a fresh engine
         greedy = [i for i, (_, sp) in enumerate(requests) if sp.temperature == 0][:3]
-        solo_engine = DecodeEngine(model, n_slots=8, max_len=1024)
+        solo_engine = DecodeEngine(model, n_slots=slots, max_len=max_len)
         for i in greedy:
             solo = serve(solo_engine, [requests[i]])[0]
             if solo.output_ids != handles[i].output_ids:
@@ -396,9 +476,11 @@ def phase_serve(torch) -> dict:
 
         ref = reference_check(torch, model, cfg)
         tick_ms = st["decode_seconds"] / st["n_ticks"] * 1e3
-        prof = tick_profile(torch, DecodeEngine, model, requests, tick_ms)
+        prof = tick_profile(torch, DecodeEngine, model, requests, tick_ms,
+                            slots, max_len)
         emit("serve", model=cfg.name, dtype=dt, layers=cfg.n_layers,
-             emb_dim=cfg.emb_dim, vocab=cfg.vocab_size, slots=8, max_len=1024,
+             emb_dim=cfg.emb_dim, vocab=cfg.vocab_size, slots=slots,
+             max_len=max_len,
              init_s=init_s, requests=len(requests),
              prompt_tokens=sum(len(p) for p, _ in requests),
              new_tokens=st["tokens_generated"], wall_s=wall,
@@ -414,7 +496,7 @@ def phase_serve(torch) -> dict:
              max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
         del model, engine, solo_engine
         torch.cuda.empty_cache()
-    return launches
+    return served
 
 
 def main() -> int:
@@ -436,11 +518,17 @@ def main() -> int:
     card = phase_env(torch)
     phase_build()
     rows = phase_kernel(torch, card)
-    launches = sum(phase_serve(torch).values())
+    served = phase_serve(torch)
+    for r in rows:
+        shape = (r["S"], r["Hq"], r["Hkv"], r["hd"], r["Tmax"], r["dtype"])
+        if served[r["shape"]]["shape"] != shape:
+            raise AssertionError(f"{r['shape']}: served at "
+                                 f"{served[r['shape']]['shape']}, not {shape}")
     kernels = [dict(name=f"fused_decode_step[{r['shape']}]", route="cuda",
                     source="building_llm_from_scratch_tpu_torch/csrc/decode_step.cu",
                     replaces="building_llm_from_scratch_tpu/ops/decode_step.py:37",
-                    launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    launches=served[r["shape"]]["launches"],
+                    max_abs_err=r["max_abs_err"], ms=r["ms"],
                     kernel_ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"]) for r in rows]

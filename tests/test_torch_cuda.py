@@ -18,6 +18,16 @@ from building_llm_from_scratch_tpu_torch.serving.request import SamplingParams
 
 pytestmark = pytest.mark.cuda
 
+# (atol, rtol) of the kernel against its twin, which rounds the softmax
+# weights to the model dtype before P.V (the kernel keeps them in fp32),
+# and against the exact result (the twin in fp32 on the same inputs), from
+# which the kernel may differ by one unit in the last place of its output.
+# The same limits as chip_smoke.py.
+TWIN_TOL = {torch.float32: (1e-5, 1e-5), torch.float16: (2e-2, 2e-2),
+            torch.bfloat16: (2e-2, 2e-2)}
+EXACT_TOL = {torch.float32: (1e-5, 1e-5), torch.float16: (1e-5, 2.0 ** -10),
+             torch.bfloat16: (1e-5, 2.0 ** -7)}
+
 
 @pytest.fixture
 def cuda():
@@ -45,8 +55,13 @@ def test_kernel_matches_twin(cuda, dtype, Hq, Hkv, hd):
     assert Ko is Kk and Vo is Vk
     ref, _, _ = tds.fused_decode_step_plain(q, kn, vn, Kt, Vt, lens)
     assert torch.equal(Kk, Kt) and torch.equal(Vk, Vt)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    atol, rtol = TWIN_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    f32 = lambda t: t.float().clone()  # noqa: E731
+    exact, _, _ = tds.fused_decode_step_plain(f32(q), f32(kn), f32(vn), f32(K),
+                                              f32(V), lens)
+    atol, rtol = EXACT_TOL[dtype]
+    torch.testing.assert_close(out.float(), exact, atol=atol, rtol=rtol)
 
 
 def test_kernel_rejects_what_it_cannot_take(cuda):
@@ -61,6 +76,32 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     K = torch.zeros(2, 2, 16, 64, device=cuda)
     with pytest.raises(TypeError):                      # int64 lengths
         tds.fused_decode_step(q, kn, kn.clone(), K, K.clone(), lens.long())
+
+
+@pytest.mark.parametrize("change", [dict(emb_dim=64),           # head dim 16
+                                    dict(context_length=1001),  # Tmax % 8
+                                    dict(context_length=16384)])
+def test_card_refuses_shapes_the_kernel_cannot_take(cuda, change):
+    """A model or slot length the kernel cannot take raises on the card when
+    the engine is built, and a decode tick at such a shape raises too;
+    neither computes the plain twin instead."""
+    from building_llm_from_scratch_tpu_torch.models.transformer import (
+        decode_slots,
+        init_slot_cache,
+    )
+
+    cfg = get_config("llama3_2", "1B").replace(
+        emb_dim=256, n_heads=4, n_kv_groups=2, n_layers=1, hidden_dim=256,
+        vocab_size=512, context_length=128).replace(**change)
+    model = build_model(cfg, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="CUDA decode-step kernel"):
+        DecodeEngine(model, n_slots=2)
+    cache = init_slot_cache(cfg, 2, cfg.context_length, cuda)
+    before = tds.fused_decode_step.launches
+    with pytest.raises(ValueError):
+        decode_slots(model, torch.zeros(2, 1, dtype=torch.long, device=cuda),
+                     torch.zeros(2, dtype=torch.int32, device=cuda), cache)
+    assert tds.fused_decode_step.launches == before
 
 
 def test_engine_on_the_card(cuda):

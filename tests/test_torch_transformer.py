@@ -54,7 +54,7 @@ def test_load_exported_params(tmp_path, dtype):
 @pytest.mark.parametrize("kind,wide", [("gpt2", False), ("llama", False),
                                        ("llama", True)])
 def test_prefill_and_decode_match_jax(kind, wide):
-    # wide: head dim 64, a shape the fused step takes (through its wrapper)
+    # wide: head dim 64, a shape the CUDA kernel also takes
     jcfg, tcfg = small_configs(kind, **({"emb_dim": 256} if wide else {}))
     params, np_params = jax_params(jcfg, seed=1)
     model = params_from_jax(np_params, tcfg, device="cpu")
@@ -77,9 +77,10 @@ def test_prefill_and_decode_match_jax(kind, wide):
         toks = rng.integers(0, jcfg.vocab_size, (S, 1)).astype(np.int32)
         jl, jcache = jax_decode(params, jcfg, jnp.asarray(toks),
                                 jnp.asarray(lens), jcache)
+        before = tds.fused_decode_step.launches
         tl = ttf.decode_slots(model, torch.from_numpy(toks).long(),
                               torch.from_numpy(lens), tcache)
-        assert tds.kernel_supports(1, Tmax, tcfg.head_dim, torch.float32) == wide
+        assert tds.fused_decode_step.launches == before   # CPU: the twin
         np.testing.assert_allclose(to_np32(tl), np.asarray(jl), atol=1e-4, rtol=0)
         lens = lens + 1
     for name in ("k", "v"):
