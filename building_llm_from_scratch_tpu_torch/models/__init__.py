@@ -1,1 +1,1 @@
-"""The transformer model for serving."""
+"""The transformer model: training forward and serving forward passes."""

@@ -1,5 +1,6 @@
-"""The shared transformer core, serving subset (port of the JAX package's
-``models/transformer.py``).
+"""The shared transformer core (port of the JAX package's
+``models/transformer.py``): the full-sequence training/eval forward and the
+serving forward passes.
 
 One parameterised model covers GPT-2 and the LLaMA family. Parameters keep
 the JAX package's layout so weights move between the two packages without a
@@ -11,11 +12,18 @@ transpose:
     ``blocks/...`` leaves are stacked on a leading layer axis. Each layer's
     module holds views of its slice of those stacked tensors.
 
+``forward_hidden``/``forward`` are the training forward: parameters are
+trainable once ``requires_grad_(True)`` is called (the trainer does), and
+attention goes through ``ops.attention.causal_attention`` (the fused flash
+kernels for the shapes they take). No dropout (configs with ``drop_rate >
+0`` are refused by the train step), no activation checkpointing.
+
 The serving functions (``prefill_into_slot``, ``decode_slots``) mirror the
 JAX ones: the same masks, the same zeroed bucket pads, the same fp32 logits.
 The decode step goes through the fused kernel (``ops/decode_step.py``)
-whenever the cache shape is one the kernel takes. Eval only: no dropout, no
-adapters, no int8 or paged caches.
+whenever the cache shape is one the kernel takes. ``forward_with_cache`` is
+the one-shot ``generate()``'s cached forward, with ``decode_attention`` over
+the cache as the JAX default does. No adapters, no int8 or paged caches.
 """
 
 from __future__ import annotations
@@ -27,7 +35,11 @@ from torch import nn
 
 from building_llm_from_scratch_tpu_torch.configs import ModelConfig
 from building_llm_from_scratch_tpu_torch.ops.activations import gelu, silu
-from building_llm_from_scratch_tpu_torch.ops.attention import xla_attention
+from building_llm_from_scratch_tpu_torch.ops.attention import (
+    causal_attention,
+    decode_attention,
+    xla_attention,
+)
 from building_llm_from_scratch_tpu_torch.ops.decode_step import (
     fused_decode_step,
     fused_decode_step_plain,
@@ -167,6 +179,9 @@ class Transformer(nn.Module):
             if tuple(flat[k].shape) != shape:
                 raise ValueError(f"{k}: shape {tuple(flat[k].shape)} != {shape}")
         self.cfg = cfg
+        #: the stacked JAX-layout leaves; every parameter below is one of
+        #: them or a per-layer view of one (shared storage)
+        self.stacked: Flat = dict(flat)
         self.tok_emb = nn.Parameter(flat["tok_emb/weight"], requires_grad=False)
         self.pos_emb = (nn.Parameter(flat["pos_emb/weight"], requires_grad=False)
                         if "pos_emb/weight" in flat else None)
@@ -187,21 +202,35 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.tok_emb.device
 
-    def flat_params(self) -> Flat:
-        """JAX path -> tensor, with the per-layer leaves stacked again."""
-        out: Flat = {"tok_emb/weight": self.tok_emb,
-                     "head/weight": self.head,
-                     "final_norm/scale": self.final_norm.scale}
+    def leaves(self):
+        """(JAX path, layer index or None, parameter) for every parameter;
+        a parameter with a layer index is that layer's view of the stacked
+        leaf."""
+        yield "tok_emb/weight", None, self.tok_emb
+        yield "head/weight", None, self.head
+        yield "final_norm/scale", None, self.final_norm.scale
         if self.pos_emb is not None:
-            out["pos_emb/weight"] = self.pos_emb
+            yield "pos_emb/weight", None, self.pos_emb
         if self.final_norm.bias is not None:
-            out["final_norm/bias"] = self.final_norm.bias
-        first = self.blocks[0]
-        for group in ("norm1", "attn", "norm2", "mlp"):
-            for name, _ in getattr(first, group).named_parameters():
-                out[f"blocks/{group}/{name}"] = torch.stack(
-                    [getattr(getattr(b, group), name) for b in self.blocks])
-        return {k: v.detach() for k, v in out.items()}
+            yield "final_norm/bias", None, self.final_norm.bias
+        for l, blk in enumerate(self.blocks):
+            for group in ("norm1", "attn", "norm2", "mlp"):
+                for name, p in getattr(blk, group).named_parameters():
+                    yield f"blocks/{group}/{name}", l, p
+
+    def attach_grads(self, grads: Flat) -> None:
+        """Point every parameter's ``.grad`` at its slice of the stacked
+        ``grads`` buffers (same names and shapes as ``stacked``). Autograd
+        then accumulates each layer's gradient in place into the stacked
+        buffer, so the optimizer updates whole stacked leaves; the caller
+        zeroes ``grads`` before each backward."""
+        for name, l, p in self.leaves():
+            p.grad = grads[name] if l is None else grads[name][l]
+
+    def flat_params(self) -> Flat:
+        """JAX path -> stacked tensor (detached; the storage the
+        parameters are views of)."""
+        return {k: v.detach() for k, v in self.stacked.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -252,21 +281,69 @@ def _mlp(cfg: ModelConfig, p: ParamGroup, x: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def _logits_fp32(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x2.dtype == torch.float32:
+        return x2 @ w
+    if x2.is_cuda:
+        return torch.mm(x2, w, out_dtype=torch.float32)
+    return x2.float() @ w.float()
+
+
+class _HeadLogits(torch.autograd.Function):
+    """(N, D) @ (D, V) -> fp32 (N, V). The backward rounds the fp32
+    cotangent to the model dtype on every device, and both gradient GEMMs
+    run in that dtype with fp32 accumulation: the single-pass 16-bit
+    product a TPU's matrix unit makes of an fp32 operand at default
+    precision (a no-op for fp32 models)."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return _logits_fp32(x2, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        dx = g @ w.t() if ctx.needs_input_grad[0] else None
+        dw = x2.t() @ g if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def _head_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """fp32 logits ``x @ w`` with fp32 accumulation (the JAX package's
-    ``preferred_element_type=float32``). On the card 16-bit inputs go
-    through one GEMM with an fp32 output; elsewhere the operands are
-    upcast first (products of 16-bit floats are exact in fp32, so the two
-    are the same contraction)."""
+    ``preferred_element_type=float32``), differentiable. On the card 16-bit
+    inputs go through one GEMM with an fp32 output; elsewhere the operands
+    are upcast first (products of 16-bit floats are exact in fp32, so the
+    two are the same contraction)."""
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.dtype == torch.float32:
-        out = x2 @ w
-    elif x.is_cuda:
-        out = torch.mm(x2, w, out_dtype=torch.float32)
-    else:
-        out = x2.float() @ w.float()
+    out = _HeadLogits.apply(x.reshape(-1, x.shape[-1]), w)
     return out.reshape(*lead, w.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (training / evaluation)
+# ---------------------------------------------------------------------------
+
+def forward_hidden(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """(B, T) token ids -> the final-normed (B, T, D) hidden states before
+    the head (the JAX ``forward_hidden`` without dropout)."""
+    cfg = model.cfg
+    B, T = tokens.shape
+    positions = torch.arange(T, device=tokens.device)
+    x = _embed(model, tokens, positions)
+    for blk in model.blocks:
+        h = blk.norm1(x)
+        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions)
+        out = causal_attention(q, k, v)
+        x = x + _attn_out_proj(blk.attn, out, B, T)
+        x = x + _mlp(cfg, blk.mlp, blk.norm2(x))
+    return model.final_norm(x)
+
+
+def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """(B, T) token ids -> fp32 logits (B, T, V)."""
+    return _head_logits(forward_hidden(model, tokens), model.head)
 
 
 # ---------------------------------------------------------------------------
@@ -339,6 +416,31 @@ def decode_slots(model: Transformer, tokens: torch.Tensor,
     return _head_logits(x, model.head)[:, 0]
 
 
+@torch.no_grad()
+def forward_with_cache(model: Transformer, tokens: torch.Tensor, cache: dict,
+                       length: int) -> torch.Tensor:
+    """The one-shot decode forward: ``tokens`` (B, Tq) at positions
+    [length, length + Tq), their k/v written IN PLACE into the per-layer
+    (B, Hkv, Tmax, hd) ``cache`` buffers there, attention over the first
+    ``length + Tq`` positions (``decode_attention``). Returns fp32 logits
+    (B, Tq, V). The caller keeps ``length + Tq <= Tmax``."""
+    cfg = model.cfg
+    B, Tq = tokens.shape
+    positions = torch.arange(length, length + Tq, device=tokens.device)
+    x = _embed(model, tokens, positions)
+    for blk, K, V in zip(model.blocks, cache["k"], cache["v"]):
+        h = blk.norm1(x)
+        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions)
+        K[:, :, length:length + Tq] = k.transpose(1, 2).to(K.dtype)
+        V[:, :, length:length + Tq] = v.transpose(1, 2).to(V.dtype)
+        out = decode_attention(q, K, V, q_positions=positions,
+                               kv_length=length + Tq)
+        x = x + _attn_out_proj(blk.attn, out, B, Tq)
+        x = x + _mlp(cfg, blk.mlp, blk.norm2(x))
+    x = model.final_norm(x)
+    return _head_logits(x, model.head)
+
+
 def build_model(cfg: ModelConfig, seed: int,
                 device: torch.device | str = "cuda") -> Transformer:
     """A model with seeded random weights made on ``device``."""
@@ -350,5 +452,6 @@ def build_model(cfg: ModelConfig, seed: int,
     return Transformer(cfg, init_params(cfg, gen, device))
 
 
-__all__ = ["Transformer", "build_model", "decode_slots", "init_params",
+__all__ = ["Transformer", "build_model", "decode_slots", "forward",
+           "forward_hidden", "forward_with_cache", "init_params",
            "init_slot_cache", "param_shapes", "prefill_into_slot"]

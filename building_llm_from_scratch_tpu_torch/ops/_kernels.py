@@ -1,8 +1,9 @@
 """Builds and loads the package's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The library
-is built at first use into ``_build/`` beside the package (listed in
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The library is
+built at first use into ``_build/`` beside the package (listed in
 ``.gitignore``) and named by a hash of the sources, so an edited source is
 rebuilt and an unchanged one is loaded as it is.
 """
@@ -22,7 +23,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -58,15 +59,30 @@ def build() -> dict:
     if path.exists():
         return dict(path=str(path), built=False, seconds=0.0, log="")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc = _nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(sources(), objs)]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    failed = [src.name for src, p in zip(sources(), procs) if p.returncode]
+    if not failed:
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        log += res.stdout + res.stderr
+        if res.returncode:
+            failed = ["link"]
     seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + log)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log[-4000:]}")
+    (BUILD_DIR / "build.log").write_text(log)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log[-4000:]}")
     os.replace(tmp, path)        # atomic: a concurrent loader sees all or nothing
     return dict(path=str(path), built=True, seconds=seconds, log=log)
 
@@ -80,6 +96,12 @@ def load_library() -> ctypes.CDLL:
             f = lib.bllm_fused_decode_step
             f.argtypes = ([ctypes.c_int] * 6) + [ctypes.c_void_p] * 8
             f.restype = ctypes.c_int
+            head = [ctypes.c_int] * 6 + [ctypes.c_float]
+            lib.bllm_attn_fwd.argtypes = head + [ctypes.c_void_p] * 6
+            lib.bllm_attn_bwd_dq.argtypes = head + [ctypes.c_void_p] * 8
+            lib.bllm_attn_bwd_dkv.argtypes = head + [ctypes.c_void_p] * 9
+            for name in ("bllm_attn_fwd", "bllm_attn_bwd_dq", "bllm_attn_bwd_dkv"):
+                getattr(lib, name).restype = ctypes.c_int
             lib.bllm_error_string.argtypes = [ctypes.c_int]
             lib.bllm_error_string.restype = ctypes.c_char_p
             _lib = lib

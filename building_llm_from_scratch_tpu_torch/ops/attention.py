@@ -1,6 +1,6 @@
-"""Causal grouped-query attention in plain PyTorch: the math the JAX package
-leaves to XLA (``ops/attention.py``'s ``_xla_attention`` and
-``decode_attention``).
+"""Causal grouped-query attention: the math the JAX package leaves to XLA
+(``ops/attention.py``'s ``_xla_attention`` and ``decode_attention``) in
+plain PyTorch, and the training dispatch ``causal_attention``.
 
 Scores are taken in fp32 from the model-dtype operands (the products of two
 bf16 or fp16 values are exact in fp32, so upcasting first is the JAX
@@ -90,3 +90,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     weights = torch.softmax(scores, dim=-1)
     out = _value_product(weights, v_cache, "bhgqk,bhkd->bhgqd")
     return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, Hq, D)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal self-attention for training and evaluation (the
+    JAX ``causal_attention`` with ``impl='auto'`` and no dropout): the fused
+    kernels (``ops/fused_attention.py``) for every shape ``supports_shape``
+    allows, whatever the device (on the CPU they compute their twins), and
+    ``xla_attention`` for the rest, as the JAX package runs its XLA path for
+    such shapes. On CUDA the fused path launches the kernels or raises."""
+    from building_llm_from_scratch_tpu_torch.ops.fused_attention import (
+        fused_causal_attention,
+        supports_shape,
+    )
+
+    if supports_shape(q.shape[1], k.shape[1], q.shape[3]):
+        return fused_causal_attention(q, k, v)
+    return xla_attention(q, k, v)

@@ -83,24 +83,14 @@ def serve_jsonl(engine: DecodeEngine, prompts_path: str,
 def run_serve(args) -> DecodeEngine:
     """Build the model and engine from the parsed flags, serve
     ``--serve_prompts`` and return the shut-down engine."""
-    from building_llm_from_scratch_tpu_torch.configs import get_config
-    from building_llm_from_scratch_tpu_torch.device import resolve_device
-    from building_llm_from_scratch_tpu_torch.models.transformer import (
-        build_model,
+    from building_llm_from_scratch_tpu_torch.build_components import (
+        build_config,
+        build_params,
     )
+    from building_llm_from_scratch_tpu_torch.device import resolve_device
 
     device = resolve_device(args.device)
-    cfg = get_config(args.model, args.num_params, dtype=args.data_type,
-                     debug=args.debug,
-                     target_context_length=(args.target_context_length or None))
-    if args.init_params_from:
-        from building_llm_from_scratch_tpu_torch.training.checkpoint import (
-            load_exported_params,
-        )
-
-        model = load_exported_params(args.init_params_from, cfg, device)
-    else:
-        model = build_model(cfg, args.seed, device)
+    model = build_params(args, build_config(args), device)
     engine = DecodeEngine(
         model, n_slots=args.serve_slots, max_len=(args.serve_max_len or None),
         max_queue=args.serve_max_queue, max_top_k=args.serve_max_top_k,

@@ -1,1 +1,1 @@
-"""Parameter loading."""
+"""Parameter loading and export, the optimizer, the train step and the trainer."""

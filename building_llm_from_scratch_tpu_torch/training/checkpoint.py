@@ -1,16 +1,18 @@
-"""Loading weights written by the JAX package (port of the parameter-export
-half of its ``training/checkpoint.py``), and the weight carrier from a JAX
-parameter tree to the port's model.
+"""The parameter-export format of the JAX package's ``training/
+checkpoint.py`` (``export_params`` and ``load_exported_params``), and the
+weight carrier from a JAX parameter tree to the port's model.
 
-Export format (``export_params``): one ``.npz`` with a key per leaf named by
-its tree path (``blocks/attn/wq``), plus a ``__dtype__.<key>`` entry naming
-the dtype. ``np.savez`` stores bf16 leaves as raw 2-byte void records, so
-their bits are reinterpreted, never converted: ``uint16 -> int16 ->
-torch.bfloat16`` keeps them bit-exact.
+Export format: one ``.npz`` with a key per leaf named by its tree path
+(``blocks/attn/wq``), plus a ``__dtype__.<key>`` entry naming the dtype.
+``np.savez`` stores bf16 leaves as raw 2-byte void records, so their bits
+are reinterpreted, never converted: ``uint16 -> int16 -> torch.bfloat16``
+keeps them bit-exact, both ways. Train-state checkpoints (optimizer state,
+resume) are not ported yet.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
 
 import numpy as np
@@ -52,6 +54,32 @@ def numpy_to_torch(arr: np.ndarray, dtype_name: str | None = None) -> torch.Tens
     if arr.dtype.kind == "V":
         arr = arr.view(np.dtype(name))
     return torch.from_numpy(np.ascontiguousarray(arr).copy())
+
+
+def torch_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy leaf, bit for bit: bf16 becomes the 2-byte void
+    records ``np.savez`` writes for a JAX bf16 array."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def export_params(path: str, model: Transformer) -> str:
+    """Write the model's parameters in the JAX ``export_params`` format:
+    one key per JAX tree path (sorted, the tree's flattening order) and a
+    ``__dtype__.<key>`` entry with the dtype's numpy name. The JAX
+    package's ``load_exported_params`` and the port's read it back with
+    identical bits."""
+    arrays = {}
+    for key, t in sorted(model.flat_params().items()):
+        arrays[key] = torch_to_numpy(t)
+        arrays[f"__dtype__.{key}"] = np.asarray(
+            "bfloat16" if t.dtype == torch.bfloat16
+            else str(arrays[key].dtype))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **arrays)
+    return path
 
 
 def params_from_jax(tree_or_flat: Dict[str, Any], cfg: ModelConfig,

@@ -9,10 +9,11 @@ exits non-zero):
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, capability (must be 9.0); TF32 off for matmuls and cuDNN.
   2. build: compiles the package's CUDA kernels from ``csrc/`` with nvcc.
-  3. kernel vs twin: the fused decode-step kernel against its plain PyTorch
-     twin at the serving shapes of LLaMA-3.2-1B (bf16), GPT-2-124M (fp32) and
-     LLaMA-3-8B (bf16): caches bit-equal, outputs within tolerance of the
-     twin and within one unit in the last place of the exact (fp32) result;
+  3. decode kernel vs twin: the fused decode-step kernel (B5) against its
+     plain PyTorch twin at the serving shapes of LLaMA-3.2-1B (bf16),
+     GPT-2-124M (fp32) and LLaMA-3-8B (bf16): caches bit-equal, outputs
+     within tolerance of the twin and within one unit in the last place of
+     the exact (fp32) result;
      times of the kernel, the twin and ``scaled_dot_product_attention`` on
      the same cache, beside the bound the card's memory rate sets.
   4. serving: the continuous-batching engine at full width, random weights
@@ -23,8 +24,30 @@ exits non-zero):
      greedy requests re-run alone in a fresh engine give the same tokens,
      and the card's logits agree with an fp32 CPU reference more closely
      than a reference without decode attention does.
-  5. the ``kernels`` line (one row per shape, each with the launches of the
-     serving run at that shape), then the card line and the result line.
+  5. flash-attention kernels vs twins: forward (B1), dq (B2a) and dk/dv
+     (B2b) at LLaMA-3.2-1B's training shape (B 4, Hq 32, Hkv 8, T 1024,
+     hd 64, bf16) and the reference shapes (B 1, T 256, fp32 and bf16): out, lse and
+     the gradients within tolerance of the twin and of the exact (fp32)
+     result, each bound shown to fail for a wrong result; times of the
+     kernels, the twins and ``scaled_dot_product_attention`` (forward and
+     forward+backward), beside the bound the card's peak rate sets.
+  6. training: ``main.run`` (--mode train) for LLaMA-3.2-1B at full width
+     (bf16, 16 layers, batch 4, context 1024) on a seeded text file: 20
+     steps, one evaluation, the warm-up and one greedy sample, the final
+     export. Launch counts exact (B1 = layers x (steps + eval batches), B2a
+     = B2b = layers x steps), every loss finite, the last below the first;
+     the export loads back bit for bit and is served by the CLI. The run's
+     own rate (all steps over their wall time, the trainer's window) and
+     each step's device time (CUDA events around every step, step 1
+     apart); then steady step time, tokens/s, MFU, peak memory and a
+     profiled window over re-runs of one batch.
+  7. training reference: one step of LLaMA-3.2-1B cut to 2 layers, B 1,
+     T 256, in fp32 and in bf16, on the card and on the CPU (the twins)
+     with the same weights: loss and every leaf's gradient within the
+     dtype's bound, which a control without attention fails.
+  8. the ``kernels`` line (one row per kernel and shape, each with the
+     launches of the run at that shape), then the card line and the result
+     line.
 
 It exits non-zero without printing a result when no CUDA device is present
 or when the package is not beside it.
@@ -33,6 +56,8 @@ or when the package is not beside it.
 from __future__ import annotations
 
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -244,7 +269,466 @@ def phase_kernel(torch, card: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
-# phase 4
+# phase 5: the flash-attention kernels (B1, B2a, B2b) against their twins
+# ---------------------------------------------------------------------------
+
+ATTN_SHAPES = [
+    # name, B, Hq, Hkv, T, hd, dtype: the training shape of LLaMA-3.2-1B
+    # (phase 6) and the reference shapes (phase 7: full width cut to 2
+    # layers, B 1, T 256, fp32 and bf16)
+    ("llama3_2-1B-train", 4, 32, 8, 1024, 64, "bf16"),
+    ("llama3_2-1B-ref", 1, 32, 8, 256, 64, "fp32"),
+    ("llama3_2-1B-ref-bf16", 1, 32, 8, 256, 64, "bf16"),
+]
+
+# max |kernel - ref| / max |ref| per tensor (lse: absolute), against the
+# twin and against the exact result (the twin in fp32 on the same inputs):
+# fp32 the same arithmetic in another order (1e-5 for out and lse, 5e-5 for
+# gradients summed over up to T terms); bf16 2e-2 (P and dS are rounded to 8
+# bits before their products, at other places in the kernel and the twin).
+# The same limits as tests/test_torch_cuda.py.
+FLASH_TOL = {"fp32": (1e-5, 5e-5), "bf16": (2e-2, 2e-2)}
+
+
+def _flash_err(torch, name: str, a, b) -> float:
+    if name == "lse":
+        return (a - b).abs().max().item()
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def phase_attention(torch, card: dict) -> list:
+    import torch.nn.functional as F
+
+    from building_llm_from_scratch_tpu_torch.configs import DTYPE_MAP
+    from building_llm_from_scratch_tpu_torch.ops import fused_attention as tfa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    fig = card["figures"]
+    names = ("out", "lse", "dq", "dk", "dv")
+    rows = []
+    for shape, B, Hq, Hkv, T, hd, dt in ATTN_SHAPES:
+        dtype = DTYPE_MAP[dt]
+        rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)  # noqa: E731
+        q, k, v = rnd(B, T, Hq, hd), rnd(B, T, Hkv, hd), rnd(B, T, Hkv, hd)
+        do = rnd(B, T, Hq, hd)
+
+        def run(fwd, dq_fn, dkv_fn, q=q, k=k, v=v, do=do, lse_shift=0.0,
+                zero_delta=False):
+            out, lse = fwd(q, k, v)
+            delta = tfa.attention_delta(out, do)
+            if zero_delta:
+                delta = torch.zeros_like(delta)
+            lse_b = lse + lse_shift
+            return (out, lse, dq_fn(q, k, v, do, lse_b, delta)) + tuple(
+                dkv_fn(q, k, v, do, lse_b, delta))
+
+        kern = (tfa.flash_attention_fwd, tfa.flash_attention_dq,
+                tfa.flash_attention_dkv)
+        plain = (tfa.fused_attention_fwd_plain, tfa.fused_attention_dq_plain,
+                 tfa.fused_attention_dkv_plain)
+        got = run(*kern)
+        torch.cuda.synchronize()
+        twin = run(*plain)
+        f32 = [t.float() for t in (q, k, v, do)]
+        exact = run(*plain, *f32)
+        tol_out, tol_grad = FLASH_TOL[dt]
+        tols = dict(out=tol_out, lse=tol_out, dq=tol_grad, dk=tol_grad, dv=tol_grad)
+        err, exact_err, abs_err = {}, {}, {}
+        for n, a, b, c in zip(names, got, twin, exact):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{shape}: non-finite kernel {n}")
+            err[n], exact_err[n] = _flash_err(torch, n, a, b), _flash_err(torch, n, a, c)
+            abs_err[n] = (a.float() - b.float()).abs().max().item()
+            if err[n] > tols[n] or exact_err[n] > tols[n]:
+                raise AssertionError(f"{shape}: kernel {n} off the twin by "
+                                     f"{err[n]} / the exact result by {exact_err[n]}")
+        # controls: each bound fails for a deliberately wrong result. out and
+        # lse from half-scaled queries (a wrong softmax scale), dq and dk
+        # with dS computed without delta, dv with P off by a factor of 2
+        wrong_fwd = tfa.fused_attention_fwd_plain(q * 0.5, k, v)
+        no_delta = run(*plain, zero_delta=True)
+        half_p = run(*plain, lse_shift=0.6931471805599453)
+        controls = dict(out=wrong_fwd[0], lse=wrong_fwd[1], dq=no_delta[2],
+                        dk=no_delta[3], dv=half_p[4])
+        control_err = {n: _flash_err(torch, n, controls[n], twin[i])
+                       for i, n in enumerate(names)}
+        for n in names:
+            if control_err[n] <= tols[n]:
+                raise AssertionError(f"{shape}: the {n} bound does not catch "
+                                     f"a wrong result ({control_err[n]})")
+        del twin, exact, no_delta, half_p, controls, wrong_fwd
+
+        out, lse = got[0], got[1]
+        delta = tfa.attention_delta(out, do)
+        calls = {
+            "fwd": (lambda: kern[0](q, k, v), lambda: plain[0](q, k, v)),
+            "dq": (lambda: kern[1](q, k, v, do, lse, delta),
+                   lambda: plain[1](q, k, v, do, lse, delta)),
+            "dkv": (lambda: kern[2](q, k, v, do, lse, delta),
+                    lambda: plain[2](q, k, v, do, lse, delta)),
+        }
+        qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        doh = do.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                  enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            sdpa().backward(doh)
+
+        sdpa_ms = device_time_ms(torch, lambda: sdpa().detach(), flush)
+        sdpa_fb_ms = device_time_ms(torch, sdpa_fwd_bwd, flush)
+        sdpa_err = _flash_err(torch, "out", sdpa().detach().transpose(1, 2), out)
+
+        elt = q.element_size()
+        pairs = B * Hq * T * (T + 1) // 2          # causal (q, k) pairs
+        qb, kvb, stat = B * T * Hq * hd * elt, B * T * Hkv * hd * elt, B * Hq * T * 4
+        work = {"fwd": (4 * hd * pairs, qb + 2 * kvb + qb + stat),
+                "dq": (6 * hd * pairs, 2 * qb + 2 * kvb + 2 * stat + qb),
+                "dkv": (8 * hd * pairs, 2 * qb + 2 * kvb + 2 * stat + 2 * qb)}
+        peak = fig["peak32"] if dtype == torch.float32 else fig["peak16"]
+        for kname, (kfn, pfn) in calls.items():
+            ops, nbytes = work[kname]
+            t_bytes, t_ops = nbytes / fig["bw"], ops / peak
+            row = dict(shape=shape, kernel=kname, B=B, Hq=Hq, Hkv=Hkv, T=T,
+                       hd=hd, dtype=dt, ms=device_time_ms(torch, kfn, flush, runs=15),
+                       plain_ms=device_time_ms(torch, pfn, flush, runs=5, warmup=2),
+                       library_ms=sdpa_ms if kname == "fwd" else None,
+                       sdpa_fwd_ms=sdpa_ms, sdpa_fwd_bwd_ms=sdpa_fb_ms,
+                       sdpa_max_rel_err=sdpa_err, ops=ops, bytes=nbytes,
+                       bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       max_abs_err=(abs_err["out"] if kname == "fwd" else
+                                    abs_err["dq"] if kname == "dq" else
+                                    max(abs_err["dk"], abs_err["dv"])),
+                       err=err, exact_err=exact_err, control_err=control_err,
+                       tol=tols)
+            emit("attention_kernel", **row)
+            rows.append(row)
+        del got, qh, kh, vh
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 6: training at full width through the CLI
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(model="llama3_2", size="1B", dtype="bf16", batch=4, context=1024,
+             steps=20)
+_WORDS = ("the a quick brown fox jumps over lazy dog every effort moves you "
+          "closer to mastery of small steps and long roads bring light "
+          "water stone river tree wind sings").split()
+
+
+def write_corpus(path: str, seed: int, n_chars: int) -> None:
+    """A seeded text of ``n_chars`` characters: sentences of 4-12 words
+    from a small vocabulary (learnable, so the loss can fall)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    parts, n = [], 0
+    while n < n_chars:
+        words = rng.choice(_WORDS, int(rng.integers(4, 13)))
+        sent = " ".join(words).capitalize() + ". "
+        parts.append(sent)
+        n += len(sent)
+    with open(path, "w") as f:
+        f.write("".join(parts)[:n_chars])
+
+
+def train_flops_per_token(cfg) -> int:
+    """Analytic fwd+bwd FLOPs per token, the JAX package's formula
+    (obs/mfu.py): 6 x the non-embedding parameters (the head included)
+    + 12 x layers x width x context for the attention products."""
+    return (6 * cfg.num_params(exclude_embeddings=True)
+            + 12 * cfg.n_layers * cfg.emb_dim * cfg.context_length)
+
+
+def train_profile(torch, trainer, batch, step_ms: float, n_steps: int = 3) -> dict:
+    """Device time by kernel over a few steady train steps (torch.profiler),
+    run after the main path; the idle share is taken against the
+    unprofiled median step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0:
+            rows.append((ev.self_device_time_total, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / n_steps / 1e3
+    groups = (("flash_attention", ("attn_fwd", "attn_dq", "attn_dkv")),
+              ("gemm", ("nvjet", "gemm", "cutlass")),
+              ("elementwise", ("elementwise", "copy", "fill")),
+              ("reduction", ("reduce", "norm", "softmax")))
+    by_group = {}
+    for t_us, key, _ in rows:
+        group = next((g for g, pats in groups if any(p in key for p in pats)),
+                     "other")
+        by_group[group] = by_group.get(group, 0.0) + t_us / n_steps / 1e3
+    return dict(steps=n_steps, device_busy_ms_per_step=busy_ms,
+                ms_per_step_by_group=by_group,
+                device_idle_share=1.0 - busy_ms / step_ms,
+                kernels_per_step=sum(r[2] for r in rows) / n_steps,
+                top=[dict(kernel=k[:80], ms_per_step=t / n_steps / 1e3,
+                          calls_per_step=c / n_steps) for t, k, c in rows[:16]])
+
+
+def phase_train(torch, card: dict, workdir: str) -> dict:
+    import os
+
+    import building_llm_from_scratch_tpu_torch.training.trainer as ttr
+    from building_llm_from_scratch_tpu_torch import main as tmain
+    from building_llm_from_scratch_tpu_torch.ops import fused_attention as tfa
+    from building_llm_from_scratch_tpu_torch.training.checkpoint import (
+        load_exported_params,
+    )
+
+    t = TRAIN
+    data_dir, out_dir = os.path.join(workdir, "data"), os.path.join(workdir, "out")
+    os.makedirs(data_dir, exist_ok=True)
+    # the first 90% of the text (+ " <|endoftext|> ", 15 characters) is the
+    # train split: W*T + T/2 byte tokens make exactly W = steps x batch
+    # windows of T, and the rest two validation batches
+    windows = t["steps"] * t["batch"]
+    n_chars = int((windows * t["context"] + t["context"] // 2) / 0.9) - 15
+    write_corpus(os.path.join(data_dir, "corpus.txt"), seed=11, n_chars=n_chars)
+    flags = ["--mode", "train", "--model", t["model"], "--num_params", t["size"],
+             "--data_type", t["dtype"], "--byte_tokenizer",
+             "--data_dir", data_dir, "--output_dir", out_dir,
+             "--n_epochs", "1", "--batch_size", str(t["batch"]),
+             "--eval_freq", str(t["steps"]), "--print_sample_iter", str(t["steps"])]
+    kernels = (tfa.flash_attention_fwd, tfa.flash_attention_dq,
+               tfa.flash_attention_dkv)
+    # CUDA events around every step of the run (no host sync): each step's
+    # time on the device's clock, idle gaps while the host enqueues included
+    events = []
+    make_train_step = ttr.make_train_step
+
+    def timed_make_train_step(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+
+        def timed_step(state, batch):
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            out = step(state, batch)
+            pair[1].record()
+            events.append(pair)
+            return out
+        return timed_step
+
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels:
+        f.launches = 0                              # the main path's count
+    ttr.make_train_step = timed_make_train_step
+    t0 = time.perf_counter()
+    try:
+        trainer = tmain.run(flags)
+        torch.cuda.synchronize()
+    finally:
+        ttr.make_train_step = make_train_step
+    wall = time.perf_counter() - t0
+    launches = [f.launches for f in kernels]
+    run_step_ms = [a.elapsed_time(b) for a, b in events]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    cfg, loader = trainer.cfg, trainer.loader
+    tr_ds, va_ds = loader.create_datasets_for_file(
+        os.path.join(data_dir, "corpus.txt"), cfg.eos_text)
+    n_evals = len(trainer.train_losses)
+    eval_batches = n_evals * (min(5, loader.num_batches(tr_ds))
+                              + min(5, loader.num_batches(va_ds)))
+    L, steps = cfg.n_layers, trainer.global_step
+    want = [L * (steps + eval_batches), L * steps, L * steps]
+    losses = [m["loss"] for m in trainer.step_metrics]
+    check = dict(steps=steps, evals=n_evals, eval_batches=eval_batches,
+                 launches=launches, expected=want)
+    if steps != t["steps"] or n_evals != 1 or launches != want or \
+            len(run_step_ms) != steps:
+        raise AssertionError(f"training run: {check}, {len(run_step_ms)} "
+                             "timed steps")
+    if len(losses) != steps or not all(map(math.isfinite, losses + trainer.train_losses
+                                           + trainer.val_losses)):
+        raise AssertionError(f"non-finite or missing losses: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the train loss did not fall: {losses}")
+    if len(trainer.samples) != 2:
+        raise AssertionError(f"expected the warm-up and one sample: {trainer.samples}")
+
+    export = os.path.join(out_dir, "model_pg_final.npz")
+    back = load_exported_params(export, cfg, "cuda")
+    for key, leaf in trainer.model.stacked.items():
+        a, b = leaf.detach(), back.stacked[key]
+        if a.dtype != b.dtype or not torch.equal(a.view(torch.int16),
+                                                 b.view(torch.int16)):
+            raise AssertionError(f"export leaf {key} does not load back "
+                                 "bit for bit")
+    del back
+
+    # the export served by the CLI (--mode serve --init_params_from)
+    req = os.path.join(workdir, "req.jsonl")
+    with open(req, "w") as f:
+        for text in ("Every ", "effort "):
+            ids = trainer.tokenizer.encode(text)
+            f.write(json.dumps({"prompt_ids": ids, "max_new_tokens": 8}) + "\n")
+    served_out = os.path.join(workdir, "served.jsonl")
+    eng = tmain.run(["--mode", "serve", "--model", t["model"], "--num_params",
+                     t["size"], "--data_type", t["dtype"], "--init_params_from",
+                     export, "--serve_prompts", req, "--serve_out", served_out,
+                     "--serve_slots", "2"])
+    with open(served_out) as f:
+        served = [json.loads(line) for line in f]
+    if eng.stats()["requests_finished"] != 2 or any(
+            len(r["token_ids"]) != 8 for r in served):
+        raise AssertionError(f"serving the export failed: {served}")
+    del eng
+
+    # the run's own rate: the trainer's window (every step up to the
+    # evaluation, sample time left out), step 1 apart from the rest
+    tokens = t["batch"] * t["context"]
+    fpt = train_flops_per_token(cfg)
+    window_tps = trainer.throughput_tokens_per_s[0]
+    run_rate = dict(window_tokens_per_s=window_tps,
+                    window_ms_per_step=tokens / window_tps * 1e3,
+                    window_mfu=window_tps * fpt / card["figures"]["peak16"],
+                    run_step_ms=run_step_ms, step1_ms=run_step_ms[0],
+                    later_steps_median_ms=statistics.median(run_step_ms[1:]),
+                    later_steps_sum_ms=sum(run_step_ms[1:]))
+
+    # timing: steady steps after the main path (not in its counts)
+    batch = trainer._device_batch(next(iter(loader.batches(tr_ds, epoch=1))))
+    step_times = []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        step_times.append((time.perf_counter() - t1) * 1e3)
+    step_ms = statistics.median(step_times[2:])
+    tps = tokens / (step_ms / 1e3)
+    prof = train_profile(torch, trainer, batch, step_ms)
+    result = dict(model=cfg.name, dtype=t["dtype"], layers=L, emb_dim=cfg.emb_dim,
+                  vocab=cfg.vocab_size, batch=t["batch"], context=t["context"],
+                  corpus_chars=n_chars, wall_s=wall, **check,
+                  first_loss=losses[0], last_loss=losses[-1], step_losses=losses,
+                  train_loss=trainer.train_losses, val_loss=trainer.val_losses,
+                  grad_norms=[m["grad_norm"] for m in trainer.step_metrics],
+                  lrs=trainer.track_lrs, sample=trainer.samples[-1][:120],
+                  served_tokens=[r["token_ids"] for r in served], **run_rate,
+                  step_ms=step_ms, step_ms_all=step_times, tokens_per_s=tps,
+                  flops_per_token=fpt, mfu=tps * fpt / card["figures"]["peak16"],
+                  mfu_basis="flops_per_token = 6 x non-embedding params (head "
+                            "included) + 12 x layers x emb_dim x context; "
+                            "peak = bf16 dense",
+                  peak_memory_gb=peak_gb, profile=prof)
+    emit("train", **result)
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: one training step on the card against the CPU
+# ---------------------------------------------------------------------------
+
+# (relative error of the loss, relative L2 error of every leaf's gradient)
+# of the card's step against the CPU's: fp32 is the same arithmetic in
+# another order; in bf16 both devices round every operation to 8 bits, but
+# GEMM sums and the flash kernel round at other places than the CPU's
+# GEMMs and the twin (the port against the JAX package on the CPU, at a
+# small size, measures about 1e-2: tests/test_torch_training.py)
+REF_BOUNDS = {"fp32": (1e-5, 1e-4), "bf16": (1e-3, 3e-2)}
+
+
+def phase_train_reference(torch) -> dict:
+    """LLaMA-3.2-1B at full width cut to 2 layers, B 1, T 256, in fp32 and
+    in bf16: the same step (same weights, same batch) on the card (flash
+    kernels) and on the CPU (the twins). A control with the attention
+    output zeroed on the CPU must fall outside the bound."""
+    import building_llm_from_scratch_tpu_torch.models.transformer as ttf
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+    from building_llm_from_scratch_tpu_torch.ops import fused_attention as tfa
+    from building_llm_from_scratch_tpu_torch.training import optim as topt
+    from building_llm_from_scratch_tpu_torch.training import train_step as tts
+
+    results = {}
+    for dtype in ("fp32", "bf16"):
+        t0 = time.perf_counter()
+        cfg = get_config("llama3_2", "1B", dtype=dtype,
+                         target_context_length=256).replace(n_layers=2)
+        card_model = ttf.build_model(cfg, seed=3, device="cuda")
+        cpu_flat = {k: v.cpu().clone() for k, v in card_model.flat_params().items()}
+        gen = torch.Generator().manual_seed(5)
+        x = torch.randint(0, cfg.vocab_size, (1, 257), generator=gen)
+
+        def one_step(model):
+            dev = model.device
+            opt = topt.AdamW(topt.warmup_cosine_schedule(5e-4, 1e-5, 1e-6, 10, 100),
+                             grad_clip_norm=float("inf"))   # keep the raw gradients
+            state = tts.init_train_state(model, opt)
+            batch = {"inputs": x[:, :-1].to(dev), "targets": x[:, 1:].to(dev)}
+            _, m = tts.make_train_step(cfg, opt)(state, batch)
+            return m["loss"].item(), {k: g.cpu().float() for k, g in state.grads.items()}
+
+        kernels = (tfa.flash_attention_fwd, tfa.flash_attention_dq,
+                   tfa.flash_attention_dkv)
+        for f in kernels:
+            f.launches = 0
+        card_loss, card_grads = one_step(card_model)
+        torch.cuda.synchronize()
+        launches = [f.launches for f in kernels]
+        del card_model
+        torch.cuda.empty_cache()
+        t_cpu = time.perf_counter()
+        cpu_loss, cpu_grads = one_step(
+            ttf.Transformer(cfg, {k: v.clone() for k, v in cpu_flat.items()}))
+        cpu_s = time.perf_counter() - t_cpu
+        attention = ttf.causal_attention
+        ttf.causal_attention = lambda q, k, v: torch.zeros_like(q)
+        try:
+            ctl_loss, ctl_grads = one_step(ttf.Transformer(cfg, cpu_flat))
+        finally:
+            ttf.causal_attention = attention
+
+        def rel_l2(a, b):
+            return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+        card = {k: rel_l2(card_grads[k], cpu_grads[k]) for k in cpu_grads}
+        control = {k: rel_l2(ctl_grads[k], cpu_grads[k]) for k in cpu_grads}
+        loss_bound, grad_bound = REF_BOUNDS[dtype]
+        result = dict(model=cfg.name, layers=2, dtype=dtype, B=1, T=256,
+                      launches=launches, card_loss=card_loss, cpu_loss=cpu_loss,
+                      control_loss=ctl_loss, grad_rel_l2=card,
+                      control_rel_l2=control,
+                      bound=dict(grad_rel_l2=grad_bound, loss_rel=loss_bound),
+                      cpu_step_s=cpu_s, seconds=time.perf_counter() - t0)
+        emit("train_reference", **result)
+        if launches != [2, 2, 2]:
+            raise AssertionError(f"{dtype} reference step launches {launches}")
+        if abs(card_loss - cpu_loss) > loss_bound * abs(cpu_loss) or \
+                max(card.values()) > grad_bound:
+            raise AssertionError(f"{dtype} card step off the CPU step: {result}")
+        if max(control[k] for k in ("blocks/attn/wq", "blocks/attn/wk",
+                                    "blocks/attn/wv")) <= grad_bound:
+            raise AssertionError(f"{dtype}: the gradient bound does not catch "
+                                 f"a model without attention: {control}")
+        results[dtype] = result
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serving
 # ---------------------------------------------------------------------------
 
 SERVE_MODELS = [
@@ -515,10 +999,19 @@ def main() -> int:
               file=sys.stderr)
         return 4
 
+    import tempfile
+
     card = phase_env(torch)
     phase_build()
     rows = phase_kernel(torch, card)
+    # serving runs before training: its ticks are host-bound, and a clean
+    # process keeps them comparable with earlier runs
     served = phase_serve(torch)
+    attn_rows = phase_attention(torch, card)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))
+                                     ) as workdir:
+        trained = phase_train(torch, card, workdir)
+    reference = phase_train_reference(torch)
     for r in rows:
         shape = (r["S"], r["Hq"], r["Hkv"], r["hd"], r["Tmax"], r["dtype"])
         if served[r["shape"]]["shape"] != shape:
@@ -532,6 +1025,24 @@ def main() -> int:
                     kernel_ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"]) for r in rows]
+    replaces = {"fwd": ("flash_attention_fwd", 0,
+                        "building_llm_from_scratch_tpu/ops/fused_attention.py:220"),
+                "dq": ("flash_attention_dq", 1,
+                       "building_llm_from_scratch_tpu/ops/fused_attention.py:266"),
+                "dkv": ("flash_attention_dkv", 2,
+                        "building_llm_from_scratch_tpu/ops/fused_attention.py:278")}
+    for r in attn_rows:
+        kname, idx, where = replaces[r["kernel"]]
+        runs = {"llama3_2-1B-train": trained,
+                "llama3_2-1B-ref": reference["fp32"],
+                "llama3_2-1B-ref-bf16": reference["bf16"]}[r["shape"]]
+        kernels.append(dict(
+            name=f"{kname}[{r['shape']}]", route="cuda",
+            source="building_llm_from_scratch_tpu_torch/csrc/fused_attention.cu",
+            replaces=where, launches=runs["launches"][idx],
+            max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card["card_line"], flush=True)
     print(json.dumps({"ok": True, "device": {

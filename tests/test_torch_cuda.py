@@ -1,5 +1,6 @@
-"""Tests of the port that need an NVIDIA GPU: the CUDA decode-step kernel
-against its plain twin, and the serving engine on the card. They skip on a
+"""Tests of the port that need an NVIDIA GPU: the CUDA decode-step and
+flash-attention kernels against their plain twins, the serving engine and
+one training step on the card. They skip on a
 machine without CUDA. This file imports neither JAX nor the JAX package, so
 it also runs where JAX is not installed:
 
@@ -13,6 +14,7 @@ import torch
 from building_llm_from_scratch_tpu_torch.configs import get_config
 from building_llm_from_scratch_tpu_torch.models.transformer import build_model
 from building_llm_from_scratch_tpu_torch.ops import decode_step as tds
+from building_llm_from_scratch_tpu_torch.ops import fused_attention as tfa
 from building_llm_from_scratch_tpu_torch.serving.engine import DecodeEngine
 from building_llm_from_scratch_tpu_torch.serving.request import SamplingParams
 
@@ -128,3 +130,124 @@ def test_engine_on_the_card(cuda):
         h = solo.submit(*reqs[i])
         solo.run_until_idle()
         assert h.output_ids == handles[i].output_ids
+
+
+# Flash-attention kernels (B1 forward, B2a dq, B2b per-query-head dk/dv)
+# against their twins. Errors are measured as max |kernel - ref| / max |ref|
+# per tensor (lse: absolute). fp32: the same arithmetic in another order
+# (tiled online softmax vs one pass), 1e-5 for out and lse and 5e-5 for the
+# gradients (sums over up to 2048 terms). bf16: the kernel rounds the exp
+# terms with the running max and the twin with the final one, and both
+# round P and dS to 8 bits before their products, so 2e-2, the twin
+# tolerance of the decode kernel; the same bound holds against the exact
+# result (the twin in fp32 on the same inputs).
+FLASH_TOL = {torch.float32: (1e-5, 5e-5), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def flash_inputs(dev, B, T, Hq, Hkv, hd, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)  # noqa: E731
+    return (rnd(B, T, Hq, hd), rnd(B, T, Hkv, hd), rnd(B, T, Hkv, hd),
+            rnd(B, T, Hq, hd))
+
+
+def flash_all(q, k, v, do, fwd, dq, dkv):
+    out, lse = fwd(q, k, v)
+    delta = tfa.attention_delta(out, do)
+    return (out, lse, dq(q, k, v, do, lse, delta)) + tuple(
+        dkv(q, k, v, do, lse, delta))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,Hq,Hkv,hd", [(2, 256, 4, 4, 64),
+                                           (1, 512, 8, 2, 64),
+                                           (1, 1024, 4, 2, 128),
+                                           (1, 2048, 4, 1, 64)])
+def test_flash_kernels_match_twin(cuda, dtype, B, T, Hq, Hkv, hd):
+    q, k, v, do = flash_inputs(cuda, B, T, Hq, Hkv, hd, dtype)
+    n0 = (tfa.flash_attention_fwd.launches, tfa.flash_attention_dq.launches,
+          tfa.flash_attention_dkv.launches)
+    got = flash_all(q, k, v, do, tfa.flash_attention_fwd,
+                    tfa.flash_attention_dq, tfa.flash_attention_dkv)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_fwd.launches, tfa.flash_attention_dq.launches,
+            tfa.flash_attention_dkv.launches) == tuple(n + 1 for n in n0)
+    twin = flash_all(q, k, v, do, tfa.fused_attention_fwd_plain,
+                     tfa.fused_attention_dq_plain, tfa.fused_attention_dkv_plain)
+    f32 = [t.float() for t in (q, k, v, do)]
+    exact = flash_all(*f32, tfa.fused_attention_fwd_plain,
+                      tfa.fused_attention_dq_plain, tfa.fused_attention_dkv_plain)
+    tol_out, tol_grad = FLASH_TOL[dtype]
+    for name, a, b, c in zip(("out", "lse", "dq", "dk", "dv"), got, twin, exact):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        tol = tol_out if name in ("out", "lse") else tol_grad
+        if name == "lse":
+            assert (a - b).abs().max().item() <= tol, name
+            assert (a - c).abs().max().item() <= tol, name
+        else:
+            assert _rel(a, b) <= tol, (name, _rel(a, b))
+            assert _rel(a, c) <= tol, (name, _rel(a, c))
+
+
+def test_flash_autograd_group_sums_gqa(cuda):
+    """The autograd Function's gradients equal the twins' with the G query
+    heads of each kv head summed."""
+    q, k, v, do = flash_inputs(cuda, 1, 256, 8, 2, 64, torch.bfloat16, seed=1)
+    q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = tfa.fused_causal_attention(q, k, v)
+    out.backward(do)
+    ref = flash_all(q.detach(), k.detach(), v.detach(), do,
+                    tfa.fused_attention_fwd_plain, tfa.fused_attention_dq_plain,
+                    tfa.fused_attention_dkv_plain)
+    assert _rel(out, ref[0]) <= 2e-2
+    assert _rel(q.grad, ref[2]) <= 2e-2
+    assert k.grad.shape == k.shape and v.grad.shape == v.shape
+    assert _rel(k.grad, tfa.group_sum(ref[3], 2)) <= 2e-2
+    assert _rel(v.grad, tfa.group_sum(ref[4], 2)) <= 2e-2
+
+
+@pytest.mark.parametrize("T,hd,dtype", [(300, 64, torch.bfloat16),   # T % 128
+                                        (640, 64, torch.bfloat16),   # T % 512
+                                        (256, 192, torch.bfloat16),  # no hd 192
+                                        (256, 64, torch.int32)])
+def test_flash_kernels_refuse_ineligible_shapes(cuda, T, hd, dtype):
+    q = torch.zeros(1, T, 2, hd, device=cuda).to(dtype)
+    before = tfa.flash_attention_fwd.launches
+    with pytest.raises((ValueError, TypeError)):
+        tfa.flash_attention_fwd(q, q[:, :, :1].contiguous(),
+                                q[:, :, :1].contiguous())
+    assert tfa.flash_attention_fwd.launches == before
+
+
+def test_train_step_launch_counts_on_the_card(cuda):
+    """One bf16 train step of a small LLaMA-like model (T 256, head dim 64)
+    launches each flash kernel once per layer; an eval step launches the
+    forward once per layer and nothing else; the loss is finite."""
+    from building_llm_from_scratch_tpu_torch.training import optim as topt
+    from building_llm_from_scratch_tpu_torch.training import train_step as tts
+
+    cfg = get_config("llama3_2", "1B", dtype="bf16").replace(
+        emb_dim=256, n_heads=4, n_kv_groups=2, n_layers=3, hidden_dim=512,
+        vocab_size=512, context_length=256)
+    model = build_model(cfg, seed=0, device=cuda)
+    opt = topt.AdamW(topt.warmup_cosine_schedule(5e-4, 1e-5, 1e-6, 2, 10))
+    state = tts.init_train_state(model, opt)
+    x = torch.randint(0, 512, (2, 257), device=cuda)
+    batch = {"inputs": x[:, :-1], "targets": x[:, 1:]}
+    for f in (tfa.flash_attention_fwd, tfa.flash_attention_dq,
+              tfa.flash_attention_dkv):
+        f.launches = 0
+    state, m = tts.make_train_step(cfg, opt)(state, batch)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_fwd.launches, tfa.flash_attention_dq.launches,
+            tfa.flash_attention_dkv.launches) == (3, 3, 3)
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    loss = tts.make_eval_step(cfg)(state, batch)
+    assert torch.isfinite(loss)
+    assert (tfa.flash_attention_fwd.launches, tfa.flash_attention_dq.launches,
+            tfa.flash_attention_dkv.launches) == (6, 3, 3)

@@ -29,6 +29,10 @@ def test_entry_points_import_no_jax():
         "import building_llm_from_scratch_tpu_torch.serving.engine\n"
         "import building_llm_from_scratch_tpu_torch.serving.frontend\n"
         "import building_llm_from_scratch_tpu_torch.training.checkpoint\n"
+        "import building_llm_from_scratch_tpu_torch.training.trainer\n"
+        "import building_llm_from_scratch_tpu_torch.build_components\n"
+        "import building_llm_from_scratch_tpu_torch.data.pretrain\n"
+        "import building_llm_from_scratch_tpu_torch.ops.fused_attention\n"
         "import building_llm_from_scratch_tpu_torch.ops._kernels\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or m == "
@@ -78,6 +82,22 @@ def test_cli_needs_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
     assert eng.stats()["requests_finished"] == 3
 
 
+def test_train_cli_needs_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
+    from building_llm_from_scratch_tpu_torch.main import run
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "a.txt").write_text("Every effort moves you. " * 20)
+    flags = ["--mode", "train", "--model", "llama3_2", "--num_params", "1B",
+             "--debug", "--byte_tokenizer", "--data_dir", str(tmp_path),
+             "--output_dir", str(tmp_path / "out"), "--n_epochs", "1",
+             "--batch_size", "8", "--print_sample_iter", "1000"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run(flags)
+    trainer = run(flags + ["--device", "cpu"])
+    assert trainer.global_step == 3 and trainer.model.device.type == "cpu"
+    assert (tmp_path / "out" / "model_pg_final.npz").is_file()
+
+
 def test_cli_rejects_unported_jax_flags_by_name(tmp_path, capsys):
     from building_llm_from_scratch_tpu_torch.args import get_args
 
@@ -88,7 +108,7 @@ def test_cli_rejects_unported_jax_flags_by_name(tmp_path, capsys):
     err = capsys.readouterr().err
     assert "--serve_port" in err and "--serve_kv_paged" in err
     with pytest.raises(ValueError, match="not ported"):
-        get_args(["--mode", "train", "--serve_prompts", req])
+        get_args(["--mode", "finetune_fleet", "--serve_prompts", req])
     args = get_args(["--mode", "serve", "--serve_prompts", req])
     assert (args.device, args.serve_slots, args.data_type) == ("cuda", 8, "fp32")
 

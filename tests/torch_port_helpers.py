@@ -16,6 +16,11 @@ from building_llm_from_scratch_tpu import configs as jcfgs
 from building_llm_from_scratch_tpu.models import init_params as jax_init_params
 from building_llm_from_scratch_tpu_torch import configs as tcfgs
 
+# The tier-1 suite runs these files in several worker processes beside the
+# JAX tests, some of which time their own ticks; torch's default of one
+# intra-op thread per core in every worker oversubscribes the CPU.
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 SMALL = dict(emb_dim=128, n_heads=4, n_kv_groups=2, vocab_size=512,
              context_length=64, n_layers=2, hidden_dim=256, drop_rate=0.0)
 
