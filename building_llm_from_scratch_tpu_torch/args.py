@@ -40,12 +40,12 @@ UNPORTED_FLAGS = (
 
 #: the ROADMAP queue item that brings an unported training flag
 QUEUE_ITEMS = {
-    "--use_actv_ckpt": "queue 1, GPT-2 pretraining (remat)",
-    "--mixed_precision": "queue 1, GPT-2 pretraining (precision policies)",
-    "--save_ckpt_freq": "queue 1, GPT-2 pretraining (train-state checkpoints)",
-    "--grad_accum": "queue 1, GPT-2 pretraining (gradient accumulation)",
-    "--resume": "queue 1, GPT-2 pretraining (train-state checkpoints)",
-    "--resume_from": "queue 1, GPT-2 pretraining (train-state checkpoints)",
+    "--use_actv_ckpt": "queue 1, remat",
+    "--mixed_precision": "queue 1, precision policies",
+    "--save_ckpt_freq": "queue 1, train-state checkpoints",
+    "--grad_accum": "queue 1, gradient accumulation",
+    "--resume": "queue 1, train-state checkpoints",
+    "--resume_from": "queue 1, train-state checkpoints",
     "--finetune": "queue 1, LLaMA LoRA SFT",
     "--use_lora": "queue 1, LLaMA LoRA SFT",
     "--tokenizer_path": "queue 1, tokenizers",
@@ -56,13 +56,12 @@ QUEUE_ITEMS = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m building_llm_from_scratch_tpu_torch",
-        description="PyTorch/CUDA port: LLaMA-family pretraining and "
-                    "continuous-batching serving of token-id prompts.")
+        description="PyTorch/CUDA port: GPT-2 and LLaMA-family pretraining "
+                    "and continuous-batching serving of token-id prompts.")
     p.add_argument("--mode", type=str, default="train",
                    choices=["train", "serve", "finetune_fleet"],
-                   help="'train' (pretraining; LLaMA-family configs, "
-                        "--byte_tokenizer) and 'serve' are ported; "
-                        "'finetune_fleet' is not.")
+                   help="'train' (pretraining, --byte_tokenizer) and "
+                        "'serve' are ported; 'finetune_fleet' is not.")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"],
                    help="Where the model runs; cuda unless cpu is asked for.")
@@ -77,7 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug", action="store_true",
                    help="Use a small model for debugging purposes.")
     p.add_argument("--seed", type=int, default=123,
-                   help="Seed of the random weights and the batch shuffle.")
+                   help="Seed of the random weights, the batch shuffle and "
+                        "the dropout masks.")
     p.add_argument("--init_params_from", type=str, default=None,
                    help="Load params from a JAX export_params .npz.")
     # training (--mode train)
@@ -167,25 +167,14 @@ def _check_serve(args) -> None:
 
 
 def _check_train(args) -> None:
-    from building_llm_from_scratch_tpu_torch.build_components import (
-        build_config,
-    )
-
     if not os.path.exists(args.data_dir):
         raise FileNotFoundError(
             f"Data directory '{args.data_dir}' does not exist.")
-    cfg = build_config(args)
-    if cfg.drop_rate > 0.0:
-        raise ValueError(
-            f"{args.model} {args.num_params} trains with drop_rate="
-            f"{cfg.drop_rate}; dropout training is not ported yet (ROADMAP "
-            "queue 1, GPT-2 pretraining: fused attention dropout and the "
-            "dropout kernels)")
     if args.data_type == "fp16":
         raise ValueError(
             "--data_type fp16 trains with dynamic loss scaling, which is not "
-            "ported yet (ROADMAP queue 1, GPT-2 pretraining: precision "
-            "policies); use bf16 or fp32")
+            "ported yet (ROADMAP queue 1, precision policies); use bf16 or "
+            "fp32")
     if not args.byte_tokenizer:
         raise ValueError(
             "--mode train needs --byte_tokenizer: the BPE tokenizers' asset "

@@ -2,26 +2,39 @@
 // per-query-head dk/dv (B2b).
 //
 // Replaces the TPU kernels of building_llm_from_scratch_tpu/ops/
-// fused_attention.py with dropout off: _fwd (_fwd_kernel), and _bwd's two
-// calls (_dq_kernel, _dkv_kernel). The function is the JAX kernels', not
-// their blocks:
+// fused_attention.py: _fwd (_fwd_kernel), and _bwd's two calls (_dq_kernel,
+// _dkv_kernel), with their in-kernel attention dropout. The function is the
+// JAX kernels', not their blocks:
 //   forward   s = q.k * scale (fp32), causal mask, online softmax in fp32
 //             (running max m, running sum l of the fp32 exp terms), the exp
-//             terms rounded to the value dtype before P.V (fp32 sums);
-//             out = acc / l in the model dtype, lse = m + log(l) in fp32.
-//   dq        p = exp(s - lse), dp = dO.v, dS = p * (dp - delta) * scale,
-//             dq = sum dS.k with dS rounded to the model dtype.
-//   dk, dv    the same p and dS per (key tile, QUERY head): dv = sum p^T.dO,
-//             dk = sum dS^T.q (p, dS rounded to the model dtype); the
-//             wrapper sums the G query heads of a kv head (GQA), as the JAX
-//             wrapper does.
+//             terms times the keep mask M rounded to the value dtype before
+//             P.V (fp32 sums; the mask does not touch l);
+//             out = acc / l * 1/(1-p) in the model dtype, lse = m + log(l).
+//   dq        p = exp(s - lse), dp = dO.v, dp~ = M * dp / (1-p),
+//             dS = p * (dp~ - delta) * scale, dq = sum dS.k with dS rounded
+//             to the model dtype.
+//   dk, dv    the same p, dp~ and dS per (key tile, QUERY head): dv = sum
+//             (M p / (1-p))^T.dO, dk = sum dS^T.q (both rounded to the model
+//             dtype first); the wrapper sums the G query heads of a kv head
+//             (GQA), as the JAX wrapper does.
 // Query head h reads kv head h / G; K and V are never repeated. delta =
-// rowsum(dO * out) is computed by the wrapper.
+// rowsum(dO * out) over the dropped output is computed by the wrapper.
+//
+// Dropout (rate > 0, threshold != 0; each kernel is instantiated with and
+// without it, so the no-dropout path carries no dropout code): the keep bit
+// of element (b, h, q, k)
+// is a pure function of the seed and those coordinates (csrc/philox.cuh),
+// never of a tile or of launch order, so the three kernels, which tile the
+// scores differently (64-row forward and dq tiles, 64-key dk/dv blocks over
+// 64- or 32-row query tiles), regenerate the same mask, and nothing T^2-sized
+// is stored. Each thread draws one Philox call per pair of its fragment's
+// elements.
 //
 // Layout: the model's own (B, T, H, D), read through row strides (no
 // transposes in device memory); lse and delta are (B, Hq, T) fp32.
 //
-// What bounds it: operations. At LLaMA-3.2-1B's training shape (B 4, Hq 32,
+// What bounds it: operations (the Philox draws add integer work, about 50
+// instructions an element, that no bound below counts). At LLaMA-3.2-1B's training shape (B 4, Hq 32,
 // Hkv 8, T 1024, D 64) the forward does ~17 GFLOP of causal products over
 // ~42 MB, about 400 operations a byte, above the card's ~295 for bf16.
 //
@@ -50,8 +63,6 @@
 // returns cudaGetLastError() after its launch, or 100000 for a dtype, head
 // dim or shape it is not instantiated for (see bllm_error_string).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -59,18 +70,18 @@
 
 #include <type_traits>
 
+#include "philox.cuh"
+#include "warp_mma.cuh"
+
 namespace {
+
+using bllm::from_f;
+using bllm::pad;
+using bllm::warp_gemm;
 
 constexpr int kThreads = 128;       // 4 warps
 constexpr int kRows = 64;           // rows of a block's own tile, 16 per warp
 constexpr int kUnsupported = 100000;
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // exp of the softmax terms: the fast hardware exp for the 16-bit paths (the
 // terms are rounded to 8 or 11 bits anyway), the accurate one for fp32
@@ -82,72 +93,12 @@ template <typename T> __device__ __forceinline__ float exp_f(float x) {
   }
 }
 
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-}
-
-// acc[nt] += A[row0 : row0 + 16, 0 : K] . B[nt*8 : nt*8 + 8, 0 : K]^T
-// A is row-major (lda), B is stored [n][k] (ldb), both in shared memory.
-// acc[nt][e] is the mma.sync C fragment: row row0 + g + 8*(e >> 1), column
-// nt*8 + 2*t + (e & 1), with g = lane / 4 and t = lane % 4.
-template <typename T, int NT, int K>
-__device__ __forceinline__ void warp_gemm(float (&acc)[NT][4], const T* __restrict__ sA,
-                                          int lda, int row0, const T* __restrict__ sB,
-                                          int ldb) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  if constexpr (std::is_same<T, float>::value) {
-    const float* a_lo = sA + (row0 + g) * lda;
-    const float* a_hi = a_lo + 8 * lda;
-    const float* b_lo = sB + 2 * t * ldb;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float a0 = a_lo[k], a1 = a_hi[k];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float b0 = b_lo[nt * 8 * ldb + k];
-        const float b1 = b_lo[(nt * 8 + 1) * ldb + k];
-        acc[nt][0] = fmaf(a0, b0, acc[nt][0]);
-        acc[nt][1] = fmaf(a0, b1, acc[nt][1]);
-        acc[nt][2] = fmaf(a1, b0, acc[nt][2]);
-        acc[nt][3] = fmaf(a1, b1, acc[nt][3]);
-      }
-    }
-  } else {
-    const T* a_lo = sA + (row0 + g) * lda + 2 * t;
-    const T* a_hi = a_lo + 8 * lda;
-    const T* b_base = sB + g * ldb + 2 * t;
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      const uint32_t a[4] = {ld32(a_lo + k0), ld32(a_hi + k0), ld32(a_lo + k0 + 8),
-                             ld32(a_hi + k0 + 8)};
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const T* bp = b_base + nt * 8 * ldb + k0;
-        const uint32_t b[2] = {ld32(bp), ld32(bp + 8)};
-        mma16816<T>(acc[nt], a, b);
-      }
-    }
-  }
-}
+// the dropout parameters of a launch: keep = Philox word >= threshold (no
+// mask at all when threshold is 0), kept terms scaled by inv_keep = 1/(1-p)
+struct Drop {
+  uint32_t threshold, seed_lo, seed_hi;
+  float inv_keep;
+};
 
 // Copy R rows of D elements (global row stride gstride) into shared memory
 // with 16-byte loads: row-major into sX (ld), and/or transposed into sXt
@@ -172,10 +123,12 @@ __device__ __forceinline__ void load_tile(T* __restrict__ sX, int ld, T* __restr
 }
 
 // Write a warp's 16 x D fp32 fragment tile, divided by div[rr] (1 for
-// none), as model-dtype rows: row r of the tile goes to dst + r * gstride.
+// none) and then multiplied by mul, as model-dtype rows: row r of the tile
+// goes to dst + r * gstride.
 template <typename T, int NO>
 __device__ __forceinline__ void store_rows(const float (&acc)[NO][4], const float (&div)[2],
-                                           T* __restrict__ dst, size_t gstride, int row0) {
+                                           float mul, T* __restrict__ dst, size_t gstride,
+                                           int row0) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -183,13 +136,11 @@ __device__ __forceinline__ void store_rows(const float (&acc)[NO][4], const floa
     T* row = dst + (row0 + g + 8 * rr) * gstride;
 #pragma unroll
     for (int nt = 0; nt < NO; ++nt) {
-      row[nt * 8 + 2 * t] = from_f<T>(acc[nt][2 * rr] / div[rr]);
-      row[nt * 8 + 2 * t + 1] = from_f<T>(acc[nt][2 * rr + 1] / div[rr]);
+      row[nt * 8 + 2 * t] = from_f<T>(acc[nt][2 * rr] / div[rr] * mul);
+      row[nt * 8 + 2 * t + 1] = from_f<T>(acc[nt][2 * rr + 1] / div[rr] * mul);
     }
   }
 }
-
-template <typename T> __host__ __device__ constexpr int pad() { return 16 / sizeof(T); }
 
 // ---------------------------------------------------------------------------
 // B1: forward. Grid (T / 64, Hq, B).
@@ -200,11 +151,11 @@ constexpr size_t fwd_smem() {
   return (2 * kRows * (D + pad<T>()) + (D + kRows) * (kRows + pad<T>())) * sizeof(T);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 T* __restrict__ out, float* __restrict__ lse, int seq, int Hq, int Hkv,
-                float scale) {
+                float scale, Drop drop) {
   constexpr int LD = D + pad<T>();        // [row][d] tiles
   constexpr int LDT = kRows + pad<T>();   // [d][key] and [row][key] tiles
   constexpr int NS = kRows / 8;           // n-tiles of a score tile
@@ -264,11 +215,15 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       float sum = 0.f;
 #pragma unroll
       for (int nt = 0; nt < NS; ++nt) {
+        bool keep[2] = {true, true};
+        if (kDrop)
+          bllm::attn_keep_keys(keep, drop.seed_lo, drop.seed_hi, drop.threshold, b, h,
+                               i * kRows + r, j * kRows + nt * 8 + 2 * t);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float p = exp_f<T>(s[nt][2 * rr + e] - m_new);
-          sum += p;
-          sP[r * LDT + nt * 8 + 2 * t + e] = from_f<T>(p);
+          sum += p;       // l sums every term: dropout scales the normalised weights
+          sP[r * LDT + nt * 8 + 2 * t + e] = from_f<T>(keep[e] ? p : 0.f);
         }
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -285,7 +240,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     warp_gemm<T, NO, kRows>(acc, sP, LDT, row0, sVt, LDT);
   }
 
-  store_rows<T, NO>(acc, l, out + qoff, qs, row0);
+  store_rows<T, NO>(acc, l, kDrop ? drop.inv_keep : 1.f, out + qoff, qs, row0);
   if (t == 0) {
     float* lrow = lse + (static_cast<size_t>(b) * Hq + h) * seq + static_cast<size_t>(i) * kRows;
     lrow[row0 + g] = m[0] + logf(l[0]);
@@ -302,12 +257,12 @@ constexpr size_t dq_smem() {
   return (4 * kRows * (D + pad<T>()) + (D + kRows) * (kRows + pad<T>())) * sizeof(T);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const T* __restrict__ dout, const float* __restrict__ lse,
                const float* __restrict__ delta, T* __restrict__ dq, int seq, int Hq, int Hkv,
-               float scale) {
+               float scale, Drop drop) {
   constexpr int LD = D + pad<T>();
   constexpr int LDT = kRows + pad<T>();
   constexpr int NS = kRows / 8;
@@ -359,13 +314,19 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       const int r = row0 + g + 8 * rr;
 #pragma unroll
       for (int nt = 0; nt < NS; ++nt) {
+        bool keep[2] = {true, true};
+        if (kDrop)
+          bllm::attn_keep_keys(keep, drop.seed_lo, drop.seed_hi, drop.threshold, b, h,
+                               i * kRows + r, j * kRows + nt * 8 + 2 * t);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = nt * 8 + 2 * t + e;
           const float p = (j == i && col > r)
                               ? 0.f
                               : exp_f<T>(s[nt][2 * rr + e] * scale - lse_r[rr]);
-          const float ds = p * (dp[nt][2 * rr + e] - delta_r[rr]) * scale;
+          float dpv = dp[nt][2 * rr + e];
+          if (kDrop) dpv = keep[e] ? dpv * drop.inv_keep : 0.f;
+          const float ds = p * (dpv - delta_r[rr]) * scale;
           sdS[r * LDT + col] = from_f<T>(ds);
         }
       }
@@ -375,7 +336,7 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   }
 
   const float one[2] = {1.f, 1.f};
-  store_rows<T, NO>(acc, one, dq + qoff, qs, row0);
+  store_rows<T, NO>(acc, one, 1.f, dq + qoff, qs, row0);
 }
 
 // ---------------------------------------------------------------------------
@@ -392,12 +353,12 @@ constexpr size_t dkv_smem() {
          2 * BQ * sizeof(float);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int seq,
-                int Hq, int Hkv, float scale) {
+                int Hq, int Hkv, float scale, Drop drop) {
   constexpr int BQ = dkv_bq<D>();
   constexpr int LD = D + pad<T>();
   constexpr int LDQ = BQ + pad<T>();
@@ -461,14 +422,23 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       const int kpos = j * kRows + kr;
 #pragma unroll
       for (int nt = 0; nt < NQ; ++nt) {
+        bool keep[2] = {true, true};
+        if (kDrop)
+          bllm::attn_keep_queries(keep, drop.seed_lo, drop.seed_hi, drop.threshold, b, h,
+                                  i * BQ + nt * 8 + 2 * t, kpos);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = nt * 8 + 2 * t + e;
           const float p = (kpos > i * BQ + col)
                               ? 0.f
                               : exp_f<T>(st[nt][2 * rr + e] * scale - sL[col]);
-          const float ds = p * (dpt[nt][2 * rr + e] - sDl[col]) * scale;
-          sPt[kr * LDQ + col] = from_f<T>(p);
+          float pt = p, dpv = dpt[nt][2 * rr + e];
+          if (kDrop) {
+            pt = keep[e] ? p * drop.inv_keep : 0.f;
+            dpv = keep[e] ? dpv * drop.inv_keep : 0.f;
+          }
+          const float ds = p * (dpv - sDl[col]) * scale;
+          sPt[kr * LDQ + col] = from_f<T>(pt);
           sdSt[kr * LDQ + col] = from_f<T>(ds);
         }
       }
@@ -481,8 +451,8 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const float one[2] = {1.f, 1.f};
   const size_t doff = (static_cast<size_t>(b) * seq + static_cast<size_t>(j) * kRows) * qs +
                       static_cast<size_t>(h) * D;
-  store_rows<T, NO>(dka, one, dk + doff, qs, row0);
-  store_rows<T, NO>(dva, one, dv + doff, qs, row0);
+  store_rows<T, NO>(dka, one, 1.f, dk + doff, qs, row0);
+  store_rows<T, NO>(dva, one, 1.f, dv + doff, qs, row0);
 }
 
 // ---------------------------------------------------------------------------
@@ -492,6 +462,7 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 struct Args {
   int B, seq, Hq, Hkv;
   float scale;
+  Drop drop;
   const void *q, *k, *v, *dout, *lse, *delta;
   void *out0, *out1;
   cudaStream_t stream;
@@ -519,9 +490,12 @@ struct Fwd {
     float* lse = static_cast<float*>(a.out1);
     int seq = a.seq, Hq = a.Hq, Hkv = a.Hkv;
     float scale = a.scale;
-    void* params[] = {&q, &k, &v, &out, &lse, &seq, &Hq, &Hkv, &scale};
-    return launch(attn_fwd_kernel<T, D>, fwd_smem<T, D>(), a, dim3(a.seq / kRows, a.Hq, a.B),
-                  params);
+    Drop drop = a.drop;
+    void* params[] = {&q, &k, &v, &out, &lse, &seq, &Hq, &Hkv, &scale, &drop};
+    const dim3 grid(a.seq / kRows, a.Hq, a.B);
+    return drop.threshold != 0u
+               ? launch(attn_fwd_kernel<T, D, true>, fwd_smem<T, D>(), a, grid, params)
+               : launch(attn_fwd_kernel<T, D, false>, fwd_smem<T, D>(), a, grid, params);
   }
 };
 
@@ -537,9 +511,12 @@ struct Dq {
     T* dq = static_cast<T*>(a.out0);
     int seq = a.seq, Hq = a.Hq, Hkv = a.Hkv;
     float scale = a.scale;
-    void* params[] = {&q, &k, &v, &dout, &lse, &delta, &dq, &seq, &Hq, &Hkv, &scale};
-    return launch(attn_dq_kernel<T, D>, dq_smem<T, D>(), a, dim3(a.seq / kRows, a.Hq, a.B),
-                  params);
+    Drop drop = a.drop;
+    void* params[] = {&q, &k, &v, &dout, &lse, &delta, &dq, &seq, &Hq, &Hkv, &scale, &drop};
+    const dim3 grid(a.seq / kRows, a.Hq, a.B);
+    return drop.threshold != 0u
+               ? launch(attn_dq_kernel<T, D, true>, dq_smem<T, D>(), a, grid, params)
+               : launch(attn_dq_kernel<T, D, false>, dq_smem<T, D>(), a, grid, params);
   }
 };
 
@@ -556,9 +533,13 @@ struct Dkv {
     T* dv = static_cast<T*>(a.out1);
     int seq = a.seq, Hq = a.Hq, Hkv = a.Hkv;
     float scale = a.scale;
-    void* params[] = {&q, &k, &v, &dout, &lse, &delta, &dk, &dv, &seq, &Hq, &Hkv, &scale};
-    return launch(attn_dkv_kernel<T, D>, dkv_smem<T, D>(), a, dim3(a.seq / kRows, a.Hq, a.B),
-                  params);
+    Drop drop = a.drop;
+    void* params[] = {&q, &k, &v, &dout, &lse, &delta, &dk, &dv, &seq, &Hq, &Hkv, &scale,
+                      &drop};
+    const dim3 grid(a.seq / kRows, a.Hq, a.B);
+    return drop.threshold != 0u
+               ? launch(attn_dkv_kernel<T, D, true>, dkv_smem<T, D>(), a, grid, params)
+               : launch(attn_dkv_kernel<T, D, false>, dkv_smem<T, D>(), a, grid, params);
   }
 };
 
@@ -582,28 +563,34 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16. All tensors contiguous:
 // q, out (B, T, Hq, hd); k, v (B, T, Hkv, hd); lse (B, Hq, T) fp32.
-int bllm_attn_fwd(int dtype, int hd, int B, int T, int Hq, int Hkv, float scale, const void* q,
-                  const void* k, const void* v, void* out, void* lse, void* stream) {
-  Args a{B, T, Hq, Hkv, scale, q, k, v, nullptr, nullptr, nullptr, out, lse,
-         static_cast<cudaStream_t>(stream)};
+// Dropout: keep = Philox word >= threshold (threshold 0: no dropout), kept
+// terms times inv_keep = 1/(1-p); the seed is (seed_hi << 32) | seed_lo.
+int bllm_attn_fwd(int dtype, int hd, int B, int T, int Hq, int Hkv, float scale,
+                  unsigned threshold, float inv_keep, unsigned seed_lo, unsigned seed_hi,
+                  const void* q, const void* k, const void* v, void* out, void* lse,
+                  void* stream) {
+  Args a{B, T, Hq, Hkv, scale, Drop{threshold, seed_lo, seed_hi, inv_keep}, q, k, v,
+         nullptr, nullptr, nullptr, out, lse, static_cast<cudaStream_t>(stream)};
   return dispatch<Fwd>(dtype, hd, a);
 }
 
 // dout, dq (B, T, Hq, hd); lse, delta (B, Hq, T) fp32.
 int bllm_attn_bwd_dq(int dtype, int hd, int B, int T, int Hq, int Hkv, float scale,
+                     unsigned threshold, float inv_keep, unsigned seed_lo, unsigned seed_hi,
                      const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dq, void* stream) {
-  Args a{B, T, Hq, Hkv, scale, q, k, v, dout, lse, delta, dq, nullptr,
-         static_cast<cudaStream_t>(stream)};
+  Args a{B, T, Hq, Hkv, scale, Drop{threshold, seed_lo, seed_hi, inv_keep}, q, k, v, dout,
+         lse, delta, dq, nullptr, static_cast<cudaStream_t>(stream)};
   return dispatch<Dq>(dtype, hd, a);
 }
 
 // dk, dv per QUERY head: (B, T, Hq, hd) each.
 int bllm_attn_bwd_dkv(int dtype, int hd, int B, int T, int Hq, int Hkv, float scale,
+                      unsigned threshold, float inv_keep, unsigned seed_lo, unsigned seed_hi,
                       const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dk, void* dv, void* stream) {
-  Args a{B, T, Hq, Hkv, scale, q, k, v, dout, lse, delta, dk, dv,
-         static_cast<cudaStream_t>(stream)};
+  Args a{B, T, Hq, Hkv, scale, Drop{threshold, seed_lo, seed_hi, inv_keep}, q, k, v, dout,
+         lse, delta, dk, dv, static_cast<cudaStream_t>(stream)};
   return dispatch<Dkv>(dtype, hd, a);
 }
 

@@ -54,7 +54,8 @@ def run_train(args):
                       initial_lr=args.initial_lr, min_lr=args.min_lr,
                       warmup_steps=args.warmup_steps,
                       eval_freq=args.eval_freq,
-                      print_sample_iter=args.print_sample_iter)
+                      print_sample_iter=args.print_sample_iter,
+                      seed=args.seed)
     trainer.train_model(files, n_epochs=args.n_epochs)
     logger.info("Training complete. Final model saved.")
     if device.type == "cuda":

@@ -15,8 +15,12 @@ transpose:
 ``forward_hidden``/``forward`` are the training forward: parameters are
 trainable once ``requires_grad_(True)`` is called (the trainer does), and
 attention goes through ``ops.attention.causal_attention`` (the fused flash
-kernels for the shapes they take). No dropout (configs with ``drop_rate >
-0`` are refused by the train step), no activation checkpointing.
+kernels for the shapes they take). With a seed and ``deterministic=False``
+a config's ``drop_rate`` drops the embedding output, the attention weights
+and both residual branches of every block, each site with its own seed
+(``utils.seeding.site_seed``); residual and embedding dropout go through
+the fused kernel B3 (``ops/fused_dropout.py``) for the shapes it takes. No
+activation checkpointing.
 
 The serving functions (``prefill_into_slot``, ``decode_slots``) mirror the
 JAX ones: the same masks, the same zeroed bucket pads, the same fp32 logits.
@@ -44,11 +48,19 @@ from building_llm_from_scratch_tpu_torch.ops.decode_step import (
     fused_decode_step,
     fused_decode_step_plain,
 )
+from building_llm_from_scratch_tpu_torch.ops.fused_dropout import (
+    fused_dropout,
+    fused_dropout_add,
+    supports_shape as dropout_supports_shape,
+)
 from building_llm_from_scratch_tpu_torch.ops.norms import layernorm, rmsnorm
+from building_llm_from_scratch_tpu_torch.ops.philox import flat_keep_mask
 from building_llm_from_scratch_tpu_torch.ops.rope import (
     apply_rope,
     precompute_rope_params,
 )
+from building_llm_from_scratch_tpu_torch.ops.xent_fwd import matmul_fp32
+from building_llm_from_scratch_tpu_torch.utils.seeding import site_seed
 
 Flat = Dict[str, torch.Tensor]
 
@@ -281,14 +293,6 @@ def _mlp(cfg: ModelConfig, p: ParamGroup, x: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def _logits_fp32(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    if x2.dtype == torch.float32:
-        return x2 @ w
-    if x2.is_cuda:
-        return torch.mm(x2, w, out_dtype=torch.float32)
-    return x2.float() @ w.float()
-
-
 class _HeadLogits(torch.autograd.Function):
     """(N, D) @ (D, V) -> fp32 (N, V). The backward rounds the fp32
     cotangent to the model dtype on every device, and both gradient GEMMs
@@ -299,7 +303,7 @@ class _HeadLogits(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, w):
         ctx.save_for_backward(x2, w)
-        return _logits_fp32(x2, w)
+        return matmul_fp32(x2, w)
 
     @staticmethod
     def backward(ctx, g):
@@ -322,27 +326,73 @@ def _head_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# dropout (the JAX package's helpers of the same names)
+# ---------------------------------------------------------------------------
+
+def _dropout(x: torch.Tensor, rate: float, seed: Optional[int],
+             deterministic: bool) -> torch.Tensor:
+    """dropout(x): the fused kernel B3 for the shapes it takes (its twin on
+    the CPU), else ``x / (1 - rate)`` on the kept elements, rounded in x's
+    dtype as the JAX ``_dropout`` does, with the same mask function."""
+    if rate <= 0.0 or deterministic:
+        return x
+    if dropout_supports_shape(x.shape):
+        return fused_dropout(x, rate, seed)
+    keep = flat_keep_mask(seed, x.shape, rate, x.device)
+    scale = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+
+
+def _residual_dropout(x: torch.Tensor, h: torch.Tensor, rate: float,
+                      seed: Optional[int], deterministic: bool) -> torch.Tensor:
+    """x + dropout(h), the pre-norm residual update: one fused kernel for
+    the shapes B3 takes."""
+    if rate <= 0.0 or deterministic:
+        return x + h
+    if dropout_supports_shape(h.shape):
+        return fused_dropout_add(x, h, rate, seed)
+    return x + _dropout(h, rate, seed, deterministic)
+
+
+# ---------------------------------------------------------------------------
 # full-sequence forward (training / evaluation)
 # ---------------------------------------------------------------------------
 
-def forward_hidden(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+def forward_hidden(model: Transformer, tokens: torch.Tensor, *,
+                   seed: Optional[int] = None,
+                   deterministic: bool = True) -> torch.Tensor:
     """(B, T) token ids -> the final-normed (B, T, D) hidden states before
-    the head (the JAX ``forward_hidden`` without dropout)."""
+    the head (the JAX ``forward_hidden``). ``seed`` is the step's 64-bit
+    dropout seed (None: deterministic); each dropout site draws from its own
+    ``site_seed(seed, layer, site)``, as the JAX package splits its rng."""
     cfg = model.cfg
     B, T = tokens.shape
+    if seed is None:
+        deterministic = True
+    rate = cfg.drop_rate
+
+    def sites(layer: int, site: str) -> Optional[int]:
+        return None if deterministic else site_seed(seed, layer, site)
+
     positions = torch.arange(T, device=tokens.device)
-    x = _embed(model, tokens, positions)
-    for blk in model.blocks:
+    x = _dropout(_embed(model, tokens, positions), rate,
+                 sites(-1, "embedding"), deterministic)
+    for layer, blk in enumerate(model.blocks):
         h = blk.norm1(x)
         q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions)
-        out = causal_attention(q, k, v)
-        x = x + _attn_out_proj(blk.attn, out, B, T)
-        x = x + _mlp(cfg, blk.mlp, blk.norm2(x))
+        out = causal_attention(q, k, v, dropout_rate=rate,
+                               seed=sites(layer, "attention"),
+                               deterministic=deterministic)
+        x = _residual_dropout(x, _attn_out_proj(blk.attn, out, B, T), rate,
+                              sites(layer, "residual1"), deterministic)
+        x = _residual_dropout(x, _mlp(cfg, blk.mlp, blk.norm2(x)), rate,
+                              sites(layer, "residual2"), deterministic)
     return model.final_norm(x)
 
 
 def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    """(B, T) token ids -> fp32 logits (B, T, V)."""
+    """(B, T) token ids -> fp32 logits (B, T, V), without dropout."""
     return _head_logits(forward_hidden(model, tokens), model.head)
 
 

@@ -30,7 +30,13 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def sources() -> list:
+    """The compiled sources (one object each)."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list:
+    """The headers the sources include (hashed with them)."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -44,7 +50,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -93,15 +99,19 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build()["path"])
-            f = lib.bllm_fused_decode_step
-            f.argtypes = ([ctypes.c_int] * 6) + [ctypes.c_void_p] * 8
-            f.restype = ctypes.c_int
-            head = [ctypes.c_int] * 6 + [ctypes.c_float]
-            lib.bllm_attn_fwd.argtypes = head + [ctypes.c_void_p] * 6
-            lib.bllm_attn_bwd_dq.argtypes = head + [ctypes.c_void_p] * 8
-            lib.bllm_attn_bwd_dkv.argtypes = head + [ctypes.c_void_p] * 9
-            for name in ("bllm_attn_fwd", "bllm_attn_bwd_dq", "bllm_attn_bwd_dkv"):
-                getattr(lib, name).restype = ctypes.c_int
+            i32, u32, f32, ptr = (ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
+                                  ctypes.c_void_p)
+            lib.bllm_fused_decode_step.argtypes = [i32] * 6 + [ptr] * 8
+            # dtype, hd, B, T, Hq, Hkv, scale, threshold, 1/(1-p), seed words
+            head = [i32] * 6 + [f32, u32, f32, u32, u32]
+            lib.bllm_attn_fwd.argtypes = head + [ptr] * 6
+            lib.bllm_attn_bwd_dq.argtypes = head + [ptr] * 8
+            lib.bllm_attn_bwd_dkv.argtypes = head + [ptr] * 9
+            lib.bllm_dropout.argtypes = [i32, ctypes.c_longlong, u32, f32, u32, u32] + [ptr] * 4
+            lib.bllm_xent_fwd.argtypes = [i32] * 5 + [ptr] * 9
+            for name in ("bllm_fused_decode_step", "bllm_attn_fwd", "bllm_attn_bwd_dq",
+                         "bllm_attn_bwd_dkv", "bllm_dropout", "bllm_xent_fwd"):
+                getattr(lib, name).restype = i32
             lib.bllm_error_string.argtypes = [ctypes.c_int]
             lib.bllm_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from building_llm_from_scratch_tpu_torch.ops.philox import attention_keep_mask
+
 _NEG_INF = -1e30
 
 
@@ -29,13 +31,18 @@ def _value_product(weights: torch.Tensor, v: torch.Tensor,
 
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   q_positions: Optional[torch.Tensor] = None,
-                  kv_length: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  kv_length: Optional[torch.Tensor] = None,
+                  dropout_rate: float = 0.0, seed: Optional[int] = None,
+                  deterministic: bool = True) -> torch.Tensor:
     """Masked attention over (B, Tkv, Hkv, D) k/v for (B, Tq, Hq, D) queries
-    (the prefill use of the JAX ``_xla_attention``: no dropout).
+    (the JAX ``_xla_attention``).
 
     ``q_positions``: None (= arange(Tq)), (Tq,) or (B, Tq) absolute
     positions; the causal rule is ``q_pos >= kv_pos``. ``kv_length``:
-    scalar or (B,) valid key prefix."""
+    scalar or (B,) valid key prefix. With ``dropout_rate > 0`` and not
+    ``deterministic``, the softmax weights are dropped and scaled by
+    1/(1-rate) with the fused kernels' keep mask for ``seed``
+    (``ops/philox.py``), over query heads."""
     B, Tq, Hq, D = q.shape
     _, Tkv, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -57,6 +64,12 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
     scores = torch.where(mask, scores, torch.full((), _NEG_INF, device=dev))
     weights = torch.softmax(scores, dim=-1)
+    if dropout_rate > 0.0 and not deterministic:
+        if seed is None:
+            raise ValueError("attention dropout requires a seed")
+        keep = attention_keep_mask(seed, B, Hq, Tq, Tkv, dropout_rate, dev)
+        weights = torch.where(keep.reshape(B, Hkv, G, Tq, Tkv),
+                              weights / (1.0 - dropout_rate), 0.0)
     out = _value_product(weights, v, "bhgqk,bkhd->bqhgd")
     return out.reshape(B, Tq, Hq, D)
 
@@ -92,19 +105,24 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, Hq, D)
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor) -> torch.Tensor:
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     dropout_rate: float = 0.0, seed: Optional[int] = None,
+                     deterministic: bool = True) -> torch.Tensor:
     """Full-sequence causal self-attention for training and evaluation (the
-    JAX ``causal_attention`` with ``impl='auto'`` and no dropout): the fused
-    kernels (``ops/fused_attention.py``) for every shape ``supports_shape``
-    allows, whatever the device (on the CPU they compute their twins), and
+    JAX ``causal_attention`` with ``impl='auto'``), with attention-weight
+    dropout at ``dropout_rate`` unless ``deterministic``: the fused kernels
+    (``ops/fused_attention.py``) for every shape ``supports_shape`` allows,
+    whatever the device (on the CPU they compute their twins), and
     ``xla_attention`` for the rest, as the JAX package runs its XLA path for
-    such shapes. On CUDA the fused path launches the kernels or raises."""
+    such shapes. Both draw the same mask for a seed. On CUDA the fused path
+    launches the kernels or raises."""
     from building_llm_from_scratch_tpu_torch.ops.fused_attention import (
         fused_causal_attention,
         supports_shape,
     )
 
+    rate = 0.0 if deterministic else dropout_rate
     if supports_shape(q.shape[1], k.shape[1], q.shape[3]):
-        return fused_causal_attention(q, k, v)
-    return xla_attention(q, k, v)
+        return fused_causal_attention(q, k, v, dropout_rate=rate, seed=seed)
+    return xla_attention(q, k, v, dropout_rate=rate, seed=seed,
+                         deterministic=deterministic)

@@ -56,7 +56,8 @@ class Trainer:
                  *, output_dir: str = "model_checkpoints",
                  peak_lr: float = 5e-4, initial_lr: float = 1e-5,
                  min_lr: float = 1e-6, warmup_steps: int = 10,
-                 eval_freq: int = 10, print_sample_iter: int = 10):
+                 eval_freq: int = 10, print_sample_iter: int = 10,
+                 seed: int = 123):
         self.cfg = cfg
         self.model = model
         self.tokenizer = tokenizer
@@ -66,6 +67,8 @@ class Trainer:
                                 min_lr=min_lr, warmup_steps=warmup_steps)
         self.eval_freq = eval_freq
         self.print_sample_iter = print_sample_iter
+        #: the dropout stream's seed (the JAX trainer's PRNGKey(seed))
+        self.seed = seed
 
         self.state = None
         self.global_step = 0
@@ -94,7 +97,7 @@ class Trainer:
             h["peak_lr"], h["initial_lr"], h["min_lr"], h["warmup_steps"],
             total_steps)
         self.optimizer = AdamW(self.lr_schedule)
-        self.state = init_train_state(self.model, self.optimizer)
+        self.state = init_train_state(self.model, self.optimizer, self.seed)
         self.train_step = make_train_step(self.cfg, self.optimizer)
         self.eval_step = make_eval_step(self.cfg)
 

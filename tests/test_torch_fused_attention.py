@@ -1,8 +1,9 @@
 """The fused flash-attention twins (B1 forward, B2a dq, B2b dk/dv, through
 the port's ``FusedCausalAttention``) against the JAX package's exact XLA
 attention (``causal_attention(..., impl="xla")``) and ``jax.grad`` of it,
-on the same numpy inputs; the training dispatch rule; the refusal of
-attention dropout. The CUDA kernels themselves are held against these twins
+on the same numpy inputs; the training dispatch rule; the checks of the
+attention-dropout branch (its math is held against a same-mask oracle in
+``tests/test_torch_dropout.py``). The CUDA kernels themselves are held against these twins
 on the card by ``tests/test_torch_cuda.py``.
 
 Tolerances, as max |port - jax| / max |jax| per tensor: fp32 1e-5 (the same
@@ -120,19 +121,31 @@ def test_dispatch_rule_is_the_jax_supports_shape(T, D, monkeypatch):
     assert tfa.supports_shape(T, T, D) == jfa.supports_shape(T, T, D)
     taken = []
     monkeypatch.setattr(tfa, "fused_causal_attention",
-                        lambda q, k, v: taken.append("fused") or q)
+                        lambda q, k, v, **kw: taken.append("fused") or q)
     monkeypatch.setattr(tatt, "xla_attention",
-                        lambda q, k, v: taken.append("xla") or q)
+                        lambda q, k, v, **kw: taken.append("xla") or q)
     q = torch.zeros(1, T, 2, D)
     tatt.causal_attention(q, q[:, :, :1], q[:, :, :1])
     assert taken == ["fused" if jfa.supports_shape(T, T, D) else "xla"]
 
 
-def test_attention_dropout_is_refused():
-    q = torch.zeros(1, 256, 2, 64)
-    with pytest.raises(NotImplementedError, match="dropout"):
+def test_attention_dropout_branch_takes_a_seed_and_eligible_shapes():
+    """The fused op drops attention weights for a seed (and needs one), and
+    refuses a shape the kernels cannot take; the dispatch sends such shapes
+    with dropout to ``xla_attention``."""
+    q = torch.randn(1, 256, 2, 64, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="seed"):
         tfa.fused_causal_attention(q, q, q, dropout_rate=0.1)
+    out = tfa.fused_causal_attention(q, q, q, dropout_rate=0.1, seed=4)
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    assert not torch.equal(out, tfa.fused_causal_attention(q, q, q))
     with pytest.raises(ValueError):
         tfa.fused_causal_attention(torch.zeros(1, 300, 2, 64),
                                    torch.zeros(1, 300, 2, 64),
                                    torch.zeros(1, 300, 2, 64))
+    short = q[:, :100].contiguous()
+    got = tatt.causal_attention(short, short, short, dropout_rate=0.1, seed=4,
+                                deterministic=False)
+    assert torch.equal(got, tatt.xla_attention(short, short, short,
+                                               dropout_rate=0.1, seed=4,
+                                               deterministic=False))

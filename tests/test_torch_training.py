@@ -283,24 +283,25 @@ def test_gradients_match_jax_grad(monkeypatch, dtype, control):
         assert max(err.values()) <= grad_tol, err
 
 
-def _train_steps_vs_jax(context, dtype, eps=1e-8):
+def _train_steps_vs_jax(context, dtype, eps=1e-8, kind="llama", fused_xent=False):
     """Five steps of the port's train step (Adam's ``eps`` as given) and of
-    the jitted JAX step on the same weights and batches. Returns the
-    per-step relative errors of loss, grad_norm and update_norm, and the
-    initial, port and JAX parameters after the last step (fp32 numpy)."""
-    jcfg, tcfg = small_configs("llama", dtype=dtype, context_length=context)
+    the jitted JAX step on the same weights and batches, both with the
+    chunked cross entropy or both with the dense one. Returns the per-step
+    relative errors of loss, grad_norm and update_norm, and the initial,
+    port and JAX parameters after the last step (fp32 numpy)."""
+    jcfg, tcfg = small_configs(kind, dtype=dtype, context_length=context)
     params, np_params = jax_params(jcfg)
     init = {k: to_np32(v) for k, v in flatten_tree(np_params).items()}
     sched_j = warmup_cosine_schedule(5e-4, 1e-5, 1e-6, 3, 10)
     opt_j = build_optimizer(schedule=sched_j)
     state_j = jinit_state(params, opt_j, jax.random.PRNGKey(0))
     step_j = jmake_train_step(jcfg, opt_j, lr_schedule=sched_j,
-                              use_fused_xent=False)
+                              use_fused_xent=fused_xent)
     model = params_from_jax(np_params, tcfg, "cpu")
     opt_t = topt.AdamW(topt.warmup_cosine_schedule(5e-4, 1e-5, 1e-6, 3, 10),
                        eps=eps)
     state_t = tts.init_train_state(model, opt_t)
-    step_t = tts.make_train_step(tcfg, opt_t)
+    step_t = tts.make_train_step(tcfg, opt_t, use_fused_xent=fused_xent)
     rng = np.random.default_rng(1)
     rel = []
     for _ in range(5):
@@ -325,8 +326,8 @@ def _train_steps_vs_jax(context, dtype, eps=1e-8):
 BF16_STEP_TOL = (1e-3, 1e-2, 1e-2, 0.15)
 
 
-def _bf16_step_errors(context, eps=1e-8):
-    rel, init, final_t, final_j = _train_steps_vs_jax(context, "bf16", eps)
+def _bf16_step_errors(context, eps=1e-8, **kw):
+    rel, init, final_t, final_j = _train_steps_vs_jax(context, "bf16", eps, **kw)
     upd = {}
     for k, ref in final_j.items():
         dj = ref - init[k]
@@ -397,7 +398,7 @@ def test_export_is_read_by_the_jax_loader_bit_for_bit(tmp_path, dtype):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--model", "GPT2", "--num_params", "124M"], ValueError, "drop_rate"),
+    (["--use_actv_ckpt"], SystemExit, None),
     (["--data_type", "fp16"], ValueError, "loss scaling"),
     (["--grad_accum", "2"], SystemExit, None),
     (["--use_lora"], SystemExit, None),
@@ -447,3 +448,146 @@ def test_grad_buffers_are_slices_of_the_stacked_leaves():
         assert p.grad.data_ptr() == g.data_ptr()
         src = model.stacked[name] if l is None else model.stacked[name][l]
         assert p.data_ptr() == src.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# GPT-2 pretraining (learned positions, biases, layernorm, dropout, and the
+# chunked cross entropy its width takes)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_gpt2_train_steps_match_jax(dtype):
+    """A GPT-2-like model with ``drop_rate`` forced to 0 (T 256, the fused
+    twins): five steps of the port's step against the JAX
+    ``make_train_step``, both taking the chunked cross entropy at this
+    width (JAX's own choice), at the LLaMA steps' tolerances."""
+    if dtype == "bf16":
+        errors = _bf16_step_errors(256, kind="gpt2", fused_xent=None)
+        assert all(e <= t for e, t in zip(errors, BF16_STEP_TOL)), errors
+        return
+    rel, _, final_t, final_j = _train_steps_vs_jax(256, dtype, kind="gpt2",
+                                                   fused_xent=None)
+    assert rel[:, :2].max() <= 1e-5 and rel[:, 2].max() <= 1e-4, rel
+    assert {"pos_emb/weight", "blocks/attn/bo", "blocks/mlp/b_up",
+            "blocks/mlp/b_down", "blocks/norm1/bias", "final_norm/bias"} <= set(final_t)
+    for k, v in final_t.items():
+        np.testing.assert_allclose(v, final_j[k], atol=1e-5, rtol=0, err_msg=k)
+
+
+def test_gpt2_gradients_reach_every_leaf():
+    """One GPT-2 forward/backward (dropout 0, the chunked loss) against
+    ``jax.grad`` of the JAX fused loss: every leaf's gradient, the position
+    embedding, biases and layernorm biases included, lands in its stacked
+    buffer within 1e-5 relative L2; a control that detaches the position
+    embedding fails for that leaf."""
+    jcfg, tcfg = small_configs("gpt2", context_length=256)
+    params, np_params = jax_params(jcfg, seed=6)
+    x = np.random.default_rng(2).integers(0, jcfg.vocab_size, (2, 257))
+    loss_impl = make_loss_fns(jcfg)[0]
+
+    def jloss(p):
+        hidden = jforward_hidden(p, jcfg, jnp.asarray(x[:, :-1], jnp.int32))
+        return loss_impl(p, hidden, jnp.asarray(x[:, 1:], jnp.int32), None)
+
+    grads_j = flatten_tree(jax.device_get(jax.jit(jax.grad(jloss))(params)))
+    errs = []
+    for control in (False, True):
+        model = params_from_jax(np_params, tcfg, "cpu")
+        state = tts.init_train_state(model, topt.AdamW(lambda count: 0.0))
+        if control:
+            model.pos_emb.requires_grad_(False)
+        hidden = ttf.forward_hidden(model, torch.from_numpy(x[:, :-1]))
+        tts.make_loss_fns(tcfg)(model, hidden, torch.from_numpy(x[:, 1:])).backward()
+        errs.append({k: np.linalg.norm(to_np32(state.grads[k]) - to_np32(v))
+                     / np.linalg.norm(to_np32(v)) for k, v in grads_j.items()})
+    assert set(errs[0]) == set(model.stacked) and max(errs[0].values()) <= 1e-5, errs[0]
+    assert errs[1]["pos_emb/weight"] > 0.5
+
+
+def _gpt2_dropout_run(seed, steps=2, drop=0.1):
+    jcfg, tcfg = small_configs("gpt2", context_length=256, drop_rate=drop)
+    _, np_params = jax_params(jcfg, seed=8)
+    model = params_from_jax(np_params, tcfg, "cpu")
+    opt = topt.AdamW(topt.warmup_cosine_schedule(5e-4, 1e-5, 1e-6, 2, 10))
+    state = tts.init_train_state(model, opt, seed=seed)
+    step = tts.make_train_step(tcfg, opt)
+    rng = np.random.default_rng(3)
+    losses = []
+    for _ in range(steps):
+        x = torch.from_numpy(rng.integers(0, tcfg.vocab_size, (2, 257)))
+        state, m = step(state, {"inputs": x[:, :-1], "targets": x[:, 1:]})
+        losses.append(m["loss"].item())
+    return losses, {k: v.clone() for k, v in model.flat_params().items()}
+
+
+@pytest.fixture
+def deterministic_torch():
+    """torch's deterministic algorithms: the CPU embedding backward
+    (index_put with accumulation) sums in a thread-dependent order
+    otherwise, whatever the dropout masks."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(was)
+
+
+def test_gpt2_dropout_steps_are_seeded(deterministic_torch):
+    """With dropout 0.1 two runs from one seed give the same losses and
+    parameters bit for bit, another seed other ones, and both differ from
+    the run without dropout."""
+    a, pa = _gpt2_dropout_run(5)
+    b, pb = _gpt2_dropout_run(5)
+    c, pc = _gpt2_dropout_run(6)
+    d, _ = _gpt2_dropout_run(5, drop=0.0)
+    assert a == b and all(torch.equal(pa[k], pb[k]) for k in pa)
+    assert a[0] != c[0] and a[0] != d[0] and c[0] != d[0]
+    assert any(not torch.equal(pa[k], pc[k]) for k in pa)
+
+
+def test_gpt2_eval_is_deterministic_and_matches_jax():
+    """The eval step of a dropout config (no dropout, the chunked loss)
+    equals the JAX ``make_eval_step`` on the same weights to 1e-5."""
+    from building_llm_from_scratch_tpu.training.train_step import (
+        make_eval_step as jmake_eval_step,
+    )
+
+    jcfg, tcfg = small_configs("gpt2", context_length=256, drop_rate=0.1)
+    params, np_params = jax_params(jcfg, seed=9)
+    x = np.random.default_rng(4).integers(0, jcfg.vocab_size, (2, 257))
+    loss_j = jmake_eval_step(jcfg)({"trainable": params, "frozen": {}}, {
+        "inputs": jnp.asarray(x[:, :-1], jnp.int32),
+        "targets": jnp.asarray(x[:, 1:], jnp.int32)})
+    model = params_from_jax(np_params, tcfg, "cpu")
+    state = tts.init_train_state(model, topt.AdamW(lambda count: 0.0), seed=1)
+    batch = {"inputs": torch.from_numpy(x[:, :-1]), "targets": torch.from_numpy(x[:, 1:])}
+    loss = tts.make_eval_step(tcfg)(state, batch)
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-5)
+    assert loss.item() == tts.make_eval_step(tcfg)(state, batch).item()
+
+
+def test_gpt2_cli_trains_with_dropout(tmp_path):
+    """``--model GPT2 --debug --byte_tokenizer --device cpu`` (dropout 0.1):
+    the run ends, its loss falls, and its export loads in the JAX loader
+    bit for bit."""
+    from building_llm_from_scratch_tpu_torch import main as tmain
+
+    d = tmp_path / "data"
+    d.mkdir()
+    (d / "corpus.txt").write_text(TEXT * 2)
+    tt = tmain.run(["--model", "GPT2", "--num_params", "124M", "--debug",
+                    "--byte_tokenizer", "--device", "cpu", "--n_epochs", "1",
+                    "--batch_size", "4", "--eval_freq", "5",
+                    "--print_sample_iter", "1000", "--warmup_steps", "2",
+                    "--data_dir", str(d), "--output_dir", str(tmp_path / "out")])
+    assert tt.cfg.drop_rate == 0.1 and tt.global_step >= 10
+    losses = [m["loss"] for m in tt.step_metrics]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    assert tt.train_losses[-1] < tt.train_losses[0]
+    jcfg = jget_config("GPT2", "124M", dtype="fp32", debug=True)
+    loaded = jckpt.load_exported_params(
+        str(tmp_path / "out" / "model_pg_final.npz"),
+        jinit(jcfg, jax.random.PRNGKey(0)))
+    flat = flatten_tree(jax.device_get(loaded))
+    assert set(flat) == set(tt.model.stacked)
+    for k, v in flat.items():
+        np.testing.assert_array_equal(bits(v), bits(tt.model.stacked[k]), err_msg=k)
