@@ -21,9 +21,8 @@ UNPORTED_FLAGS = (
     "--serve_tp", "--serve_sp", "--serve_max_prompt", "--serve_port",
     "--serve_host", "--drain_timeout", "--serve_tick_timeout",
     "--serve_max_restarts", "--serve_deadline_s", "--serve_adapters",
-    "--serve_adapter_slots", "--serve_metrics_every", "--serve_prefix_cache",
-    "--serve_prefill_chunk", "--serve_kv_quant", "--serve_prefix_budget_mb",
-    "--serve_kv_paged", "--serve_kv_page_tokens", "--serve_spec_k",
+    "--serve_adapter_slots", "--serve_metrics_every", "--serve_kv_quant",
+    "--serve_spec_k",
     "--fleet_jobs", "--fleet_rows_per_job", "--fleet_capacity",
     "--fleet_export_dir", "--fleet_style",
     "--prefetch", "--async_ckpt", "--tokenizer_cache_dir",
@@ -50,6 +49,8 @@ QUEUE_ITEMS = {
     "--use_lora": "queue 1, LLaMA LoRA SFT",
     "--tokenizer_path": "queue 1, tokenizers",
     "--load_weights": "queue 1, HF weight loading",
+    "--serve_kv_quant": "queue 1 item 5, int8 KV",
+    "--serve_spec_k": "queue 1 item 8, speculative decoding",
 }
 
 
@@ -115,6 +116,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JSONL of requests with 'prompt_ids'.")
     p.add_argument("--serve_out", type=str, default=None,
                    help="JSONL results (default stdout).")
+    p.add_argument("--serve_prefix_cache", type=str, default="off",
+                   choices=["on", "off"],
+                   help="KV prefix caching: requests sharing a prompt prefix "
+                        "(system prompts) reuse its KV instead of recomputing "
+                        "it; LRU-evicted under --serve_prefix_budget_mb. "
+                        "Implies chunked prefill (--serve_prefill_chunk, "
+                        "default 64 when unset).")
+    p.add_argument("--serve_prefill_chunk", type=int, default=0,
+                   help="Chunked prefill: prompts prefill in chunks of this "
+                        "many tokens interleaved with decode ticks. 0 = "
+                        "monolithic bucketed prefill.")
+    p.add_argument("--serve_prefix_budget_mb", type=float, default=256.0,
+                   help="Prefix-store byte budget (MiB of device memory).")
+    p.add_argument("--serve_kv_paged", type=str, default="off",
+                   choices=["on", "off"],
+                   help="Paged KV cache: slot KV lives in fixed-size pages of "
+                        "a shared pool addressed through per-slot page "
+                        "tables; prefix hits share refcounted pages (no "
+                        "copy) and admission checks free pages. Implies "
+                        "chunked prefill (--serve_prefill_chunk, default 64 "
+                        "when unset).")
+    p.add_argument("--serve_kv_page_tokens", type=int, default=16,
+                   help="Tokens per KV page when --serve_kv_paged on; the "
+                        "prefill chunk must be a whole number of pages.")
     return p
 
 
@@ -144,13 +169,30 @@ def perform_checks(args) -> None:
     if args.init_params_from and not os.path.isfile(args.init_params_from):
         raise ValueError(
             f"--init_params_from '{args.init_params_from}' does not exist.")
-    if args.mode == "serve":
-        _check_serve(args)
-    elif args.mode == "train":
-        _check_train(args)
-    else:
+    if args.mode not in ("serve", "train"):
         raise ValueError(f"--mode {args.mode} is not ported yet; the PyTorch "
                          "port runs --mode train and --mode serve")
+    if args.mode == "serve":
+        _check_serve(args)
+        return
+    # a serve flag set outside serve mode is a missing --mode serve, not a
+    # flag to drop silently
+    stray = [f"--{name}" for name, default in _SERVE_DEFAULTS
+             if getattr(args, name) != default]
+    if stray:
+        raise ValueError(f"{', '.join(stray)} require --mode serve.")
+    _check_train(args)
+
+
+#: the serve flags and their defaults (the stray-flag rule)
+_SERVE_DEFAULTS = (
+    ("serve_prompts", None), ("serve_out", None), ("serve_slots", 8),
+    ("serve_max_queue", 64), ("serve_max_new_tokens", 128),
+    ("serve_max_len", 0), ("serve_max_top_k", 64),
+    ("serve_prefix_cache", "off"), ("serve_prefill_chunk", 0),
+    ("serve_prefix_budget_mb", 256.0), ("serve_kv_paged", "off"),
+    ("serve_kv_page_tokens", 16),
+)
 
 
 def _check_serve(args) -> None:
@@ -164,6 +206,20 @@ def _check_serve(args) -> None:
             raise ValueError(f"--{flag} must be >= 1.")
     if args.serve_max_len < 0:
         raise ValueError("--serve_max_len must be >= 0 (0 = model context).")
+    if args.serve_prefill_chunk < 0:
+        raise ValueError("--serve_prefill_chunk must be >= 0 "
+                         "(0 = monolithic bucketed prefill).")
+    if args.serve_prefix_budget_mb <= 0:
+        raise ValueError("--serve_prefix_budget_mb must be > 0.")
+    if args.serve_kv_page_tokens < 1:
+        raise ValueError("--serve_kv_page_tokens must be >= 1.")
+    if args.serve_kv_paged == "on":
+        chunk = args.serve_prefill_chunk or 64
+        if chunk % args.serve_kv_page_tokens != 0:
+            raise ValueError(
+                f"--serve_prefill_chunk {chunk} must be a whole number of "
+                f"pages (--serve_kv_page_tokens {args.serve_kv_page_tokens}): "
+                "chunk scatters land on page boundaries.")
 
 
 def _check_train(args) -> None:

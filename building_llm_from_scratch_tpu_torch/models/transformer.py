@@ -22,12 +22,17 @@ and both residual branches of every block, each site with its own seed
 the fused kernel B3 (``ops/fused_dropout.py``) for the shapes it takes. No
 activation checkpointing.
 
-The serving functions (``prefill_into_slot``, ``decode_slots``) mirror the
-JAX ones: the same masks, the same zeroed bucket pads, the same fp32 logits.
-The decode step goes through the fused kernel (``ops/decode_step.py``)
-whenever the cache shape is one the kernel takes. ``forward_with_cache`` is
-the one-shot ``generate()``'s cached forward, with ``decode_attention`` over
-the cache as the JAX default does. No adapters, no int8 or paged caches.
+The serving functions (``prefill_into_slot``, ``prefill_chunk_into_slot``,
+``decode_slots`` and their paged siblings ``paged_prefill_chunk_into_slot``
+and ``paged_decode_slots``) mirror the JAX ones: the same masks, the same
+zeroed pads, the same fp32 logits. The contiguous decode step goes through
+the fused kernel B5 and the paged one through the paged attention kernel B7
+(``ops/decode_step.py``) for caches on the card, and through their plain
+twins on the CPU. The paged k/v scatters and the chunks' attention are
+plain tensor code, as the JAX package leaves them to XLA.
+``forward_with_cache`` is the one-shot ``generate()``'s cached forward, with
+``decode_attention`` over the cache as the JAX default does. No adapters,
+no int8 caches.
 """
 
 from __future__ import annotations
@@ -47,6 +52,9 @@ from building_llm_from_scratch_tpu_torch.ops.attention import (
 from building_llm_from_scratch_tpu_torch.ops.decode_step import (
     fused_decode_step,
     fused_decode_step_plain,
+    paged_decode_attention,
+    paged_decode_attention_plain,
+    paged_view,
 )
 from building_llm_from_scratch_tpu_torch.ops.fused_dropout import (
     fused_dropout,
@@ -401,13 +409,15 @@ def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_slot_cache(cfg: ModelConfig, n_slots: int, max_length: int,
-                    device: torch.device | str) -> dict:
-    """Per-layer (n_slots, Hkv, Tmax, hd) k/v buffers (serving/kvcache.py)."""
+                    device: torch.device | str, policy=None) -> dict:
+    """Per-layer k/v buffers as ``policy`` (serving/kvcache.KVCachePolicy,
+    default contiguous) lays them out: (n_slots, Hkv, Tmax, hd) rows, or a
+    paged policy's (n_pages, Hkv, P, hd) pool."""
     from building_llm_from_scratch_tpu_torch.serving.kvcache import (
         DEFAULT_POLICY,
     )
 
-    return DEFAULT_POLICY.alloc(cfg, n_slots, max_length, device)
+    return (policy or DEFAULT_POLICY).alloc(cfg, n_slots, max_length, device)
 
 
 @torch.no_grad()
@@ -439,6 +449,60 @@ def prefill_into_slot(model: Transformer, tokens: torch.Tensor,
     return _head_logits(last, model.head)[0, 0]
 
 
+def _chunk_positions(cfg: ModelConfig, chunk_start: int, C: int,
+                     device) -> tuple:
+    """(positions, lookup) of a C-token chunk: the chunk's absolute
+    positions, and the same clipped to the context for the embedding and
+    RoPE tables (only pad positions past the prompt can pass the end; the
+    JAX gathers clamp them the same way)."""
+    positions = torch.arange(chunk_start, chunk_start + C, device=device)
+    return positions, positions.clamp(max=cfg.context_length - 1)
+
+
+def _chunk_logits(model: Transformer, x: torch.Tensor, chunk_start: int,
+                  prompt_len: int) -> torch.Tensor:
+    """fp32 logits (V,) at the chunk row of position ``prompt_len - 1``,
+    clamped into the chunk."""
+    C = x.shape[1]
+    idx = min(max(prompt_len - 1 - chunk_start, 0), C - 1)
+    x = model.final_norm(x[:, idx:idx + 1])
+    return _head_logits(x, model.head)[0, 0]
+
+
+@torch.no_grad()
+def prefill_chunk_into_slot(model: Transformer, tokens: torch.Tensor,
+                            chunk_start: int, prompt_len: int, slot: int,
+                            cache: dict) -> torch.Tensor:
+    """Chunked prefill (the JAX ``prefill_chunk_into_slot``): ``tokens``
+    (1, C) are the prompt span [chunk_start, chunk_start + C), right-padded
+    past ``prompt_len``, run against row ``slot`` whose positions
+    [0, chunk_start) already hold valid k/v (earlier chunks or a copied
+    prefix pane). The chunk's k/v are written IN PLACE (pad positions as
+    zeros; the write start clamps so the chunk fits, like the JAX
+    dynamic-update-slice) and the chunk attends over the slot's whole row
+    with ``kv_length = min(chunk_start + C, prompt_len)``. Returns the fp32
+    logits (V,) at position ``prompt_len - 1`` (clamped into the chunk)."""
+    cfg = model.cfg
+    _, C = tokens.shape
+    dev = tokens.device
+    positions, lookup = _chunk_positions(cfg, chunk_start, C, dev)
+    x = _embed(model, tokens, lookup)
+    valid = (positions < prompt_len)[None, :, None, None]
+    kv_len = torch.tensor([min(chunk_start + C, prompt_len)], device=dev)
+    start = min(max(chunk_start, 0), cache["k"][0].shape[2] - C)
+    zero = torch.zeros((), dtype=x.dtype, device=dev)
+    for blk, K, V in zip(model.blocks, cache["k"], cache["v"]):
+        h = blk.norm1(x)
+        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, lookup)
+        K[slot, :, start:start + C] = torch.where(valid, k, zero)[0].transpose(0, 1)
+        V[slot, :, start:start + C] = torch.where(valid, v, zero)[0].transpose(0, 1)
+        out = decode_attention(q, K[slot:slot + 1], V[slot:slot + 1],
+                               q_positions=positions[None, :], kv_length=kv_len)
+        x = x + _attn_out_proj(blk.attn, out, 1, C)
+        x = x + _mlp(cfg, blk.mlp, blk.norm2(x))
+    return _chunk_logits(model, x, chunk_start, prompt_len)
+
+
 @torch.no_grad()
 def decode_slots(model: Transformer, tokens: torch.Tensor,
                  lengths: torch.Tensor, cache: dict) -> torch.Tensor:
@@ -464,6 +528,107 @@ def decode_slots(model: Transformer, tokens: torch.Tensor,
         x = x + _mlp(cfg, blk.mlp, blk.norm2(x))
     x = model.final_norm(x)
     return _head_logits(x, model.head)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# paged KV: the slot rows' positions live in pages of one shared pool
+# ((n_pages, Hkv, P, hd) per layer), addressed through a per-slot page
+# table (S, M). Table entry 0 is the trash page: unallocated positions (a
+# free row's garbage append, a chunk's pad tail) scatter there and are only
+# ever read masked. The scatters are plain tensor indexing, as the JAX
+# package leaves them to XLA.
+# ---------------------------------------------------------------------------
+
+def _paged_scatter(leaf: torch.Tensor, vals: torch.Tensor,
+                   rows: torch.Tensor) -> None:
+    """Write ``vals`` (R, Hkv, hd) into the pool ``leaf`` (N, Hkv, P, hd) at
+    the flat pool rows ``rows`` (R * Hkv,) of ``_paged_rows``, IN PLACE: one
+    ``index_copy_``, which costs the host a tenth of an advanced-index
+    assignment."""
+    hd = leaf.shape[-1]
+    leaf.view(-1, hd).index_copy_(0, rows, vals.reshape(-1, hd).to(leaf.dtype))
+
+
+def _paged_rows(page_table: torch.Tensor, pos: torch.Tensor, P: int, Hkv: int,
+                cache_len: int) -> torch.Tensor:
+    """Flat pool rows ((page * Hkv + head) * P + offset, position-major) of
+    the logical positions ``pos`` (S, Tq) through the table (S, M), every
+    kv head of each. Positions clamp to ``cache_len - 1`` (only ever binding
+    for garbage lanes, which are masked everywhere)."""
+    pos = pos.clamp(max=cache_len - 1)
+    phys = page_table.long().gather(1, pos // P).reshape(-1, 1)
+    heads = torch.arange(Hkv, device=pos.device)
+    return ((phys * Hkv + heads) * P + (pos % P).reshape(-1, 1)).reshape(-1)
+
+
+@torch.no_grad()
+def paged_decode_slots(model: Transformer, tokens: torch.Tensor,
+                       lengths: torch.Tensor, page_table: torch.Tensor,
+                       cache: dict, cache_len: int) -> torch.Tensor:
+    """Paged sibling of ``decode_slots``: each layer scatters the rows' new
+    k/v at their lengths through ``page_table`` ((S, M) int32) and attends
+    over each row's pages. For pools on the card the attention is always
+    the paged kernel B7 (which raises on what it cannot take); on the CPU
+    its twin over the ``cache_len``-long row views, whose logits are
+    bit-equal to the contiguous ``decode_slots``'. Returns fp32 logits
+    (S, V)."""
+    cfg = model.cfg
+    S = tokens.shape[0]
+    positions = lengths.long()[:, None]
+    x = _embed(model, tokens, positions)
+    K0 = cache["k"][0]
+    rows = _paged_rows(page_table, positions, K0.shape[2], K0.shape[1], cache_len)
+    if K0.is_cuda:
+        attend = paged_decode_attention
+    else:
+        def attend(q, K, V, table, lens):
+            return paged_decode_attention_plain(q, K, V, table, lens,
+                                                cache_len=cache_len)
+    for blk, K, V in zip(model.blocks, cache["k"], cache["v"]):
+        h = blk.norm1(x)
+        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions)
+        _paged_scatter(K, k[:, 0], rows)
+        _paged_scatter(V, v[:, 0], rows)
+        out = attend(q.contiguous(), K, V, page_table, lengths)
+        x = x + _attn_out_proj(blk.attn, out, S, 1)
+        x = x + _mlp(cfg, blk.mlp, blk.norm2(x))
+    x = model.final_norm(x)
+    return _head_logits(x, model.head)[:, 0]
+
+
+@torch.no_grad()
+def paged_prefill_chunk_into_slot(model: Transformer, tokens: torch.Tensor,
+                                  chunk_start: int, prompt_len: int,
+                                  row_table: torch.Tensor, cache: dict,
+                                  cache_len: int) -> torch.Tensor:
+    """Paged sibling of ``prefill_chunk_into_slot``: the chunk's C positions
+    scatter into the slot's pages through ``row_table`` ((1, M), the slot's
+    table row), pad positions as zeros and positions past the allocated
+    frontier onto the trash page, and the chunk attends over the slot's
+    gathered ``cache_len``-long row view (plain ``decode_attention``, as in
+    the JAX package). Returns the fp32 logits (V,) at ``prompt_len - 1``."""
+    cfg = model.cfg
+    _, C = tokens.shape
+    dev = tokens.device
+    positions, lookup = _chunk_positions(cfg, chunk_start, C, dev)
+    x = _embed(model, tokens, lookup)
+    valid = (positions < prompt_len)[None, :, None, None]
+    kv_len = torch.tensor([min(chunk_start + C, prompt_len)], device=dev)
+    K0 = cache["k"][0]
+    rows = _paged_rows(row_table, positions[None, :], K0.shape[2], K0.shape[1],
+                       cache_len)
+    zero = torch.zeros((), dtype=x.dtype, device=dev)
+    for blk, K, V in zip(model.blocks, cache["k"], cache["v"]):
+        h = blk.norm1(x)
+        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, lookup)
+        _paged_scatter(K, torch.where(valid, k, zero)[0], rows)
+        _paged_scatter(V, torch.where(valid, v, zero)[0], rows)
+        out = decode_attention(q, paged_view(K, row_table, cache_len),
+                               paged_view(V, row_table, cache_len),
+                               q_positions=positions[None, :], kv_length=kv_len)
+        x = x + _attn_out_proj(blk.attn, out, 1, C)
+        x = x + _mlp(cfg, blk.mlp, blk.norm2(x))
+    return _chunk_logits(model, x, chunk_start, prompt_len)
 
 
 @torch.no_grad()
@@ -504,4 +669,6 @@ def build_model(cfg: ModelConfig, seed: int,
 
 __all__ = ["Transformer", "build_model", "decode_slots", "forward",
            "forward_hidden", "forward_with_cache", "init_params",
-           "init_slot_cache", "param_shapes", "prefill_into_slot"]
+           "init_slot_cache", "paged_decode_slots",
+           "paged_prefill_chunk_into_slot", "param_shapes",
+           "prefill_chunk_into_slot", "prefill_into_slot"]

@@ -109,8 +109,11 @@ def load_library() -> ctypes.CDLL:
             lib.bllm_attn_bwd_dkv.argtypes = head + [ptr] * 9
             lib.bllm_dropout.argtypes = [i32, ctypes.c_longlong, u32, f32, u32, u32] + [ptr] * 4
             lib.bllm_xent_fwd.argtypes = [i32] * 5 + [ptr] * 9
+            # dtype, hd, S, Hq, Hkv, P, N, M
+            lib.bllm_paged_decode.argtypes = [i32] * 8 + [ptr] * 7
             for name in ("bllm_fused_decode_step", "bllm_attn_fwd", "bllm_attn_bwd_dq",
-                         "bllm_attn_bwd_dkv", "bllm_dropout", "bllm_xent_fwd"):
+                         "bllm_attn_bwd_dkv", "bllm_dropout", "bllm_xent_fwd",
+                         "bllm_paged_decode"):
                 getattr(lib, name).restype = i32
             lib.bllm_error_string.argtypes = [ctypes.c_int]
             lib.bllm_error_string.restype = ctypes.c_char_p

@@ -1,11 +1,14 @@
-"""Fused single-token decode step: append the new k/v rows into the slot
-cache at each row's length, then attend (port of the JAX package's
-``ops/decode_step.py::fused_decode_step``).
+"""Single-token decode kernels (port of the JAX package's
+``ops/decode_step.py``):
 
-``fused_decode_step`` launches the hand-written CUDA kernel
-(``csrc/decode_step.cu``) for tensors on the card and computes its plain
-twin, ``fused_decode_step_plain``, for tensors on the CPU. There is no
-fallback between the two: a CUDA call the kernel cannot take raises.
+  - ``fused_decode_step`` (B5): append the new k/v rows into the slot cache
+    at each row's length, then attend (``csrc/decode_step.cu``);
+  - ``paged_decode_attention`` (B7): attend each slot's logical row through
+    its page table over a shared page pool (``csrc/paged_decode.cu``).
+
+Each wrapper launches its hand-written CUDA kernel for tensors on the card
+and computes its plain twin (``*_plain``) for tensors on the CPU. There is
+no fallback between the two: a CUDA call the kernel cannot take raises.
 """
 
 from __future__ import annotations
@@ -158,3 +161,130 @@ def fused_decode_step(q, k_new, v_new, k_cache, v_cache, lengths):
 
 #: kernel launches since the last reset (set to 0 to reset)
 fused_decode_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B7: paged decode attention
+# ---------------------------------------------------------------------------
+
+def paged_view(leaf: torch.Tensor, page_table: torch.Tensor,
+               cache_len: int) -> torch.Tensor:
+    """Gather a (rows, Hkv, cache_len, hd) row-major view out of the pool
+    leaf (N, Hkv, P, hd) through ``page_table`` (rows, M) (the JAX
+    ``transformer._paged_view``). Page ids are clipped to [0, N-1], as the
+    JAX gather clamps them."""
+    N = leaf.shape[0]
+    g = leaf[page_table.long().clamp(0, N - 1)]     # (rows, M, Hkv, P, hd)
+    g = g.transpose(1, 2)                           # (rows, Hkv, M, P, hd)
+    rows, Hkv, M, P = g.shape[:4]
+    return g.reshape(rows, Hkv, M * P, *g.shape[4:])[:, :, :cache_len]
+
+
+def check_paged_kernel_shape(hd: int, dtype: torch.dtype) -> None:
+    """Raise ValueError unless the CUDA paged kernel is instantiated for
+    head dim ``hd`` and ``dtype``. Every page size >= 1 is taken. The
+    serving engine runs it when it is built on the card with a paged
+    policy."""
+    if hd not in _KERNEL_HEAD_DIMS or dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"the CUDA paged decode-attention kernel takes head dims "
+            f"{_KERNEL_HEAD_DIMS} and dtypes {list(_DTYPE_CODES)}; got "
+            f"hd={hd}, {dtype}")
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, page_table, lengths,
+                                 cache_len=None):
+    """B7's twin in plain PyTorch: ``paged_view`` of each pool followed by
+    ``decode_attention`` over ``kv_pos <= lengths[s]`` (the JAX reference
+    path). ``cache_len`` trims the view (default: the table's M * P)."""
+    M, P = page_table.shape[1], k_pool.shape[2]
+    cache_len = M * P if cache_len is None else cache_len
+    lengths = torch.as_tensor(lengths, device=q.device).reshape(-1)
+    K = paged_view(k_pool, page_table, cache_len)
+    V = paged_view(v_pool, page_table, cache_len)
+    return decode_attention(q, K, V, q_positions=lengths[:, None],
+                            kv_length=lengths + 1)
+
+
+def _check_paged(q, k_pool, v_pool, page_table, lengths) -> None:
+    if q.ndim != 4 or k_pool.ndim != 4:
+        raise ValueError("q must be (S, 1, Hq, hd) and pools (N, Hkv, P, hd)")
+    S, Tq, Hq, hd = q.shape
+    _, Hkv, _, _ = k_pool.shape
+    if Tq != 1:
+        raise ValueError(f"paged_decode_attention is single-token only; Tq={Tq}")
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"query heads {Hq} are not a multiple of kv heads {Hkv}")
+    if k_pool.shape[3] != hd or v_pool.shape != k_pool.shape:
+        raise ValueError(f"pool shapes {tuple(k_pool.shape)}/"
+                         f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
+    if page_table.ndim != 2 or page_table.shape[0] != S:
+        raise ValueError(f"page_table must be (S={S}, M), got "
+                         f"{tuple(page_table.shape)}")
+    if {t.dtype for t in (q, k_pool, v_pool)} != {q.dtype}:
+        raise TypeError("q and the pools must share one dtype")
+    devs = {t.device for t in (q, k_pool, v_pool, page_table)}
+    if torch.is_tensor(lengths):
+        devs.add(lengths.device)
+    if len(devs) != 1:
+        raise ValueError(f"all tensors must be on one device, got {devs}")
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
+    """Single-token attention through a page table.
+
+    q:              (S, 1, Hq, hd)   model layout
+    k_pool, v_pool: (N, Hkv, P, hd)  shared page pool, page 0 the trash page
+    page_table:     (S, M) int32     physical page of each logical page
+    lengths:        (S,) int32       attends logical positions <= lengths[s]
+                                     (the new token's, already scattered)
+
+    Returns (S, 1, Hq, hd). CUDA tensors go through the hand-written kernel
+    (``csrc/paged_decode.cu``), read table and lengths on the device and add
+    one to ``paged_decode_attention.launches`` per launch; CPU tensors
+    compute ``paged_decode_attention_plain``."""
+    _check_paged(q, k_pool, v_pool, page_table, lengths)
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, page_table,
+                                            lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    S, _, Hq, hd = q.shape
+    N, Hkv, P, _ = k_pool.shape
+    M = page_table.shape[1]
+    check_paged_kernel_shape(hd, q.dtype)
+    if N * Hkv * P >= 2 ** 31:
+        raise ValueError(f"pool of {N} pages x {Hkv} heads x {P} rows exceeds "
+                         "the kernel's 32-bit row index")
+    for name, t, shape in (("page_table", page_table, (S, M)),
+                           ("lengths", lengths, (S,))):
+        if (not torch.is_tensor(t) or t.dtype != torch.int32
+                or tuple(t.shape) != shape):
+            raise TypeError(f"on the card {name} must be an int32 {shape} tensor")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("page_table", page_table), ("lengths", lengths)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if k_pool.data_ptr() % 16:
+        raise ValueError("k_pool must be 16-byte aligned (the kernel reads its "
+                         "rows with 16-byte loads)")
+    from building_llm_from_scratch_tpu_torch.ops._kernels import load_library
+
+    lib = load_library()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    err = lib.bllm_paged_decode(
+        _DTYPE_CODES[q.dtype], hd, S, Hq, Hkv, P, N, M,
+        p(q), p(k_pool), p(v_pool), p(page_table), p(lengths), p(out),
+        ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"paged_decode_attention kernel launch failed: "
+                           f"{lib.bllm_error_string(err).decode()}")
+    paged_decode_attention.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (set to 0 to reset)
+paged_decode_attention.launches = 0

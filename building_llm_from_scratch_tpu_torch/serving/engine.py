@@ -1,26 +1,44 @@
 """Continuous-batching decode engine (port of the core of the JAX package's
 ``serving/engine.py``).
 
-One fixed ``(n_slots, Tmax)`` KV cache; requests are admitted into free
+A fixed batch of ``n_slots`` KV-cache rows; requests are admitted into free
 slots at tick boundaries and retired the moment they finish. One tick:
 
-    admit queued requests into free slots (bucketed prefill into the slot)
-    -> one decode step over ALL slots (the fused decode-step kernel, one
-       launch per layer) -> per-row finite guard -> accept / finish
+    admit queued requests into free slots
+    -> one prefill chunk per mid-prefill slot (chunked policies)
+    -> one decode step over ALL slots (B5, or B7 through the page table,
+       one launch per layer) -> per-row finite guard -> accept / finish
+
+The ``KVCachePolicy`` (``serving/kvcache.py``) picks the prefill tier and
+the layout:
+  - the default policy prefills each prompt in one bucketed pass
+    (``prefill_into_slot``) into contiguous (n_slots, Hkv, Tmax, hd) rows;
+  - ``prefill_chunk=C`` prefills in C-token chunks interleaved with decode
+    ticks; a mid-prefill row rides the decode tick as an ignored row whose
+    garbage append lands where its next chunk writes, and samples nothing;
+  - ``prefix_cache`` stores each prompt's chunk-aligned prefix (capped at
+    the pane width ``_bucket_len(warmup_prompt_cap)``) and serves later
+    requests sharing it from the store: a pane copy into the slot, or with
+    ``paged`` a refcounted page-table write (no copy at all);
+  - ``paged`` maps each slot's positions onto pages of one shared pool
+    through a host-owned page table. Admission reserves a request's
+    worst-case page need and bounces the queue head (FCFS kept) while the
+    pool cannot promise it; a request that can never fit fails with
+    ``page_pool_too_small``.
 
 Free slots ride the fixed-shape decode as ignored rows, as in the JAX
 engine. Every row carries its own length, sampling parameters and random
 stream, so a request's tokens are the same whether it runs alone, in any
 slot, or beside any other traffic.
 
-Host state (``_lengths``, ``_last_tokens`` and the sampling parameters)
-lives in numpy. Each decode tick copies tokens and lengths to the device
-once and reads back once: the sampled tokens together with the finite
-flags.
+Host state (lengths, last tokens, sampling parameters, the page table)
+lives in numpy. Each decode tick copies tokens, lengths and the page table
+to the device in one transfer and reads back once: the sampled tokens
+together with the finite flags. Only a final prefill chunk reads anything
+back.
 
-Not ported yet: chunked prefill and the prefix cache, int8 and paged KV,
-adapters, speculative decoding, deadlines, drain, the supervisor and the
-telemetry sink.
+Not ported yet: int8 KV, adapters, speculative decoding, deadlines, drain,
+the supervisor and restarts, fault-injection hooks and the telemetry sink.
 """
 
 from __future__ import annotations
@@ -40,10 +58,22 @@ from building_llm_from_scratch_tpu_torch.models.transformer import (
     Transformer,
     decode_slots,
     init_slot_cache,
+    paged_decode_slots,
+    paged_prefill_chunk_into_slot,
+    prefill_chunk_into_slot,
     prefill_into_slot,
 )
 from building_llm_from_scratch_tpu_torch.ops.decode_step import (
     check_kernel_shape,
+    check_paged_kernel_shape,
+)
+from building_llm_from_scratch_tpu_torch.serving.kvcache import (
+    KVCachePolicy,
+    PagePool,
+    PrefixStore,
+    adapter_fingerprint,
+    copy_prefix_into_slot,
+    extract_prefix_panes,
 )
 from building_llm_from_scratch_tpu_torch.serving.queue import (
     PromptTooLongError,
@@ -65,6 +95,9 @@ from building_llm_from_scratch_tpu_torch.serving.request import (
 )
 from building_llm_from_scratch_tpu_torch.serving.scheduler import Scheduler
 
+#: prefix-store namespace of un-adapted traffic (the JAX ``BASE_ADAPTER``)
+BASE_TAG = "base"
+
 
 class DecodeEngine:
     """The serving runtime: slot-batched KV cache and request lifecycle.
@@ -75,27 +108,71 @@ class DecodeEngine:
 
     def __init__(self, model: Transformer, *, n_slots: int = 4,
                  max_len: Optional[int] = None, max_queue: int = 64,
-                 max_top_k: int = 64, default_max_new_tokens: int = 128):
+                 max_top_k: int = 64, default_max_new_tokens: int = 128,
+                 warmup_prompt_cap: int = 256,
+                 kv_policy: Optional[KVCachePolicy] = None):
         cfg = model.cfg
         self.cfg = cfg
         self.model = model
         self.device = model.device
+        self.kv_policy = kv_policy or KVCachePolicy()
         self.n_slots = int(n_slots)
         self.max_len = min(int(max_len or cfg.context_length),
                            cfg.context_length)
         self.max_prompt = self.max_len - 1
+        #: logical row length (the JAX ``_cache_len``; no spec headroom)
+        self._cache_len = self.max_len
+        self._chunk = self.kv_policy.prefill_chunk
+        self._paged = self.kv_policy.paged
+        if self._chunk > self._cache_len:
+            raise ValueError(f"prefill_chunk {self._chunk} exceeds the slot "
+                             f"capacity {self._cache_len}")
         if self.device.type == "cuda":
-            # every decode tick launches the kernel: refuse a model or a
-            # slot length it cannot take now, not at the first tick
-            check_kernel_shape(self.max_len, cfg.head_dim, cfg.torch_dtype)
+            # every decode tick launches a kernel: refuse a model or a slot
+            # length it cannot take now, not at the first tick
+            if self._paged:
+                check_paged_kernel_shape(cfg.head_dim, cfg.torch_dtype)
+            else:
+                check_kernel_shape(self._cache_len, cfg.head_dim,
+                                   cfg.torch_dtype)
         self.max_top_k = min(int(max_top_k), cfg.vocab_size)
         self.default_max_new_tokens = int(default_max_new_tokens)
+        self.warmup_prompt_cap = min(int(warmup_prompt_cap), self.max_len)
         self.queue = RequestQueue(max_queue)
         self.scheduler = Scheduler(self.n_slots)
-        self.cache = init_slot_cache(cfg, self.n_slots, self.max_len,
-                                     self.device)        # guarded-by: _lock
 
         S = self.n_slots
+        self.page_pool: Optional[PagePool] = None
+        self._page_table: Optional[np.ndarray] = None
+        if self._paged:
+            self._pages_per_slot = self.kv_policy.pages_per_slot(
+                self._cache_len)
+            self.page_pool = PagePool(
+                self.kv_policy.total_pool_pages(S, self._cache_len),
+                self.kv_policy.page_bytes(cfg))
+            #: page of each slot's logical page, 0 = the trash page
+            self._page_table = np.zeros((S, self._pages_per_slot),
+                                        np.int32)       # guarded-by: _lock
+            #: table columns each slot has mapped, and the admission
+            #: reservation still owed to it (worst-case need - mapped)
+            self._slot_cols = np.zeros((S,), np.int32)  # guarded-by: _lock
+            self._pages_reserved = np.zeros((S,), np.int32)  # guarded-by: _lock
+        #: contiguous prefix hits served by a pane copy (0 when paged)
+        self.pane_copies = 0                            # guarded-by: _lock
+        self.cache = init_slot_cache(cfg, S, self._cache_len, self.device,
+                                     policy=self.kv_policy)  # guarded-by: _lock
+        #: slot -> chunked-prefill progress; a slot here is admitted but
+        #: not decoding yet
+        self._prefill_state: dict = {}                  # guarded-by: _lock
+        #: prefix pane width, the JAX engine's, so storable spans agree
+        self._prefix_pane_len = self._bucket_len(max(self.warmup_prompt_cap, 1))
+        self.prefix_store: Optional[PrefixStore] = None
+        if self.kv_policy.prefix_cache:
+            self.prefix_store = PrefixStore(
+                adapter_fingerprint(cfg), chunk_tokens=self._chunk,
+                budget_bytes=self.kv_policy.prefix_budget_bytes,
+                pane_tokens=self._prefix_pane_len, page_pool=self.page_pool)
+
         # host-owned per-slot state; the device owns only the k/v cache
         self._lengths = np.zeros((S,), np.int32)        # guarded-by: _lock
         self._last_tokens = np.zeros((S,), np.int32)    # guarded-by: _lock
@@ -117,8 +194,12 @@ class DecodeEngine:
         self.requests_finished = 0          # guarded-by: _lock
         self.requests_rejected = 0          # guarded-by: _lock
         self.requests_failed = 0            # guarded-by: _lock
+        self.prefill_chunks = 0             # guarded-by: _lock
         self.prefill_seconds = 0.0          # guarded-by: _lock
         self.decode_seconds = 0.0           # guarded-by: _lock
+
+    def _bucket_len(self, n: int) -> int:
+        return min(_bucket(n), self.max_len)
 
     # -- admission --------------------------------------------------------
 
@@ -181,15 +262,21 @@ class DecodeEngine:
         return req
 
     # holds: _lock
-    def _admit(self, slot: int, req: Request) -> None:
-        """Prefill one request into ``slot`` and take its first token."""
-        Tp = int(req.prompt_ids.size)
-        Tpb = min(_bucket(Tp), self.max_len)
-        padded = np.zeros((1, Tpb), np.int64)
-        padded[0, :Tp] = req.prompt_ids
-        t0 = time.perf_counter()
-        tokens = torch.from_numpy(padded).to(self.device)
-        logits = prefill_into_slot(self.model, tokens, Tp, slot, self.cache)
+    def _prime_slot(self, slot: int, req: Request, length: int) -> None:
+        req.state = RUNNING
+        req.slot = slot
+        req.t_admit = time.monotonic()
+        p = req.params
+        self._lengths[slot] = length
+        self._n_gen[slot] = 0
+        self._seeds[slot] = p.seed
+        self._temps[slot] = p.temperature
+        self._topks[slot] = p.top_k or 0
+
+    # holds: _lock
+    def _first_token(self, logits: torch.Tensor, req: Request) -> tuple:
+        """Sample a request's first token from its prefill logits; one
+        device->host read of (token, finite flag)."""
         p = req.params
         tok = sample_tokens_dynamic(
             logits[None], np.array([p.seed]), np.array([0]),
@@ -198,43 +285,310 @@ class DecodeEngine:
             self._generator)
         ok = torch.isfinite(logits).all()
         tok_host, ok_host = torch.stack([tok[0], ok.long()]).tolist()
+        return int(tok_host), bool(ok_host)
+
+    # holds: _lock
+    def _admit(self, slot: int, req: Request) -> None:
+        """Prefill one request into ``slot`` and take its first token, or
+        with a chunked policy queue it for the chunk pump."""
+        if self._chunk > 0:
+            self._admit_chunked(slot, req)
+            return
+        Tp = int(req.prompt_ids.size)
+        Tpb = self._bucket_len(Tp)
+        padded = np.zeros((1, Tpb), np.int64)
+        padded[0, :Tp] = req.prompt_ids
+        t0 = time.perf_counter()
+        tokens = torch.from_numpy(padded).to(self.device)
+        logits = prefill_into_slot(self.model, tokens, Tp, slot, self.cache)
+        tok, ok = self._first_token(logits, req)
         self.prefill_seconds += time.perf_counter() - t0
-        req.state = RUNNING
-        req.slot = slot
-        req.t_admit = time.monotonic()
-        self._lengths[slot] = Tp
-        self._n_gen[slot] = 0
-        self._seeds[slot] = p.seed
-        self._temps[slot] = p.temperature
-        self._topks[slot] = p.top_k or 0
-        if not ok_host:
+        self._prime_slot(slot, req, Tp)
+        if not ok:
             self._fail_request(slot, req, "non-finite logits in prefill")
             return
-        self._accept_token(slot, req, int(tok_host))
+        self._accept_token(slot, req, tok)
+
+    # -- chunked prefill + prefix cache ------------------------------------
+
+    # holds: _lock
+    def _admit_chunked(self, slot: int, req: Request) -> None:
+        """Chunked admission: probe the prefix store, apply a hit (pane
+        copy, or a page-table write when paged), and queue the rest of the
+        prompt for ``_chunk_tick``. The row's length is its next write
+        position while it prefills, so the decode tick's garbage append
+        lands where the next chunk writes."""
+        pos = 0
+        if self.prefix_store is not None:
+            span, entry = self.prefix_store.match(req.prompt_ids, BASE_TAG)
+            if entry is not None:
+                self._apply_prefix_hit(slot, span, entry)
+                pos = span
+        self._prime_slot(slot, req, pos)
+        self._prefill_state[slot] = {"req": req, "pos": pos,
+                                     "Tp": int(req.prompt_ids.size),
+                                     "stored": False}
+
+    # holds: _lock
+    def _apply_prefix_hit(self, slot: int, span: int, entry) -> None:
+        """Serve the span of a matched (pinned) entry from the store."""
+        if self._paged:
+            self._apply_paged_hit(slot, entry)
+            return
+        try:
+            copy_prefix_into_slot(self.cache, entry.panes, slot)
+        finally:
+            self.prefix_store.release(entry)
+        self.pane_copies += 1
+
+    # holds: _lock
+    def _apply_paged_hit(self, slot: int, entry) -> None:
+        """Paged prefix hit: point the slot's leading columns at the
+        entry's shared pages. Incref first, then drop the slot's old
+        columns (a late hit's entry may share pages with them), then refund
+        the reservation for the columns the share now covers."""
+        pages = entry.pages
+        try:
+            for p in pages:
+                self.page_pool.incref(p)
+        finally:
+            self.prefix_store.release(entry)
+        old_cols = int(self._slot_cols[slot])
+        old = [int(p) for p in self._page_table[slot, :old_cols]]
+        n_new = len(pages)          # == span // page_tokens, by insert
+        self._page_table[slot, :n_new] = pages
+        self._slot_cols[slot] = n_new
+        for p in old:
+            self.page_pool.decref(p)
+        refund = min(n_new - old_cols, int(self._pages_reserved[slot]))
+        if refund > 0:
+            self.page_pool.unreserve(refund)
+            self._pages_reserved[slot] -= refund
+
+    # holds: _lock
+    def _chunk_tick(self) -> None:
+        """One prefill chunk for every mid-prefill slot, in slot order."""
+        C = self._chunk
+        for slot in sorted(self._prefill_state):
+            st = self._prefill_state[slot]
+            req: Request = st["req"]
+            Tp = st["Tp"]
+            span_cap = (self.prefix_store.storable_span(Tp)
+                        if self.prefix_store is not None else 0)
+            # catch-up probe: a sharer's pane may have landed since this
+            # slot missed at admission (early insertion below); only
+            # admission misses count as misses
+            if self.prefix_store is not None and st["pos"] < span_cap:
+                span, entry = self.prefix_store.match(
+                    req.prompt_ids, BASE_TAG, min_span=st["pos"],
+                    count_miss=False)
+                if entry is not None:
+                    self._apply_prefix_hit(slot, span, entry)
+                    st["pos"] = span
+                    self._lengths[slot] = span
+            t0 = time.perf_counter()
+            lo = st["pos"]
+            hi = min(lo + C, Tp)
+            if self._paged:
+                # back the chunk's real columns with pages; the pad tail's
+                # columns stay unmapped and scatter into the trash page
+                self._ensure_pages(slot, hi)
+            logits = self._run_chunk(slot, req, lo, hi, Tp)
+            st["pos"] = lo + C
+            self.prefill_chunks += 1
+            # early insertion: the moment the chunk covering the storable
+            # span lands, store it, so co-admitted sharers catch up now
+            if (self.prefix_store is not None and not st["stored"]
+                    and 0 < span_cap <= st["pos"]):
+                st["stored"] = True
+                self._maybe_store_prefix(slot, req)
+            if st["pos"] < Tp:
+                self._lengths[slot] = st["pos"]
+                self.prefill_seconds += time.perf_counter() - t0
+                continue
+            # final chunk: the request's first token (the one chunk that
+            # reads back)
+            tok, ok = self._first_token(logits, req)
+            self.prefill_seconds += time.perf_counter() - t0
+            del self._prefill_state[slot]
+            self._lengths[slot] = Tp
+            if not ok:
+                self._fail_request(slot, req, "non-finite logits in prefill",
+                                   non_finite=True)
+                continue
+            self._accept_token(slot, req, tok)
+
+    # holds: _lock
+    def _run_chunk(self, slot: int, req: Request, lo: int, hi: int,
+                   Tp: int) -> torch.Tensor:
+        """Prefill prompt positions [lo, hi) as one C-token chunk; returns
+        its logits. Paged: the chunk's tokens and the slot's table row go to
+        the device in one copy."""
+        C = self._chunk
+        chunk = np.zeros((C,), np.int32)
+        chunk[: hi - lo] = req.prompt_ids[lo:hi]
+        if not self._paged:
+            tokens = torch.from_numpy(chunk).to(self.device).long()[None]
+            return prefill_chunk_into_slot(self.model, tokens, lo, Tp, slot,
+                                           self.cache)
+        host = torch.from_numpy(np.concatenate(
+            [chunk, self._page_table[slot]])).to(self.device)
+        return paged_prefill_chunk_into_slot(
+            self.model, host[:C].long()[None], lo, Tp, host[None, C:],
+            self.cache, self._cache_len)
+
+    # holds: _lock
+    def _maybe_store_prefix(self, slot: int, req: Request) -> None:
+        """Store the slot's chunk-aligned prefix (miss path only; a stored
+        key is just touched): the slot's own leading pages when paged (the
+        store increfs them), else a zero-clamped pane copy."""
+        span = self.prefix_store.storable_span(int(req.prompt_ids.size))
+        if span <= 0:
+            return
+        prefix_ids = req.prompt_ids[:span]
+        if self.prefix_store.contains(prefix_ids, BASE_TAG):
+            return
+        if self._paged:
+            # span is chunk-aligned and C % P == 0: whole pages
+            n_cols = span // self.kv_policy.page_tokens
+            pages = [int(p) for p in self._page_table[slot, :n_cols]]
+            self.prefix_store.insert_pages(prefix_ids, BASE_TAG, pages)
+            return
+        panes = extract_prefix_panes(self.cache, slot, span,
+                                     pane_len=self._prefix_pane_len)
+        self.prefix_store.insert(prefix_ids, BASE_TAG, panes)
+
+    # -- paged page accounting (host bookkeeping) ---------------------------
+
+    # holds: _lock
+    def _page_need(self, req: Request) -> int:
+        """Worst-case pages of one request: prompt plus max_new_tokens,
+        capped at the slot's row."""
+        toks = min(int(req.prompt_ids.size) + req.params.max_new_tokens,
+                   self._cache_len)
+        return -(-toks // self.kv_policy.page_tokens)
+
+    # holds: _lock
+    def _admit_pages(self, slot: int, req: Request) -> Optional[bool]:
+        """Paged admission gate: reserve the request's worst-case page need
+        up front. False: the pool cannot promise it now (the caller
+        bounces the request); None: it can never fit, and the request
+        failed here."""
+        if not self._paged:
+            return True
+        need = self._page_need(req)
+        pool = self.page_pool
+        if need > pool.n_pages - 1:
+            self._fail_request(
+                slot, req,
+                f"page_pool_too_small: request needs up to {need} KV pages "
+                f"but the pool holds {pool.n_pages - 1}: shorten the "
+                "request or size pool_pages for at least one worst-case "
+                "request")
+            return None
+        if pool.available() < need:
+            return False
+        pool.reserve(need)
+        self._pages_reserved[slot] = need
+        return True
+
+    # holds: _lock
+    def _ensure_pages(self, slot: int, n_tokens: int) -> None:
+        """Map enough table columns for ``n_tokens`` tokens, drawing on the
+        slot's admission reservation. Unmapped columns stay 0, the trash
+        page."""
+        P = self.kv_policy.page_tokens
+        cols = int(self._slot_cols[slot])
+        want = -(-min(n_tokens, self._cache_len) // P)
+        want = min(want, self._pages_per_slot,
+                   cols + int(self._pages_reserved[slot]))
+        while cols < want:
+            page = self.page_pool.alloc(from_reserved=True)
+            self._pages_reserved[slot] -= 1
+            self._page_table[slot, cols] = page
+            cols += 1
+        self._slot_cols[slot] = cols
+
+    # holds: _lock
+    def _release_slot_pages(self, slot: int) -> None:
+        """Drop the slot's references (shared pages survive, private ones
+        return to the pool) and hand back its unused reservation."""
+        for col in range(int(self._slot_cols[slot])):
+            self.page_pool.decref(int(self._page_table[slot, col]))
+        reserved = int(self._pages_reserved[slot])
+        if reserved:
+            self.page_pool.unreserve(reserved)
+        self._page_table[slot, :] = 0
+        self._slot_cols[slot] = 0
+        self._pages_reserved[slot] = 0
+
+    # holds: _lock
+    def _rewrite_slot_pages(self, slot: int, value: float) -> None:
+        """Overwrite the slot's PRIVATE pages (refcount 1) with ``value`` in
+        every layer. Zero is the scrub of a non-finite failure: a freed
+        page is read (masked) by whichever slot draws it next, and
+        0 x NaN is NaN."""
+        mine = [int(p) for p in self._page_table[slot, :self._slot_cols[slot]]
+                if int(p) != 0 and self.page_pool.refcount(int(p)) == 1]
+        if not mine:
+            return
+        idx = torch.tensor(mine, device=self.device)
+        for bufs in self.cache.values():
+            for buf in bufs:
+                buf[idx] = value
 
     # -- the tick ---------------------------------------------------------
 
+    # holds: _lock
+    def _admit_queued(self) -> None:
+        """Admit from the queue until no progress: a request may finish
+        during its own admission (eos first, or max_new_tokens=1) and free
+        a slot. A paged request the pool cannot promise goes back to the
+        queue head with everything popped behind it, in order."""
+        while True:
+            admitted = self.scheduler.admit_from(self.queue)
+            bounced = None
+            for i, (slot, req) in enumerate(admitted):
+                ok = self._admit_pages(slot, req)
+                if ok is None:
+                    continue            # failed for good, slot freed
+                if not ok:
+                    bounced = i
+                    break
+                self._admit(slot, req)
+            if bounced is not None:
+                for slot, req in reversed(admitted[bounced:]):
+                    self.scheduler.retire(slot)
+                    self.queue.put_front(req)
+                return
+            if not admitted:
+                return
+
     def step(self) -> bool:
-        """One tick: admit into free slots, then one decode step over the
-        slot batch. Returns False when idle (no active slot, nothing
+        """One tick: admit into free slots, one prefill chunk per
+        mid-prefill slot, then one decode step over the slot batch when a
+        row is decoding. Returns False when idle (no active slot, nothing
         queued)."""
         with self._lock:
-            # re-admit until no progress: a request may finish during its
-            # own admission (eos first, or max_new_tokens=1) and free a slot
-            while True:
-                admitted = self.scheduler.admit_from(self.queue)
-                for slot, req in admitted:
-                    self._admit(slot, req)
-                if not admitted:
-                    break
+            self._admit_queued()
+            if self._prefill_state:
+                self._chunk_tick()
             active = self.scheduler.active()
             if not active:
+                # a first-token eos in the chunk pump can free the last
+                # slot with requests still queued
                 return len(self.queue) > 0
+            decoding = [(s, r) for s, r in active
+                        if s not in self._prefill_state]
+            if not decoding:
+                return True
+            if self._paged:
+                # the append lands at column lengths // P, which must map a
+                # page (mid-prefill rows append into the trash page)
+                for slot, _ in decoding:
+                    self._ensure_pages(slot, int(self._lengths[slot]) + 1)
             t0 = time.perf_counter()
-            host_in = torch.from_numpy(
-                np.stack([self._last_tokens, self._lengths])).to(self.device)
-            logits = decode_slots(self.model, host_in[0].long()[:, None],
-                                  host_in[1], self.cache)
+            logits = self._decode()
             nxt = sample_tokens_dynamic(logits, self._seeds, self._n_gen,
                                         self._temps, self._topks,
                                         self.max_top_k, self._generator)
@@ -243,17 +597,34 @@ class DecodeEngine:
             nxt_host, ok_host = torch.stack([nxt, ok.long()]).cpu().numpy()
             self.decode_seconds += time.perf_counter() - t0
             self.n_ticks += 1
-            for slot, req in active:
+            for slot, req in decoding:
                 # this tick wrote the slot's previous token at _lengths
                 self._lengths[slot] += 1
                 if not ok_host[slot]:
                     self._fail_request(
                         slot, req,
-                        f"non-finite logits at token {len(req.output_ids)}")
+                        f"non-finite logits at token {len(req.output_ids)}",
+                        non_finite=True)
                     continue
                 self.decode_tokens += 1
                 self._accept_token(slot, req, int(nxt_host[slot]))
             return True
+
+    # holds: _lock
+    def _decode(self) -> torch.Tensor:
+        """One decode step over every slot; tokens, lengths (and the page
+        table) go to the device in one copy. Returns fp32 logits (S, V)."""
+        S = self.n_slots
+        parts = [self._last_tokens, self._lengths]
+        if self._paged:
+            parts.append(self._page_table.reshape(-1))
+        host = torch.from_numpy(np.concatenate(parts)).to(self.device)
+        tokens, lengths = host[:S].long()[:, None], host[S:2 * S]
+        if not self._paged:
+            return decode_slots(self.model, tokens, lengths, self.cache)
+        table = host[2 * S:].view(S, -1)
+        return paged_decode_slots(self.model, tokens, lengths, table,
+                                  self.cache, self._cache_len)
 
     def run_until_idle(self) -> None:
         while self.step():
@@ -283,7 +654,10 @@ class DecodeEngine:
 
     # holds: _lock
     def _free_slot(self, slot: int) -> None:
+        if self._paged:
+            self._release_slot_pages(slot)
         self.scheduler.retire(slot)
+        self._prefill_state.pop(slot, None)     # mid-prefill retirement
         self._lengths[slot] = 0
         self._last_tokens[slot] = 0
         self._n_gen[slot] = 0
@@ -292,10 +666,14 @@ class DecodeEngine:
         self._topks[slot] = 0
 
     # holds: _lock
-    def _fail_request(self, slot: Optional[int], req: Request,
-                      msg: str) -> None:
-        """Fail ONE request and free its slot; the engine keeps serving."""
+    def _fail_request(self, slot: Optional[int], req: Request, msg: str,
+                      non_finite: bool = False) -> None:
+        """Fail ONE request and free its slot; the engine keeps serving. A
+        paged slot failed for non-finite logits has its private pages
+        zeroed before they return to the pool."""
         if slot is not None and self.scheduler.slots[slot] is req:
+            if self._paged and non_finite:
+                self._rewrite_slot_pages(slot, 0.0)
             self._free_slot(slot)
         req.error = msg
         req.finish_reason = FINISH_ERROR
@@ -368,7 +746,7 @@ class DecodeEngine:
 
     def stats(self) -> dict:
         with self._lock:
-            return {
+            out = {
                 "requests_finished": self.requests_finished,
                 "requests_rejected": self.requests_rejected,
                 "requests_failed": self.requests_failed,
@@ -377,4 +755,13 @@ class DecodeEngine:
                 "n_ticks": self.n_ticks,
                 "prefill_seconds": self.prefill_seconds,
                 "decode_seconds": self.decode_seconds,
+                "kv_policy": self.kv_policy.describe(),
             }
+            if self._chunk > 0:
+                out["prefill_chunks"] = self.prefill_chunks
+                out["pane_copies"] = self.pane_copies
+            if self._paged:
+                out["page_pool"] = self.page_pool.stats()
+            if self.prefix_store is not None:
+                out["prefix_store"] = self.prefix_store.stats()
+            return out

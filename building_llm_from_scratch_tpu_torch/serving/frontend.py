@@ -12,14 +12,18 @@ for a tokenizer: a ``"prompt"`` field is rejected.
 from __future__ import annotations
 
 import json
+import logging
 import sys
 from typing import List, Optional
 
 from building_llm_from_scratch_tpu_torch.serving.engine import DecodeEngine
+from building_llm_from_scratch_tpu_torch.serving.kvcache import KVCachePolicy
 from building_llm_from_scratch_tpu_torch.serving.request import (
     Request,
     SamplingParams,
 )
+
+logger = logging.getLogger(__name__)
 
 
 def params_from_record(rec: dict, default_max_new: int) -> SamplingParams:
@@ -80,6 +84,23 @@ def serve_jsonl(engine: DecodeEngine, prompts_path: str,
     return results
 
 
+def kv_policy_from_args(args) -> KVCachePolicy:
+    """The engine's KV policy from the flags (the JAX ``run_serve``'s):
+    the prefix cache and paging imply chunked prefill, 64 tokens a chunk
+    unless ``--serve_prefill_chunk`` says otherwise."""
+    prefix_on = args.serve_prefix_cache == "on"
+    paged_on = args.serve_kv_paged == "on"
+    chunk = args.serve_prefill_chunk
+    if (prefix_on or paged_on) and chunk <= 0:
+        chunk = 64
+        logger.info("--serve_%s on: defaulting --serve_prefill_chunk to 64.",
+                    "prefix_cache" if prefix_on else "kv_paged")
+    return KVCachePolicy(
+        prefix_cache=prefix_on, prefill_chunk=chunk,
+        prefix_budget_bytes=int(args.serve_prefix_budget_mb * 1024 ** 2),
+        paged=paged_on, page_tokens=args.serve_kv_page_tokens)
+
+
 def run_serve(args) -> DecodeEngine:
     """Build the model and engine from the parsed flags, serve
     ``--serve_prompts`` and return the shut-down engine."""
@@ -94,7 +115,8 @@ def run_serve(args) -> DecodeEngine:
     engine = DecodeEngine(
         model, n_slots=args.serve_slots, max_len=(args.serve_max_len or None),
         max_queue=args.serve_max_queue, max_top_k=args.serve_max_top_k,
-        default_max_new_tokens=args.serve_max_new_tokens)
+        default_max_new_tokens=args.serve_max_new_tokens,
+        kv_policy=kv_policy_from_args(args))
     engine.start()
     try:
         serve_jsonl(engine, args.serve_prompts, args.serve_out,

@@ -1,5 +1,6 @@
 """Bounded FIFO request queue with explicit backpressure (port of the JAX
-package's ``serving/queue.py``, without the drain and SLO-shed errors).
+package's ``serving/queue.py``, without the drain and SLO-shed errors, and
+without ``remove``/``peek``).
 
 ``put`` on a full queue either rejects at once (``QueueFullError``) or
 blocks until admission drains the queue (the JSONL frontend's
@@ -58,6 +59,15 @@ class RequestQueue:
                         f"request queue still full ({self.max_size}) "
                         f"after {timeout}s")
             self._q.append(req)
+
+    def put_front(self, req: Request) -> None:
+        """Re-queue a request at the head, past the capacity check: the
+        paged engine's admission bounce. Admission popped the request and
+        then found the page pool too drained for its worst-case need; it
+        goes back ahead of everything behind it (capacity was charged when
+        it was first queued, so a full queue must not reject it now)."""
+        with self._not_full:
+            self._q.appendleft(req)
 
     def get_nowait(self) -> Optional[Request]:
         """Pop the oldest request, or None when empty."""

@@ -16,6 +16,12 @@ exits non-zero):
      the exact (fp32) result;
      times of the kernel, the twin and ``scaled_dot_product_attention`` on
      the same cache, beside the bound the card's memory rate sets.
+     3b. the paged decode-attention kernel (B7) against its twin at the
+     paged serving shapes of LLaMA-3.2-1B (bf16) and GPT-2-124M (fp32),
+     page 16, over phase 3's lengths on a pool of shuffled pages: within
+     phase 3's tolerances of the twin and of the exact result; times of the
+     kernel, the twin, the library's two calls (page gather + SDPA) and B5
+     on the same rows laid out contiguously, beside the bytes bound.
   4. serving: the continuous-batching engine at full width, random weights
      from a seed: LLaMA-3.2-1B in bf16 with its 16 layers and GPT-2-124M in
      fp32 (24 requests over 8 slots of 1024), then LLaMA-3-8B in bf16 cut to
@@ -24,6 +30,17 @@ exits non-zero):
      greedy requests re-run alone in a fresh engine give the same tokens,
      and the card's logits agree with an fp32 CPU reference more closely
      than a reference without decode attention does.
+     4b. paged KV with prefix sharing and chunked prefill (64-token chunks,
+     16-token pages): LLaMA-3.2-1B bf16 through the CLI (``main.run --mode
+     serve --serve_kv_paged on --serve_prefix_cache on``), GPT-2-124M fp32
+     paged, and LLaMA-3.2-1B with the prefix cache over contiguous slots;
+     24 requests, 20 behind 3 seeded 320-token system prompts. Every request
+     finishes its budget, prefix hits >= 17, no pane copy when paged, the
+     idle pool holds only the store's pages with nothing reserved, B7 =
+     layers x decode ticks and B5 = 0 when paged (the reverse otherwise),
+     three greedy requests alone give the same tokens; a paged reference
+     check against the fp32 CPU with its no-attention control; prefill of
+     the sharers with and without the warm prefix cache.
   5. flash-attention kernels vs twins: forward (B1), dq (B2a) and dk/dv
      (B2b) at LLaMA-3.2-1B's training shape (B 4, Hq 32, Hkv 8, T 1024,
      hd 64, bf16) and the reference shapes (B 1, T 256, fp32 and bf16): out, lse and
@@ -286,6 +303,134 @@ def phase_kernel(torch, card: dict) -> list:
                    bound_ms=max(t_bytes, t_ops) * 1e3,
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         emit("kernel", **row)
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the paged decode-attention kernel (B7) against its twin
+# ---------------------------------------------------------------------------
+
+PAGED_SHAPES = [
+    # name (the model served paged at this shape in phase 4b), S, Hq, Hkv,
+    # hd, page tokens P, table width M (M x P = phase 3's Tmax), dtype
+    ("llama3_2-1B", 8, 32, 8, 64, 16, 64, "bf16"),
+    ("gpt2-124M", 8, 12, 12, 64, 16, 64, "fp32"),
+]
+
+
+def phase_paged_kernel(torch, card: dict, b5_rows: list) -> list:
+    """B7 at the served shapes, over phase 3's row lengths on a pool of
+    shuffled pages (each row's own pages, columns past its frontier on the
+    trash page): within B5's tolerances of the twin and of the exact fp32
+    result. Times of the kernel, its twin, the library's two calls (an
+    index gather of the rows' pages, then ``scaled_dot_product_attention``
+    with a length mask) and B5 on the same logical rows in the contiguous
+    layout."""
+    import torch.nn.functional as F
+
+    from building_llm_from_scratch_tpu_torch.configs import DTYPE_MAP
+    from building_llm_from_scratch_tpu_torch.ops.decode_step import (
+        fused_decode_step,
+        paged_decode_attention,
+        paged_decode_attention_plain,
+        paged_view,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    fig = card["figures"]
+    lengths = {r["shape"]: r["lengths"] for r in b5_rows}
+    rows = []
+    for name, S, Hq, Hkv, hd, P, M, dt in PAGED_SHAPES:
+        dtype = DTYPE_MAP[dt]
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev,  # noqa: E731
+                                         dtype=torch.float32).to(dtype)
+        N = S * M + 1
+        q, K, V = rnd(S, 1, Hq, hd), rnd(N, Hkv, P, hd), rnd(N, Hkv, P, hd)
+        lens = torch.tensor(lengths[name], dtype=torch.int32, device=dev)
+        pages = (torch.randperm(N - 1, generator=gen, device=dev) + 1).view(S, M)
+        used = lens.long() // P + 1                       # pages each row reads
+        col = torch.arange(M, device=dev)[None, :]
+        table = torch.where(col < used[:, None], pages, 0).to(torch.int32).contiguous()
+
+        out_k = paged_decode_attention(q, K, V, table, lens)
+        torch.cuda.synchronize()
+        out_t = paged_decode_attention_plain(q, K, V, table, lens)
+        atol, rtol = TWIN_TOL[dt]
+        err = (out_k.float() - out_t.float()).abs().max().item()
+        if not torch.allclose(out_k.float(), out_t.float(), atol=atol, rtol=rtol):
+            raise AssertionError(f"{name}: B7 off its twin by {err}")
+        out_x = paged_decode_attention_plain(q.float(), K.float(), V.float(),
+                                             table, lens)
+        ex_atol, ex_rtol = EXACT_TOL[dt]
+        exact_err = (out_k.float() - out_x).abs().max().item()
+        if not torch.allclose(out_k.float(), out_x, atol=ex_atol, rtol=ex_rtol):
+            raise AssertionError(f"{name}: B7 off the exact result by {exact_err}")
+        if not torch.isfinite(out_k).all():
+            raise AssertionError(f"{name}: non-finite B7 output")
+
+        # B5 on the same logical rows, laid out contiguously (its append
+        # rewrites each row's last position with the value it holds)
+        Kc = paged_view(K, table, M * P).contiguous()
+        Vc = paged_view(V, table, M * P).contiguous()
+        at = (torch.arange(S, device=dev), slice(None), lens.long())
+        kn, vn = Kc[at][:, None].contiguous(), Vc[at][:, None].contiguous()
+        out_b5, _, _ = fused_decode_step(q, kn, vn, Kc, Vc, lens)
+        b5_err = (out_b5.float() - out_k.float()).abs().max().item()
+        if not torch.allclose(out_b5.float(), out_t.float(), atol=atol, rtol=rtol):
+            raise AssertionError(f"{name}: B5 on the same rows off by {b5_err}")
+
+        # the library yardstick, two calls: gather the pages, then SDPA
+        mask = (torch.arange(M * P, device=dev)[None, :]
+                <= lens[:, None].long())[:, None, None, :]
+        qh = q.transpose(1, 2)
+
+        def library():
+            Kg = paged_view(K, table, M * P)
+            Vg = paged_view(V, table, M * P)
+            return F.scaled_dot_product_attention(qh, Kg, Vg, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        lib_out = library().transpose(1, 2)
+        lib_err = (lib_out.float() - out_t.float()).abs().max().item()
+        if not torch.allclose(lib_out.float(), out_t.float(), atol=atol * 5,
+                              rtol=rtol * 5):
+            raise AssertionError(f"{name}: the library calls disagree by {lib_err}")
+
+        ms = device_time_ms(
+            torch, lambda: paged_decode_attention(q, K, V, table, lens), flush)
+        plain_ms = device_time_ms(
+            torch, lambda: paged_decode_attention_plain(q, K, V, table, lens), flush)
+        library_ms = device_time_ms(torch, library, flush)
+        b5_ms = device_time_ms(
+            torch, lambda: fused_decode_step(q, kn, vn, Kc, Vc, lens), flush)
+
+        # what the call must move: each row's k/v rows [0, t] (the pages it
+        # reads up to its length), q, the output, the table entries it
+        # reads and the lengths
+        elt = K.element_size()
+        rows_read = int(lens.long().sum().item()) + S
+        bytes_moved = (elt * (2 * S * Hq * hd + 2 * rows_read * Hkv * hd)
+                       + 4 * int(used.sum().item()) + 4 * S)
+        ops = 4 * rows_read * Hq * hd
+        peak = fig["peak32"] if dtype == torch.float32 else fig["peak16"]
+        t_bytes, t_ops = bytes_moved / fig["bw"], ops / peak
+        row = dict(shape=name, S=S, Hq=Hq, Hkv=Hkv, hd=hd, P=P, M=M, N=N,
+                   dtype=dt, lengths=[int(x) for x in lens.tolist()],
+                   max_abs_err=err, atol=atol, rtol=rtol,
+                   exact_max_abs_err=exact_err, exact_atol=ex_atol,
+                   exact_rtol=ex_rtol, b5_max_abs_diff=b5_err,
+                   library_max_abs_err=lib_err,
+                   library_calls="index gather of the pages + "
+                                 "scaled_dot_product_attention (two calls)",
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   b5_contiguous_ms=b5_ms, bytes=bytes_moved, ops=ops,
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        emit("paged_kernel", **row)
         rows.append(row)
     return rows
 
@@ -1280,20 +1425,33 @@ def reference_check(torch, model, cfg) -> dict:
 
 
 def tick_profile(torch, engine_cls, model, requests: list, tick_ms: float,
-                 slots: int, max_len: int, n_ticks: int = 12) -> dict:
+                 slots: int, max_len: int, n_ticks: int = 12,
+                 kv_policy=None) -> dict:
     """Device time by kernel over a window of steady decode ticks
     (torch.profiler). Runs after the main path and outside its count. The
     profiler slows the host, so the idle share is taken against the
-    unprofiled mean tick ``tick_ms`` of the main run."""
+    unprofiled mean tick ``tick_ms`` of the main run, and against the
+    unprofiled steady tick timed just before the window (``steady``: the
+    main run's mean of a chunked ``kv_policy`` also holds the device time
+    of the prefill chunks queued before each tick). A chunked policy is
+    stepped until every slot decodes first."""
     from torch.profiler import ProfilerActivity, profile
 
-    eng = engine_cls(model, n_slots=slots, max_len=max_len, max_queue=64)
+    eng = engine_cls(model, n_slots=slots, max_len=max_len, max_queue=64,
+                     kv_policy=kv_policy)
     for p, sp in requests[:slots]:
         eng.submit(p, sp)
     eng.step()                      # admission (prefill) + first tick
+    while eng._prefill_state:
+        eng.step()
     for _ in range(2):
         eng.step()
     torch.cuda.synchronize()
+    t0, ticks0 = time.perf_counter(), eng.n_ticks
+    for _ in range(n_ticks):
+        eng.step()
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - t0) / (eng.n_ticks - ticks0) * 1e3
     t0, ticks0 = time.perf_counter(), eng.n_ticks
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_ticks):
@@ -1314,6 +1472,8 @@ def tick_profile(torch, engine_cls, model, requests: list, tick_ms: float,
                 profiled_tick_ms=wall / ticks * 1e3,
                 device_busy_ms_per_tick=busy_ms,
                 device_idle_share=1.0 - busy_ms / tick_ms,
+                steady_tick_ms=steady_ms,
+                device_idle_share_steady=1.0 - busy_ms / steady_ms,
                 kernels_per_tick=launches / ticks,
                 top=[dict(kernel=k[:80], ms_per_tick=dt / ticks / 1e3,
                           calls_per_tick=c / ticks) for dt, k, c in rows[:8]])
@@ -1402,6 +1562,352 @@ def phase_serve(torch) -> dict:
     return served
 
 
+# ---------------------------------------------------------------------------
+# phase 4b: paged KV with prefix sharing and chunked prefill
+# ---------------------------------------------------------------------------
+
+PAGE_TOKENS, PREFILL_CHUNK = 16, 64
+SYSTEM_PROMPTS, SYSTEM_TOKENS = 3, 320
+PAGED_SERVE = [
+    # each at full width with phase 4's seeded weights; LLaMA-3.2-1B paged
+    # goes through the CLI (flags, frontend, JSONL); the contiguous run with
+    # the prefix cache runs B5 where the paged runs run B7
+    dict(label="llama3_2-1B-paged", shape="llama3_2-1B", model="llama3_2",
+         size="1B", dtype="bf16", context=1024, slots=8, paged=True, cli=True),
+    dict(label="gpt2-124M-paged", shape="gpt2-124M", model="GPT2", size="124M",
+         dtype="fp32", context=1024, slots=8, paged=True, cli=False),
+    dict(label="llama3_2-1B-prefix", shape="llama3_2-1B", model="llama3_2",
+         size="1B", dtype="bf16", context=1024, slots=8, paged=False, cli=False),
+]
+
+
+def make_shared_requests(cfg, seed: int, n: int = 24) -> list:
+    """n requests, the many users behind a few system prompts: all but every
+    sixth (from the third on) start with one of SYSTEM_PROMPTS seeded
+    SYSTEM_TOKENS-token system prompts (in turn), the rest share nothing;
+    suffixes of 16-400 tokens, budgets of 32-128, eos ignored, every sixth
+    sampled (top-k 40, T 0.8)."""
+    import numpy as np
+
+    from building_llm_from_scratch_tpu_torch.serving.request import (
+        SamplingParams,
+    )
+
+    rng = np.random.default_rng(seed)
+    V = cfg.vocab_size
+    systems = [rng.integers(0, V, SYSTEM_TOKENS) for _ in range(SYSTEM_PROMPTS)]
+    out = []
+    for i in range(n):
+        sampled = i % 6 == 5
+        sp = SamplingParams(max_new_tokens=int(rng.integers(32, 129)),
+                            temperature=0.8 if sampled else 0.0,
+                            top_k=40 if sampled else None, seed=2000 + i,
+                            ignore_eos=True)
+        suffix = rng.integers(0, V, int(rng.integers(16, 401)))
+        head = (rng.integers(0, V, SYSTEM_TOKENS) if i % 6 == 2
+                else systems[i % SYSTEM_PROMPTS])
+        out.append((np.concatenate([head, suffix]).tolist(), sp))
+    return out
+
+
+def paged_policy(paged: bool):
+    from building_llm_from_scratch_tpu_torch.serving.kvcache import (
+        KVCachePolicy,
+    )
+
+    return KVCachePolicy(prefix_cache=True, prefill_chunk=PREFILL_CHUNK,
+                         paged=paged, page_tokens=PAGE_TOKENS)
+
+
+def serve_cli(torch, m: dict, requests: list, workdir: str):
+    """``main.run --mode serve`` with the paging flags on a JSONL of the
+    requests; returns (engine, result records)."""
+    from building_llm_from_scratch_tpu_torch import main as tmain
+
+    src = os.path.join(workdir, f"{m['label']}.jsonl")
+    dst = os.path.join(workdir, f"{m['label']}.out.jsonl")
+    with open(src, "w") as f:
+        for p, sp in requests:
+            f.write(json.dumps({
+                "prompt_ids": p, "max_new_tokens": sp.max_new_tokens,
+                "temperature": sp.temperature, "top_k": sp.top_k,
+                "seed": sp.seed, "ignore_eos": sp.ignore_eos}) + "\n")
+    engine = tmain.run([
+        "--mode", "serve", "--model", m["model"], "--num_params", m["size"],
+        "--data_type", m["dtype"], "--target_context_length", str(m["context"]),
+        "--seed", "0", "--serve_prompts", src, "--serve_out", dst,
+        "--serve_slots", str(m["slots"]), "--serve_max_len", str(m["context"]),
+        "--serve_max_queue", "64", "--serve_kv_paged", "on",
+        "--serve_prefix_cache", "on",
+        "--serve_kv_page_tokens", str(PAGE_TOKENS)])
+    with open(dst) as f:
+        return engine, [json.loads(line) for line in f]
+
+
+def paged_reference_check(torch, model, cfg) -> dict:
+    """``reference_check`` through the paged functions: a chunked prefill
+    and decode ticks over a pool with shuffled pages on the card (B7)
+    against the same functions on the CPU in fp32 (the twin), teacher-forced
+    on the card's greedy tokens; the CPU reference run again with the decode
+    attention zeroed must fall outside the bound."""
+    import building_llm_from_scratch_tpu_torch.models.transformer as ttf
+    from building_llm_from_scratch_tpu_torch.models.transformer import (
+        Transformer,
+        init_slot_cache,
+        paged_decode_slots,
+        paged_prefill_chunk_into_slot,
+    )
+
+    ref_cfg = cfg.replace(dtype="fp32")
+    ref = Transformer(ref_cfg, {k: v.float().cpu()
+                                for k, v in model.flat_params().items()})
+    pol = paged_policy(True)
+    S, Tmax, Tp = 2, 64, 20
+    gen = torch.Generator().manual_seed(8)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PREFILL_CHUNK), generator=gen)
+    prompt[0, Tp:] = 0
+    table = torch.tensor([[7, 2, 5, 0], [3, 8, 1, 0]], dtype=torch.int32)
+    dev_cache = init_slot_cache(cfg, S, Tmax, "cuda", policy=pol)
+    ref_cache = init_slot_cache(ref_cfg, S, Tmax, "cpu", policy=pol)
+    for slot in range(S):
+        a = paged_prefill_chunk_into_slot(model, prompt.cuda(), 0, Tp,
+                                          table[slot:slot + 1].cuda(),
+                                          dev_cache, Tmax)
+        b = paged_prefill_chunk_into_slot(ref, prompt, 0, Tp,
+                                          table[slot:slot + 1], ref_cache, Tmax)
+    ablated_cache = {k: [t.clone() for t in v] for k, v in ref_cache.items()}
+    toks = a.argmax().cpu().view(1, 1).repeat(S, 1)
+    lengths = torch.full((S,), Tp, dtype=torch.int32)
+    pairs, ablated = [(a.cpu(), b)], []
+    twin = ttf.paged_decode_attention_plain
+
+    def no_attention(*args, **kw):
+        return torch.zeros_like(twin(*args, **kw))
+
+    for _ in range(4):
+        a = paged_decode_slots(model, toks.cuda(), lengths.cuda(), table.cuda(),
+                               dev_cache, Tmax)
+        b = paged_decode_slots(ref, toks, lengths, table, ref_cache, Tmax)
+        ttf.paged_decode_attention_plain = no_attention
+        try:
+            c = paged_decode_slots(ref, toks, lengths, table, ablated_cache, Tmax)
+        finally:
+            ttf.paged_decode_attention_plain = twin
+        pairs.append((a.cpu(), b))
+        ablated.append((c, b))
+        toks = a.argmax(-1).cpu().view(S, 1)
+        lengths += 1
+    card, control = _agreement(torch, pairs), _agreement(torch, ablated)
+    result = dict(card=card, no_attention_control=control,
+                  bound="max_abs<=1e-3" if cfg.dtype == "fp32"
+                  else "cosine>=0.9995 and max_abs<=0.1*rms(ref)")
+    if not _within(cfg, card):
+        raise AssertionError(f"{cfg.name}: paged card logits off the fp32 CPU "
+                             f"reference: {result}")
+    if _within(cfg, control):
+        raise AssertionError(f"{cfg.name}: the paged reference bound does not "
+                             f"catch a model without decode attention: {result}")
+    return result
+
+
+def prefill_hits_timing(torch, engine_cls, model, requests: list, slots: int,
+                        max_len: int) -> dict:
+    """Prefill alone (each request cut to one new token, its first), over
+    the requests that share a system prompt: with the prefix cache warmed by
+    one request per system prompt, and with paging but no prefix cache.
+    Host clock to a synchronised end; outside the main path's count."""
+    import dataclasses
+
+    shared = [(i % SYSTEM_PROMPTS, (p, dataclasses.replace(sp, max_new_tokens=1)))
+              for i, (p, sp) in enumerate(requests) if i % 6 != 2]
+    firsts = {}
+    for k, (system, _) in enumerate(shared):
+        firsts.setdefault(system, k)
+    warm = [r for k, (_, r) in enumerate(shared) if k in firsts.values()]
+    rest = [r for k, (_, r) in enumerate(shared) if k not in firsts.values()]
+    out = {}
+    for name, pol in (("hits", paged_policy(True)),
+                      ("no_prefix_cache", dataclasses.replace(
+                          paged_policy(True), prefix_cache=False))):
+        eng = engine_cls(model, n_slots=slots, max_len=max_len, max_queue=64,
+                         kv_policy=pol)
+        for p, sp in warm:
+            eng.submit(p, sp)
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p, sp in rest:
+            eng.submit(p, sp)
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        st = eng.stats()
+        out[name] = dict(seconds=seconds, prefill_chunks=st["prefill_chunks"],
+                         prefix_hits=st.get("prefix_store", {}).get("hits", 0))
+        if eng.prefix_store is not None:
+            out["cached_tokens"] = sum(eng.prefix_store.storable_span(len(p))
+                                       for p, _ in rest)
+    if out["hits"]["prefix_hits"] != len(rest):
+        raise AssertionError(f"prefill timing: {out}")
+    out.update(requests=len(rest), prompt_tokens=sum(len(p) for p, _ in rest),
+               speedup=out["no_prefix_cache"]["seconds"] / out["hits"]["seconds"])
+    return out
+
+
+def paired_ticks(torch, engine_cls, model, requests: list, slots: int,
+                 max_len: int, rounds: int = 6, window: int = 8) -> dict:
+    """Steady decode ticks of the contiguous chunked engine (B5) and the
+    paged one (B7) on the same model and requests, in alternating windows
+    (contiguous, paged, paged, contiguous, ...) so both see the same host:
+    host clock over ``window`` synchronised ticks, medians over ``rounds``
+    windows each. Outside the main path's count; each engine's own prefill
+    runs before the first window, and no request ends inside the windows."""
+    import dataclasses
+
+    engines = {}
+    for name, paged in (("contiguous", False), ("paged", True)):
+        eng = engine_cls(model, n_slots=slots, max_len=max_len, max_queue=64,
+                         kv_policy=paged_policy(paged))
+        for p, sp in requests[:slots]:
+            eng.submit(p, dataclasses.replace(sp, max_new_tokens=max_len - len(p)))
+        while eng._prefill_state or not eng.n_ticks:
+            eng.step()
+        engines[name] = eng
+    times = {name: [] for name in engines}
+    order = ["contiguous", "paged"]
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            eng = engines[name]
+            torch.cuda.synchronize()
+            t0, n0 = time.perf_counter(), eng.n_ticks
+            for _ in range(window):
+                eng.step()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) / (eng.n_ticks - n0) * 1e3)
+    out = {f"{k}_tick_ms": statistics.median(v) for k, v in times.items()}
+    out.update({f"{k}_windows_ms": v for k, v in times.items()},
+               ratio=out["paged_tick_ms"] / out["contiguous_tick_ms"],
+               rounds=rounds, window_ticks=window)
+    return out
+
+
+def phase_serve_paged(torch, workdir: str) -> dict:
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+    from building_llm_from_scratch_tpu_torch.models.transformer import build_model
+    from building_llm_from_scratch_tpu_torch.ops.decode_step import (
+        fused_decode_step,
+        paged_decode_attention,
+    )
+    from building_llm_from_scratch_tpu_torch.serving.engine import DecodeEngine
+
+    served = {}
+    for m in PAGED_SERVE:
+        dt, slots, max_len = m["dtype"], m["slots"], m["context"]
+        cfg = get_config(m["model"], m["size"], dtype=dt,
+                         target_context_length=m["context"])
+        requests = make_shared_requests(cfg, seed=5)
+        pol = paged_policy(m["paged"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fused_decode_step.launches = 0              # the main path's count
+        paged_decode_attention.launches = 0
+        t0 = time.perf_counter()
+        if m["cli"]:
+            engine, records = serve_cli(torch, m, requests, workdir)
+            outputs = [r.get("token_ids") for r in records]
+            ttft = [r.get("ttft_s") for r in records]
+            reasons = [r.get("finish_reason") for r in records]
+        else:
+            model = build_model(cfg, seed=0, device="cuda")
+            engine = DecodeEngine(model, n_slots=slots, max_len=max_len,
+                                  max_queue=64, kv_policy=pol)
+            handles = serve(engine, requests)
+            outputs = [h.output_ids for h in handles]
+            ttft = [h.ttft_s() for h in handles]
+            reasons = [h.finish_reason for h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b5, b7 = fused_decode_step.launches, paged_decode_attention.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        model = engine.model
+
+        st = engine.stats()
+        for i, ((p, sp), out, why) in enumerate(zip(requests, outputs, reasons)):
+            if why != "length" or len(out) != sp.max_new_tokens:
+                raise AssertionError(f"{m['label']}: request {i} ended {why} "
+                                     f"after {len(out or [])}/{sp.max_new_tokens}")
+        if st["requests_failed"] or st["requests_finished"] != len(requests):
+            raise AssertionError(f"{m['label']}: {st}")
+        hits = st["prefix_store"]["hits"]
+        if hits < len(requests) - len(requests) // 6 - SYSTEM_PROMPTS:
+            raise AssertionError(f"{m['label']}: {hits} prefix hits: "
+                                 f"{st['prefix_store']}")
+        ticks = st["n_ticks"]
+        want = ((0, cfg.n_layers * ticks) if m["paged"]
+                else (cfg.n_layers * ticks, 0))
+        if (b5, b7) != want or ticks == 0:
+            raise AssertionError(f"{m['label']}: B5/B7 launches {(b5, b7)} for "
+                                 f"{cfg.n_layers} layers x {ticks} ticks")
+        if m["paged"]:
+            pool = st["page_pool"]
+            stored = {p for e in engine.prefix_store._entries.values()
+                      for p in e.pages}
+            if st["pane_copies"] or pool["used"] != len(stored) or pool["reserved"]:
+                raise AssertionError(f"{m['label']}: pane copies "
+                                     f"{st['pane_copies']}, pool {pool}, "
+                                     f"{len(stored)} stored pages")
+        elif st["pane_copies"] != hits:
+            raise AssertionError(f"{m['label']}: {st['pane_copies']} pane copies "
+                                 f"for {hits} hits")
+
+        # slot independence and hit = recompute: three greedy requests alone
+        # in a fresh engine (empty store, so each prefills its whole prompt)
+        greedy = [i for i, (_, sp) in enumerate(requests)
+                  if sp.temperature == 0 and i % 6 != 2][:3]
+        solo_engine = DecodeEngine(model, n_slots=slots, max_len=max_len,
+                                   kv_policy=pol)
+        for i in greedy:
+            solo = serve(solo_engine, [requests[i]])[0]
+            if solo.output_ids != outputs[i]:
+                raise AssertionError(f"{m['label']}: request {i} alone gave "
+                                     "other tokens than co-batched")
+        row = dict(label=m["label"], model=cfg.name, dtype=dt,
+                   layers=cfg.n_layers, slots=slots, max_len=max_len,
+                   paged=m["paged"], page_tokens=PAGE_TOKENS if m["paged"] else None,
+                   prefill_chunk=PREFILL_CHUNK, cli=m["cli"],
+                   requests=len(requests),
+                   prompt_tokens=sum(len(p) for p, _ in requests),
+                   new_tokens=st["tokens_generated"], wall_s=wall,
+                   decode_ticks=ticks, b5_launches=b5, b7_launches=b7,
+                   decode_tokens_per_s=st["decode_tokens"] / st["decode_seconds"],
+                   mean_tick_ms=st["decode_seconds"] / ticks * 1e3,
+                   prefill_s=st["prefill_seconds"], decode_s=st["decode_seconds"],
+                   prefill_chunks=st["prefill_chunks"],
+                   ttft_p50_s=statistics.median(ttft), ttft_max_s=max(ttft),
+                   prefix_store=st["prefix_store"], page_pool=st.get("page_pool"),
+                   pane_copies=st["pane_copies"],
+                   slot_independence=f"{len(greedy)} requests",
+                   max_memory_gb=peak_gb)
+        if m["paged"]:
+            row["reference"] = paged_reference_check(torch, model, cfg)
+        if m["cli"]:
+            row["prefill_with_and_without_hits"] = prefill_hits_timing(
+                torch, DecodeEngine, model, requests, slots, max_len)
+            row["tick_profile"] = tick_profile(
+                torch, DecodeEngine, model, requests, row["mean_tick_ms"],
+                slots, max_len, kv_policy=pol)
+            row["paired_ticks"] = paired_ticks(torch, DecodeEngine, model,
+                                               requests, slots, max_len)
+        emit("serve_paged", **row)
+        served[m["label"]] = dict(
+            launches=b7 if m["paged"] else b5, shape=m["shape"], paged=m["paged"],
+            dims=(slots, cfg.n_heads, cfg.n_kv_groups, cfg.head_dim,
+                  PAGE_TOKENS, max_len // PAGE_TOKENS, dt))
+        del model, engine, solo_engine
+        torch.cuda.empty_cache()
+    return served
+
+
 def main() -> int:
     try:
         import torch
@@ -1423,14 +1929,17 @@ def main() -> int:
     card = phase_env(torch)
     phase_build()
     rows = phase_kernel(torch, card)
+    paged_rows = phase_paged_kernel(torch, card, rows)
     # serving runs before training: its ticks are host-bound, and a clean
     # process keeps them comparable with earlier runs
     served = phase_serve(torch)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here) as workdir:
+        served_paged = phase_serve_paged(torch, workdir)
     attn_rows = phase_attention(torch, card)
     drop_attn_rows = phase_attention_dropout(torch, card)
     dropout_rows = phase_dropout(torch, card)
     xent_row = phase_xent(torch, card)
-    here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(dir=here) as workdir:
         trained = phase_train(torch, card, os.path.join(workdir, "llama"), TRAIN)
         trained_gpt2 = phase_train(torch, card, os.path.join(workdir, "gpt2"),
@@ -1450,6 +1959,21 @@ def main() -> int:
                     kernel_ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"]) for r in rows]
+    paged_runs = {v["shape"]: v for v in served_paged.values() if v["paged"]}
+    for r in paged_rows:
+        run = paged_runs[r["shape"]]
+        dims = (r["S"], r["Hq"], r["Hkv"], r["hd"], r["P"], r["M"], r["dtype"])
+        if run["dims"] != dims:
+            raise AssertionError(f"{r['shape']}: served paged at {run['dims']}, "
+                                 f"not {dims}")
+        kernels.append(dict(
+            name=f"paged_decode_attention[{r['shape']}]", route="cuda",
+            source="building_llm_from_scratch_tpu_torch/csrc/paged_decode.cu",
+            replaces="building_llm_from_scratch_tpu/ops/decode_step.py:259",
+            launches=run["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            b5_contiguous_ms=r["b5_contiguous_ms"]))
     replaces = {"fwd": ("flash_attention_fwd",
                         "building_llm_from_scratch_tpu/ops/fused_attention.py:75"),
                 "dq": ("flash_attention_dq",

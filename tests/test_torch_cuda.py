@@ -1,7 +1,8 @@
-"""Tests of the port that need an NVIDIA GPU: the CUDA decode-step,
-flash-attention (with and without dropout), fused-dropout and
-vocab-streamed cross-entropy kernels against their plain twins, the serving
-engine and LLaMA and GPT-2 training steps on the card. They skip on a
+"""Tests of the port that need an NVIDIA GPU: the CUDA decode-step, paged
+decode-attention, flash-attention (with and without dropout), fused-dropout
+and vocab-streamed cross-entropy kernels against their plain twins, the
+serving engine (contiguous and paged) and LLaMA and GPT-2 training steps on
+the card. They skip on a
 machine without CUDA. This file imports neither JAX nor the JAX package, so
 it also runs where JAX is not installed:
 
@@ -133,6 +134,173 @@ def test_engine_on_the_card(cuda):
         h = solo.submit(*reqs[i])
         solo.run_until_idle()
         assert h.output_ids == handles[i].output_ids
+
+
+def paged_inputs(dev, S, Hq, Hkv, hd, P, M, dtype, seed=0):
+    """q, pools and a page table over shuffled page ids: rows share their
+    first page (a prefix hit), trailing entries point at the trash page 0,
+    row 0 has length 0 and row 1 ends one short of a page boundary
+    (length + 1 == k P). Page 0 holds garbage, as the trash page does."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    N = S * M + 1
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)  # noqa: E731
+    q, K, V = rnd(S, 1, Hq, hd), rnd(N, Hkv, P, hd), rnd(N, Hkv, P, hd)
+    ids = (torch.randperm(N - 1, generator=gen, device=dev) + 1).to(torch.int32)
+    table = ids[:S * M].view(S, M).clone()
+    table[:, 0] = table[0, 0]                          # shared prefix page
+    lens = torch.tensor([0, 3 * P - 1] + [int(x) for x in torch.randint(
+        1, M * P, (S - 2,), generator=gen, device=dev)], dtype=torch.int32,
+        device=dev)
+    for s in range(S):
+        used = int(lens[s]) // P + 1
+        table[s, used:] = 0                            # unmapped -> trash
+    return q, K, V, table.contiguous(), lens
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [5, 16, 64])
+@pytest.mark.parametrize("Hq,Hkv,hd", [(8, 2, 64), (4, 4, 128)])
+def test_paged_kernel_matches_twin(cuda, dtype, P, Hq, Hkv, hd):
+    """B7 against its twin (``paged_view`` + ``decode_attention``) and the
+    exact fp32 result, at the decode kernel's tolerances."""
+    S, M = 5, max(4, 320 // P)
+    q, K, V, table, lens = paged_inputs(cuda, S, Hq, Hkv, hd, P, M, dtype)
+    before = tds.paged_decode_attention.launches
+    out = tds.paged_decode_attention(q, K, V, table, lens)
+    torch.cuda.synchronize()
+    assert tds.paged_decode_attention.launches == before + 1
+    assert torch.isfinite(out).all() and out.dtype == dtype
+    ref = tds.paged_decode_attention_plain(q, K, V, table, lens)
+    atol, rtol = TWIN_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    exact = tds.paged_decode_attention_plain(q.float(), K.float(), V.float(),
+                                             table, lens)
+    atol, rtol = EXACT_TOL[dtype]
+    torch.testing.assert_close(out.float(), exact, atol=atol, rtol=rtol)
+    # a table that reads the wrong pages must fail the bound
+    wrong = tds.paged_decode_attention_plain(q.float(), K.float(), V.float(),
+                                             table.roll(1, 0), lens)
+    assert not torch.allclose(out.float(), wrong, atol=atol, rtol=rtol)
+
+
+def test_paged_kernel_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros(2, 1, 4, 256, device=cuda)           # hd 256
+    K = torch.zeros(5, 2, 16, 256, device=cuda)
+    table = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
+    lens = torch.zeros(2, dtype=torch.int32, device=cuda)
+    before = tds.paged_decode_attention.launches
+    with pytest.raises(ValueError):
+        tds.paged_decode_attention(q, K, K.clone(), table, lens)
+    q, K = q[..., :64].contiguous(), K[..., :64].contiguous()
+    with pytest.raises(TypeError):                       # int64 table
+        tds.paged_decode_attention(q, K, K.clone(), table.long(), lens)
+    assert tds.paged_decode_attention.launches == before
+
+
+def _paged_cfg(**kw):
+    return get_config("llama3_2", "1B", dtype="fp32").replace(
+        emb_dim=256, n_heads=4, n_kv_groups=2, n_layers=2, hidden_dim=512,
+        vocab_size=512, context_length=128).replace(**kw)
+
+
+def test_paged_decode_slots_launches_b7_per_layer(cuda):
+    """A decode step over a pool on the card launches B7 once per layer and
+    B5 never; its fp32 logits agree with the CPU twin's on the same state
+    (1e-3 absolute, phase 4's fp32 reference bound)."""
+    from building_llm_from_scratch_tpu_torch.models.transformer import (
+        Transformer,
+        init_slot_cache,
+        paged_decode_slots,
+    )
+    from building_llm_from_scratch_tpu_torch.serving.kvcache import (
+        KVCachePolicy,
+    )
+
+    cfg = _paged_cfg(n_layers=3)
+    model = build_model(cfg, seed=0, device=cuda)
+    cpu = Transformer(cfg, {k: v.cpu() for k, v in model.flat_params().items()})
+    pol = KVCachePolicy(paged=True, page_tokens=8, prefill_chunk=16)
+    cache = init_slot_cache(cfg, 3, 64, cuda, policy=pol)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for bufs in cache.values():
+        for b in bufs:
+            b.normal_(generator=gen)
+    cpu_cache = {k: [b.cpu() for b in v] for k, v in cache.items()}
+    table = torch.tensor([[3, 4, 0, 0, 0, 0, 0, 0], [3, 5, 6, 0, 0, 0, 0, 0],
+                          [0] * 8], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([12, 20, 0], dtype=torch.int32, device=cuda)
+    toks = torch.tensor([[7], [9], [0]], device=cuda)
+    b5, b7 = tds.fused_decode_step.launches, tds.paged_decode_attention.launches
+    got = paged_decode_slots(model, toks, lens, table, cache, 64)
+    torch.cuda.synchronize()
+    assert tds.paged_decode_attention.launches == b7 + cfg.n_layers
+    assert tds.fused_decode_step.launches == b5
+    ref = paged_decode_slots(cpu, toks.cpu(), lens.cpu(), table.cpu(),
+                             cpu_cache, 64)
+    torch.testing.assert_close(got.cpu()[:2], ref[:2], atol=1e-3, rtol=1e-4)
+
+
+def test_paged_engine_on_the_card(cuda):
+    """Paged prefix-sharing serving on the card (fp32): B7 launches = layers
+    x decode ticks and B5 none, prefix hits are page-table writes (no pane
+    copy), greedy tokens equal the contiguous chunked engine's and a
+    request's alone, and the idle pool holds only the store's pages."""
+    from building_llm_from_scratch_tpu_torch.serving.kvcache import (
+        KVCachePolicy,
+    )
+
+    cfg = _paged_cfg()
+    model = build_model(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, 512, 40).tolist()
+    reqs = [(prefix + rng.integers(0, 512, n).tolist(),
+             SamplingParams(max_new_tokens=m, temperature=0.7 if i % 3 == 2 else 0.0,
+                            top_k=8, seed=i, ignore_eos=True))
+            for i, (n, m) in enumerate([(3, 9), (30, 12), (11, 7), (50, 20),
+                                        (1, 5)])]
+    paged = KVCachePolicy(paged=True, page_tokens=8, prefill_chunk=16,
+                          prefix_cache=True)
+    contiguous = KVCachePolicy(prefill_chunk=16, prefix_cache=True)
+    outs = {}
+    for name, pol in (("paged", paged), ("contiguous", contiguous)):
+        eng = DecodeEngine(model, n_slots=3, max_len=128, kv_policy=pol)
+        tds.fused_decode_step.launches = tds.paged_decode_attention.launches = 0
+        handles = [eng.submit(p, sp) for p, sp in reqs]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        st = eng.stats()
+        kernel = (tds.paged_decode_attention if name == "paged"
+                  else tds.fused_decode_step)
+        other = (tds.fused_decode_step if name == "paged"
+                 else tds.paged_decode_attention)
+        assert kernel.launches == cfg.n_layers * eng.n_ticks > 0
+        assert other.launches == 0
+        assert st["prefix_store"]["hits"] >= 2      # requests 3 and 4
+        outs[name] = [h.output_ids for h in handles]
+        assert [len(o) for o in outs[name]] == [9, 12, 7, 20, 5]
+        if name == "paged":
+            assert st["pane_copies"] == 0
+            stored = {p for e in eng.prefix_store._entries.values()
+                      for p in e.pages}
+            assert st["page_pool"]["used"] == len(stored) > 0
+            assert st["page_pool"]["reserved"] == 0
+            solo = DecodeEngine(model, n_slots=3, max_len=128, kv_policy=pol)
+            h = solo.submit(*reqs[1])
+            solo.run_until_idle()
+            assert h.output_ids == handles[1].output_ids
+    greedy = [i for i, (_, sp) in enumerate(reqs) if sp.temperature == 0]
+    assert [outs["paged"][i] for i in greedy] == [outs["contiguous"][i] for i in greedy]
+
+
+def test_paged_engine_refuses_head_dims_b7_cannot_take(cuda):
+    from building_llm_from_scratch_tpu_torch.serving.kvcache import (
+        KVCachePolicy,
+    )
+
+    model = build_model(_paged_cfg(emb_dim=64), seed=0, device=cuda)  # hd 16
+    with pytest.raises(ValueError, match="CUDA paged decode-attention kernel"):
+        DecodeEngine(model, n_slots=2, kv_policy=KVCachePolicy(
+            paged=True, page_tokens=8, prefill_chunk=16))
 
 
 # Flash-attention kernels (B1 forward, B2a dq, B2b per-query-head dk/dv)

@@ -104,9 +104,9 @@ def test_cli_rejects_unported_jax_flags_by_name(tmp_path, capsys):
     req = str(_requests(tmp_path))
     with pytest.raises(SystemExit):
         get_args(["--mode", "serve", "--serve_prompts", req,
-                  "--serve_port", "8000", "--serve_kv_paged=on"])
+                  "--serve_port", "8000", "--serve_kv_quant=int8"])
     err = capsys.readouterr().err
-    assert "--serve_port" in err and "--serve_kv_paged" in err
+    assert "--serve_port" in err and "--serve_kv_quant" in err
     with pytest.raises(ValueError, match="not ported"):
         get_args(["--mode", "finetune_fleet", "--serve_prompts", req])
     args = get_args(["--mode", "serve", "--serve_prompts", req])
