@@ -20,8 +20,8 @@ UNPORTED_FLAGS = (
     "--serve_replicas", "--serve_workers",
     "--serve_tp", "--serve_sp", "--serve_max_prompt", "--serve_port",
     "--serve_host", "--drain_timeout", "--serve_tick_timeout",
-    "--serve_max_restarts", "--serve_deadline_s", "--serve_adapters",
-    "--serve_adapter_slots", "--serve_metrics_every", "--serve_kv_quant",
+    "--serve_max_restarts", "--serve_deadline_s",
+    "--serve_metrics_every", "--serve_kv_quant",
     "--serve_spec_k",
     "--fleet_jobs", "--fleet_rows_per_job", "--fleet_capacity",
     "--fleet_export_dir", "--fleet_style",
@@ -45,8 +45,11 @@ QUEUE_ITEMS = {
     "--grad_accum": "queue 1, gradient accumulation",
     "--resume": "queue 1, train-state checkpoints",
     "--resume_from": "queue 1, train-state checkpoints",
-    "--finetune": "queue 1, LLaMA LoRA SFT",
-    "--use_lora": "queue 1, LLaMA LoRA SFT",
+    "--finetune": "queue 1 item 2, LLaMA LoRA SFT",
+    "--use_lora": "queue 1 item 2, LLaMA LoRA SFT",
+    "--lora_rank": "queue 1 item 2, LLaMA LoRA SFT",
+    "--lora_alpha": "queue 1 item 2, LLaMA LoRA SFT",
+    "--save_adapter": "queue 1 item 2, LLaMA LoRA SFT",
     "--tokenizer_path": "queue 1, tokenizers",
     "--load_weights": "queue 1, HF weight loading",
     "--serve_kv_quant": "queue 1 item 5, int8 KV",
@@ -140,6 +143,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve_kv_page_tokens", type=int, default=16,
                    help="Tokens per KV page when --serve_kv_paged on; the "
                         "prefill chunk must be a whole number of pages.")
+    p.add_argument("--serve_adapters", type=str, default=None,
+                   help="Multi-tenant LoRA serving: comma-separated name=path "
+                        "pairs of adapter artifacts (models.lora.save_adapter "
+                        ".npz files of either package) loaded into the "
+                        "engine's stacked adapter pool. Requests pick one "
+                        "with their 'adapter' field; base-model traffic "
+                        "co-batches with any adapter mix.")
+    p.add_argument("--serve_adapter_slots", type=int, default=0,
+                   help="Adapter-pool capacity (rows) for --serve_adapters; "
+                        "hot-loads beyond it are refused. 0 = number of "
+                        "listed adapters + 1 spare row.")
     return p
 
 
@@ -191,7 +205,8 @@ _SERVE_DEFAULTS = (
     ("serve_max_len", 0), ("serve_max_top_k", 64),
     ("serve_prefix_cache", "off"), ("serve_prefill_chunk", 0),
     ("serve_prefix_budget_mb", 256.0), ("serve_kv_paged", "off"),
-    ("serve_kv_page_tokens", 16),
+    ("serve_kv_page_tokens", 16), ("serve_adapters", None),
+    ("serve_adapter_slots", 0),
 )
 
 
@@ -213,6 +228,24 @@ def _check_serve(args) -> None:
         raise ValueError("--serve_prefix_budget_mb must be > 0.")
     if args.serve_kv_page_tokens < 1:
         raise ValueError("--serve_kv_page_tokens must be >= 1.")
+    if args.serve_adapter_slots < 0:
+        raise ValueError("--serve_adapter_slots must be >= 0 "
+                         "(0 = sized to the listed adapters).")
+    if args.serve_adapters:
+        from building_llm_from_scratch_tpu_torch.serving.frontend import (
+            parse_adapter_specs,
+        )
+
+        specs = parse_adapter_specs(args.serve_adapters)
+        if 0 < args.serve_adapter_slots < len(specs):
+            raise ValueError(
+                f"--serve_adapter_slots {args.serve_adapter_slots} cannot hold "
+                f"the {len(specs)} adapters listed in --serve_adapters.")
+        for name, path in specs.items():
+            if not os.path.isfile(path):
+                raise FileNotFoundError(
+                    f"--serve_adapters '{name}': artifact '{path}' does not "
+                    "exist.")
     if args.serve_kv_paged == "on":
         chunk = args.serve_prefill_chunk or 64
         if chunk % args.serve_kv_page_tokens != 0:

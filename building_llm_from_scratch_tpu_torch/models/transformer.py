@@ -30,9 +30,15 @@ the fused kernel B5 and the paged one through the paged attention kernel B7
 (``ops/decode_step.py``) for caches on the card, and through their plain
 twins on the CPU. The paged k/v scatters and the chunks' attention are
 plain tensor code, as the JAX package leaves them to XLA.
-``forward_with_cache`` is the one-shot ``generate()``'s cached forward, with
-``decode_attention`` over the cache as the JAX default does. No adapters,
-no int8 caches.
+The serving functions take an optional ``adapter`` (a stacked pool of
+LoRA adapters and each row's pool row, ``serving/adapters.py``) applied
+unmerged at every adapted projection and the head. ``decode_slots`` sends
+the block projections' deltas through the kernel B6 (``lora_bgmv``), as
+the JAX package's ``_bgmv_block_adp`` does; the other slot functions
+gather each row's adapter and apply it with plain products, as the JAX
+package does by default. ``forward_with_cache`` is the one-shot
+``generate()``'s cached forward, with ``decode_attention`` over the cache
+as the JAX default does. No int8 caches.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import torch
 from torch import nn
 
 from building_llm_from_scratch_tpu_torch.configs import ModelConfig
+from building_llm_from_scratch_tpu_torch.models.lora import apply_lora, lora_delta
 from building_llm_from_scratch_tpu_torch.ops.activations import gelu, silu
 from building_llm_from_scratch_tpu_torch.ops.attention import (
     causal_attention,
@@ -265,11 +272,26 @@ def _embed(model: Transformer, tokens: torch.Tensor,
     return x
 
 
+def _adp_nodes(adp: Optional[dict]):
+    """(node lookup, scale) of one group's adapter argument; no adapter
+    gives None nodes, the exact base projection."""
+    if adp is None:
+        return (lambda _: None), None
+    return adp.get, adp["s"]
+
+
 def _qkv_proj(cfg: ModelConfig, p: ParamGroup, x: torch.Tensor, rope,
-              positions: torch.Tensor):
+              positions: torch.Tensor, adp: Optional[dict] = None):
+    """q/k/v projections (+ biases, head reshape, RoPE). ``adp``: the
+    attention group's unmerged LoRA nodes (wq/wk/wv + ``"s"``), applied
+    before the biases, the reshape and RoPE, where a merged weight's delta
+    would land."""
     B, Tq, _ = x.shape
     hd = cfg.head_dim
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    n, s = _adp_nodes(adp)
+    q = apply_lora(x, p.wq, n("wq"), s)
+    k = apply_lora(x, p.wk, n("wk"), s)
+    v = apply_lora(x, p.wv, n("wv"), s)
     if p.has("bq"):
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = q.reshape(B, Tq, -1, hd)
@@ -282,20 +304,26 @@ def _qkv_proj(cfg: ModelConfig, p: ParamGroup, x: torch.Tensor, rope,
     return q, k, v
 
 
-def _attn_out_proj(p: ParamGroup, out: torch.Tensor, B: int, Tq: int) -> torch.Tensor:
-    out = out.reshape(B, Tq, -1) @ p.wo
+def _attn_out_proj(p: ParamGroup, out: torch.Tensor, B: int, Tq: int,
+                   adp: Optional[dict] = None) -> torch.Tensor:
+    n, s = _adp_nodes(adp)
+    out = apply_lora(out.reshape(B, Tq, -1), p.wo, n("wo"), s)
     if p.has("bo"):
         out = out + p.bo
     return out
 
 
-def _mlp(cfg: ModelConfig, p: ParamGroup, x: torch.Tensor) -> torch.Tensor:
+def _mlp(cfg: ModelConfig, p: ParamGroup, x: torch.Tensor,
+         adp: Optional[dict] = None) -> torch.Tensor:
+    n, s = _adp_nodes(adp)
     if cfg.activation == "swiglu":
-        return (silu(x @ p.gate) * (x @ p.up)) @ p.down
-    h = x @ p.up
+        g = apply_lora(x, p.gate, n("gate"), s)
+        u = apply_lora(x, p.up, n("up"), s)
+        return apply_lora(silu(g) * u, p.down, n("down"), s)
+    h = apply_lora(x, p.up, n("up"), s)
     if p.has("b_up"):
         h = h + p.b_up
-    h = gelu(h) @ p.down
+    h = apply_lora(gelu(h), p.down, n("down"), s)
     if p.has("b_down"):
         h = h + p.b_down
     return h
@@ -331,6 +359,76 @@ def _head_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lead = x.shape[:-1]
     out = _HeadLogits.apply(x.reshape(-1, x.shape[-1]), w)
     return out.reshape(*lead, w.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters of the slot functions: ``adapter`` = {"pool": stacked
+# adapter tree (every leaf with a leading (capacity,) axis), "scaling":
+# (capacity,) fp32, "ids": (rows,) int32}, id -1 the base model (exact zero
+# delta). Adapter identity is data: any mix of ids runs the same code.
+# ---------------------------------------------------------------------------
+
+def _tree_map(fn, tree: dict) -> dict:
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _block_adp(lb: dict, s) -> dict:
+    """One layer's adapter argument: the attn/mlp nodes plus the scale."""
+    return {"attn": dict(lb["attn"], s=s), "mlp": dict(lb["mlp"], s=s)}
+
+
+def _adapter_rows(pool: dict, scaling: torch.Tensor, ids: torch.Tensor):
+    """Each row's adapter gathered from the pool: ids clamp into range and
+    a row with id -1 gets scale 0, so its delta is exactly zero whatever
+    the clamped row holds. Returns (gathered tree, (rows,) fp32 scales)."""
+    idx = ids.long().clamp(0, scaling.shape[0] - 1)
+    s = torch.where(ids >= 0, scaling.index_select(0, idx),
+                    torch.zeros((), dtype=scaling.dtype, device=scaling.device))
+    return _tree_map(lambda a: a.index_select(0, idx), pool), s
+
+
+def _slot_adapter_layers(adapter: Optional[dict], cfg: ModelConfig):
+    """(per-layer adapter arguments, head node, scales) of the gathered
+    path; all None without an adapter (the exact base path)."""
+    if adapter is None:
+        return None, None, None
+    rows, s = _adapter_rows(adapter["pool"], adapter["scaling"], adapter["ids"])
+    layers = [_block_adp(_tree_map(lambda a, l=l: a[:, l], rows["blocks"]), s)
+              for l in range(cfg.n_layers)]
+    return layers, rows["head"]["weight"], s
+
+
+def _bgmv_adapter_layers(adapter: dict, cfg: ModelConfig):
+    """``decode_slots``' adapter arguments: every block projection carries
+    its layer's (N, in, r)/(N, r, out) slice of the pool, read in place by
+    B6 (the twin on the CPU), which gathers each row's panes itself; the
+    head's delta stays on the gathered path."""
+    ids, scaling = adapter["ids"], adapter["scaling"]
+    blocks = adapter["pool"]["blocks"]
+
+    def group(name: str, l: int) -> dict:
+        nodes = {proj: {"bgmv": (n["A"][:, l], n["B"][:, l], ids, scaling)}
+                 for proj, n in blocks[name].items()}
+        return dict(nodes, s=None)
+
+    layers = [{"attn": group("attn", l), "mlp": group("mlp", l)}
+              for l in range(cfg.n_layers)]
+    head, s = _adapter_rows({"head": adapter["pool"]["head"]}, scaling, ids)
+    return layers, head["head"]["weight"], s
+
+
+def _logits(x: torch.Tensor, w: torch.Tensor, node: Optional[dict],
+            s) -> torch.Tensor:
+    """fp32 head logits plus the head's LoRA delta in fp32."""
+    logits = _head_logits(x, w)
+    if node is None:
+        return logits
+    return logits + lora_delta(x, node, s).float()
+
+
+def _layer_adp(layers: Optional[list], l: int, group: str) -> Optional[dict]:
+    return None if layers is None else layers[l][group]
 
 
 # ---------------------------------------------------------------------------
@@ -422,11 +520,13 @@ def init_slot_cache(cfg: ModelConfig, n_slots: int, max_length: int,
 
 @torch.no_grad()
 def prefill_into_slot(model: Transformer, tokens: torch.Tensor,
-                      prompt_len: int, slot: int, cache: dict) -> torch.Tensor:
+                      prompt_len: int, slot: int, cache: dict,
+                      adapter: Optional[dict] = None) -> torch.Tensor:
     """Run one prompt (``tokens`` (1, Tpb), right-padded to its bucket) and
     write its k/v panes into row ``slot`` of ``cache`` IN PLACE (positions
     [0, Tpb); pad positions are written as zeros, as in the JAX package).
-    Returns the fp32 logits (V,) at the last real position."""
+    ``adapter`` (ids (1,)): the request's LoRA adapter, gathered. Returns
+    the fp32 logits (V,) at the last real position."""
     cfg = model.cfg
     _, Tpb = tokens.shape
     dev = tokens.device
@@ -434,19 +534,21 @@ def prefill_into_slot(model: Transformer, tokens: torch.Tensor,
     x = _embed(model, tokens, positions)
     valid = (positions < prompt_len)[None, :, None, None]
     kv_len = torch.tensor(prompt_len, device=dev)
-    for blk, K, V in zip(model.blocks, cache["k"], cache["v"]):
+    adp, head_node, head_s = _slot_adapter_layers(adapter, cfg)
+    for l, (blk, K, V) in enumerate(zip(model.blocks, cache["k"], cache["v"])):
         h = blk.norm1(x)
-        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions)
+        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions,
+                            _layer_adp(adp, l, "attn"))
         out = xla_attention(q, k, v, q_positions=positions, kv_length=kv_len)
         k = torch.where(valid, k, torch.zeros((), dtype=k.dtype, device=dev))
         v = torch.where(valid, v, torch.zeros((), dtype=v.dtype, device=dev))
         K[slot, :, :Tpb] = k[0].transpose(0, 1)
         V[slot, :, :Tpb] = v[0].transpose(0, 1)
-        x = x + _attn_out_proj(blk.attn, out, 1, Tpb)
-        x = x + _mlp(cfg, blk.mlp, blk.norm2(x))
+        x = x + _attn_out_proj(blk.attn, out, 1, Tpb, _layer_adp(adp, l, "attn"))
+        x = x + _mlp(cfg, blk.mlp, blk.norm2(x), _layer_adp(adp, l, "mlp"))
     x = model.final_norm(x)
     last = x[:, prompt_len - 1: prompt_len]
-    return _head_logits(last, model.head)[0, 0]
+    return _logits(last, model.head, head_node, head_s)[0, 0]
 
 
 def _chunk_positions(cfg: ModelConfig, chunk_start: int, C: int,
@@ -460,19 +562,20 @@ def _chunk_positions(cfg: ModelConfig, chunk_start: int, C: int,
 
 
 def _chunk_logits(model: Transformer, x: torch.Tensor, chunk_start: int,
-                  prompt_len: int) -> torch.Tensor:
+                  prompt_len: int, head_node=None, head_s=None) -> torch.Tensor:
     """fp32 logits (V,) at the chunk row of position ``prompt_len - 1``,
-    clamped into the chunk."""
+    clamped into the chunk (plus the head's adapter delta)."""
     C = x.shape[1]
     idx = min(max(prompt_len - 1 - chunk_start, 0), C - 1)
     x = model.final_norm(x[:, idx:idx + 1])
-    return _head_logits(x, model.head)[0, 0]
+    return _logits(x, model.head, head_node, head_s)[0, 0]
 
 
 @torch.no_grad()
 def prefill_chunk_into_slot(model: Transformer, tokens: torch.Tensor,
                             chunk_start: int, prompt_len: int, slot: int,
-                            cache: dict) -> torch.Tensor:
+                            cache: dict,
+                            adapter: Optional[dict] = None) -> torch.Tensor:
     """Chunked prefill (the JAX ``prefill_chunk_into_slot``): ``tokens``
     (1, C) are the prompt span [chunk_start, chunk_start + C), right-padded
     past ``prompt_len``, run against row ``slot`` whose positions
@@ -480,8 +583,9 @@ def prefill_chunk_into_slot(model: Transformer, tokens: torch.Tensor,
     prefix pane). The chunk's k/v are written IN PLACE (pad positions as
     zeros; the write start clamps so the chunk fits, like the JAX
     dynamic-update-slice) and the chunk attends over the slot's whole row
-    with ``kv_length = min(chunk_start + C, prompt_len)``. Returns the fp32
-    logits (V,) at position ``prompt_len - 1`` (clamped into the chunk)."""
+    with ``kv_length = min(chunk_start + C, prompt_len)``. ``adapter`` (ids
+    (1,)): the request's LoRA adapter, gathered. Returns the fp32 logits
+    (V,) at position ``prompt_len - 1`` (clamped into the chunk)."""
     cfg = model.cfg
     _, C = tokens.shape
     dev = tokens.device
@@ -491,43 +595,52 @@ def prefill_chunk_into_slot(model: Transformer, tokens: torch.Tensor,
     kv_len = torch.tensor([min(chunk_start + C, prompt_len)], device=dev)
     start = min(max(chunk_start, 0), cache["k"][0].shape[2] - C)
     zero = torch.zeros((), dtype=x.dtype, device=dev)
-    for blk, K, V in zip(model.blocks, cache["k"], cache["v"]):
+    adp, head_node, head_s = _slot_adapter_layers(adapter, cfg)
+    for l, (blk, K, V) in enumerate(zip(model.blocks, cache["k"], cache["v"])):
         h = blk.norm1(x)
-        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, lookup)
+        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, lookup,
+                            _layer_adp(adp, l, "attn"))
         K[slot, :, start:start + C] = torch.where(valid, k, zero)[0].transpose(0, 1)
         V[slot, :, start:start + C] = torch.where(valid, v, zero)[0].transpose(0, 1)
         out = decode_attention(q, K[slot:slot + 1], V[slot:slot + 1],
                                q_positions=positions[None, :], kv_length=kv_len)
-        x = x + _attn_out_proj(blk.attn, out, 1, C)
-        x = x + _mlp(cfg, blk.mlp, blk.norm2(x))
-    return _chunk_logits(model, x, chunk_start, prompt_len)
+        x = x + _attn_out_proj(blk.attn, out, 1, C, _layer_adp(adp, l, "attn"))
+        x = x + _mlp(cfg, blk.mlp, blk.norm2(x), _layer_adp(adp, l, "mlp"))
+    return _chunk_logits(model, x, chunk_start, prompt_len, head_node, head_s)
 
 
 @torch.no_grad()
 def decode_slots(model: Transformer, tokens: torch.Tensor,
-                 lengths: torch.Tensor, cache: dict) -> torch.Tensor:
+                 lengths: torch.Tensor, cache: dict,
+                 adapter: Optional[dict] = None) -> torch.Tensor:
     """One decode tick for the whole slot batch: ``tokens`` (S, 1) are each
     slot's last accepted token and ``lengths`` (S,) int32 its valid prefix.
     Each layer appends its k/v at the row's length and attends, in one fused
     step: the kernel for a cache on the card (which raises on a shape it
     cannot take), its plain twin for a cache on the CPU. The caches are
-    updated IN PLACE. Returns fp32 logits (S, V). Free slots compute rows the
-    engine ignores; the shapes never change."""
+    updated IN PLACE. ``adapter`` (ids (S,) int32): per-slot LoRA adapters;
+    every block projection's delta goes through B6 (``lora_bgmv``: the
+    kernel for a pool on the card, the twin for one on the CPU), the head's
+    through the gathered path. Returns fp32 logits (S, V). Free slots
+    compute rows the engine ignores; the shapes never change."""
     cfg = model.cfg
     S = tokens.shape[0]
     positions = lengths.long()[:, None]
     x = _embed(model, tokens, positions)
     step = (fused_decode_step if cache["k"][0].is_cuda
             else fused_decode_step_plain)
-    for blk, K, V in zip(model.blocks, cache["k"], cache["v"]):
+    adp, head_node, head_s = (_bgmv_adapter_layers(adapter, cfg)
+                              if adapter is not None else (None, None, None))
+    for l, (blk, K, V) in enumerate(zip(model.blocks, cache["k"], cache["v"])):
         h = blk.norm1(x)
-        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions)
+        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions,
+                            _layer_adp(adp, l, "attn"))
         out, _, _ = step(q.contiguous(), k.to(K.dtype).contiguous(),
                          v.to(V.dtype).contiguous(), K, V, lengths)
-        x = x + _attn_out_proj(blk.attn, out, S, 1)
-        x = x + _mlp(cfg, blk.mlp, blk.norm2(x))
+        x = x + _attn_out_proj(blk.attn, out, S, 1, _layer_adp(adp, l, "attn"))
+        x = x + _mlp(cfg, blk.mlp, blk.norm2(x), _layer_adp(adp, l, "mlp"))
     x = model.final_norm(x)
-    return _head_logits(x, model.head)[:, 0]
+    return _logits(x, model.head, head_node, head_s)[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -564,14 +677,16 @@ def _paged_rows(page_table: torch.Tensor, pos: torch.Tensor, P: int, Hkv: int,
 @torch.no_grad()
 def paged_decode_slots(model: Transformer, tokens: torch.Tensor,
                        lengths: torch.Tensor, page_table: torch.Tensor,
-                       cache: dict, cache_len: int) -> torch.Tensor:
+                       cache: dict, cache_len: int,
+                       adapter: Optional[dict] = None) -> torch.Tensor:
     """Paged sibling of ``decode_slots``: each layer scatters the rows' new
     k/v at their lengths through ``page_table`` ((S, M) int32) and attends
     over each row's pages. For pools on the card the attention is always
     the paged kernel B7 (which raises on what it cannot take); on the CPU
     its twin over the ``cache_len``-long row views, whose logits are
-    bit-equal to the contiguous ``decode_slots``'. Returns fp32 logits
-    (S, V)."""
+    bit-equal to the contiguous ``decode_slots``' without adapters.
+    ``adapter`` (ids (S,)): per-slot LoRA adapters, gathered (as the JAX
+    ``paged_decode_slots``). Returns fp32 logits (S, V)."""
     cfg = model.cfg
     S = tokens.shape[0]
     positions = lengths.long()[:, None]
@@ -584,29 +699,33 @@ def paged_decode_slots(model: Transformer, tokens: torch.Tensor,
         def attend(q, K, V, table, lens):
             return paged_decode_attention_plain(q, K, V, table, lens,
                                                 cache_len=cache_len)
-    for blk, K, V in zip(model.blocks, cache["k"], cache["v"]):
+    adp, head_node, head_s = _slot_adapter_layers(adapter, cfg)
+    for l, (blk, K, V) in enumerate(zip(model.blocks, cache["k"], cache["v"])):
         h = blk.norm1(x)
-        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions)
+        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions,
+                            _layer_adp(adp, l, "attn"))
         _paged_scatter(K, k[:, 0], rows)
         _paged_scatter(V, v[:, 0], rows)
         out = attend(q.contiguous(), K, V, page_table, lengths)
-        x = x + _attn_out_proj(blk.attn, out, S, 1)
-        x = x + _mlp(cfg, blk.mlp, blk.norm2(x))
+        x = x + _attn_out_proj(blk.attn, out, S, 1, _layer_adp(adp, l, "attn"))
+        x = x + _mlp(cfg, blk.mlp, blk.norm2(x), _layer_adp(adp, l, "mlp"))
     x = model.final_norm(x)
-    return _head_logits(x, model.head)[:, 0]
+    return _logits(x, model.head, head_node, head_s)[:, 0]
 
 
 @torch.no_grad()
 def paged_prefill_chunk_into_slot(model: Transformer, tokens: torch.Tensor,
                                   chunk_start: int, prompt_len: int,
                                   row_table: torch.Tensor, cache: dict,
-                                  cache_len: int) -> torch.Tensor:
+                                  cache_len: int,
+                                  adapter: Optional[dict] = None) -> torch.Tensor:
     """Paged sibling of ``prefill_chunk_into_slot``: the chunk's C positions
     scatter into the slot's pages through ``row_table`` ((1, M), the slot's
     table row), pad positions as zeros and positions past the allocated
     frontier onto the trash page, and the chunk attends over the slot's
     gathered ``cache_len``-long row view (plain ``decode_attention``, as in
-    the JAX package). Returns the fp32 logits (V,) at ``prompt_len - 1``."""
+    the JAX package). ``adapter`` (ids (1,)): the request's LoRA adapter,
+    gathered. Returns the fp32 logits (V,) at ``prompt_len - 1``."""
     cfg = model.cfg
     _, C = tokens.shape
     dev = tokens.device
@@ -618,17 +737,19 @@ def paged_prefill_chunk_into_slot(model: Transformer, tokens: torch.Tensor,
     rows = _paged_rows(row_table, positions[None, :], K0.shape[2], K0.shape[1],
                        cache_len)
     zero = torch.zeros((), dtype=x.dtype, device=dev)
-    for blk, K, V in zip(model.blocks, cache["k"], cache["v"]):
+    adp, head_node, head_s = _slot_adapter_layers(adapter, cfg)
+    for l, (blk, K, V) in enumerate(zip(model.blocks, cache["k"], cache["v"])):
         h = blk.norm1(x)
-        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, lookup)
+        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, lookup,
+                            _layer_adp(adp, l, "attn"))
         _paged_scatter(K, torch.where(valid, k, zero)[0], rows)
         _paged_scatter(V, torch.where(valid, v, zero)[0], rows)
         out = decode_attention(q, paged_view(K, row_table, cache_len),
                                paged_view(V, row_table, cache_len),
                                q_positions=positions[None, :], kv_length=kv_len)
-        x = x + _attn_out_proj(blk.attn, out, 1, C)
-        x = x + _mlp(cfg, blk.mlp, blk.norm2(x))
-    return _chunk_logits(model, x, chunk_start, prompt_len)
+        x = x + _attn_out_proj(blk.attn, out, 1, C, _layer_adp(adp, l, "attn"))
+        x = x + _mlp(cfg, blk.mlp, blk.norm2(x), _layer_adp(adp, l, "mlp"))
+    return _chunk_logits(model, x, chunk_start, prompt_len, head_node, head_s)
 
 
 @torch.no_grad()

@@ -111,9 +111,12 @@ def load_library() -> ctypes.CDLL:
             lib.bllm_xent_fwd.argtypes = [i32] * 5 + [ptr] * 9
             # dtype, hd, S, Hq, Hkv, P, N, M
             lib.bllm_paged_decode.argtypes = [i32] * 8 + [ptr] * 7
+            # dtype, S, D, r, O, N, pool row strides
+            lib.bllm_lora_bgmv.argtypes = ([i32] * 6 + [ctypes.c_longlong] * 2
+                                           + [ptr] * 7)
             for name in ("bllm_fused_decode_step", "bllm_attn_fwd", "bllm_attn_bwd_dq",
                          "bllm_attn_bwd_dkv", "bllm_dropout", "bllm_xent_fwd",
-                         "bllm_paged_decode"):
+                         "bllm_paged_decode", "bllm_lora_bgmv"):
                 getattr(lib, name).restype = i32
             lib.bllm_error_string.argtypes = [ctypes.c_int]
             lib.bllm_error_string.restype = ctypes.c_char_p

@@ -4,7 +4,9 @@
   - ``fused_decode_step`` (B5): append the new k/v rows into the slot cache
     at each row's length, then attend (``csrc/decode_step.cu``);
   - ``paged_decode_attention`` (B7): attend each slot's logical row through
-    its page table over a shared page pool (``csrc/paged_decode.cu``).
+    its page table over a shared page pool (``csrc/paged_decode.cu``);
+  - ``lora_bgmv`` (B6): each row's LoRA delta through its own adapter's
+    panes of a stacked pool (``csrc/bgmv.cu``).
 
 Each wrapper launches its hand-written CUDA kernel for tensors on the card
 and computes its plain twin (``*_plain``) for tensors on the CPU. There is
@@ -288,3 +290,120 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
 
 #: kernel launches since the last reset (set to 0 to reset)
 paged_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B6: batched gathered LoRA delta (BGMV)
+# ---------------------------------------------------------------------------
+
+#: largest rank the CUDA kernel takes (its shared-memory intermediate)
+_KERNEL_MAX_RANK = 256
+
+
+def supports_lora_shape(D: int, r: int, O: int) -> bool:
+    """Eligibility of the JAX package's TPU kernel for one (in=D, rank=r,
+    out=O) projection: lane-aligned in/out widths and a sublane-aligned
+    rank. The port never branches on it: its kernel takes any D and O
+    (``check_lora_kernel_shape``)."""
+    return D % 128 == 0 and O % 128 == 0 and r % 8 == 0 and 8 <= r <= 256
+
+
+def check_lora_kernel_shape(r: int, dtype: torch.dtype) -> None:
+    """Raise ValueError unless the CUDA BGMV kernel takes rank ``r`` and
+    ``dtype``: 1 <= r <= 256 and fp32, fp16 or bf16, any in/out width. The
+    adapter registry runs it when it builds a pool on the card, so an
+    adapter set the kernel cannot serve fails before any request."""
+    if not (1 <= r <= _KERNEL_MAX_RANK and dtype in _DTYPE_CODES):
+        raise ValueError(
+            f"the CUDA BGMV kernel takes ranks 1..{_KERNEL_MAX_RANK} and "
+            f"dtypes {list(_DTYPE_CODES)}; got r={r}, {dtype}")
+
+
+def lora_bgmv_plain(x, a_pool, b_pool, ids, scales):
+    """B6's twin in plain PyTorch, with the kernel's rounding: gather the
+    rows' clamped pool panes, ``x @ A`` in fp32, rounded to B's dtype, then
+    ``@ B`` in fp32 times the row's fp32 scale; rows with id < 0 are exactly
+    0. Returns (S, O) fp32."""
+    N = a_pool.shape[0]
+    ids = torch.as_tensor(ids, device=x.device).reshape(-1)
+    idx = ids.long().clamp(0, N - 1)
+    A = a_pool.index_select(0, idx).float()             # (S, D, r)
+    B = b_pool.index_select(0, idx).float()             # (S, r, O)
+    xa = torch.bmm(x.float()[:, None], A).to(b_pool.dtype).float()
+    out = torch.bmm(xa, B)[:, 0] * scales.float().index_select(0, idx)[:, None]
+    return torch.where((ids >= 0)[:, None], out, torch.zeros((), device=x.device))
+
+
+def _check_bgmv(x, a_pool, b_pool, ids, scales) -> None:
+    if x.ndim != 2 or a_pool.ndim != 3 or b_pool.ndim != 3:
+        raise ValueError("x must be (S, D) and pools (N, D, r) / (N, r, O)")
+    S, D = x.shape
+    N, _, r = a_pool.shape
+    if tuple(a_pool.shape) != (N, D, r) or b_pool.shape[:2] != (N, r):
+        raise ValueError(f"pool shapes {tuple(a_pool.shape)}/"
+                         f"{tuple(b_pool.shape)} do not match x {tuple(x.shape)}")
+    if tuple(ids.shape) != (S,) or tuple(scales.shape) != (N,):
+        raise ValueError(f"ids must be ({S},) and scales ({N},), got "
+                         f"{tuple(ids.shape)}/{tuple(scales.shape)}")
+    if {x.dtype, a_pool.dtype, b_pool.dtype} != {x.dtype}:
+        raise TypeError("x and the pools must share one dtype")
+    devs = {t.device for t in (x, a_pool, b_pool, ids, scales)}
+    if len(devs) != 1:
+        raise ValueError(f"all tensors must be on one device, got {devs}")
+
+
+def lora_bgmv(x, a_pool, b_pool, ids, scales):
+    """Per-row LoRA delta through the row's own pool panes (BGMV).
+
+    x:       (S, D)     one activation row per slot (single-token decode)
+    a_pool:  (N, D, r)  stacked adapter A panes (N = pool capacity); each
+                        pane contiguous, the pool rows at any stride (a
+                        layer's slice of the stacked (N, L, D, r) pool)
+    b_pool:  (N, r, O)
+    ids:     (S,) int32 pool row per row; -1 = base model (exact zero)
+    scales:  (N,) fp32  alpha / rank per pool row
+
+    Returns (S, O) fp32: ``scales[i] * round(x[s] @ A[i]) @ B[i]`` with
+    ``i = ids[s]``. CUDA tensors go through the hand-written kernel
+    (``csrc/bgmv.cu``), read ids and scales on the device and add one to
+    ``lora_bgmv.launches`` per launch; CPU tensors compute
+    ``lora_bgmv_plain``."""
+    _check_bgmv(x, a_pool, b_pool, ids, scales)
+    if x.device.type == "cpu":
+        return lora_bgmv_plain(x, a_pool, b_pool, ids, scales)
+    if x.device.type != "cuda":
+        raise ValueError(f"lora_bgmv runs on cpu or cuda, not {x.device}")
+    S, D = x.shape
+    N, _, r = a_pool.shape
+    O = b_pool.shape[2]
+    check_lora_kernel_shape(r, x.dtype)
+    if S > 65535:
+        raise ValueError(f"{S} rows exceed the kernel's grid (65535)")
+    if ids.dtype != torch.int32 or scales.dtype != torch.float32:
+        raise TypeError("on the card ids must be int32 and scales float32")
+    for name, t in (("x", x), ("ids", ids), ("scales", scales)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("a_pool", a_pool), ("b_pool", b_pool)):
+        if not t[0].is_contiguous():
+            raise ValueError(f"{name}'s panes must be contiguous within a pool "
+                             f"row, got strides {t.stride()}")
+    from building_llm_from_scratch_tpu_torch.ops._kernels import load_library
+
+    lib = load_library()
+    out = torch.empty((S, O), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    err = lib.bllm_lora_bgmv(
+        _DTYPE_CODES[x.dtype], S, D, r, O, N, a_pool.stride(0), b_pool.stride(0),
+        p(x), p(a_pool), p(b_pool), p(ids), p(scales), p(out),
+        ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"lora_bgmv kernel launch failed: "
+                           f"{lib.bllm_error_string(err).decode()}")
+    lora_bgmv.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (set to 0 to reset)
+lora_bgmv.launches = 0

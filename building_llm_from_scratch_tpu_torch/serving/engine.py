@@ -26,6 +26,14 @@ the layout:
     pool cannot promise it; a request that can never fit fails with
     ``page_pool_too_small``.
 
+With an ``AdapterRegistry`` (``adapters=``, ``serving/adapters.py``) each
+request may name a LoRA adapter: its pool row is resolved at admission and
+carried per slot (-1 = base model), every prefill and chunk applies the
+request's adapter, and every decode tick applies each slot's through the
+kernel B6 (one launch per adapted projection and layer, base traffic
+included). Prefix-store entries are namespaced by the adapter's install
+tag, so no request hits panes computed under other weights.
+
 Free slots ride the fixed-shape decode as ignored rows, as in the JAX
 engine. Every row carries its own length, sampling parameters and random
 stream, so a request's tokens are the same whether it runs alone, in any
@@ -37,7 +45,7 @@ to the device in one transfer and reads back once: the sampled tokens
 together with the finite flags. Only a final prefill chunk reads anything
 back.
 
-Not ported yet: int8 KV, adapters, speculative decoding, deadlines, drain,
+Not ported yet: int8 KV, speculative decoding, deadlines, drain,
 the supervisor and restarts, fault-injection hooks and the telemetry sink.
 """
 
@@ -54,6 +62,7 @@ from building_llm_from_scratch_tpu_torch.generate import (
     _bucket,
     sample_tokens_dynamic,
 )
+from building_llm_from_scratch_tpu_torch.models.lora import adapter_fingerprint
 from building_llm_from_scratch_tpu_torch.models.transformer import (
     Transformer,
     decode_slots,
@@ -65,13 +74,17 @@ from building_llm_from_scratch_tpu_torch.models.transformer import (
 )
 from building_llm_from_scratch_tpu_torch.ops.decode_step import (
     check_kernel_shape,
+    check_lora_kernel_shape,
     check_paged_kernel_shape,
+)
+from building_llm_from_scratch_tpu_torch.serving.adapters import (
+    BASE_ADAPTER,
+    AdapterRegistry,
 )
 from building_llm_from_scratch_tpu_torch.serving.kvcache import (
     KVCachePolicy,
     PagePool,
     PrefixStore,
-    adapter_fingerprint,
     copy_prefix_into_slot,
     extract_prefix_panes,
 )
@@ -95,9 +108,6 @@ from building_llm_from_scratch_tpu_torch.serving.request import (
 )
 from building_llm_from_scratch_tpu_torch.serving.scheduler import Scheduler
 
-#: prefix-store namespace of un-adapted traffic (the JAX ``BASE_ADAPTER``)
-BASE_TAG = "base"
-
 
 class DecodeEngine:
     """The serving runtime: slot-batched KV cache and request lifecycle.
@@ -110,7 +120,8 @@ class DecodeEngine:
                  max_len: Optional[int] = None, max_queue: int = 64,
                  max_top_k: int = 64, default_max_new_tokens: int = 128,
                  warmup_prompt_cap: int = 256,
-                 kv_policy: Optional[KVCachePolicy] = None):
+                 kv_policy: Optional[KVCachePolicy] = None,
+                 adapters: Optional[AdapterRegistry] = None):
         cfg = model.cfg
         self.cfg = cfg
         self.model = model
@@ -135,6 +146,19 @@ class DecodeEngine:
             else:
                 check_kernel_shape(self._cache_len, cfg.head_dim,
                                    cfg.torch_dtype)
+        #: the LoRA adapter registry (None: base model only); its pool is
+        #: an argument of every prefill, chunk and decode call
+        self.adapters = adapters
+        if adapters is not None:
+            if adapters.fingerprint != adapter_fingerprint(cfg):
+                raise ValueError("the adapter registry serves another base "
+                                 f"model ({adapters.cfg.name}) than {cfg.name}")
+            pool_device = adapters.pool_args()[1].device
+            if pool_device != self.device:
+                raise ValueError(f"the adapter pool is on {pool_device}, "
+                                 f"the engine on {self.device}")
+            if self.device.type == "cuda":
+                check_lora_kernel_shape(adapters.max_rank, cfg.torch_dtype)
         self.max_top_k = min(int(max_top_k), cfg.vocab_size)
         self.default_max_new_tokens = int(default_max_new_tokens)
         self.warmup_prompt_cap = min(int(warmup_prompt_cap), self.max_len)
@@ -180,6 +204,11 @@ class DecodeEngine:
         self._seeds = np.zeros((S,), np.int64)          # guarded-by: _lock
         self._temps = np.zeros((S,), np.float32)        # guarded-by: _lock
         self._topks = np.zeros((S,), np.int32)          # guarded-by: _lock
+        #: per-slot adapter pool row; -1 = base model (exact zero delta)
+        self._adapter_ids = np.full((S,), -1, np.int32)  # guarded-by: _lock
+        #: adapter name ("base" for un-adapted traffic) -> {finished,
+        #: failed, tokens}
+        self._adapter_counts: dict = {}                 # guarded-by: _lock
         self._generator = torch.Generator(device=self.device)
 
         self._lock = threading.RLock()
@@ -187,6 +216,9 @@ class DecodeEngine:
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._error: Optional[str] = None
+        if adapters is not None:
+            # a load must not reuse a pool row an active slot decodes against
+            adapters.set_in_use_probe(self._adapter_rows_in_use)
 
         self.n_ticks = 0                    # decode ticks   guarded-by: _lock
         self.tokens_generated = 0           # guarded-by: _lock
@@ -200,6 +232,48 @@ class DecodeEngine:
 
     def _bucket_len(self, n: int) -> int:
         return min(_bucket(n), self.max_len)
+
+    # -- adapters -----------------------------------------------------------
+
+    def _adapter_rows_in_use(self) -> set:
+        """Registry in-use probe: the pool rows active slots reference. The
+        lock is taken with a timeout; on timeout every row counts as in use
+        (an admission may have resolved a row it has not recorded yet), so
+        a load during a stall waits or fails, never overwrites."""
+        locked = self._lock.acquire(timeout=1.0)
+        try:
+            if not locked:
+                return set(range(self.adapters.capacity))
+            return {int(r) for r in self._adapter_ids if r >= 0}
+        finally:
+            if locked:
+                self._lock.release()
+
+    def _adapter_arg(self, ids: torch.Tensor) -> Optional[dict]:
+        """The slot functions' ``adapter`` argument for pool rows ``ids``
+        (on the device), or None without a registry."""
+        if self.adapters is None:
+            return None
+        pool, scaling = self.adapters.pool_args()
+        return {"pool": pool, "scaling": scaling, "ids": ids}
+
+    def _adapter_tag(self, req: Request) -> Optional[str]:
+        """Prefix-store namespace of one request: the adapter's install tag
+        (name and install sequence), the shared base namespace for
+        un-adapted traffic, or None when the adapter was evicted since
+        admission, in which case the request neither hits nor stores."""
+        if req.params.adapter is None or self.adapters is None:
+            return BASE_ADAPTER
+        return self.adapters.load_tag(req.params.adapter)
+
+    # holds: _lock
+    def _count_adapter(self, req: Request, outcome: str) -> None:
+        """Per-adapter request accounting ("base" for un-adapted traffic)."""
+        name = req.params.adapter or BASE_ADAPTER
+        c = self._adapter_counts.setdefault(
+            name, {"finished": 0, "failed": 0, "tokens": 0})
+        c[outcome] += 1
+        c["tokens"] += len(req.output_ids)
 
     # -- admission --------------------------------------------------------
 
@@ -235,6 +309,17 @@ class DecodeEngine:
                              f"capacity 1..{self.max_top_k} (raise max_top_k)")
         if params.temperature < 0:
             raise ValueError("temperature must be >= 0")
+        if params.adapter is not None:
+            # an unknown adapter is refused here; admission resolves the
+            # name again (an evict in between fails that request alone)
+            if self.adapters is None:
+                raise ValueError(
+                    f"request names adapter '{params.adapter}' but this "
+                    "engine has no adapter registry (--serve_adapters)")
+            try:
+                self.adapters.resolve(params.adapter)
+            except KeyError as e:
+                raise ValueError(e.args[0]) from None
         if int(ids.size) > self.max_prompt:
             raise PromptTooLongError(
                 f"prompt ({ids.size} tokens) exceeds the engine's prompt "
@@ -262,12 +347,14 @@ class DecodeEngine:
         return req
 
     # holds: _lock
-    def _prime_slot(self, slot: int, req: Request, length: int) -> None:
+    def _prime_slot(self, slot: int, req: Request, length: int,
+                    adapter_row: int) -> None:
         req.state = RUNNING
         req.slot = slot
         req.t_admit = time.monotonic()
         p = req.params
         self._lengths[slot] = length
+        self._adapter_ids[slot] = adapter_row
         self._n_gen[slot] = 0
         self._seeds[slot] = p.seed
         self._temps[slot] = p.temperature
@@ -290,9 +377,21 @@ class DecodeEngine:
     # holds: _lock
     def _admit(self, slot: int, req: Request) -> None:
         """Prefill one request into ``slot`` and take its first token, or
-        with a chunked policy queue it for the chunk pump."""
+        with a chunked policy queue it for the chunk pump. The request's
+        adapter is resolved by name again here: one evicted while the
+        request was queued fails that request alone."""
+        adapter_row = -1
+        if req.params.adapter is not None:
+            row = (self.adapters.lookup(req.params.adapter)
+                   if self.adapters is not None else None)
+            if row is None:
+                self._fail_request(
+                    slot, req, f"adapter_not_loaded: adapter "
+                    f"'{req.params.adapter}' evicted while queued")
+                return
+            adapter_row = row
         if self._chunk > 0:
-            self._admit_chunked(slot, req)
+            self._admit_chunked(slot, req, adapter_row)
             return
         Tp = int(req.prompt_ids.size)
         Tpb = self._bucket_len(Tp)
@@ -300,10 +399,14 @@ class DecodeEngine:
         padded[0, :Tp] = req.prompt_ids
         t0 = time.perf_counter()
         tokens = torch.from_numpy(padded).to(self.device)
-        logits = prefill_into_slot(self.model, tokens, Tp, slot, self.cache)
+        adapter = (self._adapter_arg(torch.tensor(
+            [adapter_row], dtype=torch.int32, device=self.device))
+            if self.adapters is not None else None)
+        logits = prefill_into_slot(self.model, tokens, Tp, slot, self.cache,
+                                   adapter=adapter)
         tok, ok = self._first_token(logits, req)
         self.prefill_seconds += time.perf_counter() - t0
-        self._prime_slot(slot, req, Tp)
+        self._prime_slot(slot, req, Tp, adapter_row)
         if not ok:
             self._fail_request(slot, req, "non-finite logits in prefill")
             return
@@ -312,19 +415,20 @@ class DecodeEngine:
     # -- chunked prefill + prefix cache ------------------------------------
 
     # holds: _lock
-    def _admit_chunked(self, slot: int, req: Request) -> None:
+    def _admit_chunked(self, slot: int, req: Request, adapter_row: int) -> None:
         """Chunked admission: probe the prefix store, apply a hit (pane
         copy, or a page-table write when paged), and queue the rest of the
         prompt for ``_chunk_tick``. The row's length is its next write
         position while it prefills, so the decode tick's garbage append
         lands where the next chunk writes."""
         pos = 0
-        if self.prefix_store is not None:
-            span, entry = self.prefix_store.match(req.prompt_ids, BASE_TAG)
+        tag = self._adapter_tag(req) if self.prefix_store is not None else None
+        if tag is not None:
+            span, entry = self.prefix_store.match(req.prompt_ids, tag)
             if entry is not None:
                 self._apply_prefix_hit(slot, span, entry)
                 pos = span
-        self._prime_slot(slot, req, pos)
+        self._prime_slot(slot, req, pos, adapter_row)
         self._prefill_state[slot] = {"req": req, "pos": pos,
                                      "Tp": int(req.prompt_ids.size),
                                      "stored": False}
@@ -378,10 +482,12 @@ class DecodeEngine:
             # catch-up probe: a sharer's pane may have landed since this
             # slot missed at admission (early insertion below); only
             # admission misses count as misses
-            if self.prefix_store is not None and st["pos"] < span_cap:
+            tag = (self._adapter_tag(req)
+                   if self.prefix_store is not None and st["pos"] < span_cap
+                   else None)
+            if tag is not None:
                 span, entry = self.prefix_store.match(
-                    req.prompt_ids, BASE_TAG, min_span=st["pos"],
-                    count_miss=False)
+                    req.prompt_ids, tag, min_span=st["pos"], count_miss=False)
                 if entry is not None:
                     self._apply_prefix_hit(slot, span, entry)
                     st["pos"] = span
@@ -427,15 +533,18 @@ class DecodeEngine:
         C = self._chunk
         chunk = np.zeros((C,), np.int32)
         chunk[: hi - lo] = req.prompt_ids[lo:hi]
+        parts = [chunk, self._adapter_ids[slot:slot + 1]]
+        if self._paged:
+            parts.append(self._page_table[slot])
+        host = torch.from_numpy(np.concatenate(parts)).to(self.device)
+        tokens = host[:C].long()[None]
+        adapter = self._adapter_arg(host[C:C + 1])
         if not self._paged:
-            tokens = torch.from_numpy(chunk).to(self.device).long()[None]
             return prefill_chunk_into_slot(self.model, tokens, lo, Tp, slot,
-                                           self.cache)
-        host = torch.from_numpy(np.concatenate(
-            [chunk, self._page_table[slot]])).to(self.device)
+                                           self.cache, adapter=adapter)
         return paged_prefill_chunk_into_slot(
-            self.model, host[:C].long()[None], lo, Tp, host[None, C:],
-            self.cache, self._cache_len)
+            self.model, tokens, lo, Tp, host[None, C + 1:], self.cache,
+            self._cache_len, adapter=adapter)
 
     # holds: _lock
     def _maybe_store_prefix(self, slot: int, req: Request) -> None:
@@ -445,18 +554,21 @@ class DecodeEngine:
         span = self.prefix_store.storable_span(int(req.prompt_ids.size))
         if span <= 0:
             return
+        tag = self._adapter_tag(req)
+        if tag is None:
+            return      # adapter evicted mid-flight: no namespace to own
         prefix_ids = req.prompt_ids[:span]
-        if self.prefix_store.contains(prefix_ids, BASE_TAG):
+        if self.prefix_store.contains(prefix_ids, tag):
             return
         if self._paged:
             # span is chunk-aligned and C % P == 0: whole pages
             n_cols = span // self.kv_policy.page_tokens
             pages = [int(p) for p in self._page_table[slot, :n_cols]]
-            self.prefix_store.insert_pages(prefix_ids, BASE_TAG, pages)
+            self.prefix_store.insert_pages(prefix_ids, tag, pages)
             return
         panes = extract_prefix_panes(self.cache, slot, span,
                                      pane_len=self._prefix_pane_len)
-        self.prefix_store.insert(prefix_ids, BASE_TAG, panes)
+        self.prefix_store.insert(prefix_ids, tag, panes)
 
     # -- paged page accounting (host bookkeeping) ---------------------------
 
@@ -612,19 +724,22 @@ class DecodeEngine:
 
     # holds: _lock
     def _decode(self) -> torch.Tensor:
-        """One decode step over every slot; tokens, lengths (and the page
-        table) go to the device in one copy. Returns fp32 logits (S, V)."""
+        """One decode step over every slot; tokens, lengths, the adapter
+        rows (and the page table) go to the device in one copy. Returns fp32
+        logits (S, V)."""
         S = self.n_slots
-        parts = [self._last_tokens, self._lengths]
+        parts = [self._last_tokens, self._lengths, self._adapter_ids]
         if self._paged:
             parts.append(self._page_table.reshape(-1))
         host = torch.from_numpy(np.concatenate(parts)).to(self.device)
         tokens, lengths = host[:S].long()[:, None], host[S:2 * S]
+        adapter = self._adapter_arg(host[2 * S:3 * S])
         if not self._paged:
-            return decode_slots(self.model, tokens, lengths, self.cache)
-        table = host[2 * S:].view(S, -1)
+            return decode_slots(self.model, tokens, lengths, self.cache,
+                                adapter=adapter)
+        table = host[3 * S:].view(S, -1)
         return paged_decode_slots(self.model, tokens, lengths, table,
-                                  self.cache, self._cache_len)
+                                  self.cache, self._cache_len, adapter=adapter)
 
     def run_until_idle(self) -> None:
         while self.step():
@@ -664,6 +779,7 @@ class DecodeEngine:
         self._seeds[slot] = 0
         self._temps[slot] = 0.0
         self._topks[slot] = 0
+        self._adapter_ids[slot] = -1
 
     # holds: _lock
     def _fail_request(self, slot: Optional[int], req: Request, msg: str,
@@ -680,6 +796,7 @@ class DecodeEngine:
         req.state = FINISHED
         req.t_finish = time.monotonic()
         self.requests_failed += 1
+        self._count_adapter(req, "failed")
         req._mark_done()
         with self._work:
             self._work.notify_all()
@@ -692,6 +809,7 @@ class DecodeEngine:
         if self.scheduler.slots[slot] is req:
             self._free_slot(slot)
         self.requests_finished += 1
+        self._count_adapter(req, "finished")
         req._mark_done()
         with self._work:
             self._work.notify_all()
@@ -757,6 +875,11 @@ class DecodeEngine:
                 "decode_seconds": self.decode_seconds,
                 "kv_policy": self.kv_policy.describe(),
             }
+            if self._adapter_counts:
+                out["per_adapter"] = {nm: dict(c) for nm, c in
+                                      sorted(self._adapter_counts.items())}
+            if self.adapters is not None:
+                out["adapters_loaded"] = self.adapters.n_loaded
             if self._chunk > 0:
                 out["prefill_chunks"] = self.prefill_chunks
                 out["pane_copies"] = self.pane_copies

@@ -3,8 +3,10 @@ JSONL half of the JAX package's ``serving/frontend.py``).
 
 One request per line: ``{"prompt_ids": [...], "max_new_tokens": 32,
 "temperature": 0.7, "top_k": 40, "seed": 1, "eos_id": 7, "ignore_eos":
-true}``. Results go to ``--serve_out`` (default stdout), one line per
-request in submission order, each flushed as soon as its request is done.
+true, "adapter": "tenant-a"}``; ``adapter`` names one of the LoRA adapters
+``--serve_adapters name=path,...`` loaded (omitted: the base model).
+Results go to ``--serve_out`` (default stdout), one line per request in
+submission order, each flushed as soon as its request is done.
 Submission blocks while the queue is full (backpressure). Text prompts wait
 for a tokenizer: a ``"prompt"`` field is rejected.
 """
@@ -26,6 +28,27 @@ from building_llm_from_scratch_tpu_torch.serving.request import (
 logger = logging.getLogger(__name__)
 
 
+def parse_adapter_specs(spec: str, flag: str = "--serve_adapters") -> dict:
+    """``name=path[,name=path...]`` -> {name: path}; names are unique."""
+    out: dict = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(f"{flag} entry '{part}' is not name=path")
+        name, path = part.split("=", 1)
+        name, path = name.strip(), path.strip()
+        if not name or not path:
+            raise ValueError(f"{flag} entry '{part}' is not name=path")
+        if name in out:
+            raise ValueError(f"{flag} names '{name}' twice")
+        out[name] = path
+    if not out:
+        raise ValueError(f"{flag} is empty")
+    return out
+
+
 def params_from_record(rec: dict, default_max_new: int) -> SamplingParams:
     return SamplingParams(
         max_new_tokens=int(rec.get("max_new_tokens", default_max_new)),
@@ -34,6 +57,9 @@ def params_from_record(rec: dict, default_max_new: int) -> SamplingParams:
         seed=int(rec.get("seed", 0)),
         eos_id=(int(rec["eos_id"]) if rec.get("eos_id") is not None else None),
         ignore_eos=bool(rec.get("ignore_eos", False)),
+        # by registry name; an unknown name is refused at submit
+        adapter=(str(rec["adapter"]) if rec.get("adapter") is not None
+                 else None),
     )
 
 
@@ -111,12 +137,27 @@ def run_serve(args) -> DecodeEngine:
     from building_llm_from_scratch_tpu_torch.device import resolve_device
 
     device = resolve_device(args.device)
-    model = build_params(args, build_config(args), device)
+    cfg = build_config(args)
+    model = build_params(args, cfg, device)
+    adapters = None
+    if args.serve_adapters:
+        # the multi-tenant LoRA registry, built before the engine: its pool
+        # (capacity x max rank) is fixed for the engine's life
+        from building_llm_from_scratch_tpu_torch.serving.adapters import (
+            AdapterRegistry,
+        )
+
+        adapters = AdapterRegistry.from_artifacts(
+            cfg, parse_adapter_specs(args.serve_adapters),
+            capacity=args.serve_adapter_slots, device=device)
+        logger.info("Adapter registry: %d adapter(s) loaded (%s), "
+                    "capacity %d.", adapters.n_loaded,
+                    ", ".join(adapters.names()), adapters.capacity)
     engine = DecodeEngine(
         model, n_slots=args.serve_slots, max_len=(args.serve_max_len or None),
         max_queue=args.serve_max_queue, max_top_k=args.serve_max_top_k,
         default_max_new_tokens=args.serve_max_new_tokens,
-        kv_policy=kv_policy_from_args(args))
+        kv_policy=kv_policy_from_args(args), adapters=adapters)
     engine.start()
     try:
         serve_jsonl(engine, args.serve_prompts, args.serve_out,

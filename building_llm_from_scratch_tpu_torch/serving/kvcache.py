@@ -24,7 +24,6 @@ module's telemetry events and memory-ledger hooks have no counterpart yet
 from __future__ import annotations
 
 import hashlib
-import json
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -34,25 +33,12 @@ import numpy as np
 import torch
 
 from building_llm_from_scratch_tpu_torch.configs import ModelConfig
-
-KV_QUANT_CHOICES = ("model",)
-
-#: ModelConfig fields that define the architecture a cached pane was
-#: computed under (the JAX ``models/lora._FINGERPRINT_FIELDS``)
-_FINGERPRINT_FIELDS = (
-    "name", "vocab_size", "context_length", "emb_dim", "n_heads",
-    "n_layers", "hidden_dim", "n_kv_groups", "norm", "positional",
-    "activation", "qkv_bias", "attn_out_bias", "mlp_bias", "norm_bias",
+# the prefix store's key namespace: the base architecture's fingerprint
+from building_llm_from_scratch_tpu_torch.models.lora import (  # noqa: F401
+    adapter_fingerprint,
 )
 
-
-def adapter_fingerprint(cfg: ModelConfig) -> str:
-    """Short stable hash of the base architecture (the JAX
-    ``models/lora.adapter_fingerprint``): the prefix store's key namespace,
-    equal in both packages for one config."""
-    ident = {f: getattr(cfg, f) for f in _FINGERPRINT_FIELDS}
-    blob = json.dumps(ident, sort_keys=True).encode()
-    return hashlib.sha256(blob).hexdigest()[:16]
+KV_QUANT_CHOICES = ("model",)
 
 
 @dataclass(frozen=True)

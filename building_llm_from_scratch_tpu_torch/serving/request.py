@@ -35,7 +35,8 @@ class SamplingParams:
     generator seeded from (seed, i), whatever slot the request lands in and
     whatever runs beside it. ``temperature`` 0 is greedy argmax; ``top_k``
     None disables the filter. ``eos_id`` None means the model's eos;
-    ``ignore_eos`` decodes to the token budget."""
+    ``ignore_eos`` decodes to the token budget. ``adapter`` names a LoRA
+    adapter of the engine's ``AdapterRegistry`` (None: the base model)."""
 
     max_new_tokens: int = 128
     temperature: float = 0.0
@@ -43,6 +44,7 @@ class SamplingParams:
     seed: int = 0
     eos_id: Optional[int] = None
     ignore_eos: bool = False
+    adapter: Optional[str] = None
 
 
 class Request:
@@ -106,6 +108,8 @@ class Request:
             "finish_reason": self.finish_reason,
             "slot": self.slot,
         }
+        if self.params.adapter is not None:
+            out["adapter"] = self.params.adapter
         for name, fn in (("ttft_s", self.ttft_s), ("tpot_s", self.tpot_s),
                          ("e2e_s", self.e2e_s)):
             v = fn()

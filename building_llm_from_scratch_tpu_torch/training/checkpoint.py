@@ -6,8 +6,9 @@ Export format: one ``.npz`` with a key per leaf named by its tree path
 (``blocks/attn/wq``), plus a ``__dtype__.<key>`` entry naming the dtype.
 ``np.savez`` stores bf16 leaves as raw 2-byte void records, so their bits
 are reinterpreted, never converted: ``uint16 -> int16 -> torch.bfloat16``
-keeps them bit-exact, both ways. Train-state checkpoints (optimizer state,
-resume) are not ported yet.
+keeps them bit-exact, both ways. ``lora_from_jax`` carries a LoRA adapter
+tree across the same way. Train-state checkpoints (optimizer state, resume)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -111,3 +112,31 @@ def load_exported_params(path: str, cfg: ModelConfig,
             t = numpy_to_torch(data[key], recorded)
             flat[key] = t.to(device=device, dtype=cfg.torch_dtype)
     return Transformer(cfg, flat)
+
+
+def lora_from_jax(tree_or_flat: Dict[str, Any], cfg: ModelConfig,
+                  device: torch.device | str = "cuda") -> Dict[str, Any]:
+    """The port's adapter tree (``models/lora.py``) from a JAX lora tree of
+    numpy arrays (``jax.device_get(lora)``) or its flat ``{"blocks/attn/wq/A":
+    array}`` form: the same nesting and layouts, no transposes, bit-exact
+    (bf16 included). Every leaf's shape is checked against ``cfg`` at the
+    adapter's rank."""
+    from building_llm_from_scratch_tpu_torch.models.lora import (
+        adapted_shapes,
+        unflatten_lora,
+    )
+
+    device = resolve_device(device)
+    flat = {tuple(k.split("/")): numpy_to_torch(v).to(device)
+            for k, v in flatten_tree(tree_or_flat).items()}
+    rank = next((leaf.shape[-1] for p, leaf in flat.items() if p[-1] == "A"), 0)
+    expected = adapted_shapes(cfg, rank)
+    if set(flat) != set(expected):
+        raise KeyError(f"adapter differs from the config's: missing "
+                       f"{sorted(set(expected) - set(flat))}, unexpected "
+                       f"{sorted(set(flat) - set(expected))}")
+    for path, shape in expected.items():
+        if tuple(flat[path].shape) != shape:
+            raise ValueError(f"{'/'.join(path)}: shape {tuple(flat[path].shape)} "
+                             f"!= {shape}")
+    return unflatten_lora(flat)

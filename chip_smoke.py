@@ -22,6 +22,13 @@ exits non-zero):
      phase 3's tolerances of the twin and of the exact result; times of the
      kernel, the twin, the library's two calls (page gather + SDPA) and B5
      on the same rows laid out contiguously, beside the bytes bound.
+     3c. the BGMV kernel (B6) against its twin at every adapted projection
+     shape of LLaMA-3.2-1B (bf16) and GPT-2-124M (fp32), S 8 rows over a
+     pool of 4 rows of rank 16 (ids with -1 and repeats), the pool read in
+     place as a layer's slice: within the bounds of the twin and of the
+     exact fp64 result relative to the second product's magnitude; the twin
+     with permuted ids must fail them. Times of the kernel, the twin and the
+     gathered library path (index_select + two bmm), beside the bytes bound.
   4. serving: the continuous-batching engine at full width, random weights
      from a seed: LLaMA-3.2-1B in bf16 with its 16 layers and GPT-2-124M in
      fp32 (24 requests over 8 slots of 1024), then LLaMA-3-8B in bf16 cut to
@@ -41,6 +48,18 @@ exits non-zero):
      three greedy requests alone give the same tokens; a paged reference
      check against the fp32 CPU with its no-attention control; prefill of
      the sharers with and without the warm prefix cache.
+     4c. multi-LoRA serving: LLaMA-3.2-1B bf16 through the CLI
+     (``--serve_adapters`` with adapters of ranks 8, 16 and 16, pool 4 x
+     rank 16) and GPT-2-124M fp32 in process (2 adapters), phase 4's
+     weights; artifacts written by ``save_adapter`` with each delta about
+     0.2 of its projection's rms; 24 requests, adapters and base in turn.
+     Every budget finishes, B6 = adapted projections x layers x ticks (by
+     shape) and B5 = layers x ticks, per-adapter counts match the traffic,
+     three adapted greedy requests alone give the same tokens, adapted
+     greedy tokens differ from the base model's on at least half the
+     prompts, and an adapted card-vs-CPU fp32 reference passes while the
+     same ticks with other adapters' ids fail it. Ticks with and without
+     adapters in alternating windows; pool bytes and peak memory.
   5. flash-attention kernels vs twins: forward (B1), dq (B2a) and dk/dv
      (B2b) at LLaMA-3.2-1B's training shape (B 4, Hq 32, Hkv 8, T 1024,
      hd 64, bf16) and the reference shapes (B 1, T 256, fp32 and bf16): out, lse and
@@ -85,8 +104,8 @@ exits non-zero):
      fp32 the loss bound (in bf16 its loss change is reported: it lies
      inside bf16's loss bound at this size).
   8. the ``kernels`` line (one row per kernel and shape, each with the
-     launches of the run at that shape), then the card line and the result
-     line.
+     launches of the run at that shape; B6 by projection shape from phase
+     4c), then the card line and the result line.
 
 It exits non-zero without printing a result when no CUDA device is present
 or when the package is not beside it.
@@ -94,6 +113,7 @@ or when the package is not beside it.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -431,6 +451,146 @@ def phase_paged_kernel(torch, card: dict, b5_rows: list) -> list:
                    bound_ms=max(t_bytes, t_ops) * 1e3,
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         emit("paged_kernel", **row)
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the BGMV kernel (B6) against its twin
+# ---------------------------------------------------------------------------
+
+LORA_SHAPES = [
+    # name (the model served with adapters in phase 4c), the projections of
+    # that (in D, out O), D, O, dtype; every shape at S 8 rows over a pool of
+    # N 4 rows of rank 16, a layer's slice of the stacked (N, L, D, r) pool
+    ("llama3_2-1B", "wq,wo", 2048, 2048, "bf16"),
+    ("llama3_2-1B", "wk,wv", 2048, 512, "bf16"),
+    ("llama3_2-1B", "gate,up", 2048, 8192, "bf16"),
+    ("llama3_2-1B", "down", 8192, 2048, "bf16"),
+    ("gpt2-124M", "wq,wk,wv,wo", 768, 768, "fp32"),
+    ("gpt2-124M", "up", 768, 3072, "fp32"),
+    ("gpt2-124M", "down", 3072, 768, "fp32"),
+]
+LORA_S, LORA_POOL, LORA_RANK = 8, 4, 16
+LORA_IDS = [0, 1, 2, -1, 0, 2, 1, -1]
+# Bounds per output element, relative to M = |scale| * (|x @ A| @ |B|) in
+# fp64 (the magnitude of the second product's terms): the kernel rounds the
+# rank-r intermediate to the pool dtype (half a unit, 2^-9 in bf16) and sums
+# in fp32 (about sqrt(D) 2^-24 relative, 5e-6 at D 8192). (twin, exact):
+# bf16 (2^-7, 2^-8), the twin rounding the same intermediate from its own
+# fp32 sum; fp32 (1e-4, 1e-4). Rows with id -1 have M = 0 and must be 0.
+# The library path (gathered, two bmm in the pool dtype) also rounds its
+# output: 2^-7 of the exact result. The same bounds as test_torch_cuda.py.
+BGMV_TOL = {"fp32": (1e-4, 1e-4), "bf16": (2.0 ** -7, 2.0 ** -8)}
+
+
+def bgmv_magnitude(torch, x, A, B, ids, scales):
+    """(fp64 exact B6 result, the magnitude M of the bounds)."""
+    idx = ids.long().clamp(0, A.shape[0] - 1)
+    xa = torch.bmm(x.double()[:, None], A.double()[idx])
+    keep = (ids >= 0).double()[:, None] * scales.double()[idx][:, None]
+    return (torch.bmm(xa, B.double()[idx])[:, 0] * keep,
+            torch.bmm(xa.abs(), B.double()[idx].abs())[:, 0] * keep.abs())
+
+
+def _rel_err(torch, out, ref, mag) -> float:
+    """max |out - ref| / M over the elements with M > 0; inf where M = 0
+    and out differs."""
+    diff = (out.double() - ref.double()).abs()
+    if bool((diff[mag == 0] > 0).any()):
+        return math.inf
+    return (diff / mag.clamp_min(1e-300)).max().item()
+
+
+def phase_lora_kernel(torch, card: dict) -> list:
+    """B6 at every projection shape that phase 4c serves, on a pool laid
+    out as the registry lays it (a layer's strided slice): within the
+    bounds of the twin and of the exact fp64 result; the twin with the ids
+    permuted must fail the twin bound. Times of the kernel, the twin and
+    the library path (the gathered ``index_select`` + two ``bmm`` in the
+    pool dtype, the JAX package's default path) with L2 flushed."""
+    from building_llm_from_scratch_tpu_torch.configs import DTYPE_MAP
+    from building_llm_from_scratch_tpu_torch.ops.decode_step import (
+        lora_bgmv,
+        lora_bgmv_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5678)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    fig = card["figures"]
+    S, N, r = LORA_S, LORA_POOL, LORA_RANK
+    ids = torch.tensor(LORA_IDS, dtype=torch.int32, device=dev)
+    perm = ids[torch.tensor([1, 2, 3, 4, 5, 6, 7, 0], device=dev)]
+    rows = []
+    for name, projs, D, O, dt in LORA_SHAPES:
+        dtype = DTYPE_MAP[dt]
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+        x = rnd(S, D).to(dtype)
+        A = (rnd(N, 2, D, r) / math.sqrt(D)).to(dtype)[:, 1]
+        B = rnd(N, 2, r, O).to(dtype)[:, 1]
+        sc = torch.rand(N, generator=gen, device=dev) + 0.5
+
+        out = lora_bgmv(x, A, B, ids, sc)
+        torch.cuda.synchronize()
+        twin = lora_bgmv_plain(x, A, B, ids, sc)
+        exact, mag = bgmv_magnitude(torch, x, A, B, ids, sc)
+        t_twin, t_exact = BGMV_TOL[dt]
+        err = (out - twin).abs().max().item()
+        rel_twin = _rel_err(torch, out, twin, mag)
+        rel_exact = _rel_err(torch, out, exact, mag)
+        if not (rel_twin <= t_twin and rel_exact <= t_exact):
+            raise AssertionError(f"{name} {projs}: B6 off its twin by "
+                                 f"{rel_twin} M, off the exact result by "
+                                 f"{rel_exact} M")
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{name} {projs}: non-finite B6 output")
+        control = _rel_err(torch, lora_bgmv_plain(x, A, B, perm, sc), out, mag)
+        if control <= t_twin:
+            raise AssertionError(f"{name} {projs}: the bound does not catch "
+                                 f"permuted ids ({control} M)")
+
+        def library():
+            idx = ids.long().clamp(0, N - 1)
+            s = torch.where(ids >= 0, sc[idx], 0.0)
+            xa = torch.bmm(x[:, None], A.index_select(0, idx))
+            return torch.bmm(xa, B.index_select(0, idx))[:, 0] * s[:, None]
+
+        lib_rel = _rel_err(torch, library(), exact, mag)
+        if lib_rel > 2.0 ** -7:
+            raise AssertionError(f"{name} {projs}: the library path is off "
+                                 f"the exact result by {lib_rel} M")
+        ms = device_time_ms(torch, lambda: lora_bgmv(x, A, B, ids, sc), flush)
+        plain_ms = device_time_ms(
+            torch, lambda: lora_bgmv_plain(x, A, B, ids, sc), flush)
+        library_ms = device_time_ms(torch, library, flush)
+
+        # what the call must move: the distinct adapters' A and B panes, x,
+        # the fp32 output, the ids and the scales; two multiply-adds per
+        # pane element for each active row
+        elt = x.element_size()
+        active = [i for i in LORA_IDS if i >= 0]
+        distinct = len(set(active))
+        bytes_moved = (elt * (distinct * (D * r + r * O) + S * D) + 4 * S * O
+                       + 4 * S + 4 * N)
+        ops = 2 * len(active) * (D * r + r * O)
+        peak = fig["peak32"] if dtype == torch.float32 else fig["peak16"]
+        t_bytes, t_ops = bytes_moved / fig["bw"], ops / peak
+        row = dict(shape=name, projections=projs, S=S, N=N, D=D, r=r, O=O,
+                   dtype=dt, ids=LORA_IDS, distinct_adapters=distinct,
+                   max_abs_err=err, twin_err_over_m=rel_twin,
+                   exact_err_over_m=rel_exact, twin_bound=t_twin,
+                   exact_bound=t_exact, permuted_ids_err_over_m=control,
+                   library_err_over_m=lib_rel,
+                   library_calls="index_select x2 + bmm x2 + scale (the "
+                                 "gathered path)",
+                   out_rms=twin.pow(2).mean().sqrt().item(),
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bytes=bytes_moved, ops=ops,
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        emit("lora_kernel", **row)
         rows.append(row)
     return rows
 
@@ -1619,27 +1779,31 @@ def paged_policy(paged: bool):
                          paged=paged, page_tokens=PAGE_TOKENS)
 
 
-def serve_cli(torch, m: dict, requests: list, workdir: str):
-    """``main.run --mode serve`` with the paging flags on a JSONL of the
-    requests; returns (engine, result records)."""
+def serve_cli(torch, m: dict, requests: list, workdir: str, flags=None):
+    """``main.run --mode serve`` on a JSONL of the requests (with their
+    ``adapter`` fields), with ``flags`` (default: the paging flags);
+    returns (engine, result records)."""
     from building_llm_from_scratch_tpu_torch import main as tmain
 
+    if flags is None:
+        flags = ["--serve_kv_paged", "on", "--serve_prefix_cache", "on",
+                 "--serve_kv_page_tokens", str(PAGE_TOKENS)]
     src = os.path.join(workdir, f"{m['label']}.jsonl")
     dst = os.path.join(workdir, f"{m['label']}.out.jsonl")
     with open(src, "w") as f:
         for p, sp in requests:
-            f.write(json.dumps({
-                "prompt_ids": p, "max_new_tokens": sp.max_new_tokens,
-                "temperature": sp.temperature, "top_k": sp.top_k,
-                "seed": sp.seed, "ignore_eos": sp.ignore_eos}) + "\n")
+            rec = {"prompt_ids": p, "max_new_tokens": sp.max_new_tokens,
+                   "temperature": sp.temperature, "top_k": sp.top_k,
+                   "seed": sp.seed, "ignore_eos": sp.ignore_eos}
+            if sp.adapter is not None:
+                rec["adapter"] = sp.adapter
+            f.write(json.dumps(rec) + "\n")
     engine = tmain.run([
         "--mode", "serve", "--model", m["model"], "--num_params", m["size"],
         "--data_type", m["dtype"], "--target_context_length", str(m["context"]),
         "--seed", "0", "--serve_prompts", src, "--serve_out", dst,
         "--serve_slots", str(m["slots"]), "--serve_max_len", str(m["context"]),
-        "--serve_max_queue", "64", "--serve_kv_paged", "on",
-        "--serve_prefix_cache", "on",
-        "--serve_kv_page_tokens", str(PAGE_TOKENS)])
+        "--serve_max_queue", "64", *flags])
     with open(dst) as f:
         return engine, [json.loads(line) for line in f]
 
@@ -1908,6 +2072,378 @@ def phase_serve_paged(torch, workdir: str) -> dict:
     return served
 
 
+# ---------------------------------------------------------------------------
+# phase 4c: multi-LoRA serving
+# ---------------------------------------------------------------------------
+
+LORA_SERVE = [
+    # full width with phase 4's seeded weights; LLaMA-3.2-1B goes through
+    # the CLI (--serve_adapters, the JSONL adapter field). Adapter ranks
+    # differ so the pool's rank padding is exercised; the pool holds N =
+    # LORA_POOL rows of rank LORA_RANK, phase 3c's shapes.
+    dict(label="llama3_2-1B-lora", shape="llama3_2-1B", model="llama3_2",
+         size="1B", dtype="bf16", context=1024, slots=8, cli=True,
+         adapters={"a": 8, "b": 16, "c": 16}),
+    dict(label="gpt2-124M-lora", shape="gpt2-124M", model="GPT2", size="124M",
+         dtype="fp32", context=1024, slots=8, cli=False,
+         adapters={"a": 16, "b": 8}),
+]
+#: each adapter's delta, as a share of its base projection's output rms
+LORA_DELTA_RMS = 0.2
+
+
+def write_adapters(torch, model, cfg, ranks: dict, workdir: str, label: str):
+    """One artifact per adapter (the port's ``save_adapter``): A from a
+    seeded init, B seeded and scaled so that on unit-variance inputs each
+    projection's delta has LORA_DELTA_RMS of its base output's rms, at
+    layer 0 (alpha = 2 rank). Returns ({name: path}, {name: the measured
+    delta/base rms ratios at the first and last layer, per projection})."""
+    from building_llm_from_scratch_tpu_torch.models.lora import (
+        flatten_lora,
+        init_lora_params,
+        save_adapter,
+        unflatten_lora,
+    )
+
+    dev = torch.device("cuda")
+    params = model.flat_params()
+    paths, ratios = {}, {}
+    for k, (name, rank) in enumerate(ranks.items()):
+        gen = torch.Generator(device=dev).manual_seed(900 + k)
+        flat = flatten_lora(init_lora_params(cfg, gen, rank, device=dev))
+        s = 2.0                                     # alpha / rank
+        measured = {}
+        for path in [p for p in flat if p[-1] == "A"]:
+            wname, bpath = "/".join(path[:-1]), path[:-1] + ("B",)
+            W, A = params[wname], flat[path]
+            B = torch.randn(flat[bpath].shape, generator=gen, device=dev)
+            x = torch.randn(64, W.shape[-2], generator=gen, device=dev)
+
+            def ratio(B, layer):
+                w, a, b = ((W[layer], A[layer], B[layer]) if W.ndim == 3
+                           else (W, A, B))
+                base = (x @ w.float()).pow(2).mean().sqrt()
+                return ((s * (x @ a.float()) @ b.float()).pow(2).mean().sqrt()
+                        / base).item()
+
+            B = (B * (LORA_DELTA_RMS / ratio(B, 0))).to(cfg.torch_dtype)
+            flat[bpath] = B
+            last = W.shape[0] - 1 if W.ndim == 3 else 0
+            measured[wname] = [ratio(B, 0), ratio(B, last)]
+        paths[name] = os.path.join(workdir, f"{label}-{name}.npz")
+        save_adapter(paths[name], unflatten_lora(flat), rank=rank,
+                     alpha=2.0 * rank, cfg=cfg)
+        ratios[name] = measured
+    return paths, ratios
+
+
+def lora_requests(cfg, names: list) -> list:
+    """Phase 4's requests (prompts of 16-768 tokens, budgets of 32-128, every
+    sixth sampled), the i-th naming ``names[i % len(names)]`` (None: base)."""
+    import dataclasses
+
+    reqs = make_requests(cfg, seed=11, n=24, max_prompt=768)
+    return [(p, dataclasses.replace(sp, adapter=names[i % len(names)]))
+            for i, (p, sp) in enumerate(reqs)]
+
+
+def lora_reference_check(torch, model, cfg, reg) -> dict:
+    """One adapted prefill per slot (adapters a, b, c or a, b, a: the
+    gathered path) and four decode ticks (B6 on the card, its twin on the
+    CPU) against the same functions on the CPU in fp32 with the same pool,
+    teacher-forced on the card's greedy tokens. Control: the CPU ticks with
+    each row's adapter swapped for another's must fall outside the bound."""
+    from building_llm_from_scratch_tpu_torch.models.lora import flatten_lora
+    from building_llm_from_scratch_tpu_torch.models.transformer import (
+        Transformer,
+        decode_slots,
+        init_slot_cache,
+        prefill_into_slot,
+    )
+    from building_llm_from_scratch_tpu_torch.serving.adapters import (
+        AdapterRegistry,
+    )
+
+    ref_cfg = cfg.replace(dtype="fp32")
+    ref = Transformer(ref_cfg, {k: v.float().cpu()
+                                for k, v in model.flat_params().items()})
+    cpu_reg = AdapterRegistry(ref_cfg, capacity=reg.capacity,
+                              max_rank=reg.max_rank, device="cpu")
+    pool, scaling = reg.pool_args()
+    cpu_pool, cpu_scaling = cpu_reg.pool_args()
+    cpu_flat = flatten_lora(cpu_pool)
+    for path, leaf in flatten_lora(pool).items():
+        cpu_flat[path].copy_(leaf.float().cpu())
+    cpu_scaling.copy_(scaling.cpu())
+    rows = [reg.lookup(n) for n in reg.names()]
+    S, Tmax, Tp = 3, 64, 16
+    ids = torch.tensor([rows[i % len(rows)] for i in range(S)], dtype=torch.int32)
+    # control: every row served by the next adapter instead of its own
+    other = torch.tensor([rows[(i + 1) % len(rows)] for i in range(S)],
+                         dtype=torch.int32)
+    gen = torch.Generator().manual_seed(9)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 32), generator=gen)
+    prompt[0, Tp:] = 0
+    dev_cache = init_slot_cache(cfg, S, Tmax, "cuda")
+    ref_cache = init_slot_cache(ref_cfg, S, Tmax, "cpu")
+
+    def arg(p, sc, row_ids):
+        return {"pool": p, "scaling": sc, "ids": row_ids}
+
+    pairs, swapped, toks = [], [], []
+    for slot in range(S):
+        one = ids[slot:slot + 1]
+        a = prefill_into_slot(model, prompt.cuda(), Tp, slot, dev_cache,
+                              adapter=arg(pool, scaling, one.cuda()))
+        b = prefill_into_slot(ref, prompt, Tp, slot, ref_cache,
+                              adapter=arg(cpu_pool, cpu_scaling, one))
+        pairs.append((a.cpu(), b))
+        toks.append(a.argmax().cpu())
+    toks = torch.stack(toks).view(S, 1)
+    lengths = torch.full((S,), Tp, dtype=torch.int32)
+    for _ in range(4):
+        control_cache = {k: [t.clone() for t in v] for k, v in ref_cache.items()}
+        a = decode_slots(model, toks.cuda(), lengths.cuda(), dev_cache,
+                         adapter=arg(pool, scaling, ids.cuda()))
+        b = decode_slots(ref, toks, lengths, ref_cache,
+                         adapter=arg(cpu_pool, cpu_scaling, ids))
+        c = decode_slots(ref, toks, lengths, control_cache,
+                         adapter=arg(cpu_pool, cpu_scaling, other))
+        pairs.append((a.cpu(), b))
+        swapped.append((c, b))
+        toks = a.argmax(-1).cpu().view(S, 1)
+        lengths += 1
+    card, control = _agreement(torch, pairs), _agreement(torch, swapped)
+    result = dict(card=card, other_adapter_control=control,
+                  ids=ids.tolist(), control_ids=other.tolist(),
+                  bound="max_abs<=1e-3" if cfg.dtype == "fp32"
+                  else "cosine>=0.9995 and max_abs<=0.1*rms(ref)")
+    if not _within(cfg, card):
+        raise AssertionError(f"{cfg.name}: adapted card logits off the fp32 "
+                             f"CPU reference: {result}")
+    if _within(cfg, control):
+        raise AssertionError(f"{cfg.name}: the reference bound does not catch "
+                             f"another adapter's ids: {result}")
+    return result
+
+
+def lora_paired_ticks(torch, model, reg, requests: list, slots: int,
+                      max_len: int, rounds: int = 6, window: int = 8) -> dict:
+    """Steady decode ticks of an engine with the registry (the requests'
+    adapters; B6 on every tick) and one without (the same requests as base
+    traffic), in alternating windows (base, adapters, adapters, base, ...)
+    on one host: host clock over ``window`` synchronised ticks, medians over
+    ``rounds`` windows each. Outside the main path's count; no request ends
+    inside the windows."""
+    import dataclasses
+
+    from building_llm_from_scratch_tpu_torch.serving.engine import DecodeEngine
+
+    engines = {}
+    for name, registry in (("base", None), ("adapters", reg)):
+        eng = DecodeEngine(model, n_slots=slots, max_len=max_len, max_queue=64,
+                           adapters=registry)
+        for p, sp in requests[:slots]:
+            eng.submit(p, dataclasses.replace(
+                sp, max_new_tokens=max_len - len(p),
+                adapter=sp.adapter if registry is not None else None))
+        while not eng.n_ticks:
+            eng.step()
+        engines[name] = eng
+    times = {name: [] for name in engines}
+    order = ["base", "adapters"]
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            eng = engines[name]
+            torch.cuda.synchronize()
+            t0, n0 = time.perf_counter(), eng.n_ticks
+            for _ in range(window):
+                eng.step()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) / (eng.n_ticks - n0) * 1e3)
+    out = {f"{k}_tick_ms": statistics.median(v) for k, v in times.items()}
+    out.update({f"{k}_windows_ms": v for k, v in times.items()},
+               ratio=out["adapters_tick_ms"] / out["base_tick_ms"],
+               rounds=rounds, window_ticks=window)
+    return out
+
+
+def _projection_shapes(cfg) -> dict:
+    """(in, out) of each adapted block projection of ``cfg``."""
+    D, F = cfg.emb_dim, cfg.hidden_dim
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_groups * cfg.head_dim
+    out = {"wq": (D, q), "wk": (D, kv), "wv": (D, kv), "wo": (q, D),
+           "up": (D, F), "down": (F, D)}
+    if cfg.activation == "swiglu":
+        out["gate"] = (D, F)
+    return out
+
+
+class ShapeTally:
+    """Stands in for ``lora_bgmv`` during a run and counts its launches by
+    (in, out) width. ``launches`` reads and writes the wrapper's own count,
+    so the wrapper's increment (made through its module-level name) still
+    lands on it."""
+
+    def __init__(self, fn):
+        self.fn, self.by_shape = fn, {}
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches = n
+
+    def __call__(self, x, a_pool, b_pool, ids, scales):
+        if x.is_cuda:
+            key = (x.shape[1], b_pool.shape[2])
+            self.by_shape[key] = self.by_shape.get(key, 0) + 1
+        return self.fn(x, a_pool, b_pool, ids, scales)
+
+
+def phase_serve_lora(torch, workdir: str) -> dict:
+    import dataclasses
+    import functools
+
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+    from building_llm_from_scratch_tpu_torch.models.transformer import build_model
+    from building_llm_from_scratch_tpu_torch.ops import decode_step as tds
+    from building_llm_from_scratch_tpu_torch.serving.adapters import (
+        AdapterRegistry,
+    )
+    from building_llm_from_scratch_tpu_torch.serving.engine import DecodeEngine
+
+    served = {}
+    for m in LORA_SERVE:
+        dt, slots, max_len = m["dtype"], m["slots"], m["context"]
+        cfg = get_config(m["model"], m["size"], dtype=dt,
+                         target_context_length=m["context"])
+        names = list(m["adapters"]) + [None]
+        requests = lora_requests(cfg, names)
+        torch.cuda.empty_cache()
+        model = build_model(cfg, seed=0, device="cuda")
+        specs, ratios = write_adapters(torch, model, cfg, m["adapters"], workdir,
+                                       m["label"])
+        if m["cli"]:
+            del model                       # the CLI builds its own
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        # B6 launches by projection shape: a tally around the wrapper,
+        # whose own count is checked against it
+        launch = tds.lora_bgmv
+        counted = ShapeTally(launch)
+        tally = counted.by_shape
+        tds.lora_bgmv = counted
+        tds.fused_decode_step.launches = 0          # the main path's count
+        launch.launches = 0
+        t0 = time.perf_counter()
+        try:
+            if m["cli"]:
+                engine, records = serve_cli(torch, m, requests, workdir, flags=[
+                    "--serve_adapters", ",".join(f"{n}={p}" for n, p in specs.items()),
+                    "--serve_adapter_slots", str(LORA_POOL)])
+                outputs = [r.get("token_ids") for r in records]
+                reasons = [r.get("finish_reason") for r in records]
+            else:
+                reg = AdapterRegistry.from_artifacts(cfg, specs,
+                                                     capacity=LORA_POOL,
+                                                     device="cuda")
+                engine = DecodeEngine(model, n_slots=slots, max_len=max_len,
+                                      max_queue=64, adapters=reg)
+                handles = serve(engine, requests)
+                outputs = [h.output_ids for h in handles]
+                reasons = [h.finish_reason for h in handles]
+            torch.cuda.synchronize()
+        finally:
+            tds.lora_bgmv = launch
+        wall = time.perf_counter() - t0
+        b5, b6 = tds.fused_decode_step.launches, launch.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        model, reg = engine.model, engine.adapters
+
+        st = engine.stats()
+        ticks = st["n_ticks"]
+        for i, ((p, sp), out, why) in enumerate(zip(requests, outputs, reasons)):
+            if why != "length" or len(out) != sp.max_new_tokens:
+                raise AssertionError(f"{m['label']}: request {i} ended {why} "
+                                     f"after {len(out or [])}/{sp.max_new_tokens}")
+        if st["requests_failed"] or st["requests_finished"] != len(requests):
+            raise AssertionError(f"{m['label']}: {st}")
+        shapes = _projection_shapes(cfg)
+        want = {}
+        for d_in_out in shapes.values():
+            want[d_in_out] = want.get(d_in_out, 0) + cfg.n_layers * ticks
+        if (b5 != cfg.n_layers * ticks or b6 != len(shapes) * cfg.n_layers * ticks
+                or tally != want or ticks == 0):
+            raise AssertionError(f"{m['label']}: B5 {b5}, B6 {b6} ({tally}) for "
+                                 f"{len(shapes)} projections x {cfg.n_layers} "
+                                 f"layers x {ticks} ticks")
+        want_counts = {}
+        for (p, sp) in requests:
+            c = want_counts.setdefault(sp.adapter or "base", dict(
+                finished=0, failed=0, tokens=0))
+            c["finished"] += 1
+            c["tokens"] += sp.max_new_tokens
+        if st["per_adapter"] != want_counts or st["adapters_loaded"] != len(specs):
+            raise AssertionError(f"{m['label']}: per-adapter counts "
+                                 f"{st['per_adapter']}, want {want_counts}")
+
+        # slot independence: three greedy adapted requests alone; the
+        # adapters are visible: adapted greedy prompts served as base
+        greedy = [i for i, (_, sp) in enumerate(requests)
+                  if sp.temperature == 0 and sp.adapter is not None]
+        solo_engine = DecodeEngine(model, n_slots=slots, max_len=max_len,
+                                   adapters=reg)
+        for i in greedy[:3]:
+            solo = serve(solo_engine, [requests[i]])[0]
+            if solo.output_ids != outputs[i]:
+                raise AssertionError(f"{m['label']}: request {i} alone gave "
+                                     "other tokens than co-batched")
+        base_engine = DecodeEngine(model, n_slots=slots, max_len=max_len)
+        as_base = serve(base_engine, [
+            (requests[i][0], dataclasses.replace(requests[i][1], adapter=None))
+            for i in greedy])
+        differ = sum(h.output_ids != outputs[i] for h, i in zip(as_base, greedy))
+        if 2 * differ < len(greedy):
+            raise AssertionError(f"{m['label']}: adapted tokens differ from the "
+                                 f"base model's on {differ}/{len(greedy)} prompts")
+
+        row = dict(label=m["label"], model=cfg.name, dtype=dt,
+                   layers=cfg.n_layers, slots=slots, max_len=max_len,
+                   cli=m["cli"], adapters=m["adapters"],
+                   pool_rows=reg.capacity, pool_rank=reg.max_rank,
+                   pool_bytes=reg.pool_nbytes(),
+                   delta_rms_ratios=ratios, requests=len(requests),
+                   prompt_tokens=sum(len(p) for p, _ in requests),
+                   new_tokens=st["tokens_generated"], wall_s=wall,
+                   decode_ticks=ticks, b5_launches=b5, b6_launches=b6,
+                   b6_launches_by_shape={f"{d}x{o}": n for (d, o), n in tally.items()},
+                   per_adapter=st["per_adapter"],
+                   decode_tokens_per_s=st["decode_tokens"] / st["decode_seconds"],
+                   mean_tick_ms=st["decode_seconds"] / ticks * 1e3,
+                   prefill_s=st["prefill_seconds"], decode_s=st["decode_seconds"],
+                   slot_independence=f"{min(3, len(greedy))} requests",
+                   differ_from_base=f"{differ}/{len(greedy)}",
+                   max_memory_gb=peak_gb)
+        row["reference"] = lora_reference_check(torch, model, cfg, reg)
+        row["paired_ticks"] = lora_paired_ticks(torch, model, reg, requests,
+                                                slots, max_len)
+        if m["cli"]:
+            row["tick_profile"] = tick_profile(
+                torch, functools.partial(DecodeEngine, adapters=reg), model,
+                requests, row["mean_tick_ms"], slots, max_len)
+        emit("serve_lora", **row)
+        served[m["shape"]] = dict(tally=tally, dims=(slots, reg.capacity,
+                                                     reg.max_rank, dt))
+        del model, engine, solo_engine, base_engine, reg
+        gc.collect()        # the registry's in-use probe holds its engine
+        torch.cuda.empty_cache()
+    return served
+
+
 def main() -> int:
     try:
         import torch
@@ -1930,12 +2466,14 @@ def main() -> int:
     phase_build()
     rows = phase_kernel(torch, card)
     paged_rows = phase_paged_kernel(torch, card, rows)
+    lora_rows = phase_lora_kernel(torch, card)
     # serving runs before training: its ticks are host-bound, and a clean
     # process keeps them comparable with earlier runs
     served = phase_serve(torch)
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(dir=here) as workdir:
         served_paged = phase_serve_paged(torch, workdir)
+        served_lora = phase_serve_lora(torch, workdir)
     attn_rows = phase_attention(torch, card)
     drop_attn_rows = phase_attention_dropout(torch, card)
     dropout_rows = phase_dropout(torch, card)
@@ -1974,6 +2512,19 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             b5_contiguous_ms=r["b5_contiguous_ms"]))
+    for r in lora_rows:
+        run = served_lora[r["shape"]]
+        if run["dims"] != (r["S"], r["N"], r["r"], r["dtype"]):
+            raise AssertionError(f"{r['shape']}: served with adapters at "
+                                 f"{run['dims']}, not {(r['S'], r['N'], r['r'], r['dtype'])}")
+        kernels.append(dict(
+            name=f"lora_bgmv[{r['shape']}-{r['D']}x{r['O']}]", route="cuda",
+            source="building_llm_from_scratch_tpu_torch/csrc/bgmv.cu",
+            replaces="building_llm_from_scratch_tpu/ops/decode_step.py:184",
+            launches=run["tally"].get((r["D"], r["O"]), 0),
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], projections=r["projections"]))
     replaces = {"fwd": ("flash_attention_fwd",
                         "building_llm_from_scratch_tpu/ops/fused_attention.py:75"),
                 "dq": ("flash_attention_dq",

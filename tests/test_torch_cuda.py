@@ -1,9 +1,9 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA decode-step, paged
-decode-attention, flash-attention (with and without dropout), fused-dropout
-and vocab-streamed cross-entropy kernels against their plain twins, the
-serving engine (contiguous and paged) and LLaMA and GPT-2 training steps on
-the card. They skip on a
-machine without CUDA. This file imports neither JAX nor the JAX package, so
+decode-attention, BGMV, flash-attention (with and without dropout),
+fused-dropout and vocab-streamed cross-entropy kernels against their plain
+twins, the serving engine (contiguous, paged and with LoRA adapters) and
+LLaMA and GPT-2 training steps on the card. They skip on a machine without
+CUDA. This file imports neither JAX nor the JAX package, so
 it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -575,3 +575,189 @@ def test_gpt2_train_step_with_dropout_on_the_card(cuda):
     assert launches == [[3, 3, 3, 7, 7, 0], [0] * 6], launches
     assert np.isfinite(losses).all()
     assert abs(losses[0] - losses[1]) <= 1e-3 * abs(losses[1]), losses
+
+
+# ---------------------------------------------------------------------------
+# B6: the BGMV kernel and multi-LoRA serving on the card
+# ---------------------------------------------------------------------------
+
+# Bounds of B6, per output element, relative to M = scale * (|x @ A| @ |B|)
+# (fp64, the magnitude of the second product's terms): the kernel rounds the
+# rank-r intermediate to the pool dtype (half a unit, 2^-9 in bf16) and sums
+# in fp32 (sqrt(D) 2^-24, about 5e-6 at D 8192). Against the exact result
+# 2^-8 M in bf16, against the twin (which rounds the same intermediate from
+# its own fp32 sum, so one unit may differ) 2^-7 M; 1e-4 M in fp32. A row
+# with id -1 has M = 0: its output must be exactly 0. The same bounds as
+# chip_smoke.py.
+BGMV_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 2.0 ** -8),
+            torch.float16: (2.0 ** -9, 2.0 ** -10)}
+
+
+def bgmv_inputs(dev, S, N, L, D, r, O, dtype, ids, seed=0):
+    """x and a stacked (N, L, D, r) / (N, L, r, O) pool (the registry's
+    layout); the layer-1 slices are what decode_slots hands the kernel."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)  # noqa: E731
+    x = rnd(S, D)
+    A = (rnd(N, L, D, r).float() / D ** 0.5).to(dtype)
+    B = rnd(N, L, r, O)
+    scales = torch.rand(N, generator=gen, device=dev) + 0.5
+    return (x, A[:, 1], B[:, 1], torch.tensor(ids, dtype=torch.int32, device=dev),
+            scales)
+
+
+def bgmv_exact(x, A, B, ids, scales):
+    """(fp64 exact result, the magnitude M of the bounds)."""
+    idx = ids.long().clamp(0, A.shape[0] - 1)
+    xa = torch.bmm(x.double()[:, None], A.double()[idx])
+    keep = (ids >= 0).double()[:, None] * scales.double()[idx][:, None]
+    return (torch.bmm(xa, B.double()[idx])[:, 0] * keep,
+            torch.bmm(xa.abs(), B.double()[idx].abs())[:, 0] * keep)
+
+
+def within(out, ref, mag, tol) -> bool:
+    return bool(((out.double() - ref.double()).abs() <= tol * mag).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,r,O", [(2048, 16, 512), (8192, 16, 2048),
+                                   (768, 2, 3072), (96, 256, 200), (64, 7, 33)])
+def test_bgmv_kernel_matches_twin(cuda, dtype, D, r, O):
+    """B6 against its twin and the exact result, with id -1 rows, repeated
+    ids and an id past the pool (clamped); ids permuted must fail."""
+    ids = [0, 1, 2, -1, 0, 2, 1, 7]
+    x, A, B, ids, sc = bgmv_inputs(cuda, 8, 4, 2, D, r, O, dtype, ids)
+    before = tds.lora_bgmv.launches
+    out = tds.lora_bgmv(x, A, B, ids, sc)
+    torch.cuda.synchronize()
+    assert tds.lora_bgmv.launches == before + 1
+    assert out.dtype == torch.float32 and tuple(out.shape) == (8, O)
+    assert torch.equal(out[3], torch.zeros_like(out[3]))
+    twin = tds.lora_bgmv_plain(x, A, B, ids, sc)
+    exact, mag = bgmv_exact(x, A, B, ids, sc)
+    t_twin, t_exact = BGMV_TOL[dtype]
+    assert within(out, twin, mag, t_twin)
+    assert within(out, exact, mag, t_exact)
+    perm = ids[[1, 2, 3, 4, 5, 6, 7, 0]]
+    assert not within(tds.lora_bgmv_plain(x, A, B, perm, sc), out, mag, t_twin)
+
+
+def test_bgmv_kernel_rejects_what_it_cannot_take(cuda):
+    x, A, B, ids, sc = bgmv_inputs(cuda, 2, 2, 2, 64, 8, 64, torch.float32, [0, 1])
+    with pytest.raises(ValueError, match="BGMV kernel"):
+        tds.check_lora_kernel_shape(257, torch.bfloat16)
+    with pytest.raises(ValueError, match="BGMV kernel"):
+        tds.check_lora_kernel_shape(8, torch.float64)
+    big = torch.zeros(2, 64, 257, device=cuda)
+    before = tds.lora_bgmv.launches
+    for args in ((x, big, torch.zeros(2, 257, 64, device=cuda), ids, sc),
+                 (x, A, B, ids.long(), sc),                         # id dtype
+                 (x.bfloat16(), A, B, ids, sc),                     # dtypes
+                 (x, A.transpose(1, 2).contiguous().transpose(1, 2), B, ids, sc),
+                 (x, A, B, ids.cpu(), sc)):                         # devices
+        with pytest.raises((ValueError, TypeError)):
+            tds.lora_bgmv(*args)
+    assert tds.lora_bgmv.launches == before
+    from building_llm_from_scratch_tpu_torch.serving.adapters import AdapterRegistry
+
+    with pytest.raises(ValueError, match="BGMV kernel"):
+        AdapterRegistry(_paged_cfg(), capacity=2, max_rank=300, device=cuda)
+
+
+def _adapter_files(tmp_path, cfg, ranks):
+    """Adapter artifacts of the port's save_adapter: seeded A, and B made
+    nonzero (B = 0 at init would make every delta zero)."""
+    from building_llm_from_scratch_tpu_torch.models.lora import (
+        init_lora_params,
+        save_adapter,
+    )
+
+    specs = {}
+    for i, (name, r) in enumerate(ranks.items()):
+        gen = torch.Generator().manual_seed(30 + i)
+        lora = init_lora_params(cfg, gen, r)
+        for node in (lora["head"]["weight"], *(
+                n for g in lora["blocks"].values() for n in g.values())):
+            node["B"] = (0.05 * torch.randn(node["B"].shape, generator=gen)
+                         ).to(node["B"].dtype)
+        specs[name] = str(tmp_path / f"{name}.npz")
+        save_adapter(specs[name], lora, rank=r, alpha=2.0 * r, cfg=cfg)
+    return specs
+
+
+def test_decode_slots_launches_b6_per_projection(cuda, tmp_path):
+    """A decode tick with an adapter pool on the card launches B6 once per
+    adapted projection and layer (7 a layer for a LLaMA-like model) and B5
+    once per layer; its fp32 logits agree with the CPU twin's on the same
+    state (1e-3, phase 4's fp32 bound), and another adapter's ids fail it."""
+    from building_llm_from_scratch_tpu_torch.models.transformer import (
+        Transformer,
+        decode_slots,
+        init_slot_cache,
+    )
+    from building_llm_from_scratch_tpu_torch.serving.adapters import AdapterRegistry
+
+    cfg = _paged_cfg(n_layers=3)
+    specs = _adapter_files(tmp_path, cfg, {"a": 8, "b": 4})
+    model = build_model(cfg, seed=0, device=cuda)
+    cpu = Transformer(cfg, {k: v.cpu() for k, v in model.flat_params().items()})
+    regs = [AdapterRegistry.from_artifacts(cfg, specs, device=d) for d in (cuda, "cpu")]
+    cache = init_slot_cache(cfg, 3, 64, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for bufs in cache.values():
+        for b in bufs:
+            b.normal_(generator=gen)
+    cpu_cache = {k: [b.cpu() for b in v] for k, v in cache.items()}
+    toks = torch.tensor([[7], [9], [3]])
+    lens = torch.tensor([12, 20, 0], dtype=torch.int32)
+    ids = torch.tensor([0, -1, 1], dtype=torch.int32)
+
+    def adapter(reg, ids):
+        pool, scaling = reg.pool_args()
+        return {"pool": pool, "scaling": scaling, "ids": ids.to(reg.device)}
+
+    b5, b6 = tds.fused_decode_step.launches, tds.lora_bgmv.launches
+    got = decode_slots(model, toks.to(cuda), lens.to(cuda), cache,
+                       adapter=adapter(regs[0], ids))
+    torch.cuda.synchronize()
+    assert tds.lora_bgmv.launches == b6 + 7 * cfg.n_layers
+    assert tds.fused_decode_step.launches == b5 + cfg.n_layers
+    ref = decode_slots(cpu, toks, lens, {k: [b.clone() for b in v]
+                                         for k, v in cpu_cache.items()},
+                       adapter=adapter(regs[1], ids))
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-3, rtol=0)
+    other = decode_slots(cpu, toks, lens, cpu_cache,
+                         adapter=adapter(regs[1], ids[[2, 1, 0]]))
+    assert (got.cpu() - other)[[0, 2]].abs().max() > 1e-3
+
+
+def test_adapter_engine_on_the_card(cuda, tmp_path):
+    """Multi-LoRA serving on the card (bf16): B6 launches = 7 x layers x
+    ticks, B5 = layers x ticks, the per-adapter counts match the traffic,
+    and a greedy adapted request gives the same tokens alone."""
+    from building_llm_from_scratch_tpu_torch.serving.adapters import AdapterRegistry
+
+    cfg = _paged_cfg(dtype="bf16")
+    specs = _adapter_files(tmp_path, cfg, {"a": 8, "b": 16})
+    model = build_model(cfg, seed=0, device=cuda)
+    reg = AdapterRegistry.from_artifacts(cfg, specs, device=cuda)
+    rng = np.random.default_rng(2)
+    names = ["a", None, "b", "a", "b"]
+    reqs = [(rng.integers(0, 512, 5 + 7 * i).tolist(),
+             SamplingParams(max_new_tokens=6 + i, seed=i, ignore_eos=True,
+                            adapter=nm)) for i, nm in enumerate(names)]
+    eng = DecodeEngine(model, n_slots=3, max_len=128, adapters=reg)
+    tds.fused_decode_step.launches = tds.lora_bgmv.launches = 0
+    handles = [eng.submit(p, sp) for p, sp in reqs]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    assert tds.lora_bgmv.launches == 7 * cfg.n_layers * eng.n_ticks > 0
+    assert tds.fused_decode_step.launches == cfg.n_layers * eng.n_ticks
+    st = eng.stats()
+    assert {k: v["finished"] for k, v in st["per_adapter"].items()} == \
+        {"a": 2, "b": 2, "base": 1}
+    assert [len(h.output_ids) for h in handles] == [6, 7, 8, 9, 10]
+    solo = DecodeEngine(model, n_slots=3, max_len=128, adapters=reg)
+    h = solo.submit(*reqs[2])
+    solo.run_until_idle()
+    assert h.output_ids == handles[2].output_ids

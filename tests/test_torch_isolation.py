@@ -28,6 +28,8 @@ def test_entry_points_import_no_jax():
         "import building_llm_from_scratch_tpu_torch.main\n"
         "import building_llm_from_scratch_tpu_torch.serving.engine\n"
         "import building_llm_from_scratch_tpu_torch.serving.frontend\n"
+        "import building_llm_from_scratch_tpu_torch.serving.adapters\n"
+        "import building_llm_from_scratch_tpu_torch.models.lora\n"
         "import building_llm_from_scratch_tpu_torch.training.checkpoint\n"
         "import building_llm_from_scratch_tpu_torch.training.trainer\n"
         "import building_llm_from_scratch_tpu_torch.build_components\n"

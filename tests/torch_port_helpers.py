@@ -14,6 +14,9 @@ import torch
 
 from building_llm_from_scratch_tpu import configs as jcfgs
 from building_llm_from_scratch_tpu.models import init_params as jax_init_params
+from building_llm_from_scratch_tpu.models.lora import (
+    init_lora_params as jax_init_lora,
+)
 from building_llm_from_scratch_tpu.serving import DecodeEngine as JEngine
 from building_llm_from_scratch_tpu.serving import SamplingParams as JParams
 from building_llm_from_scratch_tpu.serving.kvcache import (
@@ -57,6 +60,15 @@ def jax_params(jcfg, seed: int = 0):
     """The JAX params tree and its numpy copy."""
     params = jax_init_params(jcfg, jax.random.PRNGKey(seed))
     return params, jax.device_get(params)
+
+
+def make_jax_lora(jcfg, params, seed, rank):
+    """A JAX adapter with NONZERO B (B = 0 at init would make every delta
+    zero and every check vacuous), as the JAX tests' ``make_lora``."""
+    lora = jax_init_lora(jcfg, params, jax.random.PRNGKey(seed), rank=rank)
+    return jax.tree_util.tree_map(
+        lambda a: a + 0.05 * jax.random.normal(
+            jax.random.PRNGKey(seed + 1000), a.shape, a.dtype), lora)
 
 
 def bits(a) -> np.ndarray:
