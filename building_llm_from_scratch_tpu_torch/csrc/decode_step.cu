@@ -297,6 +297,7 @@ int bllm_fused_decode_step(int dtype, int hd, int S, int Hq, int Hkv, int Tmax,
 
 const char* bllm_error_string(int err) {
   if (err == kUnsupported) return "unsupported dtype, head dim or shape";
+  if (err == kUnsupported + 1) return "cuTensorMapEncodeTiled failed (no tensor map)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

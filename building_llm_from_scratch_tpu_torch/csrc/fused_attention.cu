@@ -1,10 +1,14 @@
-// Causal flash attention for Hopper (sm_90a): forward (B1), dq (B2a) and
-// per-query-head dk/dv (B2b).
+// Causal flash attention: forward (B1), dq (B2a) and dk/dv summed over each
+// kv head's query heads (B2b), with in-kernel attention dropout; the fp32
+// kernels and the C entry points of the family. The 16-bit (bf16, fp16)
+// kernels are the Hopper designs in attn_fwd_sm90.cu, attn_dq_sm90.cu and
+// attn_dkv_sm90.cu (TMA, mbarriers, wgmma); the entry points below send
+// those dtypes there.
 //
 // Replaces the TPU kernels of building_llm_from_scratch_tpu/ops/
 // fused_attention.py: _fwd (_fwd_kernel), and _bwd's two calls (_dq_kernel,
-// _dkv_kernel), with their in-kernel attention dropout. The function is the
-// JAX kernels', not their blocks:
+// _dkv_kernel) with its GQA group sum. The function is the JAX kernels',
+// not their blocks:
 //   forward   s = q.k * scale (fp32), causal mask, online softmax in fp32
 //             (running max m, running sum l of the fp32 exp terms), the exp
 //             terms times the keep mask M rounded to the value dtype before
@@ -13,55 +17,39 @@
 //   dq        p = exp(s - lse), dp = dO.v, dp~ = M * dp / (1-p),
 //             dS = p * (dp~ - delta) * scale, dq = sum dS.k with dS rounded
 //             to the model dtype.
-//   dk, dv    the same p, dp~ and dS per (key tile, QUERY head): dv = sum
-//             (M p / (1-p))^T.dO, dk = sum dS^T.q (both rounded to the model
-//             dtype first); the wrapper sums the G query heads of a kv head
-//             (GQA), as the JAX wrapper does.
+//   dk, dv    the same p, dp~ and dS per (key tile, query head): dv_h = sum
+//             (M p / (1-p))^T.dO, dk_h = sum dS^T.q (both rounded to the
+//             model dtype first), each head's result rounded to the model
+//             dtype and summed over the G query heads of the kv head in fp32
+//             (GQA), written once as (B, T, Hkv, D).
 // Query head h reads kv head h / G; K and V are never repeated. delta =
 // rowsum(dO * out) over the dropped output is computed by the wrapper.
 //
 // Dropout (rate > 0, threshold != 0; each kernel is instantiated with and
 // without it, so the no-dropout path carries no dropout code): the keep bit
-// of element (b, h, q, k)
-// is a pure function of the seed and those coordinates (csrc/philox.cuh),
-// never of a tile or of launch order, so the three kernels, which tile the
-// scores differently (64-row forward and dq tiles, 64-key dk/dv blocks over
-// 64- or 32-row query tiles), regenerate the same mask, and nothing T^2-sized
-// is stored. Each thread draws one Philox call per pair of its fragment's
-// elements.
+// of element (b, h, q, k) is a pure function of the seed and those
+// coordinates (csrc/philox.cuh), never of a tile or of launch order, so
+// kernels that tile the scores differently regenerate the same mask, and
+// nothing T^2-sized is stored. One Philox call covers a 2x2 quad of (q, k),
+// shared by the two fragment lanes that hold it.
 //
 // Layout: the model's own (B, T, H, D), read through row strides (no
 // transposes in device memory); lse and delta are (B, Hq, T) fp32.
 //
-// What bounds it: operations (the Philox draws add integer work, about 50
-// instructions an element, that no bound below counts). At LLaMA-3.2-1B's training shape (B 4, Hq 32,
-// Hkv 8, T 1024, D 64) the forward does ~17 GFLOP of causal products over
-// ~42 MB, about 400 operations a byte, above the card's ~295 for bf16.
-//
-// Design (a first, simple kernel; each block is independent):
-//   * One block of 4 warps per (64-row tile, query head, batch row). Each
-//     warp owns 16 rows of the tile. The forward and dq kernels loop over
-//     the kv tiles up to the diagonal (causal tile skip); the dk/dv kernel
-//     owns a 64-key tile and loops over the query tiles from the diagonal
-//     to the end.
-//   * Every product is a warp tile product A (16 x K, row-major in shared
-//     memory) times B^T (B stored [n][k] in shared memory). For bf16/fp16 it
-//     runs on the tensor cores with mma.sync m16n8k16 (fp32 accumulation),
-//     fragments read with 32-bit shared-memory loads; for fp32 the same
-//     fragment layout is computed with FMAs (the exact reference path).
-//   * Tiles come in with 16-byte loads; operands needed with the other
-//     orientation (V for P.V, K for dS.K, Q and dO in dk/dv) are stored
-//     transposed while they are copied in. P and dS go through shared
-//     memory in the model dtype (the rounding the JAX kernels apply).
-//   * Rows are padded by 16 bytes so the fragment loads are free of bank
-//     conflicts.
-// Known gaps, for a later PR: no cp.async/TMA double buffering (each tile
-// load waits on device memory with nothing in flight), no ldmatrix, no
-// wgmma; the mask test runs on every element of the diagonal tile.
+// The fp32 kernels here are the exact-reference path (the training
+// reference steps): FMAs in the mma.sync fragment layout (warp_mma.cuh),
+// one block of 4 warps per (64-row tile, head, batch row), tiles copied in
+// with plain loads (operands needed the other way round stored transposed)
+// and P / dS through shared memory. What bounds them: the CUDA cores' fp32
+// rate (67 TFLOP/s); they already run under the library's fp32 attention at
+// the reference shapes. The fp32 dk/dv kernel works per query head, as the
+// TPU kernel does; with GQA it writes a workspace that a second kernel sums
+// over each kv head's G heads in a fixed order (deterministic).
 //
 // Plain C interface, loaded with ctypes (ops/_kernels.py). Each entry
-// returns cudaGetLastError() after its launch, or 100000 for a dtype, head
-// dim or shape it is not instantiated for (see bllm_error_string).
+// returns cudaGetLastError() after its launch, 100000 for a dtype, head dim
+// or shape it is not instantiated for, or 100001 when a tensor map cannot be
+// encoded (see bllm_error_string).
 
 #include <cuda_runtime.h>
 
@@ -70,6 +58,7 @@
 
 #include <type_traits>
 
+#include "attn_sm90.cuh"
 #include "philox.cuh"
 #include "warp_mma.cuh"
 
@@ -78,27 +67,12 @@ namespace {
 using bllm::from_f;
 using bllm::pad;
 using bllm::warp_gemm;
+using bllm::attn::Args;
+using bllm::attn::Drop;
+using bllm::attn::kUnsupported;
 
 constexpr int kThreads = 128;       // 4 warps
 constexpr int kRows = 64;           // rows of a block's own tile, 16 per warp
-constexpr int kUnsupported = 100000;
-
-// exp of the softmax terms: the fast hardware exp for the 16-bit paths (the
-// terms are rounded to 8 or 11 bits anyway), the accurate one for fp32
-template <typename T> __device__ __forceinline__ float exp_f(float x) {
-  if constexpr (std::is_same<T, float>::value) {
-    return expf(x);
-  } else {
-    return __expf(x);
-  }
-}
-
-// the dropout parameters of a launch: keep = Philox word >= threshold (no
-// mask at all when threshold is 0), kept terms scaled by inv_keep = 1/(1-p)
-struct Drop {
-  uint32_t threshold, seed_lo, seed_hi;
-  float inv_keep;
-};
 
 // Copy R rows of D elements (global row stride gstride) into shared memory
 // with 16-byte loads: row-major into sX (ld), and/or transposed into sXt
@@ -154,8 +128,10 @@ constexpr size_t fwd_smem() {
 template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ out, float* __restrict__ lse, int seq, int Hq, int Hkv,
+                 T* __restrict__ out, float* __restrict__ lse, int seq, int Hq, int Hkv,
                 float scale, Drop drop) {
+  static_assert(std::is_same<T, float>::value,
+                "16-bit types take the Hopper kernel (attn_fwd_sm90.cu)");
   constexpr int LD = D + pad<T>();        // [row][d] tiles
   constexpr int LDT = kRows + pad<T>();   // [d][key] and [row][key] tiles
   constexpr int NS = kRows / 8;           // n-tiles of a score tile
@@ -193,6 +169,14 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
     warp_gemm<T, NS, D>(s, sQ, LD, row0, sK, LD);
+    bool keep[NS][2][2];
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt) {
+      keep[nt][0][0] = keep[nt][0][1] = keep[nt][1][0] = keep[nt][1][1] = true;
+      if (kDrop)
+        bllm::attn_keep_rows(keep[nt], drop.seed_lo, drop.seed_hi, drop.threshold, b, h,
+                             i * kRows + row0 + g, j * kRows + nt * 8 + 2 * t, g & 1);
+    }
 
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
@@ -211,19 +195,15 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[rr], mx);
-      const float corr = exp_f<T>(m[rr] - m_new);
+      const float corr = expf(m[rr] - m_new);
       float sum = 0.f;
 #pragma unroll
       for (int nt = 0; nt < NS; ++nt) {
-        bool keep[2] = {true, true};
-        if (kDrop)
-          bllm::attn_keep_keys(keep, drop.seed_lo, drop.seed_hi, drop.threshold, b, h,
-                               i * kRows + r, j * kRows + nt * 8 + 2 * t);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float p = exp_f<T>(s[nt][2 * rr + e] - m_new);
+          const float p = expf(s[nt][2 * rr + e] - m_new);
           sum += p;       // l sums every term: dropout scales the normalised weights
-          sP[r * LDT + nt * 8 + 2 * t + e] = from_f<T>(keep[e] ? p : 0.f);
+          sP[r * LDT + nt * 8 + 2 * t + e] = from_f<T>(keep[nt][rr][e] ? p : 0.f);
         }
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -263,6 +243,8 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
                const T* __restrict__ dout, const float* __restrict__ lse,
                const float* __restrict__ delta, T* __restrict__ dq, int seq, int Hq, int Hkv,
                float scale, Drop drop) {
+  static_assert(std::is_same<T, float>::value,
+                "16-bit types take the Hopper kernel (attn_dq_sm90.cu)");
   constexpr int LD = D + pad<T>();
   constexpr int LDT = kRows + pad<T>();
   constexpr int NS = kRows / 8;
@@ -310,22 +292,22 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     warp_gemm<T, NS, D>(s, sQ, LD, row0, sK, LD);
     warp_gemm<T, NS, D>(dp, sdO, LD, row0, sV, LD);
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int r = row0 + g + 8 * rr;
+    for (int nt = 0; nt < NS; ++nt) {
+      bool keep[2][2] = {{true, true}, {true, true}};
+      if (kDrop)
+        bllm::attn_keep_rows(keep, drop.seed_lo, drop.seed_hi, drop.threshold, b, h,
+                             i * kRows + row0 + g, j * kRows + nt * 8 + 2 * t, g & 1);
 #pragma unroll
-      for (int nt = 0; nt < NS; ++nt) {
-        bool keep[2] = {true, true};
-        if (kDrop)
-          bllm::attn_keep_keys(keep, drop.seed_lo, drop.seed_hi, drop.threshold, b, h,
-                               i * kRows + r, j * kRows + nt * 8 + 2 * t);
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = row0 + g + 8 * rr;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = nt * 8 + 2 * t + e;
           const float p = (j == i && col > r)
                               ? 0.f
-                              : exp_f<T>(s[nt][2 * rr + e] * scale - lse_r[rr]);
+                              : expf(s[nt][2 * rr + e] * scale - lse_r[rr]);
           float dpv = dp[nt][2 * rr + e];
-          if (kDrop) dpv = keep[e] ? dpv * drop.inv_keep : 0.f;
+          if (kDrop) dpv = keep[rr][e] ? dpv * drop.inv_keep : 0.f;
           const float ds = p * (dpv - delta_r[rr]) * scale;
           sdS[r * LDT + col] = from_f<T>(ds);
         }
@@ -340,8 +322,12 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 // ---------------------------------------------------------------------------
-// B2b: dk, dv per query head. Grid (T / 64, Hq, B); the block owns 64 keys
-// and loops over BQ-row query tiles from the diagonal on.
+// B2b (fp32): dk, dv per query head. Grid (T / 64, Hq, B); the block owns 64
+// keys and loops over BQ-row query tiles from the diagonal on. With GQA the
+// launch writes the per-head results into a workspace and
+// attn_dkv_group_sum_kernel sums each kv head's G heads (fixed order); a
+// kernel walking the G heads itself would give T = 256's reference shape a
+// quarter of the blocks and four times the critical path.
 // ---------------------------------------------------------------------------
 
 template <int D> __host__ __device__ constexpr int dkv_bq() { return D <= 64 ? 64 : 32; }
@@ -359,6 +345,8 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int seq,
                 int Hq, int Hkv, float scale, Drop drop) {
+  static_assert(std::is_same<T, float>::value,
+                "16-bit types take the Hopper kernel (attn_dkv_sm90.cu)");
   constexpr int BQ = dkv_bq<D>();
   constexpr int LD = D + pad<T>();
   constexpr int LDQ = BQ + pad<T>();
@@ -417,25 +405,25 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     warp_gemm<T, NQ, D>(st, sK, LD, row0, sQ, LD);     // S^T = K Q^T
     warp_gemm<T, NQ, D>(dpt, sV, LD, row0, sdO, LD);   // dP^T = V dO^T
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int kr = row0 + g + 8 * rr;
-      const int kpos = j * kRows + kr;
+    for (int nt = 0; nt < NQ; ++nt) {
+      bool keep[2][2] = {{true, true}, {true, true}};
+      if (kDrop)
+        bllm::attn_keep_cols(keep, drop.seed_lo, drop.seed_hi, drop.threshold, b, h,
+                             i * BQ + nt * 8 + 2 * t, j * kRows + row0 + g, g & 1);
 #pragma unroll
-      for (int nt = 0; nt < NQ; ++nt) {
-        bool keep[2] = {true, true};
-        if (kDrop)
-          bllm::attn_keep_queries(keep, drop.seed_lo, drop.seed_hi, drop.threshold, b, h,
-                                  i * BQ + nt * 8 + 2 * t, kpos);
+      for (int rr = 0; rr < 2; ++rr) {
+        const int kr = row0 + g + 8 * rr;
+        const int kpos = j * kRows + kr;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = nt * 8 + 2 * t + e;
           const float p = (kpos > i * BQ + col)
                               ? 0.f
-                              : exp_f<T>(st[nt][2 * rr + e] * scale - sL[col]);
+                              : expf(st[nt][2 * rr + e] * scale - sL[col]);
           float pt = p, dpv = dpt[nt][2 * rr + e];
           if (kDrop) {
-            pt = keep[e] ? p * drop.inv_keep : 0.f;
-            dpv = keep[e] ? dpv * drop.inv_keep : 0.f;
+            pt = keep[rr][e] ? p * drop.inv_keep : 0.f;
+            dpv = keep[rr][e] ? dpv * drop.inv_keep : 0.f;
           }
           const float ds = p * (dpv - sDl[col]) * scale;
           sPt[kr * LDQ + col] = from_f<T>(pt);
@@ -455,18 +443,30 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   store_rows<T, NO>(dva, one, 1.f, dv + doff, qs, row0);
 }
 
+// (B * T * Hkv, D) rows of dk and dv: the sum of the G per-query-head rows
+// of the workspace, head by head in order (fp32: nothing to round)
+__global__ void __launch_bounds__(256)
+attn_dkv_group_sum_kernel(const float* __restrict__ ws_k, const float* __restrict__ ws_v,
+                          float* __restrict__ dk, float* __restrict__ dv, size_t rows, int G,
+                          int D) {
+  const size_t n = rows * D;
+  for (size_t x = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; x < n;
+       x += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t r = x / D, d = x - r * D;
+    const size_t src = r * G * D + d;
+    float sk = 0.f, sv = 0.f;
+    for (int gg = 0; gg < G; ++gg) {
+      sk += ws_k[src + gg * D];
+      sv += ws_v[src + gg * D];
+    }
+    dk[x] = sk;
+    dv[x] = sv;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
-
-struct Args {
-  int B, seq, Hq, Hkv;
-  float scale;
-  Drop drop;
-  const void *q, *k, *v, *dout, *lse, *delta;
-  void *out0, *out1;
-  cudaStream_t stream;
-};
 
 template <typename Kernel>
 int launch(Kernel kernel, size_t smem, const Args& a, dim3 grid, void** params) {
@@ -522,6 +522,8 @@ struct Dq {
 
 template <typename T, int D>
 struct Dkv {
+  // With GQA (work != null) the per-head results go to the workspace
+  // (2, B, T, Hq, D) and are then summed into dk / dv (B, T, Hkv, D).
   static int run(const Args& a) {
     const T* q = static_cast<const T*>(a.q);
     const T* k = static_cast<const T*>(a.k);
@@ -529,32 +531,39 @@ struct Dkv {
     const T* dout = static_cast<const T*>(a.dout);
     const float* lse = static_cast<const float*>(a.lse);
     const float* delta = static_cast<const float*>(a.delta);
-    T* dk = static_cast<T*>(a.out0);
-    T* dv = static_cast<T*>(a.out1);
+    const bool grouped = a.Hq != a.Hkv;
+    if (grouped && a.work == nullptr) return kUnsupported;
+    const size_t per_head = static_cast<size_t>(a.B) * a.seq * a.Hq * D;
+    T* dk = grouped ? static_cast<T*>(a.work) : static_cast<T*>(a.out0);
+    T* dv = grouped ? static_cast<T*>(a.work) + per_head : static_cast<T*>(a.out1);
     int seq = a.seq, Hq = a.Hq, Hkv = a.Hkv;
     float scale = a.scale;
     Drop drop = a.drop;
     void* params[] = {&q, &k, &v, &dout, &lse, &delta, &dk, &dv, &seq, &Hq, &Hkv, &scale,
                       &drop};
     const dim3 grid(a.seq / kRows, a.Hq, a.B);
-    return drop.threshold != 0u
-               ? launch(attn_dkv_kernel<T, D, true>, dkv_smem<T, D>(), a, grid, params)
-               : launch(attn_dkv_kernel<T, D, false>, dkv_smem<T, D>(), a, grid, params);
+    int err = drop.threshold != 0u
+                  ? launch(attn_dkv_kernel<T, D, true>, dkv_smem<T, D>(), a, grid, params)
+                  : launch(attn_dkv_kernel<T, D, false>, dkv_smem<T, D>(), a, grid, params);
+    if (err != 0 || !grouped) return err;
+    const size_t rows = static_cast<size_t>(a.B) * a.seq * a.Hkv;
+    const int blocks = static_cast<int>((rows * D + 255) / 256 < 4096 ? (rows * D + 255) / 256
+                                                                       : 4096);
+    attn_dkv_group_sum_kernel<<<blocks, 256, 0, a.stream>>>(
+        dk, dv, static_cast<float*>(a.out0), static_cast<float*>(a.out1), rows, a.Hq / a.Hkv, D);
+    return static_cast<int>(cudaGetLastError());
   }
 };
 
+// fp32 here; bf16 / fp16 on the Hopper kernels
 template <template <typename, int> class Kernel>
-int dispatch(int dtype, int hd, const Args& a) {
+int dispatch(int (*sm90)(int, int, const Args&), int dtype, int hd, const Args& a) {
   if (a.B < 1 || a.Hkv < 1 || a.Hq % a.Hkv != 0 || a.seq < kRows || a.seq % kRows != 0)
     return kUnsupported;
   if (hd != 64 && hd != 128) return kUnsupported;
-  switch (dtype) {
-    case 0: return hd == 64 ? Kernel<float, 64>::run(a) : Kernel<float, 128>::run(a);
-    case 1: return hd == 64 ? Kernel<__half, 64>::run(a) : Kernel<__half, 128>::run(a);
-    case 2:
-      return hd == 64 ? Kernel<__nv_bfloat16, 64>::run(a) : Kernel<__nv_bfloat16, 128>::run(a);
-    default: return kUnsupported;
-  }
+  if (dtype == 0) return hd == 64 ? Kernel<float, 64>::run(a) : Kernel<float, 128>::run(a);
+  if (dtype == 1 || dtype == 2) return sm90(dtype, hd, a);
+  return kUnsupported;
 }
 
 }  // namespace
@@ -571,7 +580,7 @@ int bllm_attn_fwd(int dtype, int hd, int B, int T, int Hq, int Hkv, float scale,
                   void* stream) {
   Args a{B, T, Hq, Hkv, scale, Drop{threshold, seed_lo, seed_hi, inv_keep}, q, k, v,
          nullptr, nullptr, nullptr, out, lse, static_cast<cudaStream_t>(stream)};
-  return dispatch<Fwd>(dtype, hd, a);
+  return dispatch<Fwd>(bllm::attn::fwd_sm90, dtype, hd, a);
 }
 
 // dout, dq (B, T, Hq, hd); lse, delta (B, Hq, T) fp32.
@@ -581,17 +590,20 @@ int bllm_attn_bwd_dq(int dtype, int hd, int B, int T, int Hq, int Hkv, float sca
                      const void* lse, const void* delta, void* dq, void* stream) {
   Args a{B, T, Hq, Hkv, scale, Drop{threshold, seed_lo, seed_hi, inv_keep}, q, k, v, dout,
          lse, delta, dq, nullptr, static_cast<cudaStream_t>(stream)};
-  return dispatch<Dq>(dtype, hd, a);
+  return dispatch<Dq>(bllm::attn::dq_sm90, dtype, hd, a);
 }
 
-// dk, dv per QUERY head: (B, T, Hq, hd) each.
+// dk, dv summed over each kv head's query heads: (B, T, Hkv, hd) each.
+// work: fp32 with Hq > Hkv only, a (2, B, T, Hq, hd) fp32 workspace for the
+// per-head results; null otherwise.
 int bllm_attn_bwd_dkv(int dtype, int hd, int B, int T, int Hq, int Hkv, float scale,
                       unsigned threshold, float inv_keep, unsigned seed_lo, unsigned seed_hi,
                       const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dk, void* dv, void* stream) {
+                      const void* lse, const void* delta, void* dk, void* dv, void* work,
+                      void* stream) {
   Args a{B, T, Hq, Hkv, scale, Drop{threshold, seed_lo, seed_hi, inv_keep}, q, k, v, dout,
-         lse, delta, dk, dv, static_cast<cudaStream_t>(stream)};
-  return dispatch<Dkv>(dtype, hd, a);
+         lse, delta, dk, dv, static_cast<cudaStream_t>(stream), work};
+  return dispatch<Dkv>(bllm::attn::dkv_sm90, dtype, hd, a);
 }
 
 }  // extern "C"

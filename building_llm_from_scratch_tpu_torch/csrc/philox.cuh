@@ -15,9 +15,8 @@
 //
 // Counters (each call gives four 32-bit words):
 //   attention element (b, h, q, k): counter (k >> 1, q >> 1, h, b), word
-//     2 * (q & 1) + (k & 1), so a pair of neighbouring keys of one query row
-//     (the forward and dq fragments) and a pair of neighbouring queries of
-//     one key row (the dk/dv fragments) each take one call;
+//     2 * (q & 1) + (k & 1): one call covers a 2x2 quad of (q, k), which
+//     two lanes of an mma fragment share (attn_keep_rows / _cols below);
 //   flat element i of a dropout tensor: counter (i >> 2 low word, i >> 2
 //     high word, 0, 0), word i & 3.
 
@@ -45,32 +44,54 @@ __device__ __forceinline__ uint32_t philox_word(const uint4& r, int i) {
   return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
 }
 
-// keep bits of the attention elements (b, h, q, k) and (b, h, q, k + 1), k
-// even: the forward's and dq's pair along a query row
-__device__ __forceinline__ void attn_keep_keys(bool (&keep)[2], uint32_t s0, uint32_t s1,
-                                               uint32_t threshold, int b, int h, int q, int k) {
+// The attention kernels hold scores in mma fragments: a lane holds rows r
+// and r + 8 of a 16-row tile at two neighbouring columns, and lane ^ 4 holds
+// rows r ^ 1 and (r + 8) ^ 1 at the same columns. Each 2x2 quad of the
+// counter (rows 2a, 2a + 1; columns 2c, 2c + 1) therefore lies across those
+// two lanes. They split the work: the lane of the even row draws the quad of
+// its first row, the lane of the odd row the quad of its second, and each
+// hands the other the two words of its row by one shuffle each. One Philox
+// call per quad; the bits are those of keep(b, h, q, k) above.
+
+// fragment rows are queries q0 (even or odd: `odd`) and q0 + 8, columns the
+// keys k and k + 1 (k even): keep[rr][e] for (q0 + 8 rr, k + e)
+__device__ __forceinline__ void attn_keep_rows(bool (&keep)[2][2], uint32_t s0, uint32_t s1,
+                                               uint32_t threshold, int b, int h, int q0, int k,
+                                               bool odd) {
+  const int qc = odd ? q0 + 8 : q0;
   const uint4 r = philox4x32_10(make_uint4(static_cast<uint32_t>(k >> 1),
-                                           static_cast<uint32_t>(q >> 1),
+                                           static_cast<uint32_t>(qc >> 1),
                                            static_cast<uint32_t>(h),
                                            static_cast<uint32_t>(b)),
                                 s0, s1);
-  const int w = 2 * (q & 1);
-  keep[0] = philox_word(r, w) >= threshold;
-  keep[1] = philox_word(r, w + 1) >= threshold;
+  // the even query of a quad takes words x, y; the odd one z, w
+  const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? r.x : r.z, 4);
+  const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? r.y : r.w, 4);
+  keep[0][0] = (odd ? got0 : r.x) >= threshold;
+  keep[0][1] = (odd ? got1 : r.y) >= threshold;
+  keep[1][0] = (odd ? r.z : got0) >= threshold;
+  keep[1][1] = (odd ? r.w : got1) >= threshold;
 }
 
-// keep bits of (b, h, q, k) and (b, h, q + 1, k), q even: dk/dv's pair
-// along a key row
-__device__ __forceinline__ void attn_keep_queries(bool (&keep)[2], uint32_t s0, uint32_t s1,
-                                                  uint32_t threshold, int b, int h, int q,
-                                                  int k) {
-  const uint4 r = philox4x32_10(make_uint4(static_cast<uint32_t>(k >> 1),
+// fragment rows are keys k0 (`odd` or even) and k0 + 8, columns the queries
+// q and q + 1 (q even), as in the dk/dv kernels' transposed scores:
+// keep[rr][e] for (q + e, k0 + 8 rr)
+__device__ __forceinline__ void attn_keep_cols(bool (&keep)[2][2], uint32_t s0, uint32_t s1,
+                                               uint32_t threshold, int b, int h, int q, int k0,
+                                               bool odd) {
+  const int kc = odd ? k0 + 8 : k0;
+  const uint4 r = philox4x32_10(make_uint4(static_cast<uint32_t>(kc >> 1),
                                            static_cast<uint32_t>(q >> 1),
                                            static_cast<uint32_t>(h),
                                            static_cast<uint32_t>(b)),
                                 s0, s1);
-  keep[0] = philox_word(r, k & 1) >= threshold;
-  keep[1] = philox_word(r, 2 + (k & 1)) >= threshold;
+  // the even key of a quad takes words x (query q), z (q + 1); the odd y, w
+  const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? r.x : r.y, 4);
+  const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? r.z : r.w, 4);
+  keep[0][0] = (odd ? got0 : r.x) >= threshold;
+  keep[0][1] = (odd ? got1 : r.z) >= threshold;
+  keep[1][0] = (odd ? r.y : got0) >= threshold;
+  keep[1][1] = (odd ? r.w : got1) >= threshold;
 }
 
 // the four words of flat elements 4 * group ... 4 * group + 3

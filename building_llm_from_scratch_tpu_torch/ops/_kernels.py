@@ -106,7 +106,7 @@ def load_library() -> ctypes.CDLL:
             head = [i32] * 6 + [f32, u32, f32, u32, u32]
             lib.bllm_attn_fwd.argtypes = head + [ptr] * 6
             lib.bllm_attn_bwd_dq.argtypes = head + [ptr] * 8
-            lib.bllm_attn_bwd_dkv.argtypes = head + [ptr] * 9
+            lib.bllm_attn_bwd_dkv.argtypes = head + [ptr] * 10
             lib.bllm_dropout.argtypes = [i32, ctypes.c_longlong, u32, f32, u32, u32] + [ptr] * 4
             lib.bllm_xent_fwd.argtypes = [i32] * 5 + [ptr] * 9
             # dtype, hd, S, Hq, Hkv, P, N, M

@@ -54,17 +54,19 @@ def supports_shape(Tq: int, Tmax: int, hd: int) -> bool:
 
 def check_kernel_shape(Tmax: int, hd: int, dtype: torch.dtype) -> None:
     """Raise ValueError unless the CUDA kernel takes a single-token step
-    over a (.., Tmax, hd) cache of ``dtype``: ``supports_shape`` narrowed to
-    the head dims and dtypes the kernel is instantiated for. The wrapper
-    runs it before every launch; the serving engine runs it once, when it
-    is built on the card, so a model it cannot serve fails before any
-    request is admitted."""
-    if not (supports_shape(1, Tmax, hd) and hd in _KERNEL_HEAD_DIMS
-            and dtype in _DTYPE_CODES):
+    over a (.., Tmax, hd) cache of ``dtype``: a head dim it is instantiated
+    for, one of its dtypes and ``Tmax >= 1``. The kernel needs no more: its
+    shared memory does not depend on Tmax and it clamps the write position
+    to ``Tmax - 1``, so the TPU kernel's VMEM rule in ``supports_shape``
+    (Tmax <= 8192 and a multiple of 8) does not apply. The wrapper runs it
+    before every launch; the serving engine runs it once, when it is built
+    on the card, so a model it cannot serve fails before any request is
+    admitted."""
+    if not (Tmax >= 1 and hd in _KERNEL_HEAD_DIMS and dtype in _DTYPE_CODES):
         raise ValueError(
             f"the CUDA decode-step kernel takes head dims {_KERNEL_HEAD_DIMS}, "
-            f"dtypes {list(_DTYPE_CODES)} and a cache length Tmax that is a "
-            f"multiple of 8 and <= 8192; got hd={hd}, {dtype}, Tmax={Tmax}")
+            f"dtypes {list(_DTYPE_CODES)} and a cache length Tmax >= 1; got "
+            f"hd={hd}, {dtype}, Tmax={Tmax}")
 
 
 def fused_decode_step_plain(q, k_new, v_new, k_cache, v_cache, lengths):
@@ -95,7 +97,9 @@ def _check(q, k_new, v_new, k_cache, v_cache, lengths) -> None:
     for name, t in (("k_new", k_new), ("v_new", v_new)):
         if tuple(t.shape) != (S, 1, Hkv, hd):
             raise ValueError(f"{name} must be {(S, 1, Hkv, hd)}, got {tuple(t.shape)}")
-    if not supports_shape(Tq, Tmax, hd):
+    # the CPU twin stands for the JAX op and keeps its eligibility rule; on
+    # the card the kernel's own rule (check_kernel_shape) applies
+    if q.device.type != "cuda" and not supports_shape(Tq, Tmax, hd):
         raise ValueError(f"shape Tq={Tq} Tmax={Tmax} hd={hd} is not eligible "
                          "for the fused decode step")
     dts = {t.dtype for t in (q, k_new, v_new, k_cache, v_cache)}

@@ -1,13 +1,15 @@
 """Fused causal flash attention for training: forward (B1), dq (B2a) and
-per-query-head dk/dv (B2b), wired as one ``torch.autograd.Function``, with
-the in-kernel attention dropout (port of the JAX package's
-``ops/fused_attention.py``).
+dk/dv summed over each kv head's query heads (B2b), wired as one
+``torch.autograd.Function``, with the in-kernel attention dropout (port of
+the JAX package's ``ops/fused_attention.py``).
 
 ``flash_attention_fwd``, ``flash_attention_dq`` and ``flash_attention_dkv``
-launch the hand-written CUDA kernels (``csrc/fused_attention.cu``) for
-tensors on the card and compute their plain twins (``*_plain``) for tensors
-on the CPU. There is no fallback between the two: a CUDA call the kernels
-cannot take raises. Each wrapper counts its launches (``.launches``).
+launch the hand-written CUDA kernels for tensors on the card (bf16 and fp16:
+the Hopper kernels ``csrc/attn_fwd_sm90.cu``, ``attn_dq_sm90.cu``,
+``attn_dkv_sm90.cu``; fp32: ``csrc/fused_attention.cu``) and compute their
+plain twins (``*_plain``) for tensors on the CPU. There is no fallback
+between the two: a CUDA call the kernels cannot take raises. Each wrapper
+counts its launches (``.launches``).
 
 Layouts are the model's: q (B, T, Hq, D), k/v (B, T, Hkv, D); the softmax
 statistics lse and delta are (B, Hq, T) fp32 (the JAX kernel's lane
@@ -228,15 +230,16 @@ def _launch(name: str, fn_name: str, tensors: dict, q: torch.Tensor,
             raise ValueError(f"{name}: {tname} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {tname} must be 16-byte aligned (the "
-                             "kernels read rows with 16-byte loads)")
-        want = (torch.float32 if tname in ("lse", "delta") else q.dtype)
+                             "kernels read rows with TMA or 16-byte loads)")
+        want = (torch.float32 if tname in ("lse", "delta", "work") else q.dtype)
         if t.dtype != want:
             raise TypeError(f"{name}: {tname} must be {want}, got {t.dtype}")
     from building_llm_from_scratch_tpu_torch.ops._kernels import load_library
 
     lib = load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in tensors.values()]
+    ptrs = [ctypes.c_void_p(t.data_ptr() if t.numel() else None)
+            for t in tensors.values()]
     seed_lo, seed_hi = split_seed(seed)
     err = getattr(lib, fn_name)(_DTYPE_CODES[q.dtype], D, B, T, Hq, Hkv,
                                 ctypes.c_float(attention_scale(D)),
@@ -284,16 +287,28 @@ def flash_attention_dq(q, k, v, do, lse, delta, rate: float = 0.0,
 
 def flash_attention_dkv(q, k, v, do, lse, delta, rate: float = 0.0,
                         seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B2b: per-query-head (dk, dv), each (B, T, Hq, D); kernel on CUDA
-    (counted on ``flash_attention_dkv.launches``), twin on the CPU."""
+    """B2b: (dk, dv), each (B, T, Hkv, D): every query head's gradient
+    rounded to the model dtype and summed over the G query heads of its kv
+    head in fp32 (the JAX ``_bwd``'s rounding). The kernel sums in place on
+    CUDA (counted on ``flash_attention_dkv.launches``); on the CPU the twin
+    is the per-head ``fused_attention_dkv_plain`` followed by
+    ``group_sum``."""
     _check(q, k, v, do, lse, delta)
     if q.device.type == "cpu":
-        return fused_attention_dkv_plain(q, k, v, do, lse, delta, rate, seed)
-    dk = torch.empty_like(q)
-    dv = torch.empty_like(q)
+        dk, dv = fused_attention_dkv_plain(q, k, v, do, lse, delta, rate, seed)
+        Hkv = k.shape[2]
+        return group_sum(dk, Hkv), group_sum(dv, Hkv)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    # the fp32 kernel works per query head: with GQA it needs a workspace
+    # for the per-head results, which the launch then sums (the 16-bit
+    # kernels sum in place and take none)
+    grouped_fp32 = q.dtype == torch.float32 and q.shape[2] != k.shape[2]
+    work = torch.empty((2,) + tuple(q.shape) if grouped_fp32 else (0,),
+                       dtype=torch.float32, device=q.device)
     _launch("flash_attention_dkv", "bllm_attn_bwd_dkv",
-            dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta, dk=dk, dv=dv),
-            q, k.shape[2], rate, seed)
+            dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta, dk=dk, dv=dv,
+                 work=work), q, k.shape[2], rate, seed)
     flash_attention_dkv.launches += 1
     return dk, dv
 
@@ -307,7 +322,8 @@ flash_attention_dkv.launches = 0
 class FusedCausalAttention(torch.autograd.Function):
     """Forward B1, saving q, k, v, out and lse (the JAX VJP's residuals;
     the mask is regenerated from the seed, never stored); backward delta,
-    B2a, B2b and the GQA group sum."""
+    B2a and B2b, which returns dk/dv already summed over each kv head's
+    query heads."""
 
     @staticmethod
     def forward(ctx, q, k, v, rate, seed):
@@ -324,8 +340,7 @@ class FusedCausalAttention(torch.autograd.Function):
         dq = flash_attention_dq(q, k, v, do, lse, delta, ctx.rate, ctx.seed)
         dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, ctx.rate,
                                      ctx.seed)
-        Hkv = k.shape[2]
-        return dq, group_sum(dk, Hkv), group_sum(dv, Hkv), None, None
+        return dq, dk, dv, None, None
 
 
 def fused_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -11,7 +11,8 @@ exits non-zero):
   2. build: compiles the package's CUDA kernels from ``csrc/`` with nvcc.
   3. decode kernel vs twin: the fused decode-step kernel (B5) against its
      plain PyTorch twin at the serving shapes of LLaMA-3.2-1B (bf16),
-     GPT-2-124M (fp32) and LLaMA-3-8B (bf16): caches bit-equal, outputs
+     GPT-2-124M (fp32), LLaMA-3-8B (bf16) and longctx-32k (bf16, a
+     32,768-long cache with both rows past 8,192): caches bit-equal, outputs
      within tolerance of the twin and within one unit in the last place of
      the exact (fp32) result;
      times of the kernel, the twin and ``scaled_dot_product_attention`` on
@@ -60,13 +61,21 @@ exits non-zero):
      prompts, and an adapted card-vs-CPU fp32 reference passes while the
      same ticks with other adapters' ids fail it. Ticks with and without
      adapters in alternating windows; pool bytes and peak memory.
+     4d. long context through the contiguous engine: longctx-32k (bf16)
+     cut to 2 layers on 2 slots of its native 32,768 tokens, a 4,096-token
+     prompt decoding 4,200 tokens (its row ends past 8,192) beside a
+     512-token one decoding 64. Every budget finishes, B5 = layers x
+     ticks, every tick's logits are finite.
   5. flash-attention kernels vs twins: forward (B1), dq (B2a) and dk/dv
-     (B2b) at LLaMA-3.2-1B's training shape (B 4, Hq 32, Hkv 8, T 1024,
-     hd 64, bf16) and the reference shapes (B 1, T 256, fp32 and bf16): out, lse and
+     summed over each kv head's query heads (B2b, (B, T, Hkv, D); its twin
+     is the per-query-head twin followed by group_sum) at LLaMA-3.2-1B's
+     training shape (B 4, Hq 32, Hkv 8, T 1024, hd 64, bf16) and the
+     reference shapes (B 1, T 256, fp32 and bf16): out, lse and
      the gradients within tolerance of the twin and of the exact (fp32)
      result, each bound shown to fail for a wrong result; times of the
-     kernels, the twins and ``scaled_dot_product_attention`` (forward and
-     forward+backward), beside the bound the card's peak rate sets.
+     kernels, the twins and ``scaled_dot_product_attention`` (forward,
+     forward+backward, and backward alone through autograd.grad of one
+     saved forward), beside the bound the card's peak rate sets.
      5b. the same kernels with attention dropout p = 0.1 at GPT-2-124M's
      training shape (B 8, H 12, T 1024, hd 64, bf16) and its fp32
      reference shape (B 1, T 256): against the twin (the same mask) and an
@@ -92,7 +101,8 @@ exits non-zero):
      served by the CLI. The run's own rate (all steps over their wall time,
      the trainer's window) and each step's device time (CUDA events around
      every step, step 1 apart); then steady step time, tokens/s, MFU, peak
-     memory and a profiled window over re-runs of one batch. For GPT-2 the
+     memory and a profiled window over re-runs of one batch (with the
+     flash family's ms per step; the GQA group_sum must not run). For GPT-2 the
      same 20 steps again with BLLM_XENT_PALLAS=1: B4 = steps + eval
      batches, and the step-1 loss equal to the first run's to 1e-5.
   7. training reference: one step at full width cut to 2 layers, B 1,
@@ -179,12 +189,42 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     info = _kernels.build()
     _kernels.load_library()
-    resources = [ln.strip() for ln in info.get("log", "").splitlines()
-                 if "registers" in ln or "spill" in ln]
     emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=info["seconds"],
          built=info["built"], library=info["path"],
          sources=[str(s.name) for s in _kernels.sources()],
-         ptxas=resources[:24])
+         ptxas=ptxas_resources(info.get("log", "")))
+
+
+def ptxas_resources(log: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    entry function in nvcc's ``-Xptxas -v`` output (mangled names cut to
+    their kernel name and template arguments)."""
+    import re
+
+    rows, name, spill = [], None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            # Itanium <length><identifier>; a length may follow other digits
+            for d in re.finditer(r"\d+", name):
+                run = d.group()
+                hit = next((name[d.end():d.end() + int(run[i:])] for i in range(len(run))
+                            if name[d.end():d.end() + int(run[i:])].endswith("_kernel")),
+                           None)
+                if hit:
+                    args = re.match(r"I(.*?)EE?v", name[d.end() + len(hit):])
+                    name = hit + (f"<{args.group(1)}>" if args else "")
+                    break
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            rows.append([name, int(m.group(1)), *spill])
+            name, spill = None, (0, 0)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +237,9 @@ KERNEL_SHAPES = [
     ("llama3_2-1B", 8, 32, 8, 64, 1024, "bf16"),
     ("gpt2-124M", 8, 12, 12, 64, 1024, "fp32"),
     ("llama3-8B", 4, 32, 8, 128, 4096, "bf16"),
+    # longctx-32k's decode shape at its native context (phase 4d): a cache
+    # past the TPU kernel's 8192, both rows longer than 8192
+    ("longctx-32k", 2, 16, 4, 64, 32768, "bf16"),
 ]
 
 # (atol, rtol) of the kernel against its twin, which rounds the softmax
@@ -254,7 +297,7 @@ def phase_kernel(torch, card: dict) -> list:
         q, kn, vn = rnd(S, 1, Hq, hd), rnd(S, 1, Hkv, hd), rnd(S, 1, Hkv, hd)
         K, V = rnd(S, Hkv, Tmax, hd), rnd(S, Hkv, Tmax, hd)
         lens = torch.randint(1, Tmax - 1, (S,), generator=gen, device=dev)
-        lens[0], lens[1] = 0, Tmax - 1
+        lens[0], lens[1] = (8200 if Tmax > 8192 else 0), Tmax - 1
         lens = lens.to(torch.int32)
 
         Kk, Vk = K.clone(), V.clone()
@@ -623,6 +666,50 @@ def _flash_err(torch, name: str, a, b) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
 
+def grouped_dkv_plain(q, k, v, do, lse, delta, rate=0.0, seed=0):
+    """B2b's twin: the per-query-head twin, then the GQA group sum (B2b
+    returns dk/dv per kv head, (B, T, Hkv, D))."""
+    from building_llm_from_scratch_tpu_torch.ops import fused_attention as tfa
+
+    dk, dv = tfa.fused_attention_dkv_plain(q, k, v, do, lse, delta, rate, seed)
+    return tfa.group_sum(dk, k.shape[2]), tfa.group_sum(dv, k.shape[2])
+
+
+def flash_work(B, Hq, Hkv, T, hd, elt) -> dict:
+    """(operations, bytes) of each flash kernel: the causal products, each
+    input read once and each output written once (dk/dv per kv head)."""
+    pairs = B * Hq * T * (T + 1) // 2          # causal (q, k) pairs
+    qb, kvb, stat = B * T * Hq * hd * elt, B * T * Hkv * hd * elt, B * Hq * T * 4
+    return {"fwd": (4 * hd * pairs, qb + 2 * kvb + qb + stat),
+            "dq": (6 * hd * pairs, 2 * qb + 2 * kvb + 2 * stat + qb),
+            "dkv": (8 * hd * pairs, 2 * qb + 2 * kvb + 2 * stat + 2 * kvb)}
+
+
+def sdpa_timings(torch, F, q, k, v, do, rate, flush) -> dict:
+    """SDPA's forward, forward+backward and backward alone (autograd.grad
+    of one saved forward, retain_graph) on the same inputs: the library
+    yardsticks of B1 and of B2a+B2b."""
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    doh = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                              dropout_p=rate, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        sdpa().backward(doh)
+
+    fwd_ms = device_time_ms(torch, lambda: sdpa().detach(), flush)
+    fwd_bwd_ms = device_time_ms(torch, sdpa_fwd_bwd, flush)
+    saved = sdpa()
+    bwd_ms = device_time_ms(torch, lambda: torch.autograd.grad(
+        saved, (qh, kh, vh), doh, retain_graph=True), flush)
+    out = sdpa().detach().transpose(1, 2)
+    del saved
+    return dict(sdpa_fwd_ms=fwd_ms, sdpa_fwd_bwd_ms=fwd_bwd_ms, sdpa_bwd_ms=bwd_ms,
+                sdpa_out=out)
+
+
 def phase_attention(torch, card: dict) -> list:
     import torch.nn.functional as F
 
@@ -655,7 +742,7 @@ def phase_attention(torch, card: dict) -> list:
         kern = (tfa.flash_attention_fwd, tfa.flash_attention_dq,
                 tfa.flash_attention_dkv)
         plain = (tfa.fused_attention_fwd_plain, tfa.fused_attention_dq_plain,
-                 tfa.fused_attention_dkv_plain)
+                 grouped_dkv_plain)
         got = run(*kern)
         torch.cuda.synchronize()
         twin = run(*plain)
@@ -697,27 +784,10 @@ def phase_attention(torch, card: dict) -> list:
             "dkv": (lambda: kern[2](q, k, v, do, lse, delta),
                     lambda: plain[2](q, k, v, do, lse, delta)),
         }
-        qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True)
-                      for t in (q, k, v))
-        doh = do.transpose(1, 2)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                                  enable_gqa=True)
-
-        def sdpa_fwd_bwd():
-            sdpa().backward(doh)
-
-        sdpa_ms = device_time_ms(torch, lambda: sdpa().detach(), flush)
-        sdpa_fb_ms = device_time_ms(torch, sdpa_fwd_bwd, flush)
-        sdpa_err = _flash_err(torch, "out", sdpa().detach().transpose(1, 2), out)
-
-        elt = q.element_size()
-        pairs = B * Hq * T * (T + 1) // 2          # causal (q, k) pairs
-        qb, kvb, stat = B * T * Hq * hd * elt, B * T * Hkv * hd * elt, B * Hq * T * 4
-        work = {"fwd": (4 * hd * pairs, qb + 2 * kvb + qb + stat),
-                "dq": (6 * hd * pairs, 2 * qb + 2 * kvb + 2 * stat + qb),
-                "dkv": (8 * hd * pairs, 2 * qb + 2 * kvb + 2 * stat + 2 * qb)}
+        lib = sdpa_timings(torch, F, q, k, v, do, 0.0, flush)
+        sdpa_err = _flash_err(torch, "out", lib.pop("sdpa_out"), out)
+        sdpa_ms = lib["sdpa_fwd_ms"]
+        work = flash_work(B, Hq, Hkv, T, hd, q.element_size())
         peak = fig["peak32"] if dtype == torch.float32 else fig["peak16"]
         for kname, (kfn, pfn) in calls.items():
             ops, nbytes = work[kname]
@@ -725,8 +795,7 @@ def phase_attention(torch, card: dict) -> list:
             row = dict(shape=shape, kernel=kname, B=B, Hq=Hq, Hkv=Hkv, T=T,
                        hd=hd, dtype=dt, ms=device_time_ms(torch, kfn, flush, runs=15),
                        plain_ms=device_time_ms(torch, pfn, flush, runs=5, warmup=2),
-                       library_ms=sdpa_ms if kname == "fwd" else None,
-                       sdpa_fwd_ms=sdpa_ms, sdpa_fwd_bwd_ms=sdpa_fb_ms,
+                       library_ms=sdpa_ms if kname == "fwd" else None, **lib,
                        sdpa_max_rel_err=sdpa_err, ops=ops, bytes=nbytes,
                        bound_ms=max(t_bytes, t_ops) * 1e3,
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -737,7 +806,7 @@ def phase_attention(torch, card: dict) -> list:
                        tol=tols)
             emit("attention_kernel", **row)
             rows.append(row)
-        del got, qh, kh, vh
+        del got
         torch.cuda.empty_cache()
     return rows
 
@@ -758,7 +827,7 @@ DROP_RATE = 0.1
 def dense_dropout_oracle(torch, q, k, v, do, keep, rate):
     """Exact fp32 attention with the dumped keep mask on the softmax
     weights (the same-mask oracle), and its autograd gradients; dk and dv
-    per kv head (the shapes here have no GQA)."""
+    per kv head (autograd sums the query heads of each, as B2b does)."""
     B, T, Hq, D = q.shape
     G = Hq // k.shape[2]
     qh, kh, vh = (t.float().transpose(1, 2).detach().requires_grad_(True)
@@ -799,7 +868,7 @@ def phase_attention_dropout(torch, card: dict) -> list:
         do = rnd(B, T, Hq, hd)
         kern = (tfa.flash_attention_fwd, tfa.flash_attention_dq, tfa.flash_attention_dkv)
         plain = (tfa.fused_attention_fwd_plain, tfa.fused_attention_dq_plain,
-                 tfa.fused_attention_dkv_plain)
+                 grouped_dkv_plain)
 
         def run(fwd, dq_fn, dkv_fn, s=seed):
             out, lse = fwd(q, k, v, DROP_RATE, s)
@@ -851,24 +920,10 @@ def phase_attention_dropout(torch, card: dict) -> list:
             "dkv": (lambda: kern[2](q, k, v, do, lse, delta, DROP_RATE, seed),
                     lambda: plain[2](q, k, v, do, lse, delta, DROP_RATE, seed)),
         }
-        qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
-        doh = do.transpose(1, 2)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                                  dropout_p=DROP_RATE, enable_gqa=True)
-
-        def sdpa_fwd_bwd():
-            sdpa().backward(doh)
-
-        sdpa_ms = device_time_ms(torch, lambda: sdpa().detach(), flush)
-        sdpa_fb_ms = device_time_ms(torch, sdpa_fwd_bwd, flush)
-        elt = q.element_size()
-        pairs = B * Hq * T * (T + 1) // 2
-        qb, kvb, stat = B * T * Hq * hd * elt, B * T * Hkv * hd * elt, B * Hq * T * 4
-        work = {"fwd": (4 * hd * pairs, qb + 2 * kvb + qb + stat),
-                "dq": (6 * hd * pairs, 2 * qb + 2 * kvb + 2 * stat + qb),
-                "dkv": (8 * hd * pairs, 2 * qb + 2 * kvb + 2 * stat + 2 * qb)}
+        lib = sdpa_timings(torch, F, q, k, v, do, DROP_RATE, flush)
+        del lib["sdpa_out"]
+        sdpa_ms = lib["sdpa_fwd_ms"]
+        work = flash_work(B, Hq, Hkv, T, hd, q.element_size())
         peak = fig["peak32"] if dtype == torch.float32 else fig["peak16"]
         for kname, (kfn, pfn) in calls.items():
             ops, nbytes = work[kname]
@@ -877,8 +932,7 @@ def phase_attention_dropout(torch, card: dict) -> list:
                        dtype=dt, rate=DROP_RATE,
                        ms=device_time_ms(torch, kfn, flush, runs=15),
                        plain_ms=device_time_ms(torch, pfn, flush, runs=5, warmup=2),
-                       library_ms=sdpa_ms if kname == "fwd" else None,
-                       sdpa_fwd_ms=sdpa_ms, sdpa_fwd_bwd_ms=sdpa_fb_ms,
+                       library_ms=sdpa_ms if kname == "fwd" else None, **lib,
                        ops=ops, bytes=nbytes, bound_ms=max(t_bytes, t_ops) * 1e3,
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        max_abs_err=(abs_err["out"] if kname == "fwd" else
@@ -888,7 +942,7 @@ def phase_attention_dropout(torch, card: dict) -> list:
                        tol=tols, keep_fraction=keep_fraction, next_seed_differs=differ)
             emit("attention_dropout_kernel", **row)
             rows.append(row)
-        del got, qh, kh, vh
+        del got
         torch.cuda.empty_cache()
     return rows
 
@@ -1077,14 +1131,31 @@ def train_flops_per_token(cfg) -> int:
 def train_profile(torch, trainer, batch, step_ms: float, n_steps: int = 3) -> dict:
     """Device time by kernel over a few steady train steps (torch.profiler),
     run after the main path; the idle share is taken against the
-    unprofiled median step."""
+    unprofiled median step. The flash family's share is reported per step,
+    and the GQA group sum must not run (B2b sums in the kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from building_llm_from_scratch_tpu_torch.ops import fused_attention as tfa
+
+    group_sums = []
+    group_sum = tfa.group_sum
+
+    def counted_group_sum(*args, **kwargs):
+        group_sums.append(1)
+        return group_sum(*args, **kwargs)
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_steps):
-            trainer.train_step(trainer.state, batch)
-        torch.cuda.synchronize()
+    tfa.group_sum = counted_group_sum
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_steps):
+                trainer.train_step(trainer.state, batch)
+            torch.cuda.synchronize()
+    finally:
+        tfa.group_sum = group_sum
+    if group_sums:
+        raise AssertionError(f"group_sum ran {len(group_sums)} times in {n_steps} "
+                             "profiled steps: B2b must sum the GQA heads itself")
     rows = []
     for ev in prof.key_averages():
         if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0:
@@ -1102,6 +1173,8 @@ def train_profile(torch, trainer, batch, step_ms: float, n_steps: int = 3) -> di
         by_group[group] = by_group.get(group, 0.0) + t_us / n_steps / 1e3
     return dict(steps=n_steps, device_busy_ms_per_step=busy_ms,
                 ms_per_step_by_group=by_group,
+                flash_ms_per_step=by_group.get("flash_attention", 0.0),
+                group_sum_calls=len(group_sums),
                 device_idle_share=1.0 - busy_ms / step_ms,
                 kernels_per_step=sum(r[2] for r in rows) / n_steps,
                 top=[dict(kernel=k[:80], ms_per_step=t / n_steps / 1e3,
@@ -1720,6 +1793,94 @@ def phase_serve(torch) -> dict:
         del model, engine, solo_engine
         torch.cuda.empty_cache()
     return served
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: a long-context model through the contiguous engine
+# ---------------------------------------------------------------------------
+
+# longctx-32k at its native 32,768-token context, cut to 2 of its 24 layers:
+# two slots of the full length. The 4,096-token prompt buckets to 4,096, so
+# its prefill's score tensor is Hq x 4096 x 4096 x 4 bytes (1.1 GB); with
+# its 4,200-token budget the row ends at 8,296, past the 8,192 that the TPU
+# kernel's rule allowed. The 512-token prompt decodes 64 tokens beside it.
+LONGCTX = dict(model="longctx", size="32k", dtype="bf16", context=32768, layers=2,
+               slots=2, requests=[(4096, 4200), (512, 64)])
+
+
+def phase_serve_longctx(torch) -> dict:
+    """Serve longctx-32k at 2 layers on slots of 32,768 through the
+    contiguous DecodeEngine: every budget finishes, B5 launches layers x
+    ticks, and every decode tick's logits are finite."""
+    import numpy as np
+
+    import building_llm_from_scratch_tpu_torch.serving.engine as teng
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+    from building_llm_from_scratch_tpu_torch.models.transformer import build_model
+    from building_llm_from_scratch_tpu_torch.ops.decode_step import (
+        fused_decode_step,
+    )
+    from building_llm_from_scratch_tpu_torch.serving.request import SamplingParams
+
+    m = LONGCTX
+    cfg = get_config(m["model"], m["size"], dtype=m["dtype"],
+                     target_context_length=m["context"]).replace(n_layers=m["layers"])
+    model = build_model(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(3)
+    requests = [(rng.integers(0, cfg.vocab_size, n).tolist(),
+                 SamplingParams(max_new_tokens=budget, ignore_eos=True))
+                for n, budget in m["requests"]]
+    engine = teng.DecodeEngine(model, n_slots=m["slots"], max_len=m["context"],
+                               max_queue=8)
+    # every tick's logits, checked for non-finite values on the device
+    bad = []
+    decode_slots = teng.decode_slots
+
+    def checked_decode_slots(*args, **kwargs):
+        logits = decode_slots(*args, **kwargs)
+        bad.append((~torch.isfinite(logits)).sum())
+        return logits
+
+    torch.cuda.reset_peak_memory_stats()
+    teng.decode_slots = checked_decode_slots
+    fused_decode_step.launches = 0              # the main path's count
+    t0 = time.perf_counter()
+    try:
+        handles = serve(engine, requests)
+        torch.cuda.synchronize()
+    finally:
+        teng.decode_slots = decode_slots
+    wall = time.perf_counter() - t0
+    n_launch = fused_decode_step.launches
+    st = engine.stats()
+    non_finite = int(torch.stack(bad).sum().item()) if bad else -1
+    rows_end = [len(p) + len(h.output_ids) for (p, _), h in zip(requests, handles)]
+    for (p, sp), h in zip(requests, handles):
+        if h.finish_reason != "length" or len(h.output_ids) != sp.max_new_tokens:
+            raise AssertionError(f"{cfg.name}: request {h.id} ended {h.finish_reason} "
+                                 f"after {len(h.output_ids)}/{sp.max_new_tokens} tokens")
+    if n_launch != cfg.n_layers * st["n_ticks"] or n_launch == 0:
+        raise AssertionError(f"{cfg.name}: {n_launch} kernel launches for "
+                             f"{cfg.n_layers} layers x {st['n_ticks']} ticks")
+    if non_finite != 0 or len(bad) != st["n_ticks"]:
+        raise AssertionError(f"{cfg.name}: {non_finite} non-finite logits over "
+                             f"{len(bad)} checked ticks of {st['n_ticks']}")
+    if max(rows_end) <= 8192:
+        raise AssertionError(f"{cfg.name}: no row passed 8192 ({rows_end})")
+    emit("serve_longctx", model=cfg.name, dtype=m["dtype"], layers=cfg.n_layers,
+         emb_dim=cfg.emb_dim, Hq=cfg.n_heads, Hkv=cfg.n_kv_groups, slots=m["slots"],
+         max_len=m["context"], prompts=[len(p) for p, _ in requests],
+         budgets=[sp.max_new_tokens for _, sp in requests], rows_end=rows_end,
+         wall_s=wall, decode_ticks=st["n_ticks"], kernel_launches=n_launch,
+         non_finite_logits=non_finite,
+         mean_tick_ms=st["decode_seconds"] / st["n_ticks"] * 1e3,
+         prefill_s=st["prefill_seconds"],
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model, engine
+    torch.cuda.empty_cache()
+    return {cfg.name: dict(launches=n_launch,
+                           shape=(m["slots"], cfg.n_heads, cfg.n_kv_groups, cfg.head_dim,
+                                  m["context"], m["dtype"]))}
 
 
 # ---------------------------------------------------------------------------
@@ -2470,6 +2631,7 @@ def main() -> int:
     # serving runs before training: its ticks are host-bound, and a clean
     # process keeps them comparable with earlier runs
     served = phase_serve(torch)
+    served.update(phase_serve_longctx(torch))
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(dir=here) as workdir:
         served_paged = phase_serve_paged(torch, workdir)
@@ -2537,11 +2699,15 @@ def main() -> int:
                  "gpt2-124M-train": trained_gpt2["main"],
                  "gpt2-124M-ref": reference_gpt2["fp32"]["launches"]}
     source = "building_llm_from_scratch_tpu_torch/csrc/"
+    sm90_sources = {"fwd": "attn_fwd_sm90.cu", "dq": "attn_dq_sm90.cu",
+                    "dkv": "attn_dkv_sm90.cu"}
     for r in attn_rows + drop_attn_rows:
         kname, where = replaces[r["kernel"]]
         tag = f"{r['shape']}-p{r['rate']}" if "rate" in r else r["shape"]
+        src = ("fused_attention.cu" if r["dtype"] == "fp32"
+               else sm90_sources[r["kernel"]])
         kernels.append(dict(
-            name=f"{kname}[{tag}]", route="cuda", source=source + "fused_attention.cu",
+            name=f"{kname}[{tag}]", route="cuda", source=source + src,
             replaces=where, launches=attn_runs[r["shape"]][r["kernel"]],
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

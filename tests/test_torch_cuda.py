@@ -70,6 +70,37 @@ def test_kernel_matches_twin(cuda, dtype, Hq, Hkv, hd):
     torch.testing.assert_close(out.float(), exact, atol=atol, rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tmax", [1000, 16384, 32768])
+def test_kernel_matches_twin_at_long_and_unaligned_caches(cuda, dtype, Tmax):
+    """B5 takes any cache length: Tmax not a multiple of 8, and caches past
+    the TPU kernel's 8192 with rows whose lengths pass 8192; caches
+    bit-equal to the twin's, outputs within its tolerance and one unit in
+    the last place of the exact result."""
+    S, Hq, Hkv, hd = 4, 16, 4, 64
+    gen = torch.Generator(device=cuda).manual_seed(Tmax)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=cuda).to(dtype)  # noqa: E731
+    q, kn, vn = rnd(S, 1, Hq, hd), rnd(S, 1, Hkv, hd), rnd(S, 1, Hkv, hd)
+    K, V = rnd(S, Hkv, Tmax, hd), rnd(S, Hkv, Tmax, hd)
+    lens = ([0, 8191, 8193 + Tmax // 4, Tmax - 1] if Tmax > 8192
+            else [0, 5, Tmax // 2 + 3, Tmax - 1])
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    Kk, Vk, Kt, Vt = K.clone(), V.clone(), K.clone(), V.clone()
+    before = tds.fused_decode_step.launches
+    out, _, _ = tds.fused_decode_step(q, kn, vn, Kk, Vk, lens)
+    torch.cuda.synchronize()
+    assert tds.fused_decode_step.launches == before + 1
+    ref, _, _ = tds.fused_decode_step_plain(q, kn, vn, Kt, Vt, lens)
+    assert torch.equal(Kk, Kt) and torch.equal(Vk, Vt)
+    atol, rtol = TWIN_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    f32 = lambda t: t.float().clone()  # noqa: E731
+    exact, _, _ = tds.fused_decode_step_plain(f32(q), f32(kn), f32(vn), f32(K),
+                                              f32(V), lens)
+    atol, rtol = EXACT_TOL[dtype]
+    torch.testing.assert_close(out.float(), exact, atol=atol, rtol=rtol)
+
+
 def test_kernel_rejects_what_it_cannot_take(cuda):
     q = torch.zeros(2, 1, 4, 256, device=cuda)        # hd 256: no instantiation
     kn = torch.zeros(2, 1, 2, 256, device=cuda)
@@ -85,12 +116,12 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
 
 
 @pytest.mark.parametrize("change", [dict(emb_dim=64),           # head dim 16
-                                    dict(context_length=1001),  # Tmax % 8
-                                    dict(context_length=16384)])
+                                    dict(emb_dim=1024)])        # head dim 256
 def test_card_refuses_shapes_the_kernel_cannot_take(cuda, change):
-    """A model or slot length the kernel cannot take raises on the card when
-    the engine is built, and a decode tick at such a shape raises too;
-    neither computes the plain twin instead."""
+    """A model whose head dim the kernel cannot take raises on the card
+    when the engine is built, and a decode tick at such a shape raises too;
+    neither computes the plain twin instead. (Any slot length is taken:
+    test_engine_serves_long_and_unaligned_slots.)"""
     from building_llm_from_scratch_tpu_torch.models.transformer import (
         decode_slots,
         init_slot_cache,
@@ -108,6 +139,26 @@ def test_card_refuses_shapes_the_kernel_cannot_take(cuda, change):
         decode_slots(model, torch.zeros(2, 1, dtype=torch.long, device=cuda),
                      torch.zeros(2, dtype=torch.int32, device=cuda), cache)
     assert tds.fused_decode_step.launches == before
+
+
+@pytest.mark.parametrize("context", [1001, 16384])
+def test_engine_serves_long_and_unaligned_slots(cuda, context):
+    """Slot lengths the TPU kernel's rule refused (not a multiple of 8, past
+    8192) are served on the card: a request whose row ends past 8192 (at
+    16384) finishes its budget, and B5 launches once per layer a tick."""
+    cfg = get_config("llama3_2", "1B").replace(
+        emb_dim=256, n_heads=4, n_kv_groups=2, n_layers=1, hidden_dim=256,
+        vocab_size=512, context_length=context)
+    model = build_model(cfg, seed=0, device=cuda)
+    eng = DecodeEngine(model, n_slots=2, max_len=context)
+    n_prompt = 8300 if context > 8192 else 900
+    rng = np.random.default_rng(1)
+    tds.fused_decode_step.launches = 0
+    h = eng.submit(rng.integers(0, 512, n_prompt).tolist(),
+                   SamplingParams(max_new_tokens=16, ignore_eos=True))
+    eng.run_until_idle()
+    assert len(h.output_ids) == 16
+    assert tds.fused_decode_step.launches == cfg.n_layers * eng.n_ticks > 0
 
 
 def test_engine_on_the_card(cuda):
@@ -303,16 +354,19 @@ def test_paged_engine_refuses_head_dims_b7_cannot_take(cuda):
             paged=True, page_tokens=8, prefill_chunk=16))
 
 
-# Flash-attention kernels (B1 forward, B2a dq, B2b per-query-head dk/dv)
-# against their twins. Errors are measured as max |kernel - ref| / max |ref|
-# per tensor (lse: absolute). fp32: the same arithmetic in another order
-# (tiled online softmax vs one pass), 1e-5 for out and lse and 5e-5 for the
-# gradients (sums over up to 2048 terms). bf16: the kernel rounds the exp
-# terms with the running max and the twin with the final one, and both
-# round P and dS to 8 bits before their products, so 2e-2, the twin
-# tolerance of the decode kernel; the same bound holds against the exact
-# result (the twin in fp32 on the same inputs).
-FLASH_TOL = {torch.float32: (1e-5, 5e-5), torch.bfloat16: (2e-2, 2e-2)}
+# Flash-attention kernels (B1 forward, B2a dq, B2b dk/dv summed over each kv
+# head's query heads) against their twins (B2b's: the per-query-head twin
+# followed by group_sum). Errors are measured as max |kernel - ref| /
+# max |ref| per tensor (lse: absolute). fp32: the same arithmetic in
+# another order (tiled online softmax vs one pass), 1e-5 for out and lse
+# and 5e-5 for the gradients (sums over up to 2048 terms). bf16 and fp16:
+# the kernel rounds the exp terms with the running max and the twin with
+# the final one, and both round P and dS to the 16-bit type before their
+# products, so 2e-2, the twin tolerance of the decode kernel; the same
+# bound holds against the exact result (the twin in fp32 on the same
+# inputs).
+FLASH_TOL = {torch.float32: (1e-5, 5e-5), torch.float16: (2e-2, 2e-2),
+             torch.bfloat16: (2e-2, 2e-2)}
 
 
 def _rel(a, b):
@@ -326,6 +380,16 @@ def flash_inputs(dev, B, T, Hq, Hkv, hd, dtype, seed=0):
             rnd(B, T, Hq, hd))
 
 
+def grouped_dkv_plain(q, k, v, do, lse, delta, rate=0.0, seed=0):
+    """B2b's twin: the per-query-head twin, then the group sum."""
+    dk, dv = tfa.fused_attention_dkv_plain(q, k, v, do, lse, delta, rate, seed)
+    return tfa.group_sum(dk, k.shape[2]), tfa.group_sum(dv, k.shape[2])
+
+
+PLAIN = (tfa.fused_attention_fwd_plain, tfa.fused_attention_dq_plain,
+         grouped_dkv_plain)
+
+
 def flash_all(q, k, v, do, fwd, dq, dkv, rate=0.0, seed=0):
     out, lse = fwd(q, k, v, rate, seed)
     delta = tfa.attention_delta(out, do)
@@ -333,25 +397,29 @@ def flash_all(q, k, v, do, fwd, dq, dkv, rate=0.0, seed=0):
         dkv(q, k, v, do, lse, delta, rate, seed))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,Hq,Hkv,hd", [(2, 256, 4, 4, 64),
-                                           (1, 512, 8, 2, 64),
-                                           (1, 1024, 4, 2, 128),
-                                           (1, 2048, 4, 1, 64)])
-def test_flash_kernels_match_twin(cuda, dtype, B, T, Hq, Hkv, hd):
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("B,T", [(2, 256), (1, 1024), (1, 2048)])
+def test_flash_kernels_match_twin(cuda, B, T, hd, dtype, G, rate):
+    """B1, B2a and B2b against their twins and the exact (fp32) result, at
+    GQA group sizes 1 and 4, with and without attention dropout; B2b's
+    output is (B, T, Hkv, D)."""
+    Hq = 4
+    Hkv = Hq // G
+    seed = 424242 + T
     q, k, v, do = flash_inputs(cuda, B, T, Hq, Hkv, hd, dtype)
     n0 = (tfa.flash_attention_fwd.launches, tfa.flash_attention_dq.launches,
           tfa.flash_attention_dkv.launches)
     got = flash_all(q, k, v, do, tfa.flash_attention_fwd,
-                    tfa.flash_attention_dq, tfa.flash_attention_dkv)
+                    tfa.flash_attention_dq, tfa.flash_attention_dkv, rate, seed)
     torch.cuda.synchronize()
     assert (tfa.flash_attention_fwd.launches, tfa.flash_attention_dq.launches,
             tfa.flash_attention_dkv.launches) == tuple(n + 1 for n in n0)
-    twin = flash_all(q, k, v, do, tfa.fused_attention_fwd_plain,
-                     tfa.fused_attention_dq_plain, tfa.fused_attention_dkv_plain)
+    twin = flash_all(q, k, v, do, *PLAIN, rate, seed)
     f32 = [t.float() for t in (q, k, v, do)]
-    exact = flash_all(*f32, tfa.fused_attention_fwd_plain,
-                      tfa.fused_attention_dq_plain, tfa.fused_attention_dkv_plain)
+    exact = flash_all(*f32, *PLAIN, rate, seed)
     tol_out, tol_grad = FLASH_TOL[dtype]
     for name, a, b, c in zip(("out", "lse", "dq", "dk", "dv"), got, twin, exact):
         assert a.dtype == b.dtype and a.shape == b.shape, name
@@ -363,23 +431,32 @@ def test_flash_kernels_match_twin(cuda, dtype, B, T, Hq, Hkv, hd):
         else:
             assert _rel(a, b) <= tol, (name, _rel(a, b))
             assert _rel(a, c) <= tol, (name, _rel(a, c))
+    assert got[3].shape == (B, T, Hkv, hd)
 
 
-def test_flash_autograd_group_sums_gqa(cuda):
+def test_flash_autograd_group_sums_gqa(cuda, monkeypatch):
     """The autograd Function's gradients equal the twins' with the G query
-    heads of each kv head summed."""
+    heads of each kv head summed; on the card B2b sums them itself and
+    writes (B, T, Hkv, D), so the backward calls no group_sum."""
     q, k, v, do = flash_inputs(cuda, 1, 256, 8, 2, 64, torch.bfloat16, seed=1)
     q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+    def no_group_sum(*args):
+        raise AssertionError("group_sum on the CUDA autograd path")
+
+    monkeypatch.setattr(tfa, "group_sum", no_group_sum)
+    n0 = tfa.flash_attention_dkv.launches
     out = tfa.fused_causal_attention(q, k, v)
     out.backward(do)
-    ref = flash_all(q.detach(), k.detach(), v.detach(), do,
-                    tfa.fused_attention_fwd_plain, tfa.fused_attention_dq_plain,
-                    tfa.fused_attention_dkv_plain)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_dkv.launches == n0 + 1
+    monkeypatch.undo()
+    ref = flash_all(q.detach(), k.detach(), v.detach(), do, *PLAIN)
     assert _rel(out, ref[0]) <= 2e-2
     assert _rel(q.grad, ref[2]) <= 2e-2
     assert k.grad.shape == k.shape and v.grad.shape == v.shape
-    assert _rel(k.grad, tfa.group_sum(ref[3], 2)) <= 2e-2
-    assert _rel(v.grad, tfa.group_sum(ref[4], 2)) <= 2e-2
+    assert _rel(k.grad, ref[3]) <= 2e-2
+    assert _rel(v.grad, ref[4]) <= 2e-2
 
 
 @pytest.mark.parametrize("T,hd,dtype", [(300, 64, torch.bfloat16),   # T % 128
@@ -413,36 +490,35 @@ def _oracle(q, k, v, do, mask, rate):
             kh.grad.transpose(1, 2), vh.grad.transpose(1, 2))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
 @pytest.mark.parametrize("B,T,Hq,Hkv,hd", [(2, 256, 4, 4, 64), (1, 512, 8, 2, 64),
-                                           (1, 256, 4, 2, 128)])
+                                           (1, 256, 4, 2, 128), (1, 1024, 8, 2, 128)])
 def test_flash_dropout_kernels_match_twin_and_oracle(cuda, dtype, B, T, Hq, Hkv, hd):
     """With p = 0.1 the kernels draw the twins' mask: out, lse, dq, dk, dv
-    within FLASH_TOL of the twin and of the fp32 same-mask oracle (dk/dv
-    group-summed); the twin with the next seed fails the bound."""
+    within FLASH_TOL of the twin and of the fp32 same-mask oracle (whose
+    dk/dv autograd sums over the query heads of each kv head, as B2b does;
+    G 4 in two cases); the twin with the next seed fails the bound."""
     rate, seed = 0.1, 987654321987
     q, k, v, do = flash_inputs(cuda, B, T, Hq, Hkv, hd, dtype, seed=2)
     got = flash_all(q, k, v, do, tfa.flash_attention_fwd, tfa.flash_attention_dq,
                     tfa.flash_attention_dkv, rate, seed)
     torch.cuda.synchronize()
-    plain = (tfa.fused_attention_fwd_plain, tfa.fused_attention_dq_plain,
-             tfa.fused_attention_dkv_plain)
-    twin = flash_all(q, k, v, do, *plain, rate, seed)
+    twin = flash_all(q, k, v, do, *PLAIN, rate, seed)
     mask = tfa.keep_mask(seed, B, Hq, T, rate, cuda)
     oracle = _oracle(q, k, v, do, mask, rate)
     tol_out, tol_grad = FLASH_TOL[dtype]
     for i, name in enumerate(("out", "lse", "dq", "dk", "dv")):
         a, b = got[i], twin[i]
-        c = tfa.group_sum(a, Hkv) if name in ("dk", "dv") else a
         assert torch.isfinite(a).all(), name
+        assert a.shape == b.shape == oracle[i].shape, name
         tol = tol_out if name in ("out", "lse") else tol_grad
         if name == "lse":
             assert (a - b).abs().max().item() <= tol
             assert (a - oracle[i]).abs().max().item() <= tol
         else:
             assert _rel(a, b) <= tol, (name, _rel(a, b))
-            assert _rel(c, oracle[i]) <= tol, (name, _rel(c, oracle[i]))
-    control = flash_all(q, k, v, do, *plain, rate, seed + 1)
+            assert _rel(a, oracle[i]) <= tol, (name, _rel(a, oracle[i]))
+    control = flash_all(q, k, v, do, *PLAIN, rate, seed + 1)
     for i, name in ((0, "out"), (2, "dq"), (3, "dk"), (4, "dv")):
         assert _rel(control[i], twin[i]) > FLASH_TOL[dtype][i > 0], name
 

@@ -97,12 +97,14 @@ def test_supports_shape_matches_jax():
     for args in [(1, 1024, 64), (1, 1024, 128), (2, 1024, 64), (1, 1020, 64),
                  (1, 8192, 256), (1, 8200, 64), (1, 1024, 96), (1, 64, 320)]:
         assert tds.supports_shape(*args) == supports_shape(*args)
-    # the CUDA kernel narrows that to head dims 64/128 and its three dtypes
-    tds.check_kernel_shape(1024, 128, torch.bfloat16)
-    tds.check_kernel_shape(8192, 64, torch.float32)
-    for Tmax, hd, dt in [(1024, 256, torch.bfloat16), (1024, 16, torch.float32),
+    # the CUDA kernel takes head dims 64/128 and its three dtypes at any
+    # cache length: its shared memory does not depend on Tmax, so the TPU
+    # kernel's VMEM rule (Tmax <= 8192 and a multiple of 8) does not apply
+    for Tmax, hd, dt in [(1024, 128, torch.bfloat16), (8192, 64, torch.float32),
                          (1001, 64, torch.bfloat16), (16384, 64, torch.bfloat16),
-                         (1024, 64, torch.float64)]:
+                         (32768, 64, torch.float16), (1, 128, torch.float32)]:
+        tds.check_kernel_shape(Tmax, hd, dt)
+    for Tmax, hd, dt in [(1024, 256, torch.bfloat16), (1024, 16, torch.float32),
+                         (1024, 64, torch.float64), (0, 64, torch.bfloat16)]:
         with pytest.raises(ValueError, match="CUDA decode-step kernel"):
             tds.check_kernel_shape(Tmax, hd, dt)
-

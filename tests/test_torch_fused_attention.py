@@ -1,7 +1,10 @@
 """The fused flash-attention twins (B1 forward, B2a dq, B2b dk/dv, through
 the port's ``FusedCausalAttention``) against the JAX package's exact XLA
 attention (``causal_attention(..., impl="xla")``) and ``jax.grad`` of it,
-on the same numpy inputs; the training dispatch rule; the checks of the
+on the same numpy inputs; B2b's grouped dk/dv wrapper ((B, T, Hkv, D))
+against ``jax.vjp`` of that attention and, with dropout, against
+``group_sum`` of the per-head twin and an fp32 same-mask oracle; the
+training dispatch rule; the checks of the
 attention-dropout branch (its math is held against a same-mask oracle in
 ``tests/test_torch_dropout.py``). The CUDA kernels themselves are held against these twins
 on the card by ``tests/test_torch_cuda.py``.
@@ -149,3 +152,74 @@ def test_attention_dropout_branch_takes_a_seed_and_eligible_shapes():
     assert torch.equal(got, tatt.xla_attention(short, short, short,
                                                dropout_rate=0.1, seed=4,
                                                deterministic=False))
+
+
+def jax_vjp_dkv(q, k, v, do, jdt):
+    """dk, dv of the exact XLA attention through ``jax.vjp`` with cotangent
+    ``do``: (B, T, Hkv, D), the GQA heads summed by autodiff."""
+    args = [jnp.asarray(x, jdt) for x in (q, k, v)]
+    _, vjp = jax.vjp(lambda q_, k_, v_: causal_attention(q_, k_, v_, impl="xla"),
+                     *args)
+    _, dk, dv = vjp(jnp.asarray(do, jdt))
+    return np.asarray(dk.astype(jnp.float32)), np.asarray(dv.astype(jnp.float32))
+
+
+def grouped_dkv(q, k, v, do, rate=0.0, seed=0):
+    """B2b's grouped dk/dv through the wrapper (its CPU path) from the
+    forward's lse and delta."""
+    out, lse = tfa.flash_attention_fwd(q, k, v, rate, seed)
+    delta = tfa.attention_delta(out, do)
+    return tfa.flash_attention_dkv(q, k, v, do, lse, delta, rate, seed), (lse, delta)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("G", [1, 4])
+def test_grouped_dkv_matches_jax_vjp(dtype, G):
+    """flash_attention_dkv returns dk/dv per KV head, (B, T, Hkv, D), equal
+    to the JAX package's XLA attention gradients through jax.vjp (the
+    tolerances of test_twin_matches_jax_xla_attention_and_grads)."""
+    B, T, Hq, D = 2, 256, 4, 64
+    Hkv = Hq // G
+    jdt, tdt, tol = DT[dtype]
+    q, k, v, do = inputs(B, T, Hq, Hkv, D, seed=40 + G)
+    dk_j, dv_j = jax_vjp_dkv(q, k, v, do, jdt)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(tdt) for x in (q, k, v, do))
+    before = tfa.flash_attention_dkv.launches
+    (dk, dv), _ = grouped_dkv(tq, tk, tv, tdo)
+    assert tfa.flash_attention_dkv.launches == before      # CPU: the twin
+    assert dk.shape == dv.shape == (B, T, Hkv, D)
+    assert dk.dtype == dv.dtype == tdt
+    assert rel(dk, dk_j) <= tol, rel(dk, dk_j)
+    assert rel(dv, dv_j) <= tol, rel(dv, dv_j)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("G", [1, 4])
+def test_grouped_dkv_with_dropout_is_the_group_sum_of_the_per_head_twin(dtype, G):
+    """With p 0.1 the grouped dk/dv equal group_sum of the per-query-head
+    dropout twin bit for bit, and an fp32 autograd oracle with the same
+    dumped mask (1e-5 in fp32, 2e-2 in bf16); the next seed's mask moves
+    them outside that bound."""
+    B, T, Hq, D, rate, seed = 1, 256, 4, 64, 0.1, 7777
+    Hkv = Hq // G
+    _, tdt, tol = DT[dtype]
+    q, k, v, do = (torch.from_numpy(x).to(tdt)
+                   for x in inputs(B, T, Hq, Hkv, D, seed=50 + G))
+    (dk, dv), (lse, delta) = grouped_dkv(q, k, v, do, rate, seed)
+    dk_h, dv_h = tfa.fused_attention_dkv_plain(q, k, v, do, lse, delta, rate, seed)
+    assert dk_h.shape == (B, T, Hq, D) and dk.shape == (B, T, Hkv, D)
+    assert torch.equal(dk, tfa.group_sum(dk_h, Hkv))
+    assert torch.equal(dv, tfa.group_sum(dv_h, Hkv))
+
+    keep = tfa.keep_mask(seed, B, Hq, T, rate)
+    qh, kh, vh = (t.float().transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    s = qh @ kh.repeat_interleave(G, 1).transpose(-1, -2) / D ** 0.5
+    s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool).tril(), -1e30)
+    p = torch.softmax(s, -1) * keep / (1 - rate)
+    (p @ vh.repeat_interleave(G, 1)).backward(do.float().transpose(1, 2))
+    dk_o, dv_o = kh.grad.transpose(1, 2), vh.grad.transpose(1, 2)
+    assert rel(dk, dk_o.numpy()) <= tol, rel(dk, dk_o.numpy())
+    assert rel(dv, dv_o.numpy()) <= tol, rel(dv, dv_o.numpy())
+    (dk2, dv2), _ = grouped_dkv(q, k, v, do, rate, seed + 1)
+    assert rel(dk2, dk_o.numpy()) > tol and rel(dv2, dv_o.numpy()) > tol
