@@ -1,4 +1,4 @@
-// Vocab-streamed cross-entropy forward for Hopper (sm_90a): B4.
+// Vocab-streamed cross-entropy forward for Hopper (sm_90a): B4 in fp32.
 //
 // Replaces the TPU kernel of building_llm_from_scratch_tpu/ops/
 // xent_fwd_pallas.py (_kernel, called through xent_fwd): for hidden states
@@ -9,8 +9,8 @@
 // logits.
 //
 // What bounds it: operations. At GPT-2-124M's B 8 x T 1024 (N 8192, D 768,
-// V 50257) the logits product is 2 N D V = 632 GFLOP, about 0.64 ms at the
-// bf16 dense peak, over ~90 MB of inputs.
+// V 50257) the logits product is 2 N D V = 632 GFLOP, about 9.4 ms at the
+// fp32 peak (67 TFLOP/s), over ~180 MB of fp32 inputs.
 //
 // Design (a first, simple kernel): the TPU kernel keeps all N rows resident
 // and walks the vocabulary in one sequential grid. Here a block of 8 warps
@@ -24,8 +24,9 @@
 // writes its rows' partial (max, sum); the thread holding a row's target
 // column writes the target logit. A second kernel combines the partials of
 // each row: lse = M + log(sum_j s_j exp(m_j - M)), nll = lse - target logit.
-// Known gaps, for a later PR: no cp.async/TMA double buffering, scalar
-// loads of W (its rows are not 16-byte aligned for odd V), no wgmma.
+// Since the Hopper kernel xent_fwd_sm90.cu took the 16-bit types (TMA and
+// wgmma), this kernel serves fp32 only (ops/xent_fwd.py routes by dtype);
+// it keeps the mma.sync routine of warp_mma.cuh and scalar loads of W.
 //
 // Plain C interface, loaded with ctypes (ops/_kernels.py). Each entry returns
 // cudaGetLastError() after its launches, or 100000 for what it does not take.
@@ -36,17 +37,18 @@
 #include <stdint.h>
 
 #include "warp_mma.cuh"
+#include "xent_combine.cuh"
 
 namespace {
 
 using bllm::pad;
+using bllm::xent::kNegBig;
 
 constexpr int kThreads = 256;   // 8 warps of 16 rows
 constexpr int kBM = 128;        // rows of a block
 constexpr int kBN = 128;        // vocab columns of a tile
 constexpr int kBK = 32;         // depth of a staged slice
 constexpr int kUnsupported = 100000;
-constexpr float kNegBig = -1e30f;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -185,35 +187,36 @@ int run(const void* x, const void* w, const long long* targets, float* m_part, f
       per);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  return bllm::xent::combine(m_part, s_part, tl, nll, lse, N, splits, stream);
+}
+
+}  // namespace
+
+int bllm::xent::combine(const float* m_part, const float* s_part, const float* tl, float* nll,
+                        float* lse, int N, int splits, cudaStream_t stream) {
   xent_combine_kernel<<<(N + 255) / 256, 256, 0, stream>>>(m_part, s_part, tl, nll, lse, N,
                                                            splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
 extern "C" {
 
-// x (N, D) and w (D, V) of one dtype (0 = float32, 1 = float16,
-// 2 = bfloat16), contiguous, D % 32 == 0, x 16-byte aligned; targets (N,)
+// x (N, D) and w (D, V) in float32 (dtype 0; the 16-bit types go to
+// bllm_xent_fwd_sm90), contiguous, D % 32 == 0, x 16-byte aligned; targets (N,)
 // int64; m_part, s_part (splits, N) fp32 scratch; tl (N,) fp32 filled with
 // -1e30 by the caller; nll, lse (N,) fp32 outputs. ``splits`` must be the
 // number of vocab shares of ceil(ceil(V / 128) / splits) tiles each.
 int bllm_xent_fwd(int dtype, int N, int D, int V, int splits, const void* x, const void* w,
                   const void* targets, void* m_part, void* s_part, void* tl, void* nll,
                   void* lse, void* stream) {
-  if (N < 1 || D < kBK || D % kBK != 0 || V < 1 || splits < 1) return kUnsupported;
+  if (dtype != 0 || N < 1 || D < kBK || D % kBK != 0 || V < 1 || splits < 1)
+    return kUnsupported;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long* tg = static_cast<const long long*>(targets);
   float *mp = static_cast<float*>(m_part), *sp = static_cast<float*>(s_part),
         *t = static_cast<float*>(tl), *nl = static_cast<float*>(nll),
         *ls = static_cast<float*>(lse);
-  switch (dtype) {
-    case 0: return run<float>(x, w, tg, mp, sp, t, nl, ls, N, D, V, splits, s);
-    case 1: return run<__half>(x, w, tg, mp, sp, t, nl, ls, N, D, V, splits, s);
-    case 2: return run<__nv_bfloat16>(x, w, tg, mp, sp, t, nl, ls, N, D, V, splits, s);
-    default: return kUnsupported;
-  }
+  return run<float>(x, w, tg, mp, sp, t, nl, ls, N, D, V, splits, s);
 }
 
 }  // extern "C"

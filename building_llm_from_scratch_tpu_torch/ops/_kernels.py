@@ -101,7 +101,8 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(build()["path"])
             i32, u32, f32, ptr = (ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
                                   ctypes.c_void_p)
-            lib.bllm_fused_decode_step.argtypes = [i32] * 6 + [ptr] * 8
+            # dtype, hd, S, Hq, Hkv, Tmax, split length, splits
+            lib.bllm_fused_decode_step.argtypes = [i32] * 8 + [ptr] * 9
             # dtype, hd, B, T, Hq, Hkv, scale, threshold, 1/(1-p), seed words
             head = [i32] * 6 + [f32, u32, f32, u32, u32]
             lib.bllm_attn_fwd.argtypes = head + [ptr] * 6
@@ -109,6 +110,8 @@ def load_library() -> ctypes.CDLL:
             lib.bllm_attn_bwd_dkv.argtypes = head + [ptr] * 10
             lib.bllm_dropout.argtypes = [i32, ctypes.c_longlong, u32, f32, u32, u32] + [ptr] * 4
             lib.bllm_xent_fwd.argtypes = [i32] * 5 + [ptr] * 9
+            # dtype, N, D, V, padded V, splits
+            lib.bllm_xent_fwd_sm90.argtypes = [i32] * 6 + [ptr] * 9
             # dtype, hd, S, Hq, Hkv, P, N, M
             lib.bllm_paged_decode.argtypes = [i32] * 8 + [ptr] * 7
             # dtype, S, D, r, O, N, pool row strides
@@ -116,6 +119,7 @@ def load_library() -> ctypes.CDLL:
                                            + [ptr] * 7)
             for name in ("bllm_fused_decode_step", "bllm_attn_fwd", "bllm_attn_bwd_dq",
                          "bllm_attn_bwd_dkv", "bllm_dropout", "bllm_xent_fwd",
+                         "bllm_xent_fwd_sm90",
                          "bllm_paged_decode", "bllm_lora_bgmv"):
                 getattr(lib, name).restype = i32
             lib.bllm_error_string.argtypes = [ctypes.c_int]

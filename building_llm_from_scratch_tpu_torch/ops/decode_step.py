@@ -2,7 +2,8 @@
 ``ops/decode_step.py``):
 
   - ``fused_decode_step`` (B5): append the new k/v rows into the slot cache
-    at each row's length, then attend (``csrc/decode_step.cu``);
+    at each row's length, then attend, split over the cache axis
+    (``csrc/decode_step.cu``; the plan is ``split_kv_plan``);
   - ``paged_decode_attention`` (B7): attend each slot's logical row through
     its page table over a shared page pool (``csrc/paged_decode.cu``);
   - ``lora_bgmv`` (B6): each row's LoRA delta through its own adapter's
@@ -16,6 +17,7 @@ no fallback between the two: a CUDA call the kernel cannot take raises.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -23,8 +25,13 @@ from building_llm_from_scratch_tpu_torch.ops.attention import decode_attention
 
 #: dtype codes of the C entry point (csrc/decode_step.cu)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+#: element bytes of those dtypes
+_ELT = {torch.float32: 4, torch.float16: 2, torch.bfloat16: 2}
 #: head dims the kernel is instantiated for
 _KERNEL_HEAD_DIMS = (64, 128)
+#: K and V bytes of one split of B5's cache axis: one block's loads, all in
+#: flight at once (csrc/decode_step.cu kSplitBytes)
+_SPLIT_BYTES = 65536
 
 
 def slot_cache_append(cache: torch.Tensor, new: torch.Tensor,
@@ -67,6 +74,62 @@ def check_kernel_shape(Tmax: int, hd: int, dtype: torch.dtype) -> None:
             f"the CUDA decode-step kernel takes head dims {_KERNEL_HEAD_DIMS}, "
             f"dtypes {list(_DTYPE_CODES)} and a cache length Tmax >= 1; got "
             f"hd={hd}, {dtype}, Tmax={Tmax}")
+
+
+def split_kv_plan(Tmax: int, hd: int, dtype: torch.dtype) -> tuple:
+    """B5's split of the cache axis: ``(C, n_splits)``, each (slot, kv head)
+    pane cut into ``n_splits`` runs of ``C`` consecutive positions, one
+    block each. ``C`` fills the 64 KB of K and V that one block keeps in
+    flight (256 positions at hd 64 in 16 bits, 128 at hd 128 or in fp32, 64
+    at hd 128 in fp32). It depends on the cache length, head dim and dtype
+    only, never on the batch or a row's length, so a row's output has the
+    same bits alone or co-batched."""
+    check_kernel_shape(Tmax, hd, dtype)
+    C = _SPLIT_BYTES // (2 * hd * _ELT[dtype])
+    return C, -(-Tmax // C)
+
+
+def split_kv_partials_plain(q, k_cache, v_cache, lengths, C: int) -> torch.Tensor:
+    """B5's first pass in plain PyTorch (fp32), the model of its workspace:
+    for split j of ``C`` positions, the partial (m, l, o[hd]) of positions
+    [j C, min(j C + C, t + 1)), t the clamped length, with m the running
+    max of the scores in the exp2 domain (scale * log2(e) folded in), l the
+    sum of 2^(s - m) and o the unnormalised sum of 2^(s - m) v. Returns
+    (S, Hq, n_splits, hd + 2); splits past t hold NaN (the kernel leaves
+    them unwritten and the merge never reads them)."""
+    S, _, Hq, hd = q.shape
+    Hkv, Tmax = k_cache.shape[1], k_cache.shape[2]
+    n = -(-Tmax // C)
+    t = torch.as_tensor(lengths, device=q.device).reshape(-1).long().clamp(0, Tmax - 1)
+    valid = torch.arange(n * C, device=q.device)[None, :] <= t[:, None]   # (S, nC)
+    pad = (0, 0, 0, n * C - Tmax)
+    K = torch.nn.functional.pad(k_cache.float(), pad)
+    V = torch.nn.functional.pad(v_cache.float(), pad)
+    V = V.masked_fill(~valid[:, None, :, None], 0.0)
+    qg = q[:, 0].float().reshape(S, Hkv, Hq // Hkv, hd)
+    s = torch.einsum("bhgd,bhtd->bhgt", qg, K) * (math.log2(math.e) / math.sqrt(hd))
+    s = s.masked_fill(~valid[:, None, None, :], -math.inf)
+    s = s.reshape(S, Hkv, -1, n, C)
+    m = s.amax(-1)                                        # -inf past t
+    p = torch.exp2(s - m[..., None])
+    o = torch.einsum("bhgnc,bhncd->bhgnd", p, V.reshape(S, Hkv, n, C, hd))
+    ws = torch.cat([m[..., None], p.sum(-1)[..., None], o], dim=-1)
+    return ws.reshape(S, Hq, n, hd + 2)
+
+
+def split_kv_combine_plain(ws: torch.Tensor, lengths, C: int, Tmax: int) -> torch.Tensor:
+    """B5's merge in plain PyTorch: splits 0 .. t // C of each (slot, query
+    head) weighed by 2^(m_j - M), M their max; returns (S, 1, Hq, hd) fp32,
+    the output before its rounding to the q dtype."""
+    n = ws.shape[2]
+    t = torch.as_tensor(lengths, device=ws.device).reshape(-1).long().clamp(0, Tmax - 1)
+    used = torch.arange(n, device=ws.device)[None, :] <= (t // C)[:, None]   # (S, n)
+    used = used[:, None, :]
+    m = ws[..., 0].masked_fill(~used, -math.inf)
+    w = torch.exp2(m - m.amax(-1, keepdim=True))
+    L = torch.where(used, ws[..., 1] * w, 0.0).sum(-1)
+    O = torch.where(used[..., None], ws[..., 2:] * w[..., None], 0.0).sum(-2)
+    return (O / L[..., None])[:, None]
 
 
 def fused_decode_step_plain(q, k_new, v_new, k_cache, v_cache, lengths):
@@ -124,9 +187,11 @@ def fused_decode_step(q, k_new, v_new, k_cache, v_cache, lengths):
     (which aliases outputs to inputs), the caches are UPDATED IN PLACE and
     returned as the same tensor objects.
 
-    CUDA tensors go through the hand-written kernel, read their lengths on
-    the device (no host sync) and add one to ``fused_decode_step.launches``
-    per launch; CPU tensors compute ``fused_decode_step_plain``."""
+    CUDA tensors go through the hand-written kernel (a split pass over
+    ``split_kv_plan``'s runs of the cache axis, then a fixed-order merge:
+    two launches), read their lengths on the device (no host sync) and add
+    one to ``fused_decode_step.launches`` per call; CPU tensors compute
+    ``fused_decode_step_plain``."""
     _check(q, k_new, v_new, k_cache, v_cache, lengths)
     if q.device.type == "cpu":
         return fused_decode_step_plain(q, k_new, v_new, k_cache, v_cache,
@@ -135,7 +200,7 @@ def fused_decode_step(q, k_new, v_new, k_cache, v_cache, lengths):
         raise ValueError(f"fused_decode_step runs on cpu or cuda, not {q.device}")
     S, _, Hq, hd = q.shape
     _, Hkv, Tmax, _ = k_cache.shape
-    check_kernel_shape(Tmax, hd, q.dtype)
+    C, n_splits = split_kv_plan(Tmax, hd, q.dtype)      # checks the shape
     if not torch.is_tensor(lengths) or lengths.dtype != torch.int32 \
             or tuple(lengths.shape) != (S,):
         raise TypeError("on the card lengths must be an int32 (S,) tensor")
@@ -144,20 +209,25 @@ def fused_decode_step(q, k_new, v_new, k_cache, v_cache, lengths):
                     ("lengths", lengths)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("k_new", k_new), ("k_cache", k_cache)):
+    for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new),
+                    ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel reads "
-                             "its rows with 16-byte loads)")
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel moves "
+                             "its rows by TMA and 16-byte stores)")
+    if S > 65535 or S * Hkv * Tmax >= 2 ** 31:
+        raise ValueError(f"S={S} x Hkv={Hkv} x Tmax={Tmax} exceeds the kernel's "
+                         "grid or its 32-bit row index")
     from building_llm_from_scratch_tpu_torch.ops._kernels import load_library
 
     lib = load_library()
     out = torch.empty_like(q)
+    ws = torch.empty((S, Hq, n_splits, hd + 2), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     err = lib.bllm_fused_decode_step(
-        _DTYPE_CODES[q.dtype], hd, S, Hq, Hkv, Tmax,
-        p(q), p(k_new), p(v_new), p(k_cache), p(v_cache), p(lengths), p(out),
-        ctypes.c_void_p(stream))
+        _DTYPE_CODES[q.dtype], hd, S, Hq, Hkv, Tmax, C, n_splits,
+        p(q), p(k_new), p(v_new), p(k_cache), p(v_cache), p(lengths), p(ws),
+        p(out), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"fused_decode_step kernel launch failed: "
                            f"{lib.bllm_error_string(err).decode()}")

@@ -4,17 +4,20 @@ and targets (N,), per-row ``(nll, lse)`` in fp32 with the online
 logsumexp over vocab chunks, padded columns masked to -1e30, and no (N, V)
 logits in device memory.
 
-``xent_fwd`` launches the CUDA kernel (``csrc/xent_fwd.cu``) for tensors on
-the card (counted on ``xent_fwd.launches``) and computes the twin
-``xent_fwd_plain`` (the same chunked online logsumexp in plain torch) for
-tensors on the CPU; a CUDA call the kernel cannot take raises. The training
-loss reaches it through ``ops/softmax_xent.py`` when ``BLLM_XENT_PALLAS=1``.
+``xent_fwd`` launches a CUDA kernel for tensors on the card (counted on
+``xent_fwd.launches``), chosen by dtype before any launch: bf16 and fp16 go
+to the Hopper kernel ``csrc/xent_fwd_sm90.cu`` (TMA and wgmma, W's columns
+padded to a multiple of 8 first), fp32 to ``csrc/xent_fwd.cu``. Tensors on
+the CPU compute the twin ``xent_fwd_plain`` (the same chunked online
+logsumexp in plain torch); a CUDA call the kernel cannot take raises. The
+training loss reaches it through ``ops/softmax_xent.py`` when
+``BLLM_XENT_PALLAS=1``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,8 +25,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _NEG_BIG = -1e30
 #: the accumulator lane width of the TPU kernel, kept for its VMEM rule
 _LANES = 128
-#: vocab columns of one kernel tile (csrc/xent_fwd.cu kBN)
+#: vocab columns of one kernel tile (kBN of both CUDA kernels)
 _TILE = 128
+#: rows of one kernel block (kBM of both CUDA kernels)
+_ROWS = 128
 
 
 def supports_shape(N: int, D: int, V: int, bv: int = 512) -> bool:
@@ -49,14 +54,17 @@ def matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def xent_fwd_plain(x2: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
-                   chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+                   chunk: int = 512, n_valid: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B4's twin, and the forward of the chunked cross entropy
     (``ops/softmax_xent.py``, the JAX ``_xent_fwd_impl``'s scan):
     ``chunk``-wide vocab slices, fp32 logits, an online max and sum in fp32,
     the target logit picked; (nll, lse) (N,) fp32. The JAX package pads W
     to whole chunks and masks the padded columns to -1e30, whose terms are
     exact zeros of the sums and never the max; the last slice here is
-    simply narrower, the same values without the padded copy of W."""
+    simply narrower, the same values without the padded copy of W.
+    ``n_valid`` masks columns from it on to -1e30 the same way (the Hopper
+    kernel's model: W padded, the mask at the true V)."""
     N, V = x2.shape[0], w.shape[1]
     dev = x2.device
     m = torch.full((N,), _NEG_BIG, device=dev)
@@ -66,6 +74,9 @@ def xent_fwd_plain(x2: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
     for c0 in range(0, V, chunk):
         logits = matmul_fp32(x2, w[:, c0:c0 + chunk])
         width = logits.shape[1]
+        if n_valid is not None and c0 + width > n_valid:
+            cols = torch.arange(c0, c0 + width, device=dev)
+            logits = logits.masked_fill(cols >= n_valid, _NEG_BIG)
         m_new = torch.maximum(m, logits.amax(dim=-1))
         s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=-1)
         m = m_new
@@ -78,19 +89,46 @@ def xent_fwd_plain(x2: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
 
 
 def _splits(N: int, V: int, device: torch.device) -> int:
-    """Vocab shares per row block: enough blocks for two per SM, each share
-    owning at least one 128-column tile."""
+    """Vocab shares per row block of the fp32 kernel: enough blocks for two
+    per SM, each share owning at least one 128-column tile."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     tiles = -(-V // _TILE)
-    want = max(1, min(tiles, -(-2 * sms // -(-N // 128))))
+    want = max(1, min(tiles, -(-2 * sms // -(-N // _ROWS))))
     per = -(-tiles // want)
     return -(-tiles // per)
 
 
+def padded_width(V: int) -> int:
+    """W's column count for the Hopper kernel: V rounded up to a multiple of
+    8, so that a row of 16-bit W is a whole number of 16-byte units, as TMA
+    needs (50,257 -> 50,264). The mask stays at the true V."""
+    return -(-V // 8) * 8
+
+
+def sm90_plan(N: int, V: int, sms: int) -> dict:
+    """The Hopper kernel's grid for N rows and V vocab columns on a card of
+    ``sms`` SMs: ``Vp`` (padded width), ``tiles`` of 128 columns over Vp,
+    ``splits`` vocab shares of ``per`` consecutive tiles each (every share
+    owns at least one). The grid (ceil(N / 128), splits) stays within two
+    blocks an SM where it can, so no block waits for a second wave: 64 row
+    blocks x 4 shares at GPT-2's N 8192 on 132 SMs."""
+    Vp = padded_width(V)
+    tiles = -(-Vp // _TILE)
+    want = max(1, min(tiles, 2 * sms // -(-N // _ROWS)))
+    per = -(-tiles // want)
+    return dict(Vp=Vp, tiles=tiles, per=per, splits=-(-tiles // per))
+
+
+def kernel_source(dtype: torch.dtype) -> str:
+    """The CUDA source ``xent_fwd`` launches for ``dtype`` (the route)."""
+    return "xent_fwd.cu" if dtype == torch.float32 else "xent_fwd_sm90.cu"
+
+
 def xent_fwd(x2: torch.Tensor, w: torch.Tensor, targets: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B4: (nll (N,), lse (N,)) fp32. CUDA tensors launch the kernel (one
-    count on ``xent_fwd.launches``), CPU tensors compute ``xent_fwd_plain``."""
+    """B4: (nll (N,), lse (N,)) fp32. CUDA tensors launch the kernel of
+    their dtype (``kernel_source``; one count on ``xent_fwd.launches`` per
+    call), CPU tensors compute ``xent_fwd_plain``."""
     if x2.ndim != 2 or w.ndim != 2 or x2.shape[1] != w.shape[0] or \
             targets.shape != (x2.shape[0],):
         raise ValueError(f"xent_fwd takes x (N, D), w (D, V), targets (N,); got "
@@ -106,23 +144,37 @@ def xent_fwd(x2: torch.Tensor, w: torch.Tensor, targets: torch.Tensor
     if x2.dtype not in _DTYPE_CODES or w.dtype != x2.dtype:
         raise TypeError(f"xent_fwd takes x and w of one dtype of "
                         f"{list(_DTYPE_CODES)}; got {x2.dtype}, {w.dtype}")
-    if D % 32 or not (x2.is_contiguous() and w.is_contiguous()) or x2.data_ptr() % 16:
-        raise ValueError(f"xent_fwd: the kernel takes contiguous x (16-byte "
-                         f"aligned) and w with D % 32 == 0; got D={D}")
+    sm90 = x2.dtype != torch.float32
+    depth = 64 if sm90 else 32
+    if D % depth or not (x2.is_contiguous() and w.is_contiguous()) or x2.data_ptr() % 16:
+        raise ValueError(f"xent_fwd: the {kernel_source(x2.dtype)} kernel takes "
+                         f"contiguous x (16-byte aligned) and w with D % {depth} == 0; "
+                         f"got D={D}")
     from building_llm_from_scratch_tpu_torch.ops._kernels import load_library
 
     lib = load_library()
     tgt = targets.to(torch.int64).contiguous()
-    splits = _splits(N, V, x2.device)
+    if sm90:
+        sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
+        plan = sm90_plan(N, V, sms)
+        splits = plan["splits"]
+        if plan["Vp"] != V or w.data_ptr() % 16:     # TMA: 16-byte pitch and base
+            w = torch.nn.functional.pad(w, (0, plan["Vp"] - V))
+    else:
+        splits = _splits(N, V, x2.device)
     part = torch.empty(2, splits, N, dtype=torch.float32, device=x2.device)
     tl = torch.full((N,), _NEG_BIG, dtype=torch.float32, device=x2.device)
     nll = torch.empty(N, dtype=torch.float32, device=x2.device)
     lse = torch.empty_like(nll)
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x2.device).cuda_stream)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    err = lib.bllm_xent_fwd(_DTYPE_CODES[x2.dtype], N, D, V, splits, ptr(x2), ptr(w),
-                            ptr(tgt), ptr(part[0]), ptr(part[1]), ptr(tl), ptr(nll),
-                            ptr(lse), ctypes.c_void_p(stream))
+    tail = (ptr(x2), ptr(w), ptr(tgt), ptr(part[0]), ptr(part[1]), ptr(tl), ptr(nll),
+            ptr(lse), stream)
+    if sm90:
+        err = lib.bllm_xent_fwd_sm90(_DTYPE_CODES[x2.dtype], N, D, V, plan["Vp"],
+                                     splits, *tail)
+    else:
+        err = lib.bllm_xent_fwd(_DTYPE_CODES[x2.dtype], N, D, V, splits, *tail)
     if err != 0:
         raise RuntimeError(f"xent_fwd kernel launch failed: "
                            f"{lib.bllm_error_string(err).decode()}")

@@ -8,15 +8,18 @@ exits non-zero):
 
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, capability (must be 9.0); TF32 off for matmuls and cuDNN.
-  2. build: compiles the package's CUDA kernels from ``csrc/`` with nvcc.
+  2. build: compiles the package's CUDA kernels from ``csrc/`` with nvcc;
+     prints every kernel's registers and spill bytes (``-Xptxas -v``).
   3. decode kernel vs twin: the fused decode-step kernel (B5) against its
      plain PyTorch twin at the serving shapes of LLaMA-3.2-1B (bf16),
      GPT-2-124M (fp32), LLaMA-3-8B (bf16) and longctx-32k (bf16, a
      32,768-long cache with both rows past 8,192): caches bit-equal, outputs
      within tolerance of the twin and within one unit in the last place of
-     the exact (fp32) result;
+     the exact (fp32) result, bit-equal over two calls and for the longest
+     row alone (S = 1); the split plan (C, n_splits), the blocks with work;
      times of the kernel, the twin and ``scaled_dot_product_attention`` on
-     the same cache, beside the bound the card's memory rate sets.
+     the same cache, beside the bound the card's memory rate sets, and the
+     achieved GB/s.
      3b. the paged decode-attention kernel (B7) against its twin at the
      paged serving shapes of LLaMA-3.2-1B (bf16) and GPT-2-124M (fp32),
      page 16, over phase 3's lengths on a pool of shuffled pages: within
@@ -88,8 +91,10 @@ exits non-zero):
      identity, the keep fraction, the backward of ones equal to the
      forward's mask times 1/(1-p); F.dropout (+ add) as the yardstick.
      5d. the vocab-streamed cross-entropy forward B4 at N 8192, D 768,
-     V 50257, bf16: lse and nll against the twin at the JAX test's bounds;
-     the twin without the padded-column mask must fail them.
+     V 50257, bf16 (the Hopper kernel, W padded to 50,264 columns): lse and
+     nll against the twin at the JAX test's bounds; the twin without the
+     padded-column mask must fail them. The row names the route (source),
+     the padded width and the vocab shares.
   6. training: ``main.run`` (--mode train) at full width on a seeded text
      file, 20 steps, one evaluation, the warm-up and one greedy sample, the
      final export: LLaMA-3.2-1B (bf16, 16 layers, batch 4, context 1024),
@@ -282,6 +287,7 @@ def phase_kernel(torch, card: dict) -> list:
     from building_llm_from_scratch_tpu_torch.ops.decode_step import (
         fused_decode_step,
         fused_decode_step_plain,
+        split_kv_plan,
     )
 
     dev = torch.device("cuda")
@@ -325,6 +331,16 @@ def phase_kernel(torch, card: dict) -> list:
         del out_x
         if not torch.isfinite(out_k).all():
             raise AssertionError(f"{name}: non-finite kernel output")
+        # bit-equal over two calls, and for the longest row alone (S = 1)
+        again, _, _ = fused_decode_step(q, kn, vn, K.clone(), V.clone(), lens)
+        alone, _, _ = fused_decode_step(q[1:2].clone(), kn[1:2].clone(),
+                                        vn[1:2].clone(), K[1:2].clone(),
+                                        V[1:2].clone(), lens[1:2].clone())
+        if not (torch.equal(again, out_k) and torch.equal(alone, out_k[1:2])):
+            raise AssertionError(f"{name}: the kernel's output is not bit-equal "
+                                 "over two calls or for a row alone")
+        del again, alone
+        C, n_splits = split_kv_plan(Tmax, hd, dtype)
 
         # the library yardstick: SDPA over the same (already appended) cache
         pos = torch.arange(Tmax, device=dev)
@@ -356,7 +372,9 @@ def phase_kernel(torch, card: dict) -> list:
         peak = fig["peak32"] if dtype == torch.float32 else fig["peak16"]
         t_bytes, t_ops = bytes_moved / fig["bw"], ops / peak
         row = dict(shape=name, S=S, Hq=Hq, Hkv=Hkv, hd=hd, Tmax=Tmax, dtype=dt,
-                   lengths=[int(x) for x in lens.tolist()],
+                   lengths=[int(x) for x in lens.tolist()], C=C, n_splits=n_splits,
+                   blocks_with_work=sum(Hkv * (int(t) // C + 1) for t in lens.tolist()),
+                   gbps=bytes_moved / (ms * 1e-3) / 1e9,
                    max_abs_err=err, atol=atol, rtol=rtol,
                    exact_max_abs_err=exact_err, exact_atol=ex_atol,
                    exact_rtol=ex_rtol,
@@ -1075,11 +1093,15 @@ def phase_xent(torch, card: dict) -> dict:
 
     lib_nll, _ = library()
     errs["library_nll_max_abs"] = (lib_nll - nll_t).abs().max().item()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = txf.sm90_plan(N, V, sms) if dtype != torch.float32 else {}
     elt = x.element_size()
     ops = 2 * N * D * V
     nbytes = (N * D + D * V) * elt + N * 8 + 2 * N * 4
     t_bytes, t_ops = nbytes / fig["bw"], ops / fig["peak16"]
-    row = dict(shape=shape, N=N, D=D, V=V, dtype=dt, ms=device_time_ms(torch, lambda: txf.xent_fwd(x, w, t), flush, runs=10),
+    row = dict(shape=shape, N=N, D=D, V=V, dtype=dt, route=txf.kernel_source(dtype),
+               padded_V=plan.get("Vp"), splits=plan.get("splits"),
+               ms=device_time_ms(torch, lambda: txf.xent_fwd(x, w, t), flush, runs=10),
                plain_ms=device_time_ms(torch, lambda: txf.xent_fwd_plain(x, w, t), flush, runs=5, warmup=2),
                library_ms=device_time_ms(torch, library, flush, runs=10),
                ops=ops, bytes=nbytes, bound_ms=max(t_bytes, t_ops) * 1e3,
@@ -2729,7 +2751,7 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     kernels.append(dict(
         name=f"xent_fwd[{xent_row['shape']}]", route="cuda",
-        source=source + "xent_fwd.cu",
+        source=source + xent_row["route"],
         replaces="building_llm_from_scratch_tpu/ops/xent_fwd_pallas.py:32",
         launches=trained_gpt2["xent_kernel"]["xent_fwd"],
         max_abs_err=xent_row["max_abs_err"], ms=xent_row["ms"],

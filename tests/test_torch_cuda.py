@@ -101,6 +101,67 @@ def test_kernel_matches_twin_at_long_and_unaligned_caches(cuda, dtype, Tmax):
     torch.testing.assert_close(out.float(), exact, atol=atol, rtol=rtol)
 
 
+def _split_case(dev, S, Hq, Hkv, hd, Tmax, dtype, lens, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)  # noqa: E731
+    q, kn, vn = rnd(S, 1, Hq, hd), rnd(S, 1, Hkv, hd), rnd(S, 1, Hkv, hd)
+    K, V = rnd(S, Hkv, Tmax, hd), rnd(S, Hkv, Tmax, hd)
+    return q, kn, vn, K, V, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 12])
+def test_split_kv_kernel_at_split_boundaries(cuda, dtype, hd, G):
+    """B5's split-KV kernel with rows ending on the plan's split boundaries
+    (C - 1, C, C + 1), at 0, past 8192 and at Tmax - 1 of a cache that is
+    not a multiple of 32: caches bit-equal to the twin's, outputs within
+    its tolerance and one unit in the last place of the exact result."""
+    Hkv, Tmax = 2, 9000
+    C, n_splits = tds.split_kv_plan(Tmax, hd, dtype)
+    assert n_splits == -(-Tmax // C)
+    lens = [0, C - 1, C, C + 1, 2 * C + 5, 8193, Tmax - 2, Tmax - 1]
+    q, kn, vn, K, V, lens = _split_case(cuda, len(lens), G * Hkv, Hkv, hd, Tmax,
+                                        dtype, lens, seed=G * hd)
+    Kk, Vk, Kt, Vt = K.clone(), V.clone(), K.clone(), V.clone()
+    before = tds.fused_decode_step.launches
+    out, _, _ = tds.fused_decode_step(q, kn, vn, Kk, Vk, lens)
+    torch.cuda.synchronize()
+    assert tds.fused_decode_step.launches == before + 1
+    ref, _, _ = tds.fused_decode_step_plain(q, kn, vn, Kt, Vt, lens)
+    assert torch.equal(Kk, Kt) and torch.equal(Vk, Vt)
+    atol, rtol = TWIN_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    f32 = lambda t: t.float().clone()  # noqa: E731
+    exact, _, _ = tds.fused_decode_step_plain(f32(q), f32(kn), f32(vn), f32(K),
+                                              f32(V), lens)
+    atol, rtol = EXACT_TOL[dtype]
+    torch.testing.assert_close(out.float(), exact, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_split_kv_kernel_is_batch_invariant_and_deterministic(cuda, dtype):
+    """A row's output has the same bits alone (S = 1) as inside a batch of 8
+    rows of other lengths, and two calls on the same inputs agree bit for
+    bit: the plan never looks at S or the lengths, and the merge of the
+    splits runs in a fixed order."""
+    Hq, Hkv, hd, Tmax = 16, 4, 64, 4100
+    lens = [7, 4099, 300, 1023, 0, 2600, 256, 1500]
+    q, kn, vn, K, V, lens = _split_case(cuda, 8, Hq, Hkv, hd, Tmax, dtype, lens)
+    out, Kb, Vb = tds.fused_decode_step(q, kn, vn, K.clone(), V.clone(), lens)
+    again, _, _ = tds.fused_decode_step(q, kn, vn, K.clone(), V.clone(), lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    for r in (0, 1, 3, 5):
+        sl = slice(r, r + 1)
+        alone, Ka, Va = tds.fused_decode_step(
+            q[sl].clone(), kn[sl].clone(), vn[sl].clone(), K[sl].clone(),
+            V[sl].clone(), lens[sl].clone())
+        torch.cuda.synchronize()
+        assert torch.equal(alone, out[sl]), r
+        assert torch.equal(Ka, Kb[sl]) and torch.equal(Va, Vb[sl])
+
+
 def test_kernel_rejects_what_it_cannot_take(cuda):
     q = torch.zeros(2, 1, 4, 256, device=cuda)        # hd 256: no instantiation
     kn = torch.zeros(2, 1, 2, 256, device=cuda)
@@ -554,11 +615,13 @@ def test_dropout_kernel_refuses_what_it_cannot_take(cuda):
     assert tfd.dropout_fwd.launches == before
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N,D,V", [(1024, 768, 50257), (256, 128, 999), (200, 128, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("N,D,V", [(8192, 768, 50257), (1024, 768, 50257),
+                                   (256, 128, 999), (200, 128, 300)])
 def test_xent_kernel_matches_twin(cuda, dtype, N, D, V):
-    """B4's (nll, lse) against its twin at the JAX kernel test's bounds; the
-    twin over W padded with unmasked zero columns fails them."""
+    """B4's (nll, lse) against its twin at the JAX kernel test's bounds (the
+    Hopper kernel for bf16/fp16, the fp32 kernel for fp32); the twin over W
+    padded with unmasked zero columns fails them."""
     gen = torch.Generator(device=cuda).manual_seed(4)
     x = torch.randn(N, D, generator=gen, device=cuda).to(dtype)
     w = (0.02 * torch.randn(D, V, generator=gen, device=cuda)).to(dtype)
@@ -583,11 +646,48 @@ def test_xent_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):
         txf.xent_fwd(x, torch.zeros(100, 999, device=cuda),
                      torch.zeros(256, dtype=torch.long, device=cuda))
+    for dt in (torch.bfloat16, torch.float16):            # 16 bits: D % 64
+        with pytest.raises(ValueError):
+            txf.xent_fwd(torch.zeros(256, 96, device=cuda, dtype=dt),
+                         torch.zeros(96, 999, device=cuda, dtype=dt),
+                         torch.zeros(256, dtype=torch.long, device=cuda))
     with pytest.raises(TypeError):
         txf.xent_fwd(torch.zeros(256, 128, device=cuda),
                      torch.zeros(128, 999, device=cuda, dtype=torch.bfloat16),
                      torch.zeros(256, dtype=torch.long, device=cuda))
     assert txf.xent_fwd.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_xent_routes_by_dtype(cuda, dtype, monkeypatch):
+    """bf16 and fp16 launch the Hopper kernel (xent_fwd_sm90.cu) and fp32
+    the fp32 kernel (xent_fwd.cu), chosen before the launch; W's columns
+    reach the Hopper kernel padded to a multiple of 8."""
+    from building_llm_from_scratch_tpu_torch.ops._kernels import load_library
+
+    lib = load_library()
+    calls = []
+
+    def spy(name):
+        fn = getattr(lib, name)
+
+        def wrapped(*args):
+            calls.append((name, args))
+            return fn(*args)
+        return wrapped
+
+    for name in ("bllm_xent_fwd", "bllm_xent_fwd_sm90"):
+        monkeypatch.setattr(lib, name, spy(name))
+    x = torch.randn(256, 128, device=cuda).to(dtype)
+    w = (0.02 * torch.randn(128, 999, device=cuda)).to(dtype)
+    txf.xent_fwd(x, w, torch.zeros(256, dtype=torch.long, device=cuda))
+    torch.cuda.synchronize()
+    want = "bllm_xent_fwd" if dtype == torch.float32 else "bllm_xent_fwd_sm90"
+    assert [c[0] for c in calls] == [want]
+    assert txf.kernel_source(dtype) == ("xent_fwd.cu" if want == "bllm_xent_fwd"
+                                        else "xent_fwd_sm90.cu")
+    if want == "bllm_xent_fwd_sm90":
+        assert calls[0][1][3:5] == (999, 1000)          # V, padded V
 
 
 def test_train_step_launch_counts_on_the_card(cuda):
