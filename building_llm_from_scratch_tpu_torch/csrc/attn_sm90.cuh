@@ -1,6 +1,7 @@
-// Shared pieces of the causal flash-attention kernels (csrc/fused_attention.cu
-// and the Hopper kernels attn_fwd_sm90.cu, attn_dq_sm90.cu, attn_dkv_sm90.cu):
-// the launch arguments, the dropout parameters, and the tile plumbing of the
+// Shared pieces of the causal flash-attention kernels (csrc/fused_attention.cu,
+// the 16-bit Hopper kernels attn_fwd_sm90.cu, attn_dq_sm90.cu,
+// attn_dkv_sm90.cu, and the fp32 ones attn_{fwd,dq,dkv}_f32_sm90.cu): the
+// launch arguments, the dropout parameters, and the tile plumbing of the
 // warp-specialised 16-bit kernels.
 //
 // The 16-bit kernels share one block shape: two consumer warpgroups (warps
@@ -37,7 +38,6 @@ struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *out0, *out1;
   cudaStream_t stream;
-  void* work;   // the fp32 dk/dv kernel's per-head workspace (GQA only)
 };
 
 constexpr int kUnsupported = 100000;   // dtype, head dim or shape not instantiated
@@ -47,6 +47,10 @@ constexpr int kNoTensorMap = 100001;   // cuTensorMapEncodeTiled refused the map
 int fwd_sm90(int dtype, int hd, const Args& a);
 int dq_sm90(int dtype, int hd, const Args& a);
 int dkv_sm90(int dtype, int hd, const Args& a);
+// the fp32 kernels (3xTF32 on the tensor cores; head dim 64 or 128)
+int fwd_f32_sm90(int hd, const Args& a);
+int dq_f32_sm90(int hd, const Args& a);
+int dkv_f32_sm90(int hd, const Args& a);
 
 namespace sm90k {
 

@@ -326,24 +326,33 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A map over a contiguous (B, T, H, D) tensor of a 16-bit type whose box is
-// `rows` consecutive positions of one head and 64 columns (one 128-byte
-// swizzled panel); coordinates (d, h, t, b). Returns false on failure.
-inline bool make_bthd_map(CUtensorMap* map, bool bf16, const void* base, int B, int T, int H,
-                          int D, int rows) {
+// A map over a contiguous (B, T, H, D) tensor of `elt`-byte elements whose
+// box is `rows` consecutive positions of one head and one 128-byte swizzled
+// panel (128 / elt columns); coordinates (d, h, t, b). Returns false on
+// failure.
+inline bool make_bthd_map_of(CUtensorMap* map, CUtensorMapDataType type, int elt,
+                             const void* base, int B, int T, int H, int D, int rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(H) * D * 2,
-                                 static_cast<cuuint64_t>(T) * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * elt,
+                                 static_cast<cuuint64_t>(H) * D * elt,
+                                 static_cast<cuuint64_t>(T) * H * D * elt};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / elt), 1,
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4,
-            const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the map of a 16-bit tensor: 64 columns a panel
+inline bool make_bthd_map(CUtensorMap* map, bool bf16, const void* base, int B, int T, int H,
+                          int D, int rows) {
+  return make_bthd_map_of(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                    : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                          2, base, B, T, H, D, rows);
 }
 
 // A map over a contiguous row-major (rows, cols) matrix of `elt`-byte

@@ -1,6 +1,7 @@
-// Warp-level tile products shared by the port's kernels (flash attention,
-// vocab-streamed cross entropy): mma.sync m16n8k16 with fp32 accumulation
-// for bf16/fp16, and the same fragment layout computed with FMAs for fp32.
+// Warp-level tile products and dtype conversions shared by the port's
+// kernels (the fp32 vocab-streamed cross entropy, the fused dropout):
+// mma.sync m16n8k16 with fp32 accumulation for bf16/fp16, and the same
+// fragment layout computed with FMAs for fp32.
 
 #pragma once
 

@@ -4,12 +4,15 @@ dk/dv summed over each kv head's query heads (B2b), wired as one
 the JAX package's ``ops/fused_attention.py``).
 
 ``flash_attention_fwd``, ``flash_attention_dq`` and ``flash_attention_dkv``
-launch the hand-written CUDA kernels for tensors on the card (bf16 and fp16:
-the Hopper kernels ``csrc/attn_fwd_sm90.cu``, ``attn_dq_sm90.cu``,
-``attn_dkv_sm90.cu``; fp32: ``csrc/fused_attention.cu``) and compute their
-plain twins (``*_plain``) for tensors on the CPU. There is no fallback
-between the two: a CUDA call the kernels cannot take raises. Each wrapper
-counts its launches (``.launches``).
+launch the hand-written Hopper kernels for tensors on the card
+(``kernel_source`` names the route: bf16 and fp16 ``csrc/attn_fwd_sm90.cu``,
+``attn_dq_sm90.cu``, ``attn_dkv_sm90.cu``; fp32 the 3xTF32 kernels
+``csrc/attn_fwd_f32_sm90.cu``, ``attn_dq_f32_sm90.cu``,
+``attn_dkv_f32_sm90.cu``, all behind the entry points of
+``csrc/fused_attention.cu``) and compute their plain twins (``*_plain``)
+for tensors on the CPU. There is no fallback between the two: a CUDA call
+the kernels cannot take raises. Each wrapper counts its launches
+(``.launches``).
 
 Layouts are the model's: q (B, T, Hq, D), k/v (B, T, Hkv, D); the softmax
 statistics lse and delta are (B, Hq, T) fp32 (the JAX kernel's lane
@@ -22,12 +25,16 @@ scaled by 1/(1-p), and the backward uses dS = P (M (dO.V^T) / (1-p) - delta)
 with delta = rowsum(dO * out) over the dropped output and P M / (1-p) for
 dv. M is a pure function of (seed, b, h, q, k) (``ops/philox.py``), so the
 three kernels and the twins draw the same mask; ``keep_mask`` dumps it.
+
+The fp32 kernels take every product as three TF32 products (3xTF32);
+``tf32_split_plain`` is the CPU model of their operand split, and the twins
+take an ``einsum`` so that a test can run them on products built from it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -42,6 +49,29 @@ _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 #: head dims the kernels are instantiated for
 _KERNEL_HEAD_DIMS = (64, 128)
 _NEG_INF = -1e30
+
+
+def kernel_source(dtype: torch.dtype, kernel: str) -> str:
+    """The CUDA source that ``flash_attention_{kernel}`` (``kernel`` "fwd",
+    "dq" or "dkv") launches for ``dtype`` (the route): the 3xTF32 kernels
+    for fp32, the 16-bit Hopper kernels for bf16 and fp16."""
+    if kernel not in ("fwd", "dq", "dkv"):
+        raise ValueError(f"no flash kernel {kernel!r}")
+    return (f"attn_{kernel}_f32_sm90.cu" if dtype == torch.float32
+            else f"attn_{kernel}_sm90.cu")
+
+
+def tf32_split_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 kernels' operand split, as a CPU model (used by no main
+    path): ``hi`` is x rounded to TF32 (10 mantissa bits, to nearest, ties
+    away from zero: ``cvt.rna.tf32.f32``) by integer masking on the fp32
+    bits, ``lo`` the same rounding of ``x - hi``. Both fp32."""
+    def rna(t: torch.Tensor) -> torch.Tensor:
+        bits = t.float().contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x.float() - hi)
 
 
 def supports_shape(Tq: int, Tkv: int, D: int, block: int = 512) -> bool:
@@ -96,12 +126,13 @@ def _grouped(x: torch.Tensor, Hkv: int) -> torch.Tensor:
     return x.reshape(B, T, Hkv, Hq // Hkv, D).float()
 
 
-def _probs(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+def _probs(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
+           einsum: Callable = torch.einsum) -> torch.Tensor:
     """exp(s - lse) with s the scaled causal scores: (B, Hkv, G, T, T) fp32;
     masked positions are exactly 0."""
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
-    s = torch.einsum("bqhgd,bkhd->bhgqk", _grouped(q, Hkv), k.float())
+    s = einsum("bqhgd,bkhd->bhgqk", _grouped(q, Hkv), k.float())
     s = s * attention_scale(D)
     pos = torch.arange(T, device=q.device)
     mask = pos[:, None] >= pos[None, :]
@@ -110,15 +141,17 @@ def _probs(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
 
 
 def fused_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, rate: float = 0.0, seed: int = 0
+                              v: torch.Tensor, rate: float = 0.0, seed: int = 0,
+                              *, einsum: Callable = torch.einsum
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1's twin: (out (B, T, Hq, D) in q's dtype, lse (B, Hq, T) fp32).
     The exp terms (times the keep mask) are rounded to v's dtype before P.V
     and the sums taken in fp32, as the JAX kernel does; out = acc / l, times
-    1/(1-rate) with dropout."""
+    1/(1-rate) with dropout. ``einsum`` takes every product (the twins of
+    all three kernels take it)."""
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
-    s = torch.einsum("bqhgd,bkhd->bhgqk", _grouped(q, Hkv), k.float())
+    s = einsum("bqhgd,bkhd->bhgqk", _grouped(q, Hkv), k.float())
     s = s * attention_scale(D)
     pos = torch.arange(T, device=q.device)
     mask = pos[:, None] >= pos[None, :]
@@ -128,7 +161,7 @@ def fused_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     if rate > 0.0:
         p = torch.where(_grouped_mask(seed, rate, q, Hkv), p, 0.0)
-    acc = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    acc = einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
     out = acc / l.permute(0, 3, 1, 2, 4)
     if rate > 0.0:
         out = out * (1.0 / (1.0 - rate))
@@ -146,36 +179,38 @@ def _dropped(dp: torch.Tensor, q: torch.Tensor, Hkv: int, rate: float,
 
 
 def fused_attention_dq_plain(q, k, v, do, lse, delta, rate: float = 0.0,
-                             seed: int = 0) -> torch.Tensor:
+                             seed: int = 0, *, einsum: Callable = torch.einsum
+                             ) -> torch.Tensor:
     """B2a's twin: dq (B, T, Hq, D) in q's dtype, with dS rounded to the
     model dtype before dS.K."""
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
-    p = _probs(q, k, lse)
-    dp = torch.einsum("bqhgd,bkhd->bhgqk", _grouped(do, Hkv), v.float())
+    p = _probs(q, k, lse, einsum)
+    dp = einsum("bqhgd,bkhd->bhgqk", _grouped(do, Hkv), v.float())
     dp = _dropped(dp, q, Hkv, rate, seed)
     ds = p * (dp - delta.reshape(B, Hkv, Hq // Hkv, T)[..., None])
     ds = ds * attention_scale(D)
-    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(q.dtype).float(), k.float())
+    dq = einsum("bhgqk,bkhd->bqhgd", ds.to(q.dtype).float(), k.float())
     return dq.reshape(B, T, Hq, D).to(q.dtype)
 
 
 def fused_attention_dkv_plain(q, k, v, do, lse, delta, rate: float = 0.0,
-                              seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                              seed: int = 0, *, einsum: Callable = torch.einsum
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B2b's twin: per-QUERY-head (dk, dv), each (B, T, Hq, D) in the model
     dtype, with P M / (1-rate) and dS rounded to it before their products."""
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
-    p = _probs(q, k, lse)
+    p = _probs(q, k, lse, einsum)
     dog = _grouped(do, Hkv)
     pt = _dropped(p, q, Hkv, rate, seed)
-    dv = torch.einsum("bhgqk,bqhgd->bkhgd", pt.to(do.dtype).float(), dog)
-    dp = _dropped(torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float()), q, Hkv,
+    dv = einsum("bhgqk,bqhgd->bkhgd", pt.to(do.dtype).float(), dog)
+    dp = _dropped(einsum("bqhgd,bkhd->bhgqk", dog, v.float()), q, Hkv,
                   rate, seed)
     ds = p * (dp - delta.reshape(B, Hkv, Hq // Hkv, T)[..., None])
     ds = ds * attention_scale(D)
-    dk = torch.einsum("bhgqk,bqhgd->bkhgd", ds.to(q.dtype).float(),
-                      _grouped(q, Hkv))
+    dk = einsum("bhgqk,bqhgd->bkhgd", ds.to(q.dtype).float(),
+                _grouped(q, Hkv))
     return (dk.reshape(B, T, Hq, D).to(q.dtype),
             dv.reshape(B, T, Hq, D).to(q.dtype))
 
@@ -220,25 +255,28 @@ def _launch(name: str, fn_name: str, tensors: dict, q: torch.Tensor,
             Hkv: int, rate: float, seed: int) -> None:
     """Check what the kernel takes, then launch ``fn_name`` with the
     tensors in order (dtype, hd, B, T, Hq, Hkv, scale, dropout threshold,
-    1/(1-rate), seed words, pointers..., stream)."""
+    1/(1-rate), seed words, pointers..., stream); None passes a null
+    pointer."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
     B, T, Hq, D = q.shape
     check_kernel_shape(T, D, q.dtype)
     for tname, t in tensors.items():
+        if t is None:
+            continue
         if not t.is_contiguous():
             raise ValueError(f"{name}: {tname} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {tname} must be 16-byte aligned (the "
                              "kernels read rows with TMA or 16-byte loads)")
-        want = (torch.float32 if tname in ("lse", "delta", "work") else q.dtype)
+        want = torch.float32 if tname in ("lse", "delta") else q.dtype
         if t.dtype != want:
             raise TypeError(f"{name}: {tname} must be {want}, got {t.dtype}")
     from building_llm_from_scratch_tpu_torch.ops._kernels import load_library
 
     lib = load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptrs = [ctypes.c_void_p(t.data_ptr() if t.numel() else None)
+    ptrs = [ctypes.c_void_p(t.data_ptr() if t is not None and t.numel() else None)
             for t in tensors.values()]
     seed_lo, seed_hi = split_seed(seed)
     err = getattr(lib, fn_name)(_DTYPE_CODES[q.dtype], D, B, T, Hq, Hkv,
@@ -289,10 +327,10 @@ def flash_attention_dkv(q, k, v, do, lse, delta, rate: float = 0.0,
                         seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """B2b: (dk, dv), each (B, T, Hkv, D): every query head's gradient
     rounded to the model dtype and summed over the G query heads of its kv
-    head in fp32 (the JAX ``_bwd``'s rounding). The kernel sums in place on
-    CUDA (counted on ``flash_attention_dkv.launches``); on the CPU the twin
-    is the per-head ``fused_attention_dkv_plain`` followed by
-    ``group_sum``."""
+    head in fp32 (the JAX ``_bwd``'s rounding). On CUDA one launch sums in
+    place, with no workspace (counted on ``flash_attention_dkv.launches``);
+    on the CPU the twin is the per-head ``fused_attention_dkv_plain``
+    followed by ``group_sum``."""
     _check(q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         dk, dv = fused_attention_dkv_plain(q, k, v, do, lse, delta, rate, seed)
@@ -300,15 +338,9 @@ def flash_attention_dkv(q, k, v, do, lse, delta, rate: float = 0.0,
         return group_sum(dk, Hkv), group_sum(dv, Hkv)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    # the fp32 kernel works per query head: with GQA it needs a workspace
-    # for the per-head results, which the launch then sums (the 16-bit
-    # kernels sum in place and take none)
-    grouped_fp32 = q.dtype == torch.float32 and q.shape[2] != k.shape[2]
-    work = torch.empty((2,) + tuple(q.shape) if grouped_fp32 else (0,),
-                       dtype=torch.float32, device=q.device)
     _launch("flash_attention_dkv", "bllm_attn_bwd_dkv",
             dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta, dk=dk, dv=dv,
-                 work=work), q, k.shape[2], rate, seed)
+                 work=None), q, k.shape[2], rate, seed)
     flash_attention_dkv.launches += 1
     return dk, dv
 

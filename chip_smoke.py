@@ -72,16 +72,18 @@ exits non-zero):
   5. flash-attention kernels vs twins: forward (B1), dq (B2a) and dk/dv
      summed over each kv head's query heads (B2b, (B, T, Hkv, D); its twin
      is the per-query-head twin followed by group_sum) at LLaMA-3.2-1B's
-     training shape (B 4, Hq 32, Hkv 8, T 1024, hd 64, bf16) and the
-     reference shapes (B 1, T 256, fp32 and bf16): out, lse and
-     the gradients within tolerance of the twin and of the exact (fp32)
-     result, each bound shown to fail for a wrong result; times of the
-     kernels, the twins and ``scaled_dot_product_attention`` (forward,
-     forward+backward, and backward alone through autograd.grad of one
-     saved forward), beside the bound the card's peak rate sets.
+     training shape (B 4, Hq 32, Hkv 8, T 1024, hd 64) in bf16 and in fp32
+     (the 3xTF32 kernels) and the reference shapes (B 1, T 256, fp32 and
+     bf16): out, lse and the gradients within tolerance of the twin and of
+     the exact (fp32) result, each bound shown to fail for a wrong result;
+     times of the kernels, the twins and ``scaled_dot_product_attention``
+     (forward, forward+backward, and backward alone through autograd.grad
+     of one saved forward; in fp32 with GQA also on K and V repeated to the
+     query heads, SDPA's memory-efficient kernel), beside the bound the
+     card's peak rate sets (fp32 flash: a third of the TF32 rate).
      5b. the same kernels with attention dropout p = 0.1 at GPT-2-124M's
-     training shape (B 8, H 12, T 1024, hd 64, bf16) and its fp32
-     reference shape (B 1, T 256): against the twin (the same mask) and an
+     training shape (B 8, H 12, T 1024, hd 64) in bf16 and in fp32, and its
+     fp32 reference shape (B 1, T 256): against the twin (the same mask) and an
      exact fp32 oracle built from the dumped mask; the mask's keep fraction
      (within 1e-3 of 0.9 over the causal entries), the same mask for the
      same seed and another for the next; the twin with the next seed must
@@ -99,7 +101,9 @@ exits non-zero):
      file, 20 steps, one evaluation, the warm-up and one greedy sample, the
      final export: LLaMA-3.2-1B (bf16, 16 layers, batch 4, context 1024),
      then GPT-2-124M (bf16, 12 layers, batch 8, context 1024, dropout 0.1,
-     the chunked cross entropy). Launch counts exact (B1 = layers x (steps
+     the chunked cross entropy), then GPT-2-124M without --data_type (the
+     default, fp32) and LLaMA-3.2-1B in fp32, the same shapes, whose flash
+     calls take the 3xTF32 kernels. Launch counts exact (B1 = layers x (steps
      + eval batches), B2a = B2b = layers x steps, B3 forward and backward =
      (1 + 2 x layers) x steps with dropout, B4 = 0), every loss finite,
      the last below the first; the export loads back bit for bit and is
@@ -107,9 +111,11 @@ exits non-zero):
      the trainer's window) and each step's device time (CUDA events around
      every step, step 1 apart); then steady step time, tokens/s, MFU, peak
      memory and a profiled window over re-runs of one batch (with the
-     flash family's ms per step; the GQA group_sum must not run). For GPT-2 the
-     same 20 steps again with BLLM_XENT_PALLAS=1: B4 = steps + eval
-     batches, and the step-1 loss equal to the first run's to 1e-5.
+     flash family's ms per step; the GQA group_sum must not run); MFU
+     against the run dtype's dense peak (bf16 tensor cores, fp32 CUDA
+     cores). For GPT-2 bf16 the same 20 steps again with
+     BLLM_XENT_PALLAS=1: B4 = steps + eval batches, and the step-1 loss
+     equal to the first run's to 1e-5.
   7. training reference: one step at full width cut to 2 layers, B 1,
      T 256, in fp32 and in bf16, on the card and on the CPU (the twins)
      with the same weights, batch and dropout seed: loss and every leaf's
@@ -132,6 +138,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -143,12 +150,20 @@ def emit(phase: str, **fields) -> None:
 
 
 # card figures from NVIDIA's data sheets: memory bytes/s and dense peak
-# operations/s for 16-bit (tensor cores) and 32-bit float (CUDA cores)
+# operations/s for 16-bit and TF32 (tensor cores) and 32-bit float (CUDA
+# cores)
 _CARDS = {
-    "H100 PCIe": dict(bw=2.0e12, peak16=756e12, peak32=51e12),
-    "H100 NVL": dict(bw=3.9e12, peak16=835e12, peak32=60e12),
-    "H100 SXM": dict(bw=3.35e12, peak16=989e12, peak32=67e12),
+    "H100 PCIe": dict(bw=2.0e12, peak16=756e12, peak_tf32=378e12, peak32=51e12),
+    "H100 NVL": dict(bw=3.9e12, peak16=835e12, peak_tf32=417.5e12, peak32=60e12),
+    "H100 SXM": dict(bw=3.35e12, peak16=989e12, peak_tf32=495e12, peak32=67e12),
 }
+
+
+def flash_peak(fig: dict, dtype: str) -> float:
+    """The operations/s that bound a flash kernel: the 16-bit tensor-core
+    rate, or for fp32 the fp32-grade rate of 3xTF32 on the tensor cores
+    (three TF32 products per product: a third of the TF32 rate)."""
+    return fig["peak_tf32"] / 3 if dtype == "fp32" else fig["peak16"]
 
 
 def card_figures(name: str) -> tuple:
@@ -662,9 +677,10 @@ def phase_lora_kernel(torch, card: dict) -> list:
 
 ATTN_SHAPES = [
     # name, B, Hq, Hkv, T, hd, dtype: the training shape of LLaMA-3.2-1B
-    # (phase 6) and the reference shapes (phase 7: full width cut to 2
-    # layers, B 1, T 256, fp32 and bf16)
+    # in bf16 and in fp32 (phase 6) and the reference shapes (phase 7: full
+    # width cut to 2 layers, B 1, T 256, fp32 and bf16)
     ("llama3_2-1B-train", 4, 32, 8, 1024, 64, "bf16"),
+    ("llama3_2-1B-train-fp32", 4, 32, 8, 1024, 64, "fp32"),
     ("llama3_2-1B-ref", 1, 32, 8, 256, 64, "fp32"),
     ("llama3_2-1B-ref-bf16", 1, 32, 8, 256, 64, "bf16"),
 ]
@@ -726,6 +742,20 @@ def sdpa_timings(torch, F, q, k, v, do, rate, flush) -> dict:
     del saved
     return dict(sdpa_fwd_ms=fwd_ms, sdpa_fwd_bwd_ms=fwd_bwd_ms, sdpa_bwd_ms=bwd_ms,
                 sdpa_out=out)
+
+
+def sdpa_repeated_kv(torch, F, q, k, v, do, rate, flush) -> dict:
+    """SDPA's timings on K and V repeated to the query heads: with more
+    query than kv heads in fp32 SDPA has no fused kernel for the GQA call
+    and runs its math path, so its memory-efficient kernel (3xTF32 on the
+    tensor cores) is timed on repeated K and V as the stricter yardstick."""
+    if q.dtype != torch.float32 or q.shape[2] == k.shape[2]:
+        return {}
+    G = q.shape[2] // k.shape[2]
+    lib = sdpa_timings(torch, F, q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2),
+                       do, rate, flush)
+    del lib["sdpa_out"]
+    return {f"sdpa_repeated_kv_{key[5:]}": val for key, val in lib.items()}
 
 
 def phase_attention(torch, card: dict) -> list:
@@ -805,8 +835,9 @@ def phase_attention(torch, card: dict) -> list:
         lib = sdpa_timings(torch, F, q, k, v, do, 0.0, flush)
         sdpa_err = _flash_err(torch, "out", lib.pop("sdpa_out"), out)
         sdpa_ms = lib["sdpa_fwd_ms"]
+        lib.update(sdpa_repeated_kv(torch, F, q, k, v, do, 0.0, flush))
         work = flash_work(B, Hq, Hkv, T, hd, q.element_size())
-        peak = fig["peak32"] if dtype == torch.float32 else fig["peak16"]
+        peak = flash_peak(fig, dt)
         for kname, (kfn, pfn) in calls.items():
             ops, nbytes = work[kname]
             t_bytes, t_ops = nbytes / fig["bw"], ops / peak
@@ -834,9 +865,11 @@ def phase_attention(torch, card: dict) -> list:
 # ---------------------------------------------------------------------------
 
 DROPOUT_ATTN_SHAPES = [
-    # name, B, Hq, Hkv, T, hd, dtype: GPT-2-124M's training shape (phase 6b)
-    # and its reference shape (phase 7b: 2 layers, B 1, T 256, fp32)
+    # name, B, Hq, Hkv, T, hd, dtype: GPT-2-124M's training shape in bf16
+    # and in fp32, its default dtype (phase 6), and its reference shape
+    # (phase 7b: 2 layers, B 1, T 256, fp32)
     ("gpt2-124M-train", 8, 12, 12, 1024, 64, "bf16"),
+    ("gpt2-124M-train-fp32", 8, 12, 12, 1024, 64, "fp32"),
     ("gpt2-124M-ref", 1, 12, 12, 256, 64, "fp32"),
 ]
 DROP_RATE = 0.1
@@ -941,8 +974,9 @@ def phase_attention_dropout(torch, card: dict) -> list:
         lib = sdpa_timings(torch, F, q, k, v, do, DROP_RATE, flush)
         del lib["sdpa_out"]
         sdpa_ms = lib["sdpa_fwd_ms"]
+        lib.update(sdpa_repeated_kv(torch, F, q, k, v, do, DROP_RATE, flush))
         work = flash_work(B, Hq, Hkv, T, hd, q.element_size())
-        peak = fig["peak32"] if dtype == torch.float32 else fig["peak16"]
+        peak = flash_peak(fig, dt)
         for kname, (kfn, pfn) in calls.items():
             ops, nbytes = work[kname]
             t_bytes, t_ops = nbytes / fig["bw"], ops / peak
@@ -1122,7 +1156,21 @@ TRAIN = dict(model="llama3_2", size="1B", dtype="bf16", batch=4, context=1024,
 # GPT-2-124M as configured (drop_rate 0.1), the chunked cross entropy its
 # width takes; then the same run with the opt-in B4 forward
 TRAIN_GPT2 = dict(model="GPT2", size="124M", dtype="bf16", batch=8, context=1024,
+                  steps=20, xent_run=True)
+# fp32, the trainer's default dtype: GPT-2-124M through the CLI without
+# --data_type (dtype None), and LLaMA-3.2-1B in fp32 (its flash rows'
+# launches)
+TRAIN_GPT2_FP32 = dict(model="GPT2", size="124M", dtype=None, batch=8, context=1024,
+                       steps=20)
+TRAIN_FP32 = dict(model="llama3_2", size="1B", dtype="fp32", batch=4, context=1024,
                   steps=20)
+
+
+def dtype_flags(t: dict) -> list:
+    """--data_type of a run, none for the default (fp32)."""
+    return [] if t["dtype"] is None else ["--data_type", t["dtype"]]
+
+
 _WORDS = ("the a quick brown fox jumps over lazy dog every effort moves you "
           "closer to mastery of small steps and long roads bring light "
           "water stone river tree wind sings").split()
@@ -1246,7 +1294,7 @@ def train_run(torch, t: dict, workdir: str, xent_kernel: bool = False):
     corpus = os.path.join(data_dir, "corpus.txt")
     write_corpus(corpus, seed=11, n_chars=n_chars)
     flags = ["--mode", "train", "--model", t["model"], "--num_params", t["size"],
-             "--data_type", t["dtype"], "--byte_tokenizer",
+             *dtype_flags(t), "--byte_tokenizer",
              "--data_dir", data_dir, "--output_dir", out_dir,
              "--n_epochs", "1", "--batch_size", str(t["batch"]),
              "--eval_freq", str(t["steps"]), "--print_sample_iter", str(t["steps"])]
@@ -1352,7 +1400,7 @@ def phase_train(torch, card: dict, workdir: str, t: dict) -> dict:
             f.write(json.dumps({"prompt_ids": ids, "max_new_tokens": 8}) + "\n")
     served_out = os.path.join(workdir, "served.jsonl")
     eng = tmain.run(["--mode", "serve", "--model", t["model"], "--num_params",
-                     t["size"], "--data_type", t["dtype"], "--init_params_from",
+                     t["size"], *dtype_flags(t), "--init_params_from",
                      export, "--serve_prompts", req, "--serve_out", served_out,
                      "--serve_slots", "2"])
     with open(served_out) as f:
@@ -1366,11 +1414,15 @@ def phase_train(torch, card: dict, workdir: str, t: dict) -> dict:
     # evaluation, sample time left out), step 1 apart from the rest
     tokens = t["batch"] * t["context"]
     fpt = train_flops_per_token(cfg)
+    # MFU against the dense peak of the run's dtype: bf16 on the tensor
+    # cores; fp32 on the CUDA cores (its GEMMs run in full fp32, TF32 off)
+    dt = t["dtype"] or "fp32"
+    peak = card["figures"]["peak32" if dt == "fp32" else "peak16"]
     window_tps = trainer.throughput_tokens_per_s[0]
     run_step_ms = facts["run_step_ms"]
     run_rate = dict(window_tokens_per_s=window_tps,
                     window_ms_per_step=tokens / window_tps * 1e3,
-                    window_mfu=window_tps * fpt / card["figures"]["peak16"],
+                    window_mfu=window_tps * fpt / peak,
                     run_step_ms=run_step_ms, step1_ms=run_step_ms[0],
                     later_steps_median_ms=statistics.median(run_step_ms[1:]),
                     later_steps_sum_ms=sum(run_step_ms[1:]))
@@ -1389,7 +1441,8 @@ def phase_train(torch, card: dict, workdir: str, t: dict) -> dict:
     prof = train_profile(torch, trainer, batch, step_ms)
     check = {k: facts[k] for k in ("steps", "evals", "eval_batches", "launches",
                                    "expected")}
-    result = dict(model=cfg.name, dtype=t["dtype"], layers=L, emb_dim=cfg.emb_dim,
+    result = dict(model=cfg.name, dtype=dt, dtype_flag=t["dtype"], layers=L,
+                  emb_dim=cfg.emb_dim,
                   vocab=cfg.vocab_size, drop_rate=cfg.drop_rate, batch=t["batch"],
                   context=t["context"], corpus_chars=facts["corpus_chars"],
                   wall_s=facts["wall_s"], **check,
@@ -1399,17 +1452,17 @@ def phase_train(torch, card: dict, workdir: str, t: dict) -> dict:
                   lrs=trainer.track_lrs, sample=trainer.samples[-1][:120],
                   served_tokens=[r["token_ids"] for r in served], **run_rate,
                   step_ms=step_ms, step_ms_all=step_times, tokens_per_s=tps,
-                  flops_per_token=fpt, mfu=tps * fpt / card["figures"]["peak16"],
+                  flops_per_token=fpt, mfu=tps * fpt / peak,
                   mfu_basis="flops_per_token = 6 x non-embedding params (head "
                             "included) + 12 x layers x emb_dim x context; "
-                            "peak = bf16 dense",
+                            f"peak = {dt} dense ({peak / 1e12:g} TFLOP/s)",
                   peak_memory_gb=facts["peak_gb"], profile=prof)
     emit("train", **result)
     runs = {"main": facts["launches"]}
     del trainer, batch
     torch.cuda.empty_cache()
 
-    if cfg.emb_dim <= 1024:         # the chunked loss: the B4 run
+    if t.get("xent_run"):           # the chunked loss: the B4 run
         trainer, kfacts = train_run(torch, t, workdir, xent_kernel=True)
         first, first_k = losses[0], kfacts["losses"][0]
         agree = abs(first_k - first) <= 1e-5 * abs(first)
@@ -1427,6 +1480,7 @@ def phase_train(torch, card: dict, workdir: str, t: dict) -> dict:
         runs["xent_kernel"] = kfacts["launches"]
         del trainer
         torch.cuda.empty_cache()
+    shutil.rmtree(workdir, ignore_errors=True)     # the exports: up to 5 GB a run
     return runs
 
 
@@ -2663,9 +2717,10 @@ def main() -> int:
     dropout_rows = phase_dropout(torch, card)
     xent_row = phase_xent(torch, card)
     with tempfile.TemporaryDirectory(dir=here) as workdir:
-        trained = phase_train(torch, card, os.path.join(workdir, "llama"), TRAIN)
-        trained_gpt2 = phase_train(torch, card, os.path.join(workdir, "gpt2"),
-                                   TRAIN_GPT2)
+        trained, trained_gpt2, trained_gpt2_fp32, trained_fp32 = (
+            phase_train(torch, card, os.path.join(workdir, name), t)
+            for name, t in (("llama", TRAIN), ("gpt2", TRAIN_GPT2),
+                            ("gpt2-fp32", TRAIN_GPT2_FP32), ("llama-fp32", TRAIN_FP32)))
     reference = phase_train_reference(torch, REFERENCES[0])
     reference_gpt2 = phase_train_reference(torch, REFERENCES[1])
     for r in rows:
@@ -2716,18 +2771,20 @@ def main() -> int:
                 "dkv": ("flash_attention_dkv",
                         "building_llm_from_scratch_tpu/ops/fused_attention.py:160")}
     attn_runs = {"llama3_2-1B-train": trained["main"],
+                 "llama3_2-1B-train-fp32": trained_fp32["main"],
                  "llama3_2-1B-ref": reference["fp32"]["launches"],
                  "llama3_2-1B-ref-bf16": reference["bf16"]["launches"],
                  "gpt2-124M-train": trained_gpt2["main"],
+                 "gpt2-124M-train-fp32": trained_gpt2_fp32["main"],
                  "gpt2-124M-ref": reference_gpt2["fp32"]["launches"]}
     source = "building_llm_from_scratch_tpu_torch/csrc/"
-    sm90_sources = {"fwd": "attn_fwd_sm90.cu", "dq": "attn_dq_sm90.cu",
-                    "dkv": "attn_dkv_sm90.cu"}
+    from building_llm_from_scratch_tpu_torch.configs import DTYPE_MAP
+    from building_llm_from_scratch_tpu_torch.ops.fused_attention import kernel_source
+
     for r in attn_rows + drop_attn_rows:
         kname, where = replaces[r["kernel"]]
         tag = f"{r['shape']}-p{r['rate']}" if "rate" in r else r["shape"]
-        src = ("fused_attention.cu" if r["dtype"] == "fp32"
-               else sm90_sources[r["kernel"]])
+        src = kernel_source(DTYPE_MAP[r["dtype"]], r["kernel"])
         kernels.append(dict(
             name=f"{kname}[{tag}]", route="cuda", source=source + src,
             replaces=where, launches=attn_runs[r["shape"]][r["kernel"]],

@@ -584,6 +584,77 @@ def test_flash_dropout_kernels_match_twin_and_oracle(cuda, dtype, B, T, Hq, Hkv,
         assert _rel(control[i], twin[i]) > FLASH_TOL[dtype][i > 0], name
 
 
+def _device_kernels(fn):
+    """The names of the CUDA kernels ``fn`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events()
+            if str(ev.device_type).endswith("CUDA") and ev.device_time_total > 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_flash_routes_by_dtype(cuda, dtype):
+    """fp32 launches the 3xTF32 kernels (attn_{fwd,dq,dkv}_f32_sm90.cu) and
+    bf16/fp16 the 16-bit Hopper kernels, one kernel per call, as
+    ``kernel_source`` names them."""
+    from building_llm_from_scratch_tpu_torch.ops._kernels import CSRC
+
+    q, k, v, do = flash_inputs(cuda, 1, 256, 4, 1, 64, dtype)
+    out, lse = tfa.flash_attention_fwd(q, k, v)
+    delta = tfa.attention_delta(out, do)
+    calls = {"fwd": lambda: tfa.flash_attention_fwd(q, k, v),
+             "dq": lambda: tfa.flash_attention_dq(q, k, v, do, lse, delta),
+             "dkv": lambda: tfa.flash_attention_dkv(q, k, v, do, lse, delta)}
+    for kname, fn in calls.items():
+        src = tfa.kernel_source(dtype, kname)
+        assert src == (f"attn_{kname}_f32_sm90.cu" if dtype == torch.float32
+                       else f"attn_{kname}_sm90.cu")
+        kernel = src.replace("_sm90.cu", "_kernel") if dtype == torch.float32 \
+            else src.replace(".cu", "_kernel")
+        assert f"{kernel}(" in (CSRC / src).read_text()
+        names = _device_kernels(fn)
+        assert len(names) == 1 and kernel in names[0], (kname, names)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fp32_dkv_sums_gqa_in_one_launch_without_workspace(cuda, rate):
+    """fp32 B2b with GQA (G 4): one kernel launch, and the call allocates
+    dk and dv and nothing else (the per-head workspace and the group-sum
+    kernel are gone)."""
+    q, k, v, do = flash_inputs(cuda, 2, 1024, 8, 2, 64, torch.float32, seed=6)
+    out, lse = tfa.flash_attention_fwd(q, k, v, rate, 11)
+    delta = tfa.attention_delta(out, do)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = tfa.flash_attention_dkv.launches
+    dk, dv = tfa.flash_attention_dkv(q, k, v, do, lse, delta, rate, 11)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_dkv.launches == n0 + 1
+    assert torch.cuda.max_memory_allocated() - base == dk.numel() * 4 + dv.numel() * 4
+    assert dk.shape == k.shape and dv.shape == v.shape
+    names = _device_kernels(lambda: tfa.flash_attention_dkv(q, k, v, do, lse, delta, rate, 11))
+    assert len(names) == 1 and "attn_dkv_f32_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("hd,G", [(64, 1), (64, 4), (128, 4)])
+def test_fp32_flash_kernels_are_bit_equal_over_two_calls(cuda, rate, hd, G):
+    """fp32 B1, B2a and B2b give the same bits on two calls (no atomics;
+    B2b sums the G heads in a fixed order), with and without dropout."""
+    q, k, v, do = flash_inputs(cuda, 1, 1024, 4, 4 // G, hd, torch.float32, seed=7)
+    kern = (tfa.flash_attention_fwd, tfa.flash_attention_dq, tfa.flash_attention_dkv)
+    first = flash_all(q, k, v, do, *kern, rate, 99)
+    second = flash_all(q, k, v, do, *kern, rate, 99)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dropout_kernels_are_bit_equal_to_twin(cuda, dtype):
     """B3 forward, forward with add, and backward equal their twins bit for
