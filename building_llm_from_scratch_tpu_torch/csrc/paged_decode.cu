@@ -1,4 +1,5 @@
-// Paged single-token decode attention for Hopper (sm_90a).
+// Paged single-token decode attention for Hopper (sm_90a), as split-KV
+// flash-decoding over a page table (B7).
 //
 // Replaces the TPU kernel building_llm_from_scratch_tpu/ops/decode_step.py
 // (paged_decode_attention -> _paged_kernel): for every slot s and kv head h
@@ -15,33 +16,38 @@
 // row, far below the card's operations-per-byte line, so the least time is
 // the bytes of the valid rows over the memory rate.
 //
-// Design, and what it does about that bound:
-//   * B5's layout (csrc/decode_step.cu, revision r3): one block per (slot,
-//     kv head), NW = 8 warps; warp w takes the 32-position tiles starting
-//     at 32 w, 32 (w + NW), ...; lane j owns position base + j for the
-//     scores and reads its K row whole with 16-byte loads; P.V reads the
-//     tile's V rows whole (lane l holds elements [l E, l E + E), E = hd/32),
-//     8 rows in flight; the warps merge their partial softmaxes through
-//     shared memory at the end.
-//   * The loop ends at the row's own length: the TPU grid walks all M table
-//     columns and masks the pages past the frontier; here they are never
-//     read. On finite pools the result is the same.
-//   * Page ids: in each 32-position tile, only the lane holding the first
-//     position of a page (or lane 0, for the page the tile starts in) reads
-//     the table; the others take the id by a warp shuffle. Each lane turns
-//     it into a pool row index once, and P.V takes the row of position
-//     base + j from lane j by shuffle, so the table is read once per page
-//     and tile, and any page size P >= 1 works.
-//
-// Known gaps (as B5): S * Hkv blocks under-fill the 132 SMs at small batch
-// (64 blocks at S = 8 for LLaMA-3.2-1B), and each warp waits on memory
-// several times per tile with nothing else in flight. Split-KV and
-// asynchronous copies (cp.async / TMA) of whole pages are the next step.
+// Design: B5's split pass (csrc/decode_step.cu), with only the load stage
+// changed.
+//   * The plan is B5's, split_kv_plan(M * P, hd, dtype): the table's logical
+//     extent M * P stands for Tmax, so the plan never looks at S or the
+//     lengths. The grid is (n_splits, Hkv * group chunks, S); a block whose
+//     split starts past lengths[s] returns at once; table and lengths stay
+//     on the device.
+//   * Load stage: warp w of a block owns 32 logical positions p0 ...
+//     p0 + 31. Its 32 rows are read as boxes of b rows, b the largest power
+//     of two that divides both P and 32 (ops/decode_step.paged_box_rows), so
+//     every box lies inside one page for any page size P >= 1: lane j issues
+//     the TMA loads of box j (rows p0 + j b ...) from a 2-D tensor map over
+//     the pool seen as (N * Hkv * P, hd), with B5's 128-byte swizzle, after
+//     reading its own table entry. Boxes that start past t are not loaded,
+//     so pages past a row's frontier are never read. The rows land where
+//     B5's contiguous load puts them (the swizzle follows the shared-memory
+//     address), so the scores, softmax, P.V and the block merge are B5's
+//     own code (decode_split.cuh), and at equal rows the output is B5's bit
+//     for bit.
+//   * The merge is B5's merge kernel, launched programmatically dependent.
+//   * Host cost: the two tensor maps (K and V pools) are encoded once per
+//     (pool pointer, shape, box) and kept in a small table in this file, so
+//     a serving tick does not encode them again for every layer and call.
+//     A map holds only the pointer, the dims and the box, so a kept map is
+//     right for any pool that has them.
 //
 // Plain C interface, loaded with ctypes (ops/_kernels.py). The entry returns
-// cudaGetLastError() after the launch, or kUnsupported for a dtype / head
-// dim it is not instantiated for.
+// cudaGetLastError() after the launches, kUnsupported for a dtype, head
+// dim, box or plan it is not instantiated for, kNoTensorMap if the driver
+// refuses a tensor map.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -49,239 +55,179 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+
+#include "decode_split.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kUnsupported = 100000;   // the same code as decode_step.cu's
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
 template <typename T, int HD, int GT>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ K, const T* __restrict__ V,
-                    const int* __restrict__ table, const int* __restrict__ lengths,
-                    T* __restrict__ out, int Hq, int Hkv, int P, int N, int M, float scale) {
-  constexpr int E = HD / 32;            // output elements per lane (P.V pass)
-  constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
-  constexpr int NV = HD / VEC;          // 16-byte loads per row
-  constexpr int BATCH = 8;              // V rows in flight per warp
-  __shared__ float sm_q[GT][HD];
-  __shared__ float sm_p[kWarps][GT][32];
-  __shared__ float sm_m[kWarps][GT];
-  __shared__ float sm_l[kWarps][GT];
-  __shared__ float sm_acc[kWarps][GT][HD];
+__global__ void __launch_bounds__(Geom<T, HD>::kWarps * 32)
+paged_split_kernel(const __grid_constant__ CUtensorMap tmK, const __grid_constant__ CUtensorMap tmV,
+                   const T* __restrict__ q, const int* __restrict__ table,
+                   const int* __restrict__ lengths, float* __restrict__ ws, int Hq, int Hkv,
+                   int P, int N, int M, int box, int n_splits, float scale_log2) {
+  using Gm = Geom<T, HD>;
+  constexpr int E = HD / 32;
+  extern __shared__ unsigned char smem_raw[];
+  const SplitBlock<T, HD, GT> blk(smem_raw, Hq, Hkv);
+  const int b = blk.b, h = blk.h, warp = blk.warp, lane = blk.lane;
 
-  const int bh = blockIdx.x;          // s * Hkv + h
-  const int s = bh / Hkv;
-  const int h = bh - s * Hkv;
-  const int G = Hq / Hkv;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int Tmax = M * P;                       // the row's logical extent
+  int t = lengths[b];
+  t = t < 0 ? 0 : (t > Tmax - 1 ? Tmax - 1 : t);
+  const int c0 = blk.split * Gm::kSplit;
+  if (c0 > t) return;                           // past the row: no work, no partial
+  const int p0 = c0 + warp * kRows;
+  const bool active = p0 <= t;
+  unsigned char* sK = blk.k_tile();
+  unsigned char* sV = blk.v_tile();
+  uint64_t* bar = &blk.bar[warp];
 
-  int t = lengths[s];
-  const int last = M * P - 1;         // the row's logical extent
-  t = t < 0 ? 0 : (t > last ? last : t);
-  const int* tab = table + static_cast<size_t>(s) * M;
-
-  for (int g0 = 0; g0 < G; g0 += GT) {
-    for (int i = threadIdx.x; i < GT * HD; i += blockDim.x) {
-      const int g = i / HD;
-      sm_q[g][i - g * HD] =
-          (g0 + g < G) ? to_f(q[(static_cast<size_t>(s) * Hq + h * G + g0) * HD + i]) : 0.f;
+  if (active) {
+    // boxes of `box` rows; those starting past t are not loaded
+    const int n_box = min(kRows / box, (t - p0) / box + 1);
+    if (lane == 0) {
+      mbar_init(bar, 1);
+      mbar_fence_init();
+      mbar_expect_tx(bar, static_cast<uint32_t>(n_box * box) * 128u * Gm::kPanels * 2u);
     }
-    __syncthreads();
-
-    float m[GT], l[GT], acc[GT][E];
-#pragma unroll
-    for (int g = 0; g < GT; ++g) {
-      m[g] = -INFINITY;
-      l[g] = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
-    }
-
-    for (int base = warp * 32; base <= t; base += kWarps * 32) {
-      const int p = base + lane;
-      const bool valid = p <= t;
-      // the pool row of position p: the first lane of each page in this
-      // tile reads the page id, the others take it by shuffle
-      const int col = p / P;
-      const int off = p - col * P;
-      int page = 0;
-      if (valid && (off == 0 || lane == 0)) page = tab[col];
-      page = __shfl_sync(0xffffffffu, page, lane >= off ? lane - off : 0);
+    __syncwarp();
+    if (lane < n_box) {
+      const int first = p0 + lane * box;
+      const int col = first / P;
+      int page = table[static_cast<size_t>(b) * M + col];
       page = page < 0 ? 0 : (page > N - 1 ? N - 1 : page);
-      const int row = (page * Hkv + h) * P + off;
-
-      // scores: lane j owns position base + j and reads its K row whole
-      float sc[GT];
+      const int row = (page * Hkv + h) * P + (first - col * P);
+      const int at = lane * box * 128;
 #pragma unroll
-      for (int g = 0; g < GT; ++g) sc[g] = 0.f;
-      if (valid) {
-        const uint4* krow = reinterpret_cast<const uint4*>(K + static_cast<size_t>(row) * HD);
-#pragma unroll
-        for (int c = 0; c < NV; ++c) {
-          const uint4 raw = krow[c];
-          const T* kv = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) {
-            const float kf = to_f(kv[j]);
-#pragma unroll
-            for (int g = 0; g < GT; ++g) sc[g] = fmaf(sm_q[g][c * VEC + j], kf, sc[g]);
-          }
-        }
+      for (int p = 0; p < Gm::kPanels; ++p) {
+        tma_load_2d(sK + p * kPanelBytes + at, &tmK, bar, p * Gm::kPanelCols, row);
+        tma_load_2d(sV + p * kPanelBytes + at, &tmV, bar, p * Gm::kPanelCols, row);
       }
-      // online softmax over the tile: two warp reductions per query row
-#pragma unroll
-      for (int g = 0; g < GT; ++g) {
-        const float sg = valid ? sc[g] * scale : -INFINITY;
-        const float m_new = fmaxf(m[g], warp_max(sg));
-        const float pe = expf(sg - m_new);
-        const float alpha = expf(m[g] - m_new);
-        l[g] = l[g] * alpha + warp_sum(pe);
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
-        m[g] = m_new;
-        sm_p[warp][g][lane] = pe;
-      }
-      __syncwarp();
-      // P.V: the warp reads the tile's V rows whole (lane l: elements l*E..)
-      const int n = min(32, t - base + 1);
-      for (int j0 = 0; j0 < n; j0 += BATCH) {
-        float vv[BATCH][E];
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          const int rj = __shfl_sync(0xffffffffu, row, j0 + u);
-          if (j0 + u < n) {
-            const T* vrow = V + static_cast<size_t>(rj) * HD;
-#pragma unroll
-            for (int e = 0; e < E; ++e) vv[u][e] = to_f(vrow[lane * E + e]);
-          } else {
-#pragma unroll
-            for (int e = 0; e < E; ++e) vv[u][e] = 0.f;
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          if (j0 + u < n) {
-#pragma unroll
-            for (int g = 0; g < GT; ++g) {
-              const float pg = sm_p[warp][g][j0 + u];
-#pragma unroll
-              for (int e = 0; e < E; ++e) acc[g][e] = fmaf(pg, vv[u][e], acc[g][e]);
-            }
-          }
-        }
-      }
-      __syncwarp();   // sm_p is rewritten by the next tile
     }
-
-    // merge the warps' partial softmaxes
-#pragma unroll
-    for (int g = 0; g < GT; ++g) {
-      if (lane == 0) {
-        sm_m[warp][g] = m[g];
-        sm_l[warp][g] = l[g];
-      }
-#pragma unroll
-      for (int e = 0; e < E; ++e) sm_acc[warp][g][lane * E + e] = acc[g][e];
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < GT * HD; i += blockDim.x) {
-      const int g = i / HD;
-      const int d = i - g * HD;
-      if (g0 + g >= G) continue;
-      float Mx = -INFINITY;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) Mx = fmaxf(Mx, sm_m[w][g]);
-      float L = 0.f, O = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        // a warp that saw no position has m = -inf and contributes exp(-inf) = 0
-        const float c = expf(sm_m[w][g] - Mx);
-        L = fmaf(sm_l[w][g], c, L);
-        O = fmaf(sm_acc[w][g][d], c, O);
-      }
-      out[(static_cast<size_t>(s) * Hq + h * G + g0 + g) * HD + d] = from_f<T>(O / L);
-    }
-    __syncthreads();   // shared memory is reused by the next group chunk
   }
+  // the merge launch (PDL) may start once every block has issued its loads
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  blk.load_q(q, Hq);
+  __syncthreads();
+
+  float m[GT], l[GT], acc[GT][E];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+  }
+  if (active) {
+    mbar_wait(bar, 0);
+    attend_warp<T, HD, GT>(sK, sV, blk.sm_q, blk.sm_p + warp * GT * kRows, p0, t, lane,
+                           scale_log2, m, l, acc);
+  }
+  store_partial<T, HD, GT>(blk, ws, Hq, n_splits, m, l, acc);
+}
+
+// tensor maps kept across calls, keyed by everything a map holds
+struct MapKey {
+  const void* base;
+  unsigned long long rows;
+  int hd, elt, type, box;
+  bool operator==(const MapKey& o) const {
+    return base == o.base && rows == o.rows && hd == o.hd && elt == o.elt && type == o.type &&
+           box == o.box;
+  }
+};
+struct KeptMap {
+  MapKey key;
+  CUtensorMap map;
+};
+constexpr int kKeptMaps = 128;
+std::mutex g_maps_mu;
+KeptMap g_maps[kKeptMaps];
+int g_n_maps = 0, g_next_map = 0;
+
+bool pool_map(CUtensorMap* out, CUtensorMapDataType type, int elt, const void* base,
+              unsigned long long rows, int hd, int box) {
+  const MapKey key{base, rows, hd, elt, static_cast<int>(type), box};
+  std::lock_guard<std::mutex> lock(g_maps_mu);
+  for (int i = 0; i < g_n_maps; ++i) {
+    if (g_maps[i].key == key) {
+      *out = g_maps[i].map;
+      return true;
+    }
+  }
+  if (!make_2d_map(out, type, elt, base, rows, hd, box)) return false;
+  KeptMap& slot = g_maps[g_next_map];
+  slot.key = key;
+  slot.map = *out;
+  g_next_map = (g_next_map + 1) % kKeptMaps;
+  if (g_n_maps < kKeptMaps) ++g_n_maps;
+  return true;
 }
 
 struct Args {
-  int S, Hq, Hkv, P, N, M;
+  int S, Hq, Hkv, P, N, M, box, split_len, n_splits;
   const void *q, *K, *V;
   const int *table, *lengths;
+  float* ws;
   void* out;
   cudaStream_t stream;
 };
 
-template <typename T, int HD, int GT>
-int launch(const Args& a) {
-  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
-  paged_decode_kernel<T, HD, GT><<<a.S * a.Hkv, kWarps * 32, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.K), static_cast<const T*>(a.V),
-      a.table, a.lengths, static_cast<T*>(a.out), a.Hq, a.Hkv, a.P, a.N, a.M, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int HD>
-int dispatch_group(const Args& a) {
-  const int G = a.Hq / a.Hkv;
-  if (G <= 1) return launch<T, HD, 1>(a);
-  if (G <= 2) return launch<T, HD, 2>(a);
-  if (G <= 4) return launch<T, HD, 4>(a);
-  return launch<T, HD, 8>(a);
-}
-
-template <typename T>
-int dispatch_hd(int hd, const Args& a) {
-  if (hd == 64) return dispatch_group<T, 64>(a);
-  if (hd == 128) return dispatch_group<T, 128>(a);
-  return kUnsupported;
-}
+// the split pass then the merge, for one dtype, head dim and group chunk
+template <typename T, int HD, int GT> struct Launch {
+  static int run(const Args& a) {
+    using Gm = Geom<T, HD>;
+    const int Tmax = a.M * a.P;
+    if (a.split_len != Gm::kSplit || a.n_splits != (Tmax + Gm::kSplit - 1) / Gm::kSplit)
+      return kUnsupported;
+    const unsigned long long rows = static_cast<unsigned long long>(a.N) * a.Hkv * a.P;
+    CUtensorMap tk, tv;
+    if (!pool_map(&tk, map_type<T>(), sizeof(T), a.K, rows, HD, a.box) ||
+        !pool_map(&tv, map_type<T>(), sizeof(T), a.V, rows, HD, a.box))
+      return kNoTensorMap;
+    const size_t smem = Gm::smem(GT);
+    auto kernel = paged_split_kernel<T, HD, GT>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int n_gc = (a.Hq / a.Hkv + GT - 1) / GT;
+    const float scale_log2 = kLog2e / sqrtf(static_cast<float>(HD));
+    kernel<<<dim3(a.n_splits, a.Hkv * n_gc, a.S), Gm::kWarps * 32, smem, a.stream>>>(
+        tk, tv, static_cast<const T*>(a.q), a.table, a.lengths, a.ws, a.Hq, a.Hkv, a.P, a.N, a.M,
+        a.box, a.n_splits, scale_log2);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return launch_combine<T, HD>(a.ws, a.lengths, a.out, a.S, a.Hq, Tmax, a.split_len,
+                                 a.n_splits, a.stream);
+  }
+};
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16. All tensors contiguous:
-// q/out (S, 1, Hq, hd), K/V pools (N, Hkv, P, hd), table (S, M) int32 and
-// lengths (S,) int32, all on the device.
-int bllm_paged_decode(int dtype, int hd, int S, int Hq, int Hkv, int P, int N, int M,
-                      const void* q, const void* K, const void* V, const void* table,
-                      const void* lengths, void* out, void* stream) {
-  if (S < 1 || Hkv < 1 || Hq % Hkv != 0 || P < 1 || N < 1 || M < 1) return kUnsupported;
-  const Args a{S, Hq, Hkv, P, N, M, q, K, V,
-               static_cast<const int*>(table), static_cast<const int*>(lengths), out,
-               static_cast<cudaStream_t>(stream)};
-  switch (dtype) {
-    case 0: return dispatch_hd<float>(hd, a);
-    case 1: return dispatch_hd<__half>(hd, a);
-    case 2: return dispatch_hd<__nv_bfloat16>(hd, a);
-    default: return kUnsupported;
-  }
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16. All tensors contiguous,
+// q, the pools and out 16-byte aligned: q/out (S, 1, Hq, hd), K/V pools
+// (N, Hkv, P, hd), table (S, M) int32 and lengths (S,) int32, all on the
+// device; ws the fp32 workspace (S, Hq, n_splits, hd + 2). box is the
+// rows of one TMA box (a power of two dividing both P and 32); split_len
+// and n_splits the host plan's (ops/decode_step.split_kv_plan(M * P, ...)),
+// checked against the kernel's.
+int bllm_paged_decode(int dtype, int hd, int S, int Hq, int Hkv, int P, int N, int M, int box,
+                      int split_len, int n_splits, const void* q, const void* K, const void* V,
+                      const void* table, const void* lengths, void* ws, void* out,
+                      void* stream) {
+  if (S < 1 || S > 65535 || Hkv < 1 || Hq % Hkv != 0 || P < 1 || N < 1 || M < 1 ||
+      static_cast<long long>(N) * Hkv * P >= (1ll << 31) ||
+      static_cast<long long>(M) * P >= (1ll << 31) || box < 1 || box > kRows ||
+      (box & (box - 1)) != 0 || P % box != 0)
+    return kUnsupported;
+  const Args a{S,        Hq,       Hkv, P, N, M, box, split_len, n_splits, q, K, V,
+               static_cast<const int*>(table), static_cast<const int*>(lengths),
+               static_cast<float*>(ws), out, static_cast<cudaStream_t>(stream)};
+  return dispatch_split<Launch>(dtype, hd, Hq / Hkv, a);
 }
 
 }  // extern "C"

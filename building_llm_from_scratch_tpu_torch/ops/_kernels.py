@@ -112,11 +112,12 @@ def load_library() -> ctypes.CDLL:
             lib.bllm_xent_fwd.argtypes = [i32] * 5 + [ptr] * 9
             # dtype, N, D, V, padded V, splits
             lib.bllm_xent_fwd_sm90.argtypes = [i32] * 6 + [ptr] * 9
-            # dtype, hd, S, Hq, Hkv, P, N, M
-            lib.bllm_paged_decode.argtypes = [i32] * 8 + [ptr] * 7
-            # dtype, S, D, r, O, N, pool row strides
-            lib.bllm_lora_bgmv.argtypes = ([i32] * 6 + [ctypes.c_longlong] * 2
-                                           + [ptr] * 7)
+            # dtype, hd, S, Hq, Hkv, P, N, M, box rows, split length, splits
+            lib.bllm_paged_decode.argtypes = [i32] * 11 + [ptr] * 8
+            # dtype, S, D, r, O, N, split length, splits, tile, tiles, pool
+            # row strides
+            lib.bllm_lora_bgmv.argtypes = ([i32] * 10 + [ctypes.c_longlong] * 2
+                                           + [ptr] * 8)
             for name in ("bllm_fused_decode_step", "bllm_attn_fwd", "bllm_attn_bwd_dq",
                          "bllm_attn_bwd_dkv", "bllm_dropout", "bllm_xent_fwd",
                          "bllm_xent_fwd_sm90",

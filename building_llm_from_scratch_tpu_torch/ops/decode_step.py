@@ -5,9 +5,11 @@
     at each row's length, then attend, split over the cache axis
     (``csrc/decode_step.cu``; the plan is ``split_kv_plan``);
   - ``paged_decode_attention`` (B7): attend each slot's logical row through
-    its page table over a shared page pool (``csrc/paged_decode.cu``);
+    its page table over a shared page pool, with B5's split pass and merge
+    (``csrc/paged_decode.cu`` on ``csrc/decode_split.cuh``);
   - ``lora_bgmv`` (B6): each row's LoRA delta through its own adapter's
-    panes of a stacked pool (``csrc/bgmv.cu``).
+    panes of a stacked pool, as a grouped split-D shrink and an expand
+    (``csrc/bgmv.cu``; the plan is ``bgmv_plan``).
 
 Each wrapper launches its hand-written CUDA kernel for tensors on the card
 and computes its plain twin (``*_plain``) for tensors on the CPU. There is
@@ -17,6 +19,7 @@ no fallback between the two: a CUDA call the kernel cannot take raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -32,6 +35,18 @@ _KERNEL_HEAD_DIMS = (64, 128)
 #: K and V bytes of one split of B5's cache axis: one block's loads, all in
 #: flight at once (csrc/decode_step.cu kSplitBytes)
 _SPLIT_BYTES = 65536
+#: fp32 scratch of the two-pass kernels B6 and B7, one per (device, stream),
+#: grown as needed: a call's second pass has read it before the next call
+#: on the stream starts, so a call needs no allocation of its own
+_WORKSPACES: dict = {}
+
+
+def _workspace(device: torch.device, stream: int, numel: int) -> torch.Tensor:
+    key = (device.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < numel:
+        ws = _WORKSPACES[key] = torch.empty(numel, dtype=torch.float32, device=device)
+    return ws
 
 
 def slot_cache_append(cache: torch.Tensor, new: torch.Tensor,
@@ -76,6 +91,7 @@ def check_kernel_shape(Tmax: int, hd: int, dtype: torch.dtype) -> None:
             f"hd={hd}, {dtype}, Tmax={Tmax}")
 
 
+@functools.lru_cache(maxsize=None)
 def split_kv_plan(Tmax: int, hd: int, dtype: torch.dtype) -> tuple:
     """B5's split of the cache axis: ``(C, n_splits)``, each (slot, kv head)
     pane cut into ``n_splits`` runs of ``C`` consecutive positions, one
@@ -268,6 +284,17 @@ def check_paged_kernel_shape(hd: int, dtype: torch.dtype) -> None:
             f"hd={hd}, {dtype}")
 
 
+def paged_box_rows(P: int) -> int:
+    """Rows of one TMA box of B7's loads for page size ``P``: the largest
+    power of two that divides both ``P`` and 32 (a warp's 32 rows). A
+    warp's rows start at a multiple of 32, so every box lies inside one
+    page and a page's run inside the warp's rows is a whole number of
+    boxes, for any ``P >= 1``."""
+    if P < 1:
+        raise ValueError(f"page size must be >= 1, got {P}")
+    return min(P & -P, 32)
+
+
 def paged_decode_attention_plain(q, k_pool, v_pool, page_table, lengths,
                                  cache_len=None):
     """B7's twin in plain PyTorch: ``paged_view`` of each pool followed by
@@ -316,9 +343,11 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
                                      (the new token's, already scattered)
 
     Returns (S, 1, Hq, hd). CUDA tensors go through the hand-written kernel
-    (``csrc/paged_decode.cu``), read table and lengths on the device and add
-    one to ``paged_decode_attention.launches`` per launch; CPU tensors
-    compute ``paged_decode_attention_plain``."""
+    (``csrc/paged_decode.cu``: B5's split pass over
+    ``split_kv_plan(M * P, hd, dtype)`` with its rows loaded through the
+    table, then B5's merge: two launches), read table and lengths on the
+    device and add one to ``paged_decode_attention.launches`` per call; CPU
+    tensors compute ``paged_decode_attention_plain``."""
     _check_paged(q, k_pool, v_pool, page_table, lengths)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, page_table,
@@ -330,9 +359,11 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
     N, Hkv, P, _ = k_pool.shape
     M = page_table.shape[1]
     check_paged_kernel_shape(hd, q.dtype)
-    if N * Hkv * P >= 2 ** 31:
-        raise ValueError(f"pool of {N} pages x {Hkv} heads x {P} rows exceeds "
-                         "the kernel's 32-bit row index")
+    C, n_splits = split_kv_plan(M * P, hd, q.dtype)
+    if S > 65535 or N * Hkv * P >= 2 ** 31:
+        raise ValueError(f"S={S} rows or a pool of {N} pages x {Hkv} heads x "
+                         f"{P} rows exceed the kernel's grid or its 32-bit row "
+                         "index")
     for name, t, shape in (("page_table", page_table, (S, M)),
                            ("lengths", lengths, (S,))):
         if (not torch.is_tensor(t) or t.dtype != torch.int32
@@ -342,19 +373,21 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
                     ("page_table", page_table), ("lengths", lengths)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if k_pool.data_ptr() % 16:
-        raise ValueError("k_pool must be 16-byte aligned (the kernel reads its "
-                         "rows with 16-byte loads)")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel reads "
+                             "the pools by TMA)")
     from building_llm_from_scratch_tpu_torch.ops._kernels import load_library
 
     lib = load_library()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = _workspace(q.device, stream, S * Hq * n_splits * (hd + 2))
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     err = lib.bllm_paged_decode(
-        _DTYPE_CODES[q.dtype], hd, S, Hq, Hkv, P, N, M,
-        p(q), p(k_pool), p(v_pool), p(page_table), p(lengths), p(out),
-        ctypes.c_void_p(stream))
+        _DTYPE_CODES[q.dtype], hd, S, Hq, Hkv, P, N, M, paged_box_rows(P), C,
+        n_splits, p(q), p(k_pool), p(v_pool), p(page_table), p(lengths), p(ws),
+        p(out), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"{lib.bllm_error_string(err).decode()}")
@@ -372,6 +405,10 @@ paged_decode_attention.launches = 0
 
 #: largest rank the CUDA kernel takes (its shared-memory intermediate)
 _KERNEL_MAX_RANK = 256
+#: threads of a B6 block (each takes 16 bytes of a split's A slice), the
+#: bytes of an O-tile's B slice at r = rp (the least power of two >= r) and
+#: the widest O-tile (csrc/bgmv.cu kThreads, kTileBytes, kMaxTile)
+_BGMV_THREADS, _BGMV_TILE_BYTES, _BGMV_MAX_TILE = 256, 16384, 2048
 
 
 def supports_lora_shape(D: int, r: int, O: int) -> bool:
@@ -391,6 +428,59 @@ def check_lora_kernel_shape(r: int, dtype: torch.dtype) -> None:
         raise ValueError(
             f"the CUDA BGMV kernel takes ranks 1..{_KERNEL_MAX_RANK} and "
             f"dtypes {list(_DTYPE_CODES)}; got r={r}, {dtype}")
+
+
+@functools.lru_cache(maxsize=None)
+def bgmv_plan(D: int, r: int, O: int, dtype: torch.dtype) -> tuple:
+    """B6's plan: ``(Dc, n_splits, Ot, n_tiles)``. The shrink pass cuts the
+    input width D into ``n_splits`` runs of ``Dc`` rows, so that a split's
+    slice of an A pane, ``Dc x r`` elements, is one contiguous run of at
+    most 4 KB (``Dc = (256 / rp) * (16 / element size)``, rp the least power
+    of two >= r: one 16-byte load of x per thread); the expand pass cuts the
+    output width O into ``n_tiles`` tiles of ``Ot = min(2048, 16 KB / (rp x
+    element size))`` columns. It depends on D, r, O and the dtype only,
+    never on the batch, the ids or the pool, so a row's output has the same
+    bits alone or co-batched."""
+    check_lora_kernel_shape(r, dtype)
+    if D < 1 or O < 1:
+        raise ValueError(f"B6 widths must be >= 1, got D={D}, O={O}")
+    rp = 1 << (r - 1).bit_length()
+    Dc = _BGMV_THREADS // rp * (16 // _ELT[dtype])
+    Ot = min(_BGMV_MAX_TILE, _BGMV_TILE_BYTES // (rp * _ELT[dtype]))
+    return Dc, -(-D // Dc), Ot, -(-O // Ot)
+
+
+def bgmv_partials_plain(x, a_pool, ids, Dc: int) -> torch.Tensor:
+    """B6's shrink pass in plain PyTorch (fp32), the model of its workspace:
+    split j's partial of row s is ``x[s, jDc:jDc+Dc] @ A[i][jDc:jDc+Dc]``, i
+    the row's clamped id. Returns (S, n_splits, r); rows with id < 0 hold
+    NaN (the kernel never writes them and the expand never reads them)."""
+    N, D, r = a_pool.shape
+    S = x.shape[0]
+    n = -(-D // Dc)
+    ids = torch.as_tensor(ids, device=x.device).reshape(-1)
+    A = a_pool.index_select(0, ids.long().clamp(0, N - 1)).float()   # (S, D, r)
+    xs = torch.nn.functional.pad(x.float(), (0, n * Dc - D)).view(S, n, 1, Dc)
+    As = torch.nn.functional.pad(A, (0, 0, 0, n * Dc - D)).view(S, n, Dc, r)
+    ws = torch.matmul(xs, As)[:, :, 0]
+    return ws.masked_fill((ids < 0)[:, None, None], math.nan)
+
+
+def bgmv_expand_plain(ws: torch.Tensor, b_pool, ids, scales) -> torch.Tensor:
+    """B6's expand pass in plain PyTorch: each row's partials folded in the
+    order j = 0, 1, ..., rounded to B's dtype, then ``@ B[i]`` in fp32 times
+    the row's fp32 scale; rows with id < 0 are exactly 0. Returns (S, O)
+    fp32."""
+    N = b_pool.shape[0]
+    ids = torch.as_tensor(ids, device=ws.device).reshape(-1)
+    idx = ids.long().clamp(0, N - 1)
+    xa = ws[:, 0]
+    for j in range(1, ws.shape[1]):
+        xa = xa + ws[:, j]
+    xa = xa.to(b_pool.dtype).float()
+    B = b_pool.index_select(0, idx).float()
+    out = torch.bmm(xa[:, None], B)[:, 0] * scales.float().index_select(0, idx)[:, None]
+    return torch.where((ids >= 0)[:, None], out, torch.zeros((), device=ws.device))
 
 
 def lora_bgmv_plain(x, a_pool, b_pool, ids, scales):
@@ -439,8 +529,10 @@ def lora_bgmv(x, a_pool, b_pool, ids, scales):
 
     Returns (S, O) fp32: ``scales[i] * round(x[s] @ A[i]) @ B[i]`` with
     ``i = ids[s]``. CUDA tensors go through the hand-written kernel
-    (``csrc/bgmv.cu``), read ids and scales on the device and add one to
-    ``lora_bgmv.launches`` per launch; CPU tensors compute
+    (``csrc/bgmv.cu``: a shrink pass over ``bgmv_plan``'s D-splits and an
+    expand pass over its O-tiles, each adapter's panes read once for the
+    rows that share it: two launches), read ids and scales on the device
+    and add one to ``lora_bgmv.launches`` per call; CPU tensors compute
     ``lora_bgmv_plain``."""
     _check_bgmv(x, a_pool, b_pool, ids, scales)
     if x.device.type == "cpu":
@@ -450,7 +542,7 @@ def lora_bgmv(x, a_pool, b_pool, ids, scales):
     S, D = x.shape
     N, _, r = a_pool.shape
     O = b_pool.shape[2]
-    check_lora_kernel_shape(r, x.dtype)
+    Dc, n_splits, Ot, n_tiles = bgmv_plan(D, r, O, x.dtype)   # checks r, dtype
     if S > 65535:
         raise ValueError(f"{S} rows exceed the kernel's grid (65535)")
     if ids.dtype != torch.int32 or scales.dtype != torch.float32:
@@ -467,11 +559,12 @@ def lora_bgmv(x, a_pool, b_pool, ids, scales):
     lib = load_library()
     out = torch.empty((S, O), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws = _workspace(x.device, stream, S * n_splits * r)
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     err = lib.bllm_lora_bgmv(
-        _DTYPE_CODES[x.dtype], S, D, r, O, N, a_pool.stride(0), b_pool.stride(0),
-        p(x), p(a_pool), p(b_pool), p(ids), p(scales), p(out),
-        ctypes.c_void_p(stream))
+        _DTYPE_CODES[x.dtype], S, D, r, O, N, Dc, n_splits, Ot, n_tiles,
+        a_pool.stride(0), b_pool.stride(0), p(x), p(a_pool), p(b_pool), p(ids),
+        p(scales), p(ws), p(out), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"lora_bgmv kernel launch failed: "
                            f"{lib.bllm_error_string(err).decode()}")

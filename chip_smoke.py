@@ -23,16 +23,18 @@ exits non-zero):
      3b. the paged decode-attention kernel (B7) against its twin at the
      paged serving shapes of LLaMA-3.2-1B (bf16) and GPT-2-124M (fp32),
      page 16, over phase 3's lengths on a pool of shuffled pages: within
-     phase 3's tolerances of the twin and of the exact result; times of the
-     kernel, the twin, the library's two calls (page gather + SDPA) and B5
-     on the same rows laid out contiguously, beside the bytes bound.
+     phase 3's tolerances of the twin and of the exact result, and bit-equal
+     to B5 on the same rows laid out contiguously (B7 runs B5's split pass
+     and merge); times of the kernel, the twin, the library's two calls
+     (page gather + SDPA) and B5 on those rows, beside the bytes bound.
      3c. the BGMV kernel (B6) against its twin at every adapted projection
      shape of LLaMA-3.2-1B (bf16) and GPT-2-124M (fp32), S 8 rows over a
      pool of 4 rows of rank 16 (ids with -1 and repeats), the pool read in
      place as a layer's slice: within the bounds of the twin and of the
      exact fp64 result relative to the second product's magnitude; the twin
-     with permuted ids must fail them. Times of the kernel, the twin and the
-     gathered library path (index_select + two bmm), beside the bytes bound.
+     with permuted ids must fail them; each row's output alone bit-equal to
+     its output co-batched. Times of the kernel, the twin and the gathered
+     library path (index_select + two bmm), beside the bytes bound.
   4. serving: the continuous-batching engine at full width, random weights
      from a seed: LLaMA-3.2-1B in bf16 with its 16 layers and GPT-2-124M in
      fp32 (24 requests over 8 slots of 1024), then LLaMA-3-8B in bf16 cut to
@@ -476,8 +478,9 @@ def phase_paged_kernel(torch, card: dict, b5_rows: list) -> list:
         kn, vn = Kc[at][:, None].contiguous(), Vc[at][:, None].contiguous()
         out_b5, _, _ = fused_decode_step(q, kn, vn, Kc, Vc, lens)
         b5_err = (out_b5.float() - out_k.float()).abs().max().item()
-        if not torch.allclose(out_b5.float(), out_t.float(), atol=atol, rtol=rtol):
-            raise AssertionError(f"{name}: B5 on the same rows off by {b5_err}")
+        if not torch.equal(out_b5, out_k):
+            raise AssertionError(f"{name}: B7 is not bit-equal to B5 on the same "
+                                 f"rows (max |diff| {b5_err})")
 
         # the library yardstick, two calls: gather the pages, then SDPA
         mask = (torch.arange(M * P, device=dev)[None, :]
@@ -587,6 +590,7 @@ def phase_lora_kernel(torch, card: dict) -> list:
     pool dtype, the JAX package's default path) with L2 flushed."""
     from building_llm_from_scratch_tpu_torch.configs import DTYPE_MAP
     from building_llm_from_scratch_tpu_torch.ops.decode_step import (
+        bgmv_plan,
         lora_bgmv,
         lora_bgmv_plain,
     )
@@ -626,6 +630,13 @@ def phase_lora_kernel(torch, card: dict) -> list:
         if control <= t_twin:
             raise AssertionError(f"{name} {projs}: the bound does not catch "
                                  f"permuted ids ({control} M)")
+        # a row alone has the bits it has co-batched (the plan takes no batch)
+        for srow in range(S):
+            alone = lora_bgmv(x[srow:srow + 1].contiguous(), A, B,
+                              ids[srow:srow + 1].contiguous(), sc)
+            if not torch.equal(alone[0], out[srow]):
+                raise AssertionError(f"{name} {projs}: row {srow} alone is not "
+                                     "bit-equal to its output co-batched")
 
         def library():
             idx = ids.long().clamp(0, N - 1)
@@ -658,7 +669,9 @@ def phase_lora_kernel(torch, card: dict) -> list:
                    max_abs_err=err, twin_err_over_m=rel_twin,
                    exact_err_over_m=rel_exact, twin_bound=t_twin,
                    exact_bound=t_exact, permuted_ids_err_over_m=control,
-                   library_err_over_m=lib_rel,
+                   library_err_over_m=lib_rel, alone_equals_cobatched=True,
+                   plan=dict(zip(("Dc", "n_splits", "Ot", "n_tiles"),
+                                 bgmv_plan(D, r, O, dtype))),
                    library_calls="index_select x2 + bmm x2 + scale (the "
                                  "gathered path)",
                    out_rms=twin.pow(2).mean().sqrt().item(),
@@ -1777,7 +1790,15 @@ def tick_profile(torch, engine_cls, model, requests: list, tick_ms: float,
     busy_us = sum(r[0] for r in rows)
     launches = sum(r[2] for r in rows)
     busy_ms = busy_us / ticks / 1e3
+    # the serving decode kernels' device ms a tick: B5's split pass, B7's,
+    # their merge (one kernel, shared), B6's two passes
+    families = {"b5_split": ("decode_split_kernel",), "b7_split": ("paged_split_kernel",),
+                "merge": ("decode_combine_kernel",),
+                "b6": ("bgmv_shrink_kernel", "bgmv_expand_kernel")}
+    decode_ms = {f: sum(r[0] for r in rows if any(n in r[1] for n in names)) / ticks / 1e3
+                 for f, names in families.items()}
     return dict(ticks=ticks, device_events=len(rows),
+                decode_kernels_ms_per_tick=decode_ms,
                 profiled_tick_ms=wall / ticks * 1e3,
                 device_busy_ms_per_tick=busy_ms,
                 device_idle_share=1.0 - busy_ms / tick_ms,

@@ -270,11 +270,12 @@ def paged_inputs(dev, S, Hq, Hkv, hd, P, M, dtype, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("P", [5, 16, 64])
+@pytest.mark.parametrize("P", [1, 5, 8, 16, 24, 32, 64])
 @pytest.mark.parametrize("Hq,Hkv,hd", [(8, 2, 64), (4, 4, 128)])
 def test_paged_kernel_matches_twin(cuda, dtype, P, Hq, Hkv, hd):
     """B7 against its twin (``paged_view`` + ``decode_attention``) and the
-    exact fp32 result, at the decode kernel's tolerances."""
+    exact fp32 result, at the decode kernel's tolerances, for page sizes
+    whose TMA boxes (``paged_box_rows``) are 1, 8, 16 and 32 rows."""
     S, M = 5, max(4, 320 // P)
     q, K, V, table, lens = paged_inputs(cuda, S, Hq, Hkv, hd, P, M, dtype)
     before = tds.paged_decode_attention.launches
@@ -293,6 +294,31 @@ def test_paged_kernel_matches_twin(cuda, dtype, P, Hq, Hkv, hd):
     wrong = tds.paged_decode_attention_plain(q.float(), K.float(), V.float(),
                                              table.roll(1, 0), lens)
     assert not torch.allclose(out.float(), wrong, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype,Hq,Hkv", [(torch.bfloat16, 32, 8), (torch.float32, 12, 12)])
+def test_paged_kernel_is_bit_equal_to_b5_on_the_same_rows(cuda, dtype, Hq, Hkv):
+    """At the served page size (16) B7 runs B5's split pass on the same
+    rows: its output equals B5's on the rows laid out contiguously (B5's
+    append rewrites each row's last position with the value it holds) bit
+    for bit, and a row alone gives the bits it gives co-batched. One launch
+    count per call."""
+    S, P, M, hd = 6, 16, 64, 64
+    q, K, V, table, lens = paged_inputs(cuda, S, Hq, Hkv, hd, P, M, dtype, seed=3)
+    lens[2] = M * P - 1
+    before = tds.paged_decode_attention.launches
+    out = tds.paged_decode_attention(q, K, V, table, lens)
+    torch.cuda.synchronize()
+    assert tds.paged_decode_attention.launches == before + 1
+    Kc = tds.paged_view(K, table, M * P).contiguous()
+    Vc = tds.paged_view(V, table, M * P).contiguous()
+    at = (torch.arange(S, device=cuda), slice(None), lens.long())
+    kn, vn = Kc[at][:, None].contiguous(), Vc[at][:, None].contiguous()
+    out_b5, _, _ = tds.fused_decode_step(q, kn, vn, Kc, Vc, lens)
+    assert torch.equal(out, out_b5)
+    alone = tds.paged_decode_attention(q[2:3].contiguous(), K, V,
+                                       table[2:3].contiguous(), lens[2:3].contiguous())
+    assert torch.equal(alone, out[2:3])
 
 
 def test_paged_kernel_rejects_what_it_cannot_take(cuda):
@@ -868,6 +894,7 @@ def within(out, ref, mag, tol) -> bool:
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,r,O", [(2048, 16, 512), (8192, 16, 2048),
+                                   (768, 16, 768), (768, 16, 3072), (3072, 16, 768),
                                    (768, 2, 3072), (96, 256, 200), (64, 7, 33)])
 def test_bgmv_kernel_matches_twin(cuda, dtype, D, r, O):
     """B6 against its twin and the exact result, with id -1 rows, repeated
@@ -887,6 +914,45 @@ def test_bgmv_kernel_matches_twin(cuda, dtype, D, r, O):
     assert within(out, exact, mag, t_exact)
     perm = ids[[1, 2, 3, 4, 5, 6, 7, 0]]
     assert not within(tds.lora_bgmv_plain(x, A, B, perm, sc), out, mag, t_twin)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["one adapter", "all base", "pool of one"])
+def test_bgmv_kernel_groups_at_the_edges(cuda, dtype, case):
+    """B6 with every row in one group (one leader computes them all), with
+    every row at -1 (exact zeros, no group) and over a pool of one row (ids
+    past it clamp to it), against the twin and the exact result."""
+    S, D, r, O = 8, 2048, 16, 512
+    N, ids = {"one adapter": (4, [2] * S), "all base": (4, [-1] * S),
+              "pool of one": (1, [0, -1, 3, 0, 1, -1, 0, 7])}[case]
+    x, A, B, ids, sc = bgmv_inputs(cuda, S, N, 2, D, r, O, dtype, ids, seed=2)
+    before = tds.lora_bgmv.launches
+    out = tds.lora_bgmv(x, A, B, ids, sc)
+    torch.cuda.synchronize()
+    assert tds.lora_bgmv.launches == before + 1
+    twin = tds.lora_bgmv_plain(x, A, B, ids, sc)
+    exact, mag = bgmv_exact(x, A, B, ids, sc)
+    t_twin, t_exact = BGMV_TOL[dtype]
+    assert within(out, twin, mag, t_twin) and within(out, exact, mag, t_exact)
+    assert torch.equal(out[ids < 0], torch.zeros_like(out[ids < 0]))
+    if case == "all base":
+        assert not out.any()
+
+
+@pytest.mark.parametrize("dtype,D,O", [(torch.bfloat16, 8192, 2048),
+                                       (torch.bfloat16, 2048, 8192),
+                                       (torch.float32, 3072, 768)])
+def test_bgmv_row_is_bit_equal_alone_and_cobatched(cuda, dtype, D, O):
+    """B6's plan takes no batch and each row's sums run in one order
+    whatever its group: a row's output alone has the bits it has among rows
+    that share its adapter, and the same call twice gives the same bits."""
+    ids = [0, 1, 2, -1, 0, 2, 1, -1]
+    x, A, B, ids, sc = bgmv_inputs(cuda, 8, 4, 2, D, 16, O, dtype, ids, seed=4)
+    out = tds.lora_bgmv(x, A, B, ids, sc)
+    assert torch.equal(out, tds.lora_bgmv(x, A, B, ids, sc))
+    for s in (0, 4, 5):
+        alone = tds.lora_bgmv(x[s:s + 1].contiguous(), A, B, ids[s:s + 1].contiguous(), sc)
+        assert torch.equal(alone[0], out[s])
 
 
 def test_bgmv_kernel_rejects_what_it_cannot_take(cuda):
