@@ -66,15 +66,6 @@ using sm90k::zero;
 
 constexpr int kSplitThreads = 96;   // warps 1-3 of the producer warpgroup
 
-__device__ __forceinline__ uint32_t tf32_hi(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-__device__ __forceinline__ uint32_t tf32_lo(float x, uint32_t hi) {
-  return tf32_hi(x - __uint_as_float(hi));
-}
-
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -185,49 +176,6 @@ __device__ __forceinline__ void split_done(uint64_t* ready) {
   fence_proxy_async();
   mbar_arrive(ready);
 }
-
-// D (+)= A . B^T on wgmma .tf32, both operands K-major in shared memory
-// (scale_d 0 overwrites D)
-template <int N> struct WgmmaTF32;
-
-// D(64x16) (+)= A(64x8, shared, K-major) . B(8x16, shared, K-major), TF32
-template <> struct WgmmaTF32<16> {
-  static __device__ __forceinline__ void run(float (&d)[8], uint64_t da, uint64_t db,
-                                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
-// D(64x32) (+)= A(64x8, shared, K-major) . B(8x32, shared, K-major), TF32
-template <> struct WgmmaTF32<32> {
-  static __device__ __forceinline__ void run(float (&d)[16], uint64_t da, uint64_t db,
-                                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
-// D(64x64) (+)= A(64x8, shared, K-major) . B(8x64, shared, K-major), TF32
-template <> struct WgmmaTF32<64> {
-  static __device__ __forceinline__ void run(float (&d)[32], uint64_t da, uint64_t db,
-                                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
 
 // D (+)= A . B on wgmma with A in registers (the tf32 A fragment of each
 // warp's 16 rows is mma.sync m16n8k8's) and B K-major in shared memory

@@ -1,6 +1,6 @@
 // The last pass of the vocab-streamed cross-entropy forward (B4), shared by
-// its fp32 kernel (xent_fwd.cu, which defines it) and its Hopper 16-bit
-// kernel (xent_fwd_sm90.cu): each vocab share j of a row left a partial max
+// its 16-bit kernel (xent_fwd_sm90.cu, which defines it) and its fp32
+// kernel (xent_fwd_f32_sm90.cu): each vocab share j of a row left a partial max
 // m_j and sum s_j of exp(logit - m_j) in (splits, N) arrays; per row,
 // lse = M + log(sum_j s_j exp(m_j - M)) with M the largest m_j, and
 // nll = lse - the target logit. The shares are summed in a fixed order.

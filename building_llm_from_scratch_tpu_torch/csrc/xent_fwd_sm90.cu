@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel of building_llm_from_scratch_tpu/ops/
 // xent_fwd_pallas.py (_kernel, called through xent_fwd) for bf16 and fp16;
-// fp32 stays on xent_fwd.cu. The function is that file's: for hidden states
+// fp32 goes to xent_fwd_f32_sm90.cu (3xTF32). The function: for hidden states
 // x (N, D), the head W (D, V) and targets (N,), the fp32 logits x.W tile by
 // tile, columns past V masked to -1e30, an online max and sum of exp in
 // fp32 per row, the target logit picked; only (nll, lse) per row reach
@@ -34,8 +34,8 @@
 //     into one FMA of each exponent (ex2.approx); the lane holding the
 //     target column writes its logit. Each thread keeps its own (max, sum);
 //     the 4 lanes of a row merge once, at the end, into the block's partial.
-//   * The partials (splits, N) go through xent_fwd.cu's combine
-//     (xent_combine.cuh).
+//   * The partials (splits, N) go through the combine below
+//     (xent_combine.cuh), which the fp32 kernel shares.
 //   Two blocks share an SM (288 threads, at most 112 registers a thread;
 //   ptxas reports 96 and no spills, so no register hand-over is needed),
 //   so one block's epilogue runs under the other's products.
@@ -222,6 +222,23 @@ xent_sm90_kernel(const __grid_constant__ CUtensorMap tmX, const __grid_constant_
   }
 }
 
+__global__ void xent_combine_kernel(const float* __restrict__ m_part,
+                                    const float* __restrict__ s_part,
+                                    const float* __restrict__ tl, float* __restrict__ nll,
+                                    float* __restrict__ lse, int N, int splits) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= N) return;
+  float M = kNegBig;
+  for (int j = 0; j < splits; ++j) M = fmaxf(M, m_part[static_cast<size_t>(j) * N + row]);
+  float S = 0.f;
+  for (int j = 0; j < splits; ++j)
+    S += s_part[static_cast<size_t>(j) * N + row] *
+         expf(m_part[static_cast<size_t>(j) * N + row] - M);
+  const float l = M + logf(S);
+  lse[row] = l;
+  nll[row] = l - tl[row];
+}
+
 template <typename T>
 int run(const void* x, const void* w, const long long* targets, float* m_part, float* s_part,
         float* tl, float* nll, float* lse, int N, int D, int V, int Vp, int splits,
@@ -247,6 +264,13 @@ int run(const void* x, const void* w, const long long* targets, float* m_part, f
 }
 
 }  // namespace
+
+int bllm::xent::combine(const float* m_part, const float* s_part, const float* tl, float* nll,
+                        float* lse, int N, int splits, cudaStream_t stream) {
+  xent_combine_kernel<<<(N + 255) / 256, 256, 0, stream>>>(m_part, s_part, tl, nll, lse, N,
+                                                           splits);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" {
 

@@ -108,8 +108,11 @@ def load_library() -> ctypes.CDLL:
             lib.bllm_attn_fwd.argtypes = head + [ptr] * 6
             lib.bllm_attn_bwd_dq.argtypes = head + [ptr] * 8
             lib.bllm_attn_bwd_dkv.argtypes = head + [ptr] * 10
-            lib.bllm_dropout.argtypes = [i32, ctypes.c_longlong, u32, f32, u32, u32] + [ptr] * 4
-            lib.bllm_xent_fwd.argtypes = [i32] * 5 + [ptr] * 9
+            # dtype, n, blocks, threshold, 1/(1-p), seed words
+            lib.bllm_dropout.argtypes = [i32, ctypes.c_longlong, i32, u32, f32, u32,
+                                         u32] + [ptr] * 4
+            # N, D, V, splits
+            lib.bllm_xent_fwd_f32_sm90.argtypes = [i32] * 4 + [ptr] * 11
             # dtype, N, D, V, padded V, splits
             lib.bllm_xent_fwd_sm90.argtypes = [i32] * 6 + [ptr] * 9
             # dtype, hd, S, Hq, Hkv, P, N, M, box rows, split length, splits
@@ -119,7 +122,7 @@ def load_library() -> ctypes.CDLL:
             lib.bllm_lora_bgmv.argtypes = ([i32] * 10 + [ctypes.c_longlong] * 2
                                            + [ptr] * 8)
             for name in ("bllm_fused_decode_step", "bllm_attn_fwd", "bllm_attn_bwd_dq",
-                         "bllm_attn_bwd_dkv", "bllm_dropout", "bllm_xent_fwd",
+                         "bllm_attn_bwd_dkv", "bllm_dropout", "bllm_xent_fwd_f32_sm90",
                          "bllm_xent_fwd_sm90",
                          "bllm_paged_decode", "bllm_lora_bgmv"):
                 getattr(lib, name).restype = i32

@@ -14,8 +14,9 @@ mask-shaped is stored. The arithmetic is the Pallas kernel's:
 ``supports_shape`` refuses, with the same mask).
 
 ``dropout_fwd`` and ``dropout_bwd`` launch the kernel for tensors on the
-card (counted on ``.launches``) and compute their twins (``*_plain``) for
-tensors on the CPU; a CUDA call the kernel cannot take raises.
+card (counted on ``.launches``) on the grid of ``dropout_plan`` and compute
+their twins (``*_plain``) for tensors on the CPU; a CUDA call the kernel
+cannot take raises.
 """
 
 from __future__ import annotations
@@ -36,6 +37,12 @@ _ROWS = 512
 # below this row-block size the JAX package's grid degenerates toward one
 # PRNG reseed per handful of rows, and it takes the XLA path instead
 _MIN_ROWS = 8
+# the kernel's block (kThreads), the 16-byte vectors a thread loads in a
+# pass before drawing their bits (kUnroll) and its resident blocks an SM
+# (kBlocksPerSM, its __launch_bounds__): csrc/fused_dropout.cu
+_THREADS = 256
+_UNROLL = 1
+_BLOCKS_PER_SM = 8
 
 
 def _best_rows(n: int) -> int:
@@ -59,6 +66,24 @@ def supports_shape(shape) -> bool:
 def inv_keep(rate: float, dtype: torch.dtype) -> float:
     """1/(1-rate) rounded to ``dtype`` (``jnp.asarray(inv, h.dtype)``)."""
     return float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float64).to(dtype))
+
+
+def dropout_plan(n: int, dtype: torch.dtype, sms: int) -> dict:
+    """The kernel's grid for n elements of ``dtype`` on a card of ``sms``
+    SMs (it reads no data): ``n_vec`` 16-byte vectors of ``vec`` elements
+    and the ``tail`` elements past them (0, or 4 in the 16-bit types, one
+    Philox group); ``blocks`` of ``threads``, at most one wave of resident
+    blocks, the fewest whose threads make the same number of full
+    ``passes`` of ``unroll`` vectors each. Pass p of thread j takes vectors
+    p * unroll * S + j + u * S (u < unroll, S = blocks * threads) below
+    n_vec; thread 0 also takes the tail."""
+    vec = 16 // (torch.finfo(dtype).bits // 8)
+    n_vec = n // vec
+    per_pass = _THREADS * _UNROLL
+    passes = max(1, -(-n_vec // (sms * _BLOCKS_PER_SM * per_pass)))
+    blocks = max(1, -(-n_vec // (passes * per_pass)))
+    return dict(vec=vec, n_vec=n_vec, tail=n - n_vec * vec, threads=_THREADS,
+                unroll=_UNROLL, blocks=blocks, passes=passes)
 
 
 # ---------------------------------------------------------------------------
@@ -106,7 +131,10 @@ def _launch(name: str, x: Optional[torch.Tensor], h: torch.Tensor, seed: int,
     out = torch.empty_like(h)
     lo, hi = split_seed(seed)
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    err = lib.bllm_dropout(_DTYPE_CODES[h.dtype], h.numel(), keep_threshold(rate),
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    plan = dropout_plan(h.numel(), h.dtype, sms)
+    err = lib.bllm_dropout(_DTYPE_CODES[h.dtype], h.numel(), plan["blocks"],
+                           keep_threshold(rate),
                            inv_keep(rate, h.dtype), lo, hi,
                            None if x is None else ctypes.c_void_p(x.data_ptr()),
                            ctypes.c_void_p(h.data_ptr()),

@@ -7,17 +7,18 @@ logits in device memory.
 ``xent_fwd`` launches a CUDA kernel for tensors on the card (counted on
 ``xent_fwd.launches``), chosen by dtype before any launch: bf16 and fp16 go
 to the Hopper kernel ``csrc/xent_fwd_sm90.cu`` (TMA and wgmma, W's columns
-padded to a multiple of 8 first), fp32 to ``csrc/xent_fwd.cu``. Tensors on
-the CPU compute the twin ``xent_fwd_plain`` (the same chunked online
-logsumexp in plain torch); a CUDA call the kernel cannot take raises. The
-training loss reaches it through ``ops/softmax_xent.py`` when
-``BLLM_XENT_PALLAS=1``.
+padded to a multiple of 8 first), fp32 to ``csrc/xent_fwd_f32_sm90.cu``
+(TMA and wgmma .tf32, every product 3xTF32, after a split pass that writes
+W's transpose and x as TF32 hi / lo pairs). Tensors on the CPU compute the
+twin ``xent_fwd_plain`` (the same chunked online logsumexp in plain torch);
+a CUDA call the kernel cannot take raises. The training loss reaches it
+through ``ops/softmax_xent.py`` when ``BLLM_XENT_PALLAS=1``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -29,6 +30,10 @@ _LANES = 128
 _TILE = 128
 #: rows of one kernel block (kBM of both CUDA kernels)
 _ROWS = 128
+#: the fp32 kernel's resident blocks an SM (its ring takes 192 KB)
+_F32_BLOCKS_PER_SM = 1
+#: the 16-bit kernel's resident blocks an SM
+_SM90_BLOCKS_PER_SM = 2
 
 
 def supports_shape(N: int, D: int, V: int, bv: int = 512) -> bool:
@@ -54,8 +59,8 @@ def matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def xent_fwd_plain(x2: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
-                   chunk: int = 512, n_valid: Optional[int] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   chunk: int = 512, n_valid: Optional[int] = None,
+                   matmul: Callable = matmul_fp32) -> Tuple[torch.Tensor, torch.Tensor]:
     """B4's twin, and the forward of the chunked cross entropy
     (``ops/softmax_xent.py``, the JAX ``_xent_fwd_impl``'s scan):
     ``chunk``-wide vocab slices, fp32 logits, an online max and sum in fp32,
@@ -64,7 +69,9 @@ def xent_fwd_plain(x2: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
     exact zeros of the sums and never the max; the last slice here is
     simply narrower, the same values without the padded copy of W.
     ``n_valid`` masks columns from it on to -1e30 the same way (the Hopper
-    kernel's model: W padded, the mask at the true V)."""
+    kernel's model: W padded, the mask at the true V). ``matmul`` takes
+    each chunk's logits (tests pass a model of the fp32 kernel's 3xTF32
+    products)."""
     N, V = x2.shape[0], w.shape[1]
     dev = x2.device
     m = torch.full((N,), _NEG_BIG, device=dev)
@@ -72,7 +79,7 @@ def xent_fwd_plain(x2: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
     tl = torch.full((N,), _NEG_BIG, device=dev)
     tgt = targets.long()
     for c0 in range(0, V, chunk):
-        logits = matmul_fp32(x2, w[:, c0:c0 + chunk])
+        logits = matmul(x2, w[:, c0:c0 + chunk])
         width = logits.shape[1]
         if n_valid is not None and c0 + width > n_valid:
             cols = torch.arange(c0, c0 + width, device=dev)
@@ -88,16 +95,6 @@ def xent_fwd_plain(x2: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
     return lse - tl, lse
 
 
-def _splits(N: int, V: int, device: torch.device) -> int:
-    """Vocab shares per row block of the fp32 kernel: enough blocks for two
-    per SM, each share owning at least one 128-column tile."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-V // _TILE)
-    want = max(1, min(tiles, -(-2 * sms // -(-N // _ROWS))))
-    per = -(-tiles // want)
-    return -(-tiles // per)
-
-
 def padded_width(V: int) -> int:
     """W's column count for the Hopper kernel: V rounded up to a multiple of
     8, so that a row of 16-bit W is a whole number of 16-byte units, as TMA
@@ -105,23 +102,37 @@ def padded_width(V: int) -> int:
     return -(-V // 8) * 8
 
 
-def sm90_plan(N: int, V: int, sms: int) -> dict:
-    """The Hopper kernel's grid for N rows and V vocab columns on a card of
-    ``sms`` SMs: ``Vp`` (padded width), ``tiles`` of 128 columns over Vp,
-    ``splits`` vocab shares of ``per`` consecutive tiles each (every share
-    owns at least one). The grid (ceil(N / 128), splits) stays within two
-    blocks an SM where it can, so no block waits for a second wave: 64 row
-    blocks x 4 shares at GPT-2's N 8192 on 132 SMs."""
-    Vp = padded_width(V)
-    tiles = -(-Vp // _TILE)
-    want = max(1, min(tiles, 2 * sms // -(-N // _ROWS)))
+def _shares(N: int, tiles: int, resident: int) -> dict:
+    """``splits`` vocab shares of ``per`` consecutive tiles each (every
+    share owns at least one), as many as keep the grid (ceil(N / 128),
+    splits) within ``resident`` blocks, so no block waits for a second
+    wave."""
+    want = max(1, min(tiles, resident // -(-N // _ROWS)))
     per = -(-tiles // want)
-    return dict(Vp=Vp, tiles=tiles, per=per, splits=-(-tiles // per))
+    return dict(tiles=tiles, per=per, splits=-(-tiles // per))
+
+
+def sm90_plan(N: int, V: int, sms: int) -> dict:
+    """The 16-bit Hopper kernel's grid for N rows and V vocab columns on a
+    card of ``sms`` SMs: ``Vp`` (padded width), ``tiles`` of 128 columns
+    over Vp, ``splits`` shares of ``per`` tiles within two blocks an SM: 64
+    row blocks x 4 shares at GPT-2's N 8192 on 132 SMs."""
+    Vp = padded_width(V)
+    return dict(Vp=Vp, **_shares(N, -(-Vp // _TILE), _SM90_BLOCKS_PER_SM * sms))
+
+
+def f32_plan(N: int, V: int, sms: int) -> dict:
+    """The fp32 Hopper kernel's grid: ``tiles`` of 128 columns over V itself
+    (it reads W's split transpose, whose rows are D * 4 bytes apart, so W
+    is not padded; rows past V are TMA's zero fill), ``splits`` shares of
+    ``per`` tiles within one block an SM: 64 row blocks x 2 shares at
+    GPT-2's N 8192 on 132 SMs."""
+    return _shares(N, -(-V // _TILE), _F32_BLOCKS_PER_SM * sms)
 
 
 def kernel_source(dtype: torch.dtype) -> str:
     """The CUDA source ``xent_fwd`` launches for ``dtype`` (the route)."""
-    return "xent_fwd.cu" if dtype == torch.float32 else "xent_fwd_sm90.cu"
+    return "xent_fwd_f32_sm90.cu" if dtype == torch.float32 else "xent_fwd_sm90.cu"
 
 
 def xent_fwd(x2: torch.Tensor, w: torch.Tensor, targets: torch.Tensor
@@ -154,27 +165,30 @@ def xent_fwd(x2: torch.Tensor, w: torch.Tensor, targets: torch.Tensor
 
     lib = load_library()
     tgt = targets.to(torch.int64).contiguous()
+    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
     if sm90:
-        sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
         plan = sm90_plan(N, V, sms)
-        splits = plan["splits"]
         if plan["Vp"] != V or w.data_ptr() % 16:     # TMA: 16-byte pitch and base
             w = torch.nn.functional.pad(w, (0, plan["Vp"] - V))
     else:
-        splits = _splits(N, V, x2.device)
+        plan = f32_plan(N, V, sms)
+    splits = plan["splits"]
     part = torch.empty(2, splits, N, dtype=torch.float32, device=x2.device)
     tl = torch.full((N,), _NEG_BIG, dtype=torch.float32, device=x2.device)
     nll = torch.empty(N, dtype=torch.float32, device=x2.device)
     lse = torch.empty_like(nll)
     stream = ctypes.c_void_p(torch.cuda.current_stream(x2.device).cuda_stream)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    tail = (ptr(x2), ptr(w), ptr(tgt), ptr(part[0]), ptr(part[1]), ptr(tl), ptr(nll),
-            ptr(lse), stream)
+    tail = (ptr(tgt), ptr(part[0]), ptr(part[1]), ptr(tl), ptr(nll), ptr(lse), stream)
     if sm90:
         err = lib.bllm_xent_fwd_sm90(_DTYPE_CODES[x2.dtype], N, D, V, plan["Vp"],
-                                     splits, *tail)
+                                     splits, ptr(x2), ptr(w), *tail)
     else:
-        err = lib.bllm_xent_fwd(_DTYPE_CODES[x2.dtype], N, D, V, splits, *tail)
+        # the split pass's output: x and W's transpose as TF32 (hi, lo)
+        xs = torch.empty(2, N, D, dtype=torch.float32, device=x2.device)
+        wt = torch.empty(2, V, D, dtype=torch.float32, device=x2.device)
+        err = lib.bllm_xent_fwd_f32_sm90(N, D, V, splits, ptr(x2), ptr(w), ptr(xs),
+                                         ptr(wt), *tail)
     if err != 0:
         raise RuntimeError(f"xent_fwd kernel launch failed: "
                            f"{lib.bllm_error_string(err).decode()}")

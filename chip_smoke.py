@@ -95,10 +95,11 @@ exits non-zero):
      identity, the keep fraction, the backward of ones equal to the
      forward's mask times 1/(1-p); F.dropout (+ add) as the yardstick.
      5d. the vocab-streamed cross-entropy forward B4 at N 8192, D 768,
-     V 50257, bf16 (the Hopper kernel, W padded to 50,264 columns): lse and
-     nll against the twin at the JAX test's bounds; the twin without the
-     padded-column mask must fail them. The row names the route (source),
-     the padded width and the vocab shares.
+     V 50257 in bf16 and in fp32 (GPT-2-124M's training shape in both of
+     its training dtypes): lse and nll against the twin at the JAX test's
+     bounds; the twin without the padded-column mask must fail them. Each
+     row names the route (source) and its plan; the fp32 bound is a third
+     of the TF32 rate (3xTF32), its library call torch.mm in full fp32.
   6. training: ``main.run`` (--mode train) at full width on a seeded text
      file, 20 steps, one evaluation, the warm-up and one greedy sample, the
      final export: LLaMA-3.2-1B (bf16, 16 layers, batch 4, context 1024),
@@ -115,9 +116,9 @@ exits non-zero):
      memory and a profiled window over re-runs of one batch (with the
      flash family's ms per step; the GQA group_sum must not run); MFU
      against the run dtype's dense peak (bf16 tensor cores, fp32 CUDA
-     cores). For GPT-2 bf16 the same 20 steps again with
-     BLLM_XENT_PALLAS=1: B4 = steps + eval batches, and the step-1 loss
-     equal to the first run's to 1e-5.
+     cores). For GPT-2, in bf16 and at the default dtype, the same 20
+     steps again with BLLM_XENT_PALLAS=1: B4 = steps + eval batches, and
+     the step-1 loss equal to the first run's to 1e-5.
   7. training reference: one step at full width cut to 2 layers, B 1,
      T 256, in fp32 and in bf16, on the card and on the CPU (the twins)
      with the same weights, batch and dropout seed: loss and every leaf's
@@ -1016,8 +1017,9 @@ def phase_attention_dropout(torch, card: dict) -> list:
 # phase 5c: the fused dropout kernel (B3)
 # ---------------------------------------------------------------------------
 
+# name (the training run whose launches the row reads), rows, width, dtype
 DROPOUT_SHAPES = [("gpt2-124M-train", 8 * 1024, 768, "bf16"),
-                  ("gpt2-124M-ref", 8 * 1024, 768, "fp32")]
+                  ("gpt2-124M-train-fp32", 8 * 1024, 768, "fp32")]
 
 
 def phase_dropout(torch, card: dict) -> list:
@@ -1093,20 +1095,32 @@ def phase_dropout(torch, card: dict) -> list:
 # phase 5d: the vocab-streamed cross-entropy forward (B4)
 # ---------------------------------------------------------------------------
 
-XENT_SHAPE = ("gpt2-124M-train", 8 * 1024, 768, 50257, "bf16")
+# name (the training run whose launches the row reads: phase 6's B4 run of
+# GPT-2-124M in bf16, and at the default dtype, fp32), N, D, V, dtype
+XENT_SHAPES = [("gpt2-124M-train", 8 * 1024, 768, 50257, "bf16"),
+               ("gpt2-124M-train-fp32", 8 * 1024, 768, 50257, "fp32")]
 
 
-def phase_xent(torch, card: dict) -> dict:
-    """B4 at GPT-2-124M's training shape: lse and nll against the twin at
-    the JAX kernel test's bounds (lse 1e-5; nll 1e-4 relative, 2e-4
-    absolute); the twin over W padded with unmasked zero columns must fail
-    them. Times beside torch.mm(out_dtype=float32) + logsumexp + gather."""
+def phase_xent(torch, card: dict) -> list:
+    """B4 at GPT-2-124M's training shape in each of XENT_SHAPES' dtypes."""
+    rows = [xent_row(torch, card, *spec) for spec in XENT_SHAPES]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def xent_row(torch, card: dict, shape: str, N: int, D: int, V: int, dt: str) -> dict:
+    """B4 at one shape and dtype: lse and nll against the twin at the JAX
+    kernel test's bounds (lse 1e-5; nll 1e-4 relative, 2e-4 absolute); the
+    twin over W padded with unmasked zero columns must fail them. Times
+    beside the library call: torch.mm (with an fp32 output for 16-bit
+    inputs, in full fp32 for fp32 ones) + logsumexp + gather. The bound
+    takes the 16-bit tensor-core rate, or for fp32 a third of the TF32
+    rate (3xTF32, as the fp32 flash kernels)."""
     import torch.nn.functional as F
 
     from building_llm_from_scratch_tpu_torch.configs import DTYPE_MAP
     from building_llm_from_scratch_tpu_torch.ops import xent_fwd as txf
 
-    shape, N, D, V, dt = XENT_SHAPE
     dtype = DTYPE_MAP[dt]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -1134,20 +1148,21 @@ def phase_xent(torch, card: dict) -> dict:
                              f"{control_fails}: {errs}")
 
     def library():
-        logits = torch.mm(x, w, out_dtype=torch.float32)
+        logits = (torch.mm(x, w) if dtype == torch.float32
+                  else torch.mm(x, w, out_dtype=torch.float32))
         lse_l = torch.logsumexp(logits, dim=-1)
         return lse_l - logits.gather(1, t[:, None])[:, 0], lse_l
 
     lib_nll, _ = library()
     errs["library_nll_max_abs"] = (lib_nll - nll_t).abs().max().item()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = txf.sm90_plan(N, V, sms) if dtype != torch.float32 else {}
+    plan = txf.f32_plan(N, V, sms) if dtype == torch.float32 else txf.sm90_plan(N, V, sms)
     elt = x.element_size()
     ops = 2 * N * D * V
     nbytes = (N * D + D * V) * elt + N * 8 + 2 * N * 4
-    t_bytes, t_ops = nbytes / fig["bw"], ops / fig["peak16"]
+    t_bytes, t_ops = nbytes / fig["bw"], ops / flash_peak(fig, dt)
     row = dict(shape=shape, N=N, D=D, V=V, dtype=dt, route=txf.kernel_source(dtype),
-               padded_V=plan.get("Vp"), splits=plan.get("splits"),
+               padded_V=plan.get("Vp"), splits=plan["splits"],
                ms=device_time_ms(torch, lambda: txf.xent_fwd(x, w, t), flush, runs=10),
                plain_ms=device_time_ms(torch, lambda: txf.xent_fwd_plain(x, w, t), flush, runs=5, warmup=2),
                library_ms=device_time_ms(torch, library, flush, runs=10),
@@ -1156,7 +1171,6 @@ def phase_xent(torch, card: dict) -> dict:
                max_abs_err=max(errs["lse_max_abs"], errs["nll_max_abs"]), **errs)
     emit("xent_kernel", **row)
     del x, w, nll_t, lse_t, lse_c
-    torch.cuda.empty_cache()
     return row
 
 
@@ -1167,14 +1181,14 @@ def phase_xent(torch, card: dict) -> dict:
 TRAIN = dict(model="llama3_2", size="1B", dtype="bf16", batch=4, context=1024,
              steps=20)
 # GPT-2-124M as configured (drop_rate 0.1), the chunked cross entropy its
-# width takes; then the same run with the opt-in B4 forward
+# width takes; then the same run with the opt-in B4 forward (in both dtypes)
 TRAIN_GPT2 = dict(model="GPT2", size="124M", dtype="bf16", batch=8, context=1024,
                   steps=20, xent_run=True)
 # fp32, the trainer's default dtype: GPT-2-124M through the CLI without
 # --data_type (dtype None), and LLaMA-3.2-1B in fp32 (its flash rows'
 # launches)
 TRAIN_GPT2_FP32 = dict(model="GPT2", size="124M", dtype=None, batch=8, context=1024,
-                       steps=20)
+                       steps=20, xent_run=True)
 TRAIN_FP32 = dict(model="llama3_2", size="1B", dtype="fp32", batch=4, context=1024,
                   steps=20)
 
@@ -2736,7 +2750,7 @@ def main() -> int:
     attn_rows = phase_attention(torch, card)
     drop_attn_rows = phase_attention_dropout(torch, card)
     dropout_rows = phase_dropout(torch, card)
-    xent_row = phase_xent(torch, card)
+    xent_rows = phase_xent(torch, card)
     with tempfile.TemporaryDirectory(dir=here) as workdir:
         trained, trained_gpt2, trained_gpt2_fp32, trained_fp32 = (
             phase_train(torch, card, os.path.join(workdir, name), t)
@@ -2821,20 +2835,22 @@ def main() -> int:
     for r in dropout_rows:
         kname, counter, where = dropout_where[r["kernel"]]
         tag = "-add" if r["kernel"] == "fwd_add" else ""
+        dt = "" if r["shape"].endswith(r["dtype"]) else f"-{r['dtype']}"
         kernels.append(dict(
-            name=f"{kname}[{r['shape']}-{r['dtype']}{tag}]", route="cuda",
+            name=f"{kname}[{r['shape']}{dt}{tag}]", route="cuda",
             source=source + "fused_dropout.cu", replaces=where,
             launches=attn_runs[r["shape"]][counter], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
-    kernels.append(dict(
-        name=f"xent_fwd[{xent_row['shape']}]", route="cuda",
-        source=source + xent_row["route"],
-        replaces="building_llm_from_scratch_tpu/ops/xent_fwd_pallas.py:32",
-        launches=trained_gpt2["xent_kernel"]["xent_fwd"],
-        max_abs_err=xent_row["max_abs_err"], ms=xent_row["ms"],
-        plain_ms=xent_row["plain_ms"], bound_ms=xent_row["bound_ms"],
-        bound_by=xent_row["bound_by"], library_ms=xent_row["library_ms"]))
+    xent_runs = {"gpt2-124M-train": trained_gpt2["xent_kernel"],
+                 "gpt2-124M-train-fp32": trained_gpt2_fp32["xent_kernel"]}
+    for r in xent_rows:
+        kernels.append(dict(
+            name=f"xent_fwd[{r['shape']}]", route="cuda", source=source + r["route"],
+            replaces="building_llm_from_scratch_tpu/ops/xent_fwd_pallas.py:32",
+            launches=xent_runs[r["shape"]]["xent_fwd"], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its main path")

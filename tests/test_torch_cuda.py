@@ -681,7 +681,7 @@ def test_fp32_flash_kernels_are_bit_equal_over_two_calls(cuda, rate, hd, G):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_dropout_kernels_are_bit_equal_to_twin(cuda, dtype):
     """B3 forward, forward with add, and backward equal their twins bit for
     bit; p = 0 is the identity; the keep fraction is within 1e-3 of 0.9."""
@@ -699,6 +699,23 @@ def test_dropout_kernels_are_bit_equal_to_twin(cuda, dtype):
     assert torch.equal(tfd.dropout_fwd(None, h, seed, 0.0), h)
     kept = (tfd.dropout_bwd(torch.ones_like(h), seed, 0.1) != 0).float().mean().item()
     assert abs(kept - 0.9) < 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4,), (12,), (8 * 1001 + 4,), (4096, 768), (8192, 768)])
+def test_dropout_kernel_is_bit_equal_at_every_size(cuda, dtype, shape):
+    """B3's three functions equal their twins bit for bit at sizes that end
+    in a partial vector (4, 12, 8k + 4 elements: the tail group), a single
+    pass, and the training shapes (several passes of the one-wave grid)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(*shape, generator=gen, device=cuda).to(dtype)
+    h = torch.randn(*shape, generator=gen, device=cuda).to(dtype)
+    seed = 0xD20F0000 + h.numel()
+    for a, b in ((tfd.dropout_fwd(None, h, seed, 0.1), tfd.dropout_fwd_plain(None, h, seed, 0.1)),
+                 (tfd.dropout_fwd(x, h, seed, 0.1), tfd.dropout_fwd_plain(x, h, seed, 0.1)),
+                 (tfd.dropout_bwd(h, seed, 0.1), tfd.dropout_bwd_plain(h, seed, 0.1))):
+        torch.cuda.synchronize()
+        assert a.dtype == dtype and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
 def test_dropout_kernel_refuses_what_it_cannot_take(cuda):
@@ -737,6 +754,37 @@ def test_xent_kernel_matches_twin(cuda, dtype, N, D, V):
         assert not torch.allclose(lse, lse_c, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("N,V", [(8192, 50257), (1024, 50257), (200, 1001)])
+def test_fp32_xent_kernel_holds_the_3xtf32_bounds(cuda, N, V):
+    """fp32 B4 against its twin (full fp32 products) with W at 0.1 x N(0, 1),
+    logits spread as a trained head's: inputs at which one TF32 product
+    would fail the bounds (tests/test_torch_b3_b4_sm90.py); 3xTF32 holds
+    them."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(N, 768, generator=gen, device=cuda)
+    w = 0.1 * torch.randn(768, V, generator=gen, device=cuda)
+    t = torch.randint(0, V, (N,), generator=gen, device=cuda)
+    nll, lse = txf.xent_fwd(x, w, t)
+    torch.cuda.synchronize()
+    nll_t, lse_t = txf.xent_fwd_plain(x, w, t)
+    torch.testing.assert_close(lse, lse_t, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(nll, nll_t, rtol=1e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("N,V", [(8192, 50257), (256, 999)])
+def test_fp32_xent_kernel_is_bit_equal_over_two_calls(cuda, N, V):
+    """fp32 B4 gives the same bits on two calls (fixed tiles, shares and
+    combine order; no atomics)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(N, 768, generator=gen, device=cuda)
+    w = 0.02 * torch.randn(768, V, generator=gen, device=cuda)
+    t = torch.randint(0, V, (N,), generator=gen, device=cuda)
+    first, second = txf.xent_fwd(x, w, t), txf.xent_fwd(x, w, t)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def test_xent_kernel_refuses_what_it_cannot_take(cuda):
     before = txf.xent_fwd.launches
     x = torch.zeros(256, 100, device=cuda)                # D % 32
@@ -758,8 +806,9 @@ def test_xent_kernel_refuses_what_it_cannot_take(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
 def test_xent_routes_by_dtype(cuda, dtype, monkeypatch):
     """bf16 and fp16 launch the Hopper kernel (xent_fwd_sm90.cu) and fp32
-    the fp32 kernel (xent_fwd.cu), chosen before the launch; W's columns
-    reach the Hopper kernel padded to a multiple of 8."""
+    the fp32 Hopper kernel (xent_fwd_f32_sm90.cu), chosen before the launch;
+    W's columns reach the 16-bit kernel padded to a multiple of 8, and the
+    fp32 one unpadded (it reads W's split transpose)."""
     from building_llm_from_scratch_tpu_torch.ops._kernels import load_library
 
     lib = load_library()
@@ -773,18 +822,21 @@ def test_xent_routes_by_dtype(cuda, dtype, monkeypatch):
             return fn(*args)
         return wrapped
 
-    for name in ("bllm_xent_fwd", "bllm_xent_fwd_sm90"):
+    for name in ("bllm_xent_fwd_f32_sm90", "bllm_xent_fwd_sm90"):
         monkeypatch.setattr(lib, name, spy(name))
     x = torch.randn(256, 128, device=cuda).to(dtype)
     w = (0.02 * torch.randn(128, 999, device=cuda)).to(dtype)
     txf.xent_fwd(x, w, torch.zeros(256, dtype=torch.long, device=cuda))
     torch.cuda.synchronize()
-    want = "bllm_xent_fwd" if dtype == torch.float32 else "bllm_xent_fwd_sm90"
+    want = "bllm_xent_fwd_f32_sm90" if dtype == torch.float32 else "bllm_xent_fwd_sm90"
     assert [c[0] for c in calls] == [want]
-    assert txf.kernel_source(dtype) == ("xent_fwd.cu" if want == "bllm_xent_fwd"
+    assert txf.kernel_source(dtype) == ("xent_fwd_f32_sm90.cu"
+                                        if want == "bllm_xent_fwd_f32_sm90"
                                         else "xent_fwd_sm90.cu")
     if want == "bllm_xent_fwd_sm90":
         assert calls[0][1][3:5] == (999, 1000)          # V, padded V
+    else:
+        assert calls[0][1][:3] == (256, 128, 999)       # N, D, V: W not padded
 
 
 def test_train_step_launch_counts_on_the_card(cuda):
