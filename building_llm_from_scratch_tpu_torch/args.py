@@ -1,6 +1,7 @@
 """Command-line flags of the port: the ``--mode serve`` and ``--mode train``
-(pretraining) subsets of the JAX package's CLI, with the same names and
-defaults, plus ``--device``.
+(pretraining, and instruction finetuning with ``--finetune --dataset
+alpaca``, on the whole model or a LoRA adapter) subsets of the JAX
+package's CLI, with the same names, defaults and checks, plus ``--device``.
 
 Flags of the JAX CLI that the port does not carry yet are rejected by name
 (not ignored), so a command line written for the JAX package fails loudly
@@ -30,8 +31,7 @@ UNPORTED_FLAGS = (
     "--metrics_jsonl", "--log_every", "--compile_cache_dir",
     "--stall_timeout", "--load_weights", "--weights_dir", "--run_type",
     "--shard_mode", "--pp", "--pp_micro", "--tp", "--sp", "--use_actv_ckpt",
-    "--mixed_precision", "--attn_impl", "--finetune", "--dataset",
-    "--use_lora", "--lora_rank", "--lora_alpha", "--save_adapter",
+    "--mixed_precision", "--attn_impl",
     "--tokenizer_path", "--resume_from", "--resume",
     "--keep_ckpts", "--watchdog", "--loss_spike_factor", "--watchdog_window",
     "--profile", "--profile_steps", "--warnings",
@@ -45,11 +45,6 @@ QUEUE_ITEMS = {
     "--grad_accum": "queue 1, gradient accumulation",
     "--resume": "queue 1, train-state checkpoints",
     "--resume_from": "queue 1, train-state checkpoints",
-    "--finetune": "queue 1 item 2, LLaMA LoRA SFT",
-    "--use_lora": "queue 1 item 2, LLaMA LoRA SFT",
-    "--lora_rank": "queue 1 item 2, LLaMA LoRA SFT",
-    "--lora_alpha": "queue 1 item 2, LLaMA LoRA SFT",
-    "--save_adapter": "queue 1 item 2, LLaMA LoRA SFT",
     "--tokenizer_path": "queue 1, tokenizers",
     "--load_weights": "queue 1, HF weight loading",
     "--serve_kv_quant": "queue 1 item 5, int8 KV",
@@ -61,11 +56,13 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m building_llm_from_scratch_tpu_torch",
         description="PyTorch/CUDA port: GPT-2 and LLaMA-family pretraining "
-                    "and continuous-batching serving of token-id prompts.")
+                    "and instruction finetuning (LoRA or full), and "
+                    "continuous-batching serving of token-id prompts.")
     p.add_argument("--mode", type=str, default="train",
                    choices=["train", "serve", "finetune_fleet"],
-                   help="'train' (pretraining, --byte_tokenizer) and "
-                        "'serve' are ported; 'finetune_fleet' is not.")
+                   help="'train' (pretraining or --finetune, "
+                        "--byte_tokenizer) and 'serve' are ported; "
+                        "'finetune_fleet' is not.")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"],
                    help="Where the model runs; cuda unless cpu is asked for.")
@@ -86,7 +83,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Load params from a JAX export_params .npz.")
     # training (--mode train)
     p.add_argument("--data_dir", type=str, default="data",
-                   help="Path to the dataset directory (.txt files).")
+                   help="Path to the dataset directory (.txt files; .json "
+                        "Alpaca records with --finetune).")
     p.add_argument("--output_dir", type=str, default="model_checkpoints",
                    help="Directory of the final export.")
     p.add_argument("--n_epochs", type=int, default=2,
@@ -108,6 +106,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--byte_tokenizer", action="store_true",
                    help="Use the offline ByteTokenizer (the only tokenizer "
                         "ported; required by --mode train).")
+    # instruction finetuning and LoRA (--mode train)
+    p.add_argument("--finetune", action="store_true",
+                   help="Enable instruction-finetuning mode.")
+    p.add_argument("--dataset", type=str, default="gutenberg",
+                   choices=["gutenberg", "alpaca"],
+                   help="Dataset name (alpaca: the .json files under "
+                        "--data_dir).")
+    p.add_argument("--use_lora", action="store_true",
+                   help="Enable LoRA fine-tuning.")
+    p.add_argument("--lora_rank", type=int, default=64, help="LoRA rank.")
+    p.add_argument("--lora_alpha", type=float, default=32, help="LoRA alpha.")
+    p.add_argument("--save_adapter", type=str, default=None,
+                   help="After a --use_lora run, export the trained adapter "
+                        "as a standalone npz artifact (A/B tree + rank/alpha "
+                        "+ base-config fingerprint) loadable by "
+                        "--serve_adapters.")
     # serving (--mode serve)
     p.add_argument("--serve_slots", type=int, default=8)
     p.add_argument("--serve_max_len", type=int, default=0,
@@ -170,6 +184,12 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                      + (f" ({'; '.join(where)})" if where else ""))
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    if args.mode == "serve":
+        train_only = [f"--{name}" for name, default in _FINETUNE_DEFAULTS
+                      if getattr(args, name) != default]
+        if train_only:
+            parser.error(f"{', '.join(train_only)}: training flag(s); --mode "
+                         "serve takes adapters as --serve_adapters artifacts")
     perform_checks(args)
     return args
 
@@ -197,6 +217,12 @@ def perform_checks(args) -> None:
         raise ValueError(f"{', '.join(stray)} require --mode serve.")
     _check_train(args)
 
+
+#: the finetuning and LoRA flags and their defaults (refused in serve mode)
+_FINETUNE_DEFAULTS = (
+    ("finetune", False), ("dataset", "gutenberg"), ("use_lora", False),
+    ("lora_rank", 64), ("lora_alpha", 32), ("save_adapter", None),
+)
 
 #: the serve flags and their defaults (the stray-flag rule)
 _SERVE_DEFAULTS = (
@@ -271,3 +297,13 @@ def _check_train(args) -> None:
     for flag in ("n_epochs", "batch_size", "eval_freq", "print_sample_iter"):
         if getattr(args, flag) < 1:
             raise ValueError(f"--{flag} must be >= 1.")
+    if args.finetune and args.dataset == "gutenberg":
+        raise ValueError(
+            "--finetune requires an instruction dataset (--dataset alpaca).")
+    if not args.finetune and args.dataset == "alpaca":
+        raise ValueError("--dataset alpaca requires --finetune.")
+    if args.use_lora and args.lora_rank < 1:
+        raise ValueError("--lora_rank must be >= 1.")
+    if args.save_adapter and not args.use_lora:
+        raise ValueError("--save_adapter requires --use_lora (there is "
+                         "no adapter to export otherwise).")

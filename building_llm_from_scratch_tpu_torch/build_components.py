@@ -1,22 +1,28 @@
 """The component factory (port of the single-device half of the JAX
 package's ``build_components.py``): flags -> config, model (seeded init or
-an ``.npz`` export) and tokenizer.
+an ``.npz`` export), tokenizer and, with ``--use_lora``, the adapter.
 
-The seeded init draws from a ``torch.Generator`` seeded with ``--seed``,
-not from JAX's stream, so the same seed gives other weights than the JAX
-package; ``--init_params_from`` loads the same weights into both.
+The seeded init draws from a ``torch.Generator`` seeded with ``--seed``
+(the adapter's A from one seeded with ``--seed + 1``, as the JAX package
+keys it with ``PRNGKey(seed + 1)``), not from JAX's stream, so the same
+seed gives other weights than the JAX package; ``--init_params_from``
+loads the same weights into both.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from building_llm_from_scratch_tpu_torch.configs import ModelConfig, get_config
 from building_llm_from_scratch_tpu_torch.data.tokenizers import build_tokenizer
+from building_llm_from_scratch_tpu_torch.models.lora import (
+    count_lora_params,
+    init_lora_params,
+)
 from building_llm_from_scratch_tpu_torch.models.transformer import (
     Transformer,
     build_model,
@@ -30,6 +36,8 @@ class Components:
     cfg: ModelConfig
     model: Transformer
     tokenizer: Any
+    #: the adapter tree of a --use_lora run
+    lora_params: Optional[dict] = None
 
 
 def build_config(args) -> ModelConfig:
@@ -54,9 +62,18 @@ def build_params(args, cfg: ModelConfig, device: torch.device) -> Transformer:
 
 
 def build_components(args, device: torch.device) -> Components:
-    """Config, model and tokenizer of a training run."""
+    """Config, model, tokenizer and (``--use_lora``) adapter of a training
+    run."""
     cfg = build_config(args)
     model = build_params(args, cfg, device)
     logger.info("Total parameters: %s", f"{cfg.num_params():,}")
+    lora_params = None
+    if args.use_lora:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(args.seed + 1)
+        lora_params = init_lora_params(cfg, gen, args.lora_rank, device)
+        logger.info("Total trainable LoRA parameters: %s",
+                    f"{count_lora_params(lora_params):,}")
     return Components(cfg=cfg, model=model,
-                      tokenizer=build_tokenizer(args.model, args.byte_tokenizer))
+                      tokenizer=build_tokenizer(args.model, args.byte_tokenizer),
+                      lora_params=lora_params)

@@ -96,7 +96,9 @@ def generate(model, token_ids, max_new_tokens: int,
              context_size: Optional[int] = None, temperature: float = 0.0,
              top_k: Optional[int] = None, eos_id: Optional[int] = None,
              generator: Optional[torch.Generator] = None,
-             return_n_generated: bool = False):
+             return_n_generated: bool = False, lora: Optional[dict] = None,
+             lora_alpha: Optional[float] = None,
+             lora_rank: Optional[int] = None):
     """Generate up to ``max_new_tokens`` after ``token_ids`` (B, Tp) and
     return a numpy (B, Tp + most generated) array of prompt + new ids.
 
@@ -108,7 +110,10 @@ def generate(model, token_ids, max_new_tokens: int,
     otherwise every token runs a full forward over the last
     ``context_size`` tokens (the reference's sliding window). Sampling with
     temperature > 0 draws from ``generator`` (torch's stream, not JAX's);
-    greedy decoding (the default) is deterministic."""
+    greedy decoding (the default) is deterministic. ``lora`` (with
+    ``lora_alpha`` and ``lora_rank``): decode with one adapter applied
+    unmerged at every adapted projection and the head, the same math as
+    its merge (``models.lora.apply_lora``)."""
     from building_llm_from_scratch_tpu_torch.models.transformer import (
         forward,
         forward_with_cache,
@@ -118,6 +123,11 @@ def generate(model, token_ids, max_new_tokens: int,
     cfg = model.cfg
     dev = model.device
     context_size = context_size or cfg.context_length
+    lora_kw = {}
+    if lora is not None:
+        if lora_alpha is None or lora_rank is None:
+            raise ValueError("lora needs lora_alpha and lora_rank")
+        lora_kw = dict(lora=lora, lora_scaling=float(lora_alpha) / float(lora_rank))
     ids = np.asarray(token_ids, dtype=np.int64)
     if ids.ndim == 1:
         ids = ids[None, :]
@@ -144,13 +154,13 @@ def generate(model, token_ids, max_new_tokens: int,
         cache = init_slot_cache(cfg, B, Tpb + budget, dev)
         prompt = torch.zeros((B, Tpb), dtype=torch.long, device=dev)
         prompt[:, :Tp] = torch.as_tensor(ids, device=dev)
-        last = forward_with_cache(model, prompt, cache, 0)[:, Tp - 1]
+        last = forward_with_cache(model, prompt, cache, 0, **lora_kw)[:, Tp - 1]
         for i in range(max_new_tokens):
             nxt = _sample_token(last, float(temperature), top_k, generator)
             if not accept(nxt.cpu().numpy()) or i + 1 == max_new_tokens:
                 break
             col = torch.as_tensor(ids[:, -1:], device=dev)
-            last = forward_with_cache(model, col, cache, Tp + i)[:, 0]
+            last = forward_with_cache(model, col, cache, Tp + i, **lora_kw)[:, 0]
     else:
         for _ in range(max_new_tokens):
             cur = ids.shape[1]
@@ -160,7 +170,7 @@ def generate(model, token_ids, max_new_tokens: int,
                 window = np.concatenate(
                     [ids, np.zeros((B, context_size - cur), ids.dtype)], axis=1)
                 last_pos = cur - 1
-            logits = forward(model, torch.as_tensor(window, device=dev))
+            logits = forward(model, torch.as_tensor(window, device=dev), **lora_kw)
             nxt = _sample_token(logits[:, last_pos], float(temperature), top_k,
                                 generator)
             if not accept(nxt.cpu().numpy()):

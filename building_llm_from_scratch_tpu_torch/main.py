@@ -1,11 +1,15 @@
 """Entry point: ``python -m building_llm_from_scratch_tpu_torch --mode train``
-(pretraining) or ``--mode serve``.
+(pretraining, or instruction finetuning with ``--finetune --dataset
+alpaca``, optionally ``--use_lora``) or ``--mode serve``.
 
 Training follows the JAX ``main``: seed, components (config, model,
-tokenizer), training files, loader, trainer (with a warm-up sample before
-the first step), training, peak device memory, final ``.npz`` export. Not
-ported: the loss plot, the watchdog, the stall detector, resume and the
-train-state checkpoint.
+tokenizer, adapter), training files (``.txt``, or ``.json`` Alpaca records
+with ``--finetune``), loader, trainer (with a warm-up sample before the
+first step), training or finetuning, peak device memory, the final ``.npz``
+export (merged weights in a LoRA run) and, with ``--save_adapter``, the
+adapter artifact. Not ported: the loss plot, the loss watchdog, resume and
+the train-state checkpoint (ROADMAP queue 1, train-state checkpoints), and
+the stall detector (queue 1, serving operations).
 """
 
 from __future__ import annotations
@@ -22,11 +26,12 @@ logger = logging.getLogger("building_llm_from_scratch_tpu_torch.main")
 
 
 def run_train(args):
-    """Pretrain from the parsed flags; returns the Trainer (its loss
-    history, samples and model)."""
+    """Pretrain or finetune from the parsed flags; returns the Trainer (its
+    loss history, samples, model and adapter)."""
     from building_llm_from_scratch_tpu_torch.build_components import (
         build_components,
     )
+    from building_llm_from_scratch_tpu_torch.data.instruct import InstructLoader
     from building_llm_from_scratch_tpu_torch.data.pretrain import PretrainLoader
     from building_llm_from_scratch_tpu_torch.device import resolve_device
     from building_llm_from_scratch_tpu_torch.training.trainer import Trainer
@@ -40,14 +45,21 @@ def run_train(args):
     comps = build_components(args, device)
     cfg = comps.cfg
 
-    files, _ = discover_training_files(args.data_dir)
+    txt_files, json_files = discover_training_files(args.data_dir)
+    files = json_files if args.finetune else txt_files
     if not files:
         raise FileNotFoundError("No training files found in specified directory.")
     logger.info("Total training files detected: %d", len(files))
-    loader = PretrainLoader(comps.tokenizer, batch_size=args.batch_size,
-                            max_length=cfg.context_length,
-                            stride=cfg.context_length, train_ratio=0.9,
-                            seed=args.seed)
+    loader_kwargs = dict(batch_size=args.batch_size,
+                         max_length=cfg.context_length, train_ratio=0.9,
+                         seed=args.seed)
+    if args.finetune:
+        # the pad id is the config's eos, as in the JAX package
+        loader = InstructLoader(comps.tokenizer, pad_token_id=cfg.eos_id,
+                                dataset_name=args.dataset, **loader_kwargs)
+    else:
+        loader = PretrainLoader(comps.tokenizer, stride=cfg.context_length,
+                                **loader_kwargs)
     os.makedirs(args.output_dir, exist_ok=True)
     trainer = Trainer(cfg, comps.model, comps.tokenizer, loader,
                       output_dir=args.output_dir, peak_lr=args.lr,
@@ -55,13 +67,20 @@ def run_train(args):
                       warmup_steps=args.warmup_steps,
                       eval_freq=args.eval_freq,
                       print_sample_iter=args.print_sample_iter,
-                      seed=args.seed)
-    trainer.train_model(files, n_epochs=args.n_epochs)
+                      seed=args.seed, lora_params=comps.lora_params,
+                      lora_alpha=args.lora_alpha if args.use_lora else None,
+                      lora_rank=args.lora_rank if args.use_lora else None)
+    if args.finetune:
+        trainer.finetune_model(files, n_epochs=args.n_epochs)
+    else:
+        trainer.train_model(files, n_epochs=args.n_epochs)
     logger.info("Training complete. Final model saved.")
     if device.type == "cuda":
         logger.info("Peak device memory — %.2f GB allocated",
                     torch.cuda.max_memory_allocated(device) / 1e9)
     trainer.export_final("model_pg_final.npz")
+    if args.save_adapter:
+        trainer.export_adapter(args.save_adapter)
     return trainer
 
 

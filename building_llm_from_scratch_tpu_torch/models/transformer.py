@@ -13,14 +13,20 @@ transpose:
     module holds views of its slice of those stacked tensors.
 
 ``forward_hidden``/``forward`` are the training forward: parameters are
-trainable once ``requires_grad_(True)`` is called (the trainer does), and
-attention goes through ``ops.attention.causal_attention`` (the fused flash
-kernels for the shapes they take). With a seed and ``deterministic=False``
-a config's ``drop_rate`` drops the embedding output, the attention weights
-and both residual branches of every block, each site with its own seed
-(``utils.seeding.site_seed``); residual and embedding dropout go through
-the fused kernel B3 (``ops/fused_dropout.py``) for the shapes it takes. No
-activation checkpointing.
+trainable once ``requires_grad_(True)`` is called (the pretraining trainer
+does), and attention goes through ``ops.attention.causal_attention`` (the
+fused flash kernels for the shapes they take). With a seed and
+``deterministic=False`` a config's ``drop_rate`` drops the embedding
+output, the attention weights and both residual branches of every block,
+each site with its own seed (``utils.seeding.site_seed``); residual and
+embedding dropout go through the fused kernel B3 (``ops/fused_dropout.py``)
+for the shapes it takes. No activation checkpointing. A LoRA train step
+passes ``params=``: the merged stacked projection weights (W + s A@B,
+``models.lora.merge_lora``) stand in for the model's own, so autograd
+carries their gradients back to the adapter, as the JAX step trains
+through ``merge_lora``. ``lora=`` instead applies one adapter unmerged at
+every adapted projection and the head (``forward``, ``forward_with_cache``
+and ``generate``: the trainer's merge-free sampling).
 
 The serving functions (``prefill_into_slot``, ``prefill_chunk_into_slot``,
 ``decode_slots`` and their paged siblings ``paged_prefill_chunk_into_slot``
@@ -431,6 +437,54 @@ def _layer_adp(layers: Optional[list], l: int, group: str) -> Optional[dict]:
     return None if layers is None else layers[l][group]
 
 
+def _lora_layers(lora: Optional[dict], scaling, n_layers: int):
+    """(per-layer adapter arguments, head node) of one unmerged adapter
+    tree shared by every row (``lora=``); None, None without one."""
+    if lora is None:
+        return None, None
+    layers = [_block_adp(_tree_map(lambda a, l=l: a[l], lora["blocks"]), scaling)
+              for l in range(n_layers)]
+    return layers, lora["head"]["weight"]
+
+
+class _Weights:
+    """One layer's projection group read from stacked stand-in leaves (a
+    LoRA step's merged weights), the layer's own ``ParamGroup`` for the
+    rest: the same attribute-by-JAX-name and ``has()`` interface."""
+
+    def __init__(self, group: ParamGroup, leaves: Dict[str, torch.Tensor]):
+        self._group, self._leaves = group, leaves
+
+    def __getattr__(self, name: str):
+        leaves = self.__dict__["_leaves"]
+        return leaves[name] if name in leaves else getattr(self.__dict__["_group"], name)
+
+    def has(self, name: str) -> bool:
+        return self._group.has(name)
+
+
+def _layer_groups(model: Transformer, params: Optional[Flat]) -> list:
+    """(attn, mlp) weight groups of every layer. ``params``' stacked
+    ``blocks/attn/*`` and ``blocks/mlp/*`` leaves replace the model's: each
+    is split into its layers by one ``unbind(0)``, whose backward writes one
+    stacked gradient (a per-layer index would allocate a zero stack per
+    layer). Its other keys (the head) are the loss's."""
+    if not params:
+        return [(blk.attn, blk.mlp) for blk in model.blocks]
+    per = [{"attn": {}, "mlp": {}} for _ in model.blocks]
+    for key, t in params.items():
+        root, *rest = key.split("/")
+        if root != "blocks":
+            continue
+        group, leaf = rest
+        if group not in ("attn", "mlp"):
+            raise KeyError(f"params may replace projection weights only, not {key}")
+        for l, view in enumerate(t.unbind(0)):
+            per[l][group][leaf] = view
+    return [(_Weights(blk.attn, p["attn"]), _Weights(blk.mlp, p["mlp"]))
+            for blk, p in zip(model.blocks, per)]
+
+
 # ---------------------------------------------------------------------------
 # dropout (the JAX package's helpers of the same names)
 # ---------------------------------------------------------------------------
@@ -467,11 +521,17 @@ def _residual_dropout(x: torch.Tensor, h: torch.Tensor, rate: float,
 
 def forward_hidden(model: Transformer, tokens: torch.Tensor, *,
                    seed: Optional[int] = None,
-                   deterministic: bool = True) -> torch.Tensor:
+                   deterministic: bool = True,
+                   params: Optional[Flat] = None,
+                   lora: Optional[dict] = None,
+                   lora_scaling=1.0) -> torch.Tensor:
     """(B, T) token ids -> the final-normed (B, T, D) hidden states before
     the head (the JAX ``forward_hidden``). ``seed`` is the step's 64-bit
     dropout seed (None: deterministic); each dropout site draws from its own
-    ``site_seed(seed, layer, site)``, as the JAX package splits its rng."""
+    ``site_seed(seed, layer, site)``, as the JAX package splits its rng.
+    ``params``: stacked projection weights that stand in for the model's
+    (``_layer_groups``). ``lora``: one unmerged adapter tree applied at
+    every adapted block projection with ``lora_scaling`` (alpha / rank)."""
     cfg = model.cfg
     B, T = tokens.shape
     if seed is None:
@@ -481,25 +541,35 @@ def forward_hidden(model: Transformer, tokens: torch.Tensor, *,
     def sites(layer: int, site: str) -> Optional[int]:
         return None if deterministic else site_seed(seed, layer, site)
 
+    adp, _ = _lora_layers(lora, lora_scaling, cfg.n_layers)
     positions = torch.arange(T, device=tokens.device)
     x = _dropout(_embed(model, tokens, positions), rate,
                  sites(-1, "embedding"), deterministic)
-    for layer, blk in enumerate(model.blocks):
+    groups = _layer_groups(model, params)
+    for layer, (blk, (attn, mlp)) in enumerate(zip(model.blocks, groups)):
         h = blk.norm1(x)
-        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions)
+        q, k, v = _qkv_proj(cfg, attn, h, model.rope, positions,
+                            _layer_adp(adp, layer, "attn"))
         out = causal_attention(q, k, v, dropout_rate=rate,
                                seed=sites(layer, "attention"),
                                deterministic=deterministic)
-        x = _residual_dropout(x, _attn_out_proj(blk.attn, out, B, T), rate,
-                              sites(layer, "residual1"), deterministic)
-        x = _residual_dropout(x, _mlp(cfg, blk.mlp, blk.norm2(x)), rate,
-                              sites(layer, "residual2"), deterministic)
+        x = _residual_dropout(
+            x, _attn_out_proj(attn, out, B, T, _layer_adp(adp, layer, "attn")),
+            rate, sites(layer, "residual1"), deterministic)
+        x = _residual_dropout(
+            x, _mlp(cfg, mlp, blk.norm2(x), _layer_adp(adp, layer, "mlp")),
+            rate, sites(layer, "residual2"), deterministic)
     return model.final_norm(x)
 
 
-def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    """(B, T) token ids -> fp32 logits (B, T, V), without dropout."""
-    return _head_logits(forward_hidden(model, tokens), model.head)
+def forward(model: Transformer, tokens: torch.Tensor, *,
+            lora: Optional[dict] = None, lora_scaling=1.0) -> torch.Tensor:
+    """(B, T) token ids -> fp32 logits (B, T, V), without dropout; with
+    ``lora``, the adapter unmerged at every projection and the head (its
+    delta in fp32)."""
+    x = forward_hidden(model, tokens, lora=lora, lora_scaling=lora_scaling)
+    head_node = None if lora is None else lora["head"]["weight"]
+    return _logits(x, model.head, head_node, lora_scaling)
 
 
 # ---------------------------------------------------------------------------
@@ -754,27 +824,31 @@ def paged_prefill_chunk_into_slot(model: Transformer, tokens: torch.Tensor,
 
 @torch.no_grad()
 def forward_with_cache(model: Transformer, tokens: torch.Tensor, cache: dict,
-                       length: int) -> torch.Tensor:
+                       length: int, lora: Optional[dict] = None,
+                       lora_scaling=1.0) -> torch.Tensor:
     """The one-shot decode forward: ``tokens`` (B, Tq) at positions
     [length, length + Tq), their k/v written IN PLACE into the per-layer
     (B, Hkv, Tmax, hd) ``cache`` buffers there, attention over the first
-    ``length + Tq`` positions (``decode_attention``). Returns fp32 logits
-    (B, Tq, V). The caller keeps ``length + Tq <= Tmax``."""
+    ``length + Tq`` positions (``decode_attention``). ``lora``: one adapter
+    applied unmerged, as in ``forward``. Returns fp32 logits (B, Tq, V).
+    The caller keeps ``length + Tq <= Tmax``."""
     cfg = model.cfg
     B, Tq = tokens.shape
     positions = torch.arange(length, length + Tq, device=tokens.device)
     x = _embed(model, tokens, positions)
-    for blk, K, V in zip(model.blocks, cache["k"], cache["v"]):
+    adp, head_node = _lora_layers(lora, lora_scaling, cfg.n_layers)
+    for l, (blk, K, V) in enumerate(zip(model.blocks, cache["k"], cache["v"])):
         h = blk.norm1(x)
-        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions)
+        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions,
+                            _layer_adp(adp, l, "attn"))
         K[:, :, length:length + Tq] = k.transpose(1, 2).to(K.dtype)
         V[:, :, length:length + Tq] = v.transpose(1, 2).to(V.dtype)
         out = decode_attention(q, K, V, q_positions=positions,
                                kv_length=length + Tq)
-        x = x + _attn_out_proj(blk.attn, out, B, Tq)
-        x = x + _mlp(cfg, blk.mlp, blk.norm2(x))
+        x = x + _attn_out_proj(blk.attn, out, B, Tq, _layer_adp(adp, l, "attn"))
+        x = x + _mlp(cfg, blk.mlp, blk.norm2(x), _layer_adp(adp, l, "mlp"))
     x = model.final_norm(x)
-    return _head_logits(x, model.head)
+    return _logits(x, model.head, head_node, lora_scaling)
 
 
 def build_model(cfg: ModelConfig, seed: int,

@@ -17,15 +17,20 @@ and for shapes its ``supports_shape`` allows (``_use_kernel_fwd``, the JAX
 the chunked path and of the backward are plain large GEMMs outside any
 kernel of the JAX package and go to ``torch.mm``.
 
+``fused_cross_entropy_loss`` takes the JAX per-token loss weights
+(instruction finetuning's prompt mask): sum(nll * w) / max(sum(w), 1), the
+plain token mean without weights. The weights apply to the per-token nll
+that ``SoftmaxXent`` (and B4) return, so neither changes.
+
 Not ported: ``BLLM_XENT_CHUNK`` / ``BLLM_XENT_FWD_CHUNK`` (the chunk is an
-argument), per-token loss weights and the ``sums`` variant (instruction
-finetuning, sharded steps).
+argument) and the ``sums`` variant, whose only single-device caller is the
+accumulating step (ROADMAP queue 1, gradient accumulation).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -100,13 +105,24 @@ def softmax_xent(x2: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
     return SoftmaxXent.apply(x2, w, targets, int(chunk))
 
 
+def weighted_mean(nll: torch.Tensor, weights: Optional[torch.Tensor]
+                  ) -> torch.Tensor:
+    """The JAX loss's token mean: ``mean(nll)`` without weights, else
+    sum(nll * w) / max(sum(w), 1) in fp32 (0 when every weight is 0)."""
+    if weights is None:
+        return nll.mean()
+    w = weights.reshape(nll.shape).float()
+    return (nll * w).sum() / w.sum().clamp_min(1.0)
+
+
 def fused_cross_entropy_loss(hidden: torch.Tensor, w_head: torch.Tensor,
                              targets: torch.Tensor,
+                             weights: Optional[torch.Tensor] = None,
                              chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
-    """Token-mean cross entropy of (B, T, D) hidden states, the same value
-    as the dense ``cross_entropy_loss`` of their logits, without (B, T, V)
-    fp32 logits."""
+    """Weighted token-mean cross entropy of (B, T, D) hidden states, the
+    same value as the dense ``cross_entropy_loss`` of their logits, without
+    (B, T, V) fp32 logits."""
     B, T, D = hidden.shape
     nll = softmax_xent(hidden.reshape(B * T, D), w_head,
                        targets.reshape(B * T), chunk)
-    return nll.mean()
+    return weighted_mean(nll, weights)

@@ -66,14 +66,16 @@ def torch_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def export_params(path: str, model: Transformer) -> str:
-    """Write the model's parameters in the JAX ``export_params`` format:
-    one key per JAX tree path (sorted, the tree's flattening order) and a
-    ``__dtype__.<key>`` entry with the dtype's numpy name. The JAX
-    package's ``load_exported_params`` and the port's read it back with
-    identical bits."""
+def export_params(path: str, params) -> str:
+    """Write a model's parameters (a ``Transformer``, or its flat
+    ``{"blocks/attn/wq": tensor}`` form, e.g. a LoRA run's merged weights)
+    in the JAX ``export_params`` format: one key per JAX tree path (sorted,
+    the tree's flattening order) and a ``__dtype__.<key>`` entry with the
+    dtype's numpy name. The JAX package's ``load_exported_params`` and the
+    port's read it back with identical bits."""
+    flat = params.flat_params() if isinstance(params, Transformer) else params
     arrays = {}
-    for key, t in sorted(model.flat_params().items()):
+    for key, t in sorted(flat.items()):
         arrays[key] = torch_to_numpy(t)
         arrays[f"__dtype__.{key}"] = np.asarray(
             "bfloat16" if t.dtype == torch.bfloat16

@@ -1,5 +1,7 @@
-"""The training engine (port of the single-device pretraining core of the
-JAX package's ``training/trainer.py``).
+"""The training engine (port of the single-device core of the JAX
+package's ``training/trainer.py``): pretraining (``train_model``) and
+instruction finetuning (``finetune_model``), either on the whole model or
+on a LoRA adapter over a frozen one.
 
 Per-file epochs over shuffled fixed-shape batches, the warmup+cosine LR
 over the precomputed total steps, evaluation every ``eval_freq`` steps on
@@ -7,11 +9,13 @@ at most ``EVAL_ITERS`` batches of each split, a greedy sample every
 ``print_sample_iter`` steps (and one before the first step), and the final
 ``.npz`` export. The step loop never waits on the device between cadence
 points: per-step metrics stay device tensors until the evaluation cadence
-fetches them.
+fetches them. With LoRA the steps train through the merge, sampling
+applies the adapter unmerged (``generate(lora=)``), ``export_final``
+writes the merged weights and ``export_adapter`` the adapter artifact.
 
-Not ported yet: train-state checkpoints and resume, LoRA, instruction
-finetuning, sharded plans, prefetching, profiling, the loss watchdog, the
-stall detector and the metrics sink (obs/).
+Not ported yet: train-state checkpoints and resume (ROADMAP queue 1,
+train-state checkpoints), sharded plans, prefetching, profiling, the loss
+watchdog, the stall detector and the metrics sink (obs/).
 """
 
 from __future__ import annotations
@@ -25,10 +29,16 @@ import numpy as np
 import torch
 
 from building_llm_from_scratch_tpu_torch.configs import ModelConfig
+from building_llm_from_scratch_tpu_torch.data.instruct import format_input
 from building_llm_from_scratch_tpu_torch.generate import (
     generate,
     text_to_token_ids,
     token_ids_to_text,
+)
+from building_llm_from_scratch_tpu_torch.models.lora import (
+    count_lora_params,
+    merge_lora,
+    save_adapter,
 )
 from building_llm_from_scratch_tpu_torch.models.transformer import Transformer
 from building_llm_from_scratch_tpu_torch.training.checkpoint import export_params
@@ -41,6 +51,7 @@ from building_llm_from_scratch_tpu_torch.training.train_step import (
     make_eval_step,
     make_train_step,
 )
+from building_llm_from_scratch_tpu_torch.utils.io import read_json_file
 
 logger = logging.getLogger(__name__)
 
@@ -49,15 +60,29 @@ EVAL_ITERS = 5
 
 
 class Trainer:
-    """Drives pretraining (``train_model``) over a file list: one model, one
-    optimizer."""
+    """Drives pretraining (``train_model``) and instruction finetuning
+    (``finetune_model``) over a file list: one model, one optimizer. With
+    ``lora_params`` (an adapter tree, with ``lora_alpha`` and
+    ``lora_rank``) the adapter is trained and the model stays frozen."""
 
     def __init__(self, cfg: ModelConfig, model: Transformer, tokenizer, loader,
                  *, output_dir: str = "model_checkpoints",
                  peak_lr: float = 5e-4, initial_lr: float = 1e-5,
                  min_lr: float = 1e-6, warmup_steps: int = 10,
                  eval_freq: int = 10, print_sample_iter: int = 10,
-                 seed: int = 123):
+                 seed: int = 123, lora_params: Optional[dict] = None,
+                 lora_alpha: Optional[float] = None,
+                 lora_rank: Optional[int] = None):
+        if (lora_params is None) != (lora_rank is None):
+            raise ValueError(
+                "lora_params and lora_rank must be passed together "
+                "(got one without the other)")
+        if lora_params is not None and lora_alpha is None:
+            raise ValueError("lora_alpha is required when using LoRA")
+        self.lora_params = lora_params
+        self.lora_alpha = lora_alpha
+        self.lora_rank = lora_rank
+        self.use_lora = lora_params is not None
         self.cfg = cfg
         self.model = model
         self.tokenizer = tokenizer
@@ -97,15 +122,25 @@ class Trainer:
             h["peak_lr"], h["initial_lr"], h["min_lr"], h["warmup_steps"],
             total_steps)
         self.optimizer = AdamW(self.lr_schedule)
-        self.state = init_train_state(self.model, self.optimizer, self.seed)
-        self.train_step = make_train_step(self.cfg, self.optimizer)
-        self.eval_step = make_eval_step(self.cfg)
+        if self.use_lora:
+            self.state = init_train_state(self.lora_params, self.optimizer,
+                                          self.seed, frozen=self.model)
+        else:
+            self.state = init_train_state(self.model, self.optimizer, self.seed)
+        lora = dict(lora_alpha=self.lora_alpha, lora_rank=self.lora_rank)
+        self.train_step = make_train_step(self.cfg, self.optimizer, **lora)
+        self.eval_step = make_eval_step(self.cfg, **lora)
 
     def _device_batch(self, arrays) -> Dict[str, torch.Tensor]:
+        """(inputs, targets[, loss weights]) numpy arrays -> the step's
+        batch on the model's device."""
         dev = self.model.device
-        inputs, targets = arrays
-        return {"inputs": torch.from_numpy(np.asarray(inputs, np.int64)).to(dev),
-                "targets": torch.from_numpy(np.asarray(targets, np.int64)).to(dev)}
+        batch = {name: torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+                 for name, a in zip(("inputs", "targets"), arrays)}
+        if len(arrays) > 2:
+            batch["weights"] = torch.from_numpy(
+                np.asarray(arrays[2], np.float32)).to(dev)
+        return batch
 
     # ------------------------------------------------------------------
     # evaluation / sampling
@@ -125,13 +160,27 @@ class Trainer:
         return (self.calc_loss_loader(train_batches, EVAL_ITERS),
                 self.calc_loss_loader(val_batches, EVAL_ITERS))
 
+    def _full_params(self) -> Dict[str, torch.Tensor]:
+        """The model's flat parameters, with the adapter merged in a LoRA
+        run."""
+        params = self.model.flat_params()
+        if self.use_lora:
+            with torch.no_grad():
+                return merge_lora(params, self.lora_params, self.lora_alpha,
+                                  self.lora_rank)
+        return params
+
     def generate_and_print_sample(self, start_context: str,
                                   max_new_tokens: int = 50) -> str:
         ids = text_to_token_ids(start_context, self.tokenizer)
         ids = ids[:, -self.cfg.context_length:]
+        # with LoRA, merge-free: the adapter rides every projection
+        # unmerged, as the serving engine applies it
+        lora = (dict(lora=self.lora_params, lora_alpha=self.lora_alpha,
+                     lora_rank=self.lora_rank) if self.use_lora else {})
         out = generate(self.model, ids, max_new_tokens=max_new_tokens,
                        context_size=self.cfg.context_length,
-                       eos_id=self.cfg.eos_id)
+                       eos_id=self.cfg.eos_id, **lora)
         text = token_ids_to_text(out, self.tokenizer)
         logger.info("Sample: %s", text.replace("\n", " "))
         self.samples.append(text)
@@ -215,8 +264,50 @@ class Trainer:
             self._flush_metrics()
         return self
 
+    def finetune_model(self, files: Sequence[str], n_epochs: int):
+        """Instruction finetuning over Alpaca-format ``.json`` files; each
+        file's sample prompt is its validation split's first record (the
+        train split's when the validation split is empty) through the
+        Alpaca template."""
+        total_steps = self.loader.get_total_steps_epoch(list(files)) * n_epochs
+        self._setup(max(1, total_steps))
+        logger.info("Total finetuning steps: %d", total_steps)
+        try:
+            for epoch in range(n_epochs):
+                for path in files:
+                    train_ds, val_ds = self.loader.create_datasets(
+                        read_json_file(path))
+                    if self.loader.num_batches(train_ds) == 0:
+                        logger.warning("File %s too small for one batch; "
+                                       "skipping", path)
+                        continue
+                    entry = val_ds.data[0] if len(val_ds) > 0 else train_ds.data[0]
+                    self._run_epoch(
+                        lambda e, ds=train_ds: self.loader.batches(
+                            ds, shuffle=True, epoch=e),
+                        lambda e, ds=val_ds: self.loader.batches(
+                            ds, shuffle=False, epoch=e),
+                        epoch, format_input(entry))
+        finally:
+            self._flush_metrics()
+        return self
+
     def export_final(self, filename: str = "model_pg_final.npz") -> str:
         """Final single-file parameter export (the JAX ``export_params``
-        format)."""
+        format); a LoRA run writes the merged weights."""
         return export_params(os.path.join(self.output_dir, filename),
-                             self.model)
+                             self._full_params())
+
+    def export_adapter(self, path: str) -> str:
+        """``--save_adapter``: the trained adapter as a standalone artifact
+        (``models.lora.save_adapter``: rank, alpha and the base config's
+        fingerprint) that ``--serve_adapters`` loads."""
+        if not self.use_lora:
+            raise ValueError("export_adapter needs a LoRA run "
+                             "(no adapter tree to export)")
+        save_adapter(path, self.lora_params, rank=self.lora_rank,
+                     alpha=self.lora_alpha, cfg=self.cfg)
+        logger.info("Exported LoRA adapter to %s (rank %d, alpha %s, %s "
+                    "parameters).", path, self.lora_rank, self.lora_alpha,
+                    f"{count_lora_params(self.lora_params):,}")
+        return path

@@ -3,13 +3,19 @@
 
 from __future__ import annotations
 
+import json
 import os
-from typing import List, Tuple
+from typing import Any, List, Tuple
 
 
 def read_text_file(path: str) -> str:
     with open(path, "r", encoding="utf-8") as f:
         return f.read()
+
+
+def read_json_file(path: str) -> Any:
+    with open(path, "r", encoding="utf-8") as f:
+        return json.load(f)
 
 
 def discover_training_files(data_dir: str) -> Tuple[List[str], List[str]]:

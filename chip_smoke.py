@@ -65,7 +65,12 @@ exits non-zero):
      greedy tokens differ from the base model's on at least half the
      prompts, and an adapted card-vs-CPU fp32 reference passes while the
      same ticks with other adapters' ids fail it. Ticks with and without
-     adapters in alternating windows; pool bytes and peak memory.
+     adapters in alternating windows; pool bytes and peak memory. After
+     phase 6s, LLaMA-3.2-1B's trained SFT adapter is served through the
+     CLI (``--serve_adapters sft=<path>``, phase 3c's pool shape) on the base
+     it was trained on: 8 requests, B6 = 7 x layers x ticks, the adapted
+     rows within the fp32 CPU reference, and the same ticks as the base
+     model (ids -1) outside it.
      4d. long context through the contiguous engine: longctx-32k (bf16)
      cut to 2 layers on 2 slots of its native 32,768 tokens, a 4,096-token
      prompt decoding 4,200 tokens (its row ends past 8,192) beside a
@@ -82,7 +87,10 @@ exits non-zero):
      (forward, forward+backward, and backward alone through autograd.grad
      of one saved forward; in fp32 with GQA also on K and V repeated to the
      query heads, SDPA's memory-efficient kernel), beside the bound the
-     card's peak rate sets (fp32 flash: a third of the TF32 rate).
+     card's peak rate sets (fp32 flash: a third of the TF32 rate). In fp32
+     the twins on one TF32 product (1xTF32) must fail the bounds of out and
+     of every gradient (here and in 5b), so a kernel that lost the 3xTF32
+     split's lo terms cannot pass.
      5b. the same kernels with attention dropout p = 0.1 at GPT-2-124M's
      training shape (B 8, H 12, T 1024, hd 64) in bf16 and in fp32, and its
      fp32 reference shape (B 1, T 256): against the twin (the same mask) and an
@@ -99,7 +107,10 @@ exits non-zero):
      its training dtypes): lse and nll against the twin at the JAX test's
      bounds; the twin without the padded-column mask must fail them. Each
      row names the route (source) and its plan; the fp32 bound is a third
-     of the TF32 rate (3xTF32), its library call torch.mm in full fp32.
+     of the TF32 rate (3xTF32), its library call torch.mm in full fp32. fp32
+     B4 again on a head W ~ 0.1 randn against the full-fp32 twin at the same
+     bounds, where the twin on 1xTF32 products must fail them (at W ~ 0.02
+     the bounds cannot tell the two apart).
   6. training: ``main.run`` (--mode train) at full width on a seeded text
      file, 20 steps, one evaluation, the warm-up and one greedy sample, the
      final export: LLaMA-3.2-1B (bf16, 16 layers, batch 4, context 1024),
@@ -119,6 +130,18 @@ exits non-zero):
      cores). For GPT-2, in bf16 and at the default dtype, the same 20
      steps again with BLLM_XENT_PALLAS=1: B4 = steps + eval batches, and
      the step-1 loss equal to the first run's to 1e-5.
+  6s. LoRA instruction finetuning through the CLI (``--finetune --dataset
+     alpaca --use_lora``) on a ``scripts/build_local_alpaca.py`` file sized
+     for 20 steps and 7 eval batches: LLaMA-3.2-1B bf16 (rank 16, alpha 32,
+     batch 4, ``--save_adapter``), GPT-2-124M fp32 (batch 8, dropout 0.1),
+     chunked and then with B4. Launch counts exact (phase 6's rule, less
+     the frozen embedding's dropout backward), finite weighted losses, the
+     last under the first, the base bit-equal to a fresh build, every B
+     leaf moved, the merged export bit-equal to ``merge_lora`` on the card,
+     the adapter read back with its rank, alpha and fingerprint, the B4
+     run's step-1 loss within 1e-5 of the chunked one. Step ms (CUDA
+     events), tokens/s, supervised tokens/s, peak memory and a profile,
+     beside phase 6's pretraining step of the same model.
   7. training reference: one step at full width cut to 2 layers, B 1,
      T 256, in fp32 and in bf16, on the card and on the CPU (the twins)
      with the same weights, batch and dropout seed: loss and every leaf's
@@ -127,6 +150,10 @@ exits non-zero):
      another dropout seed on the CPU side fails the gradient bound, and in
      fp32 the loss bound (in bf16 its loss change is reported: it lies
      inside bf16's loss bound at this size).
+  7s. the same for one LoRA SFT step (rank 16, B drawn nonzero) on one
+     collated Alpaca record: the loss and every adapter gradient within
+     the dtype's bound; the CPU step with all-ones loss weights must fail
+     the loss bound.
   8. the ``kernels`` line (one row per kernel and shape, each with the
      launches of the run at that shape; B6 by projection shape from phase
      4c), then the card line and the result line.
@@ -137,6 +164,7 @@ or when the package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -714,13 +742,36 @@ def _flash_err(torch, name: str, a, b) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
 
-def grouped_dkv_plain(q, k, v, do, lse, delta, rate=0.0, seed=0):
+def grouped_dkv_plain(q, k, v, do, lse, delta, rate=0.0, seed=0, **kw):
     """B2b's twin: the per-query-head twin, then the GQA group sum (B2b
-    returns dk/dv per kv head, (B, T, Hkv, D))."""
+    returns dk/dv per kv head, (B, T, Hkv, D)); ``kw`` (``einsum=``) goes to
+    the twin."""
     from building_llm_from_scratch_tpu_torch.ops import fused_attention as tfa
 
-    dk, dv = tfa.fused_attention_dkv_plain(q, k, v, do, lse, delta, rate, seed)
+    dk, dv = tfa.fused_attention_dkv_plain(q, k, v, do, lse, delta, rate, seed, **kw)
     return tfa.group_sum(dk, k.shape[2]), tfa.group_sum(dv, k.shape[2])
+
+
+def flash_tf32x1_control(torch, shape: str, run, twin, tols: dict) -> dict:
+    """The fp32 gates against a kernel that lost its lo terms: the three
+    twins on one TF32 product (``tf32x1_products``) through ``run`` must
+    fail the bound of out and of every gradient against the full-fp32
+    twin, as they do in tests/test_torch_tf32x3.py."""
+    import functools
+
+    from building_llm_from_scratch_tpu_torch.ops import fused_attention as tfa
+
+    ein = tf32x1_products(torch)[1]
+    got = run(functools.partial(tfa.fused_attention_fwd_plain, einsum=ein),
+              functools.partial(tfa.fused_attention_dq_plain, einsum=ein),
+              functools.partial(grouped_dkv_plain, einsum=ein))
+    err = {n: _flash_err(torch, n, a, b)
+           for n, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, twin)}
+    missed = [n for n in ("out", "dq", "dk", "dv") if err[n] <= tols[n]]
+    if missed:
+        raise AssertionError(f"{shape}: the fp32 bounds of {missed} do not catch "
+                             f"1xTF32 products: {err}")
+    return err
 
 
 def flash_work(B, Hq, Hkv, T, hd, elt) -> dict:
@@ -835,6 +886,8 @@ def phase_attention(torch, card: dict) -> list:
             if control_err[n] <= tols[n]:
                 raise AssertionError(f"{shape}: the {n} bound does not catch "
                                      f"a wrong result ({control_err[n]})")
+        if dt == "fp32":
+            control_err["tf32x1"] = flash_tf32x1_control(torch, shape, run, twin, tols)
         del twin, exact, no_delta, half_p, controls, wrong_fwd
 
         out, lse = got[0], got[1]
@@ -973,6 +1026,8 @@ def phase_attention_dropout(torch, card: dict) -> list:
             if e <= tols[n]:
                 raise AssertionError(f"{shape}: the {n} bound does not catch the "
                                      f"next seed's mask ({e})")
+        if dt == "fp32":
+            control_err["tf32x1"] = flash_tf32x1_control(torch, shape, run, twin, tols)
         del twin, oracle, control
 
         out, lse = got[0], got[1]
@@ -1155,6 +1210,7 @@ def xent_row(torch, card: dict, shape: str, N: int, D: int, V: int, dt: str) -> 
 
     lib_nll, _ = library()
     errs["library_nll_max_abs"] = (lib_nll - nll_t).abs().max().item()
+    split = xent_split_check(torch, x, t, V, gen) if dtype == torch.float32 else None
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = txf.f32_plan(N, V, sms) if dtype == torch.float32 else txf.sm90_plan(N, V, sms)
     elt = x.element_size()
@@ -1169,9 +1225,59 @@ def xent_row(torch, card: dict, shape: str, N: int, D: int, V: int, dt: str) -> 
                ops=ops, bytes=nbytes, bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                max_abs_err=max(errs["lse_max_abs"], errs["nll_max_abs"]), **errs)
+    if split is not None:
+        row["split_check"] = split
     emit("xent_kernel", **row)
     del x, w, nll_t, lse_t, lse_c
     return row
+
+
+def tf32x1_products(torch):
+    """(matmul, einsum) on one TF32 product: the operands rounded to TF32
+    (``fused_attention.tf32_split_plain``'s hi) and multiplied in fp32,
+    what the tensor cores give for fp32 without the 3xTF32 split (the
+    CPU tests' 1xTF32 control)."""
+    from building_llm_from_scratch_tpu_torch.ops.fused_attention import (
+        tf32_split_plain,
+    )
+
+    def hi(a):
+        return tf32_split_plain(a)[0]
+
+    return (lambda a, b: hi(a) @ hi(b),
+            lambda eq, a, b: torch.einsum(eq, hi(a), hi(b)))
+
+
+def xent_within(torch, nll, lse, nll_ref, lse_ref) -> bool:
+    """The JAX B4 test's bounds: lse 1e-5 (absolute and relative), nll 1e-4
+    relative and 2e-4 absolute."""
+    return (torch.allclose(lse, lse_ref, rtol=1e-5, atol=1e-5)
+            and torch.allclose(nll, nll_ref, rtol=1e-4, atol=2e-4))
+
+
+def xent_split_check(torch, x, t, V: int, gen) -> dict:
+    """fp32 B4 at the training shape on a head W ~ 0.1 randn (logits with a
+    spread of about 2.8, where one TF32 product is visibly off) against the
+    full-fp32 twin at the JAX bounds; the twin on 1xTF32 products must fail
+    them. At chip_smoke's W ~ 0.02 the bounds cannot tell the two apart."""
+    from building_llm_from_scratch_tpu_torch.ops import xent_fwd as txf
+
+    w = 0.1 * torch.randn(x.shape[1], V, generator=gen, device=x.device)
+    nll, lse = txf.xent_fwd(x, w, t)
+    torch.cuda.synchronize()
+    nll_t, lse_t = txf.xent_fwd_plain(x, w, t)
+    nll_c, lse_c = txf.xent_fwd_plain(x, w, t, matmul=tf32x1_products(torch)[0])
+    out = dict(w_scale=0.1, lse_max_abs=(lse - lse_t).abs().max().item(),
+               nll_max_abs=(nll - nll_t).abs().max().item(),
+               tf32x1_lse_max_abs=(lse_c - lse_t).abs().max().item(),
+               tf32x1_nll_max_abs=(nll_c - nll_t).abs().max().item())
+    ok, control_fails = (xent_within(torch, nll, lse, nll_t, lse_t),
+                         not xent_within(torch, nll_c, lse_c, nll_t, lse_t))
+    if not ok or not control_fails:
+        raise AssertionError(f"fp32 xent kernel at W ~ 0.1: within bounds {ok}, "
+                             f"1xTF32 control fails {control_fails}: {out}")
+    del w, nll_t, lse_t, nll_c, lse_c
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1289,25 +1395,81 @@ def train_kernels():
                 dropout_bwd=tfd.dropout_bwd, xent_fwd=txf.xent_fwd)
 
 
-def expected_launches(cfg, steps: int, eval_batches: int, xent_kernel: bool) -> dict:
+def expected_launches(cfg, steps: int, eval_batches: int, xent_kernel: bool,
+                      lora: bool = False) -> dict:
     """Each kernel's launches in a run: B1 per layer in every train and
     eval step, B2a/B2b per layer in every train step, B3 forward and
     backward once for the embedding and twice per layer in every train step
-    of a dropout config, B4 once per train and eval step when it is on."""
+    of a dropout config, B4 once per train and eval step when it is on. In
+    a LoRA run the embedding is frozen, so nothing needs the gradient of
+    its dropout's input and that backward does not run."""
     L = cfg.n_layers
     drops = (1 + 2 * L) * steps if cfg.drop_rate > 0 else 0
+    drops_bwd = drops - steps if lora and drops else drops
     return dict(fwd=L * (steps + eval_batches), dq=L * steps, dkv=L * steps,
-                dropout_fwd=drops, dropout_bwd=drops,
+                dropout_fwd=drops, dropout_bwd=drops_bwd,
                 xent_fwd=(steps + eval_batches) if xent_kernel else 0)
+
+
+@contextlib.contextmanager
+def main_path(torch, xent_kernel: bool):
+    """Around one CLI training run: BLLM_XENT_PALLAS set for it, every
+    training kernel's launches counted from 0, CUDA events around every
+    step (each step's time on the device's clock, idle gaps while the host
+    enqueues included; no host sync) and each batch's supervised tokens
+    (the sum of its loss weights, when it has them). Yields a dict that is
+    filled when the run ends: launches, run_step_ms, supervised, wall_s,
+    peak_gb."""
+    import building_llm_from_scratch_tpu_torch.training.trainer as ttr
+
+    kernels = train_kernels()
+    events, supervised = [], []
+    make_train_step = ttr.make_train_step
+
+    def timed_make_train_step(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+
+        def timed_step(state, batch):
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            out = step(state, batch)
+            pair[1].record()
+            events.append(pair)
+            if "weights" in batch:
+                supervised.append(batch["weights"].sum())
+            return out
+        return timed_step
+
+    torch.cuda.reset_peak_memory_stats()
+    env = os.environ.get("BLLM_XENT_PALLAS")
+    os.environ["BLLM_XENT_PALLAS"] = "1" if xent_kernel else "0"
+    for f in kernels.values():
+        f.launches = 0                              # the main path's count
+    ttr.make_train_step = timed_make_train_step
+    facts = {}
+    t0 = time.perf_counter()
+    try:
+        yield facts
+        torch.cuda.synchronize()
+    finally:
+        ttr.make_train_step = make_train_step
+        if env is None:
+            os.environ.pop("BLLM_XENT_PALLAS")
+        else:
+            os.environ["BLLM_XENT_PALLAS"] = env
+    facts.update(wall_s=time.perf_counter() - t0,
+                 launches={k: f.launches for k, f in kernels.items()},
+                 run_step_ms=[a.elapsed_time(b) for a, b in events],
+                 supervised=[float(w) for w in supervised],
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
 def train_run(torch, t: dict, workdir: str, xent_kernel: bool = False):
     """One ``main.run`` (--mode train) of ``t`` on a seeded corpus sized for
     exactly t["steps"] steps, with each step's device time (CUDA events) and
-    every kernel's launches counted from 0. Returns (trainer, facts)."""
-    import os
-
-    import building_llm_from_scratch_tpu_torch.training.trainer as ttr
+    every kernel's launches counted from 0 (``main_path``). Returns
+    (trainer, facts)."""
     from building_llm_from_scratch_tpu_torch import main as tmain
 
     data_dir = os.path.join(workdir, "data")
@@ -1325,45 +1487,9 @@ def train_run(torch, t: dict, workdir: str, xent_kernel: bool = False):
              "--data_dir", data_dir, "--output_dir", out_dir,
              "--n_epochs", "1", "--batch_size", str(t["batch"]),
              "--eval_freq", str(t["steps"]), "--print_sample_iter", str(t["steps"])]
-    kernels = train_kernels()
-    # CUDA events around every step of the run (no host sync): each step's
-    # time on the device's clock, idle gaps while the host enqueues included
-    events = []
-    make_train_step = ttr.make_train_step
-
-    def timed_make_train_step(*args, **kwargs):
-        step = make_train_step(*args, **kwargs)
-
-        def timed_step(state, batch):
-            pair = (torch.cuda.Event(enable_timing=True),
-                    torch.cuda.Event(enable_timing=True))
-            pair[0].record()
-            out = step(state, batch)
-            pair[1].record()
-            events.append(pair)
-            return out
-        return timed_step
-
-    torch.cuda.reset_peak_memory_stats()
-    env = os.environ.get("BLLM_XENT_PALLAS")
-    os.environ["BLLM_XENT_PALLAS"] = "1" if xent_kernel else "0"
-    for f in kernels.values():
-        f.launches = 0                              # the main path's count
-    ttr.make_train_step = timed_make_train_step
-    t0 = time.perf_counter()
-    try:
+    with main_path(torch, xent_kernel) as run:
         trainer = tmain.run(flags)
-        torch.cuda.synchronize()
-    finally:
-        ttr.make_train_step = make_train_step
-        if env is None:
-            os.environ.pop("BLLM_XENT_PALLAS")
-        else:
-            os.environ["BLLM_XENT_PALLAS"] = env
-    wall = time.perf_counter() - t0
-    launches = {k: f.launches for k, f in kernels.items()}
-    run_step_ms = [a.elapsed_time(b) for a, b in events]
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches, run_step_ms = run["launches"], run["run_step_ms"]
 
     cfg, loader = trainer.cfg, trainer.loader
     tr_ds, va_ds = loader.create_datasets_for_file(corpus, cfg.eos_text)
@@ -1386,8 +1512,8 @@ def train_run(torch, t: dict, workdir: str, xent_kernel: bool = False):
         raise AssertionError(f"the train loss did not fall: {losses}")
     if len(trainer.samples) != 2:
         raise AssertionError(f"expected the warm-up and one sample: {trainer.samples}")
-    facts = dict(check, wall_s=wall, corpus=corpus, corpus_chars=n_chars,
-                 out_dir=out_dir, run_step_ms=run_step_ms, peak_gb=peak_gb,
+    facts = dict(check, wall_s=run["wall_s"], corpus=corpus, corpus_chars=n_chars,
+                 out_dir=out_dir, run_step_ms=run_step_ms, peak_gb=run["peak_gb"],
                  losses=losses, tr_ds=tr_ds)
     return trainer, facts
 
@@ -1485,7 +1611,10 @@ def phase_train(torch, card: dict, workdir: str, t: dict) -> dict:
                             f"peak = {dt} dense ({peak / 1e12:g} TFLOP/s)",
                   peak_memory_gb=facts["peak_gb"], profile=prof)
     emit("train", **result)
-    runs = {"main": facts["launches"]}
+    runs = {"main": facts["launches"],
+            "pretrain": {k: result[k] for k in (
+                "later_steps_median_ms", "step1_ms", "window_tokens_per_s",
+                "step_ms", "tokens_per_s", "peak_memory_gb")}}
     del trainer, batch
     torch.cuda.empty_cache()
 
@@ -1509,6 +1638,297 @@ def phase_train(torch, card: dict, workdir: str, t: dict) -> dict:
         torch.cuda.empty_cache()
     shutil.rmtree(workdir, ignore_errors=True)     # the exports: up to 5 GB a run
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 6s: LoRA instruction finetuning at full width through the CLI
+# ---------------------------------------------------------------------------
+
+SFT = [
+    # LLaMA-3.2-1B in bf16 (the README's SFT model) at the rank of its
+    # adapter hand-off; the adapter is written and then served (phase 4c)
+    dict(model="llama3_2", size="1B", dtype="bf16", batch=4, context=1024,
+         steps=20, rank=16, alpha=32.0, save_adapter=True),
+    # GPT-2-124M at the default dtype (fp32) with its dropout 0.1: the
+    # chunked cross entropy, then the same steps with B4
+    dict(model="GPT2", size="124M", dtype=None, batch=8, context=1024,
+         steps=20, rank=16, alpha=32.0, xent_run=True),
+]
+#: the weights' seed of the SFT runs: the serving CLI's (``serve_cli``), so
+#: phase 4c serves the adapter on the base it was trained on
+SFT_SEED = 0
+
+
+def write_alpaca(path: str, n: int) -> None:
+    """``n`` Alpaca-format records from ``scripts/build_local_alpaca.py``
+    (run as it is, in its own process)."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "build_local_alpaca.py")
+    subprocess.run([sys.executable, script, path, str(n)], check=True,
+                   capture_output=True)
+
+
+def same_bits(torch, a, b) -> bool:
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
+
+
+def sft_run(torch, t: dict, workdir: str, xent_kernel: bool = False):
+    """One ``main.run --finetune --dataset alpaca --use_lora`` of ``t`` on
+    a ``build_local_alpaca.py`` file sized for exactly t["steps"] steps
+    (ceil(steps x batch / 0.9) records: the 90% split is steps x batch
+    records, the rest two validation batches), counted by ``main_path``.
+    Gates: the launches of phase 6's rule at 20 steps and 7 eval batches,
+    finite weighted losses, the last under the first, the base bit-equal
+    to a fresh build from the seed, every B leaf moved from 0, the merged
+    export bit-equal to ``merge_lora`` of the base and the adapter on the
+    card, the saved adapter read back by ``load_adapter`` with its rank,
+    alpha and fingerprint. Returns (trainer, facts)."""
+    from building_llm_from_scratch_tpu_torch import main as tmain
+    from building_llm_from_scratch_tpu_torch.models.lora import (
+        adapter_fingerprint,
+        flatten_lora,
+        load_adapter,
+        merge_lora,
+    )
+    from building_llm_from_scratch_tpu_torch.models.transformer import build_model
+    from building_llm_from_scratch_tpu_torch.training.checkpoint import (
+        load_exported_params,
+    )
+
+    data_dir = os.path.join(workdir, "data")
+    out_dir = os.path.join(workdir, "out-xent-kernel" if xent_kernel else "out")
+    os.makedirs(data_dir, exist_ok=True)
+    records = math.ceil(t["steps"] * t["batch"] / 0.9)
+    data = os.path.join(data_dir, "alpaca.json")
+    write_alpaca(data, records)
+    adapter = (os.path.join(workdir, "sft-adapter.npz")
+               if t.get("save_adapter") and not xent_kernel else None)
+    flags = ["--mode", "train", "--model", t["model"], "--num_params", t["size"],
+             *dtype_flags(t), "--byte_tokenizer", "--finetune", "--dataset", "alpaca",
+             "--use_lora", "--lora_rank", str(t["rank"]), "--lora_alpha", str(t["alpha"]),
+             "--seed", str(SFT_SEED), "--data_dir", data_dir, "--output_dir", out_dir,
+             "--n_epochs", "1", "--batch_size", str(t["batch"]),
+             "--eval_freq", str(t["steps"]), "--print_sample_iter", str(t["steps"])]
+    if adapter:
+        flags += ["--save_adapter", adapter]
+    with main_path(torch, xent_kernel) as run:
+        trainer = tmain.run(flags)
+
+    cfg, loader = trainer.cfg, trainer.loader
+    with open(data) as f:
+        tr_ds, va_ds = loader.create_datasets(json.load(f))
+    n_evals = len(trainer.train_losses)
+    eval_batches = n_evals * (min(5, loader.num_batches(tr_ds))
+                              + min(5, loader.num_batches(va_ds)))
+    steps = trainer.global_step
+    want = expected_launches(cfg, steps, eval_batches, xent_kernel, lora=True)
+    losses = [m["loss"] for m in trainer.step_metrics]
+    check = dict(records=records, steps=steps, evals=n_evals,
+                 eval_batches=eval_batches, launches=run["launches"], expected=want)
+    if (steps != t["steps"] or n_evals != 1 or eval_batches != 7
+            or run["launches"] != want or len(run["run_step_ms"]) != steps
+            or len(run["supervised"]) != steps):
+        raise AssertionError(f"SFT run: {check}")
+    if len(losses) != steps or not all(map(math.isfinite, losses + trainer.train_losses
+                                           + trainer.val_losses)):
+        raise AssertionError(f"non-finite or missing SFT losses: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the weighted SFT loss did not fall: {losses}")
+
+    fresh = build_model(cfg, SFT_SEED, "cuda").flat_params()
+    moved = [k for k, v in trainer.model.flat_params().items()
+             if not same_bits(torch, v, fresh[k])]
+    del fresh
+    lora = {"/".join(p): leaf.detach() for p, leaf in flatten_lora(trainer.lora_params).items()}
+    b_zero = [k for k, v in lora.items() if k.endswith("/B") and not v.any()]
+    if moved or b_zero:
+        raise AssertionError(f"SFT run: base leaves changed {moved}; B leaves "
+                             f"still 0 {b_zero}")
+    with torch.no_grad():
+        merged = merge_lora(trainer.model.flat_params(), trainer.lora_params,
+                            t["alpha"], t["rank"])
+    export = load_exported_params(os.path.join(out_dir, "model_pg_final.npz"), cfg,
+                                  "cuda").flat_params()
+    off = [k for k, v in merged.items() if not same_bits(torch, v, export[k])]
+    del merged, export
+    if off:
+        raise AssertionError(f"merged export differs from merge_lora on the card: {off}")
+    if adapter:
+        tree, meta = load_adapter(adapter)
+        back = {"/".join(p): leaf for p, leaf in flatten_lora(tree).items()}
+        if ((meta["rank"], meta["alpha"], meta["fingerprint"])
+                != (t["rank"], t["alpha"], adapter_fingerprint(cfg))
+                or set(back) != set(lora)
+                or not all(same_bits(torch, back[k].cuda(), v) for k, v in lora.items())):
+            raise AssertionError(f"the saved adapter does not read back: {meta}")
+    facts = dict(check, losses=losses, adapter=adapter, wall_s=run["wall_s"],
+                 run_step_ms=run["run_step_ms"], supervised=run["supervised"],
+                 peak_gb=run["peak_gb"], tr_ds=tr_ds)
+    return trainer, facts
+
+
+def phase_sft(torch, card: dict, workdir: str, t: dict, pretrain: dict) -> dict:
+    """LoRA SFT at full width through the CLI (``sft_run``): the step time
+    (CUDA events, step 1 apart), tokens/s and supervised tokens/s (the
+    weights' sum) of the run, its peak memory and a profile over re-runs of
+    one batch, beside the same model's pretraining step from phase 6 of
+    this run (``pretrain``). With the chunked loss, the same steps again
+    with B4 on: B4 = steps + eval batches, step-1 loss within 1e-5."""
+    trainer, facts = sft_run(torch, t, workdir)
+    cfg, losses = trainer.cfg, facts["losses"]
+    ms = facts["run_step_ms"]
+    later = sum(ms[1:]) / 1e3
+    tokens = t["batch"] * t["context"]
+    batch = trainer._device_batch(next(iter(trainer.loader.batches(facts["tr_ds"],
+                                                                    epoch=1))))
+    step_ms = statistics.median(ms[1:])
+    result = dict(card=card["card_line"], model=cfg.name, dtype=t["dtype"] or "fp32",
+                  layers=cfg.n_layers, rank=t["rank"], alpha=t["alpha"], batch=t["batch"],
+                  context=t["context"], drop_rate=cfg.drop_rate,
+                  records=facts["records"], steps=facts["steps"],
+                  eval_batches=facts["eval_batches"], launches=facts["launches"],
+                  expected=facts["expected"], wall_s=facts["wall_s"],
+                  first_loss=losses[0], last_loss=losses[-1], step_losses=losses,
+                  train_loss=trainer.train_losses, val_loss=trainer.val_losses,
+                  lrs=trainer.track_lrs, sample=trainer.samples[-1][-120:],
+                  run_step_ms=ms, step1_ms=ms[0], later_steps_median_ms=step_ms,
+                  tokens_per_s=tokens * (len(ms) - 1) / later,
+                  supervised_per_step=facts["supervised"],
+                  supervised_tokens_per_s=sum(facts["supervised"][1:]) / later,
+                  peak_memory_gb=facts["peak_gb"],
+                  trainable_params=sum(p.numel() for p in trainer.state.params.values()),
+                  pretrain=pretrain,
+                  step_ratio_to_pretrain=step_ms / pretrain["later_steps_median_ms"],
+                  profile=train_profile(torch, trainer, batch, step_ms),
+                  adapter=facts["adapter"])
+    emit("sft", **result)
+    runs = {"main": facts["launches"], "adapter": facts["adapter"], "step_ms": step_ms}
+    del trainer, batch
+    torch.cuda.empty_cache()
+    if t.get("xent_run"):
+        trainer, kfacts = sft_run(torch, t, workdir, xent_kernel=True)
+        first, first_k = losses[0], kfacts["losses"][0]
+        emit("sft_xent_kernel", model=cfg.name, steps=kfacts["steps"],
+             eval_batches=kfacts["eval_batches"], launches=kfacts["launches"],
+             expected=kfacts["expected"], wall_s=kfacts["wall_s"],
+             step1_loss=first_k, step1_loss_chunked=first,
+             step1_rel_diff=abs(first_k - first) / abs(first),
+             last_loss=kfacts["losses"][-1], step_losses=kfacts["losses"],
+             later_steps_median_ms=statistics.median(kfacts["run_step_ms"][1:]),
+             peak_memory_gb=kfacts["peak_gb"])
+        if abs(first_k - first) > 1e-5 * abs(first):
+            raise AssertionError(f"the B4 SFT run's step-1 loss {first_k} differs "
+                                 f"from the chunked run's {first}")
+        runs["xent_kernel"] = kfacts["launches"]
+        del trainer
+        torch.cuda.empty_cache()
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 7s: one LoRA SFT step on the card against the CPU
+# ---------------------------------------------------------------------------
+
+SFT_REFERENCES = [dict(model="llama3_2", size="1B"), dict(model="GPT2", size="124M")]
+
+
+def phase_sft_reference(torch, spec: dict, workdir: str) -> dict:
+    """The model of ``spec`` at full width cut to 2 layers, B 1, T 256, in
+    fp32 and in bf16, with a rank-16 adapter (B drawn nonzero, so that A
+    has gradients) on one Alpaca record collated as the loader does (the
+    prompt masked, the eos supervised, pads masked): the same LoRA step
+    (same weights, adapter, batch and dropout seed) on the card and on the
+    CPU, the loss and every adapter gradient within REF_BOUNDS. Control:
+    the CPU step with every loss weight 1 must fail the loss bound."""
+    import building_llm_from_scratch_tpu_torch.models.transformer as ttf
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+    from building_llm_from_scratch_tpu_torch.data.instruct import (
+        InstructionDataset,
+        collate_batch,
+    )
+    from building_llm_from_scratch_tpu_torch.data.tokenizers import ByteTokenizer
+    from building_llm_from_scratch_tpu_torch.models.lora import (
+        flatten_lora,
+        init_lora_params,
+        unflatten_lora,
+    )
+    from building_llm_from_scratch_tpu_torch.training import optim as topt
+    from building_llm_from_scratch_tpu_torch.training import train_step as tts
+
+    data = os.path.join(workdir, "ref-alpaca.json")
+    write_alpaca(data, 1)
+    with open(data) as f:
+        records = json.load(f)
+    kernels = train_kernels()
+    results = {}
+    for dtype in ("fp32", "bf16"):
+        t0 = time.perf_counter()
+        cfg = get_config(spec["model"], spec["size"], dtype=dtype,
+                         target_context_length=256).replace(n_layers=2)
+        card_model = ttf.build_model(cfg, seed=3, device="cuda")
+        cpu_flat = {k: v.cpu().clone() for k, v in card_model.flat_params().items()}
+        gen = torch.Generator().manual_seed(5)
+        lora = flatten_lora(init_lora_params(cfg, gen, 16))
+        for path, leaf in lora.items():
+            if path[-1] == "B":
+                leaf.copy_((0.02 * torch.randn(leaf.shape, generator=gen)).to(leaf.dtype))
+        ds = InstructionDataset(records, ByteTokenizer())
+        inputs, targets, weights = (torch.from_numpy(a) for a in collate_batch(
+            [ds[0]], pad_token_id=cfg.eos_id, allowed_max_length=256))
+
+        def one_step(model, w, seed=REF_SEED):
+            dev = model.device
+            tree = unflatten_lora({p: v.to(dev).clone() for p, v in lora.items()})
+            opt = topt.AdamW(topt.warmup_cosine_schedule(5e-4, 1e-5, 1e-6, 10, 100),
+                             grad_clip_norm=float("inf"))   # keep the raw gradients
+            state = tts.init_train_state(tree, opt, seed=seed, frozen=model)
+            batch = {"inputs": inputs.long().to(dev), "targets": targets.long().to(dev),
+                     "weights": w.to(dev)}
+            _, m = tts.make_train_step(cfg, opt, lora_alpha=32.0, lora_rank=16)(state, batch)
+            return m["loss"].item(), {k: g.cpu().float() for k, g in state.grads.items()}
+
+        for f in kernels.values():
+            f.launches = 0
+        card_loss, card_grads = one_step(card_model, weights)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in kernels.items()}
+        del card_model
+        torch.cuda.empty_cache()
+        t_cpu = time.perf_counter()
+        cpu_loss, cpu_grads = one_step(ttf.Transformer(cfg, cpu_flat), weights)
+        cpu_s = time.perf_counter() - t_cpu
+        ctl_loss, ctl_grads = one_step(ttf.Transformer(cfg, cpu_flat),
+                                       torch.ones_like(weights))
+
+        def rel_l2(a, b):
+            return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+        card = {k: rel_l2(card_grads[k], cpu_grads[k]) for k in cpu_grads}
+        loss_bound, grad_bound = REF_BOUNDS[dtype]
+        want = expected_launches(cfg, 1, 0, False, lora=True)
+        result = dict(model=cfg.name, layers=2, dtype=dtype, B=1, T=256, rank=16,
+                      drop_rate=cfg.drop_rate, supervised=float(weights.sum()),
+                      launches=launches, expected=want, card_loss=card_loss,
+                      cpu_loss=cpu_loss, loss_rel=abs(card_loss - cpu_loss) / abs(cpu_loss),
+                      ones_weights_loss=ctl_loss,
+                      ones_weights_loss_rel=abs(ctl_loss - cpu_loss) / abs(cpu_loss),
+                      ones_weights_grad_rel_l2_max=max(
+                          rel_l2(ctl_grads[k], cpu_grads[k]) for k in cpu_grads),
+                      grad_rel_l2=card, bound=dict(grad_rel_l2=grad_bound,
+                                                   loss_rel=loss_bound),
+                      cpu_step_s=cpu_s, seconds=time.perf_counter() - t0)
+        emit("sft_reference", **result)
+        if launches != want:
+            raise AssertionError(f"{cfg.name} {dtype} SFT reference step launches "
+                                 f"{launches}, expected {want}")
+        if result["loss_rel"] > loss_bound or max(card.values()) > grad_bound:
+            raise AssertionError(f"{dtype} card SFT step off the CPU step: {result}")
+        if result["ones_weights_loss_rel"] <= loss_bound:
+            raise AssertionError(f"{cfg.name} {dtype}: the loss bound does not catch "
+                                 f"all-ones loss weights: {result}")
+        results[dtype] = result
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -2419,12 +2839,13 @@ def lora_requests(cfg, names: list) -> list:
             for i, (p, sp) in enumerate(reqs)]
 
 
-def lora_reference_check(torch, model, cfg, reg) -> dict:
+def lora_reference_check(torch, model, cfg, reg, control: str = "other") -> dict:
     """One adapted prefill per slot (adapters a, b, c or a, b, a: the
     gathered path) and four decode ticks (B6 on the card, its twin on the
     CPU) against the same functions on the CPU in fp32 with the same pool,
     teacher-forced on the card's greedy tokens. Control: the CPU ticks with
-    each row's adapter swapped for another's must fall outside the bound."""
+    each row's adapter swapped for another's (``control`` "other") or for
+    none (id -1, "base") must fall outside the bound."""
     from building_llm_from_scratch_tpu_torch.models.lora import flatten_lora
     from building_llm_from_scratch_tpu_torch.models.transformer import (
         Transformer,
@@ -2450,9 +2871,10 @@ def lora_reference_check(torch, model, cfg, reg) -> dict:
     rows = [reg.lookup(n) for n in reg.names()]
     S, Tmax, Tp = 3, 64, 16
     ids = torch.tensor([rows[i % len(rows)] for i in range(S)], dtype=torch.int32)
-    # control: every row served by the next adapter instead of its own
-    other = torch.tensor([rows[(i + 1) % len(rows)] for i in range(S)],
-                         dtype=torch.int32)
+    # control: every row served by the next adapter instead of its own, or
+    # by the base model
+    other = torch.tensor([rows[(i + 1) % len(rows)] if control == "other" else -1
+                          for i in range(S)], dtype=torch.int32)
     gen = torch.Generator().manual_seed(9)
     prompt = torch.randint(0, cfg.vocab_size, (1, 32), generator=gen)
     prompt[0, Tp:] = 0
@@ -2485,17 +2907,18 @@ def lora_reference_check(torch, model, cfg, reg) -> dict:
         swapped.append((c, b))
         toks = a.argmax(-1).cpu().view(S, 1)
         lengths += 1
-    card, control = _agreement(torch, pairs), _agreement(torch, swapped)
-    result = dict(card=card, other_adapter_control=control,
-                  ids=ids.tolist(), control_ids=other.tolist(),
-                  bound="max_abs<=1e-3" if cfg.dtype == "fp32"
-                  else "cosine>=0.9995 and max_abs<=0.1*rms(ref)")
+    card = _agreement(torch, pairs)
+    swapped_m = _agreement(torch, swapped)
+    result = {"card": card, f"{control}_adapter_control": swapped_m,
+              "ids": ids.tolist(), "control_ids": other.tolist(),
+              "bound": "max_abs<=1e-3" if cfg.dtype == "fp32"
+              else "cosine>=0.9995 and max_abs<=0.1*rms(ref)"}
     if not _within(cfg, card):
         raise AssertionError(f"{cfg.name}: adapted card logits off the fp32 "
                              f"CPU reference: {result}")
-    if _within(cfg, control):
+    if _within(cfg, swapped_m):
         raise AssertionError(f"{cfg.name}: the reference bound does not catch "
-                             f"another adapter's ids: {result}")
+                             f"the {control} control's ids: {result}")
     return result
 
 
@@ -2716,6 +3139,58 @@ def phase_serve_lora(torch, workdir: str) -> dict:
     return served
 
 
+def phase_serve_sft_adapter(torch, adapter: str, workdir: str) -> dict:
+    """Phase 4c with phase 6s's trained adapter: LLaMA-3.2-1B bf16 through
+    the CLI (``--serve_adapters sft=<path>``, phase 3c's pool of LORA_POOL
+    rows of rank LORA_RANK) on the base the SFT run started from (the same
+    seed), 8 requests, sft and base traffic in turn. Every budget finishes,
+    B6 = adapted projections x layers x ticks, B5 = layers x ticks; the
+    adapted rows within the fp32 CPU reference, and the same ticks served
+    as the base model must fail it."""
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+    from building_llm_from_scratch_tpu_torch.ops import decode_step as tds
+
+    m = dict(label="llama3_2-1B-sft", shape="llama3_2-1B", model="llama3_2",
+             size="1B", dtype="bf16", context=1024, slots=LORA_S)
+    cfg = get_config(m["model"], m["size"], dtype=m["dtype"],
+                     target_context_length=m["context"])
+    requests = lora_requests(cfg, ["sft", None])[:8]
+    tds.fused_decode_step.launches = 0              # the main path's count
+    tds.lora_bgmv.launches = 0
+    t0 = time.perf_counter()
+    engine, records = serve_cli(torch, m, requests, workdir, flags=[
+        "--serve_adapters", f"sft={adapter}", "--serve_adapter_slots", str(LORA_POOL)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b5, b6 = tds.fused_decode_step.launches, tds.lora_bgmv.launches
+    st = engine.stats()
+    ticks, reg = st["n_ticks"], engine.adapters
+    for i, ((p, sp), r) in enumerate(zip(requests, records)):
+        if r.get("finish_reason") != "length" or len(r["token_ids"]) != sp.max_new_tokens:
+            raise AssertionError(f"SFT adapter serving: request {i} ended {r}")
+    shapes = _projection_shapes(cfg)
+    dims = (m["slots"], reg.capacity, reg.max_rank, m["dtype"])
+    if (ticks == 0 or b5 != cfg.n_layers * ticks
+            or b6 != len(shapes) * cfg.n_layers * ticks):
+        raise AssertionError(f"SFT adapter serving: B5 {b5}, B6 {b6} for "
+                             f"{len(shapes)} projections x {cfg.n_layers} layers "
+                             f"x {ticks} ticks")
+    if dims != (LORA_S, LORA_POOL, LORA_RANK, "bf16"):
+        raise AssertionError(f"SFT adapter served at {dims}, not phase 3c's shapes")
+    row = dict(label=m["label"], model=cfg.name, adapter=adapter, requests=len(requests),
+               new_tokens=st["tokens_generated"], wall_s=wall, decode_ticks=ticks,
+               b5_launches=b5, b6_launches=b6, dims=list(dims),
+               per_adapter=st["per_adapter"],
+               mean_tick_ms=st["decode_seconds"] / ticks * 1e3,
+               reference=lora_reference_check(torch, engine.model, cfg, reg,
+                                              control="base"))
+    emit("serve_sft_adapter", **row)
+    del engine, reg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -2756,6 +3231,16 @@ def main() -> int:
             phase_train(torch, card, os.path.join(workdir, name), t)
             for name, t in (("llama", TRAIN), ("gpt2", TRAIN_GPT2),
                             ("gpt2-fp32", TRAIN_GPT2_FP32), ("llama-fp32", TRAIN_FP32)))
+    # LoRA SFT (phase 6s); the LLaMA run's adapter is served (phase 4c);
+    # one SFT step against the CPU (phase 7s)
+    with tempfile.TemporaryDirectory(dir=here) as workdir:
+        sft = phase_sft(torch, card, os.path.join(workdir, "llama"), SFT[0],
+                        trained["pretrain"])
+        phase_serve_sft_adapter(torch, sft["adapter"], workdir)
+        phase_sft(torch, card, os.path.join(workdir, "gpt2"), SFT[1],
+                  trained_gpt2_fp32["pretrain"])
+        for spec in SFT_REFERENCES:
+            phase_sft_reference(torch, spec, workdir)
     reference = phase_train_reference(torch, REFERENCES[0])
     reference_gpt2 = phase_train_reference(torch, REFERENCES[1])
     for r in rows:

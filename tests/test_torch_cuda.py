@@ -902,6 +902,69 @@ def test_gpt2_train_step_with_dropout_on_the_card(cuda):
     assert abs(losses[0] - losses[1]) <= 1e-3 * abs(losses[1]), losses
 
 
+@pytest.mark.parametrize("dtype,loss_rel,grad_rel", [("fp32", 1e-5, 1e-4),
+                                                     ("bf16", 1e-3, 3e-2)])
+def test_lora_sft_step_on_the_card_matches_the_cpu(cuda, dtype, loss_rel, grad_rel):
+    """One LoRA SFT step (T 256, the prompt-masked loss weights, the
+    adapter merged in the step) of a small LLaMA-like model on the card
+    against the same step on the CPU: each flash kernel once per layer, the
+    loss and every adapter gradient within chip_smoke's REF_BOUNDS, the
+    base bit-unchanged. The CPU step with all-ones weights must fail the
+    loss bound."""
+    from building_llm_from_scratch_tpu_torch.models.lora import (
+        flatten_lora,
+        init_lora_params,
+        unflatten_lora,
+    )
+    from building_llm_from_scratch_tpu_torch.models.transformer import Transformer
+    from building_llm_from_scratch_tpu_torch.training import optim as topt
+    from building_llm_from_scratch_tpu_torch.training import train_step as tts
+
+    cfg = get_config("llama3_2", "1B", dtype=dtype).replace(
+        emb_dim=256, n_heads=4, n_kv_groups=2, n_layers=3, hidden_dim=512,
+        vocab_size=512, context_length=256)
+    model = build_model(cfg, seed=0, device=cuda)
+    base = {k: v.clone() for k, v in model.flat_params().items()}
+    gen = torch.Generator().manual_seed(1)
+    lora = init_lora_params(cfg, gen, 8)
+    for path, leaf in flatten_lora(lora).items():
+        if path[-1] == "B":                   # B = 0 would leave A no gradient
+            leaf.normal_(0.0, 0.02, generator=gen)
+    # an instruction batch's layout: a masked prompt, a supervised response
+    # and pad targets (id 0) masked past the first
+    x = torch.randint(1, 512, (2, 257), generator=gen)
+    x[0, 141:] = x[1, 61:] = 0
+    weights = torch.zeros(2, 256)
+    weights[0, 100:141] = weights[1, 30:61] = 1.0
+
+    def step(m, w):
+        tree = unflatten_lora({p: t.to(m.device).clone()
+                               for p, t in flatten_lora(lora).items()})
+        opt = topt.AdamW(topt.warmup_cosine_schedule(5e-4, 1e-5, 1e-6, 2, 10),
+                         grad_clip_norm=float("inf"))
+        state = tts.init_train_state(tree, opt, frozen=m)
+        batch = {"inputs": x[:, :-1].to(m.device), "targets": x[:, 1:].to(m.device),
+                 "weights": w.to(m.device)}
+        _, met = tts.make_train_step(cfg, opt, lora_alpha=16.0, lora_rank=8)(state, batch)
+        return met["loss"].item(), {k: g.cpu().float() for k, g in state.grads.items()}
+
+    cpu = Transformer(cfg, {k: v.cpu() for k, v in model.flat_params().items()})
+    for f in (tfa.flash_attention_fwd, tfa.flash_attention_dq, tfa.flash_attention_dkv):
+        f.launches = 0
+    card_loss, card_grads = step(model, weights)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_fwd.launches, tfa.flash_attention_dq.launches,
+            tfa.flash_attention_dkv.launches) == (3, 3, 3)
+    cpu_loss, cpu_grads = step(cpu, weights)
+    ones_loss, _ = step(cpu, torch.ones(2, 256))
+    assert abs(card_loss - cpu_loss) <= loss_rel * abs(cpu_loss)
+    assert abs(ones_loss - cpu_loss) > loss_rel * abs(cpu_loss)
+    for k, g in cpu_grads.items():
+        assert ((card_grads[k] - g).norm() / g.norm()).item() <= grad_rel, k
+    for k, v in model.flat_params().items():
+        assert torch.equal(v, base[k]), k
+
+
 # ---------------------------------------------------------------------------
 # B6: the BGMV kernel and multi-LoRA serving on the card
 # ---------------------------------------------------------------------------

@@ -401,7 +401,7 @@ def test_export_is_read_by_the_jax_loader_bit_for_bit(tmp_path, dtype):
     (["--use_actv_ckpt"], SystemExit, None),
     (["--data_type", "fp16"], ValueError, "loss scaling"),
     (["--grad_accum", "2"], SystemExit, None),
-    (["--use_lora"], SystemExit, None),
+    (["--tokenizer_path", "x"], SystemExit, None),
     (["--resume_from", "x"], SystemExit, None),
     (["--save_ckpt_freq", "5"], SystemExit, None),
     (["--mode", "finetune_fleet"], ValueError, "not ported"),

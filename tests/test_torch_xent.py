@@ -140,7 +140,7 @@ def test_fused_loss_equals_the_dense_loss():
     x, w, t = inputs(64, 32, 999, seed=5)
     h = torch.from_numpy(x).reshape(4, 16, 32)
     loss = tsx.fused_cross_entropy_loss(h, torch.from_numpy(w),
-                                        torch.from_numpy(t).reshape(4, 16), 256)
+                                        torch.from_numpy(t).reshape(4, 16), chunk=256)
     dense = cross_entropy_loss(h @ torch.from_numpy(w),
                                torch.from_numpy(t).reshape(4, 16))
     np.testing.assert_allclose(loss.item(), dense.item(), rtol=1e-6)
