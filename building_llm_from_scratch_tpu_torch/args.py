@@ -1,7 +1,10 @@
 """Command-line flags of the port: the ``--mode serve`` and ``--mode train``
 (pretraining, and instruction finetuning with ``--finetune --dataset
 alpaca``, on the whole model or a LoRA adapter) subsets of the JAX
-package's CLI, with the same names, defaults and checks, plus ``--device``.
+package's CLI, with the same names, defaults and checks, plus ``--device``:
+pretrained weights from a local directory (``--load_weights
+--weights_dir``), train-state checkpoints, resume, retention and the loss
+watchdog.
 
 Flags of the JAX CLI that the port does not carry yet are rejected by name
 (not ignored), so a command line written for the JAX package fails loudly
@@ -26,14 +29,11 @@ UNPORTED_FLAGS = (
     "--serve_spec_k",
     "--fleet_jobs", "--fleet_rows_per_job", "--fleet_capacity",
     "--fleet_export_dir", "--fleet_style",
-    "--prefetch", "--async_ckpt", "--tokenizer_cache_dir",
-    "--save_ckpt_freq", "--grad_accum",
+    "--prefetch", "--async_ckpt", "--tokenizer_cache_dir", "--grad_accum",
     "--metrics_jsonl", "--log_every", "--compile_cache_dir",
-    "--stall_timeout", "--load_weights", "--weights_dir", "--run_type",
+    "--stall_timeout", "--run_type",
     "--shard_mode", "--pp", "--pp_micro", "--tp", "--sp", "--use_actv_ckpt",
-    "--mixed_precision", "--attn_impl",
-    "--tokenizer_path", "--resume_from", "--resume",
-    "--keep_ckpts", "--watchdog", "--loss_spike_factor", "--watchdog_window",
+    "--mixed_precision", "--attn_impl", "--tokenizer_path",
     "--profile", "--profile_steps", "--warnings",
 )
 
@@ -41,12 +41,10 @@ UNPORTED_FLAGS = (
 QUEUE_ITEMS = {
     "--use_actv_ckpt": "queue 1, remat",
     "--mixed_precision": "queue 1, precision policies",
-    "--save_ckpt_freq": "queue 1, train-state checkpoints",
+    "--async_ckpt": "queue 1, async checkpoints and prefetch",
+    "--prefetch": "queue 1, async checkpoints and prefetch",
     "--grad_accum": "queue 1, gradient accumulation",
-    "--resume": "queue 1, train-state checkpoints",
-    "--resume_from": "queue 1, train-state checkpoints",
     "--tokenizer_path": "queue 1, tokenizers",
-    "--load_weights": "queue 1, HF weight loading",
     "--serve_kv_quant": "queue 1 item 5, int8 KV",
     "--serve_spec_k": "queue 1 item 8, speculative decoding",
 }
@@ -81,6 +79,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "the dropout masks.")
     p.add_argument("--init_params_from", type=str, default=None,
                    help="Load params from a JAX export_params .npz.")
+    p.add_argument("--load_weights", action="store_true",
+                   help="Load pretrained HF weights (from --weights_dir: the "
+                        "port reads local files only).")
+    p.add_argument("--weights_dir", type=str, default=None,
+                   help="Local directory holding the pretrained checkpoint "
+                        "files (model.safetensors, the LLaMA-3 shards, or "
+                        "Meta's consolidated.00.pth).")
     # training (--mode train)
     p.add_argument("--data_dir", type=str, default="data",
                    help="Path to the dataset directory (.txt files; .json "
@@ -103,6 +108,33 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Steps between printing sample outputs.")
     p.add_argument("--eval_freq", type=int, default=10,
                    help="Evaluation frequency (in steps).")
+    p.add_argument("--save_ckpt_freq", type=int, default=100,
+                   help="Checkpoint save frequency (in steps).")
+    # run management / fault tolerance (--mode train)
+    p.add_argument("--resume_from", type=str, default=None,
+                   help="Resume training from a checkpoint directory.")
+    p.add_argument("--resume", type=str, default="auto",
+                   help="'auto' (default): resume from the latest VALID "
+                        "checkpoint in --output_dir (manifest + per-shard "
+                        "size/sha256 checks; corrupt checkpoints fall back "
+                        "to the previous valid one) — a preempted job "
+                        "relaunches with its original command; 'off': "
+                        "always start fresh; or an explicit checkpoint dir.")
+    p.add_argument("--keep_ckpts", type=int, default=0,
+                   help="Retention GC: keep at most N step-tagged "
+                        "checkpoints (model_pg_<step>), pruning the oldest "
+                        "after each save. 'interrupted'/'final' checkpoints "
+                        "are never pruned. 0 keeps all.")
+    p.add_argument("--watchdog", type=str, default="on", choices=["on", "off"],
+                   help="Loss anomaly watchdog: halt with a diagnostic on "
+                        "non-finite train loss or a spike above "
+                        "--loss_spike_factor x the running median "
+                        "(bf16/fp32 runs).")
+    p.add_argument("--loss_spike_factor", type=float, default=10.0,
+                   help="Watchdog spike threshold as a multiple of the "
+                        "running median train loss.")
+    p.add_argument("--watchdog_window", type=int, default=50,
+                   help="Steps in the watchdog's running-median window.")
     p.add_argument("--byte_tokenizer", action="store_true",
                    help="Use the offline ByteTokenizer (the only tokenizer "
                         "ported; required by --mode train).")
@@ -185,7 +217,7 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
     if args.mode == "serve":
-        train_only = [f"--{name}" for name, default in _FINETUNE_DEFAULTS
+        train_only = [f"--{name}" for name, default in _TRAIN_ONLY_DEFAULTS
                       if getattr(args, name) != default]
         if train_only:
             parser.error(f"{', '.join(train_only)}: training flag(s); --mode "
@@ -203,6 +235,7 @@ def perform_checks(args) -> None:
     if args.init_params_from and not os.path.isfile(args.init_params_from):
         raise ValueError(
             f"--init_params_from '{args.init_params_from}' does not exist.")
+    _check_weights(args)
     if args.mode not in ("serve", "train"):
         raise ValueError(f"--mode {args.mode} is not ported yet; the PyTorch "
                          "port runs --mode train and --mode serve")
@@ -218,10 +251,14 @@ def perform_checks(args) -> None:
     _check_train(args)
 
 
-#: the finetuning and LoRA flags and their defaults (refused in serve mode)
-_FINETUNE_DEFAULTS = (
+#: the finetuning, LoRA and run-management flags and their defaults
+#: (refused in serve mode)
+_TRAIN_ONLY_DEFAULTS = (
     ("finetune", False), ("dataset", "gutenberg"), ("use_lora", False),
     ("lora_rank", 64), ("lora_alpha", 32), ("save_adapter", None),
+    ("save_ckpt_freq", 100), ("resume_from", None), ("resume", "auto"),
+    ("keep_ckpts", 0), ("watchdog", "on"), ("loss_spike_factor", 10.0),
+    ("watchdog_window", 50),
 )
 
 #: the serve flags and their defaults (the stray-flag rule)
@@ -234,6 +271,31 @@ _SERVE_DEFAULTS = (
     ("serve_kv_page_tokens", 16), ("serve_adapters", None),
     ("serve_adapter_slots", 0),
 )
+
+
+def _check_weights(args) -> None:
+    """The weight sources: pretrained files from a local directory, an
+    ``.npz`` export, or (training) a train-state checkpoint."""
+    if args.load_weights and not args.weights_dir:
+        raise ValueError(
+            "--load_weights needs --weights_dir: the PyTorch port reads "
+            "pretrained weights from local files only (the HF-hub download "
+            "is not ported)")
+    if args.weights_dir and not args.load_weights:
+        raise ValueError("--weights_dir requires --load_weights.")
+    if args.weights_dir and not os.path.isdir(args.weights_dir):
+        raise FileNotFoundError(
+            f"--weights_dir '{args.weights_dir}' does not exist.")
+    if args.init_params_from is not None:
+        if args.load_weights:
+            raise ValueError(
+                "--init_params_from and --load_weights are mutually "
+                "exclusive (local export vs pretrained weights).")
+        if args.resume_from is not None:
+            raise ValueError(
+                "--init_params_from and --resume_from are mutually "
+                "exclusive: resume restores the FULL train state and "
+                "would silently discard the .npz params.")
 
 
 def _check_serve(args) -> None:
@@ -294,9 +356,14 @@ def _check_train(args) -> None:
         raise ValueError(
             "--mode train needs --byte_tokenizer: the BPE tokenizers' asset "
             "files are not in the repository (ROADMAP queue 1, tokenizers)")
-    for flag in ("n_epochs", "batch_size", "eval_freq", "print_sample_iter"):
+    for flag in ("n_epochs", "batch_size", "eval_freq", "print_sample_iter",
+                 "save_ckpt_freq", "watchdog_window"):
         if getattr(args, flag) < 1:
             raise ValueError(f"--{flag} must be >= 1.")
+    if args.keep_ckpts < 0:
+        raise ValueError("--keep_ckpts must be >= 0 (0 keeps all).")
+    if args.loss_spike_factor <= 1.0:
+        raise ValueError("--loss_spike_factor must be > 1.")
     if args.finetune and args.dataset == "gutenberg":
         raise ValueError(
             "--finetune requires an instruction dataset (--dataset alpaca).")

@@ -1,6 +1,7 @@
 """The component factory (port of the single-device half of the JAX
-package's ``build_components.py``): flags -> config, model (seeded init or
-an ``.npz`` export), tokenizer and, with ``--use_lora``, the adapter.
+package's ``build_components.py``): flags -> config, model (seeded init,
+an ``.npz`` export, or pretrained weights from ``--weights_dir``),
+tokenizer and, with ``--use_lora``, the adapter.
 
 The seeded init draws from a ``torch.Generator`` seeded with ``--seed``
 (the adapter's A from one seeded with ``--seed + 1``, as the JAX package
@@ -41,15 +42,27 @@ class Components:
 
 
 def build_config(args) -> ModelConfig:
-    """Flags -> ModelConfig."""
-    return get_config(args.model, args.num_params, dtype=args.data_type,
-                      debug=args.debug,
-                      target_context_length=(args.target_context_length or None))
+    """Flags -> ModelConfig. GPT-2's HF checkpoints carry q/k/v biases, so
+    ``--load_weights --model GPT2`` builds the config with them."""
+    return get_config(
+        args.model, args.num_params, dtype=args.data_type,
+        qkv_bias=True if (args.load_weights and args.model == "GPT2") else None,
+        debug=args.debug,
+        target_context_length=(args.target_context_length or None))
 
 
 def build_params(args, cfg: ModelConfig, device: torch.device) -> Transformer:
-    """The model with weights from ``--init_params_from`` or a seeded init
-    (``--seed``), made on ``device``."""
+    """The model with weights from ``--load_weights --weights_dir`` (the
+    pretrained files, converted leaf by leaf onto ``device``),
+    ``--init_params_from`` or a seeded init (``--seed``), made on
+    ``device``."""
+    if args.load_weights:
+        from building_llm_from_scratch_tpu_torch.weights import load_hf_weights
+
+        flat = load_hf_weights(args.model, args.num_params, cfg,
+                               weights_dir=args.weights_dir, device=device)
+        logger.info("Loaded pretrained weights from %s", args.weights_dir)
+        return Transformer(cfg, flat)
     if args.init_params_from:
         from building_llm_from_scratch_tpu_torch.training.checkpoint import (
             load_exported_params,

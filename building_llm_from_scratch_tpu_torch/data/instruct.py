@@ -116,13 +116,16 @@ class InstructLoader:
                 InstructionDataset(records[split:], self.tokenizer))
 
     def batches(self, dataset: InstructionDataset, *, shuffle: bool = True,
-                epoch: int = 0
+                epoch: int = 0, start: int = 0
                 ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """Collated batches in the (seed, epoch) shuffle, drop-last;
+        ``start`` begins at that batch of the same order without collating
+        the skipped ones (a resumed run's fast-forward)."""
         order = np.arange(len(dataset))
         if shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(order)
         bs = self.batch_size
-        for b in range(len(dataset) // bs):
+        for b in range(start, len(dataset) // bs):
             yield collate_batch([dataset[j] for j in order[b * bs:(b + 1) * bs]],
                                 pad_token_id=self.pad_token_id,
                                 allowed_max_length=self.max_length)

@@ -116,17 +116,19 @@ class PretrainLoader:
                 PretrainDataset(val_ids, self.max_length, self.stride))
 
     def batches(self, dataset: PretrainDataset, *, shuffle: bool = True,
-                epoch: int = 0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+                epoch: int = 0, start: int = 0
+                ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """Fixed-shape (inputs, targets) batches, shuffled
         deterministically in (seed, epoch); a partial last batch is
-        dropped."""
+        dropped. ``start`` begins at that batch of the same order (a
+        resumed run's fast-forward: the skipped batches are not built)."""
         n = len(dataset)
         order = np.arange(n)
         if shuffle:
             rng = np.random.default_rng(self.seed + epoch)
             rng.shuffle(order)
         bs = self.batch_size
-        for b in range(self._num_batches(n)):
+        for b in range(start, self._num_batches(n)):
             rows = order[b * bs:(b + 1) * bs]
             yield dataset.inputs[rows], dataset.targets[rows]
 

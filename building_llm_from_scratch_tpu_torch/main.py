@@ -4,12 +4,17 @@ alpaca``, optionally ``--use_lora``) or ``--mode serve``.
 
 Training follows the JAX ``main``: seed, components (config, model,
 tokenizer, adapter), training files (``.txt``, or ``.json`` Alpaca records
-with ``--finetune``), loader, trainer (with a warm-up sample before the
-first step), training or finetuning, peak device memory, the final ``.npz``
-export (merged weights in a LoRA run) and, with ``--save_adapter``, the
-adapter artifact. Not ported: the loss plot, the loss watchdog, resume and
-the train-state checkpoint (ROADMAP queue 1, train-state checkpoints), and
-the stall detector (queue 1, serving operations).
+with ``--finetune``), loader, the resume choice (``--resume auto`` finds
+the latest valid checkpoint in ``--output_dir``), the loss watchdog, the
+trainer (with a warm-up sample before a fresh run's first step), training
+or finetuning under a SIGTERM/SIGINT handler, peak device memory, the
+``final`` train-state checkpoint, the final ``.npz`` export (merged weights
+in a LoRA run) and, with ``--save_adapter``, the adapter artifact. A run
+stopped by a signal has written its ``interrupted`` checkpoint; it skips
+the final checkpoint and exports and returns normally (exit 0), and the
+same command resumes it. Not ported: the loss plot (ROADMAP queue 1, async
+checkpoints and prefetch) and the stall detector (queue 1, serving
+operations).
 """
 
 from __future__ import annotations
@@ -34,6 +39,11 @@ def run_train(args):
     from building_llm_from_scratch_tpu_torch.data.instruct import InstructLoader
     from building_llm_from_scratch_tpu_torch.data.pretrain import PretrainLoader
     from building_llm_from_scratch_tpu_torch.device import resolve_device
+    from building_llm_from_scratch_tpu_torch.training.resilience import (
+        GracefulStopper,
+        LossWatchdog,
+        resolve_resume,
+    )
     from building_llm_from_scratch_tpu_torch.training.trainer import Trainer
     from building_llm_from_scratch_tpu_torch.utils.io import (
         discover_training_files,
@@ -61,6 +71,16 @@ def run_train(args):
         loader = PretrainLoader(comps.tokenizer, stride=cfg.context_length,
                                 **loader_kwargs)
     os.makedirs(args.output_dir, exist_ok=True)
+    # a fleet checkpoint in the same output dir shares the model_pg_ prefix
+    # but is not a trainer state: auto-discovery skips it
+    resume_from = resolve_resume(args.resume, args.resume_from,
+                                 args.output_dir,
+                                 predicate=lambda meta: not meta.get("fleet"))
+    # fp16 would skip bad steps through loss scaling; the port refuses it
+    watchdog = (LossWatchdog(spike_factor=args.loss_spike_factor,
+                             window=args.watchdog_window)
+                if args.watchdog == "on" else None)
+    stopper = GracefulStopper()
     trainer = Trainer(cfg, comps.model, comps.tokenizer, loader,
                       output_dir=args.output_dir, peak_lr=args.lr,
                       initial_lr=args.initial_lr, min_lr=args.min_lr,
@@ -69,15 +89,25 @@ def run_train(args):
                       print_sample_iter=args.print_sample_iter,
                       seed=args.seed, lora_params=comps.lora_params,
                       lora_alpha=args.lora_alpha if args.use_lora else None,
-                      lora_rank=args.lora_rank if args.use_lora else None)
-    if args.finetune:
-        trainer.finetune_model(files, n_epochs=args.n_epochs)
-    else:
-        trainer.train_model(files, n_epochs=args.n_epochs)
+                      lora_rank=args.lora_rank if args.use_lora else None,
+                      save_ckpt_freq=args.save_ckpt_freq,
+                      resume_from=resume_from, keep_ckpts=args.keep_ckpts,
+                      watchdog=watchdog, stopper=stopper)
+    with stopper:
+        if args.finetune:
+            trainer.finetune_model(files, n_epochs=args.n_epochs)
+        else:
+            trainer.train_model(files, n_epochs=args.n_epochs)
+    if trainer.preempted:
+        logger.warning("Run preempted at step %d; interrupted checkpoint "
+                       "written. Relaunch the same command to resume "
+                       "(--resume auto).", trainer.global_step)
+        return trainer
     logger.info("Training complete. Final model saved.")
     if device.type == "cuda":
         logger.info("Peak device memory — %.2f GB allocated",
                     torch.cuda.max_memory_allocated(device) / 1e9)
+    trainer.save_checkpoint("final")
     trainer.export_final("model_pg_final.npz")
     if args.save_adapter:
         trainer.export_adapter(args.save_adapter)

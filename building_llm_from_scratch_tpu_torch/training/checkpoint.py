@@ -1,20 +1,38 @@
-"""The parameter-export format of the JAX package's ``training/
-checkpoint.py`` (``export_params`` and ``load_exported_params``), and the
-weight carrier from a JAX parameter tree to the port's model.
+"""The checkpoint formats of the JAX package's ``training/checkpoint.py``:
+the parameter export (``export_params`` / ``load_exported_params``), the
+train-state checkpoint (``save_checkpoint`` / ``load_checkpoint``), and
+the weight carrier from a JAX parameter tree to the port's model.
 
 Export format: one ``.npz`` with a key per leaf named by its tree path
 (``blocks/attn/wq``), plus a ``__dtype__.<key>`` entry naming the dtype.
 ``np.savez`` stores bf16 leaves as raw 2-byte void records, so their bits
 are reinterpreted, never converted: ``uint16 -> int16 -> torch.bfloat16``
 keeps them bit-exact, both ways. ``lora_from_jax`` carries a LoRA adapter
-tree across the same way. Train-state checkpoints (optimizer state, resume)
-are not ported yet.
+tree across the same way.
+
+Train-state checkpoint format (``"sharded-v1"``, the JAX package's, so
+either package reads the other's): a directory with one ``.npy`` per leaf
+(``leaf_00000.shard_000.npy``: on one process every leaf is one shard)
+and a ``manifest.json`` listing each leaf's tree ``path``, ``shape``,
+``dtype`` and its shard's ``index``, ``bytes`` and ``sha256``, plus the
+run's ``metadata``. Leaves are written in the JAX tree's flattening order
+(keys sorted at every level). bf16 leaves are 2-byte void records with
+``"dtype": "bfloat16"`` in the manifest, restored by a view. A save stages
+into ``<dir>.tmp`` and commits by renames (the previous checkpoint to
+``<dir>.old``, the staging dir to ``<dir>``), so a reader never sees a
+manifest without its shards; a save cut between the two renames leaves
+two complete neighbours, which ``load_checkpoint`` falls back to.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+import logging
 import os
-from typing import Any, Dict
+import shutil
+import time
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -26,7 +44,11 @@ from building_llm_from_scratch_tpu_torch.models.transformer import (
     param_shapes,
 )
 
+logger = logging.getLogger(__name__)
+
 _NUMPY_NAMES = {"fp32": "float32", "fp16": "float16", "bf16": "bfloat16"}
+
+_SHARDED_FORMAT = "sharded-v1"
 
 
 def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:
@@ -142,3 +164,232 @@ def lora_from_jax(tree_or_flat: Dict[str, Any], cfg: ModelConfig,
             raise ValueError(f"{'/'.join(path)}: shape {tuple(flat[path].shape)} "
                              f"!= {shape}")
     return unflatten_lora(flat)
+
+
+# ---------------------------------------------------------------------------
+# train-state checkpoints (the JAX "sharded-v1" format, one process)
+# ---------------------------------------------------------------------------
+
+def _dtype_name(leaf) -> str:
+    if isinstance(leaf, torch.Tensor):
+        return "bfloat16" if leaf.dtype == torch.bfloat16 else str(
+            torch.empty(0, dtype=leaf.dtype).numpy().dtype)
+    return str(np.asarray(leaf).dtype)
+
+
+def _tree_order(tree: Dict[str, Any]) -> list:
+    """The flat tree's paths in the JAX flattening order: keys sorted at
+    every level (the order of the paths' part tuples)."""
+    return sorted(tree, key=lambda p: tuple(p.split("/")))
+
+
+def sha256_file(path: str, chunk: int = 1 << 20) -> str:
+    """Chunked file hash, shared by the save path (recording) and
+    ``resilience.validate_checkpoint`` (verifying)."""
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(chunk), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+class _HashingWriter:
+    """File-object tee: forwards writes while folding the bytes into a
+    sha256. It has no ``fileno``, so ``np.save`` streams the array through
+    ``write()`` in chunks and hashing adds no copy of the array."""
+
+    def __init__(self, f):
+        self._f = f
+        self._h = hashlib.sha256()
+        self.nbytes = 0
+
+    def write(self, data):
+        self._h.update(data)
+        self.nbytes += len(data)
+        return self._f.write(data)
+
+    def hexdigest(self) -> str:
+        return self._h.hexdigest()
+
+
+def _write_shard_hashed(path: str, arr: np.ndarray):
+    """``np.save`` through the hashing tee; returns (bytes, sha256)."""
+    with open(path, "wb") as f:
+        w = _HashingWriter(f)
+        np.save(w, arr)
+    return w.nbytes, w.hexdigest()
+
+
+def _host_leaf(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return torch_to_numpy(leaf)
+    return np.asarray(leaf)
+
+
+def save_checkpoint(ckpt_dir: str, tree: Dict[str, Any],
+                    extra_metadata: Optional[dict] = None) -> dict:
+    """Write ``tree`` (flat JAX path -> tensor or numpy leaf, as
+    ``train_step.checkpoint_tree`` builds it) as a committed ``sharded-v1``
+    checkpoint at ``ckpt_dir``. Leaves go to the host one at a time, so the
+    host holds one leaf beyond the device state. Returns what was written:
+    ``path``, ``bytes``, ``leaves`` and ``seconds``."""
+    t0 = time.perf_counter()
+    ckpt_dir = ckpt_dir.rstrip("/")
+    tmp_dir = ckpt_dir + ".tmp"
+    if os.path.isdir(tmp_dir):
+        # a crashed earlier save may have left a stale staging dir
+        shutil.rmtree(tmp_dir)
+    os.makedirs(tmp_dir)
+    manifest = {"format": _SHARDED_FORMAT, "leaves": [],
+                "metadata": extra_metadata or {}}
+    for i, path in enumerate(_tree_order(tree)):
+        arr = _host_leaf(tree[path])
+        fname = f"leaf_{i:05d}.shard_000.npy"
+        nbytes, digest = _write_shard_hashed(os.path.join(tmp_dir, fname), arr)
+        manifest["leaves"].append({
+            "index": i, "path": path, "shape": list(arr.shape),
+            "dtype": _dtype_name(tree[path]),
+            "shards": [{"file": fname, "index": [[0, d] for d in arr.shape],
+                        "bytes": nbytes, "sha256": digest}]})
+    with open(os.path.join(tmp_dir, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+    old_dir = None
+    if os.path.isdir(ckpt_dir):
+        old_dir = ckpt_dir + ".old"
+        if os.path.isdir(old_dir):
+            shutil.rmtree(old_dir)
+        os.rename(ckpt_dir, old_dir)
+    os.rename(tmp_dir, ckpt_dir)
+    if old_dir is not None:
+        shutil.rmtree(old_dir)
+    return dict(path=ckpt_dir, leaves=len(manifest["leaves"]),
+                bytes=sum(sh["bytes"] for leaf in manifest["leaves"]
+                          for sh in leaf["shards"]),
+                seconds=time.perf_counter() - t0)
+
+
+def _resolve_ckpt_dir(ckpt_dir: str) -> str:
+    """A checkpoint tag -> a readable dir, recovering from a save cut inside
+    its two-rename commit: the tag itself, else its completed staging dir
+    (``.tmp``: its manifest is written last), else the displaced previous
+    checkpoint (``.old``)."""
+    if os.path.exists(os.path.join(ckpt_dir, "manifest.json")):
+        return ckpt_dir
+    for suffix in (".tmp", ".old"):
+        cand = ckpt_dir.rstrip("/") + suffix
+        if os.path.exists(os.path.join(cand, "manifest.json")):
+            logger.warning(
+                "Checkpoint %s has no manifest (save cut mid-commit?); "
+                "recovering from %s", ckpt_dir, cand)
+            return cand
+    return ckpt_dir
+
+
+def _cleanup_stale_siblings(ckpt_dir: str) -> None:
+    """Remove the ``.tmp``/``.old`` staging dirs a crashed save left; only
+    called once the tag itself resolved, so they are leftovers."""
+    for suffix in (".tmp", ".old"):
+        cand = ckpt_dir.rstrip("/") + suffix
+        if os.path.isdir(cand):
+            logger.warning("Removing orphaned checkpoint staging dir %s (left "
+                           "by a crashed save).", cand)
+            shutil.rmtree(cand, ignore_errors=True)
+
+
+def _read_manifest(ckpt_dir: str) -> dict:
+    """Read and structurally check a manifest, raising one clear
+    ``ValueError`` naming the dir and what is missing or malformed."""
+    manifest_path = os.path.join(ckpt_dir, "manifest.json")
+    if not os.path.isfile(manifest_path):
+        raise ValueError(
+            f"'{ckpt_dir}' is not a readable checkpoint: manifest.json is "
+            "missing (not a checkpoint directory, or the save died before "
+            "its commit and left no recoverable .tmp/.old staging dir).")
+    try:
+        with open(manifest_path) as f:
+            manifest = json.load(f)
+    except (json.JSONDecodeError, UnicodeDecodeError, OSError) as e:
+        raise ValueError(
+            f"Checkpoint manifest {manifest_path} is malformed "
+            f"({type(e).__name__}: {e}); the checkpoint cannot be "
+            "restored.") from e
+    if not isinstance(manifest, dict) or not isinstance(
+            manifest.get("leaves"), list):
+        raise ValueError(
+            f"Checkpoint manifest {manifest_path} is malformed: expected a "
+            "JSON object with a 'leaves' list.")
+    return manifest
+
+
+def _read_leaf(ckpt_dir: str, meta: dict) -> np.ndarray:
+    """A leaf's whole array from its shard files (a JAX checkpoint written
+    from a sharded state holds a leaf in several)."""
+    shape = tuple(meta["shape"])
+    out = None
+    for sh in meta["shards"]:
+        arr = np.load(os.path.join(ckpt_dir, sh["file"]))
+        if [list(map(int, b)) for b in sh["index"]] == [[0, d] for d in shape]:
+            return arr
+        if out is None:
+            out = np.empty(shape, arr.dtype)
+        out[tuple(slice(a, b) for a, b in sh["index"])] = arr
+    if out is None:
+        raise ValueError(f"Checkpoint leaf '{meta['path']}' has no shard files")
+    return out
+
+
+def load_checkpoint(ckpt_dir: str, template: Dict[str, Any]) -> Dict[str, Any]:
+    """Restore a ``sharded-v1`` checkpoint (of either package) into the
+    structure of ``template`` (flat JAX path -> tensor or numpy leaf, as
+    ``train_step.checkpoint_tree`` builds it). Paths, shapes and dtypes are
+    checked against the manifest. A tensor leaf is refilled in place (its
+    storage, and every view of it, sees the checkpoint's values); a numpy
+    leaf is returned as the array read. The ``rng`` leaf (a JAX PRNG key,
+    whose shape depends on the key implementation) keeps the template's
+    value when the shapes differ. Returns {path: restored leaf}."""
+    resolved = _resolve_ckpt_dir(ckpt_dir)
+    if resolved == ckpt_dir:
+        _cleanup_stale_siblings(ckpt_dir)
+    ckpt_dir = resolved
+    manifest = _read_manifest(ckpt_dir)
+    order = _tree_order(template)
+    if len(order) != len(manifest["leaves"]):
+        raise ValueError(
+            f"Checkpoint has {len(manifest['leaves'])} leaves but template "
+            f"state has {len(order)} — structure mismatch.")
+    out: Dict[str, Any] = {}
+    for path, meta in zip(order, manifest["leaves"]):
+        tmpl = template[path]
+        if path != meta["path"]:
+            raise ValueError(f"Leaf path mismatch: template {path} vs "
+                             f"checkpoint {meta['path']}")
+        shape = tuple(tmpl.shape) if isinstance(tmpl, torch.Tensor) else np.shape(tmpl)
+        if tuple(meta["shape"]) != tuple(shape):
+            if path == "rng":
+                logger.warning("Checkpoint rng leaf has shape %s, the template "
+                               "%s; keeping the template's.",
+                               tuple(meta["shape"]), tuple(shape))
+                out[path] = tmpl
+                continue
+            raise ValueError(
+                f"Checkpoint leaf '{meta['path']}' has shape "
+                f"{tuple(meta['shape'])} but the model expects {tuple(shape)} "
+                "— wrong model size/config for this checkpoint.")
+        if meta["dtype"] != _dtype_name(tmpl):
+            raise ValueError(
+                f"Checkpoint leaf '{meta['path']}' has dtype "
+                f"{meta['dtype']} but the model expects {_dtype_name(tmpl)} "
+                "— was the checkpoint written with a different --data_type?")
+        arr = _read_leaf(ckpt_dir, meta)
+        if isinstance(tmpl, torch.Tensor):
+            with torch.no_grad():
+                tmpl.copy_(numpy_to_torch(arr, meta["dtype"]))
+            out[path] = tmpl
+        else:
+            out[path] = np.asarray(arr).view(np.dtype(meta["dtype"]))
+    return out
+
+
+def checkpoint_metadata(ckpt_dir: str) -> dict:
+    """The ``metadata`` of a checkpoint's manifest."""
+    return _read_manifest(_resolve_ckpt_dir(ckpt_dir)).get("metadata", {})

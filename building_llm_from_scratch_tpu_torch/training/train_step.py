@@ -23,6 +23,11 @@ from the head and a dense ``cross_entropy_loss``. Both weight each token by
 the batch's ``weights`` (instruction finetuning's prompt mask) when it has
 them: sum(nll * w) / max(sum(w), 1).
 
+``checkpoint_tree`` lays the state out as the JAX train state's tree
+(``trainable``, ``frozen``, the optax chain's ``opt_state``, ``step`` and
+``rng``) for ``training/checkpoint.save_checkpoint``; ``restore_train_state``
+refills it in place from a checkpoint of either package.
+
 Not ported here: gradient accumulation and the loss ``sums`` it needs
 (ROADMAP queue 1, gradient accumulation), loss scaling and precision
 policies, remat, sharded steps and the per-layer-group ``health`` bundle.
@@ -33,6 +38,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from building_llm_from_scratch_tpu_torch.configs import ModelConfig
@@ -143,6 +149,49 @@ def init_train_state(trainable, optimizer: AdamW, seed: int = 0,
         grads[k] = leaf.grad = torch.zeros_like(leaf)
     return TrainState(frozen, params, grads, optimizer.init(params), seed=seed,
                       lora=trainable)
+
+
+def checkpoint_tree(state: TrainState) -> Dict[str, Any]:
+    """The state as the JAX train state's flat tree: ``trainable/<leaf>``
+    (the stacked parameters, or the adapter's ``blocks/attn/wq/A``...),
+    ``frozen/<leaf>`` (the base of a LoRA run; nothing otherwise), the
+    optax chain's state under its indices (``opt_state/1`` scale_by_adam's
+    ``count``, ``mu``, ``nu``; ``opt_state/3/count`` the schedule's), the
+    ``step`` and the ``rng``. The port's dropout stream is keyed on its
+    seed, so ``rng`` is written as ``PRNGKey(seed)`` is laid out ([0,
+    seed] as uint32), the key the JAX trainer keeps; it is not read back.
+    Tensor leaves are the state's own tensors (no copies)."""
+    opt = state.opt_state
+    count = np.asarray(opt.count, np.int32)
+    tree: Dict[str, Any] = {}
+    if state.lora is not None:
+        tree.update({f"frozen/{k}": v.detach()
+                     for k, v in state.model.stacked.items()})
+    for k, v in state.params.items():
+        tree[f"trainable/{k}"] = v.detach()
+        tree[f"opt_state/1/mu/{k}"] = opt.mu[k]
+        tree[f"opt_state/1/nu/{k}"] = opt.nu[k]
+    tree.update({"opt_state/1/count": count, "opt_state/3/count": count,
+                 "step": np.asarray(state.step, np.int32),
+                 "rng": np.asarray([0, state.seed & 0xFFFFFFFF], np.uint32)})
+    return tree
+
+
+def restore_train_state(state: TrainState, ckpt_dir: str) -> TrainState:
+    """Refill ``state`` from the train-state checkpoint at ``ckpt_dir``
+    (``training/checkpoint.load_checkpoint``): every tensor in place, so the
+    model's per-layer parameters, which are views of its stacked leaves,
+    and the gradient buffers attached to them stay valid; then the optimizer
+    count and the step. The dropout seed stays the state's (the checkpoint's
+    ``rng`` is a JAX key)."""
+    from building_llm_from_scratch_tpu_torch.training.checkpoint import (
+        load_checkpoint,
+    )
+
+    restored = load_checkpoint(ckpt_dir, checkpoint_tree(state))
+    state.opt_state.count = int(restored["opt_state/1/count"])
+    state.step = int(restored["step"])
+    return state
 
 
 def make_full_params_fn(lora_alpha: Optional[float] = None,

@@ -13,9 +13,19 @@ fetches them. With LoRA the steps train through the merge, sampling
 applies the adapter unmerged (``generate(lora=)``), ``export_final``
 writes the merged weights and ``export_adapter`` the adapter artifact.
 
-Not ported yet: train-state checkpoints and resume (ROADMAP queue 1,
-train-state checkpoints), sharded plans, prefetching, profiling, the loss
-watchdog, the stall detector and the metrics sink (obs/).
+Train-state checkpoints (the JAX ``sharded-v1`` format, read by either
+package) every ``save_ckpt_freq`` steps, with the data cursor (epoch, file,
+next batch) in their metadata, pruned to ``keep_ckpts``; ``resume_from``
+restores the state in place, keeps the original LR horizon and
+fast-forwards the deterministic (seed, epoch) shuffle to the cursor, so a
+resumed run's remaining steps are the unbroken run's. A ``stopper``
+(``resilience.GracefulStopper``) ends the run at a step boundary with an
+``interrupted`` checkpoint; a ``watchdog`` (``resilience.LossWatchdog``)
+sees every step's loss when the metrics are fetched.
+
+Not ported yet: sharded plans, asynchronous checkpoints and prefetching
+(ROADMAP queue 1, async checkpoints and prefetch), profiling, the stall
+detector and the metrics sink (obs/).
 """
 
 from __future__ import annotations
@@ -41,15 +51,25 @@ from building_llm_from_scratch_tpu_torch.models.lora import (
     save_adapter,
 )
 from building_llm_from_scratch_tpu_torch.models.transformer import Transformer
-from building_llm_from_scratch_tpu_torch.training.checkpoint import export_params
+from building_llm_from_scratch_tpu_torch.training.checkpoint import (
+    checkpoint_metadata,
+    export_params,
+    save_checkpoint,
+)
 from building_llm_from_scratch_tpu_torch.training.optim import (
     AdamW,
     warmup_cosine_schedule,
 )
+from building_llm_from_scratch_tpu_torch.training.resilience import (
+    PreemptionStop,
+    prune_checkpoints,
+)
 from building_llm_from_scratch_tpu_torch.training.train_step import (
+    checkpoint_tree,
     init_train_state,
     make_eval_step,
     make_train_step,
+    restore_train_state,
 )
 from building_llm_from_scratch_tpu_torch.utils.io import read_json_file
 
@@ -63,7 +83,8 @@ class Trainer:
     """Drives pretraining (``train_model``) and instruction finetuning
     (``finetune_model``) over a file list: one model, one optimizer. With
     ``lora_params`` (an adapter tree, with ``lora_alpha`` and
-    ``lora_rank``) the adapter is trained and the model stays frozen."""
+    ``lora_rank``) the adapter is trained and the model stays frozen.
+    ``resume_from`` names a train-state checkpoint to continue from."""
 
     def __init__(self, cfg: ModelConfig, model: Transformer, tokenizer, loader,
                  *, output_dir: str = "model_checkpoints",
@@ -72,7 +93,10 @@ class Trainer:
                  eval_freq: int = 10, print_sample_iter: int = 10,
                  seed: int = 123, lora_params: Optional[dict] = None,
                  lora_alpha: Optional[float] = None,
-                 lora_rank: Optional[int] = None):
+                 lora_rank: Optional[int] = None,
+                 save_ckpt_freq: int = 100,
+                 resume_from: Optional[str] = None, keep_ckpts: int = 0,
+                 watchdog=None, stopper=None):
         if (lora_params is None) != (lora_rank is None):
             raise ValueError(
                 "lora_params and lora_rank must be passed together "
@@ -94,6 +118,21 @@ class Trainer:
         self.print_sample_iter = print_sample_iter
         #: the dropout stream's seed (the JAX trainer's PRNGKey(seed))
         self.seed = seed
+        self.save_ckpt_freq = save_ckpt_freq
+        self.resume_from = resume_from
+        self.keep_ckpts = keep_ckpts
+        self.watchdog = watchdog
+        self.stopper = stopper
+        #: (epoch, file_index, file, batch_index) of the next batch to
+        #: train, written into checkpoint metadata; the restored one
+        self._cursor: Optional[Dict[str, Any]] = None
+        self._resume_cursor: Optional[Dict[str, Any]] = None
+        self._schedule_horizon = 0
+        self.preempted = False
+        #: what each checkpoint save wrote (path, leaves, bytes, seconds)
+        self.checkpoint_saves: List[Dict[str, Any]] = []
+        #: the restore of a resumed run (path, step, seconds)
+        self.restored: Optional[Dict[str, Any]] = None
 
         self.state = None
         self.global_step = 0
@@ -116,17 +155,57 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _setup(self, total_steps: int) -> None:
-        """Optimizer, schedule and steps once the total steps are known."""
+        """Optimizer, schedule and steps once the total steps are known. On
+        resume the checkpoint's schedule horizon is kept, so the LR follows
+        the unbroken run's curve; it grows only when the requested steps
+        overshoot it. A checkpoint with a data cursor is mid-run (the same
+        plan runs again, so ``total_steps`` already counts the steps taken);
+        one without (``final``) trains ``total_steps`` more."""
+        prev_steps = prev_horizon = 0
+        mid_run = False
+        if self.resume_from is not None:
+            meta = checkpoint_metadata(self.resume_from)
+            ckpt_model = meta.get("model")
+            if ckpt_model and ckpt_model != self.cfg.name:
+                raise ValueError(
+                    f"Checkpoint {self.resume_from} was written by model "
+                    f"'{ckpt_model}' but this run builds '{self.cfg.name}' "
+                    "— a stale checkpoint in a reused --output_dir? Pass "
+                    "--resume off for a fresh start or point --resume_from "
+                    "at a matching checkpoint.")
+            prev_steps = int(meta.get("global_step", 0))
+            prev_horizon = int(meta.get("schedule_horizon", 0))
+            mid_run = meta.get("cursor") is not None
+        horizon = max(prev_horizon,
+                      total_steps if mid_run else total_steps + prev_steps)
+        self._schedule_horizon = horizon
         h = self.opt_hparams
         self.lr_schedule = warmup_cosine_schedule(
             h["peak_lr"], h["initial_lr"], h["min_lr"], h["warmup_steps"],
-            total_steps)
+            horizon)
         self.optimizer = AdamW(self.lr_schedule)
         if self.use_lora:
             self.state = init_train_state(self.lora_params, self.optimizer,
                                           self.seed, frozen=self.model)
         else:
             self.state = init_train_state(self.model, self.optimizer, self.seed)
+        if self.resume_from is not None:
+            t0 = time.perf_counter()
+            restore_train_state(self.state, self.resume_from)
+            if self.model.device.type == "cuda":
+                torch.cuda.synchronize(self.model.device)
+            self.global_step = int(meta.get("global_step", 0))
+            self.tokens_seen = int(meta.get("tokens_seen", 0))
+            # a mid-run checkpoint's cursor; the live cursor starts as it,
+            # so a stop before the first step re-saves the same position
+            self._resume_cursor = meta.get("cursor")
+            self._cursor = self._resume_cursor
+            self.restored = dict(path=self.resume_from, step=self.global_step,
+                                 seconds=time.perf_counter() - t0)
+            logger.info("Resumed from %s at step %d (%d tokens seen)%s",
+                        self.resume_from, self.global_step, self.tokens_seen,
+                        f", data cursor {self._resume_cursor}"
+                        if self._resume_cursor else "")
         lora = dict(lora_alpha=self.lora_alpha, lora_rank=self.lora_rank)
         self.train_step = make_train_step(self.cfg, self.optimizer, **lora)
         self.eval_step = make_eval_step(self.cfg, **lora)
@@ -190,28 +269,89 @@ class Trainer:
     # core loop
     # ------------------------------------------------------------------
 
-    def _flush_metrics(self) -> None:
-        """Fetch the pending per-step device metrics as host floats."""
-        for step, m in self._pending:
+    def _flush_metrics(self, check_watchdog: bool = True) -> None:
+        """Fetch the pending per-step device metrics as host floats; the
+        watchdog sees each step's loss."""
+        pending, self._pending = self._pending, []
+        for step, m in pending:
             self.step_metrics.append(dict(
                 step=step, loss=float(m["loss"]),
                 grad_norm=float(m["grad_norm"]),
                 update_norm=float(m["update_norm"]), lr=m["lr"],
                 tokens=m["tokens"]))
-        self._pending.clear()
+        if self.watchdog is not None and check_watchdog:
+            for m in self.step_metrics[len(self.step_metrics) - len(pending):]:
+                self.watchdog.observe(m["step"], m["loss"])
 
-    def _run_epoch(self, train_batches_fn: Callable[[int], Any],
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+
+    def save_checkpoint(self, tag: str, cursor: Optional[Dict[str, Any]] = None,
+                        prune_after: bool = False) -> str:
+        """Write the train state as ``<output_dir>/model_pg_<tag>`` with the
+        run's metadata (model, global_step, tokens_seen, the schedule
+        horizon and, mid-run, the data cursor); with ``prune_after`` the
+        oldest step checkpoints beyond ``keep_ckpts`` go."""
+        path = os.path.join(self.output_dir, f"model_pg_{tag}")
+        metadata = {"global_step": self.global_step,
+                    "tokens_seen": self.tokens_seen, "model": self.cfg.name,
+                    "schedule_horizon": self._schedule_horizon}
+        if cursor is not None:
+            metadata["cursor"] = cursor
+        info = save_checkpoint(path, checkpoint_tree(self.state), metadata)
+        self.checkpoint_saves.append(dict(info, tag=tag, step=self.global_step))
+        logger.info("Saved checkpoint %s (%d bytes in %.2f s)", path,
+                    info["bytes"], info["seconds"])
+        if prune_after and self.keep_ckpts > 0:
+            prune_checkpoints(self.output_dir, keep=self.keep_ckpts)
+        return path
+
+    def _resume_skip(self, epoch: int, file_index: int, path: str = ""):
+        """(batches to skip, skip the whole file) of the resume fast-forward.
+        The restored cursor names the next (epoch, file, batch) to train:
+        earlier files are skipped, the cursor's file starts at its batch
+        (the shuffle is deterministic in (seed, epoch)), later ones run
+        whole. The cursor names its file, so a data dir whose files moved
+        since the checkpoint is refused instead of resumed into the wrong
+        file."""
+        cur = self._resume_cursor
+        if not cur:
+            return 0, False
+        ce = int(cur.get("epoch", 0))
+        cf = int(cur.get("file_index", 0))
+        if (epoch, file_index) < (ce, cf):
+            return 0, True
+        if (epoch, file_index) == (ce, cf):
+            want = cur.get("file")
+            have = os.path.basename(path) if path else ""
+            if want and have and want != have:
+                raise ValueError(
+                    f"Resume cursor points at file '{want}' (position {cf}) "
+                    f"but the discovered file list now has '{have}' there — "
+                    "data_dir contents changed since the checkpoint. Restore "
+                    "the original file list or restart with --resume off.")
+            return int(cur.get("batch_index", 0)), False
+        return 0, False
+
+    def _run_epoch(self, train_batches_fn: Callable[..., Any],
                    val_batches_fn: Callable[[int], Any], epoch: int,
-                   start_context: str) -> None:
-        """One pass over one file's batches with the cadence work."""
+                   start_context: str, file_index: int = 0,
+                   file_name: str = "", skip_batches: int = 0) -> None:
+        """One pass over one file's batches with the cadence work;
+        ``skip_batches`` starts a resumed run at its cursor."""
         if self.global_step == 0 and not self.samples:
             self.generate_and_print_sample(start_context)
         t_tokens, t_start, excluded = 0, time.perf_counter(), 0.0
-        for arrays in train_batches_fn(epoch):
+        batch_in_file = skip_batches
+        for arrays in train_batches_fn(epoch, skip_batches):
             n_tok = int(np.prod(arrays[0].shape))
             self.state, metrics = self.train_step(self.state,
                                                   self._device_batch(arrays))
             self.global_step += 1
+            batch_in_file += 1
+            self._cursor = {"epoch": epoch, "file_index": file_index,
+                            "file": file_name, "batch_index": batch_in_file}
             self.tokens_seen += n_tok
             t_tokens += n_tok
             self.track_lrs.append(metrics["lr"])
@@ -238,6 +378,57 @@ class Trainer:
                 self.generate_and_print_sample(start_context)
                 excluded += time.perf_counter() - t0
 
+            if self.global_step % self.save_ckpt_freq == 0:
+                t0 = time.perf_counter()
+                self.save_checkpoint(str(self.global_step), cursor=self._cursor,
+                                     prune_after=True)
+                excluded += time.perf_counter() - t0
+
+            if self.stopper is not None and self.stopper.should_stop():
+                logger.warning("Graceful stop requested: writing checkpoint "
+                               "at step %d and exiting.", self.global_step)
+                self.save_checkpoint("interrupted", cursor=self._cursor)
+                self.preempted = True
+                raise PreemptionStop
+
+    def _run_files(self, files: Sequence[str], n_epochs: int, datasets,
+                   what: str) -> None:
+        """The epochs over ``files``: ``datasets(path)`` gives (train, val,
+        sample prompt) of a file; a resumed run skips to its cursor. A
+        graceful stop returns; an abort (KeyboardInterrupt) writes an
+        ``interrupted`` checkpoint and re-raises."""
+        try:
+            for epoch in range(n_epochs):
+                for file_index, path in enumerate(files):
+                    skip, skip_file = self._resume_skip(epoch, file_index, path)
+                    if skip_file:
+                        continue
+                    train_ds, val_ds, start_context = datasets(path)
+                    if self.loader.num_batches(train_ds) == 0:
+                        logger.warning("File %s too small for one batch; "
+                                       "skipping", path)
+                        continue
+                    self._run_epoch(
+                        lambda e, start=0, ds=train_ds: self.loader.batches(
+                            ds, shuffle=True, epoch=e, start=start),
+                        lambda e, ds=val_ds: self.loader.batches(
+                            ds, shuffle=False, epoch=e),
+                        epoch, start_context, file_index=file_index,
+                        file_name=os.path.basename(path), skip_batches=skip)
+        except PreemptionStop:
+            logger.warning("%s stopped gracefully at step %d; relaunch with "
+                           "--resume auto to continue.", what, self.global_step)
+        except KeyboardInterrupt:
+            # the abort path (no stopper, or a second SIGINT): the cursor may
+            # trail the state by one batch if the interrupt lands between
+            # the step and the cursor update
+            self.save_checkpoint("interrupted", cursor=self._cursor)
+            raise
+        finally:
+            # no watchdog here: raising in finally would mask the exception
+            # in flight
+            self._flush_metrics(check_watchdog=False)
+
     def train_model(self, files: Sequence[str], n_epochs: int,
                     start_context: str = "Every effort moves you"):
         """Causal-LM pretraining over raw-text files."""
@@ -245,23 +436,13 @@ class Trainer:
             list(files), eos_text=self.cfg.eos_text) * n_epochs
         self._setup(max(1, total_steps))
         logger.info("Total training steps: %d", total_steps)
-        try:
-            for epoch in range(n_epochs):
-                for path in files:
-                    train_ds, val_ds = self.loader.create_datasets_for_file(
-                        path, eos_text=self.cfg.eos_text)
-                    if self.loader.num_batches(train_ds) == 0:
-                        logger.warning("File %s too small for one batch; "
-                                       "skipping", path)
-                        continue
-                    self._run_epoch(
-                        lambda e, ds=train_ds: self.loader.batches(
-                            ds, shuffle=True, epoch=e),
-                        lambda e, ds=val_ds: self.loader.batches(
-                            ds, shuffle=False, epoch=e),
-                        epoch, start_context)
-        finally:
-            self._flush_metrics()
+
+        def datasets(path):
+            train_ds, val_ds = self.loader.create_datasets_for_file(
+                path, eos_text=self.cfg.eos_text)
+            return train_ds, val_ds, start_context
+
+        self._run_files(files, n_epochs, datasets, "Training")
         return self
 
     def finetune_model(self, files: Sequence[str], n_epochs: int):
@@ -272,24 +453,14 @@ class Trainer:
         total_steps = self.loader.get_total_steps_epoch(list(files)) * n_epochs
         self._setup(max(1, total_steps))
         logger.info("Total finetuning steps: %d", total_steps)
-        try:
-            for epoch in range(n_epochs):
-                for path in files:
-                    train_ds, val_ds = self.loader.create_datasets(
-                        read_json_file(path))
-                    if self.loader.num_batches(train_ds) == 0:
-                        logger.warning("File %s too small for one batch; "
-                                       "skipping", path)
-                        continue
-                    entry = val_ds.data[0] if len(val_ds) > 0 else train_ds.data[0]
-                    self._run_epoch(
-                        lambda e, ds=train_ds: self.loader.batches(
-                            ds, shuffle=True, epoch=e),
-                        lambda e, ds=val_ds: self.loader.batches(
-                            ds, shuffle=False, epoch=e),
-                        epoch, format_input(entry))
-        finally:
-            self._flush_metrics()
+
+        def datasets(path):
+            train_ds, val_ds = self.loader.create_datasets(read_json_file(path))
+            entry = val_ds.data[0] if len(val_ds) > 0 else (
+                train_ds.data[0] if len(train_ds) > 0 else None)
+            return train_ds, val_ds, entry and format_input(entry)
+
+        self._run_files(files, n_epochs, datasets, "Finetuning")
         return self
 
     def export_final(self, filename: str = "model_pg_final.npz") -> str:

@@ -129,7 +129,8 @@ exits non-zero):
      against the run dtype's dense peak (bf16 tensor cores, fp32 CUDA
      cores). For GPT-2, in bf16 and at the default dtype, the same 20
      steps again with BLLM_XENT_PALLAS=1: B4 = steps + eval batches, and
-     the step-1 loss equal to the first run's to 1e-5.
+     the step-1 loss equal to the first run's to 1e-5. Each run's ``final``
+     train state is counted, not written (phase 8r writes them).
   6s. LoRA instruction finetuning through the CLI (``--finetune --dataset
      alpaca --use_lora``) on a ``scripts/build_local_alpaca.py`` file sized
      for 20 steps and 7 eval batches: LLaMA-3.2-1B bf16 (rank 16, alpha 32,
@@ -154,9 +155,37 @@ exits non-zero):
      collated Alpaca record: the loss and every adapter gradient within
      the dtype's bound; the CPU step with all-ones loss weights must fail
      the loss bound.
-  8. the ``kernels`` line (one row per kernel and shape, each with the
+  8w. pretrained weights: HF-format files written from seeded models
+     with every leaf drawn (GPT-2-124M fp32 ``model.safetensors`` with the
+     fused c_attn and no lm_head; LLaMA-3.2-1B bf16 in HF naming without
+     lm_head, so the tied fallback runs; LLaMA-2-7B bf16 cut to 2 layers as
+     Meta's ``consolidated.00.pth``), each read back by ``load_hf_weights
+     (weights_dir=)``: every leaf bit-equal; a GPT-2 file with q and k
+     swapped in c_attn and a Meta file without the w2/w3 swap must not load
+     bit-equal. Load seconds, bytes read, peak host RSS over the file.
+     GPT-2 and LLaMA-3.2-1B served through ``--mode serve --load_weights
+     --weights_dir`` (8 requests, 8 slots of 1024): B5 = layers x ticks,
+     the greedy tokens those of the same weights served by the engine in
+     process.
+  8r. train-state checkpoints and resume through the CLI, at full width
+     cut to 2 layers: GPT-2-124M fp32 (dropout 0.1, B 8 x T 1024)
+     pretraining over two corpus files and LLaMA-3.2-1B bf16 LoRA SFT
+     (rank 16, B 4 x T 1024) from 8w's files over two Alpaca files, 10
+     steps, a checkpoint every 5. The unbroken command (``--resume off``;
+     GPT-2's twice, bit-equal); the same with ``--keep_ckpts 1`` stopped by
+     SIGTERM after step 7 (it returns, with an ``interrupted`` checkpoint
+     holding the cursor and no export) and relaunched as it was: the
+     remaining per-step losses, evaluations, counts and exports equal the
+     unbroken run's bit for bit; a copy of the stopped dir with a shard of
+     ``interrupted`` corrupted resumes, with an error line, from step 5.
+     Launches exact in every run. Save seconds and bytes, restore seconds,
+     relaunch to first step. Phases 6 and 6s write no ``final`` train
+     state (its bytes are reported): the script keeps its disk writes under
+     45 GiB, and phase 8r's saves need that room.
+  9. the ``kernels`` line (one row per kernel and shape, each with the
      launches of the run at that shape; B6 by projection shape from phase
-     4c), then the card line and the result line.
+     4c; B5's rows add 8w's CLI launches, the training rows 8r's), then
+     the card line and the result line.
 
 It exits non-zero without printing a result when no CUDA device is present
 or when the package is not beside it.
@@ -167,6 +196,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import logging
 import math
 import os
 import shutil
@@ -1465,6 +1495,49 @@ def main_path(torch, xent_kernel: bool):
                  peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+@contextlib.contextmanager
+def final_checkpoint_unwritten():
+    """Around a phase 6 / 6s CLI run: the ``final`` train-state checkpoint
+    the CLI saves after training is counted (its leaves' bytes) but not
+    written. It would write 3x the parameters (18 GB for LLaMA-3.2-1B in
+    fp32), and the script keeps its disk writes under 45 GiB; phase 8r
+    writes and times final checkpoints."""
+    import numpy as np
+
+    import building_llm_from_scratch_tpu_torch.training.trainer as ttr
+
+    save = ttr.Trainer.save_checkpoint
+
+    def counted(self, tag, cursor=None, prune_after=False):
+        if tag != "final":
+            return save(self, tag, cursor=cursor, prune_after=prune_after)
+        tree = ttr.checkpoint_tree(self.state)
+        nbytes = sum(v.numel() * v.element_size() if hasattr(v, "numel")
+                     else np.asarray(v).nbytes for v in tree.values())
+        self.checkpoint_saves.append(dict(tag=tag, step=self.global_step,
+                                          bytes=nbytes, leaves=len(tree),
+                                          seconds=None, written=False))
+        return os.path.join(self.output_dir, f"model_pg_{tag}")
+
+    ttr.Trainer.save_checkpoint = counted
+    try:
+        yield
+    finally:
+        ttr.Trainer.save_checkpoint = save
+
+
+def final_checkpoint(trainer) -> dict:
+    """The run's ``final`` train state, counted by
+    ``final_checkpoint_unwritten``. A fresh run must not have resumed (it
+    would break the phase's counts)."""
+    if trainer.restored is not None:
+        raise AssertionError(f"a fresh run resumed from {trainer.restored}")
+    save = trainer.checkpoint_saves[-1]
+    if save["tag"] != "final":
+        raise AssertionError(f"no final checkpoint: {trainer.checkpoint_saves}")
+    return dict(bytes_unwritten=save["bytes"], leaves=save["leaves"])
+
+
 def train_run(torch, t: dict, workdir: str, xent_kernel: bool = False):
     """One ``main.run`` (--mode train) of ``t`` on a seeded corpus sized for
     exactly t["steps"] steps, with each step's device time (CUDA events) and
@@ -1487,9 +1560,10 @@ def train_run(torch, t: dict, workdir: str, xent_kernel: bool = False):
              "--data_dir", data_dir, "--output_dir", out_dir,
              "--n_epochs", "1", "--batch_size", str(t["batch"]),
              "--eval_freq", str(t["steps"]), "--print_sample_iter", str(t["steps"])]
-    with main_path(torch, xent_kernel) as run:
+    with main_path(torch, xent_kernel) as run, final_checkpoint_unwritten():
         trainer = tmain.run(flags)
     launches, run_step_ms = run["launches"], run["run_step_ms"]
+    final_ckpt = final_checkpoint(trainer)
 
     cfg, loader = trainer.cfg, trainer.loader
     tr_ds, va_ds = loader.create_datasets_for_file(corpus, cfg.eos_text)
@@ -1514,7 +1588,7 @@ def train_run(torch, t: dict, workdir: str, xent_kernel: bool = False):
         raise AssertionError(f"expected the warm-up and one sample: {trainer.samples}")
     facts = dict(check, wall_s=run["wall_s"], corpus=corpus, corpus_chars=n_chars,
                  out_dir=out_dir, run_step_ms=run_step_ms, peak_gb=run["peak_gb"],
-                 losses=losses, tr_ds=tr_ds)
+                 losses=losses, tr_ds=tr_ds, final_ckpt=final_ckpt)
     return trainer, facts
 
 
@@ -1609,7 +1683,8 @@ def phase_train(torch, card: dict, workdir: str, t: dict) -> dict:
                   mfu_basis="flops_per_token = 6 x non-embedding params (head "
                             "included) + 12 x layers x emb_dim x context; "
                             f"peak = {dt} dense ({peak / 1e12:g} TFLOP/s)",
-                  peak_memory_gb=facts["peak_gb"], profile=prof)
+                  peak_memory_gb=facts["peak_gb"], profile=prof,
+                  final_checkpoint=facts["final_ckpt"])
     emit("train", **result)
     runs = {"main": facts["launches"],
             "pretrain": {k: result[k] for k in (
@@ -1712,8 +1787,9 @@ def sft_run(torch, t: dict, workdir: str, xent_kernel: bool = False):
              "--eval_freq", str(t["steps"]), "--print_sample_iter", str(t["steps"])]
     if adapter:
         flags += ["--save_adapter", adapter]
-    with main_path(torch, xent_kernel) as run:
+    with main_path(torch, xent_kernel) as run, final_checkpoint_unwritten():
         trainer = tmain.run(flags)
+    final_ckpt = final_checkpoint(trainer)
 
     cfg, loader = trainer.cfg, trainer.loader
     with open(data) as f:
@@ -1763,6 +1839,7 @@ def sft_run(torch, t: dict, workdir: str, xent_kernel: bool = False):
                 or not all(same_bits(torch, back[k].cuda(), v) for k, v in lora.items())):
             raise AssertionError(f"the saved adapter does not read back: {meta}")
     facts = dict(check, losses=losses, adapter=adapter, wall_s=run["wall_s"],
+                 final_ckpt=final_ckpt,
                  run_step_ms=run["run_step_ms"], supervised=run["supervised"],
                  peak_gb=run["peak_gb"], tr_ds=tr_ds)
     return trainer, facts
@@ -1801,7 +1878,7 @@ def phase_sft(torch, card: dict, workdir: str, t: dict, pretrain: dict) -> dict:
                   pretrain=pretrain,
                   step_ratio_to_pretrain=step_ms / pretrain["later_steps_median_ms"],
                   profile=train_profile(torch, trainer, batch, step_ms),
-                  adapter=facts["adapter"])
+                  adapter=facts["adapter"], final_checkpoint=facts["final_ckpt"])
     emit("sft", **result)
     runs = {"main": facts["launches"], "adapter": facts["adapter"], "step_ms": step_ms}
     del trainer, batch
@@ -3191,6 +3268,666 @@ def phase_serve_sft_adapter(torch, adapter: str, workdir: str) -> dict:
     return row
 
 
+
+# ---------------------------------------------------------------------------
+# phase 8w: pretrained weights from a local directory, at full width
+# ---------------------------------------------------------------------------
+
+#: the families' checkpoint files written from seeded port models (every
+#: leaf drawn, biases and norm scales too), in the reference's names and
+#: layouts: GPT-2 (fused c_attn, Conv1D, ``transformer.`` prefix, no
+#: lm_head), LLaMA-3.2-1B (HF naming, no lm_head: the tying fallback) and
+#: LLaMA-2-7B cut to 2 layers (Meta's consolidated.00.pth, w1/w3/w2 =
+#: gate/up/down). GPT-2 and LLaMA-3.2-1B also go through the serving CLI.
+WEIGHTS = [
+    dict(label="gpt2", model="GPT2", size="124M", dtype="fp32", layers=None,
+         naming="gpt2", cli=True),
+    dict(label="llama3_2", model="llama3_2", size="1B", dtype="bf16",
+         layers=None, naming="hf", cli=True),
+    dict(label="llama2", model="llama2", size="7B", dtype="bf16", layers=2,
+         naming="meta", cli=False),
+]
+WEIGHTS_SEED = 7
+
+
+def weights_config(w: dict):
+    """The config the CLI builds for ``--load_weights`` of ``w`` (GPT-2
+    with q/k/v biases), cut to ``w["layers"]``."""
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+
+    cfg = get_config(w["model"], w["size"], dtype=w["dtype"],
+                     qkv_bias=True if w["model"] == "GPT2" else None)
+    return cfg.replace(n_layers=w["layers"]) if w["layers"] else cfg
+
+
+def seeded_pretrained(torch, cfg, seed: int, tied: bool):
+    """A seeded port model whose every leaf is drawn: the seeded init
+    leaves biases at 0 and norm scales at 1, which would make a bias split
+    or a norm mapping unobservable. ``tied``: the head is the embedding's
+    transpose, as in the checkpoints that ship no head (GPT-2,
+    LLaMA-3.2-1B)."""
+    from building_llm_from_scratch_tpu_torch.models.transformer import build_model
+
+    model = build_model(cfg, seed, "cuda")
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, leaf in model.stacked.items():
+            kind = name.rsplit("/", 1)[-1]
+            if kind in ("scale", "bias", "bq", "bk", "bv", "bo", "b_up", "b_down"):
+                noise = torch.randn(leaf.shape, generator=gen, device=leaf.device)
+                leaf.copy_((1.0 if kind == "scale" else 0.0) + 0.05 * noise)
+        if tied:
+            model.stacked["head/weight"].copy_(model.stacked["tok_emb/weight"].t())
+    return model
+
+
+def hf_state_dict(torch, model, naming: str, control: bool = False) -> list:
+    """(name, tensor) pairs of ``model`` in the checkpoint layout of
+    ``naming`` (tensors on the card, views where no copy is needed).
+    ``control`` writes the layout wrong: GPT-2 with q and k swapped in the
+    fused c_attn, Meta without the w2/w3 swap (w2 = up, w3 = down)."""
+    p, L = model.stacked, model.cfg.n_layers
+    out = []
+    if naming == "gpt2":
+        q, k = ("wk", "wq") if control else ("wq", "wk")
+        bq, bk = ("bk", "bq") if control else ("bq", "bk")
+        pre = "transformer."
+        out += [(pre + "wte.weight", p["tok_emb/weight"]),
+                (pre + "wpe.weight", p["pos_emb/weight"])]
+        for b in range(L):
+            h = f"{pre}h.{b}."
+            out += [
+                (h + "ln_1.weight", p["blocks/norm1/scale"][b]),
+                (h + "ln_1.bias", p["blocks/norm1/bias"][b]),
+                (h + "attn.c_attn.weight", torch.cat(
+                    [p[f"blocks/attn/{n}"][b] for n in (q, k, "wv")], dim=-1)),
+                (h + "attn.c_attn.bias", torch.cat(
+                    [p[f"blocks/attn/{n}"][b] for n in (bq, bk, "bv")], dim=-1)),
+                (h + "attn.c_proj.weight", p["blocks/attn/wo"][b]),
+                (h + "attn.c_proj.bias", p["blocks/attn/bo"][b]),
+                (h + "ln_2.weight", p["blocks/norm2/scale"][b]),
+                (h + "ln_2.bias", p["blocks/norm2/bias"][b]),
+                (h + "mlp.c_fc.weight", p["blocks/mlp/up"][b]),
+                (h + "mlp.c_fc.bias", p["blocks/mlp/b_up"][b]),
+                (h + "mlp.c_proj.weight", p["blocks/mlp/down"][b]),
+                (h + "mlp.c_proj.bias", p["blocks/mlp/b_down"][b])]
+        return out + [(pre + "ln_f.weight", p["final_norm/scale"]),
+                      (pre + "ln_f.bias", p["final_norm/bias"])]
+    if naming == "hf":
+        names = {"attn/wq": "self_attn.q_proj", "attn/wk": "self_attn.k_proj",
+                 "attn/wv": "self_attn.v_proj", "attn/wo": "self_attn.o_proj",
+                 "mlp/gate": "mlp.gate_proj", "mlp/up": "mlp.up_proj",
+                 "mlp/down": "mlp.down_proj"}
+        out.append(("model.embed_tokens.weight", p["tok_emb/weight"]))
+        for b in range(L):
+            h = f"model.layers.{b}."
+            out += [(f"{h}{hf}.weight", p[f"blocks/{leaf}"][b].t())
+                    for leaf, hf in names.items()]
+            out += [(h + "input_layernorm.weight", p["blocks/norm1/scale"][b]),
+                    (h + "post_attention_layernorm.weight", p["blocks/norm2/scale"][b])]
+        return out + [("model.norm.weight", p["final_norm/scale"])]
+    w2, w3 = ("up", "down") if control else ("down", "up")
+    names = {"attention.wq": "attn/wq", "attention.wk": "attn/wk",
+             "attention.wv": "attn/wv", "attention.wo": "attn/wo",
+             "feed_forward.w1": "mlp/gate", "feed_forward.w2": f"mlp/{w2}",
+             "feed_forward.w3": f"mlp/{w3}"}
+    out += [("tok_embeddings.weight", p["tok_emb/weight"]),
+            ("norm.weight", p["final_norm/scale"]),
+            ("output.weight", p["head/weight"].t())]
+    for b in range(L):
+        h = f"layers.{b}."
+        out += [(f"{h}{m}.weight", p[f"blocks/{leaf}"][b].t()) for m, leaf in names.items()]
+        out += [(h + "attention_norm.weight", p["blocks/norm1/scale"][b]),
+                (h + "ffn_norm.weight", p["blocks/norm2/scale"][b])]
+    return out
+
+
+_ST_DTYPES = {"float32": "F32", "bfloat16": "BF16", "float16": "F16"}
+
+
+def write_safetensors(torch, path: str, tensors: list) -> int:
+    """The safetensors format (an 8-byte little-endian header length, a
+    JSON table of dtype / shape / byte offsets padded to 8 bytes, the raw
+    bytes), written tensor by tensor from the card. Returns the bytes."""
+    import struct
+
+    header, offset = {}, 0
+    for name, t in tensors:
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_DTYPES[str(t.dtype).split(".")[-1]],
+                        "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for _, t in tensors:
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+    return os.path.getsize(path)
+
+
+def write_checkpoint(torch, model, naming: str, weights_dir: str,
+                     control: bool = False) -> int:
+    """The family's checkpoint file of ``model`` in ``weights_dir`` (the
+    file name the loader's tables give). Returns its bytes."""
+    os.makedirs(weights_dir, exist_ok=True)
+    tensors = hf_state_dict(torch, model, naming, control)
+    if naming == "meta":
+        path = os.path.join(weights_dir, "consolidated.00.pth")
+        torch.save({k: t.detach().contiguous().cpu().clone() for k, t in tensors}, path)
+        return os.path.getsize(path)
+    return write_safetensors(torch, os.path.join(weights_dir, "model.safetensors"),
+                             tensors)
+
+
+class HostMemory:
+    """Peak resident set size of this process over a block, sampled every
+    2 ms from /proc/self/statm."""
+
+    def __enter__(self):
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _run(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+        return False
+
+
+def load_leaves(torch, w: dict, cfg, weights_dir: str):
+    """``load_hf_weights`` of ``w`` from ``weights_dir`` onto the card,
+    timed, with the host's peak RSS over the load and the bytes the
+    safetensors reader read (None for a ``.pth``: memory-mapped)."""
+    from building_llm_from_scratch_tpu_torch.weights import fetch
+
+    readers = []
+
+    class Counted(fetch.LazyStateDict):
+        def __init__(self, paths):
+            super().__init__(paths)
+            readers.append(self)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lazy, fetch.LazyStateDict = fetch.LazyStateDict, Counted
+    try:
+        with HostMemory() as mem:
+            flat = fetch.load_hf_weights(w["model"], w["size"], cfg,
+                                         weights_dir=weights_dir, device="cuda")
+            torch.cuda.synchronize()
+    finally:
+        fetch.LazyStateDict = lazy
+    return flat, dict(load_s=time.perf_counter() - t0,
+                      read_bytes=sum(r.bytes_read for r in readers) if readers else None,
+                      rss_start=mem.start, rss_peak=mem.peak)
+
+
+def weights_requests(cfg, n: int = 8) -> list:
+    """``n`` greedy requests of 16-256 prompt tokens and 32 new tokens."""
+    import numpy as np
+
+    from building_llm_from_scratch_tpu_torch.serving.request import SamplingParams
+
+    rng = np.random.default_rng(3)
+    return [(rng.integers(0, cfg.vocab_size, int(rng.integers(16, 257))).tolist(),
+             SamplingParams(max_new_tokens=32, ignore_eos=True))
+            for _ in range(n)]
+
+
+def phase_weights(torch, workdir: str) -> dict:
+    """Each of ``WEIGHTS`` written from a seeded model, then read back
+    through ``load_hf_weights(weights_dir=)``: every loaded leaf bit-equal
+    to the model's, and the control file (q/k swapped, or the Meta file
+    without the w2/w3 swap) must not load bit-equal. GPT-2 and LLaMA-3.2-1B
+    are then served through the CLI (``--mode serve --load_weights
+    --weights_dir``; 8 slots of 1024, phase 4's B5 shapes): B5 = layers x
+    decode ticks, and the greedy tokens equal those of the same weights
+    served by the engine in process (an ``--init_params_from`` config
+    carries no GPT-2 q/k/v biases, and its export would add 3 GB of disk
+    writes for LLaMA). Returns the dirs kept for phase
+    8r and B5's launches by shape."""
+    from building_llm_from_scratch_tpu_torch.ops.decode_step import fused_decode_step
+    from building_llm_from_scratch_tpu_torch.serving.engine import DecodeEngine
+
+    out = {"dirs": {}, "launches": {}}
+    for w in WEIGHTS:
+        cfg = weights_config(w)
+        model = seeded_pretrained(torch, cfg, WEIGHTS_SEED, tied=w["naming"] != "meta")
+        wdir = os.path.join(workdir, w["label"])
+        t0 = time.perf_counter()
+        file_bytes = write_checkpoint(torch, model, w["naming"], wdir)
+        write_s = time.perf_counter() - t0
+        flat, load = load_leaves(torch, w, cfg, wdir)
+        off = sorted(k for k, v in model.stacked.items() if not same_bits(torch, v, flat[k]))
+        if off or set(flat) != set(model.stacked):
+            raise AssertionError(f"{cfg.name}: loaded leaves differ from the "
+                                 f"written model's: {off}")
+        del flat
+        row = dict(model=cfg.name, dtype=w["dtype"], layers=cfg.n_layers,
+                   naming=w["naming"], file_bytes=file_bytes, write_s=write_s,
+                   **load, rss_over_file=(load["rss_peak"] - load["rss_start"]) / file_bytes)
+        if w["naming"] in ("gpt2", "meta"):
+            cdir = os.path.join(workdir, w["label"] + "-control")
+            write_checkpoint(torch, model, w["naming"], cdir, control=True)
+            try:
+                bad, _ = load_leaves(torch, w, cfg, cdir)
+                differ = sorted(k for k, v in model.stacked.items()
+                                if not same_bits(torch, v, bad[k]))
+                del bad
+                row["control"] = dict(loaded=True, leaves_differing=differ)
+                if not differ:
+                    raise AssertionError(f"{cfg.name}: the control file loads "
+                                         "bit-equal")
+            except ValueError as e:              # a shape the layout cannot have
+                row["control"] = dict(loaded=False, error=str(e)[:160])
+            shutil.rmtree(cdir)
+        if w["cli"]:
+            requests = weights_requests(cfg)
+            m = dict(label=f"weights-{w['label']}", model=w["model"], size=w["size"],
+                     dtype=w["dtype"], context=1024, slots=8)
+            fused_decode_step.launches = 0          # the main path's count
+            eng, got = serve_cli(torch, m, requests, workdir,
+                                 flags=["--load_weights", "--weights_dir", wdir])
+            launches, st = fused_decode_step.launches, eng.stats()
+            if launches != cfg.n_layers * st["n_ticks"] or launches == 0:
+                raise AssertionError(f"{cfg.name}: B5 {launches} for {cfg.n_layers} "
+                                     f"layers x {st['n_ticks']} ticks")
+            # the same weights served by the engine in process (an
+            # --init_params_from route would write one more export)
+            engine = DecodeEngine(model, n_slots=8, max_len=1024, max_queue=64)
+            want = [h.output_ids for h in serve(engine, requests)]
+            tokens = [r["token_ids"] for r in got]
+            if tokens != want or any(len(t) != 32 for t in tokens):
+                raise AssertionError(f"{cfg.name}: the CLI served other tokens from "
+                                     "the loaded weights than the engine in process")
+            out["launches"][cfg.name] = launches
+            row.update(cli_requests=len(requests), cli_ticks=st["n_ticks"],
+                       b5_launches=launches, greedy_equal_to="engine in process")
+            del eng
+        emit("weights", **row)
+        out["dirs"][w["label"]] = wdir
+        del model
+        torch.cuda.empty_cache()
+        if w["label"] != "llama3_2":             # phase 8r starts from it
+            shutil.rmtree(wdir)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8r: train-state checkpoints, stop and resume through the CLI
+# ---------------------------------------------------------------------------
+
+#: GPT-2-124M at the default dtype (fp32, dropout 0.1) pretraining, and
+#: LLaMA-3.2-1B bf16 LoRA SFT (rank 16) from phase 8w's pretrained files,
+#: each over two files of 9 and 1 steps (the first with one validation
+#: batch: 9 steps of training data leave it one); 10 steps, a checkpoint
+#: every 5, evaluations at 4 and 8 (in the first file), SIGTERM after step
+#: 6, so that the resumed run crosses into the second file.
+RESUME = [
+    dict(label="gpt2", model="GPT2", size="124M", dtype=None, batch=8,
+         context=1024, file_steps=(9, 1), lora=False),
+    dict(label="llama3_2-sft", model="llama3_2", size="1B", dtype="bf16", batch=4,
+         context=1024, file_steps=(9, 1), lora=True, rank=16, alpha=32.0),
+]
+RESUME_STOP = 6
+RESUME_EVERY = 5
+RESUME_EVAL = 4
+#: the depth phase 8r runs at: full width cut to 2 layers. The script
+#: keeps its disk writes under 45 GiB, and every save of a full-depth
+#: state writes 1.96 GB (GPT-2 fp32) or 3.08 GB (the LoRA state's bf16
+#: base); ``scripts/resume_phases.py`` runs the phase at full depth alone.
+RESUME_LAYERS = 2
+
+
+def resume_data(t: dict, data_dir: str) -> list:
+    """A file for each of ``t["file_steps"]``, sized for that many steps:
+    seeded corpora (pretraining; the first 90% of the text is the train
+    split) or slices of a ``build_local_alpaca.py`` file (SFT; the first
+    90% of the records)."""
+    os.makedirs(data_dir, exist_ok=True)
+    steps = t["file_steps"]
+    if not t["lora"]:
+        paths = [os.path.join(data_dir, f"corpus{i}.txt") for i in range(len(steps))]
+        for i, (path, n) in enumerate(zip(paths, steps)):
+            n_chars = int((n * t["batch"] * t["context"] + t["context"] // 2) / 0.9) - 15
+            write_corpus(path, seed=21 + i, n_chars=n_chars)
+        return paths
+    sizes = [math.ceil(n * t["batch"] / 0.9) for n in steps]
+    whole = os.path.join(data_dir, "all.json.tmp")
+    write_alpaca(whole, sum(sizes))
+    with open(whole) as f:
+        records = json.load(f)
+    os.remove(whole)
+    paths = [os.path.join(data_dir, f"alpaca{i}.json") for i in range(len(steps))]
+    for i, (path, n) in enumerate(zip(paths, sizes)):
+        with open(path, "w") as f:
+            json.dump(records[sum(sizes[:i]):sum(sizes[:i]) + n], f)
+    return paths
+
+
+@contextlib.contextmanager
+def step_hook(torch, hook):
+    """``hook(state, metrics)`` after every train step of the CLI runs in
+    the block (through the trainer's step factory)."""
+    import building_llm_from_scratch_tpu_torch.training.trainer as ttr
+
+    make = ttr.make_train_step
+
+    def hooked(*args, **kwargs):
+        inner = make(*args, **kwargs)
+
+        def step_fn(state, batch):
+            out = inner(state, batch)
+            hook(*out)
+            return out
+        return step_fn
+
+    ttr.make_train_step = hooked
+    try:
+        yield
+    finally:
+        ttr.make_train_step = make
+
+
+@contextlib.contextmanager
+def cut_depth(layers):
+    """The CLI's configs cut to ``layers`` (None: as configured)."""
+    from building_llm_from_scratch_tpu_torch import build_components
+
+    get = build_components.get_config
+    if layers:
+        build_components.get_config = (
+            lambda *a, **k: get(*a, **k).replace(n_layers=layers))
+    try:
+        yield
+    finally:
+        build_components.get_config = get
+
+
+class FallbackChecked(Exception):
+    """Ends the fallback run after its first step (its tail is the resumed
+    run's, already held)."""
+
+
+class LogTap(logging.Handler):
+    """Keeps the records of the resume discovery's logger."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def resume_cli(torch, t: dict, data_dir: str, out_dir: str, weights_dir,
+               layers, extra=(), stop_after=None, crash_after=None):
+    """One CLI run of ``t`` (``main.run --mode train``) into ``out_dir`` at
+    ``layers``, counted by ``main_path``. ``stop_after``: SIGTERM after
+    that step (a preemption). ``crash_after``: the run ends by an
+    exception after that step, without a save. Returns (trainer or None,
+    facts: launches, the seconds to the first step's end, the steps' losses
+    as the hook saw them, the resume discovery's log records)."""
+    import signal
+
+    from building_llm_from_scratch_tpu_torch import main as tmain
+
+    flags = ["--mode", "train", "--model", t["model"], "--num_params", t["size"],
+             *dtype_flags(t), "--byte_tokenizer", "--data_dir", data_dir,
+             "--output_dir", out_dir, "--n_epochs", "1", "--batch_size", str(t["batch"]),
+             "--eval_freq", str(RESUME_EVAL), "--print_sample_iter",
+             str(sum(t["file_steps"])), "--save_ckpt_freq", str(RESUME_EVERY), *extra]
+    if t["lora"]:
+        flags += ["--finetune", "--dataset", "alpaca", "--use_lora", "--lora_rank",
+                  str(t["rank"]), "--lora_alpha", str(t["alpha"]), "--load_weights",
+                  "--weights_dir", weights_dir,
+                  "--save_adapter", os.path.join(out_dir, "adapter.npz")]
+    facts = {"seen": []}
+    t0 = time.perf_counter()
+
+    def hook(state, metrics):
+        facts["seen"].append((state.step, metrics["loss"].item()))
+        if "first_step_s" not in facts:
+            torch.cuda.synchronize()
+            facts["first_step_s"] = time.perf_counter() - t0
+        if state.step == stop_after:
+            os.kill(os.getpid(), signal.SIGTERM)
+        if state.step == crash_after:
+            raise FallbackChecked
+
+    tap = LogTap()
+    res_log = logging.getLogger("building_llm_from_scratch_tpu_torch.training.resilience")
+    res_log.addHandler(tap)
+    trainer = None
+    try:
+        with main_path(torch, False) as run, step_hook(torch, hook), cut_depth(layers):
+            t0 = time.perf_counter()
+            try:
+                trainer = tmain.run(flags)        # returns: the CLI exits 0
+            except FallbackChecked:
+                pass
+            facts["run_s"] = time.perf_counter() - t0
+    finally:
+        res_log.removeHandler(tap)
+    facts.update(run, log=[(r.levelname, r.getMessage()) for r in tap.records])
+    return trainer, facts
+
+
+def _digest(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(a.tobytes()).hexdigest()
+
+
+def run_record(torch, trainer, facts: dict, out_dir: str) -> dict:
+    """What a run's resume is held to: per-step losses, evaluations,
+    counts, and the exports read back (each array's bytes as a sha256)."""
+    import numpy as np
+
+    from building_llm_from_scratch_tpu_torch.models.lora import (
+        flatten_lora,
+        load_adapter,
+    )
+
+    rec = dict(losses=[m["loss"] for m in trainer.step_metrics],
+               steps=[m["step"] for m in trainer.step_metrics],
+               train_loss=list(trainer.train_losses), val_loss=list(trainer.val_losses),
+               global_step=trainer.global_step, tokens_seen=trainer.tokens_seen,
+               preempted=trainer.preempted, launches=facts["launches"],
+               saves=[dict(tag=s["tag"], step=s["step"], bytes=s["bytes"],
+                           seconds=s["seconds"]) for s in trainer.checkpoint_saves],
+               restored=trainer.restored, first_step_s=facts.get("first_step_s"),
+               run_s=facts["run_s"], log=facts["log"],
+               dirs=sorted(n for n in os.listdir(out_dir) if n.startswith("model_pg_")))
+    export = os.path.join(out_dir, "model_pg_final.npz")
+    if os.path.exists(export):
+        with np.load(export) as data:
+            rec["export"] = {k: _digest(data[k]) for k in data.files}
+    adapter = os.path.join(out_dir, "adapter.npz")
+    if os.path.exists(adapter):
+        tree, _ = load_adapter(adapter)
+        ints = {2: torch.int16, 4: torch.int32}
+        rec["adapter"] = {"/".join(p): _digest(v.view(ints[v.element_size()]).numpy())
+                          for p, v in flatten_lora(tree).items()}
+    return rec
+
+
+def corrupt_copy(src: str, dst: str, tag: str) -> str:
+    """``dst``: ``src`` with its files hard-linked (no bytes copied) except
+    one shard of ``model_pg_<tag>``, copied and with its last byte flipped."""
+    shutil.copytree(src, dst, copy_function=os.link)
+    ck = os.path.join(dst, f"model_pg_{tag}")
+    with open(os.path.join(ck, "manifest.json")) as f:
+        shard = os.path.join(ck, json.load(f)["leaves"][-1]["shards"][0]["file"])
+    with open(shard, "rb") as f:
+        data = bytearray(f.read())
+    data[-1] ^= 0xFF
+    os.remove(shard)                        # break the hard link first
+    with open(shard, "wb") as f:
+        f.write(data)
+    return shard
+
+
+def expect_tail(name: str, got: dict, ref: dict, start: int) -> None:
+    """A resumed run from step ``start`` against the unbroken ``ref``: its
+    per-step losses are ref's from step start + 1 on, its evaluations ref's
+    last ones, the counts and the final exports equal, bit for bit."""
+    n_eval = len(got["train_loss"])
+    checks = dict(
+        steps=got["steps"] == list(range(start + 1, ref["global_step"] + 1)),
+        losses=got["losses"] == ref["losses"][start:],
+        evals=(n_eval >= 1 and got["train_loss"] == ref["train_loss"][-n_eval:]
+               and got["val_loss"] == ref["val_loss"][-n_eval:]),
+        counts=(got["global_step"], got["tokens_seen"]) == (ref["global_step"],
+                                                            ref["tokens_seen"]),
+        export=got.get("export") == ref["export"],
+        adapter=got.get("adapter") == ref.get("adapter"))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"{name}: the resumed run differs from the unbroken "
+                             f"one in {bad}: {got['losses']} vs {ref['losses'][start:]}")
+
+
+def phase_resume(torch, card: dict, workdir: str, weights: dict,
+                 layers=RESUME_LAYERS, labels=None, repeat: bool = False) -> dict:
+    """Train-state checkpoints and resume through the CLI for each of
+    ``RESUME`` (``labels``: a subset) at ``layers`` (None: full depth):
+    the unbroken command (``--resume off``; with ``repeat`` twice, which
+    must agree bit for bit); the same command with ``--keep_ckpts 1``
+    stopped by SIGTERM after step 6 (it returns, as the CLI exits 0, with
+    an ``interrupted`` checkpoint holding the cursor and no export; its
+    steps equal the unbroken run's); the same command again (``--resume
+    auto``), whose remaining per-step losses, evaluation, counts and final
+    exports must be the unbroken run's bit for bit, crossing into the
+    second file, and whose dir must hold the newest step checkpoint beside
+    ``interrupted`` and ``final``; and a copy of the stopped run's dir with
+    a shard of ``interrupted`` corrupted, which must resume, with an error
+    line, from the step-5 checkpoint (its first step equal to the unbroken
+    run's step 6; the harness ends it there, without a save). Launches are
+    counted in every run (phase 6's rule); each run's dir goes once it is
+    checked."""
+    from building_llm_from_scratch_tpu_torch.training.checkpoint import (
+        checkpoint_metadata,
+    )
+
+    results = {}
+    for t in RESUME:
+        if labels and t["label"] not in labels:
+            continue
+        tdir = os.path.join(workdir, t["label"])
+        data_dir = os.path.join(tdir, "data")
+        resume_data(t, data_dir)
+        wdir = weights["dirs"].get("llama3_2")
+        dirs = {k: os.path.join(tdir, k) for k in ("a", "b", "c", "e")}
+        steps, first = sum(t["file_steps"]), t["file_steps"][0]
+        # each evaluation reads 5 train batches and the first file's one
+        # validation batch
+        evals = lambda lo, hi: sum(1 for s in range(lo + 1, hi + 1)  # noqa: E731
+                                   if s % RESUME_EVAL == 0)
+
+        def cli(key, extra=(), **kw):
+            return resume_cli(torch, t, data_dir, dirs[key], wdir, layers, extra, **kw)
+
+        def launches_ok(run, lo, hi):
+            want = expected_launches(cfg, hi - lo, 6 * evals(lo, hi), False,
+                                     lora=t["lora"])
+            if run["launches"] != want:
+                raise AssertionError(f"{t['label']}: launches {run['launches']} over "
+                                     f"steps {lo + 1}-{hi}, expected {want}")
+
+        trainer, facts = cli("a", ["--resume", "off"])
+        a = run_record(torch, trainer, facts, dirs["a"])
+        cfg = trainer.cfg
+        del trainer
+        if not (a["global_step"] == steps and all(map(math.isfinite, a["losses"]
+                                                      + a["train_loss"] + a["val_loss"]))
+                and a["losses"][-1] < a["losses"][0]
+                and len(a["train_loss"]) == evals(0, steps)):
+            raise AssertionError(f"{t['label']}: the unbroken run: {a['losses']}, "
+                                 f"{a['train_loss']}, {a['val_loss']}")
+        launches_ok(a, 0, steps)
+        b = None
+        if repeat:
+            trainer, facts = cli("b", ["--resume", "off"])
+            b = run_record(torch, trainer, facts, dirs["b"])
+            del trainer
+            same = {k: a.get(k) == b.get(k) for k in ("losses", "train_loss", "val_loss",
+                                                      "export", "adapter", "launches")}
+            if not all(same.values()):
+                raise AssertionError(f"{t['label']}: two unbroken runs differ: {same}")
+            shutil.rmtree(dirs["b"])
+        torch.cuda.empty_cache()
+
+        keep = ["--keep_ckpts", "1"]
+        trainer, facts = cli("c", keep, stop_after=RESUME_STOP)
+        c = run_record(torch, trainer, facts, dirs["c"])
+        del trainer
+        meta = checkpoint_metadata(os.path.join(dirs["c"], "model_pg_interrupted"))
+        if (not c["preempted"] or c["global_step"] != RESUME_STOP
+                or c["losses"] != a["losses"][:RESUME_STOP]
+                or meta.get("cursor", {}).get("file_index") != 0
+                or meta["cursor"]["batch_index"] != RESUME_STOP
+                or "export" in c or c["dirs"] != ["model_pg_5", "model_pg_interrupted"]):
+            raise AssertionError(f"{t['label']}: the stopped run: {c['dirs']}, "
+                                 f"{meta}, preempted {c['preempted']}")
+        launches_ok(c, 0, RESUME_STOP)
+        shard = corrupt_copy(dirs["c"], dirs["e"], "interrupted")
+
+        trainer, facts = cli("c", keep)
+        d = run_record(torch, trainer, facts, dirs["c"])
+        del trainer
+        torch.cuda.empty_cache()
+        expect_tail(f"{t['label']} resume", d, a, RESUME_STOP)
+        if d["restored"]["step"] != RESUME_STOP or d["dirs"] != [
+                "model_pg_10", "model_pg_final", "model_pg_final.npz",
+                "model_pg_interrupted"] or first >= steps:
+            raise AssertionError(f"{t['label']}: resume from {d['restored']}, "
+                                 f"left {d['dirs']}")
+        launches_ok(d, RESUME_STOP, steps)
+
+        fallback = RESUME_EVERY
+        _, facts = cli("e", keep, crash_after=fallback + 1)
+        e = dict(seen=facts["seen"], first_step_s=facts["first_step_s"],
+                 launches=facts["launches"], run_s=facts["run_s"])
+        torch.cuda.empty_cache()
+        loud = [m for lvl, m in facts["log"] if lvl == "ERROR" and "INVALID" in m
+                and "model_pg_interrupted" in m]
+        if not loud or e["seen"] != [(fallback + 1, a["losses"][fallback])]:
+            raise AssertionError(f"{t['label']}: the corrupt checkpoint was not "
+                                 f"skipped loudly to step {fallback}: {facts['log']}, "
+                                 f"{e['seen']}")
+        launches_ok(e, fallback, fallback + 1)
+        slim = lambda r: r and {k: v for k, v in r.items()  # noqa: E731
+                                if k not in ("export", "adapter", "log")}
+        emit("resume", model=cfg.name, dtype=t["dtype"] or "fp32", layers=cfg.n_layers,
+             batch=t["batch"], context=t["context"], lora=t["lora"],
+             card=card["card_line"], corrupted_shard=os.path.relpath(shard, tdir),
+             fallback_log=loud[0][:200], unbroken=slim(a), repeat=slim(b),
+             stopped=slim(c), resumed=slim(d), fallback=slim(e))
+        results[t["label"]] = dict(model=cfg.name, launches=a["launches"],
+                                   resumed_launches=d["launches"],
+                                   fallback_launches=e["launches"])
+        shutil.rmtree(tdir)
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -3243,6 +3980,11 @@ def main() -> int:
             phase_sft_reference(torch, spec, workdir)
     reference = phase_train_reference(torch, REFERENCES[0])
     reference_gpt2 = phase_train_reference(torch, REFERENCES[1])
+    # pretrained weights from local files (8w), then train-state checkpoints
+    # and resume through the CLI (8r, the LoRA run from 8w's LLaMA files)
+    with tempfile.TemporaryDirectory(dir=here) as workdir:
+        weights = phase_weights(torch, os.path.join(workdir, "weights"))
+        resumed = phase_resume(torch, card, os.path.join(workdir, "resume"), weights)
     for r in rows:
         shape = (r["S"], r["Hq"], r["Hkv"], r["hd"], r["Tmax"], r["dtype"])
         if served[r["shape"]]["shape"] != shape:
@@ -3256,6 +3998,9 @@ def main() -> int:
                     kernel_ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"]) for r in rows]
+    for k, r in zip(kernels, rows):                 # phase 8w's CLI serving
+        if r["shape"] in weights["launches"]:
+            k["launches_8w"] = weights["launches"][r["shape"]]
     paged_runs = {v["shape"]: v for v in served_paged.values() if v["paged"]}
     for r in paged_rows:
         run = paged_runs[r["shape"]]
@@ -3301,6 +4046,16 @@ def main() -> int:
     from building_llm_from_scratch_tpu_torch.configs import DTYPE_MAP
     from building_llm_from_scratch_tpu_torch.ops.fused_attention import kernel_source
 
+    # phase 8r's runs, by the training shape they ran at
+    resume_runs = {"gpt2-124M-train-fp32": resumed["gpt2"],
+                   "llama3_2-1B-train": resumed["llama3_2-sft"]}
+
+    def launches_8r(row: dict, shape: str, counter: str) -> None:
+        run = resume_runs.get(shape)
+        if run is not None and counter in run["launches"]:
+            row["launches_8r"] = {k: run[k][counter] for k in (
+                "launches", "resumed_launches", "fallback_launches")}
+
     for r in attn_rows + drop_attn_rows:
         kname, where = replaces[r["kernel"]]
         tag = f"{r['shape']}-p{r['rate']}" if "rate" in r else r["shape"]
@@ -3311,6 +4066,7 @@ def main() -> int:
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+        launches_8r(kernels[-1], r["shape"], r["kernel"])
     dropout_where = {"fwd": ("dropout_fwd", "dropout_fwd",
                              "building_llm_from_scratch_tpu/ops/fused_dropout.py:36"),
                      "fwd_add": ("dropout_fwd", "dropout_fwd",
@@ -3327,6 +4083,7 @@ def main() -> int:
             launches=attn_runs[r["shape"]][counter], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+        launches_8r(kernels[-1], r["shape"], counter)
     xent_runs = {"gpt2-124M-train": trained_gpt2["xent_kernel"],
                  "gpt2-124M-train-fp32": trained_gpt2_fp32["xent_kernel"]}
     for r in xent_rows:
@@ -3339,6 +4096,17 @@ def main() -> int:
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its main path")
+    # every kernel of the new paths ran on them: B5 in 8w's CLI serving,
+    # B1/B2a/B2b (and B3 with GPT-2's dropout) in each of 8r's runs
+    if sorted(weights["launches"]) != ["gpt2-124M", "llama3_2-1B"] or not all(
+            weights["launches"].values()):
+        raise AssertionError(f"phase 8w: B5 launches {weights['launches']}")
+    for label, run in resumed.items():
+        need = ("fwd", "dq", "dkv") + (("dropout_fwd", "dropout_bwd")
+                                        if label == "gpt2" else ())
+        if any(run[k][c] < 1 for k in ("launches", "resumed_launches",
+                                        "fallback_launches") for c in need):
+            raise AssertionError(f"phase 8r {label}: a kernel was not launched: {run}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card["card_line"], flush=True)
     print(json.dumps({"ok": True, "device": {

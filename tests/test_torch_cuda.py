@@ -1189,3 +1189,73 @@ def test_adapter_engine_on_the_card(cuda, tmp_path):
     h = solo.submit(*reqs[2])
     solo.run_until_idle()
     assert h.output_ids == handles[2].output_ids
+
+
+# ---------------------------------------------------------------------------
+# pretrained weights and train-state checkpoints on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("model_name,naming", [("GPT2", "gpt2"),
+                                               ("llama3_2", "hf"),
+                                               ("llama2", "meta")])
+def test_loaded_leaves_land_on_the_card_bit_equal(cuda, tmp_path, model_name,
+                                                  naming):
+    """A checkpoint file of each naming (written by chip_smoke's writer from
+    a CPU model) read by ``load_hf_weights(device="cuda")``: every leaf on
+    the card, in the model dtype, bit-equal to the CPU model's."""
+    import chip_smoke
+    from building_llm_from_scratch_tpu_torch.weights import load_hf_weights
+
+    size = {"GPT2": "124M", "llama3_2": "1B", "llama2": "7B"}[model_name]
+    cfg = get_config(model_name, size, dtype="bf16" if naming != "gpt2" else "fp32",
+                     qkv_bias=True if naming == "gpt2" else None, debug=True)
+    model = build_model(cfg, 3, "cpu")
+    if naming != "meta":                   # the head ships tied to the embedding
+        model.stacked["head/weight"].copy_(model.stacked["tok_emb/weight"].t())
+    chip_smoke.write_checkpoint(torch, model, naming, str(tmp_path))
+    flat = load_hf_weights(model_name, size, cfg, weights_dir=str(tmp_path),
+                           device="cuda")
+    assert set(flat) == set(model.stacked)
+    for k, v in model.stacked.items():
+        assert flat[k].device.type == "cuda" and flat[k].dtype == v.dtype, k
+        ints = {2: torch.int16, 4: torch.int32}[v.element_size()]
+        assert torch.equal(flat[k].cpu().view(ints), v.view(ints)), k
+
+
+def test_checkpoint_round_trip_on_the_card_refills_the_views(cuda, tmp_path):
+    """A train state on the card after one step, saved and restored into a
+    state of other weights: every stacked leaf, moment and count comes back
+    bit-equal, in place (the same storage), so each layer's parameter view
+    and attached gradient slice sees the restored values."""
+    from building_llm_from_scratch_tpu_torch.training import optim as topt
+    from building_llm_from_scratch_tpu_torch.training import train_step as tts
+    from building_llm_from_scratch_tpu_torch.training.checkpoint import (
+        save_checkpoint,
+    )
+
+    cfg = get_config("llama3_2", "1B", dtype="bf16", debug=True)
+
+    def state_of(seed):
+        opt = topt.AdamW(topt.warmup_cosine_schedule(5e-4, 1e-5, 1e-6, 2, 10))
+        model = build_model(cfg, seed, "cuda")
+        return tts.init_train_state(model, opt, seed=5), opt
+
+    src, opt = state_of(0)
+    x = torch.randint(0, cfg.vocab_size, (2, cfg.context_length + 1), device="cuda")
+    src, _ = tts.make_train_step(cfg, opt)(src, {"inputs": x[:, :-1],
+                                                 "targets": x[:, 1:]})
+    save_checkpoint(str(tmp_path / "ck"), tts.checkpoint_tree(src))
+    dst, _ = state_of(1)
+    ptrs = {k: v.data_ptr() for k, v in dst.params.items()}
+    tts.restore_train_state(dst, str(tmp_path / "ck"))
+    assert dst.step == 1 and dst.opt_state.count == 1
+    for k, v in src.params.items():
+        assert dst.params[k].data_ptr() == ptrs[k], k
+        for a, b in ((dst.params[k], v), (dst.opt_state.mu[k], src.opt_state.mu[k]),
+                     (dst.opt_state.nu[k], src.opt_state.nu[k])):
+            assert torch.equal(a.view(torch.int16), b.view(torch.int16)), k
+    for name, l, p in dst.model.leaves():
+        if l is not None:
+            assert p.data_ptr() == dst.params[name][l].data_ptr(), name
+            assert torch.equal(p.detach(), src.params[name][l].detach()), name
+            assert p.grad.data_ptr() == dst.grads[name][l].data_ptr(), name

@@ -32,6 +32,8 @@ def test_entry_points_import_no_jax():
         "import building_llm_from_scratch_tpu_torch.models.lora\n"
         "import building_llm_from_scratch_tpu_torch.training.checkpoint\n"
         "import building_llm_from_scratch_tpu_torch.training.trainer\n"
+        "import building_llm_from_scratch_tpu_torch.training.resilience\n"
+        "import building_llm_from_scratch_tpu_torch.weights\n"
         "import building_llm_from_scratch_tpu_torch.build_components\n"
         "import building_llm_from_scratch_tpu_torch.data.pretrain\n"
         "import building_llm_from_scratch_tpu_torch.ops.fused_attention\n"

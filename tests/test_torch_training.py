@@ -402,8 +402,8 @@ def test_export_is_read_by_the_jax_loader_bit_for_bit(tmp_path, dtype):
     (["--data_type", "fp16"], ValueError, "loss scaling"),
     (["--grad_accum", "2"], SystemExit, None),
     (["--tokenizer_path", "x"], SystemExit, None),
-    (["--resume_from", "x"], SystemExit, None),
-    (["--save_ckpt_freq", "5"], SystemExit, None),
+    (["--async_ckpt", "on"], SystemExit, None),
+    (["--prefetch", "2"], SystemExit, None),
     (["--mode", "finetune_fleet"], ValueError, "not ported"),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, capsys, extra, error,
