@@ -4,7 +4,9 @@ alpaca``, on the whole model or a LoRA adapter) subsets of the JAX
 package's CLI, with the same names, defaults and checks, plus ``--device``:
 pretrained weights from a local directory (``--load_weights
 --weights_dir``), train-state checkpoints, resume, retention and the loss
-watchdog.
+watchdog, the precision policies (``--mixed_precision``, ``--data_type
+fp16`` with loss scaling), gradient accumulation, activation
+checkpointing, batch prefetch and asynchronous checkpoint writes.
 
 Flags of the JAX CLI that the port does not carry yet are rejected by name
 (not ignored), so a command line written for the JAX package fails loudly
@@ -29,21 +31,16 @@ UNPORTED_FLAGS = (
     "--serve_spec_k",
     "--fleet_jobs", "--fleet_rows_per_job", "--fleet_capacity",
     "--fleet_export_dir", "--fleet_style",
-    "--prefetch", "--async_ckpt", "--tokenizer_cache_dir", "--grad_accum",
+    "--tokenizer_cache_dir",
     "--metrics_jsonl", "--log_every", "--compile_cache_dir",
     "--stall_timeout", "--run_type",
-    "--shard_mode", "--pp", "--pp_micro", "--tp", "--sp", "--use_actv_ckpt",
-    "--mixed_precision", "--attn_impl", "--tokenizer_path",
+    "--shard_mode", "--pp", "--pp_micro", "--tp", "--sp",
+    "--attn_impl", "--tokenizer_path",
     "--profile", "--profile_steps", "--warnings",
 )
 
 #: the ROADMAP queue item that brings an unported training flag
 QUEUE_ITEMS = {
-    "--use_actv_ckpt": "queue 1, remat",
-    "--mixed_precision": "queue 1, precision policies",
-    "--async_ckpt": "queue 1, async checkpoints and prefetch",
-    "--prefetch": "queue 1, async checkpoints and prefetch",
-    "--grad_accum": "queue 1, gradient accumulation",
     "--tokenizer_path": "queue 1, tokenizers",
     "--serve_kv_quant": "queue 1 item 5, int8 KV",
     "--serve_spec_k": "queue 1 item 8, speculative decoding",
@@ -96,6 +93,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Number of training epochs.")
     p.add_argument("--batch_size", type=int, default=4,
                    help="Batch size for training.")
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="Gradient-accumulation microbatches per step: the "
+                        "batch is split into this many microbatches whose "
+                        "gradients sum in fp32 (activation memory of one "
+                        "microbatch, the full batch's weighted mean).")
     p.add_argument("--lr", type=float, default=5e-4,
                    help="Base (peak) learning rate.")
     p.add_argument("--warmup_steps", type=int, default=10,
@@ -110,6 +112,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Evaluation frequency (in steps).")
     p.add_argument("--save_ckpt_freq", type=int, default=100,
                    help="Checkpoint save frequency (in steps).")
+    p.add_argument("--prefetch", type=int, default=2,
+                   help="Batch-prefetch depth: a worker thread keeps this "
+                        "many batches built and copied to the card (on a "
+                        "side stream) ahead of the step, in the exact "
+                        "order of the synchronous path. 0 disables.")
+    p.add_argument("--async_ckpt", type=str, default="off",
+                   choices=["on", "off"],
+                   help="Write periodic checkpoints on a worker thread: the "
+                        "step loop pays only the host snapshot. final and "
+                        "interrupted checkpoints still wait until durable.")
+    p.add_argument("--use_actv_ckpt", action="store_true",
+                   help="Activation checkpointing: recompute each block in "
+                        "the backward.")
+    p.add_argument("--mixed_precision", type=str, default=None,
+                   choices=["fp16", "bf16", "bf16_hybrid", "fp32"],
+                   help="Mixed-precision policy: master weights in "
+                        "--data_type, forward and backward on a copy cast to "
+                        "the policy's compute dtype (fp16 with dynamic loss "
+                        "scaling; bf16_hybrid computes in fp32 on one "
+                        "device).")
     # run management / fault tolerance (--mode train)
     p.add_argument("--resume_from", type=str, default=None,
                    help="Resume training from a checkpoint directory.")
@@ -258,7 +280,8 @@ _TRAIN_ONLY_DEFAULTS = (
     ("lora_rank", 64), ("lora_alpha", 32), ("save_adapter", None),
     ("save_ckpt_freq", 100), ("resume_from", None), ("resume", "auto"),
     ("keep_ckpts", 0), ("watchdog", "on"), ("loss_spike_factor", 10.0),
-    ("watchdog_window", 50),
+    ("watchdog_window", 50), ("grad_accum", 1), ("prefetch", 2),
+    ("async_ckpt", "off"), ("use_actv_ckpt", False), ("mixed_precision", None),
 )
 
 #: the serve flags and their defaults (the stray-flag rule)
@@ -347,11 +370,6 @@ def _check_train(args) -> None:
     if not os.path.exists(args.data_dir):
         raise FileNotFoundError(
             f"Data directory '{args.data_dir}' does not exist.")
-    if args.data_type == "fp16":
-        raise ValueError(
-            "--data_type fp16 trains with dynamic loss scaling, which is not "
-            "ported yet (ROADMAP queue 1, precision policies); use bf16 or "
-            "fp32")
     if not args.byte_tokenizer:
         raise ValueError(
             "--mode train needs --byte_tokenizer: the BPE tokenizers' asset "
@@ -362,6 +380,26 @@ def _check_train(args) -> None:
             raise ValueError(f"--{flag} must be >= 1.")
     if args.keep_ckpts < 0:
         raise ValueError("--keep_ckpts must be >= 0 (0 keeps all).")
+    if args.prefetch < 0:
+        raise ValueError("--prefetch must be >= 0 (0 disables).")
+    if args.grad_accum < 1:
+        raise ValueError("--grad_accum must be >= 1.")
+    if args.grad_accum > 1:
+        if args.batch_size % args.grad_accum:
+            raise ValueError(
+                f"--batch_size {args.batch_size} must be divisible by "
+                f"--grad_accum {args.grad_accum}.")
+        if args.mixed_precision == "bf16_hybrid":
+            raise ValueError(
+                "--grad_accum does not compose with --mixed_precision "
+                "bf16_hybrid (the explicit reduce-dtype step does not "
+                "accumulate).")
+    # fp16 parameters under another policy would bypass the loss scaler and
+    # underflow their gradients; fp16 alone gets the fp16 policy
+    if args.data_type == "fp16" and args.mixed_precision not in (None, "fp16"):
+        raise ValueError(
+            "--data_type fp16 requires --mixed_precision fp16 (or unset); "
+            f"got --mixed_precision {args.mixed_precision}.")
     if args.loss_spike_factor <= 1.0:
         raise ValueError("--loss_spike_factor must be > 1.")
     if args.finetune and args.dataset == "gutenberg":

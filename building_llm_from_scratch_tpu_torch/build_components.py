@@ -1,7 +1,9 @@
 """The component factory (port of the single-device half of the JAX
 package's ``build_components.py``): flags -> config, model (seeded init,
 an ``.npz`` export, or pretrained weights from ``--weights_dir``),
-tokenizer and, with ``--use_lora``, the adapter.
+tokenizer, with ``--use_lora`` the adapter, and the precision policy
+(``--mixed_precision``; ``--data_type fp16`` alone gets the fp16 policy, so
+it trains with loss scaling).
 
 The seeded init draws from a ``torch.Generator`` seeded with ``--seed``
 (the adapter's A from one seeded with ``--seed + 1``, as the JAX package
@@ -28,6 +30,10 @@ from building_llm_from_scratch_tpu_torch.models.transformer import (
     Transformer,
     build_model,
 )
+from building_llm_from_scratch_tpu_torch.training.precision import (
+    PrecisionPolicy,
+    get_policy,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -39,6 +45,8 @@ class Components:
     tokenizer: Any
     #: the adapter tree of a --use_lora run
     lora_params: Optional[dict] = None
+    #: the --mixed_precision policy (the fp16 one for --data_type fp16)
+    policy: Optional[PrecisionPolicy] = None
 
 
 def build_config(args) -> ModelConfig:
@@ -47,6 +55,7 @@ def build_config(args) -> ModelConfig:
     return get_config(
         args.model, args.num_params, dtype=args.data_type,
         qkv_bias=True if (args.load_weights and args.model == "GPT2") else None,
+        use_actv_ckpt=args.use_actv_ckpt,
         debug=args.debug,
         target_context_length=(args.target_context_length or None))
 
@@ -75,9 +84,17 @@ def build_params(args, cfg: ModelConfig, device: torch.device) -> Transformer:
 
 
 def build_components(args, device: torch.device) -> Components:
-    """Config, model, tokenizer and (``--use_lora``) adapter of a training
-    run."""
+    """Config, model, tokenizer, (``--use_lora``) adapter and precision
+    policy of a training run."""
     cfg = build_config(args)
+    policy = get_policy(args.mixed_precision)
+    if policy is None and args.data_type == "fp16":
+        # fp16 alone must not train without a scaler: its 5-bit exponent
+        # underflows LM gradients, so the fp16 policy (loss scaling) comes
+        # with it, as in the JAX package
+        logger.info("--data_type fp16: enabling dynamic loss scaling "
+                    "(fp16 mixed-precision policy)")
+        policy = get_policy("fp16")
     model = build_params(args, cfg, device)
     logger.info("Total parameters: %s", f"{cfg.num_params():,}")
     lora_params = None
@@ -89,4 +106,4 @@ def build_components(args, device: torch.device) -> Components:
                     f"{count_lora_params(lora_params):,}")
     return Components(cfg=cfg, model=model,
                       tokenizer=build_tokenizer(args.model, args.byte_tokenizer),
-                      lora_params=lora_params)
+                      lora_params=lora_params, policy=policy)

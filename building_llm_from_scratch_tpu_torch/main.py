@@ -3,18 +3,20 @@
 alpaca``, optionally ``--use_lora``) or ``--mode serve``.
 
 Training follows the JAX ``main``: seed, components (config, model,
-tokenizer, adapter), training files (``.txt``, or ``.json`` Alpaca records
-with ``--finetune``), loader, the resume choice (``--resume auto`` finds
-the latest valid checkpoint in ``--output_dir``), the loss watchdog, the
-trainer (with a warm-up sample before a fresh run's first step), training
-or finetuning under a SIGTERM/SIGINT handler, peak device memory, the
-``final`` train-state checkpoint, the final ``.npz`` export (merged weights
-in a LoRA run) and, with ``--save_adapter``, the adapter artifact. A run
+tokenizer, adapter, precision policy), training files (``.txt``, or
+``.json`` Alpaca records with ``--finetune``), loader, the resume choice
+(``--resume auto`` finds the latest valid checkpoint in ``--output_dir``),
+the loss watchdog (off under the fp16 policy, whose loss scaling skips
+non-finite steps itself), the trainer (with a warm-up sample before a
+fresh run's first step), training or finetuning under a SIGTERM/SIGINT
+handler, the loss plot ``losses.pdf``, peak device memory, the ``final``
+train-state checkpoint, the final ``.npz`` export (merged weights in a
+LoRA run) and, with ``--save_adapter``, the adapter artifact. A run
 stopped by a signal has written its ``interrupted`` checkpoint; it skips
-the final checkpoint and exports and returns normally (exit 0), and the
-same command resumes it. Not ported: the loss plot (ROADMAP queue 1, async
-checkpoints and prefetch) and the stall detector (queue 1, serving
-operations).
+the plot, the final checkpoint and exports and returns normally (exit 0),
+and the same command resumes it. Without matplotlib the run logs one
+warning and goes on without the plot. Not ported: the stall detector
+(ROADMAP queue 1, serving operations).
 """
 
 from __future__ import annotations
@@ -76,10 +78,11 @@ def run_train(args):
     resume_from = resolve_resume(args.resume, args.resume_from,
                                  args.output_dir,
                                  predicate=lambda meta: not meta.get("fleet"))
-    # fp16 would skip bad steps through loss scaling; the port refuses it
     watchdog = (LossWatchdog(spike_factor=args.loss_spike_factor,
                              window=args.watchdog_window)
-                if args.watchdog == "on" else None)
+                if args.watchdog == "on" and not (
+                    comps.policy is not None and comps.policy.name == "fp16")
+                else None)
     stopper = GracefulStopper()
     trainer = Trainer(cfg, comps.model, comps.tokenizer, loader,
                       output_dir=args.output_dir, peak_lr=args.lr,
@@ -92,7 +95,9 @@ def run_train(args):
                       lora_rank=args.lora_rank if args.use_lora else None,
                       save_ckpt_freq=args.save_ckpt_freq,
                       resume_from=resume_from, keep_ckpts=args.keep_ckpts,
-                      watchdog=watchdog, stopper=stopper)
+                      watchdog=watchdog, stopper=stopper, policy=comps.policy,
+                      grad_accum=args.grad_accum, prefetch=args.prefetch,
+                      async_ckpt=args.async_ckpt == "on")
     with stopper:
         if args.finetune:
             trainer.finetune_model(files, n_epochs=args.n_epochs)
@@ -103,6 +108,8 @@ def run_train(args):
                        "written. Relaunch the same command to resume "
                        "(--resume auto).", trainer.global_step)
         return trainer
+    if trainer.train_losses:
+        plot_run_losses(trainer, args.n_epochs, args.output_dir)
     logger.info("Training complete. Final model saved.")
     if device.type == "cuda":
         logger.info("Peak device memory — %.2f GB allocated",
@@ -112,6 +119,23 @@ def run_train(args):
     if args.save_adapter:
         trainer.export_adapter(args.save_adapter)
     return trainer
+
+
+def plot_run_losses(trainer, n_epochs: int, output_dir: str) -> Optional[str]:
+    """``losses.pdf`` of the run's evaluations; without matplotlib one
+    warning naming it, and no plot (None)."""
+    import numpy as np
+
+    from building_llm_from_scratch_tpu_torch.utils.plotting import plot_losses
+
+    epochs_seen = np.linspace(0, n_epochs, len(trainer.train_losses))
+    try:
+        return plot_losses(epochs_seen, trainer.track_tokens_seen,
+                           trainer.train_losses, trainer.val_losses, output_dir)
+    except ImportError as e:
+        logger.warning("losses.pdf not drawn: matplotlib is not installed "
+                       "(%s)", e)
+        return None
 
 
 def run(argv: Optional[List[str]] = None):

@@ -20,11 +20,16 @@ fused flash kernels for the shapes they take). With a seed and
 output, the attention weights and both residual branches of every block,
 each site with its own seed (``utils.seeding.site_seed``); residual and
 embedding dropout go through the fused kernel B3 (``ops/fused_dropout.py``)
-for the shapes it takes. No activation checkpointing. A LoRA train step
-passes ``params=``: the merged stacked projection weights (W + s A@B,
-``models.lora.merge_lora``) stand in for the model's own, so autograd
-carries their gradients back to the adapter, as the JAX step trains
-through ``merge_lora``. ``lora=`` instead applies one adapter unmerged at
+for the shapes it takes. A config with ``use_actv_ckpt`` recomputes each
+block in the backward (``torch.utils.checkpoint``, the JAX ``jax.remat``
+of the block), with the same seeds, so the recomputed values are the
+saved ones bit for bit. ``params=`` hands the forward stand-ins for any
+of the model's leaves, stacked as the model holds them: a LoRA train step
+passes the merged projection weights (W + s A@B,
+``models.lora.merge_lora``), a precision policy's step the cast copy of
+every leaf, so autograd carries their gradients back to the adapter or
+the masters, as the JAX step trains through ``merge_lora`` and
+``cast_floating``. ``lora=`` instead applies one adapter unmerged at
 every adapted projection and the head (``forward``, ``forward_with_cache``
 and ``generate``: the trainer's merge-free sampling).
 
@@ -53,6 +58,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from building_llm_from_scratch_tpu_torch.configs import ModelConfig
 from building_llm_from_scratch_tpu_torch.models.lora import apply_lora, lora_delta
@@ -161,10 +167,15 @@ class Norm(nn.Module):
         self.bias = (nn.Parameter(bias, requires_grad=False)
                      if bias is not None else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, scale: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The norm with the module's scale and bias, or the stand-ins
+        given (``forward_hidden(params=)``)."""
+        scale = self.scale if scale is None else scale
         if self.kind == "rmsnorm":
-            return rmsnorm(x, self.scale, eps=self.eps)
-        return layernorm(x, self.scale, self.bias, eps=self.eps)
+            return rmsnorm(x, scale, eps=self.eps)
+        return layernorm(x, scale, self.bias if bias is None else bias,
+                         eps=self.eps)
 
 
 class ParamGroup(nn.Module):
@@ -271,10 +282,12 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 
 def _embed(model: Transformer, tokens: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
-    x = model.tok_emb[tokens]
+           positions: torch.Tensor, params: Optional[Flat] = None
+           ) -> torch.Tensor:
+    params = params or {}
+    x = params.get("tok_emb/weight", model.tok_emb)[tokens]
     if model.pos_emb is not None:
-        x = x + model.pos_emb[positions]
+        x = x + params.get("pos_emb/weight", model.pos_emb)[positions]
     return x
 
 
@@ -449,8 +462,9 @@ def _lora_layers(lora: Optional[dict], scaling, n_layers: int):
 
 class _Weights:
     """One layer's projection group read from stacked stand-in leaves (a
-    LoRA step's merged weights), the layer's own ``ParamGroup`` for the
-    rest: the same attribute-by-JAX-name and ``has()`` interface."""
+    LoRA step's merged weights, a policy's cast copy), the layer's own
+    ``ParamGroup`` for the rest: the same attribute-by-JAX-name and
+    ``has()`` interface."""
 
     def __init__(self, group: ParamGroup, leaves: Dict[str, torch.Tensor]):
         self._group, self._leaves = group, leaves
@@ -464,24 +478,31 @@ class _Weights:
 
 
 def _layer_groups(model: Transformer, params: Optional[Flat]) -> list:
-    """(attn, mlp) weight groups of every layer. ``params``' stacked
-    ``blocks/attn/*`` and ``blocks/mlp/*`` leaves replace the model's: each
-    is split into its layers by one ``unbind(0)``, whose backward writes one
-    stacked gradient (a per-layer index would allocate a zero stack per
-    layer). Its other keys (the head) are the loss's."""
+    """(norm1, attn, norm2, mlp) of every layer: the norms as callables,
+    the projections as weight groups. ``params``' stacked ``blocks/...``
+    leaves replace the model's: each is split into its layers by one
+    ``unbind(0)``, whose backward writes one stacked gradient (a per-layer
+    index would allocate a zero stack per layer). Its other keys (the
+    embeddings, the final norm and the head) are read where they are
+    used."""
     if not params:
-        return [(blk.attn, blk.mlp) for blk in model.blocks]
-    per = [{"attn": {}, "mlp": {}} for _ in model.blocks]
+        return [(blk.norm1, blk.attn, blk.norm2, blk.mlp) for blk in model.blocks]
+    per = [{"norm1": {}, "attn": {}, "norm2": {}, "mlp": {}} for _ in model.blocks]
     for key, t in params.items():
         root, *rest = key.split("/")
         if root != "blocks":
             continue
         group, leaf = rest
-        if group not in ("attn", "mlp"):
-            raise KeyError(f"params may replace projection weights only, not {key}")
         for l, view in enumerate(t.unbind(0)):
             per[l][group][leaf] = view
-    return [(_Weights(blk.attn, p["attn"]), _Weights(blk.mlp, p["mlp"]))
+
+    def norm(module: Norm, leaves: Flat):
+        if not leaves:
+            return module
+        return lambda x: module(x, leaves.get("scale"), leaves.get("bias"))
+
+    return [(norm(blk.norm1, p["norm1"]), _Weights(blk.attn, p["attn"]),
+             norm(blk.norm2, p["norm2"]), _Weights(blk.mlp, p["mlp"]))
             for blk, p in zip(model.blocks, per)]
 
 
@@ -529,9 +550,11 @@ def forward_hidden(model: Transformer, tokens: torch.Tensor, *,
     the head (the JAX ``forward_hidden``). ``seed`` is the step's 64-bit
     dropout seed (None: deterministic); each dropout site draws from its own
     ``site_seed(seed, layer, site)``, as the JAX package splits its rng.
-    ``params``: stacked projection weights that stand in for the model's
-    (``_layer_groups``). ``lora``: one unmerged adapter tree applied at
-    every adapted block projection with ``lora_scaling`` (alpha / rank)."""
+    ``params``: stacked leaves that stand in for the model's (any of them;
+    ``_layer_groups``). ``lora``: one unmerged adapter tree applied at
+    every adapted block projection with ``lora_scaling`` (alpha / rank).
+    With the config's ``use_actv_ckpt`` and autograd on, each block is
+    recomputed in the backward."""
     cfg = model.cfg
     B, T = tokens.shape
     if seed is None:
@@ -541,14 +564,14 @@ def forward_hidden(model: Transformer, tokens: torch.Tensor, *,
     def sites(layer: int, site: str) -> Optional[int]:
         return None if deterministic else site_seed(seed, layer, site)
 
+    params = params or {}
     adp, _ = _lora_layers(lora, lora_scaling, cfg.n_layers)
     positions = torch.arange(T, device=tokens.device)
-    x = _dropout(_embed(model, tokens, positions), rate,
+    x = _dropout(_embed(model, tokens, positions, params), rate,
                  sites(-1, "embedding"), deterministic)
-    groups = _layer_groups(model, params)
-    for layer, (blk, (attn, mlp)) in enumerate(zip(model.blocks, groups)):
-        h = blk.norm1(x)
-        q, k, v = _qkv_proj(cfg, attn, h, model.rope, positions,
+
+    def block(x, layer, norm1, attn, norm2, mlp):
+        q, k, v = _qkv_proj(cfg, attn, norm1(x), model.rope, positions,
                             _layer_adp(adp, layer, "attn"))
         out = causal_attention(q, k, v, dropout_rate=rate,
                                seed=sites(layer, "attention"),
@@ -556,10 +579,21 @@ def forward_hidden(model: Transformer, tokens: torch.Tensor, *,
         x = _residual_dropout(
             x, _attn_out_proj(attn, out, B, T, _layer_adp(adp, layer, "attn")),
             rate, sites(layer, "residual1"), deterministic)
-        x = _residual_dropout(
-            x, _mlp(cfg, mlp, blk.norm2(x), _layer_adp(adp, layer, "mlp")),
+        return _residual_dropout(
+            x, _mlp(cfg, mlp, norm2(x), _layer_adp(adp, layer, "mlp")),
             rate, sites(layer, "residual2"), deterministic)
-    return model.final_norm(x)
+
+    remat = cfg.use_actv_ckpt and torch.is_grad_enabled()
+    for layer, groups in enumerate(_layer_groups(model, params)):
+        if remat:
+            # the masks are keyed on (seed, element), not on torch's RNG,
+            # so the recompute needs no RNG state
+            x = checkpoint(block, x, layer, *groups, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = block(x, layer, *groups)
+    return model.final_norm(x, params.get("final_norm/scale"),
+                            params.get("final_norm/bias"))
 
 
 def forward(model: Transformer, tokens: torch.Tensor, *,

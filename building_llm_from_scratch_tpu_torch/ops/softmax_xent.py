@@ -22,9 +22,12 @@ kernel of the JAX package and go to ``torch.mm``.
 plain token mean without weights. The weights apply to the per-token nll
 that ``SoftmaxXent`` (and B4) return, so neither changes.
 
+``fused_cross_entropy_sums`` returns the loss's two pieces instead,
+(sum(nll * w), sum(w)) in fp32 (w = 1 without weights), for the
+accumulating step, which divides once over all its microbatches.
+
 Not ported: ``BLLM_XENT_CHUNK`` / ``BLLM_XENT_FWD_CHUNK`` (the chunk is an
-argument) and the ``sums`` variant, whose only single-device caller is the
-accumulating step (ROADMAP queue 1, gradient accumulation).
+argument).
 """
 
 from __future__ import annotations
@@ -113,6 +116,29 @@ def weighted_mean(nll: torch.Tensor, weights: Optional[torch.Tensor]
         return nll.mean()
     w = weights.reshape(nll.shape).float()
     return (nll * w).sum() / w.sum().clamp_min(1.0)
+
+
+def weighted_sums(nll: torch.Tensor, weights: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum(nll * w), sum(w)) in fp32, w = 1 without weights: the
+    unnormalised pieces of ``weighted_mean``."""
+    w = (torch.ones_like(nll, dtype=torch.float32) if weights is None
+         else weights.reshape(nll.shape).float())
+    return (nll * w).sum(), w.sum()
+
+
+def fused_cross_entropy_sums(hidden: torch.Tensor, w_head: torch.Tensor,
+                             targets: torch.Tensor,
+                             weights: Optional[torch.Tensor] = None,
+                             chunk: int = DEFAULT_CHUNK
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(weighted nll sum, weight sum) of (B, T, D) hidden states, fp32,
+    through the same chunked route (B4 included) as
+    ``fused_cross_entropy_loss``."""
+    B, T, D = hidden.shape
+    nll = softmax_xent(hidden.reshape(B * T, D), w_head,
+                       targets.reshape(B * T), chunk)
+    return weighted_sums(nll, weights)
 
 
 def fused_cross_entropy_loss(hidden: torch.Tensor, w_head: torch.Tensor,

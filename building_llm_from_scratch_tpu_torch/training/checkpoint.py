@@ -22,6 +22,14 @@ into ``<dir>.tmp`` and commits by renames (the previous checkpoint to
 ``<dir>.old``, the staging dir to ``<dir>``), so a reader never sees a
 manifest without its shards; a save cut between the two renames leaves
 two complete neighbours, which ``load_checkpoint`` falls back to.
+
+A save is two halves (the JAX ``snapshot_for_save`` / ``write_snapshot``):
+the snapshot copies every leaf to host memory (device leaves into pinned
+buffers, on the current stream, so the copies are ordered before any
+later in-place update of the state) and returns at once; the write waits
+for those copies, then stages, hashes and commits. ``save_checkpoint`` is
+the two in a row; ``training/async_checkpoint.py`` runs the write on a
+worker thread.
 """
 
 from __future__ import annotations
@@ -193,31 +201,20 @@ def sha256_file(path: str, chunk: int = 1 << 20) -> str:
     return h.hexdigest()
 
 
-class _HashingWriter:
-    """File-object tee: forwards writes while folding the bytes into a
-    sha256. It has no ``fileno``, so ``np.save`` streams the array through
-    ``write()`` in chunks and hashing adds no copy of the array."""
-
-    def __init__(self, f):
-        self._f = f
-        self._h = hashlib.sha256()
-        self.nbytes = 0
-
-    def write(self, data):
-        self._h.update(data)
-        self.nbytes += len(data)
-        return self._f.write(data)
-
-    def hexdigest(self) -> str:
-        return self._h.hexdigest()
-
-
 def _write_shard_hashed(path: str, arr: np.ndarray):
-    """``np.save`` through the hashing tee; returns (bytes, sha256)."""
+    """``np.save`` ``arr`` to ``path`` and hash the file's bytes; returns
+    (bytes, sha256). To a real file numpy writes the data in one call
+    with the GIL released, and the hash takes the header read back and
+    then the array's memory in one call (hashlib releases the GIL too), so
+    a writer thread barely holds the GIL the step loop needs."""
+    arr = np.require(arr, requirements="C")     # keeps 0-d arrays 0-d
     with open(path, "wb") as f:
-        w = _HashingWriter(f)
-        np.save(w, arr)
-    return w.nbytes, w.hexdigest()
+        np.save(f, arr)
+        size = f.tell()
+    with open(path, "rb") as f:
+        h = hashlib.sha256(f.read(size - arr.nbytes))
+    h.update(arr.reshape(-1).view(np.uint8))
+    return size, h.hexdigest()
 
 
 def _host_leaf(leaf) -> np.ndarray:
@@ -226,31 +223,69 @@ def _host_leaf(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def save_checkpoint(ckpt_dir: str, tree: Dict[str, Any],
-                    extra_metadata: Optional[dict] = None) -> dict:
-    """Write ``tree`` (flat JAX path -> tensor or numpy leaf, as
-    ``train_step.checkpoint_tree`` builds it) as a committed ``sharded-v1``
-    checkpoint at ``ckpt_dir``. Leaves go to the host one at a time, so the
-    host holds one leaf beyond the device state. Returns what was written:
+def snapshot_for_save(tree: Dict[str, Any],
+                      extra_metadata: Optional[dict] = None) -> dict:
+    """Everything ``write_snapshot`` needs, decoupled from the live state:
+    the manifest (without the shards' sizes and hashes) and a host copy of
+    every leaf of ``tree`` (flat JAX path -> tensor or numpy leaf, as
+    ``train_step.checkpoint_tree`` builds it). A leaf on the card is copied
+    into a pinned buffer without waiting; ``ready`` (a CUDA event on the
+    current stream, None when nothing was copied from the card) marks the
+    copies' end, and the stream orders them before the next step's
+    in-place updates. The host holds the whole state while the snapshot
+    lives, in pinned memory that torch's host allocator keeps for the
+    next save."""
+    manifest = {"format": _SHARDED_FORMAT, "leaves": [],
+                "metadata": extra_metadata or {}}
+    arrays: Dict[str, Any] = {}
+    on_card = False
+    for i, path in enumerate(_tree_order(tree)):
+        leaf = tree[path]
+        fname = f"leaf_{i:05d}.shard_000.npy"
+        if isinstance(leaf, torch.Tensor):
+            t = leaf.detach()
+            if t.device.type == "cuda":
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                on_card = True
+            else:
+                host = t.clone()
+            shape = tuple(t.shape)
+        else:
+            host = np.array(leaf)
+            shape = host.shape
+        arrays[fname] = host
+        manifest["leaves"].append({
+            "index": i, "path": path, "shape": list(shape),
+            "dtype": _dtype_name(leaf),
+            "shards": [{"file": fname, "index": [[0, d] for d in shape]}]})
+    ready = None
+    if on_card:
+        ready = torch.cuda.Event()
+        ready.record()
+    return {"manifest": manifest, "arrays": arrays, "ready": ready}
+
+
+def write_snapshot(ckpt_dir: str, snapshot: dict) -> dict:
+    """Write a ``snapshot_for_save`` snapshot as a committed checkpoint at
+    ``ckpt_dir``: wait for its copies, stage and hash every leaf into
+    ``<dir>.tmp``, the manifest last, then commit by renames. Host
+    work only, so it may run on a worker thread. Returns what was written:
     ``path``, ``bytes``, ``leaves`` and ``seconds``."""
     t0 = time.perf_counter()
+    if snapshot["ready"] is not None:
+        snapshot["ready"].synchronize()
+    manifest, arrays = snapshot["manifest"], snapshot["arrays"]
     ckpt_dir = ckpt_dir.rstrip("/")
     tmp_dir = ckpt_dir + ".tmp"
     if os.path.isdir(tmp_dir):
         # a crashed earlier save may have left a stale staging dir
         shutil.rmtree(tmp_dir)
     os.makedirs(tmp_dir)
-    manifest = {"format": _SHARDED_FORMAT, "leaves": [],
-                "metadata": extra_metadata or {}}
-    for i, path in enumerate(_tree_order(tree)):
-        arr = _host_leaf(tree[path])
-        fname = f"leaf_{i:05d}.shard_000.npy"
-        nbytes, digest = _write_shard_hashed(os.path.join(tmp_dir, fname), arr)
-        manifest["leaves"].append({
-            "index": i, "path": path, "shape": list(arr.shape),
-            "dtype": _dtype_name(tree[path]),
-            "shards": [{"file": fname, "index": [[0, d] for d in arr.shape],
-                        "bytes": nbytes, "sha256": digest}]})
+    for leaf in manifest["leaves"]:
+        for sh in leaf["shards"]:
+            sh["bytes"], sh["sha256"] = _write_shard_hashed(
+                os.path.join(tmp_dir, sh["file"]), _host_leaf(arrays[sh["file"]]))
     with open(os.path.join(tmp_dir, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
     old_dir = None
@@ -266,6 +301,19 @@ def save_checkpoint(ckpt_dir: str, tree: Dict[str, Any],
                 bytes=sum(sh["bytes"] for leaf in manifest["leaves"]
                           for sh in leaf["shards"]),
                 seconds=time.perf_counter() - t0)
+
+
+def save_checkpoint(ckpt_dir: str, tree: Dict[str, Any],
+                    extra_metadata: Optional[dict] = None) -> dict:
+    """Write ``tree`` (flat JAX path -> tensor or numpy leaf, as
+    ``train_step.checkpoint_tree`` builds it) as a committed ``sharded-v1``
+    checkpoint at ``ckpt_dir``: the snapshot, then the write. Returns what
+    was written: ``path``, ``bytes``, ``leaves`` and ``seconds`` (both
+    halves)."""
+    t0 = time.perf_counter()
+    info = write_snapshot(ckpt_dir, snapshot_for_save(tree, extra_metadata))
+    info["seconds"] = time.perf_counter() - t0
+    return info
 
 
 def _resolve_ckpt_dir(ckpt_dir: str) -> str:
@@ -393,3 +441,9 @@ def load_checkpoint(ckpt_dir: str, template: Dict[str, Any]) -> Dict[str, Any]:
 def checkpoint_metadata(ckpt_dir: str) -> dict:
     """The ``metadata`` of a checkpoint's manifest."""
     return _read_manifest(_resolve_ckpt_dir(ckpt_dir)).get("metadata", {})
+
+
+def leaf_dtypes(ckpt_dir: str) -> Dict[str, str]:
+    """Tree path -> dtype name of every leaf in a checkpoint's manifest."""
+    manifest = _read_manifest(_resolve_ckpt_dir(ckpt_dir))
+    return {leaf["path"]: leaf["dtype"] for leaf in manifest["leaves"]}

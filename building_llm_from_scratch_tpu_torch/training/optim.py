@@ -27,6 +27,13 @@ behaviour, kept on purpose. The global norms (clip and metrics) sum each
 leaf's squares in fp32, round the sum to the leaf's dtype, and add the
 leaves and take the root in that dtype (``optax.global_norm``). Each step
 updates parameters, moments and the gradient buffers in place.
+
+Gradients wider than their 16-bit parameters (fp32, from an accumulating
+or a loss-scaled step) promote as JAX promotes them: the moments become
+fp32 at the first such update (optax keeps the promoted moments, having
+no ``mu_dtype``), the Adam arithmetic and the step size run in fp32, the
+weight-decay term stays in the parameter's dtype, and the parameter gets
+the fp32 sum rounded to its dtype (``optax.apply_updates``).
 """
 
 from __future__ import annotations
@@ -109,14 +116,17 @@ class AdamW:
                          nu={k: torch.zeros_like(v) for k, v in params.items()})
 
     @torch.no_grad()
-    def step(self, params: Flat, grads: Flat, state: AdamState) -> dict:
+    def step(self, params: Flat, grads: Flat, state: AdamState,
+             grad_norm: torch.Tensor | None = None) -> dict:
         """Update ``params`` (and ``state``) in place from ``grads`` (which
-        are clipped in place). Returns the pre-clip global ``grad_norm``,
-        the global ``update_norm`` of the applied updates (0-d device
-        tensors in the parameter dtype, not synchronised) and the ``lr``
-        used (a float)."""
+        are clipped in place; ``grad_norm`` their global norm when the
+        caller has it). Returns the pre-clip global ``grad_norm``, the
+        global ``update_norm`` of the applied updates (0-d device tensors
+        in the gradients' dtype, not synchronised) and the ``lr`` used (a
+        float)."""
         b1, b2 = self.b1, self.b2
-        grad_norm = global_norm(grads)
+        if grad_norm is None:
+            grad_norm = global_norm(grads)
         # clip without a host sync: divide by the norm and multiply by the
         # limit only when the norm reaches it (dividing/multiplying by 1 is
         # exact otherwise)
@@ -132,15 +142,22 @@ class AdamW:
         bc2 = float(f32(1.0) - f32(b2) ** f32(state.count))
         updates = {}
         for name, p in params.items():
-            r = lambda x, dt=p.dtype: _rounded(x, dt)  # noqa: E731
             g = grads[name]
-            g.div_(div).mul_(mult)
             mu, nu = state.mu[name], state.nu[name]
+            # the moments' dtype: theirs, or the gradient's when that is
+            # wider (module docstring)
+            dt = torch.promote_types(mu.dtype, g.dtype)
+            r = lambda x, dt=dt: _rounded(x, dt)  # noqa: E731
+            rg = _rounded(1.0 - b1, g.dtype), _rounded(1.0 - b2, g.dtype)
+            g.div_(div).mul_(mult)
+            if mu.dtype != dt:
+                mu = state.mu[name] = mu.to(dt)
+                nu = state.nu[name] = nu.to(dt)
             # (1 - b) * g^k + b * m, each product rounded, then the sum
-            mu.mul_(r(b1)).add_(g * r(1.0 - b1))
-            nu.mul_(r(b2)).add_(g.square().mul_(r(1.0 - b2)))
+            mu.mul_(r(b1)).add_(g * rg[0])
+            nu.mul_(r(b2)).add_(g.square().mul_(rg[1]))
             u = (mu / r(bc1)) / ((nu / r(bc2)).sqrt_().add_(r(self.eps)))
-            u.add_(p * r(self.weight_decay))
+            u.add_(p * _rounded(self.weight_decay, p.dtype))
             u.mul_(r(-lr))
             p.add_(u)
             updates[name] = u

@@ -23,13 +23,29 @@ resumed run's remaining steps are the unbroken run's. A ``stopper``
 ``interrupted`` checkpoint; a ``watchdog`` (``resilience.LossWatchdog``)
 sees every step's loss when the metrics are fetched.
 
-Not ported yet: sharded plans, asynchronous checkpoints and prefetching
-(ROADMAP queue 1, async checkpoints and prefetch), profiling, the stall
-detector and the metrics sink (obs/).
+A precision ``policy`` (``training/precision.py``) and ``grad_accum``
+microbatches go to the train step (``training/train_step.py``); with
+the fp16 policy the metrics carry ``loss_scale`` and ``skipped``, and each
+evaluation window logs its skipped steps.
+
+Host/device overlap: with ``prefetch`` > 0 a worker thread
+(``data/prefetch.Prefetcher``) builds the next batches and copies them to
+the card on a side stream (``DeviceStager``), ``prefetch`` deep, after the
+resume fast-forward; evaluation batches ride their own small prefetcher,
+so the cadence never drains the training queue. Each window logs its
+``prefetch_stall`` and ``prefetch_fill_ratio``. With ``async_ckpt`` the
+periodic saves pay only the snapshot on the step loop and write on a
+worker (``training/async_checkpoint.py``), pruning on commit; ``final``
+and ``interrupted`` wait until durable. The prefetchers and the writer
+close in a ``finally``.
+
+Not ported yet: sharded plans, profiling, the stall detector and the
+metrics sink (obs/).
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import time
@@ -40,6 +56,10 @@ import torch
 
 from building_llm_from_scratch_tpu_torch.configs import ModelConfig
 from building_llm_from_scratch_tpu_torch.data.instruct import format_input
+from building_llm_from_scratch_tpu_torch.data.prefetch import (
+    DeviceStager,
+    Prefetcher,
+)
 from building_llm_from_scratch_tpu_torch.generate import (
     generate,
     text_to_token_ids,
@@ -51,6 +71,9 @@ from building_llm_from_scratch_tpu_torch.models.lora import (
     save_adapter,
 )
 from building_llm_from_scratch_tpu_torch.models.transformer import Transformer
+from building_llm_from_scratch_tpu_torch.training.async_checkpoint import (
+    AsyncCheckpointer,
+)
 from building_llm_from_scratch_tpu_torch.training.checkpoint import (
     checkpoint_metadata,
     export_params,
@@ -78,13 +101,19 @@ logger = logging.getLogger(__name__)
 #: batches of each split per evaluation (the JAX CLI's ``eval_iters``)
 EVAL_ITERS = 5
 
+#: the numpy dtype of each batch array on its way to the step
+_BATCH_DTYPES = {"inputs": np.int64, "targets": np.int64,
+                 "weights": np.float32}
+
 
 class Trainer:
     """Drives pretraining (``train_model``) and instruction finetuning
     (``finetune_model``) over a file list: one model, one optimizer. With
     ``lora_params`` (an adapter tree, with ``lora_alpha`` and
     ``lora_rank``) the adapter is trained and the model stays frozen.
-    ``resume_from`` names a train-state checkpoint to continue from."""
+    ``resume_from`` names a train-state checkpoint to continue from;
+    ``policy``, ``grad_accum``, ``prefetch`` and ``async_ckpt`` are the
+    module docstring's."""
 
     def __init__(self, cfg: ModelConfig, model: Transformer, tokenizer, loader,
                  *, output_dir: str = "model_checkpoints",
@@ -96,7 +125,9 @@ class Trainer:
                  lora_rank: Optional[int] = None,
                  save_ckpt_freq: int = 100,
                  resume_from: Optional[str] = None, keep_ckpts: int = 0,
-                 watchdog=None, stopper=None):
+                 watchdog=None, stopper=None, policy=None,
+                 grad_accum: int = 1, prefetch: int = 0,
+                 async_ckpt: bool = False):
         if (lora_params is None) != (lora_rank is None):
             raise ValueError(
                 "lora_params and lora_rank must be passed together "
@@ -123,6 +154,13 @@ class Trainer:
         self.keep_ckpts = keep_ckpts
         self.watchdog = watchdog
         self.stopper = stopper
+        self.policy = policy
+        self.grad_accum = grad_accum
+        self.prefetch = prefetch
+        self._stager = DeviceStager(model.device)
+        self._async_ckpt = AsyncCheckpointer() if async_ckpt else None
+        #: prefetch stalls over the run (the windows' are in window_logs)
+        self.prefetch_stall_total = 0
         #: (epoch, file_index, file, batch_index) of the next batch to
         #: train, written into checkpoint metadata; the restored one
         self._cursor: Optional[Dict[str, Any]] = None
@@ -146,9 +184,13 @@ class Trainer:
         #: sample texts, in order (the warm-up sample first)
         self.samples: List[str] = []
         #: per-step metrics as host floats (step, loss, grad_norm,
-        #: update_norm, lr, tokens), fetched at the evaluation cadence
+        #: update_norm, lr, tokens; loss_scale and skipped with loss
+        #: scaling), fetched at the evaluation cadence
         self.step_metrics: List[Dict[str, Any]] = []
         self._pending: List[tuple] = []
+        #: one row per evaluation window: step, tokens_per_s, skipped
+        #: steps and, with prefetch, prefetch_stall and prefetch_fill_ratio
+        self.window_logs: List[Dict[str, Any]] = []
 
     # ------------------------------------------------------------------
     # setup
@@ -186,9 +228,11 @@ class Trainer:
         self.optimizer = AdamW(self.lr_schedule)
         if self.use_lora:
             self.state = init_train_state(self.lora_params, self.optimizer,
-                                          self.seed, frozen=self.model)
+                                          self.seed, frozen=self.model,
+                                          policy=self.policy)
         else:
-            self.state = init_train_state(self.model, self.optimizer, self.seed)
+            self.state = init_train_state(self.model, self.optimizer, self.seed,
+                                          policy=self.policy)
         if self.resume_from is not None:
             t0 = time.perf_counter()
             restore_train_state(self.state, self.resume_from)
@@ -206,20 +250,33 @@ class Trainer:
                         self.resume_from, self.global_step, self.tokens_seen,
                         f", data cursor {self._resume_cursor}"
                         if self._resume_cursor else "")
-        lora = dict(lora_alpha=self.lora_alpha, lora_rank=self.lora_rank)
-        self.train_step = make_train_step(self.cfg, self.optimizer, **lora)
-        self.eval_step = make_eval_step(self.cfg, **lora)
+        kw = dict(lora_alpha=self.lora_alpha, lora_rank=self.lora_rank,
+                  policy=self.policy)
+        self.train_step = make_train_step(self.cfg, self.optimizer,
+                                          grad_accum=self.grad_accum, **kw)
+        self.eval_step = make_eval_step(self.cfg, **kw)
+
+    def _staged_item(self, arrays):
+        """What a batch stream yields: (inputs, targets[, loss weights])
+        numpy arrays staged for the model's device (``DeviceStager``), and
+        the batch's token count."""
+        staged = self._stager.stage(
+            dict(zip(("inputs", "targets", "weights"), arrays)), _BATCH_DTYPES)
+        return staged, int(np.prod(np.shape(arrays[0])))
 
     def _device_batch(self, arrays) -> Dict[str, torch.Tensor]:
         """(inputs, targets[, loss weights]) numpy arrays -> the step's
         batch on the model's device."""
-        dev = self.model.device
-        batch = {name: torch.from_numpy(np.asarray(a, np.int64)).to(dev)
-                 for name, a in zip(("inputs", "targets"), arrays)}
-        if len(arrays) > 2:
-            batch["weights"] = torch.from_numpy(
-                np.asarray(arrays[2], np.float32)).to(dev)
-        return batch
+        return self._staged_item(arrays)[0].ready()
+
+    def _batch_stream(self, batches, depth: int, name: str):
+        """``batches`` as (staged batch, tokens) items: through a
+        prefetcher ``depth`` deep (returned too, for its counters and its
+        close), or staged in the loop when ``depth`` is 0."""
+        if depth == 0:
+            return map(self._staged_item, batches), None
+        pf = Prefetcher(batches, depth, place_fn=self._staged_item, name=name)
+        return pf, pf
 
     # ------------------------------------------------------------------
     # evaluation / sampling
@@ -227,12 +284,17 @@ class Trainer:
 
     def calc_loss_loader(self, batches, num_batches: Optional[int] = None
                          ) -> float:
-        losses = []
-        for i, arrays in enumerate(batches):
-            if num_batches is not None and i >= num_batches:
-                break
-            losses.append(float(self.eval_step(self.state,
-                                               self._device_batch(arrays))))
+        """Mean eval loss over at most ``num_batches`` batches; with
+        prefetch they ride their own prefetcher (at most 2 deep)."""
+        stream, pf = self._batch_stream(
+            itertools.islice(batches, num_batches),
+            min(self.prefetch, 2), "eval-prefetch")
+        try:
+            losses = [float(self.eval_step(self.state, staged.ready()))
+                      for staged, _ in stream]
+        finally:
+            if pf is not None:
+                pf.close()
         return float(np.mean(losses)) if losses else float("nan")
 
     def evaluate_model(self, train_batches, val_batches):
@@ -274,11 +336,13 @@ class Trainer:
         watchdog sees each step's loss."""
         pending, self._pending = self._pending, []
         for step, m in pending:
-            self.step_metrics.append(dict(
-                step=step, loss=float(m["loss"]),
-                grad_norm=float(m["grad_norm"]),
-                update_norm=float(m["update_norm"]), lr=m["lr"],
-                tokens=m["tokens"]))
+            row = dict(step=step, loss=float(m["loss"]),
+                       grad_norm=float(m["grad_norm"]),
+                       update_norm=float(m["update_norm"]), lr=m["lr"],
+                       tokens=m["tokens"])
+            if "loss_scale" in m:
+                row.update(loss_scale=m["loss_scale"], skipped=m["skipped"])
+            self.step_metrics.append(row)
         if self.watchdog is not None and check_watchdog:
             for m in self.step_metrics[len(self.step_metrics) - len(pending):]:
                 self.watchdog.observe(m["step"], m["loss"])
@@ -292,19 +356,37 @@ class Trainer:
         """Write the train state as ``<output_dir>/model_pg_<tag>`` with the
         run's metadata (model, global_step, tokens_seen, the schedule
         horizon and, mid-run, the data cursor); with ``prune_after`` the
-        oldest step checkpoints beyond ``keep_ckpts`` go."""
+        oldest step checkpoints beyond ``keep_ckpts`` go. With
+        ``async_ckpt`` the write is queued (its record gains the write's
+        figures on commit, and the pruning waits for the commit); ``final``
+        and ``interrupted`` wait until it is durable."""
         path = os.path.join(self.output_dir, f"model_pg_{tag}")
         metadata = {"global_step": self.global_step,
                     "tokens_seen": self.tokens_seen, "model": self.cfg.name,
                     "schedule_horizon": self._schedule_horizon}
         if cursor is not None:
             metadata["cursor"] = cursor
-        info = save_checkpoint(path, checkpoint_tree(self.state), metadata)
-        self.checkpoint_saves.append(dict(info, tag=tag, step=self.global_step))
-        logger.info("Saved checkpoint %s (%d bytes in %.2f s)", path,
-                    info["bytes"], info["seconds"])
-        if prune_after and self.keep_ckpts > 0:
-            prune_checkpoints(self.output_dir, keep=self.keep_ckpts)
+        prune = prune_after and self.keep_ckpts > 0
+        record = dict(tag=tag, step=self.global_step)
+        self.checkpoint_saves.append(record)
+        tree = checkpoint_tree(self.state)
+        if self._async_ckpt is None:
+            record.update(save_checkpoint(path, tree, metadata))
+            logger.info("Saved checkpoint %s (%d bytes in %.2f s)", path,
+                        record["bytes"], record["seconds"])
+            if prune:
+                prune_checkpoints(self.output_dir, keep=self.keep_ckpts)
+            return path
+
+        def on_commit(info: Dict[str, Any]) -> None:
+            record.update(info)
+            if prune:
+                prune_checkpoints(self.output_dir, keep=self.keep_ckpts)
+
+        record["snapshot_s"] = self._async_ckpt.save(path, tree, metadata,
+                                                     on_commit=on_commit)
+        if tag in ("final", "interrupted"):
+            self._async_ckpt.wait()
         return path
 
     def _resume_skip(self, epoch: int, file_index: int, path: str = ""):
@@ -339,15 +421,49 @@ class Trainer:
                    start_context: str, file_index: int = 0,
                    file_name: str = "", skip_batches: int = 0) -> None:
         """One pass over one file's batches with the cadence work;
-        ``skip_batches`` starts a resumed run at its cursor."""
+        ``skip_batches`` starts a resumed run at its cursor (the stream is
+        cut there before a prefetcher wraps it)."""
         if self.global_step == 0 and not self.samples:
             self.generate_and_print_sample(start_context)
+        stream, prefetcher = self._batch_stream(
+            train_batches_fn(epoch, skip_batches), self.prefetch,
+            "train-prefetch")
+        try:
+            self._epoch_steps(stream, prefetcher, train_batches_fn,
+                              val_batches_fn, epoch, start_context,
+                              file_index, file_name, skip_batches)
+        finally:
+            if prefetcher is not None:
+                self.prefetch_stall_total += prefetcher.stalls
+                prefetcher.close()
+
+    def _window_row(self, tps: float, skipped: int, prefetcher,
+                    base: Optional[dict]) -> Dict[str, Any]:
+        """The evaluation window's log row; the prefetch fields are deltas
+        of the prefetcher's counters since ``base``."""
+        row = dict(step=self.global_step, tokens_per_s=tps, skipped=skipped)
+        if prefetcher is not None:
+            c = prefetcher.counters()
+            pops = c["pops"] - base["pops"]
+            row["prefetch_stall"] = c["stalls"] - base["stalls"]
+            row["prefetch_fill_ratio"] = (
+                (c["fill_sum"] - base["fill_sum"]) / pops / prefetcher.depth
+                if pops else None)
+        return row
+
+    def _epoch_steps(self, stream, prefetcher, train_batches_fn,
+                     val_batches_fn, epoch: int, start_context: str,
+                     file_index: int, file_name: str,
+                     skip_batches: int) -> None:
+        """The step loop of ``_run_epoch`` over (staged batch, tokens)
+        items."""
         t_tokens, t_start, excluded = 0, time.perf_counter(), 0.0
+        skipped = 0
+        base = prefetcher.counters() if prefetcher is not None else None
         batch_in_file = skip_batches
-        for arrays in train_batches_fn(epoch, skip_batches):
-            n_tok = int(np.prod(arrays[0].shape))
-            self.state, metrics = self.train_step(self.state,
-                                                  self._device_batch(arrays))
+        for staged, n_tok in stream:
+            self.state, metrics = self.train_step(self.state, staged.ready())
+            skipped += metrics.get("skipped", 0)
             self.global_step += 1
             batch_in_file += 1
             self._cursor = {"epoch": epoch, "file_index": file_index,
@@ -362,16 +478,26 @@ class Trainer:
                 tps = t_tokens / max(time.perf_counter() - t_start - excluded,
                                      1e-9)
                 self.throughput_tokens_per_s.append(tps)
+                row = self._window_row(tps, skipped, prefetcher, base)
+                self.window_logs.append(row)
                 train_loss, val_loss = self.evaluate_model(
                     train_batches_fn(epoch), val_batches_fn(epoch))
                 self.train_losses.append(train_loss)
                 self.val_losses.append(val_loss)
                 self.track_tokens_seen.append(self.tokens_seen)
                 logger.info("step %d: train %.3f, val %.3f, lr %.2e, "
-                            "%.0f tok/s", self.global_step, train_loss,
-                            val_loss, self.track_lrs[-1], tps)
+                            "%.0f tok/s%s%s", self.global_step, train_loss,
+                            val_loss, self.track_lrs[-1], tps,
+                            f", {skipped} skipped steps (loss scale "
+                            f"{metrics['loss_scale']:g})"
+                            if "loss_scale" in metrics else "",
+                            f", {row['prefetch_stall']} prefetch stalls, "
+                            f"fill {row['prefetch_fill_ratio']}"
+                            if prefetcher is not None else "")
                 t_tokens, t_start = 0, time.perf_counter()
-                excluded = 0.0
+                excluded, skipped = 0.0, 0
+                if prefetcher is not None:
+                    base = prefetcher.counters()
 
             if self.global_step % self.print_sample_iter == 0:
                 t0 = time.perf_counter()
@@ -428,6 +554,8 @@ class Trainer:
             # no watchdog here: raising in finally would mask the exception
             # in flight
             self._flush_metrics(check_watchdog=False)
+            if self._async_ckpt is not None:
+                self._async_ckpt.close()
 
     def train_model(self, files: Sequence[str], n_epochs: int,
                     start_context: str = "Every effort moves you"):

@@ -80,8 +80,10 @@ exits non-zero):
      summed over each kv head's query heads (B2b, (B, T, Hkv, D); its twin
      is the per-query-head twin followed by group_sum) at LLaMA-3.2-1B's
      training shape (B 4, Hq 32, Hkv 8, T 1024, hd 64) in bf16 and in fp32
-     (the 3xTF32 kernels) and the reference shapes (B 1, T 256, fp32 and
-     bf16): out, lse and the gradients within tolerance of the twin and of
+     (the 3xTF32 kernels), the reference shapes (B 1, T 256, fp32 and
+     bf16) and GPT-2-124M's training shape in fp16 (B 8, H 12, T 1024,
+     hd 64: phase 6m's fp16 policy; fp16 held at bf16's bounds, the twin
+     tolerance TWIN_TOL["fp16"]): out, lse and the gradients within tolerance of the twin and of
      the exact (fp32) result, each bound shown to fail for a wrong result;
      times of the kernels, the twins and ``scaled_dot_product_attention``
      (forward, forward+backward, and backward alone through autograd.grad
@@ -92,19 +94,19 @@ exits non-zero):
      of every gradient (here and in 5b), so a kernel that lost the 3xTF32
      split's lo terms cannot pass.
      5b. the same kernels with attention dropout p = 0.1 at GPT-2-124M's
-     training shape (B 8, H 12, T 1024, hd 64) in bf16 and in fp32, and its
-     fp32 reference shape (B 1, T 256): against the twin (the same mask) and an
+     training shape (B 8, H 12, T 1024, hd 64) in bf16, fp32 and fp16, and
+     its fp32 reference shape (B 1, T 256): against the twin (the same mask) and an
      exact fp32 oracle built from the dumped mask; the mask's keep fraction
      (within 1e-3 of 0.9 over the causal entries), the same mask for the
      same seed and another for the next; the twin with the next seed must
      fail the bound. SDPA with dropout_p = 0.1 is the library yardstick.
      5c. the fused dropout kernel B3 (dropout, dropout + add, backward) at
-     (8 x 1024, 768) in bf16 and fp32: bit-equal to the twins, p = 0 the
+     (8 x 1024, 768) in bf16, fp32 and fp16: bit-equal to the twins, p = 0 the
      identity, the keep fraction, the backward of ones equal to the
      forward's mask times 1/(1-p); F.dropout (+ add) as the yardstick.
      5d. the vocab-streamed cross-entropy forward B4 at N 8192, D 768,
-     V 50257 in bf16 and in fp32 (GPT-2-124M's training shape in both of
-     its training dtypes): lse and nll against the twin at the JAX test's
+     V 50257 in bf16, fp32 and fp16 (GPT-2-124M's training shape in its
+     training dtypes and under the fp16 policy): lse and nll against the twin at the JAX test's
      bounds; the twin without the padded-column mask must fail them. Each
      row names the route (source) and its plan; the fp32 bound is a third
      of the TF32 rate (3xTF32), its library call torch.mm in full fp32. fp32
@@ -131,6 +133,28 @@ exits non-zero):
      steps again with BLLM_XENT_PALLAS=1: B4 = steps + eval batches, and
      the step-1 loss equal to the first run's to 1e-5. Each run's ``final``
      train state is counted, not written (phase 8r writes them).
+  6m. precision policies, accumulation and remat through the CLI, full
+     width: GPT-2-124M (B 8 x T 1024, p 0.1, fp32 masters, 20 steps) with
+     --mixed_precision bf16, with --mixed_precision fp16 and B4 on (its
+     skipped steps and loss-scale trace printed), and with --grad_accum 2
+     in fp32 and B4 on (the sums loss); LLaMA-3.2-1B bf16 (B 4 x T 1024)
+     with --use_actv_ckpt, whose per-step losses, evaluations and final
+     parameters equal phase 6's run bit for bit, and with --use_actv_ckpt
+     --grad_accum 2 --batch_size 8. Launch counts exact (remat: B1 twice a
+     layer and microbatch), finite falling losses, the masters fp32 under
+     a policy, GPT-2's exports loaded back bit for bit (LLaMA's counted,
+     not written); GPT-2 fp32 one step with and without two microbatches
+     from the same weights and batch at dropout 0 (p 0.1 draws other masks
+     per microbatch): loss within 1e-5, gradients 1e-4. Step ms, tokens/s,
+     MFU against the compute dtype's peak, peak memory.
+  6h. host overlap: GPT-2-124M bf16 (B 8 x T 1024, p 0.1), 20 steps,
+     --save_ckpt_freq 10 --keep_ckpts 1, once with --prefetch 0
+     --async_ckpt off and once with --prefetch 2 --async_ckpt on: per-step
+     losses and evaluations bit-equal, step 10's checkpoint pruned on step
+     20's commit, the step-20 checkpoints valid and the same leaf for leaf.
+     The save step's stall on the host clock, save seconds against the
+     snapshot's, the write's and its overlap, the steady step, the
+     device's idle share over a profiled window, prefetch stalls.
   6s. LoRA instruction finetuning through the CLI (``--finetune --dataset
      alpaca --use_lora``) on a ``scripts/build_local_alpaca.py`` file sized
      for 20 steps and 7 eval batches: LLaMA-3.2-1B bf16 (rank 16, alpha 32,
@@ -151,6 +175,14 @@ exits non-zero):
      another dropout seed on the CPU side fails the gradient bound, and in
      fp32 the loss bound (in bf16 its loss change is reported: it lies
      inside bf16's loss bound at this size).
+  7m. the same cut of GPT-2-124M (2 layers, T 256, p 0.1) for one step
+     under the bf16 policy and the fp16 policy on fp32 masters and under
+     --data_type fp16 (fp16 masters, the fp16 policy), B 1, and with two
+     microbatches in fp32 on two collated Alpaca records whose supervised
+     counts differ: card against CPU within REF_BOUNDS (fp16: 1e-3 loss,
+     1e-2 gradients), no step skipped, launches exact; the policies' CPU
+     step with another dropout seed fails the gradient bound, and the mean
+     of the microbatches' own means fails the accumulation's loss bound.
   7s. the same for one LoRA SFT step (rank 16, B drawn nonzero) on one
      collated Alpaca record: the loss and every adapter gradient within
      the dtype's bound; the CPU step with all-ones loss weights must fail
@@ -182,10 +214,11 @@ exits non-zero):
      relaunch to first step. Phases 6 and 6s write no ``final`` train
      state (its bytes are reported): the script keeps its disk writes under
      45 GiB, and phase 8r's saves need that room.
-  9. the ``kernels`` line (one row per kernel and shape, each with the
-     launches of the run at that shape; B6 by projection shape from phase
-     4c; B5's rows add 8w's CLI launches, the training rows 8r's), then
-     the card line and the result line.
+  9. the bytes the script wrote to disk, the ``kernels`` line (one row
+     per kernel and shape, each with the launches of the run at that
+     shape; B6 by projection shape from phase 4c; B5's rows add 8w's CLI
+     launches, the training rows 8r's, 6m's and 6h's), then the card line
+     and the result line.
 
 It exits non-zero without printing a result when no CUDA device is present
 or when the package is not beside it.
@@ -206,8 +239,23 @@ import sys
 import time
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of a phase, with the script's elapsed seconds."""
+    print(json.dumps({"phase": phase, "t_s": round(time.perf_counter() - _T0, 1),
+                      **fields}), flush=True)
+
+
+def written_bytes() -> dict:
+    """What this process wrote (Linux ``/proc/self/io``): ``wchar``, the
+    bytes passed to write calls (files, and the few on stdout), and
+    ``write_bytes``, what reached storage. The card's machine caps a
+    call's disk writes."""
+    with open("/proc/self/io") as f:
+        fields = dict(ln.split(": ") for ln in f.read().splitlines())
+    return {k: int(fields[k]) for k in ("wchar", "write_bytes")}
 
 
 # card figures from NVIDIA's data sheets: memory bytes/s and dense peak
@@ -750,20 +798,24 @@ def phase_lora_kernel(torch, card: dict) -> list:
 ATTN_SHAPES = [
     # name, B, Hq, Hkv, T, hd, dtype: the training shape of LLaMA-3.2-1B
     # in bf16 and in fp32 (phase 6) and the reference shapes (phase 7: full
-    # width cut to 2 layers, B 1, T 256, fp32 and bf16)
+    # width cut to 2 layers, B 1, T 256, fp32 and bf16); GPT-2-124M's
+    # training shape in fp16 (phase 6m's fp16 policy: its evaluations run
+    # the kernels at p 0)
     ("llama3_2-1B-train", 4, 32, 8, 1024, 64, "bf16"),
     ("llama3_2-1B-train-fp32", 4, 32, 8, 1024, 64, "fp32"),
     ("llama3_2-1B-ref", 1, 32, 8, 256, 64, "fp32"),
     ("llama3_2-1B-ref-bf16", 1, 32, 8, 256, 64, "bf16"),
+    ("gpt2-124M-train-fp16", 8, 12, 12, 1024, 64, "fp16"),
 ]
 
 # max |kernel - ref| / max |ref| per tensor (lse: absolute), against the
 # twin and against the exact result (the twin in fp32 on the same inputs):
 # fp32 the same arithmetic in another order (1e-5 for out and lse, 5e-5 for
 # gradients summed over up to T terms); bf16 2e-2 (P and dS are rounded to 8
-# bits before their products, at other places in the kernel and the twin).
+# bits before their products, at other places in the kernel and the twin);
+# fp16 TWIN_TOL's, the bf16 limit (fp16 rounds the same places to 11 bits).
 # The same limits as tests/test_torch_cuda.py.
-FLASH_TOL = {"fp32": (1e-5, 5e-5), "bf16": (2e-2, 2e-2)}
+FLASH_TOL = {"fp32": (1e-5, 5e-5), "bf16": (2e-2, 2e-2), "fp16": TWIN_TOL["fp16"]}
 
 
 def _flash_err(torch, name: str, a, b) -> float:
@@ -964,10 +1016,12 @@ def phase_attention(torch, card: dict) -> list:
 DROPOUT_ATTN_SHAPES = [
     # name, B, Hq, Hkv, T, hd, dtype: GPT-2-124M's training shape in bf16
     # and in fp32, its default dtype (phase 6), and its reference shape
-    # (phase 7b: 2 layers, B 1, T 256, fp32)
+    # (phase 7b: 2 layers, B 1, T 256, fp32); the training shape in fp16
+    # (phase 6m's fp16 policy)
     ("gpt2-124M-train", 8, 12, 12, 1024, 64, "bf16"),
     ("gpt2-124M-train-fp32", 8, 12, 12, 1024, 64, "fp32"),
     ("gpt2-124M-ref", 1, 12, 12, 256, 64, "fp32"),
+    ("gpt2-124M-train-fp16", 8, 12, 12, 1024, 64, "fp16"),
 ]
 DROP_RATE = 0.1
 
@@ -1104,7 +1158,8 @@ def phase_attention_dropout(torch, card: dict) -> list:
 
 # name (the training run whose launches the row reads), rows, width, dtype
 DROPOUT_SHAPES = [("gpt2-124M-train", 8 * 1024, 768, "bf16"),
-                  ("gpt2-124M-train-fp32", 8 * 1024, 768, "fp32")]
+                  ("gpt2-124M-train-fp32", 8 * 1024, 768, "fp32"),
+                  ("gpt2-124M-train-fp16", 8 * 1024, 768, "fp16")]
 
 
 def phase_dropout(torch, card: dict) -> list:
@@ -1181,9 +1236,11 @@ def phase_dropout(torch, card: dict) -> list:
 # ---------------------------------------------------------------------------
 
 # name (the training run whose launches the row reads: phase 6's B4 run of
-# GPT-2-124M in bf16, and at the default dtype, fp32), N, D, V, dtype
+# GPT-2-124M in bf16, and at the default dtype, fp32; phase 6m's fp16
+# policy run, which takes B4), N, D, V, dtype
 XENT_SHAPES = [("gpt2-124M-train", 8 * 1024, 768, 50257, "bf16"),
-               ("gpt2-124M-train-fp32", 8 * 1024, 768, 50257, "fp32")]
+               ("gpt2-124M-train-fp32", 8 * 1024, 768, 50257, "fp32"),
+               ("gpt2-124M-train-fp16", 8 * 1024, 768, 50257, "fp16")]
 
 
 def phase_xent(torch, card: dict) -> list:
@@ -1315,7 +1372,7 @@ def xent_split_check(torch, x, t, V: int, gen) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN = dict(model="llama3_2", size="1B", dtype="bf16", batch=4, context=1024,
-             steps=20)
+             steps=20, keep_final=True)
 # GPT-2-124M as configured (drop_rate 0.1), the chunked cross entropy its
 # width takes; then the same run with the opt-in B4 forward (in both dtypes)
 TRAIN_GPT2 = dict(model="GPT2", size="124M", dtype="bf16", batch=8, context=1024,
@@ -1426,19 +1483,28 @@ def train_kernels():
 
 
 def expected_launches(cfg, steps: int, eval_batches: int, xent_kernel: bool,
-                      lora: bool = False) -> dict:
+                      lora: bool = False, grad_accum: int = 1) -> dict:
     """Each kernel's launches in a run: B1 per layer in every train and
     eval step, B2a/B2b per layer in every train step, B3 forward and
     backward once for the embedding and twice per layer in every train step
     of a dropout config, B4 once per train and eval step when it is on. In
     a LoRA run the embedding is frozen, so nothing needs the gradient of
-    its dropout's input and that backward does not run."""
-    L = cfg.n_layers
-    drops = (1 + 2 * L) * steps if cfg.drop_rate > 0 else 0
-    drops_bwd = drops - steps if lora and drops else drops
-    return dict(fwd=L * (steps + eval_batches), dq=L * steps, dkv=L * steps,
-                dropout_fwd=drops, dropout_bwd=drops_bwd,
-                xent_fwd=(steps + eval_batches) if xent_kernel else 0)
+    its dropout's input and that backward does not run. With
+    ``grad_accum`` every microbatch is a train step's forward and
+    backward. With remat (``cfg.use_actv_ckpt``) the backward recomputes
+    each block's forward up to its last saved tensor: B1 and the first
+    residual's B3 again, not the second residual's (nothing after it is
+    saved)."""
+    L, remat = cfg.n_layers, cfg.use_actv_ckpt
+    micro = steps * grad_accum
+    drops = (1 + 2 * L) * micro if cfg.drop_rate > 0 else 0
+    drops_bwd = drops - micro if lora and drops else drops
+    if remat and drops:
+        drops += L * micro
+    return dict(fwd=L * ((2 if remat else 1) * micro + eval_batches),
+                dq=L * micro, dkv=L * micro, dropout_fwd=drops,
+                dropout_bwd=drops_bwd,
+                xent_fwd=(micro + eval_batches) if xent_kernel else 0)
 
 
 @contextlib.contextmanager
@@ -1448,18 +1514,19 @@ def main_path(torch, xent_kernel: bool):
     step (each step's time on the device's clock, idle gaps while the host
     enqueues included; no host sync) and each batch's supervised tokens
     (the sum of its loss weights, when it has them). Yields a dict that is
-    filled when the run ends: launches, run_step_ms, supervised, wall_s,
-    peak_gb."""
+    filled when the run ends: launches, run_step_ms, step_starts (the host
+    clock at each step's call), supervised, wall_s, peak_gb."""
     import building_llm_from_scratch_tpu_torch.training.trainer as ttr
 
     kernels = train_kernels()
-    events, supervised = [], []
+    events, supervised, starts = [], [], []
     make_train_step = ttr.make_train_step
 
     def timed_make_train_step(*args, **kwargs):
         step = make_train_step(*args, **kwargs)
 
         def timed_step(state, batch):
+            starts.append(time.perf_counter())
             pair = (torch.cuda.Event(enable_timing=True),
                     torch.cuda.Event(enable_timing=True))
             pair[0].record()
@@ -1490,6 +1557,7 @@ def main_path(torch, xent_kernel: bool):
             os.environ["BLLM_XENT_PALLAS"] = env
     facts.update(wall_s=time.perf_counter() - t0,
                  launches={k: f.launches for k, f in kernels.items()},
+                 step_starts=starts,
                  run_step_ms=[a.elapsed_time(b) for a, b in events],
                  supervised=[float(w) for w in supervised],
                  peak_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -1526,6 +1594,29 @@ def final_checkpoint_unwritten():
         ttr.Trainer.save_checkpoint = save
 
 
+@contextlib.contextmanager
+def export_unwritten(write: bool = True):
+    """Around a CLI run whose final ``.npz`` export is counted (its leaves'
+    bytes, on ``trainer.export_unwritten_bytes``) but not written: phase
+    6m's LLaMA runs, whose parameters are checked against phase 6's in
+    memory (the disk budget). ``write`` True leaves the export alone."""
+    import building_llm_from_scratch_tpu_torch.training.trainer as ttr
+
+    export = ttr.Trainer.export_final
+
+    def counted(self, filename="model_pg_final.npz"):
+        self.export_unwritten_bytes = sum(
+            v.numel() * v.element_size() for v in self._full_params().values())
+        return os.path.join(self.output_dir, filename)
+
+    if not write:
+        ttr.Trainer.export_final = counted
+    try:
+        yield
+    finally:
+        ttr.Trainer.export_final = export
+
+
 def final_checkpoint(trainer) -> dict:
     """The run's ``final`` train state, counted by
     ``final_checkpoint_unwritten``. A fresh run must not have resumed (it
@@ -1559,8 +1650,10 @@ def train_run(torch, t: dict, workdir: str, xent_kernel: bool = False):
              *dtype_flags(t), "--byte_tokenizer",
              "--data_dir", data_dir, "--output_dir", out_dir,
              "--n_epochs", "1", "--batch_size", str(t["batch"]),
-             "--eval_freq", str(t["steps"]), "--print_sample_iter", str(t["steps"])]
-    with main_path(torch, xent_kernel) as run, final_checkpoint_unwritten():
+             "--eval_freq", str(t["steps"]), "--print_sample_iter", str(t["steps"]),
+             *t.get("flags", [])]
+    with main_path(torch, xent_kernel) as run, final_checkpoint_unwritten(), \
+            export_unwritten(t.get("export", True)):
         trainer = tmain.run(flags)
     launches, run_step_ms = run["launches"], run["run_step_ms"]
     final_ckpt = final_checkpoint(trainer)
@@ -1571,7 +1664,8 @@ def train_run(torch, t: dict, workdir: str, xent_kernel: bool = False):
     eval_batches = n_evals * (min(5, loader.num_batches(tr_ds))
                               + min(5, loader.num_batches(va_ds)))
     steps = trainer.global_step
-    want = expected_launches(cfg, steps, eval_batches, xent_kernel)
+    want = expected_launches(cfg, steps, eval_batches, xent_kernel,
+                             grad_accum=trainer.grad_accum)
     losses = [m["loss"] for m in trainer.step_metrics]
     check = dict(steps=steps, evals=n_evals, eval_batches=eval_batches,
                  launches=launches, expected=want)
@@ -1588,7 +1682,10 @@ def train_run(torch, t: dict, workdir: str, xent_kernel: bool = False):
         raise AssertionError(f"expected the warm-up and one sample: {trainer.samples}")
     facts = dict(check, wall_s=run["wall_s"], corpus=corpus, corpus_chars=n_chars,
                  out_dir=out_dir, run_step_ms=run_step_ms, peak_gb=run["peak_gb"],
-                 losses=losses, tr_ds=tr_ds, final_ckpt=final_ckpt)
+                 losses=losses, tr_ds=tr_ds, final_ckpt=final_ckpt,
+                 step_starts=run["step_starts"],
+                 # main.py draws it with matplotlib, or warns that it did not
+                 losses_pdf=os.path.exists(os.path.join(out_dir, "losses.pdf")))
     return trainer, facts
 
 
@@ -1602,22 +1699,20 @@ def phase_train(torch, card: dict, workdir: str, t: dict) -> dict:
     import os
 
     from building_llm_from_scratch_tpu_torch import main as tmain
-    from building_llm_from_scratch_tpu_torch.training.checkpoint import (
-        load_exported_params,
-    )
 
     trainer, facts = train_run(torch, t, workdir)
     cfg, loader = trainer.cfg, trainer.loader
     L, losses = cfg.n_layers, facts["losses"]
+    final = None
+    if t.get("keep_final"):         # phase 6m's remat run is held against it
+        final = dict(params={k: v.detach().cpu() for k, v in
+                             trainer.model.stacked.items()},
+                     losses=losses, train_loss=trainer.train_losses,
+                     val_loss=trainer.val_losses, peak_gb=facts["peak_gb"],
+                     later_steps_median_ms=statistics.median(
+                         facts["run_step_ms"][1:]))
     export = os.path.join(facts["out_dir"], "model_pg_final.npz")
-    back = load_exported_params(export, cfg, "cuda")
-    for key, leaf in trainer.model.stacked.items():
-        a, b = leaf.detach(), back.stacked[key]
-        if a.dtype != b.dtype or not torch.equal(a.view(torch.int16),
-                                                 b.view(torch.int16)):
-            raise AssertionError(f"export leaf {key} does not load back "
-                                 "bit for bit")
-    del back
+    check_export(torch, trainer, facts["out_dir"])
 
     # the export served by the CLI (--mode serve --init_params_from)
     req = os.path.join(workdir, "req.jsonl")
@@ -1684,9 +1779,9 @@ def phase_train(torch, card: dict, workdir: str, t: dict) -> dict:
                             "included) + 12 x layers x emb_dim x context; "
                             f"peak = {dt} dense ({peak / 1e12:g} TFLOP/s)",
                   peak_memory_gb=facts["peak_gb"], profile=prof,
-                  final_checkpoint=facts["final_ckpt"])
+                  final_checkpoint=facts["final_ckpt"], losses_pdf=facts["losses_pdf"])
     emit("train", **result)
-    runs = {"main": facts["launches"],
+    runs = {"main": facts["launches"], "final": final, "step1_loss": losses[0],
             "pretrain": {k: result[k] for k in (
                 "later_steps_median_ms", "step1_ms", "window_tokens_per_s",
                 "step_ms", "tokens_per_s", "peak_memory_gb")}}
@@ -1709,6 +1804,7 @@ def phase_train(torch, card: dict, workdir: str, t: dict) -> dict:
             raise AssertionError(f"B4 run's step-1 loss {first_k} differs from "
                                  f"the chunked run's {first}")
         runs["xent_kernel"] = kfacts["launches"]
+        runs["xent_step1_loss"] = first_k
         del trainer
         torch.cuda.empty_cache()
     shutil.rmtree(workdir, ignore_errors=True)     # the exports: up to 5 GB a run
@@ -2017,8 +2113,10 @@ def phase_sft_reference(torch, spec: dict, workdir: str) -> dict:
 # another order; in bf16 both devices round every operation to 8 bits, but
 # GEMM sums and the flash kernel round at other places than the CPU's
 # GEMMs and the twin (the port against the JAX package on the CPU, at a
-# small size, measures about 1e-2: tests/test_torch_training.py)
-REF_BOUNDS = {"fp32": (1e-5, 1e-4), "bf16": (1e-3, 3e-2)}
+# small size, measures about 1e-2: tests/test_torch_training.py); fp16
+# (phase 7m) rounds at the same places to 11 bits, 8x finer than bf16:
+# bf16's loss bound, a third of its gradient bound
+REF_BOUNDS = {"fp32": (1e-5, 1e-4), "bf16": (1e-3, 3e-2), "fp16": (1e-3, 1e-2)}
 
 
 REFERENCES = [
@@ -2121,6 +2219,456 @@ def phase_train_reference(torch, spec: dict) -> dict:
             raise AssertionError(f"{cfg.name} {dtype}: the bounds do not catch "
                                  f"the control ({spec['control']}): {result}")
         results[dtype] = result
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 6m: precision policies, accumulation and remat through the CLI
+# ---------------------------------------------------------------------------
+
+#: GPT-2-124M (B 8 x T 1024, p 0.1, fp32 masters) under the bf16 and the
+#: fp16 policy and with two microbatches in fp32, the last two with B4 on
+#: (its fp16 route, and the sums loss); LLaMA-3.2-1B bf16 (B 4 x T 1024)
+#: with remat, held bit for bit against phase 6's run, and with remat and
+#: two microbatches of 4. ``compute``: the dtype of the MFU's peak;
+#: ``shape``: the kernel rows whose ``launches_6m`` the run gives;
+#: ``export`` False: the export is counted, not written (the disk budget:
+#: the LLaMA runs' 3 GB each; the remat run's parameters are compared in
+#: memory).
+MIXED = [
+    dict(label="gpt2-bf16-policy", model="GPT2", size="124M", dtype=None, batch=8,
+         context=1024, steps=20, flags=["--mixed_precision", "bf16"],
+         compute="bf16", shape="gpt2-124M-train"),
+    dict(label="gpt2-fp16-policy", model="GPT2", size="124M", dtype=None, batch=8,
+         context=1024, steps=20, flags=["--mixed_precision", "fp16"],
+         compute="fp16", xent_kernel=True, shape="gpt2-124M-train-fp16"),
+    dict(label="gpt2-fp32-accum2", model="GPT2", size="124M", dtype=None, batch=8,
+         context=1024, steps=20, flags=["--grad_accum", "2"], compute="fp32",
+         xent_kernel=True, shape="gpt2-124M-train-fp32"),
+    dict(label="llama-bf16-remat", model="llama3_2", size="1B", dtype="bf16",
+         batch=4, context=1024, steps=20, flags=["--use_actv_ckpt"],
+         compute="bf16", export=False, shape="llama3_2-1B-train"),
+    dict(label="llama-bf16-remat-accum2", model="llama3_2", size="1B", dtype="bf16",
+         batch=8, context=1024, steps=20,
+         flags=["--use_actv_ckpt", "--grad_accum", "2"], compute="bf16",
+         export=False, shape="llama3_2-1B-train"),
+]
+
+
+def check_export(torch, trainer, out_dir: str) -> None:
+    """The run's ``model_pg_final.npz`` loads back bit for bit."""
+    from building_llm_from_scratch_tpu_torch.training.checkpoint import (
+        load_exported_params,
+    )
+
+    back = load_exported_params(os.path.join(out_dir, "model_pg_final.npz"),
+                                trainer.cfg, "cuda")
+    for key, leaf in trainer.model.stacked.items():
+        if not same_bits(torch, leaf.detach(), back.stacked[key]):
+            raise AssertionError(f"export leaf {key} does not load back bit for bit")
+    del back
+
+
+def run_rates(card: dict, t: dict, trainer, facts: dict) -> dict:
+    """Step 1 and the median later step (CUDA events around each CLI step),
+    tokens/s and MFU against the dense peak of the run's compute dtype."""
+    tokens = t["batch"] * t["context"]
+    step_ms = statistics.median(facts["run_step_ms"][1:])
+    fpt = train_flops_per_token(trainer.cfg)
+    peak = card["figures"]["peak32" if t["compute"] == "fp32" else "peak16"]
+    tps = tokens / (step_ms / 1e3)
+    return dict(step1_ms=facts["run_step_ms"][0], step_ms=step_ms,
+                tokens_per_s=tps, mfu=tps * fpt / peak,
+                mfu_basis=f"peak = {t['compute']} dense ({peak / 1e12:g} TFLOP/s)",
+                peak_memory_gb=facts["peak_gb"])
+
+
+def accum_full_batch_check(torch) -> dict:
+    """GPT-2-124M fp32 at full width and depth, B 8 x T 1024, dropout 0
+    (two microbatches draw their own masks, so with p 0.1 no step of the
+    CLI run can equal the full batch's): one step with two microbatches
+    and one without, from the same weights and batch; the step-1 loss
+    within 1e-5 relative and every gradient within 1e-4 relative L2."""
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+    from building_llm_from_scratch_tpu_torch.models.transformer import build_model
+    from building_llm_from_scratch_tpu_torch.training import optim as topt
+    from building_llm_from_scratch_tpu_torch.training import train_step as tts
+
+    cfg = get_config("GPT2", "124M").replace(drop_rate=0.0)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randint(0, cfg.vocab_size, (8, 1025), generator=gen, device="cuda")
+    batch = {"inputs": x[:, :-1], "targets": x[:, 1:]}
+    out = {}
+    for accum in (1, 2):
+        model = build_model(cfg, 7, "cuda")
+        opt = topt.AdamW(topt.warmup_cosine_schedule(5e-4, 1e-5, 1e-6, 10, 100),
+                         grad_clip_norm=float("inf"))   # keep the raw gradients
+        state = tts.init_train_state(model, opt, seed=1)
+        _, m = tts.make_train_step(cfg, opt, grad_accum=accum)(state, batch)
+        out[accum] = (m["loss"].item(), {k: g.clone() for k, g in state.grads.items()})
+        del model, state, opt
+    (l1, g1), (l2, g2) = out[1], out[2]
+    grad_rel = max(((g2[k] - g1[k]).norm() / g1[k].norm()).item() for k in g1)
+    result = dict(loss_full=l1, loss_accum2=l2, loss_rel=abs(l2 - l1) / abs(l1),
+                  grad_rel_l2_max=grad_rel, bound=dict(loss_rel=1e-5, grad_rel_l2=1e-4))
+    if result["loss_rel"] > 1e-5 or grad_rel > 1e-4:
+        raise AssertionError(f"--grad_accum 2 off the full batch: {result}")
+    del out, g1, g2
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_mixed(torch, card: dict, workdir: str, base: dict) -> dict:
+    """Phase 6m: the ``MIXED`` runs through the CLI (``train_run``: exact
+    launch counts, finite losses that fall), each export loaded back bit
+    for bit; the policies' masters stay fp32, the fp16 run prints its
+    skipped steps and loss-scale trace; the remat run's per-step losses,
+    evaluations and final parameters equal phase 6's LLaMA run's bit for
+    bit (``base["llama"]``); the accumulation's full-batch check
+    (``accum_full_batch_check``). Step ms, tokens/s, MFU and peak memory."""
+    results = {}
+    for t in MIXED:
+        trainer, facts = train_run(torch, t, os.path.join(workdir, t["label"]),
+                                   xent_kernel=t.get("xent_kernel", False))
+        cfg, metrics = trainer.cfg, trainer.step_metrics
+        masters = {str(v.dtype) for v in trainer.model.stacked.values()}
+        extra = {}
+        if t.get("export", True):
+            check_export(torch, trainer, facts["out_dir"])
+        else:
+            extra["export_bytes_unwritten"] = trainer.export_unwritten_bytes
+        if trainer.policy is not None:
+            if masters != {"torch.float32"} or trainer.policy.name != t["compute"]:
+                raise AssertionError(f"{t['label']}: policy {trainer.policy}, "
+                                     f"masters {masters}")
+        if t["compute"] == "fp16":
+            extra.update(skipped=[m["skipped"] for m in metrics],
+                         loss_scale=[m["loss_scale"] for m in metrics])
+            print(f"{t['label']}: skipped steps {sum(extra['skipped'])} of "
+                  f"{len(metrics)}, loss scale {extra['loss_scale']}", flush=True)
+        if trainer.grad_accum > 1 and t["model"] == "GPT2":
+            extra["full_batch_check"] = accum_full_batch_check(torch)
+            ref = base["gpt2_fp32"]["xent_step1_loss"]
+            extra["step1_loss_vs_phase6_b4_rel"] = abs(facts["losses"][0] - ref) / ref
+        if cfg.use_actv_ckpt and trainer.grad_accum == 1:
+            ref = base["llama"]["final"]
+            same = dict(losses=facts["losses"] == ref["losses"],
+                        evals=(trainer.train_losses == ref["train_loss"]
+                               and trainer.val_losses == ref["val_loss"]),
+                        params=all(same_bits(torch, v.detach().cpu(), ref["params"][k])
+                                   for k, v in trainer.model.stacked.items()))
+            extra.update(bit_equal_to_phase6=same,
+                         phase6_peak_memory_gb=ref["peak_gb"],
+                         phase6_later_steps_median_ms=ref["later_steps_median_ms"])
+            if not all(same.values()):
+                raise AssertionError(f"{t['label']}: not bit-equal to phase 6's run: "
+                                     f"{same}")
+        summary = dict(label=t["label"], model=cfg.name, flags=t["flags"],
+                       policy=trainer.policy and trainer.policy.name,
+                       masters=sorted(masters), grad_accum=trainer.grad_accum,
+                       remat=cfg.use_actv_ckpt, batch=t["batch"], context=t["context"],
+                       xent_kernel=t.get("xent_kernel", False),
+                       **{k: facts[k] for k in ("steps", "evals", "eval_batches",
+                                                "launches", "expected", "wall_s")},
+                       **run_rates(card, t, trainer, facts),
+                       first_loss=facts["losses"][0], last_loss=facts["losses"][-1],
+                       step_losses=facts["losses"], train_loss=trainer.train_losses,
+                       val_loss=trainer.val_losses,
+                       final_checkpoint=facts["final_ckpt"],
+                       losses_pdf=facts["losses_pdf"], **extra)
+        emit("train_mixed", **summary)
+        if not facts["losses_pdf"]:
+            print(f"{t['label']}: losses.pdf not drawn (matplotlib is not "
+                  "installed)", flush=True)
+        results[t["label"]] = dict(launches=facts["launches"], shape=t["shape"],
+                                   step_ms=summary["step_ms"],
+                                   peak_memory_gb=summary["peak_memory_gb"])
+        del trainer
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(workdir, t["label"]), ignore_errors=True)
+    base["llama"]["final"] = None                   # the host copy can go
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 6h: host overlap (prefetch and asynchronous checkpoints)
+# ---------------------------------------------------------------------------
+
+#: GPT-2-124M bf16 (B 8 x T 1024, p 0.1), 20 steps, a checkpoint every 10
+#: steps with one kept; run synchronously, then with the overlap on
+HOST = dict(model="GPT2", size="124M", dtype="bf16", batch=8, context=1024,
+            steps=20, export=False)
+HOST_RUNS = [("sync", ["--prefetch", "0", "--async_ckpt", "off"]),
+             ("overlap", ["--prefetch", "2", "--async_ckpt", "on"])]
+HOST_SAVES = ["--save_ckpt_freq", "10", "--keep_ckpts", "1"]
+#: the profiled steps (1-based calls, the last one excluded): clear of the
+#: save at step 10 and of the steady steps 2-9 the step time is read from
+HOST_PROFILE = (12, 16)
+
+
+@contextlib.contextmanager
+def profile_window(torch, first: int, last: int):
+    """Profile the device over calls ``first`` .. ``last - 1`` of the CLI
+    run's train step, between two synchronisations. Yields a dict filled
+    with the window's wall ms, the device's busy ms (the CUDA events' self
+    time: kernels and copies) and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import building_llm_from_scratch_tpu_torch.training.trainer as ttr
+
+    make = ttr.make_train_step
+    out: dict = {}
+
+    def hooked(*args, **kwargs):
+        inner = make(*args, **kwargs)
+        calls = [0]
+
+        def step_fn(state, batch):
+            calls[0] += 1
+            if calls[0] == first:
+                torch.cuda.synchronize()
+                out["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA])
+                out["prof"].__enter__()
+                out["t0"] = time.perf_counter()
+            elif calls[0] == last:
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - out.pop("t0")) * 1e3
+                prof = out.pop("prof")
+                prof.__exit__(None, None, None)
+                busy_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                              if str(ev.device_type).endswith("CUDA"))
+                out.update(steps=last - first, wall_ms=wall_ms,
+                           busy_ms=busy_us / 1e3,
+                           idle_share=1.0 - busy_us / 1e3 / wall_ms)
+            return inner(state, batch)
+        return step_fn
+
+    ttr.make_train_step = hooked
+    try:
+        yield out
+    finally:
+        ttr.make_train_step = make
+
+
+def _manifest_leaves(path: str) -> list:
+    with open(os.path.join(path, "manifest.json")) as f:
+        return json.load(f)["leaves"]
+
+
+def phase_host_overlap(torch, workdir: str) -> dict:
+    """Phase 6h: ``HOST`` through the CLI synchronously (``--prefetch 0
+    --async_ckpt off``), then overlapped (``--prefetch 2 --async_ckpt on``):
+    per-step losses and evaluations bit-equal; in each run step 10's
+    checkpoint was pruned on step 20's commit (``--keep_ckpts 1``) and step
+    20's validates; the two step-20 checkpoints are the same leaf for leaf
+    (bytes and sha256 of every shard). Reported: the save step's stall on
+    the host clock (step 10's call to step 11's, beside the median such
+    gap of steps 2-9), the synchronous save's seconds against the
+    snapshot's, the write's and its overlap, the steady step (CUDA events,
+    steps 2-9), the device's idle share over ``HOST_PROFILE``'s steps, and
+    the prefetch stalls. ``final`` states are counted, not written."""
+    from building_llm_from_scratch_tpu_torch.training.resilience import (
+        validate_checkpoint,
+    )
+
+    runs = {}
+    for name, flags in HOST_RUNS:
+        t = dict(HOST, flags=flags + HOST_SAVES)
+        with profile_window(torch, *HOST_PROFILE) as window:
+            trainer, facts = train_run(torch, t, os.path.join(workdir, name))
+        out_dir = facts["out_dir"]
+        kept = sorted(n for n in os.listdir(out_dir) if n.startswith("model_pg_"))
+        if kept != ["model_pg_20"] or validate_checkpoint(
+                os.path.join(out_dir, "model_pg_20")) is not None:
+            raise AssertionError(f"6h {name}: checkpoints {kept}")
+        gaps = [(b - a) * 1e3 for a, b in zip(facts["step_starts"],
+                                               facts["step_starts"][1:])]
+        saves = [s for s in trainer.checkpoint_saves if s["tag"] != "final"]
+        runs[name] = dict(
+            flags=t["flags"], launches=facts["launches"], losses=facts["losses"],
+            evals=(trainer.train_losses, trainer.val_losses),
+            leaves=_manifest_leaves(os.path.join(out_dir, "model_pg_20")),
+            report=dict(
+                run=name, flags=t["flags"], wall_s=facts["wall_s"],
+                save_step_gap_ms=gaps[9], steady_gap_ms=statistics.median(gaps[1:9]),
+                steady_step_ms=statistics.median(facts["run_step_ms"][1:9]),
+                saves=[{k: s.get(k) for k in ("tag", "bytes", "seconds", "snapshot_s",
+                                              "write_s", "overlap_s")} for s in saves],
+                profile_window=dict(window, first_step=HOST_PROFILE[0]),
+                prefetch_stall_total=trainer.prefetch_stall_total,
+                window_logs=trainer.window_logs, peak_memory_gb=facts["peak_gb"],
+                final_checkpoint=facts["final_ckpt"]))
+        emit("host_overlap", **runs[name]["report"])
+        del trainer
+        torch.cuda.empty_cache()
+    sync, overlap = runs["sync"], runs["overlap"]
+    same = dict(losses=sync["losses"] == overlap["losses"],
+                evals=sync["evals"] == overlap["evals"],
+                checkpoint=sync["leaves"] == overlap["leaves"])
+    emit("host_overlap_compare", bit_equal=same,
+         save_stall_ms=dict(sync=sync["report"]["save_step_gap_ms"],
+                            overlap=overlap["report"]["save_step_gap_ms"]),
+         steady_step_ms=dict(prefetch0=sync["report"]["steady_step_ms"],
+                             prefetch2=overlap["report"]["steady_step_ms"]))
+    if not all(same.values()):
+        raise AssertionError(f"6h: the overlapped run differs from the synchronous "
+                             f"one: {same}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {name: dict(launches=r["launches"]) for name, r in runs.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 7m: one step under each policy and with accumulation, card vs CPU
+# ---------------------------------------------------------------------------
+
+#: phase 7's cut (GPT-2-124M at 2 layers, T 256, dropout 0.1): the bf16 and
+#: fp16 policies on fp32 masters and --data_type fp16 (the fp16 policy on
+#: fp16 masters) on B 1, and two microbatches in fp32 on a batch of two
+#: collated Alpaca records whose supervised counts differ
+MIXED_REFERENCES = [
+    dict(label="bf16-policy", dtype="fp32", policy="bf16", bounds="bf16"),
+    dict(label="fp16-policy", dtype="fp32", policy="fp16", bounds="fp16"),
+    dict(label="fp16-data-type", dtype="fp16", policy="fp16", bounds="fp16"),
+    dict(label="fp32-accum2-sft", dtype="fp32", policy=None, grad_accum=2,
+         bounds="fp32"),
+]
+
+
+def microbatch_means_loss(torch, model, cfg, batch, seed: int, grad_accum: int) -> float:
+    """The accumulation control: the mean of each microbatch's own
+    weighted mean, with the microbatches' dropout seeds (the step's seed
+    folded with the index), where the step divides the sums once."""
+    from building_llm_from_scratch_tpu_torch.models.transformer import forward_hidden
+    from building_llm_from_scratch_tpu_torch.training import train_step as tts
+    from building_llm_from_scratch_tpu_torch.utils.seeding import step_seed
+
+    sums = tts.make_sums_fn(cfg)
+    s = step_seed(seed, 0)
+    mb = batch["inputs"].shape[0] // grad_accum
+    means = []
+    with torch.no_grad():
+        for i in range(grad_accum):
+            rows = slice(i * mb, (i + 1) * mb)
+            h = forward_hidden(model, batch["inputs"][rows], seed=step_seed(s, i),
+                               deterministic=False)
+            nll, w = sums(model, h, batch["targets"][rows], batch["weights"][rows])
+            means.append((nll / w.clamp_min(1.0)).item())
+    return sum(means) / len(means)
+
+
+def phase_mixed_reference(torch, workdir: str) -> dict:
+    """Phase 7m: each ``MIXED_REFERENCES`` step on the card and on the CPU
+    with the same weights, batch and dropout seed: the loss and every
+    gradient within ``REF_BOUNDS`` of the case's dtype, no step skipped.
+    Controls: the policies' CPU step with another dropout seed must fail
+    the gradient bound (phase 7's); accumulation's mean of per-microbatch
+    means must fail the loss bound."""
+    import building_llm_from_scratch_tpu_torch.models.transformer as ttf
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+    from building_llm_from_scratch_tpu_torch.data.instruct import (
+        InstructionDataset,
+        collate_batch,
+    )
+    from building_llm_from_scratch_tpu_torch.data.tokenizers import ByteTokenizer
+    from building_llm_from_scratch_tpu_torch.training import optim as topt
+    from building_llm_from_scratch_tpu_torch.training import precision as tprec
+    from building_llm_from_scratch_tpu_torch.training import train_step as tts
+
+    data = os.path.join(workdir, "ref-alpaca.json")
+    write_alpaca(data, 16)
+    with open(data) as f:
+        records = json.load(f)
+    kernels = train_kernels()
+    results = {}
+    for spec in MIXED_REFERENCES:
+        t0 = time.perf_counter()
+        accum = spec.get("grad_accum", 1)
+        policy = tprec.get_policy(spec["policy"])
+        cfg = get_config("GPT2", "124M", dtype=spec["dtype"],
+                         target_context_length=256).replace(n_layers=2)
+        card_model = ttf.build_model(cfg, seed=3, device="cuda")
+        cpu_flat = {k: v.cpu().clone() for k, v in card_model.flat_params().items()}
+        if accum > 1:
+            # record 0 and the first record whose supervised count differs
+            ds = InstructionDataset(records, ByteTokenizer())
+            for j in range(1, len(ds)):
+                x, y, w = (torch.from_numpy(a) for a in collate_batch(
+                    [ds[0], ds[j]], pad_token_id=cfg.eos_id, allowed_max_length=256))
+                if w[0].sum() != w[1].sum():
+                    break
+            host = {"inputs": x.long(), "targets": y.long(), "weights": w.float()}
+        else:
+            gen = torch.Generator().manual_seed(5)
+            x = torch.randint(0, cfg.vocab_size, (1, 257), generator=gen)
+            host = {"inputs": x[:, :-1], "targets": x[:, 1:]}
+
+        def one_step(model, seed=REF_SEED):
+            dev = model.device
+            opt = topt.AdamW(topt.warmup_cosine_schedule(5e-4, 1e-5, 1e-6, 10, 100),
+                             grad_clip_norm=float("inf"))   # keep the raw gradients
+            state = tts.init_train_state(model, opt, seed=seed, policy=policy)
+            batch = {k: v.to(dev) for k, v in host.items()}
+            _, m = tts.make_train_step(cfg, opt, policy=policy, grad_accum=accum)(
+                state, batch)
+            # the gradient buffers (scaled for fp16 masters: the relative
+            # errors below do not see the scale, the same on both sides)
+            return (m["loss"].item(), {k: g.cpu().float() for k, g in state.grads.items()},
+                    m.get("skipped", 0))
+
+        for f in kernels.values():
+            f.launches = 0
+        card_loss, card_grads, card_skipped = one_step(card_model)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in kernels.items()}
+        del card_model
+        torch.cuda.empty_cache()
+        t_cpu = time.perf_counter()
+        cpu_loss, cpu_grads, cpu_skipped = one_step(
+            ttf.Transformer(cfg, {k: v.clone() for k, v in cpu_flat.items()}))
+        cpu_s = time.perf_counter() - t_cpu
+
+        def rel_l2(a, b):
+            return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+        card = {k: rel_l2(card_grads[k], cpu_grads[k]) for k in cpu_grads}
+        loss_bound, grad_bound = REF_BOUNDS[spec["bounds"]]
+        result = dict(label=spec["label"], model=cfg.name, layers=2, T=256,
+                      B=host["inputs"].shape[0], masters=spec["dtype"],
+                      policy=spec["policy"], grad_accum=accum, drop_rate=cfg.drop_rate,
+                      launches=launches,
+                      expected=expected_launches(cfg, 1, 0, False, grad_accum=accum),
+                      card_loss=card_loss, cpu_loss=cpu_loss,
+                      loss_rel=abs(card_loss - cpu_loss) / abs(cpu_loss),
+                      grad_rel_l2=card, skipped=[card_skipped, cpu_skipped],
+                      bound=dict(loss_rel=loss_bound, grad_rel_l2=grad_bound),
+                      cpu_step_s=cpu_s)
+        if accum > 1:
+            ctl = microbatch_means_loss(torch, ttf.Transformer(cfg, cpu_flat), cfg,
+                                        host, REF_SEED, accum)
+            result.update(supervised=[float(r.sum()) for r in host["weights"]],
+                          control="mean of microbatch means", control_loss=ctl,
+                          control_loss_rel=abs(ctl - cpu_loss) / abs(cpu_loss))
+            caught = result["control_loss_rel"] > loss_bound
+        else:
+            _, ctl_grads, _ = one_step(ttf.Transformer(cfg, cpu_flat), seed=REF_SEED + 1)
+            control = {k: rel_l2(ctl_grads[k], cpu_grads[k]) for k in cpu_grads}
+            result.update(control="other dropout seed", control_rel_l2=control)
+            caught = max(control.values()) > grad_bound
+        result["seconds"] = time.perf_counter() - t0
+        emit("mixed_reference", **result)
+        if launches != result["expected"]:
+            raise AssertionError(f"7m {spec['label']}: launches {launches}, expected "
+                                 f"{result['expected']}")
+        if card_skipped or cpu_skipped:
+            raise AssertionError(f"7m {spec['label']}: a step was skipped: {result}")
+        if result["loss_rel"] > loss_bound or max(card.values()) > grad_bound:
+            raise AssertionError(f"7m {spec['label']}: card step off the CPU step: "
+                                 f"{result}")
+        if not caught:
+            raise AssertionError(f"7m {spec['label']}: the bounds do not catch the "
+                                 f"control: {result}")
+        results[spec["label"]] = result
     return results
 
 
@@ -3968,6 +4516,10 @@ def main() -> int:
             phase_train(torch, card, os.path.join(workdir, name), t)
             for name, t in (("llama", TRAIN), ("gpt2", TRAIN_GPT2),
                             ("gpt2-fp32", TRAIN_GPT2_FP32), ("llama-fp32", TRAIN_FP32)))
+        # precision policies, accumulation and remat (6m), host overlap (6h)
+        mixed = phase_mixed(torch, card, os.path.join(workdir, "mixed"),
+                            dict(llama=trained, gpt2_fp32=trained_gpt2_fp32))
+        overlap = phase_host_overlap(torch, os.path.join(workdir, "overlap"))
     # LoRA SFT (phase 6s); the LLaMA run's adapter is served (phase 4c);
     # one SFT step against the CPU (phase 7s)
     with tempfile.TemporaryDirectory(dir=here) as workdir:
@@ -3980,6 +4532,8 @@ def main() -> int:
             phase_sft_reference(torch, spec, workdir)
     reference = phase_train_reference(torch, REFERENCES[0])
     reference_gpt2 = phase_train_reference(torch, REFERENCES[1])
+    with tempfile.TemporaryDirectory(dir=here) as workdir:
+        phase_mixed_reference(torch, workdir)
     # pretrained weights from local files (8w), then train-state checkpoints
     # and resume through the CLI (8r, the LoRA run from 8w's LLaMA files)
     with tempfile.TemporaryDirectory(dir=here) as workdir:
@@ -4041,7 +4595,8 @@ def main() -> int:
                  "llama3_2-1B-ref-bf16": reference["bf16"]["launches"],
                  "gpt2-124M-train": trained_gpt2["main"],
                  "gpt2-124M-train-fp32": trained_gpt2_fp32["main"],
-                 "gpt2-124M-ref": reference_gpt2["fp32"]["launches"]}
+                 "gpt2-124M-ref": reference_gpt2["fp32"]["launches"],
+                 "gpt2-124M-train-fp16": mixed["gpt2-fp16-policy"]["launches"]}
     source = "building_llm_from_scratch_tpu_torch/csrc/"
     from building_llm_from_scratch_tpu_torch.configs import DTYPE_MAP
     from building_llm_from_scratch_tpu_torch.ops.fused_attention import kernel_source
@@ -4050,11 +4605,20 @@ def main() -> int:
     resume_runs = {"gpt2-124M-train-fp32": resumed["gpt2"],
                    "llama3_2-1B-train": resumed["llama3_2-sft"]}
 
-    def launches_8r(row: dict, shape: str, counter: str) -> None:
+    def other_launches(row: dict, shape: str, counter: str) -> None:
         run = resume_runs.get(shape)
         if run is not None and counter in run["launches"]:
             row["launches_8r"] = {k: run[k][counter] for k in (
                 "launches", "resumed_launches", "fallback_launches")}
+        # the shape's runs in phase 6m (bf16 and fp16 policies, fp32
+        # accumulation, LLaMA remat) and 6h (GPT-2 bf16 synchronous and
+        # overlapped)
+        m6 = {label: r["launches"][counter] for label, r in mixed.items()
+              if r["shape"] == shape and shape != "gpt2-124M-train-fp16"}
+        if m6:
+            row["launches_6m"] = m6
+        if shape == "gpt2-124M-train":
+            row["launches_6h"] = {k: r["launches"][counter] for k, r in overlap.items()}
 
     for r in attn_rows + drop_attn_rows:
         kname, where = replaces[r["kernel"]]
@@ -4066,7 +4630,7 @@ def main() -> int:
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
-        launches_8r(kernels[-1], r["shape"], r["kernel"])
+        other_launches(kernels[-1], r["shape"], r["kernel"])
     dropout_where = {"fwd": ("dropout_fwd", "dropout_fwd",
                              "building_llm_from_scratch_tpu/ops/fused_dropout.py:36"),
                      "fwd_add": ("dropout_fwd", "dropout_fwd",
@@ -4083,9 +4647,10 @@ def main() -> int:
             launches=attn_runs[r["shape"]][counter], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
-        launches_8r(kernels[-1], r["shape"], counter)
+        other_launches(kernels[-1], r["shape"], counter)
     xent_runs = {"gpt2-124M-train": trained_gpt2["xent_kernel"],
-                 "gpt2-124M-train-fp32": trained_gpt2_fp32["xent_kernel"]}
+                 "gpt2-124M-train-fp32": trained_gpt2_fp32["xent_kernel"],
+                 "gpt2-124M-train-fp16": mixed["gpt2-fp16-policy"]["launches"]}
     for r in xent_rows:
         kernels.append(dict(
             name=f"xent_fwd[{r['shape']}]", route="cuda", source=source + r["route"],
@@ -4093,6 +4658,9 @@ def main() -> int:
             launches=xent_runs[r["shape"]]["xent_fwd"], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+        if r["shape"] == "gpt2-124M-train-fp32":     # the sums loss, 6m
+            kernels[-1]["launches_6m"] = {
+                "gpt2-fp32-accum2": mixed["gpt2-fp32-accum2"]["launches"]["xent_fwd"]}
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its main path")
@@ -4107,6 +4675,7 @@ def main() -> int:
         if any(run[k][c] < 1 for k in ("launches", "resumed_launches",
                                         "fallback_launches") for c in need):
             raise AssertionError(f"phase 8r {label}: a kernel was not launched: {run}")
+    emit("io", **written_bytes())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card["card_line"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA decode-step, paged
 decode-attention, BGMV, flash-attention (with and without dropout),
 fused-dropout and vocab-streamed cross-entropy kernels against their plain
-twins, the serving engine (contiguous, paged and with LoRA adapters) and
-LLaMA and GPT-2 training steps on the card. They skip on a machine without
+twins, the serving engine (contiguous, paged and with LoRA adapters),
+LLaMA and GPT-2 training steps on the card (the fp16 policy with remat
+and accumulation among them), the batch stager's copy stream and the
+asynchronous checkpoint's snapshot. They skip on a machine without
 CUDA. This file imports neither JAX nor the JAX package, so
 it also runs where JAX is not installed:
 
@@ -1259,3 +1261,118 @@ def test_checkpoint_round_trip_on_the_card_refills_the_views(cuda, tmp_path):
             assert p.data_ptr() == dst.params[name][l].data_ptr(), name
             assert torch.equal(p.detach(), src.params[name][l].detach()), name
             assert p.grad.data_ptr() == dst.grads[name][l].data_ptr(), name
+
+
+# ---------------------------------------------------------------------------
+# fp16 on the training path, the copy stream, remat and the pinned snapshot
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fp16_flash_kernels_at_gpt2_training_shape(cuda, rate):
+    """B1, B2a and B2b in fp16 at GPT-2-124M's training shape (B 8, H 12,
+    T 1024, hd 64), the shape the fp16 policy trains at, against their
+    twins and the exact result at FLASH_TOL."""
+    B, T, H, hd = 8, 1024, 12, 64
+    q, k, v, do = flash_inputs(cuda, B, T, H, H, hd, torch.float16, seed=7)
+    got = flash_all(q, k, v, do, tfa.flash_attention_fwd, tfa.flash_attention_dq,
+                    tfa.flash_attention_dkv, rate, 99)
+    torch.cuda.synchronize()
+    twin = flash_all(q, k, v, do, *PLAIN, rate, 99)
+    tol_out, tol_grad = FLASH_TOL[torch.float16]
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, twin):
+        assert torch.isfinite(a).all(), name
+        if name == "lse":
+            assert (a - b).abs().max().item() <= tol_out, name
+        else:
+            tol = tol_out if name == "out" else tol_grad
+            assert _rel(a, b) <= tol, (name, _rel(a, b))
+
+
+def test_staged_batch_waits_for_its_copy(cuda):
+    """``DeviceStager`` copies on its own stream and ``Staged.ready()``
+    orders the consumer's stream after the copy. With the copy stream held
+    back by a long sleep, a sum launched right after ``ready()`` sees the
+    whole batch (without the wait it would read memory the copy has not
+    written); the same read without the wait sees something else."""
+    from building_llm_from_scratch_tpu_torch.data.prefetch import DeviceStager
+
+    stager = DeviceStager(cuda)
+    rng = np.random.default_rng(0)
+    for wait in (True, False):
+        host = rng.integers(1, 1000, (64, 16384))
+        with torch.cuda.stream(stager.stream):
+            torch.cuda._sleep(300_000_000)
+        staged = stager.stage({"inputs": host}, {"inputs": np.int64})
+        t = staged.ready()["inputs"] if wait else staged.tensors["inputs"]
+        got = t.sum().item()
+        torch.cuda.synchronize()
+        assert (got == int(host.sum())) == wait, (wait, got, int(host.sum()))
+
+
+def test_fp16_policy_remat_and_accumulation_on_the_card(cuda):
+    """GPT-2 cut to 2 layers at T 256 (the flash and dropout kernels) under
+    the fp16 policy with remat and two microbatches: B1 runs twice per
+    layer and microbatch (the recompute), B2 once; the masters stay fp32.
+    The accumulating step scales the microbatches' nll sums, not a mean
+    (as the JAX step does), so at 2^15 its fp16 gradients overflow: each
+    such step is skipped and halves the scale, the parameters unmoved,
+    until a scale fits and the update lands with a finite loss."""
+    from building_llm_from_scratch_tpu_torch.training import optim as topt
+    from building_llm_from_scratch_tpu_torch.training import train_step as tts
+    from building_llm_from_scratch_tpu_torch.training.precision import get_policy
+
+    cfg = get_config("GPT2", "124M").replace(n_layers=2, context_length=256,
+                                             use_actv_ckpt=True)
+    policy = get_policy("fp16")
+    model = build_model(cfg, 0, "cuda")
+    opt = topt.AdamW(topt.warmup_cosine_schedule(5e-4, 1e-5, 1e-6, 2, 10))
+    state = tts.init_train_state(model, opt, seed=1, policy=policy)
+    step = tts.make_train_step(cfg, opt, policy=policy, grad_accum=2)
+    x = torch.randint(0, cfg.vocab_size, (2, 257), device=cuda)
+    batch = {"inputs": x[:, :-1], "targets": x[:, 1:]}
+    scale, before = 2.0 ** 15, model.stacked["blocks/attn/wq"].clone()
+    for i in range(20):
+        n0 = (tfa.flash_attention_fwd.launches, tfa.flash_attention_dq.launches)
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        assert (tfa.flash_attention_fwd.launches - n0[0],
+                tfa.flash_attention_dq.launches - n0[1]) == (2 * 2 * 2, 2 * 2)
+        if not m["skipped"]:
+            break
+        scale /= 2
+        assert m["loss_scale"] == scale and state.opt_state.count == 0
+        assert torch.equal(model.stacked["blocks/attn/wq"], before)
+    assert not m["skipped"] and m["loss_scale"] == scale
+    assert np.isfinite(m["loss"].item()) and state.opt_state.count == 1
+    assert state.step == i + 1
+    assert {v.dtype for v in state.params.values()} == {torch.float32}
+
+
+def test_async_snapshot_is_ordered_before_the_next_update(cuda, tmp_path):
+    """A train state on the card saved asynchronously, then updated in
+    place at once (the next step's optimizer): the checkpoint holds the
+    state of the save, byte for byte the synchronous save's files."""
+    import os
+
+    from building_llm_from_scratch_tpu_torch.training import optim as topt
+    from building_llm_from_scratch_tpu_torch.training import train_step as tts
+    from building_llm_from_scratch_tpu_torch.training.async_checkpoint import (
+        AsyncCheckpointer,
+    )
+    from building_llm_from_scratch_tpu_torch.training.checkpoint import (
+        save_checkpoint,
+    )
+
+    cfg = get_config("GPT2", "124M").replace(n_layers=2)
+    model = build_model(cfg, 0, "cuda")
+    state = tts.init_train_state(model, topt.AdamW(lambda c: 1e-4), seed=1)
+    save_checkpoint(str(tmp_path / "sync"), tts.checkpoint_tree(state))
+    ck = AsyncCheckpointer()
+    ck.save(str(tmp_path / "async"), tts.checkpoint_tree(state))
+    with torch.no_grad():
+        for v in state.params.values():
+            v.add_(1.0)
+    ck.wait()
+    for f in sorted(os.listdir(tmp_path / "sync")):
+        assert (tmp_path / "sync" / f).read_bytes() == (
+            tmp_path / "async" / f).read_bytes(), f

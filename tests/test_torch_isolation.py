@@ -33,6 +33,10 @@ def test_entry_points_import_no_jax():
         "import building_llm_from_scratch_tpu_torch.training.checkpoint\n"
         "import building_llm_from_scratch_tpu_torch.training.trainer\n"
         "import building_llm_from_scratch_tpu_torch.training.resilience\n"
+        "import building_llm_from_scratch_tpu_torch.training.precision\n"
+        "import building_llm_from_scratch_tpu_torch.training.async_checkpoint\n"
+        "import building_llm_from_scratch_tpu_torch.data.prefetch\n"
+        "import building_llm_from_scratch_tpu_torch.utils.plotting\n"
         "import building_llm_from_scratch_tpu_torch.weights\n"
         "import building_llm_from_scratch_tpu_torch.build_components\n"
         "import building_llm_from_scratch_tpu_torch.data.pretrain\n"

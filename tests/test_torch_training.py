@@ -398,12 +398,14 @@ def test_export_is_read_by_the_jax_loader_bit_for_bit(tmp_path, dtype):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--use_actv_ckpt"], SystemExit, None),
-    (["--data_type", "fp16"], ValueError, "loss scaling"),
-    (["--grad_accum", "2"], SystemExit, None),
+    (["--serve_kv_quant", "int8"], SystemExit, None),
+    (["--data_type", "fp16", "--mixed_precision", "bf16"], ValueError,
+     "requires --mixed_precision fp16"),
+    (["--grad_accum", "3"], ValueError, "divisible by --grad_accum"),
     (["--tokenizer_path", "x"], SystemExit, None),
-    (["--async_ckpt", "on"], SystemExit, None),
-    (["--prefetch", "2"], SystemExit, None),
+    (["--grad_accum", "2", "--mixed_precision", "bf16_hybrid"], ValueError,
+     "does not compose"),
+    (["--prefetch", "-1"], ValueError, "prefetch"),
     (["--mode", "finetune_fleet"], ValueError, "not ported"),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, capsys, extra, error,

@@ -361,11 +361,12 @@ def test_cli_refuses_what_the_weight_flags_cannot_do(tmp_path, capsys):
     with pytest.raises(ValueError, match="mutually exclusive"):
         get_args(base + ["--resume_from", str(tmp_path),
                          "--init_params_from", str(tmp_path / "init.npz")])
-    for flag in (["--async_ckpt", "on"], ["--prefetch", "2"]):
-        with pytest.raises(SystemExit):
-            get_args(base + flag)
-        err = capsys.readouterr().err
-        assert flag[0] in err and "ROADMAP queue 1" in err
+    with pytest.raises(SystemExit):
+        get_args(base + ["--tokenizer_path", "x"])
+    err = capsys.readouterr().err
+    assert "--tokenizer_path" in err and "ROADMAP queue 1" in err
+    args = get_args(base + ["--async_ckpt", "on", "--prefetch", "0"])
+    assert (args.async_ckpt, args.prefetch) == ("on", 0)
     args = get_args(base + ["--load_weights", "--weights_dir", str(tmp_path)])
     assert (args.load_weights, args.resume, args.save_ckpt_freq, args.keep_ckpts,
             args.watchdog, args.loss_spike_factor, args.watchdog_window) == (
