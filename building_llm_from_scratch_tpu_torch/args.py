@@ -6,7 +6,9 @@ pretrained weights from a local directory (``--load_weights
 --weights_dir``), train-state checkpoints, resume, retention and the loss
 watchdog, the precision policies (``--mixed_precision``, ``--data_type
 fp16`` with loss scaling), gradient accumulation, activation
-checkpointing, batch prefetch and asynchronous checkpoint writes.
+checkpointing, batch prefetch and asynchronous checkpoint writes, and
+the tokenizers (``--tokenizer_path``, the on-disk token cache
+``--tokenizer_cache_dir``).
 
 Flags of the JAX CLI that the port does not carry yet are rejected by name
 (not ignored), so a command line written for the JAX package fails loudly
@@ -31,17 +33,15 @@ UNPORTED_FLAGS = (
     "--serve_spec_k",
     "--fleet_jobs", "--fleet_rows_per_job", "--fleet_capacity",
     "--fleet_export_dir", "--fleet_style",
-    "--tokenizer_cache_dir",
     "--metrics_jsonl", "--log_every", "--compile_cache_dir",
     "--stall_timeout", "--run_type",
     "--shard_mode", "--pp", "--pp_micro", "--tp", "--sp",
-    "--attn_impl", "--tokenizer_path",
+    "--attn_impl",
     "--profile", "--profile_steps", "--warnings",
 )
 
 #: the ROADMAP queue item that brings an unported training flag
 QUEUE_ITEMS = {
-    "--tokenizer_path": "queue 1, tokenizers",
     "--serve_kv_quant": "queue 1 item 5, int8 KV",
     "--serve_spec_k": "queue 1 item 8, speculative decoding",
 }
@@ -52,12 +52,12 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m building_llm_from_scratch_tpu_torch",
         description="PyTorch/CUDA port: GPT-2 and LLaMA-family pretraining "
                     "and instruction finetuning (LoRA or full), and "
-                    "continuous-batching serving of token-id prompts.")
+                    "continuous-batching serving of text or token-id "
+                    "prompts.")
     p.add_argument("--mode", type=str, default="train",
                    choices=["train", "serve", "finetune_fleet"],
-                   help="'train' (pretraining or --finetune, "
-                        "--byte_tokenizer) and 'serve' are ported; "
-                        "'finetune_fleet' is not.")
+                   help="'train' (pretraining or --finetune) and 'serve' "
+                        "are ported; 'finetune_fleet' is not.")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"],
                    help="Where the model runs; cuda unless cpu is asked for.")
@@ -157,9 +157,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "running median train loss.")
     p.add_argument("--watchdog_window", type=int, default=50,
                    help="Steps in the watchdog's running-median window.")
+    p.add_argument("--tokenizer_cache_dir", type=str, default=None,
+                   help="Persist per-file token-id caches here (.npz): "
+                        "relaunches (the preemption-resume loop) skip "
+                        "re-tokenizing the corpus. In-memory tokenize-once "
+                        "caching is always on regardless.")
+    # tokenizer
+    p.add_argument("--tokenizer_path", type=str, default=None,
+                   help="Local tokenizer asset (Meta's tokenizer.model) for "
+                        "LLaMA-3 tokenizers; GPT-2 reads tiktoken's cached "
+                        "vocab.bpe / encoder.json.")
     p.add_argument("--byte_tokenizer", action="store_true",
-                   help="Use the offline ByteTokenizer (the only tokenizer "
-                        "ported; required by --mode train).")
+                   help="Fall back to the offline ByteTokenizer (debug/smoke "
+                        "runs; LLaMA-2's SentencePiece model is not ported).")
     # instruction finetuning and LoRA (--mode train)
     p.add_argument("--finetune", action="store_true",
                    help="Enable instruction-finetuning mode.")
@@ -184,7 +194,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve_max_top_k", type=int, default=64)
     p.add_argument("--serve_max_queue", type=int, default=64)
     p.add_argument("--serve_prompts", type=str, default=None,
-                   help="JSONL of requests with 'prompt_ids'.")
+                   help="JSONL of requests with 'prompt' (text: needs "
+                        "--tokenizer_path or --byte_tokenizer) or "
+                        "'prompt_ids'.")
     p.add_argument("--serve_out", type=str, default=None,
                    help="JSONL results (default stdout).")
     p.add_argument("--serve_prefix_cache", type=str, default="off",
@@ -282,6 +294,7 @@ _TRAIN_ONLY_DEFAULTS = (
     ("keep_ckpts", 0), ("watchdog", "on"), ("loss_spike_factor", 10.0),
     ("watchdog_window", 50), ("grad_accum", 1), ("prefetch", 2),
     ("async_ckpt", "off"), ("use_actv_ckpt", False), ("mixed_precision", None),
+    ("tokenizer_cache_dir", None),
 )
 
 #: the serve flags and their defaults (the stray-flag rule)
@@ -370,10 +383,6 @@ def _check_train(args) -> None:
     if not os.path.exists(args.data_dir):
         raise FileNotFoundError(
             f"Data directory '{args.data_dir}' does not exist.")
-    if not args.byte_tokenizer:
-        raise ValueError(
-            "--mode train needs --byte_tokenizer: the BPE tokenizers' asset "
-            "files are not in the repository (ROADMAP queue 1, tokenizers)")
     for flag in ("n_epochs", "batch_size", "eval_freq", "print_sample_iter",
                  "save_ckpt_freq", "watchdog_window"):
         if getattr(args, flag) < 1:

@@ -105,5 +105,6 @@ def build_components(args, device: torch.device) -> Components:
         logger.info("Total trainable LoRA parameters: %s",
                     f"{count_lora_params(lora_params):,}")
     return Components(cfg=cfg, model=model,
-                      tokenizer=build_tokenizer(args.model, args.byte_tokenizer),
+                      tokenizer=build_tokenizer(args.model, args.tokenizer_path,
+                                                fallback_byte=args.byte_tokenizer),
                       lora_params=lora_params, policy=policy)

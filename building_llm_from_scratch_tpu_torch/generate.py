@@ -96,6 +96,7 @@ def generate(model, token_ids, max_new_tokens: int,
              context_size: Optional[int] = None, temperature: float = 0.0,
              top_k: Optional[int] = None, eos_id: Optional[int] = None,
              generator: Optional[torch.Generator] = None,
+             ref_eos_semantics: bool = False,
              return_n_generated: bool = False, lora: Optional[dict] = None,
              lora_alpha: Optional[float] = None,
              lora_rank: Optional[int] = None):
@@ -103,7 +104,11 @@ def generate(model, token_ids, max_new_tokens: int,
     return a numpy (B, Tp + most generated) array of prompt + new ids.
 
     Each row stops at its own eos (the eos itself is dropped; rows that
-    finish early are right-padded with ``eos_id``). When the prompt plus
+    finish early are right-padded with ``eos_id``). ``ref_eos_semantics``
+    keeps the reference's quirk instead: generation stops only when every
+    row samples eos in the same step (that column is dropped); otherwise a
+    row's eos is kept and stops nothing. ``return_n_generated`` also
+    returns the tokens each row generated (B,). When the prompt plus
     the budget fits the context, the prompt (right-padded to its 64-token
     bucket) is prefilled into a KV cache and each new token is one cached
     forward (``forward_with_cache``: ``decode_attention`` over the cache);
@@ -139,6 +144,12 @@ def generate(model, token_ids, max_new_tokens: int,
     def accept(nxt: np.ndarray) -> bool:
         """Record one sampled column; False once every row is done."""
         nonlocal ids, done, n_gen
+        if ref_eos_semantics:
+            if eos_id is not None and (nxt == eos_id).all():
+                return False
+            ids = np.concatenate([ids, nxt[:, None]], axis=1)
+            n_gen += 1
+            return True
         if eos_id is not None:
             done |= nxt == eos_id
         if done.all():

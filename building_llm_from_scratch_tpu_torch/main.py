@@ -71,6 +71,7 @@ def run_train(args):
                                 dataset_name=args.dataset, **loader_kwargs)
     else:
         loader = PretrainLoader(comps.tokenizer, stride=cfg.context_length,
+                                token_cache_dir=args.tokenizer_cache_dir,
                                 **loader_kwargs)
     os.makedirs(args.output_dir, exist_ok=True)
     # a fleet checkpoint in the same output dir shares the model_pg_ prefix

@@ -34,6 +34,13 @@ kernel B6 (one launch per adapted projection and layer, base traffic
 included). Prefix-store entries are namespaced by the adapter's install
 tag, so no request hits panes computed under other weights.
 
+With a tokenizer (``tokenizer=``), a prompt may be text, and each
+request's output is decoded as it grows: only the tail not yet committed
+is decoded, a tail that ends inside a multi-byte character waits for the
+next token (up to ``_DETOK_HOLD_MAX`` tokens), and each committed piece
+goes to ``req.text``, to ``on_token(req, tok, piece)`` and to
+``req.stream()``. Without one, a tick does no text work at all.
+
 Free slots ride the fixed-shape decode as ignored rows, as in the JAX
 engine. Every row carries its own length, sampling parameters and random
 stream, so a request's tokens are the same whether it runs alone, in any
@@ -116,7 +123,7 @@ class DecodeEngine:
     background thread (``start()`` / ``shutdown()``). ``submit()`` is
     thread-safe either way. The engine runs on the model's device."""
 
-    def __init__(self, model: Transformer, *, n_slots: int = 4,
+    def __init__(self, model: Transformer, tokenizer=None, *, n_slots: int = 4,
                  max_len: Optional[int] = None, max_queue: int = 64,
                  max_top_k: int = 64, default_max_new_tokens: int = 128,
                  warmup_prompt_cap: int = 256,
@@ -126,6 +133,9 @@ class DecodeEngine:
         self.cfg = cfg
         self.model = model
         self.device = model.device
+        #: text in and out: str prompts are encoded with it and every
+        #: request's output is decoded as it grows (None: token ids only)
+        self.tokenizer = tokenizer
         self.kv_policy = kv_policy or KVCachePolicy()
         self.n_slots = int(n_slots)
         self.max_len = min(int(max_len or cfg.context_length),
@@ -229,6 +239,7 @@ class DecodeEngine:
         self.prefill_chunks = 0             # guarded-by: _lock
         self.prefill_seconds = 0.0          # guarded-by: _lock
         self.decode_seconds = 0.0           # guarded-by: _lock
+        self.detok_seconds = 0.0            # guarded-by: _lock
 
     def _bucket_len(self, n: int) -> int:
         return min(_bucket(n), self.max_len)
@@ -277,10 +288,12 @@ class DecodeEngine:
 
     # -- admission --------------------------------------------------------
 
-    def encode_prompt(self, prompt: Sequence[int] | np.ndarray) -> np.ndarray:
+    def encode_prompt(self, prompt: str | Sequence[int] | np.ndarray
+                      ) -> np.ndarray:
         if isinstance(prompt, str):
-            raise ValueError("text prompts need a tokenizer, which this port "
-                             "does not have yet: send token ids")
+            if self.tokenizer is None:
+                raise ValueError("text prompt needs a tokenizer")
+            prompt = self.tokenizer.encode(prompt)
         ids = np.asarray(prompt, np.int64).reshape(-1)
         if ids.size < 1:
             raise ValueError("empty prompt")
@@ -293,7 +306,10 @@ class DecodeEngine:
     def submit(self, prompt, params: Optional[SamplingParams] = None,
                block: bool = False, timeout: Optional[float] = None,
                on_token=None) -> Request:
-        """Enqueue one request of token ids (thread-safe). ``block=False``
+        """Enqueue one request, text or token ids (thread-safe), with an
+        optional ``on_token(req, tok, piece)`` called at every generated
+        token (``piece`` the text it committed, "" while held or without
+        a tokenizer). ``block=False``
         rejects with ``QueueFullError`` when the queue is full;
         ``block=True`` waits for space."""
         if self._error is not None:
@@ -758,14 +774,49 @@ class DecodeEngine:
         self._last_tokens[slot] = tok
         self._n_gen[slot] = len(req.output_ids)
         self.tokens_generated += 1
-        if req.on_token is not None:
+        piece = ""
+        if self.tokenizer is not None or req.on_token is not None:
+            t0 = time.perf_counter()
             try:
-                req.on_token(req, tok)
+                # the request's own host path: a fault here (a raising
+                # on_token, a tokenizer error on this output) fails it alone
+                piece = self._detok_piece(req)
+                if req.on_token is not None:
+                    req.on_token(req, tok, piece)
             except Exception as e:  # noqa: BLE001 — the client's fault, isolate it
                 self._fail_request(slot, req, f"token callback failed: {e!r}")
                 return
+            finally:
+                self.detok_seconds += time.perf_counter() - t0
+            if piece:
+                req._push_piece(piece)
         if len(req.output_ids) >= req.params.max_new_tokens:
             self._finish(slot, req, FINISH_LENGTH)
+
+    #: tokens a partial multi-byte character may hold detokenization back
+    #: before it commits anyway (bounds the tail decoded again per token)
+    _DETOK_HOLD_MAX = 16
+
+    def _detok_piece(self, req: Request, final: bool = False) -> str:
+        """Incremental detokenization: decode only the tail not yet in
+        ``req.text``. A tail ending in U+FFFD is a multi-byte character the
+        next token may complete: it is held ("") for up to
+        ``_DETOK_HOLD_MAX`` tokens; ``final`` flushes it regardless."""
+        if self.tokenizer is None:
+            return ""
+        tail_ids = req.output_ids[req._detok_start:]
+        if not tail_ids:
+            return ""
+        try:
+            tail = self.tokenizer.decode([int(t) for t in tail_ids])
+        except KeyError:                # ids the tokenizer lacks: no text
+            return ""
+        if (not final and tail.endswith("\ufffd")
+                and len(tail_ids) < self._DETOK_HOLD_MAX):
+            return ""
+        req.text += tail
+        req._detok_start = len(req.output_ids)
+        return tail
 
     # holds: _lock
     def _free_slot(self, slot: int) -> None:
@@ -803,6 +854,10 @@ class DecodeEngine:
 
     # holds: _lock
     def _finish(self, slot: int, req: Request, reason: str) -> None:
+        if self.tokenizer is not None:
+            tail = self._detok_piece(req, final=True)  # flush held bytes
+            if tail:
+                req._push_piece(tail)
         req.state = FINISHED
         req.finish_reason = reason
         req.t_finish = time.monotonic()
@@ -875,6 +930,8 @@ class DecodeEngine:
                 "decode_seconds": self.decode_seconds,
                 "kv_policy": self.kv_policy.describe(),
             }
+            if self.tokenizer is not None:
+                out["detok_seconds"] = self.detok_seconds
             if self._adapter_counts:
                 out["per_adapter"] = {nm: dict(c) for nm, c in
                                       sorted(self._adapter_counts.items())}

@@ -1,14 +1,17 @@
 """Serving frontend: the JSONL batch pump of ``--mode serve`` (port of the
 JSONL half of the JAX package's ``serving/frontend.py``).
 
-One request per line: ``{"prompt_ids": [...], "max_new_tokens": 32,
+One request per line: ``{"prompt": "text"}`` (with a tokenizer) or
+``{"prompt_ids": [...]}``, and ``{"max_new_tokens": 32,
 "temperature": 0.7, "top_k": 40, "seed": 1, "eos_id": 7, "ignore_eos":
 true, "adapter": "tenant-a"}``; ``adapter`` names one of the LoRA adapters
 ``--serve_adapters name=path,...`` loaded (omitted: the base model).
 Results go to ``--serve_out`` (default stdout), one line per request in
 submission order, each flushed as soon as its request is done.
-Submission blocks while the queue is full (backpressure). Text prompts wait
-for a tokenizer: a ``"prompt"`` field is rejected.
+Each line carries the request's ``token_ids`` and their ``text`` ("" when
+the engine has no tokenizer). Submission blocks while the queue is full
+(backpressure). ``run_serve`` attaches the tokenizer of ``--tokenizer_path``
+or ``--byte_tokenizer``; with neither, serving takes token ids only.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ def params_from_record(rec: dict, default_max_new: int) -> SamplingParams:
 def result_record(req: Request) -> dict:
     rec = req.summary()
     rec["token_ids"] = [int(t) for t in req.output_ids]
+    rec["text"] = req.text
     return rec
 
 
@@ -86,12 +90,13 @@ def serve_jsonl(engine: DecodeEngine, prompts_path: str,
             if not line:
                 continue
             rec = json.loads(line)
-            if "prompt_ids" not in rec:
+            prompt = rec.get("prompt_ids", rec.get("prompt"))
+            if prompt is None:
                 raise ValueError(
-                    f"{prompts_path}:{lineno}: needs 'prompt_ids' (text "
-                    "prompts wait for a tokenizer)")
+                    f"{prompts_path}:{lineno}: needs 'prompt' or "
+                    "'prompt_ids'")
             handles.append(engine.submit(
-                rec["prompt_ids"], params_from_record(rec, default_max_new),
+                prompt, params_from_record(rec, default_max_new),
                 block=True))
     results: List[dict] = []
     out = open(out_path, "w") if out_path else sys.stdout
@@ -139,6 +144,16 @@ def run_serve(args) -> DecodeEngine:
     device = resolve_device(args.device)
     cfg = build_config(args)
     model = build_params(args, cfg, device)
+    tokenizer = None
+    if args.tokenizer_path is not None or args.byte_tokenizer:
+        from building_llm_from_scratch_tpu_torch.data.tokenizers import (
+            build_tokenizer,
+        )
+
+        tokenizer = build_tokenizer(args.model, args.tokenizer_path,
+                                    fallback_byte=args.byte_tokenizer)
+        logger.info("Tokenizer: %s (vocab %d).", type(tokenizer).__name__,
+                    tokenizer.vocab_size)
     adapters = None
     if args.serve_adapters:
         # the multi-tenant LoRA registry, built before the engine: its pool
@@ -154,7 +169,8 @@ def run_serve(args) -> DecodeEngine:
                     "capacity %d.", adapters.n_loaded,
                     ", ".join(adapters.names()), adapters.capacity)
     engine = DecodeEngine(
-        model, n_slots=args.serve_slots, max_len=(args.serve_max_len or None),
+        model, tokenizer, n_slots=args.serve_slots,
+        max_len=(args.serve_max_len or None),
         max_queue=args.serve_max_queue, max_top_k=args.serve_max_top_k,
         default_max_new_tokens=args.serve_max_new_tokens,
         kv_policy=kv_policy_from_args(args), adapters=adapters)

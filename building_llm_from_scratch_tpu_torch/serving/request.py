@@ -2,17 +2,19 @@
 ``serving/request.py``, with the fields this engine uses).
 
 A ``Request`` is one generation job: prompt tokens and ``SamplingParams``
-in, generated token ids out. It doubles as the caller's handle:
-``result()`` blocks until the request finishes.
+in, generated token ids out, and with a tokenizer on the engine their text
+(``text``). It doubles as the caller's handle: ``result()`` blocks until
+the request finishes, ``stream()`` yields the text as it is decoded.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import queue as _stdqueue
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Iterator, List, Optional
 
 #: request states
 QUEUED = "queued"
@@ -51,7 +53,8 @@ class Request:
     """One generation request and its result handle."""
 
     def __init__(self, req_id: int, prompt_ids, params: SamplingParams,
-                 on_token: Optional[Callable[["Request", int], None]] = None):
+                 on_token: Optional[Callable[["Request", int, str], None]]
+                 = None):
         self.id = req_id
         self.prompt_ids = prompt_ids            # np.int32 (Tp,)
         self.params = params
@@ -59,6 +62,8 @@ class Request:
         self.state = QUEUED
         self.finish_reason: Optional[str] = None
         self.output_ids: List[int] = []
+        self.text = ""
+        self._detok_start = 0    # first output_ids index not yet in text
         self.slot: Optional[int] = None
         self.error: Optional[str] = None
         # time.monotonic: submit -> admit -> first token -> finish
@@ -67,6 +72,7 @@ class Request:
         self.t_first_token: Optional[float] = None
         self.t_finish: Optional[float] = None
         self._done = threading.Event()
+        self._stream: "_stdqueue.Queue[Optional[str]]" = _stdqueue.Queue()
 
     def result(self, timeout: Optional[float] = None) -> "Request":
         """Block until the request finishes; returns self. Raises
@@ -77,6 +83,21 @@ class Request:
         if self.error is not None:
             raise RuntimeError(f"request {self.id} failed: {self.error}")
         return self
+
+    def stream(self, timeout: Optional[float] = None) -> Iterator[str]:
+        """Yield detokenized text pieces as they are generated (ends when
+        the request finishes). Raises ``TimeoutError``, as ``result()``
+        does, when no piece arrives within ``timeout``."""
+        while True:
+            try:
+                piece = self._stream.get(timeout=timeout)
+            except _stdqueue.Empty:
+                raise TimeoutError(
+                    f"request {self.id}: no stream piece within "
+                    f"{timeout}s") from None
+            if piece is None:
+                return
+            yield piece
 
     @property
     def done(self) -> bool:
@@ -117,7 +138,11 @@ class Request:
                 out[name] = round(v, 6)
         return out
 
+    def _push_piece(self, piece: str) -> None:
+        self._stream.put(piece)
+
     def _mark_done(self) -> None:
+        self._stream.put(None)
         self._done.set()
 
 

@@ -214,11 +214,31 @@ exits non-zero):
      relaunch to first step. Phases 6 and 6s write no ``final`` train
      state (its bytes are reported): the script keeps its disk writes under
      45 GiB, and phase 8r's saves need that room.
+  9t. text in and out: synthetic BPE files written from a seed
+     (``scripts/build_local_bpe.py``: 3,000 merges learned on a text of
+     accents, CJK, emoji, digit runs, contractions, CRLF and runs of
+     spaces, padded with tokens of the bytes 0xF8-0xFF to Meta's 128,000
+     and GPT-2's 50,256 ranks); the tokenizers' host figures (encode MB/s
+     with the piece cache cold and warm, decode MB/s, the loads);
+     LLaMA-3.2-1B bf16 pretraining through the CLI with --tokenizer_path
+     and --tokenizer_cache_dir (B 4 x T 1024, 12 steps), relaunched into a
+     fresh output directory: the loader's ids are ``tok.encode`` of the
+     corpus and its first batch their windows, the relaunch reads the cache
+     file (nothing tokenized) and repeats the losses bit for bit; GPT-2-124M
+     fp32 LoRA SFT with B4 on GPT-2 BPE ids (8 steps, in process: the
+     synthetic files are not tiktoken's): every record's prompt mask at
+     ``len(encode(prompt))``; text prompts served by LLaMA-3.2-1B bf16
+     (CLI) and GPT-2-124M fp32 (in process, with ``stream()`` and
+     ``on_token``) at phase 4's shapes: greedy ids equal those of the same
+     requests as ``prompt_ids``, ``text`` = ``decode(ids)``, the stream
+     joins to it, B5 = layers x ticks; the hold rule on a split character;
+     the tick with a tokenizer against the tick without (alternating
+     windows). Launches exact; no train state or export is written.
   9. the bytes the script wrote to disk, the ``kernels`` line (one row
      per kernel and shape, each with the launches of the run at that
-     shape; B6 by projection shape from phase 4c; B5's rows add 8w's CLI
-     launches, the training rows 8r's, 6m's and 6h's), then the card line
-     and the result line.
+     shape; B6 by projection shape from phase 4c; B5's rows add 8w's and
+     9t's CLI launches, the training rows 8r's, 6m's, 6h's and 9t's), then
+     the card line and the result line.
 
 It exits non-zero without printing a result when no CUDA device is present
 or when the package is not beside it.
@@ -4476,6 +4496,503 @@ def phase_resume(torch, card: dict, workdir: str, weights: dict,
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 9t: text in and out (BPE tokenizers, the token cache, text serving)
+# ---------------------------------------------------------------------------
+
+#: LLaMA-3.2-1B bf16 pretraining on BPE ids through the CLI, then the same
+#: command relaunched into a fresh output directory over the same token
+#: cache; GPT-2-124M fp32 LoRA SFT on GPT-2 BPE ids with B4, in process
+#: (12 steps: the 10% validation split then holds one batch)
+TEXT_TRAIN = dict(model="llama3_2", size="1B", dtype="bf16", batch=4, context=1024,
+                  steps=12)
+TEXT_SFT = dict(model="GPT2", size="124M", dtype=None, batch=8, context=1024,
+                steps=8, rank=16, alpha=32.0)
+#: text prompts served at phase 4's shapes: LLaMA-3.2-1B through the CLI,
+#: GPT-2-124M in process (its synthetic files are not tiktoken's)
+TEXT_SERVE = [dict(model="llama3_2", size="1B", dtype="bf16", context=1024, slots=8,
+                   requests=12, cli=True, label="llama3_2-1B"),
+              dict(model="GPT2", size="124M", dtype="fp32", context=1024, slots=8,
+                   requests=12, cli=False, label="gpt2-124M")]
+#: merges learned for the synthetic BPE files (padded to the real sizes)
+TEXT_MERGES = 3000
+TEXT_SEED = 21
+
+
+def bpe_writer() -> dict:
+    """``scripts/build_local_bpe.py``'s functions (run from the checkout)."""
+    import runpy
+
+    return runpy.run_path(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                       "scripts", "build_local_bpe.py"))
+
+
+def tokenizer_rates(writer: dict, assets: dict) -> dict:
+    """Host figures of the BPE: the character classes' build, the load of
+    each table, encode MB/s over a seeded 1 MB text with the piece cache
+    cold and warm (ids equal), decode MB/s (the text back)."""
+    from building_llm_from_scratch_tpu_torch.data import tokenizers as ttok
+
+    ttok.unicode_classes.cache_clear()
+    t0 = time.perf_counter()
+    ttok.unicode_classes()
+    out = dict(unicode_classes_s=time.perf_counter() - t0)
+    text = writer["sample_text"](TEXT_SEED + 1, 1_000_000)
+    mb = len(text.encode("utf-8")) / 1e6
+    for name, make in (("llama3", lambda: ttok.Llama3Tokenizer(assets["tokenizer_model"])),
+                       ("gpt2", lambda: ttok.GPT2Tokenizer.from_files(
+                           assets["vocab_bpe"], assets["encoder_json"]))):
+        t0 = time.perf_counter()
+        tok = make()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cold = tok.encode(text)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = tok.encode(text)
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = tok.decode(cold)
+        decode_s = time.perf_counter() - t0
+        if cold != warm or back != text:
+            raise AssertionError(f"{name}: the piece cache changed the ids or the "
+                                 "text does not come back")
+        out[name] = dict(load_s=load_s, vocab_size=tok.vocab_size, eos_id=tok.eos_id,
+                         text_mb=mb, tokens=len(cold),
+                         bytes_per_token=mb * 1e6 / len(cold),
+                         encode_cold_mb_s=mb / cold_s, encode_warm_mb_s=mb / warm_s,
+                         decode_mb_s=mb / decode_s)
+    want = dict(llama3=(128_256, 128_001), gpt2=(50_257, 50_256))
+    got = {k: (out[k]["vocab_size"], out[k]["eos_id"]) for k in want}
+    if got != want:
+        raise AssertionError(f"BPE vocab sizes / eos ids {got}, not {want}")
+    return out
+
+
+def sized_text_corpus(tok, writer: dict, path: str, t: dict) -> int:
+    """A ``sample_text`` corpus whose train split makes exactly t["steps"]
+    batches of the tokenizer's ids (the loader's own count); returns its
+    characters."""
+    from building_llm_from_scratch_tpu_torch.data.pretrain import PretrainLoader
+
+    loader = PretrainLoader(tok, t["batch"], t["context"], stride=t["context"])
+    text = writer["sample_text"](TEXT_SEED, 60 * t["steps"] * t["batch"] * t["context"] // 10)
+    lo, hi = 1, len(text)
+    while lo < hi:                  # the fewest characters giving the steps
+        mid = (lo + hi) // 2
+        with open(path, "w") as f:
+            f.write(text[:mid])
+        steps = loader.get_total_steps_epoch([path], "<|end_of_text|>")
+        lo, hi = (mid + 1, hi) if steps < t["steps"] else (lo, mid)
+        loader.token_cache = type(loader.token_cache)()
+    with open(path, "w") as f:
+        f.write(text[:lo])
+    return lo
+
+
+def text_pretrain(torch, tok, writer: dict, assets: dict, workdir: str) -> dict:
+    """LLaMA-3.2-1B bf16 pretraining through the CLI with ``--tokenizer_path``
+    and ``--tokenizer_cache_dir``, then the same command into a fresh output
+    directory. Gates: the loader's ids are ``tok.encode`` of the corpus and
+    its first batch their windows; the first run tokenizes the file and
+    writes the cache, the relaunch reads it (nothing tokenized) and gives
+    the first run's losses bit for bit; losses finite and falling; B1 /
+    B2a / B2b launches exact. No train state or export is written."""
+    import numpy as np
+
+    from building_llm_from_scratch_tpu_torch import main as tmain
+
+    t = TEXT_TRAIN
+    data_dir = os.path.join(workdir, "data")
+    cache_dir = os.path.join(workdir, "token-cache")
+    os.makedirs(data_dir, exist_ok=True)
+    corpus = os.path.join(data_dir, "corpus.txt")
+    n_chars = sized_text_corpus(tok, writer, corpus, t)
+    flags = ["--mode", "train", "--model", t["model"], "--num_params", t["size"],
+             "--data_type", t["dtype"], "--tokenizer_path", assets["tokenizer_model"],
+             "--tokenizer_cache_dir", cache_dir, "--data_dir", data_dir,
+             "--n_epochs", "1", "--batch_size", str(t["batch"]), "--warmup_steps", "2",
+             "--eval_freq", str(t["steps"]), "--print_sample_iter", str(t["steps"])]
+    runs = {}
+    for label in ("first", "relaunch"):
+        out_dir = os.path.join(workdir, f"out-{label}")
+        t0 = time.perf_counter()
+        with main_path(torch, False) as run, final_checkpoint_unwritten(), \
+                export_unwritten(False):
+            trainer = tmain.run(flags + ["--output_dir", out_dir])
+        final_checkpoint(trainer)
+        cfg, loader = trainer.cfg, trainer.loader
+        tr_ds, va_ds = loader.create_datasets_for_file(corpus, cfg.eos_text)
+        n_evals = len(trainer.train_losses)
+        eval_batches = n_evals * (min(5, loader.num_batches(tr_ds))
+                                  + min(5, loader.num_batches(va_ds)))
+        steps = trainer.global_step
+        want = expected_launches(cfg, steps, eval_batches, False)
+        losses = [m["loss"] for m in trainer.step_metrics]
+        runs[label] = dict(steps=steps, eval_batches=eval_batches,
+                           launches=run["launches"], expected=want, losses=losses,
+                           cache=dict(loader.token_cache.stats),
+                           to_first_step_s=run["step_starts"][0] - t0,
+                           run_step_ms=run["run_step_ms"], wall_s=run["wall_s"])
+        if (steps != t["steps"] or n_evals != 1 or run["launches"] != want
+                or not all(map(math.isfinite, losses + trainer.train_losses
+                               + trainer.val_losses)) or not losses[-1] < losses[0]):
+            raise AssertionError(f"phase 9t pretraining ({label}): {runs[label]}")
+        if label == "first":
+            with open(corpus) as f:
+                text = f.read() + f" {cfg.eos_text} "
+            cut = int(0.9 * len(text))
+            ids = [np.asarray(tok.encode(p), np.int32) for p in (text[:cut], text[cut:])]
+            inputs, targets = next(loader.batches(tr_ds, epoch=0))
+            order = np.random.default_rng(trainer.loader.seed).permutation(len(tr_ds))
+            rows = [ids[0][r * t["context"]:(r + 1) * t["context"] + 1]
+                    for r in order[:t["batch"]]]
+            if not (np.array_equal(tr_ds.token_ids, ids[0])
+                    and np.array_equal(va_ds.token_ids, ids[1])
+                    and np.array_equal(inputs, np.stack([r[:-1] for r in rows]))
+                    and np.array_equal(targets, np.stack([r[1:] for r in rows]))):
+                raise AssertionError("phase 9t: the loader's ids or first batch are "
+                                     "not tok.encode of the corpus")
+            runs[label]["tokens"] = dict(train=len(ids[0]), val=len(ids[1]))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    first, again = runs["first"], runs["relaunch"]
+    cache_files = sorted(os.listdir(cache_dir))
+    if (first["cache"]["encoded"], first["cache"]["disk"]) != (1, 0) or \
+            (again["cache"]["encoded"], again["cache"]["disk"]) != (0, 1) or \
+            len(cache_files) != 1:
+        raise AssertionError(f"phase 9t token cache: first {first['cache']}, "
+                             f"relaunch {again['cache']}, files {cache_files}")
+    if again["losses"] != first["losses"]:
+        raise AssertionError(f"phase 9t: the relaunch's losses {again['losses']} are "
+                             f"not the first run's {first['losses']}")
+    return dict(runs, corpus_chars=n_chars,
+                cache_file_bytes=os.path.getsize(os.path.join(cache_dir, cache_files[0])))
+
+
+def text_sft(torch, tok, workdir: str) -> dict:
+    """GPT-2-124M fp32 LoRA SFT on ``build_local_alpaca.py`` records
+    tokenized by the synthetic GPT-2 BPE (given to the CLI's component
+    builder in process), with B4 on. Gates: every record's prompt mask
+    (the first supervised target) at ``len(tok.encode(prompt)) - 1``; B1-B4
+    launches exact; losses finite."""
+    import numpy as np
+
+    import building_llm_from_scratch_tpu_torch.build_components as tbc
+    from building_llm_from_scratch_tpu_torch import main as tmain
+    from building_llm_from_scratch_tpu_torch.data.instruct import (
+        collate_batch,
+        format_input,
+    )
+
+    t = TEXT_SFT
+    data_dir = os.path.join(workdir, "data")
+    os.makedirs(data_dir, exist_ok=True)
+    records = math.ceil(t["steps"] * t["batch"] / 0.9)
+    data = os.path.join(data_dir, "alpaca.json")
+    write_alpaca(data, records)
+    flags = ["--mode", "train", "--model", t["model"], "--num_params", t["size"],
+             *dtype_flags(t), "--finetune", "--dataset", "alpaca", "--use_lora",
+             "--lora_rank", str(t["rank"]), "--lora_alpha", str(t["alpha"]),
+             "--seed", str(SFT_SEED), "--data_dir", data_dir,
+             "--output_dir", os.path.join(workdir, "out"), "--n_epochs", "1",
+             "--batch_size", str(t["batch"]), "--warmup_steps", "2",
+             "--eval_freq", str(t["steps"]), "--print_sample_iter", str(t["steps"])]
+    build = tbc.build_tokenizer
+    tbc.build_tokenizer = lambda *a, **kw: tok
+    try:
+        with main_path(torch, True) as run, final_checkpoint_unwritten(), \
+                export_unwritten(False):
+            trainer = tmain.run(flags)
+    finally:
+        tbc.build_tokenizer = build
+    final_checkpoint(trainer)
+    cfg, loader = trainer.cfg, trainer.loader
+    with open(data) as f:
+        recs = json.load(f)
+    tr_ds, va_ds = loader.create_datasets(recs)
+    masks = []
+    for ds in (tr_ds, va_ds):
+        for i, rec in enumerate(ds.data):
+            n = len(tok.encode(format_input(rec)))
+            _, _, w = collate_batch([ds[i]], pad_token_id=cfg.eos_id,
+                                    allowed_max_length=cfg.context_length)
+            first = int(np.flatnonzero(w[0])[0])
+            masks.append((ds.instruction_lengths[i], n, first))
+    bad = [m for m in masks if not (m[0] == m[1] and m[2] == m[1] - 1)]
+    n_evals = len(trainer.train_losses)
+    eval_batches = n_evals * (min(5, loader.num_batches(tr_ds))
+                              + min(5, loader.num_batches(va_ds)))
+    steps = trainer.global_step
+    want = expected_launches(cfg, steps, eval_batches, True, lora=True)
+    losses = [m["loss"] for m in trainer.step_metrics]
+    facts = dict(records=records, steps=steps, eval_batches=eval_batches,
+                 launches=run["launches"], expected=want, losses=losses,
+                 masked_records=len(masks), prompt_tokens_mean=statistics.mean(
+                     m[1] for m in masks), run_step_ms=run["run_step_ms"])
+    if bad or steps != t["steps"] or run["launches"] != want or not all(
+            map(math.isfinite, losses + trainer.train_losses + trainer.val_losses)):
+        raise AssertionError(f"phase 9t SFT: {facts}, masks off {bad[:4]}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return facts
+
+
+def text_requests(writer: dict, n: int) -> list:
+    """n text prompts of 40-600 characters cut from a seeded
+    ``sample_text``, greedy, budgets of 24-64 new tokens, eos ignored."""
+    import numpy as np
+
+    from building_llm_from_scratch_tpu_torch.serving.request import SamplingParams
+
+    rng = np.random.default_rng(TEXT_SEED + 2)
+    text = writer["sample_text"](TEXT_SEED + 2, 40_000)
+    out = []
+    for i in range(n):
+        a = int(rng.integers(0, len(text) - 600))
+        prompt = text[a:a + int(rng.integers(40, 601))]
+        out.append((prompt, SamplingParams(max_new_tokens=int(rng.integers(24, 65)),
+                                           seed=i, ignore_eos=True)))
+    return out
+
+
+def text_serve_cli(torch, m: dict, tok, assets: dict, requests: list, workdir: str,
+                   text: bool) -> tuple:
+    """``main.run --mode serve`` on a JSONL of the requests, as ``"prompt"``
+    text with ``--tokenizer_path`` or as ``"prompt_ids"`` (``tok.encode``)
+    without a tokenizer; B5's launches counted from 0. Returns (engine,
+    result records, launches)."""
+    from building_llm_from_scratch_tpu_torch import main as tmain
+    from building_llm_from_scratch_tpu_torch.ops.decode_step import fused_decode_step
+
+    tag = "text" if text else "ids"
+    src = os.path.join(workdir, f"{m['label']}-{tag}.jsonl")
+    dst = os.path.join(workdir, f"{m['label']}-{tag}.out.jsonl")
+    with open(src, "w") as f:
+        for p, sp in requests:
+            rec = {"prompt": p} if text else {"prompt_ids": tok.encode(p)}
+            rec.update(max_new_tokens=sp.max_new_tokens, seed=sp.seed,
+                       ignore_eos=sp.ignore_eos)
+            f.write(json.dumps(rec) + "\n")
+    fused_decode_step.launches = 0                  # the main path's count
+    engine = tmain.run([
+        "--mode", "serve", "--model", m["model"], "--num_params", m["size"],
+        "--data_type", m["dtype"], "--target_context_length", str(m["context"]),
+        "--seed", "0", "--serve_prompts", src, "--serve_out", dst,
+        "--serve_slots", str(m["slots"]), "--serve_max_len", str(m["context"]),
+        *(["--tokenizer_path", assets["tokenizer_model"]] if text else [])])
+    launches = fused_decode_step.launches
+    with open(dst) as f:
+        return engine, [json.loads(line) for line in f], launches
+
+
+def detok_hold_check(engine_cls, model, tok) -> dict:
+    """The hold rule on the engine's own ``_detok_piece`` with ``tok``: the
+    three one-byte tokens of a 3-byte character give "", "" and the
+    character; 17 tokens that each decode to U+FFFD commit at the 16th
+    (``_DETOK_HOLD_MAX``); a held tail is flushed by ``final``."""
+    from building_llm_from_scratch_tpu_torch.serving.request import Request, SamplingParams
+
+    engine = engine_cls(model, tok, n_slots=1, max_len=64)
+    ranks = tok._enc._ranks
+    req = Request(0, [1], SamplingParams())
+    split = []
+    for b in "字".encode("utf-8"):
+        req.output_ids.append(ranks[bytes([b])])
+        split.append(engine._detok_piece(req))
+    req = Request(1, [1], SamplingParams())
+    held = []
+    for _ in range(17):
+        req.output_ids.append(ranks[b"\xf8"])
+        held.append(engine._detok_piece(req))
+    flushed = engine._detok_piece(req, final=True)
+    want_held = [""] * 15 + ["\ufffd" * 16, ""]
+    if split != ["", "", "字"] or held != want_held or flushed != "\ufffd":
+        raise AssertionError(f"phase 9t hold rule: {split}, {held}, {flushed!r}")
+    return dict(split_pieces=split, commit_at=held.index("\ufffd" * 16) + 1,
+                flushed=len(flushed))
+
+
+def detok_paired_ticks(torch, engine_cls, model, tok, requests: list, slots: int,
+                       max_len: int, rounds: int = 10, window: int = 16) -> dict:
+    """Steady decode ticks of two engines on the same model and prompts,
+    one with the tokenizer and one without, in alternating windows (host
+    clock over ``window`` synchronised ticks, medians over ``rounds``
+    windows each). Outside the main path's count; no request ends inside
+    the windows."""
+    import dataclasses
+
+    engines = {}
+    for name, t in (("with_tokenizer", tok), ("without", None)):
+        eng = engine_cls(model, t, n_slots=slots, max_len=max_len, max_queue=64)
+        for p, sp in requests[:slots]:
+            ids = tok.encode(p)
+            eng.submit(ids, dataclasses.replace(sp, max_new_tokens=max_len - len(ids)))
+        eng.step()
+        engines[name] = eng
+    times = {name: [] for name in engines}
+    detok0 = engines["with_tokenizer"].detok_seconds
+    ticks0 = engines["with_tokenizer"].n_ticks
+    order = list(engines)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            eng = engines[name]
+            torch.cuda.synchronize()
+            t0, n0 = time.perf_counter(), eng.n_ticks
+            for _ in range(window):
+                eng.step()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) / (eng.n_ticks - n0) * 1e3)
+    eng = engines["with_tokenizer"]
+    out = {f"{k}_tick_ms": statistics.median(v) for k, v in times.items()}
+    out.update({f"{k}_windows_ms": v for k, v in times.items()},
+               detok_ms_per_tick=(eng.detok_seconds - detok0) / (eng.n_ticks - ticks0) * 1e3,
+               rounds=rounds, window_ticks=window)
+    return out
+
+
+def text_serve(torch, card: dict, tokenizers: dict, assets: dict, writer: dict,
+               workdir: str) -> dict:
+    """Text prompts served at phase 4's shapes. LLaMA-3.2-1B bf16 through
+    the CLI (``--tokenizer_path``), GPT-2-124M fp32 in process, with
+    ``on_token`` pieces and ``stream()``. Gates: every budget finished;
+    greedy ids bit-equal to the same requests sent as ``prompt_ids =
+    tok.encode(prompt)`` without a tokenizer; ``text`` = ``decode(ids)``;
+    the streamed pieces join to ``text`` and are the non-empty ``on_token``
+    pieces, then the tail held at the finish; B5 = layers x ticks. Then
+    the hold rule and the tick with the tokenizer against the tick without
+    it (GPT-2)."""
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+    from building_llm_from_scratch_tpu_torch.models.transformer import build_model
+    from building_llm_from_scratch_tpu_torch.ops.decode_step import fused_decode_step
+    from building_llm_from_scratch_tpu_torch.serving.engine import DecodeEngine
+
+    os.makedirs(workdir, exist_ok=True)
+    out = {}
+    for m in TEXT_SERVE:
+        tok = tokenizers[m["model"]]
+        requests = text_requests(writer, m["requests"])
+        cfg = get_config(m["model"], m["size"], dtype=m["dtype"],
+                         target_context_length=m["context"])
+        facts = dict(shape=(m["slots"], cfg.n_heads, cfg.n_kv_groups, cfg.head_dim,
+                            m["context"], m["dtype"]),
+                     prompt_tokens=sum(len(tok.encode(p)) for p, _ in requests))
+        if m["cli"]:
+            engine, lines, launches = text_serve_cli(torch, m, tok, assets, requests,
+                                                     workdir, text=True)
+            st = engine.stats()
+            _, id_lines, _ = text_serve_cli(torch, m, tok, assets, requests, workdir,
+                                            text=False)
+            ids = [ln["token_ids"] for ln in lines]
+            texts = [ln["text"] for ln in lines]
+            same = ids == [ln["token_ids"] for ln in id_lines]
+            streamed = on_token = None
+            del engine
+        else:
+            model = build_model(cfg, seed=0, device="cuda")
+            pieces = {}
+
+            def on_tok(req, tok_id, piece):
+                pieces.setdefault(req.id, []).append(piece)
+
+            engine = DecodeEngine(model, tok, n_slots=m["slots"], max_len=m["context"],
+                                  max_queue=64)
+            fused_decode_step.launches = 0          # the main path's count
+            engine.start()
+            try:
+                handles = [engine.submit(p, sp, block=True, on_token=on_tok)
+                           for p, sp in requests]
+                streamed = [list(h.stream(timeout=600)) for h in handles]
+                for h in handles:
+                    h.result(timeout=600)
+            finally:
+                engine.shutdown()
+            launches = fused_decode_step.launches
+            st = engine.stats()
+            ids = [h.output_ids for h in handles]
+            texts = [h.text for h in handles]
+            # on_token sees each token's committed piece; a tail still held
+            # when the request finishes reaches only the stream, last
+            on_token = [[p for p in pieces[h.id] if p] for h in handles]
+            tails = [t[len("".join(p)):] for t, p in zip(texts, on_token)]
+            on_token = [p + ([t] if t else []) for p, t in zip(on_token, tails)]
+            facts.update(held_tokens=sum(p == "" for h in handles for p in pieces[h.id]),
+                         tails_at_finish=sum(map(bool, tails)),
+                         stream_pieces=sum(map(len, streamed)))
+            id_handles = serve(DecodeEngine(model, n_slots=m["slots"], max_len=m["context"],
+                                            max_queue=64),
+                               [(tok.encode(p), sp) for p, sp in requests])
+            same = ids == [h.output_ids for h in id_handles]
+            facts["hold_rule"] = detok_hold_check(DecodeEngine, model, tok)
+            facts["ticks"] = detok_paired_ticks(torch, DecodeEngine, model, tok, requests,
+                                                m["slots"], m["context"])
+            del model, engine
+        budgets = [sp.max_new_tokens for _, sp in requests]
+        decoded = [tok.decode(i) for i in ids]
+        facts.update(launches=launches, decode_ticks=st["n_ticks"],
+                     detok_s=st.get("detok_seconds"), decode_s=st["decode_seconds"],
+                     mean_tick_ms=st["decode_seconds"] / st["n_ticks"] * 1e3,
+                     new_tokens=st["tokens_generated"], ids_equal=same,
+                     text_chars=sum(map(len, texts)),
+                     replacement_chars=sum(t.count("\ufffd") for t in texts))
+        ok = (same and [len(i) for i in ids] == budgets and texts == decoded
+              and launches == cfg.n_layers * st["n_ticks"] and launches > 0
+              and (streamed is None or (streamed == on_token and texts == [
+                  "".join(p) for p in streamed])))
+        emit("text-serve", card=card["card_line"], model=cfg.name, dtype=m["dtype"],
+             via="cli" if m["cli"] else "in process", **facts)
+        if not ok:
+            raise AssertionError(f"phase 9t serving {cfg.name}: ids equal {same}, "
+                                 f"texts {texts == decoded}, launches {launches} for "
+                                 f"{cfg.n_layers} x {st['n_ticks']}, streamed "
+                                 f"{streamed == on_token}")
+        out[m["label"]] = facts
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_text(torch, card: dict, workdir: str) -> dict:
+    """Phase 9t: synthetic BPE files written from a seed
+    (``scripts/build_local_bpe.py``: 3,000 learned merges, padded to
+    128,000 / 50,256 ranks), the tokenizers' host rates, LLaMA-3.2-1B
+    pretraining with the token cache and its relaunch, GPT-2 LoRA SFT with
+    B4, and text serving."""
+    from building_llm_from_scratch_tpu_torch.data import tokenizers as ttok
+
+    writer = bpe_writer()
+    io0 = written_bytes()
+    t0 = time.perf_counter()
+    assets = writer["write_assets"](os.path.join(workdir, "bpe"), TEXT_MERGES, full=True)
+    write_s = time.perf_counter() - t0
+    rates = tokenizer_rates(writer, assets)
+    emit("text-tokenizers", card=card["card_line"], assets_write_s=write_s,
+         merges=assets["merges"], llama3_ranks=assets["llama3_ranks"],
+         gpt2_ranks=assets["gpt2_ranks"], **rates)
+    tokenizers = {"llama3_2": ttok.Llama3Tokenizer(assets["tokenizer_model"]),
+                  "GPT2": ttok.GPT2Tokenizer.from_files(assets["vocab_bpe"],
+                                                        assets["encoder_json"])}
+    pretrain = text_pretrain(torch, tokenizers["llama3_2"], writer, assets,
+                             os.path.join(workdir, "pretrain"))
+    emit("text-pretrain", card=card["card_line"], model="llama3_2-1B", dtype="bf16",
+         corpus_chars=pretrain["corpus_chars"], tokens=pretrain["first"]["tokens"],
+         cache_file_bytes=pretrain["cache_file_bytes"],
+         prepass_first_s=pretrain["first"]["cache"]["encode_seconds"],
+         prepass_relaunch_s=pretrain["relaunch"]["cache"]["disk_seconds"],
+         **{f"{k}_{f}": pretrain[k][f] for k in ("first", "relaunch")
+            for f in ("launches", "losses", "to_first_step_s", "run_step_ms", "cache")})
+    sft = text_sft(torch, tokenizers["GPT2"], os.path.join(workdir, "sft"))
+    emit("text-sft", card=card["card_line"], model="gpt2-124M", dtype="fp32", **sft)
+    served = text_serve(torch, card, tokenizers, assets, writer,
+                        os.path.join(workdir, "serve"))
+    io1 = written_bytes()
+    emit("text-io", wchar=io1["wchar"] - io0["wchar"],
+         write_bytes=io1["write_bytes"] - io0["write_bytes"])
+    return dict(pretrain=pretrain, sft=sft, served=served)
+
+
 def main() -> int:
     try:
         import torch
@@ -4539,8 +5056,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=here) as workdir:
         weights = phase_weights(torch, os.path.join(workdir, "weights"))
         resumed = phase_resume(torch, card, os.path.join(workdir, "resume"), weights)
+    # text in and out: BPE tokenizers, the token cache, text serving (9t)
+    with tempfile.TemporaryDirectory(dir=here) as workdir:
+        text = phase_text(torch, card, workdir)
+
+    def shape_of(r: dict) -> tuple:
+        return (r["S"], r["Hq"], r["Hkv"], r["hd"], r["Tmax"], r["dtype"])
+
     for r in rows:
-        shape = (r["S"], r["Hq"], r["Hkv"], r["hd"], r["Tmax"], r["dtype"])
+        shape = shape_of(r)
         if served[r["shape"]]["shape"] != shape:
             raise AssertionError(f"{r['shape']}: served at "
                                  f"{served[r['shape']]['shape']}, not {shape}")
@@ -4555,6 +5079,12 @@ def main() -> int:
     for k, r in zip(kernels, rows):                 # phase 8w's CLI serving
         if r["shape"] in weights["launches"]:
             k["launches_8w"] = weights["launches"][r["shape"]]
+        text_served = text["served"].get(r["shape"])  # phase 9t's text prompts
+        if text_served is not None:
+            if text_served["shape"] != shape_of(r):
+                raise AssertionError(f"{r['shape']}: text served at "
+                                     f"{text_served['shape']}, not {shape_of(r)}")
+            k["launches_9t"] = text_served["launches"]
     paged_runs = {v["shape"]: v for v in served_paged.values() if v["paged"]}
     for r in paged_rows:
         run = paged_runs[r["shape"]]
@@ -4619,6 +5149,12 @@ def main() -> int:
             row["launches_6m"] = m6
         if shape == "gpt2-124M-train":
             row["launches_6h"] = {k: r["launches"][counter] for k, r in overlap.items()}
+        # phase 9t: LLaMA pretraining on BPE ids and its relaunch, GPT-2 SFT
+        if shape == "llama3_2-1B-train":
+            row["launches_9t"] = {k: text["pretrain"][k]["launches"][counter]
+                                  for k in ("first", "relaunch")}
+        if shape == "gpt2-124M-train-fp32":
+            row["launches_9t"] = text["sft"]["launches"][counter]
 
     for r in attn_rows + drop_attn_rows:
         kname, where = replaces[r["kernel"]]
@@ -4661,6 +5197,7 @@ def main() -> int:
         if r["shape"] == "gpt2-124M-train-fp32":     # the sums loss, 6m
             kernels[-1]["launches_6m"] = {
                 "gpt2-fp32-accum2": mixed["gpt2-fp32-accum2"]["launches"]["xent_fwd"]}
+            kernels[-1]["launches_9t"] = text["sft"]["launches"]["xent_fwd"]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its main path")
@@ -4675,6 +5212,13 @@ def main() -> int:
         if any(run[k][c] < 1 for k in ("launches", "resumed_launches",
                                         "fallback_launches") for c in need):
             raise AssertionError(f"phase 8r {label}: a kernel was not launched: {run}")
+    # phase 9t's paths ran every kernel they take: B1/B2a/B2b in both
+    # pretraining runs, B1-B4 in the SFT run, B5 serving text
+    need = dict(first=("fwd", "dq", "dkv"), relaunch=("fwd", "dq", "dkv"))
+    if any(text["pretrain"][k]["launches"][c] < 1 for k, cs in need.items() for c in cs) \
+            or any(v < 1 for v in text["sft"]["launches"].values()) \
+            or any(v["launches"] < 1 for v in text["served"].values()):
+        raise AssertionError("phase 9t: a kernel was not launched")
     emit("io", **written_bytes())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card["card_line"], flush=True)

@@ -4,7 +4,8 @@ fused-dropout and vocab-streamed cross-entropy kernels against their plain
 twins, the serving engine (contiguous, paged and with LoRA adapters),
 LLaMA and GPT-2 training steps on the card (the fp16 policy with remat
 and accumulation among them), the batch stager's copy stream and the
-asynchronous checkpoint's snapshot. They skip on a machine without
+asynchronous checkpoint's snapshot, and text prompts served with a BPE
+tokenizer. They skip on a machine without
 CUDA. This file imports neither JAX nor the JAX package, so
 it also runs where JAX is not installed:
 
@@ -248,6 +249,45 @@ def test_engine_on_the_card(cuda):
         h = solo.submit(*reqs[i])
         solo.run_until_idle()
         assert h.output_ids == handles[i].output_ids
+
+
+def test_engine_serves_text_prompts_on_the_card(cuda, tmp_path):
+    """Three text prompts through the engine with a synthetic LLaMA-3 BPE
+    (``scripts/build_local_bpe.py``, 300 merges, unpadded so its ids fit a
+    small model's vocab) on a LLaMA-like model with head dim 64: the greedy
+    ids equal those of the same requests sent as ``prompt_ids =
+    encode(prompt)`` to an engine without a tokenizer, each request's text
+    is ``decode(ids)`` and its stream joins to it, and every decode tick
+    launched the kernel once per layer."""
+    import os
+    import runpy
+
+    from building_llm_from_scratch_tpu_torch.data.tokenizers import Llama3Tokenizer
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    writer = runpy.run_path(os.path.join(root, "scripts", "build_local_bpe.py"))
+    tok = Llama3Tokenizer(writer["write_assets"](str(tmp_path), 300, full=False,
+                                                 text_chars=60_000)["tokenizer_model"])
+    cfg = get_config("llama3_2", "1B").replace(
+        emb_dim=256, n_heads=4, n_kv_groups=2, n_layers=2, hidden_dim=512,
+        vocab_size=tok._enc.n_vocab, context_length=128)
+    model = build_model(cfg, seed=0, device=cuda)
+    prompts = ["Every effort moves you closer to mastery.",
+               "Café naïve 中文 🙂 don't\r\n  1234567", "THEY'RE here\tnow"]
+    sp = [SamplingParams(max_new_tokens=m, ignore_eos=True) for m in (24, 17, 31)]
+    eng = DecodeEngine(model, tok, n_slots=3, max_len=128)
+    tds.fused_decode_step.launches = 0
+    handles = [eng.submit(p, s) for p, s in zip(prompts, sp)]
+    eng.run_until_idle()
+    assert tds.fused_decode_step.launches == cfg.n_layers * eng.n_ticks > 0
+    plain = DecodeEngine(model, n_slots=3, max_len=128)
+    ids = [plain.submit(tok.encode(p), s) for p, s in zip(prompts, sp)]
+    plain.run_until_idle()
+    for h, g, s in zip(handles, ids, sp):
+        assert h.output_ids == g.output_ids and len(h.output_ids) == s.max_new_tokens
+        assert h.text == tok.decode(h.output_ids)
+        assert "".join(h.stream(timeout=5)) == h.text
+        assert g.text == ""
 
 
 def paged_inputs(dev, S, Hq, Hkv, hd, P, M, dtype, seed=0):

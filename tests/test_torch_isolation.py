@@ -1,7 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its
-entry points ask for CUDA unless told to use the CPU, its CLI rejects the
-JAX flags it does not carry, and ``chip_smoke.py`` refuses to report
-without a card."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+``tiktoken`` or ``regex``: its BPE is plain Python), its entry points ask
+for CUDA unless told to use the CPU, its CLI rejects the JAX flags it does
+not carry, and ``chip_smoke.py`` refuses to report without a card."""
 
 import ast
 import json
@@ -15,7 +15,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "building_llm_from_scratch_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "building_llm_from_scratch_tpu")
+FORBIDDEN = ("jax", "jaxlib", "building_llm_from_scratch_tpu", "tiktoken",
+             "regex")
 
 
 def _forbidden(name: str) -> bool:
@@ -42,8 +43,11 @@ def test_entry_points_import_no_jax():
         "import building_llm_from_scratch_tpu_torch.data.pretrain\n"
         "import building_llm_from_scratch_tpu_torch.ops.fused_attention\n"
         "import building_llm_from_scratch_tpu_torch.ops._kernels\n"
+        "import building_llm_from_scratch_tpu_torch.data.tokenizers as t\n"
+        "t.GPT2Tokenizer({bytes([i]): i for i in range(256)}).encode('a b')\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or m == "
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'tiktoken', "
+        "'regex') or m == "
         "'building_llm_from_scratch_tpu' or m.startswith("
         "'building_llm_from_scratch_tpu.')]\n"
         "print(bad)\n"

@@ -167,7 +167,7 @@ def test_oversubscribed_pool_bounces_fcfs_like_jax(models):
     eng2 = DecodeEngine(model, n_slots=2, max_len=32, warmup_prompt_cap=32,
                         kv_policy=KVCachePolicy(**PAGED, pool_pages=4))
 
-    def on_tok(req, _tok):
+    def on_tok(req, _tok, _piece):
         if len(req.output_ids) == 1:
             order.append(req.id)
 

@@ -171,6 +171,6 @@ def test_serve_jsonl_round_trip(models, tmp_path):
         assert line["finish_reason"] == FINISH_LENGTH
     bad = tmp_path / "bad.jsonl"
     bad.write_text(json.dumps({"prompt": "hello"}) + "\n")
-    with pytest.raises(ValueError, match="prompt_ids"):
+    with pytest.raises(ValueError, match="text prompt needs a tokenizer"):
         serve_jsonl(eng, str(bad), None, default_max_new=4)
 

@@ -402,7 +402,7 @@ def test_export_is_read_by_the_jax_loader_bit_for_bit(tmp_path, dtype):
     (["--data_type", "fp16", "--mixed_precision", "bf16"], ValueError,
      "requires --mixed_precision fp16"),
     (["--grad_accum", "3"], ValueError, "divisible by --grad_accum"),
-    (["--tokenizer_path", "x"], SystemExit, None),
+    (["--serve_spec_k", "4"], SystemExit, None),
     (["--grad_accum", "2", "--mixed_precision", "bf16_hybrid"], ValueError,
      "does not compose"),
     (["--prefetch", "-1"], ValueError, "prefetch"),
@@ -421,17 +421,28 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path, capsys, extra, error,
 
 
 def test_train_needs_the_byte_tokenizer_and_a_data_dir(tmp_path):
+    """A tokenizer source is --byte_tokenizer or --tokenizer_path; with
+    neither, the flags parse and the run fails where the JAX package's
+    offline run fails, at the tokenizer, naming --tokenizer_path."""
     from building_llm_from_scratch_tpu_torch.args import get_args
+    from building_llm_from_scratch_tpu_torch.build_components import (
+        build_components,
+    )
 
     base = ["--model", "llama3_2", "--num_params", "1B", "--debug"]
-    with pytest.raises(ValueError, match="byte_tokenizer"):
-        get_args(base + ["--data_dir", str(tmp_path)])
+    args = get_args(base + ["--data_dir", str(tmp_path), "--device", "cpu"])
+    assert (args.byte_tokenizer, args.tokenizer_path) == (False, None)
+    with pytest.raises(FileNotFoundError, match="--tokenizer_path"):
+        build_components(args, torch.device("cpu"))
     with pytest.raises(FileNotFoundError):
         get_args(base + ["--byte_tokenizer", "--data_dir",
                          str(tmp_path / "missing")])
     args = get_args(base + ["--byte_tokenizer", "--data_dir", str(tmp_path)])
     assert (args.mode, args.device, args.lr, args.eval_freq) == (
         "train", "cuda", 5e-4, 10)
+    args = get_args(base + ["--tokenizer_path", "t.model", "--tokenizer_cache_dir",
+                            "c", "--data_dir", str(tmp_path)])
+    assert (args.tokenizer_path, args.tokenizer_cache_dir) == ("t.model", "c")
 
 
 def test_grad_buffers_are_slices_of_the_stacked_leaves():
