@@ -8,11 +8,13 @@ watchdog, the precision policies (``--mixed_precision``, ``--data_type
 fp16`` with loss scaling), gradient accumulation, activation
 checkpointing, batch prefetch and asynchronous checkpoint writes, and
 the tokenizers (``--tokenizer_path``, the on-disk token cache
-``--tokenizer_cache_dir``).
+``--tokenizer_cache_dir``), and data-parallel, FSDP and ZeRO-1 training
+(``--run_type multi_chip --shard_mode dp|fsdp|zero1``).
 
-Flags of the JAX CLI that the port does not carry yet are rejected by name
-(not ignored), so a command line written for the JAX package fails loudly
-here instead of silently doing something else.
+Flags of the JAX CLI that the port does not carry yet, and the shard modes
+tp, tp_fsdp and pp, are rejected by name (not ignored) with the ROADMAP item
+that brings them, so a command line written for the JAX package fails
+loudly here instead of silently doing something else.
 """
 
 from __future__ import annotations
@@ -34,17 +36,24 @@ UNPORTED_FLAGS = (
     "--fleet_jobs", "--fleet_rows_per_job", "--fleet_capacity",
     "--fleet_export_dir", "--fleet_style",
     "--metrics_jsonl", "--log_every", "--compile_cache_dir",
-    "--stall_timeout", "--run_type",
-    "--shard_mode", "--pp", "--pp_micro", "--tp", "--sp",
+    "--stall_timeout", "--pp", "--pp_micro", "--tp", "--sp",
     "--attn_impl",
     "--profile", "--profile_steps", "--warnings",
 )
 
-#: the ROADMAP queue item that brings an unported training flag
+_TP_SP_PP = "queue 1 item 14c, tensor, sequence and pipeline parallelism"
+
+#: the ROADMAP queue item that brings an unported flag or shard mode
 QUEUE_ITEMS = {
     "--serve_kv_quant": "queue 1 item 5, int8 KV",
     "--serve_spec_k": "queue 1 item 8, speculative decoding",
+    "--tp": _TP_SP_PP, "--sp": _TP_SP_PP, "--pp": _TP_SP_PP,
+    "--pp_micro": _TP_SP_PP,
+    "tp": _TP_SP_PP, "tp_fsdp": _TP_SP_PP, "pp": _TP_SP_PP,
 }
+
+#: the JAX package's shard modes; the port runs ``parallel.SHARD_MODES``
+JAX_SHARD_MODES = ("dp", "fsdp", "zero1", "tp", "tp_fsdp", "pp")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,6 +70,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"],
                    help="Where the model runs; cuda unless cpu is asked for.")
+    p.add_argument("--run_type", type=str, default="single_chip",
+                   choices=["single_chip", "multi_chip"],
+                   help="multi_chip: one process per device over "
+                        "torch.distributed (NCCL on cuda, gloo on cpu); "
+                        "under torchrun's environment each process joins "
+                        "its group, otherwise one process is started per "
+                        "visible card.")
+    p.add_argument("--shard_mode", type=str, default="dp",
+                   choices=list(JAX_SHARD_MODES),
+                   help="multi_chip strategy: dp (replicated, gradient "
+                        "all-reduce), fsdp (parameters and optimizer state "
+                        "sharded) or zero1 (optimizer state sharded); tp, "
+                        "tp_fsdp and pp are not ported.")
     p.add_argument("--model", type=str, default="GPT2",
                    choices=list(MODEL_PARAMS_MAPPING))
     p.add_argument("--num_params", type=str, default="124M")
@@ -130,8 +152,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Mixed-precision policy: master weights in "
                         "--data_type, forward and backward on a copy cast to "
                         "the policy's compute dtype (fp16 with dynamic loss "
-                        "scaling; bf16_hybrid computes in fp32 on one "
-                        "device).")
+                        "scaling; bf16_hybrid computes in fp32 and reduces "
+                        "gradients across ranks in bf16).")
     # run management / fault tolerance (--mode train)
     p.add_argument("--resume_from", type=str, default=None,
                    help="Resume training from a checkpoint directory.")
@@ -250,6 +272,10 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                      + (f" ({'; '.join(where)})" if where else ""))
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    if args.shard_mode in QUEUE_ITEMS:
+        parser.error(f"--shard_mode {args.shard_mode}: a shard mode of the "
+                     "JAX package that the PyTorch port does not support yet "
+                     f"(ROADMAP {QUEUE_ITEMS[args.shard_mode]})")
     if args.mode == "serve":
         train_only = [f"--{name}" for name, default in _TRAIN_ONLY_DEFAULTS
                       if getattr(args, name) != default]
@@ -294,7 +320,8 @@ _TRAIN_ONLY_DEFAULTS = (
     ("keep_ckpts", 0), ("watchdog", "on"), ("loss_spike_factor", 10.0),
     ("watchdog_window", 50), ("grad_accum", 1), ("prefetch", 2),
     ("async_ckpt", "off"), ("use_actv_ckpt", False), ("mixed_precision", None),
-    ("tokenizer_cache_dir", None),
+    ("tokenizer_cache_dir", None), ("run_type", "single_chip"),
+    ("shard_mode", "dp"),
 )
 
 #: the serve flags and their defaults (the stray-flag rule)
@@ -391,6 +418,11 @@ def _check_train(args) -> None:
         raise ValueError("--keep_ckpts must be >= 0 (0 keeps all).")
     if args.prefetch < 0:
         raise ValueError("--prefetch must be >= 0 (0 disables).")
+    # a sharded mode on a single chip is a no-op at best (the reference's
+    # "FSDP requires multi-GPU")
+    if args.run_type == "single_chip" and args.shard_mode != "dp":
+        raise ValueError(
+            f"--shard_mode {args.shard_mode} requires --run_type multi_chip.")
     if args.grad_accum < 1:
         raise ValueError("--grad_accum must be >= 1.")
     if args.grad_accum > 1:

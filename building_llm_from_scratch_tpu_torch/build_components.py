@@ -1,9 +1,13 @@
 """The component factory (port of the single-device half of the JAX
 package's ``build_components.py``): flags -> config, model (seeded init,
 an ``.npz`` export, or pretrained weights from ``--weights_dir``),
-tokenizer, with ``--use_lora`` the adapter, and the precision policy
+tokenizer, with ``--use_lora`` the adapter, the precision policy
 (``--mixed_precision``; ``--data_type fp16`` alone gets the fp16 policy, so
-it trains with loss scaling).
+it trains with loss scaling), and with ``--run_type multi_chip`` the mesh
+plan (``build_plan``: dp, fsdp or zero1 over the process group).
+
+Every rank builds the same whole model from the same seed; the trainer
+then keeps the rank's slices as the plan says.
 
 The seeded init draws from a ``torch.Generator`` seeded with ``--seed``
 (the adapter's A from one seeded with ``--seed + 1``, as the JAX package
@@ -30,6 +34,10 @@ from building_llm_from_scratch_tpu_torch.models.transformer import (
     Transformer,
     build_model,
 )
+from building_llm_from_scratch_tpu_torch.parallel.sharding import (
+    MeshPlan,
+    build_mesh_plan,
+)
 from building_llm_from_scratch_tpu_torch.training.precision import (
     PrecisionPolicy,
     get_policy,
@@ -47,6 +55,8 @@ class Components:
     lora_params: Optional[dict] = None
     #: the --mixed_precision policy (the fp16 one for --data_type fp16)
     policy: Optional[PrecisionPolicy] = None
+    #: the --run_type multi_chip plan (None on a single chip)
+    plan: Optional[MeshPlan] = None
 
 
 def build_config(args) -> ModelConfig:
@@ -58,6 +68,15 @@ def build_config(args) -> ModelConfig:
         use_actv_ckpt=args.use_actv_ckpt,
         debug=args.debug,
         target_context_length=(args.target_context_length or None))
+
+
+def build_plan(args) -> Optional[MeshPlan]:
+    """Flags -> the mesh plan of ``--run_type multi_chip`` over the process
+    group (``parallel.initialize_distributed`` joined it first), or None
+    on a single chip (the JAX ``build_plan`` without pp)."""
+    if args.run_type != "multi_chip":
+        return None
+    return build_mesh_plan(args.shard_mode)
 
 
 def build_params(args, cfg: ModelConfig, device: torch.device) -> Transformer:
@@ -84,8 +103,8 @@ def build_params(args, cfg: ModelConfig, device: torch.device) -> Transformer:
 
 
 def build_components(args, device: torch.device) -> Components:
-    """Config, model, tokenizer, (``--use_lora``) adapter and precision
-    policy of a training run."""
+    """Config, model, tokenizer, (``--use_lora``) adapter, precision
+    policy and (``--run_type multi_chip``) mesh plan of a training run."""
     cfg = build_config(args)
     policy = get_policy(args.mixed_precision)
     if policy is None and args.data_type == "fp16":
@@ -107,4 +126,5 @@ def build_components(args, device: torch.device) -> Components:
     return Components(cfg=cfg, model=model,
                       tokenizer=build_tokenizer(args.model, args.tokenizer_path,
                                                 fallback_byte=args.byte_tokenizer),
-                      lora_params=lora_params, policy=policy)
+                      lora_params=lora_params, policy=policy,
+                      plan=build_plan(args))

@@ -95,11 +95,13 @@ def collate_batch(batch: Sequence[Tuple[int, List[int]]], *,
 
 class InstructLoader:
     """Instruction-finetuning batches: the 90/10 record split, shuffled
-    fixed-shape batches (drop-last), one process."""
+    fixed-shape batches (drop-last); with ``process_count`` ranks each
+    takes its rows of the global batch, as ``PretrainLoader`` does."""
 
     def __init__(self, tokenizer, batch_size: int, max_length: int,
                  pad_token_id: int, dataset_name: str = "alpaca",
-                 train_ratio: float = 0.90, seed: int = 123):
+                 train_ratio: float = 0.90, seed: int = 123,
+                 process_index: int = 0, process_count: int = 1):
         if dataset_name.lower() not in ("alpaca",):
             raise ValueError(f"Dataset '{dataset_name}' is not supported.")
         self.tokenizer = tokenizer
@@ -108,6 +110,8 @@ class InstructLoader:
         self.pad_token_id = pad_token_id
         self.train_ratio = train_ratio
         self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
 
     def create_datasets(self, records: Sequence[Dict[str, str]]
                         ) -> Tuple[InstructionDataset, InstructionDataset]:
@@ -118,20 +122,22 @@ class InstructLoader:
     def batches(self, dataset: InstructionDataset, *, shuffle: bool = True,
                 epoch: int = 0, start: int = 0
                 ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
-        """Collated batches in the (seed, epoch) shuffle, drop-last;
-        ``start`` begins at that batch of the same order without collating
-        the skipped ones (a resumed run's fast-forward)."""
+        """Collated batches of this rank's records in the (seed, epoch)
+        shuffle, drop-last; ``start`` begins at that batch of the same
+        order without collating the skipped ones (a resumed run's
+        fast-forward)."""
         order = np.arange(len(dataset))
         if shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(order)
-        bs = self.batch_size
-        for b in range(start, len(dataset) // bs):
-            yield collate_batch([dataset[j] for j in order[b * bs:(b + 1) * bs]],
+        gbs = self.batch_size * self.process_count
+        for b in range(start, self.num_batches(dataset)):
+            mine = order[b * gbs:(b + 1) * gbs][self.process_index::self.process_count]
+            yield collate_batch([dataset[j] for j in mine],
                                 pad_token_id=self.pad_token_id,
                                 allowed_max_length=self.max_length)
 
     def num_batches(self, dataset: InstructionDataset) -> int:
-        return len(dataset) // self.batch_size
+        return len(dataset) // (self.batch_size * self.process_count)
 
     def get_total_steps_epoch(self, files: List[str],
                               read_fn: Optional[Callable] = None) -> int:

@@ -164,18 +164,24 @@ class TokenCache:
 
 class PretrainLoader:
     """Batched loader over one or more raw-text corpora: 90/10 character
-    split, shuffled fixed-shape batches (one process: the JAX loader's
-    per-process row sharding is not ported)."""
+    split, shuffled fixed-shape batches. With ``process_count`` ranks a
+    step's global batch is ``batch_size x process_count`` windows of the
+    (seed, epoch) shuffle, and rank ``process_index`` takes every
+    ``process_count``-th of them from its index on (the JAX loader's
+    ``sl[process_index::process_count]``)."""
 
     def __init__(self, tokenizer, batch_size: int, max_length: int,
                  stride: Optional[int] = None, train_ratio: float = 0.90,
-                 seed: int = 123, token_cache_dir: Optional[str] = None):
+                 seed: int = 123, token_cache_dir: Optional[str] = None,
+                 process_index: int = 0, process_count: int = 1):
         self.tokenizer = tokenizer
         self.batch_size = batch_size
         self.max_length = max_length
         self.stride = stride or max_length
         self.train_ratio = train_ratio
         self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
         self.token_cache = TokenCache(token_cache_dir)
 
     def split_text(self, text: str) -> Tuple[str, str]:
@@ -213,22 +219,23 @@ class PretrainLoader:
     def batches(self, dataset: PretrainDataset, *, shuffle: bool = True,
                 epoch: int = 0, start: int = 0
                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        """Fixed-shape (inputs, targets) batches, shuffled
-        deterministically in (seed, epoch); a partial last batch is
-        dropped. ``start`` begins at that batch of the same order (a
-        resumed run's fast-forward: the skipped batches are not built)."""
+        """Fixed-shape (inputs, targets) batches of this rank's rows,
+        shuffled deterministically in (seed, epoch); a partial last global
+        batch is dropped. ``start`` begins at that batch of the same order
+        (a resumed run's fast-forward: the skipped batches are not
+        built)."""
         n = len(dataset)
         order = np.arange(n)
         if shuffle:
             rng = np.random.default_rng(self.seed + epoch)
             rng.shuffle(order)
-        bs = self.batch_size
+        gbs = self.batch_size * self.process_count
         for b in range(start, self._num_batches(n)):
-            rows = order[b * bs:(b + 1) * bs]
+            rows = order[b * gbs:(b + 1) * gbs][self.process_index::self.process_count]
             yield dataset.inputs[rows], dataset.targets[rows]
 
     def _num_batches(self, n_windows: int) -> int:
-        return n_windows // self.batch_size
+        return n_windows // (self.batch_size * self.process_count)
 
     def num_batches(self, dataset: PretrainDataset) -> int:
         return self._num_batches(len(dataset))

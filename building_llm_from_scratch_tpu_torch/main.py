@@ -17,12 +17,25 @@ the plot, the final checkpoint and exports and returns normally (exit 0),
 and the same command resumes it. Without matplotlib the run logs one
 warning and goes on without the plot. Not ported: the stall detector
 (ROADMAP queue 1, serving operations).
+
+``--run_type multi_chip`` (``--shard_mode dp|fsdp|zero1``) trains with one
+process per device, as the reference's ``mp.spawn`` did and as the JAX
+mesh spans every local device: under torchrun's environment (``RANK``,
+``WORLD_SIZE``, ...) the process joins that group; otherwise one process
+is started per visible card (none extra with one card, or on the CPU,
+where the run is one rank). The group forms first (NCCL on ``cuda``, gloo
+on ``cpu``; ``parallel.initialize_distributed``), each rank takes
+``cuda:<local rank>``, rank 0 makes the output directory before a
+barrier, the loaders hand each rank its rows, and only rank 0 logs,
+samples and draws ``losses.pdf``; checkpoints and exports are collective.
+A caller that already formed a group (tests, chip_smoke) keeps it.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import sys
 from typing import List, Optional
 
 import torch
@@ -41,10 +54,12 @@ def run_train(args):
     from building_llm_from_scratch_tpu_torch.data.instruct import InstructLoader
     from building_llm_from_scratch_tpu_torch.data.pretrain import PretrainLoader
     from building_llm_from_scratch_tpu_torch.device import resolve_device
+    from building_llm_from_scratch_tpu_torch.parallel import collectives
+    from building_llm_from_scratch_tpu_torch.parallel.mesh import rank_device
     from building_llm_from_scratch_tpu_torch.training.resilience import (
         GracefulStopper,
         LossWatchdog,
-        resolve_resume,
+        resolve_resume_agreed,
     )
     from building_llm_from_scratch_tpu_torch.training.trainer import Trainer
     from building_llm_from_scratch_tpu_torch.utils.io import (
@@ -53,6 +68,8 @@ def run_train(args):
     from building_llm_from_scratch_tpu_torch.utils.seeding import set_seed
 
     device = resolve_device(args.device)
+    if args.run_type == "multi_chip":
+        device = rank_device(device)
     set_seed(args.seed, device)
     comps = build_components(args, device)
     cfg = comps.cfg
@@ -64,7 +81,8 @@ def run_train(args):
     logger.info("Total training files detected: %d", len(files))
     loader_kwargs = dict(batch_size=args.batch_size,
                          max_length=cfg.context_length, train_ratio=0.9,
-                         seed=args.seed)
+                         seed=args.seed, process_index=collectives.rank(),
+                         process_count=collectives.world())
     if args.finetune:
         # the pad id is the config's eos, as in the JAX package
         loader = InstructLoader(comps.tokenizer, pad_token_id=cfg.eos_id,
@@ -73,12 +91,14 @@ def run_train(args):
         loader = PretrainLoader(comps.tokenizer, stride=cfg.context_length,
                                 token_cache_dir=args.tokenizer_cache_dir,
                                 **loader_kwargs)
-    os.makedirs(args.output_dir, exist_ok=True)
+    if collectives.is_coordinator():
+        os.makedirs(args.output_dir, exist_ok=True)
+    collectives.sync_global_devices("output_dir")
     # a fleet checkpoint in the same output dir shares the model_pg_ prefix
     # but is not a trainer state: auto-discovery skips it
-    resume_from = resolve_resume(args.resume, args.resume_from,
-                                 args.output_dir,
-                                 predicate=lambda meta: not meta.get("fleet"))
+    resume_from = resolve_resume_agreed(
+        args.resume, args.resume_from, args.output_dir,
+        predicate=lambda meta: not meta.get("fleet"))
     watchdog = (LossWatchdog(spike_factor=args.loss_spike_factor,
                              window=args.watchdog_window)
                 if args.watchdog == "on" and not (
@@ -98,7 +118,7 @@ def run_train(args):
                       resume_from=resume_from, keep_ckpts=args.keep_ckpts,
                       watchdog=watchdog, stopper=stopper, policy=comps.policy,
                       grad_accum=args.grad_accum, prefetch=args.prefetch,
-                      async_ckpt=args.async_ckpt == "on")
+                      async_ckpt=args.async_ckpt == "on", plan=comps.plan)
     with stopper:
         if args.finetune:
             trainer.finetune_model(files, n_epochs=args.n_epochs)
@@ -109,7 +129,7 @@ def run_train(args):
                        "written. Relaunch the same command to resume "
                        "(--resume auto).", trainer.global_step)
         return trainer
-    if trainer.train_losses:
+    if trainer.train_losses and collectives.is_coordinator():
         plot_run_losses(trainer, args.n_epochs, args.output_dir)
     logger.info("Training complete. Final model saved.")
     if device.type == "cuda":
@@ -139,9 +159,80 @@ def plot_run_losses(trainer, n_epochs: int, output_dir: str) -> Optional[str]:
         return None
 
 
+def _configure_logging() -> None:
+    """INFO on rank 0, warnings only on the other ranks."""
+    from building_llm_from_scratch_tpu_torch.parallel import collectives
+
+    if not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO,
+                            format="%(asctime)s %(name)s %(message)s")
+    if not collectives.is_coordinator():
+        logging.getLogger().setLevel(logging.WARNING)
+
+
+def _spawned_rank(local_rank: int, argv: List[str], world: int,
+                  init_method: str) -> None:
+    """One process of a run that ``run_multi_chip`` started: join the
+    group as ``local_rank`` on ``cuda:<local_rank>`` and train."""
+    from building_llm_from_scratch_tpu_torch.parallel import mesh
+
+    os.environ["LOCAL_RANK"] = str(local_rank)
+    args = get_args(argv)
+    mesh.initialize_distributed(init_method=init_method, rank=local_rank,
+                                world_size=world, device=args.device)
+    try:
+        _configure_logging()
+        run_train(args)
+    finally:
+        mesh.shutdown_distributed()
+
+
+def run_multi_chip(args, argv: Optional[List[str]]):
+    """``--run_type multi_chip``: train in the caller's group, in
+    torchrun's, or in one started here (module docstring). Returns the
+    Trainer of this process's rank, or None when it started one process
+    per card (their trainers live in those processes)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from building_llm_from_scratch_tpu_torch.parallel import mesh
+
+    if dist.is_initialized():
+        _configure_logging()
+        return run_train(args)
+    n = 1
+    if "WORLD_SIZE" not in os.environ and args.device == "cuda":
+        n = torch.cuda.device_count()
+    init_dir = tempfile.mkdtemp(prefix="bllm-dist-")
+    init_method = f"file://{os.path.join(init_dir, 'rendezvous')}"
+    try:
+        if n > 1:
+            import torch.multiprocessing as mp
+
+            argv = list(argv) if argv is not None else sys.argv[1:]
+            mp.spawn(_spawned_rank, args=(argv, n, init_method), nprocs=n)
+            return None
+        if "WORLD_SIZE" in os.environ:
+            mesh.initialize_distributed(device=args.device)
+        else:
+            mesh.initialize_distributed(init_method=init_method, rank=0,
+                                        world_size=1, device=args.device)
+        try:
+            _configure_logging()
+            return run_train(args)
+        finally:
+            mesh.shutdown_distributed()
+    finally:
+        import shutil
+
+        shutil.rmtree(init_dir, ignore_errors=True)
+
+
 def run(argv: Optional[List[str]] = None):
-    """Parse the flags and run: ``--mode train`` returns the Trainer,
-    ``--mode serve`` the shut-down engine."""
+    """Parse the flags and run: ``--mode train`` returns the Trainer (None
+    from a launcher that started one process per card), ``--mode serve``
+    the shut-down engine."""
     args = get_args(argv)
     if args.mode == "serve":
         from building_llm_from_scratch_tpu_torch.serving.frontend import (
@@ -149,9 +240,9 @@ def run(argv: Optional[List[str]] = None):
         )
 
         return run_serve(args)
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO,
-                            format="%(asctime)s %(name)s %(message)s")
+    if args.run_type == "multi_chip":
+        return run_multi_chip(args, argv)
+    _configure_logging()
     return run_train(args)
 
 

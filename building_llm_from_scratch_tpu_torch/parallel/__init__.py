@@ -1,0 +1,39 @@
+"""Parallelism: the process group and mesh, the sharding rule table
+(dp / fsdp / zero1) and the explicit collectives (port of the JAX
+package's ``parallel/``; tensor, sequence and pipeline parallelism are not
+ported)."""
+
+from building_llm_from_scratch_tpu_torch.parallel.collectives import (
+    all_gather_into,
+    all_reduce,
+    broadcast_object,
+    counters,
+    gather_full,
+    is_coordinator,
+    reduce_scatter_into,
+    reset_counters,
+    sync_global_devices,
+)
+from building_llm_from_scratch_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    SEQ_AXIS,
+    Mesh,
+    initialize_distributed,
+    make_mesh,
+    shutdown_distributed,
+)
+from building_llm_from_scratch_tpu_torch.parallel.sharding import (
+    SHARD_MODES,
+    MeshPlan,
+    build_mesh_plan,
+    spec_axis,
+)
+
+__all__ = [
+    "DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "Mesh", "initialize_distributed",
+    "make_mesh", "shutdown_distributed", "SHARD_MODES", "MeshPlan",
+    "build_mesh_plan", "spec_axis", "all_gather_into", "all_reduce",
+    "broadcast_object", "counters", "gather_full", "is_coordinator",
+    "reduce_scatter_into", "reset_counters", "sync_global_devices",
+]

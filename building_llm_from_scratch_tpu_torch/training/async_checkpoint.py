@@ -1,5 +1,5 @@
 """Checkpoint writes off the step loop (the port's copy of the JAX
-package's ``training/async_checkpoint.py``, one process).
+package's ``training/async_checkpoint.py``).
 
 A synchronous save holds the step loop for the whole write: the shard
 files, their sha256 and the two-rename commit. ``AsyncCheckpointer``
@@ -26,6 +26,10 @@ Contracts:
   - ``on_commit(info)`` runs on the worker after a commit succeeds (never
     on failure): retention pruning, which must count only durable
     checkpoints.
+  - **Several ranks save synchronously.** A multi-rank save is a
+    collective (barriers around the commit), and collectives belong to
+    the main thread: with more than one rank ``save()`` writes in place
+    (``checkpoint.save_checkpoint``) and runs ``on_commit`` itself.
 
 ``snapshot_s`` (what the step loop paid), ``write_s`` (the write that ran
 beside training) and ``overlap_s`` (from the snapshot's return to the
@@ -40,6 +44,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, Optional
 
+from building_llm_from_scratch_tpu_torch.parallel import collectives as coll
 from building_llm_from_scratch_tpu_torch.training import checkpoint as ckpt
 
 logger = logging.getLogger(__name__)
@@ -62,13 +67,24 @@ class AsyncCheckpointer:
 
     def save(self, ckpt_dir: str, tree: Dict[str, Any],
              extra_metadata: Optional[dict] = None,
-             on_commit: Optional[Callable[[dict], None]] = None) -> float:
+             on_commit: Optional[Callable[[dict], None]] = None,
+             layout: Optional[Dict[str, tuple]] = None) -> float:
         """Queue one checkpoint write of ``tree`` (``checkpoint_tree``'s
         layout). Blocks only for the previous save's commit and for the
         snapshot; returns the snapshot's seconds. ``on_commit`` gets the
         write's info (``path``, ``bytes``, ``leaves``, ``seconds``, and
-        ``snapshot_s``, ``write_s``, ``overlap_s``)."""
+        ``snapshot_s``, ``write_s``, ``overlap_s``). With more than one
+        rank the save is synchronous (module docstring; ``layout``:
+        ``train_step.checkpoint_layout``) and returns its seconds."""
         self.wait()
+        if coll.world() > 1:
+            info = ckpt.save_checkpoint(ckpt_dir, tree, extra_metadata, layout)
+            info.update(snapshot_s=info["seconds"], write_s=info["seconds"],
+                        overlap_s=0.0)
+            self.saves_committed += 1
+            if on_commit is not None:
+                on_commit(info)
+            return info["seconds"]
         t0 = time.perf_counter()
         snapshot = ckpt.snapshot_for_save(tree, extra_metadata)
         snapshot_s = time.perf_counter() - t0

@@ -23,6 +23,16 @@ into ``<dir>.tmp`` and commits by renames (the previous checkpoint to
 manifest without its shards; a save cut between the two renames leaves
 two complete neighbours, which ``load_checkpoint`` falls back to.
 
+Sharded states (``parallel.MeshPlan``, more than one rank): the tree holds
+each rank's slices and ``layout`` maps their paths to (global shape,
+sharded dimension). Every rank writes the shards it owns, as the JAX
+processes do: shard ``k`` of a sharded leaf (rank ``k``'s slice, so the
+manifest's indices are the JAX save's) and, from rank 0, every replicated
+leaf. After a barrier rank 0 hashes the other ranks' files, writes the
+manifest and commits; a second barrier holds every rank until the commit
+is visible. A restore reads each rank's slice from whatever shards cover
+it, so a checkpoint of one world size restores onto another.
+
 A save is two halves (the JAX ``snapshot_for_save`` / ``write_snapshot``):
 the snapshot copies every leaf to host memory (device leaves into pinned
 buffers, on the current stream, so the copies are ordered before any
@@ -51,6 +61,8 @@ from building_llm_from_scratch_tpu_torch.models.transformer import (
     Transformer,
     param_shapes,
 )
+from building_llm_from_scratch_tpu_torch.parallel import collectives as coll
+from building_llm_from_scratch_tpu_torch.parallel.sharding import shard_bounds
 
 logger = logging.getLogger(__name__)
 
@@ -74,17 +86,19 @@ def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:
 def numpy_to_torch(arr: np.ndarray, dtype_name: str | None = None) -> torch.Tensor:
     """A numpy leaf as a CPU tensor, bit for bit. bf16 arrays (ml_dtypes, or
     the raw 2-byte records np.load gives back) are reinterpreted through
-    int16, since ``torch.from_numpy`` has no bf16."""
+    int16, since torch has no numpy bf16. The tensor owns a copy of the
+    data (``torch.tensor``), so its storage can be freed and grown again
+    (``train_step.release_params``)."""
     arr = np.asarray(arr)
     name = dtype_name or arr.dtype.name
     if name == "bfloat16":
         if arr.dtype.itemsize != 2:
             raise TypeError(f"bfloat16 leaf stored with itemsize {arr.dtype.itemsize}")
         bits = np.ascontiguousarray(arr).view(np.int16)
-        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+        return torch.tensor(bits).view(torch.bfloat16)
     if arr.dtype.kind == "V":
         arr = arr.view(np.dtype(name))
-    return torch.from_numpy(np.ascontiguousarray(arr).copy())
+    return torch.tensor(np.ascontiguousarray(arr))
 
 
 def torch_to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -175,7 +189,7 @@ def lora_from_jax(tree_or_flat: Dict[str, Any], cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
-# train-state checkpoints (the JAX "sharded-v1" format, one process)
+# train-state checkpoints (the JAX "sharded-v1" format)
 # ---------------------------------------------------------------------------
 
 def _dtype_name(leaf) -> str:
@@ -288,6 +302,83 @@ def write_snapshot(ckpt_dir: str, snapshot: dict) -> dict:
                 os.path.join(tmp_dir, sh["file"]), _host_leaf(arrays[sh["file"]]))
     with open(os.path.join(tmp_dir, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
+    _commit(ckpt_dir, tmp_dir)
+    return dict(path=ckpt_dir, leaves=len(manifest["leaves"]),
+                bytes=sum(sh["bytes"] for leaf in manifest["leaves"]
+                          for sh in leaf["shards"]),
+                seconds=time.perf_counter() - t0)
+
+
+def save_checkpoint(ckpt_dir: str, tree: Dict[str, Any],
+                    extra_metadata: Optional[dict] = None,
+                    layout: Optional[Dict[str, tuple]] = None) -> dict:
+    """Write ``tree`` (flat JAX path -> tensor or numpy leaf, as
+    ``train_step.checkpoint_tree`` builds it) as a committed ``sharded-v1``
+    checkpoint at ``ckpt_dir``: the snapshot, then the write. Returns what
+    was written: ``path``, ``bytes``, ``leaves`` and ``seconds`` (both
+    halves). With more than one rank every rank calls it (``layout``:
+    ``train_step.checkpoint_layout``; module docstring) and ``bytes`` is
+    the whole checkpoint's on rank 0, the rank's own elsewhere."""
+    t0 = time.perf_counter()
+    if coll.world() > 1:
+        info = _save_ranks(ckpt_dir, tree, extra_metadata, layout or {})
+    else:
+        info = write_snapshot(ckpt_dir, snapshot_for_save(tree, extra_metadata))
+    info["seconds"] = time.perf_counter() - t0
+    return info
+
+
+def _save_ranks(ckpt_dir: str, tree: Dict[str, Any],
+                extra_metadata: Optional[dict], layout: Dict[str, tuple]) -> dict:
+    """The multi-rank save (module docstring): owned shards from every
+    rank, then rank 0's hashes, manifest and commit, between barriers."""
+    rank, world = coll.rank(), coll.world()
+    ckpt_dir = ckpt_dir.rstrip("/")
+    tmp_dir = ckpt_dir + ".tmp"
+    if rank == 0:
+        if os.path.isdir(tmp_dir):
+            shutil.rmtree(tmp_dir)
+        os.makedirs(tmp_dir)
+    coll.sync_global_devices("ckpt_stage")
+    manifest = {"format": _SHARDED_FORMAT, "leaves": [],
+                "metadata": extra_metadata or {}}
+    written: Dict[str, tuple] = {}
+    for i, path in enumerate(_tree_order(tree)):
+        leaf = tree[path]
+        shape = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else np.shape(leaf)
+        gshape, axis = layout.get(path, (shape, None))
+        shards = [{"file": f"leaf_{i:05d}.shard_{k:03d}.npy", "index": b}
+                  for k, b in enumerate(shard_bounds(gshape, axis, world))]
+        mine = rank if axis is not None else (0 if rank == 0 else None)
+        if mine is not None:
+            fname = shards[mine]["file"]
+            written[fname] = _write_shard_hashed(os.path.join(tmp_dir, fname),
+                                                 _host_leaf(leaf))
+        manifest["leaves"].append({"index": i, "path": path,
+                                   "shape": list(gshape),
+                                   "dtype": _dtype_name(leaf), "shards": shards})
+    coll.sync_global_devices("ckpt_shards")
+    total = sum(b for b, _ in written.values())
+    if rank == 0:
+        for leaf in manifest["leaves"]:
+            for sh in leaf["shards"]:
+                if sh["file"] in written:
+                    sh["bytes"], sh["sha256"] = written[sh["file"]]
+                else:
+                    spath = os.path.join(tmp_dir, sh["file"])
+                    sh["bytes"], sh["sha256"] = os.path.getsize(spath), sha256_file(spath)
+        total = sum(sh["bytes"] for leaf in manifest["leaves"]
+                    for sh in leaf["shards"])
+        with open(os.path.join(tmp_dir, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+        _commit(ckpt_dir, tmp_dir)
+    coll.sync_global_devices("ckpt_commit")
+    return dict(path=ckpt_dir, leaves=len(manifest["leaves"]), bytes=total)
+
+
+def _commit(ckpt_dir: str, tmp_dir: str) -> None:
+    """The two-rename commit: the previous checkpoint to ``.old``, the
+    staging dir to ``ckpt_dir``, then ``.old`` removed."""
     old_dir = None
     if os.path.isdir(ckpt_dir):
         old_dir = ckpt_dir + ".old"
@@ -297,23 +388,6 @@ def write_snapshot(ckpt_dir: str, snapshot: dict) -> dict:
     os.rename(tmp_dir, ckpt_dir)
     if old_dir is not None:
         shutil.rmtree(old_dir)
-    return dict(path=ckpt_dir, leaves=len(manifest["leaves"]),
-                bytes=sum(sh["bytes"] for leaf in manifest["leaves"]
-                          for sh in leaf["shards"]),
-                seconds=time.perf_counter() - t0)
-
-
-def save_checkpoint(ckpt_dir: str, tree: Dict[str, Any],
-                    extra_metadata: Optional[dict] = None) -> dict:
-    """Write ``tree`` (flat JAX path -> tensor or numpy leaf, as
-    ``train_step.checkpoint_tree`` builds it) as a committed ``sharded-v1``
-    checkpoint at ``ckpt_dir``: the snapshot, then the write. Returns what
-    was written: ``path``, ``bytes``, ``leaves`` and ``seconds`` (both
-    halves)."""
-    t0 = time.perf_counter()
-    info = write_snapshot(ckpt_dir, snapshot_for_save(tree, extra_metadata))
-    info["seconds"] = time.perf_counter() - t0
-    return info
 
 
 def _resolve_ckpt_dir(ckpt_dir: str) -> str:
@@ -335,7 +409,10 @@ def _resolve_ckpt_dir(ckpt_dir: str) -> str:
 
 def _cleanup_stale_siblings(ckpt_dir: str) -> None:
     """Remove the ``.tmp``/``.old`` staging dirs a crashed save left; only
-    called once the tag itself resolved, so they are leftovers."""
+    called once the tag itself resolved, so they are leftovers. Rank 0
+    only."""
+    if not coll.is_coordinator():
+        return
     for suffix in (".tmp", ".old"):
         cand = ckpt_dir.rstrip("/") + suffix
         if os.path.isdir(cand):
@@ -386,7 +463,34 @@ def _read_leaf(ckpt_dir: str, meta: dict) -> np.ndarray:
     return out
 
 
-def load_checkpoint(ckpt_dir: str, template: Dict[str, Any]) -> Dict[str, Any]:
+def _read_leaf_slice(ckpt_dir: str, meta: dict, bounds: list) -> np.ndarray:
+    """The box ``bounds`` ([start, stop] per dimension) of a leaf, from the
+    shard files that overlap it (memory-mapped: only the covered bytes are
+    read)."""
+    for sh in meta["shards"]:
+        if [list(map(int, b)) for b in sh["index"]] == bounds:
+            return np.load(os.path.join(ckpt_dir, sh["file"]))
+    out, filled = None, 0
+    for sh in meta["shards"]:
+        lo = [max(a[0], b[0]) for a, b in zip(sh["index"], bounds)]
+        hi = [min(a[1], b[1]) for a, b in zip(sh["index"], bounds)]
+        if any(l >= h for l, h in zip(lo, hi)):
+            continue
+        src = np.load(os.path.join(ckpt_dir, sh["file"]), mmap_mode="r")
+        part = np.asarray(src[tuple(slice(l - s[0], h - s[0])
+                                    for l, h, s in zip(lo, hi, sh["index"]))])
+        if out is None:
+            out = np.empty([b[1] - b[0] for b in bounds], part.dtype)
+        out[tuple(slice(l - b[0], h - b[0]) for l, h, b in zip(lo, hi, bounds))] = part
+        filled += part.size
+    if out is None or filled < out.size:
+        raise ValueError(f"Checkpoint shards of leaf '{meta['path']}' do not "
+                         f"cover {bounds}: an incomplete checkpoint?")
+    return out
+
+
+def load_checkpoint(ckpt_dir: str, template: Dict[str, Any],
+                    layout: Optional[Dict[str, tuple]] = None) -> Dict[str, Any]:
     """Restore a ``sharded-v1`` checkpoint (of either package) into the
     structure of ``template`` (flat JAX path -> tensor or numpy leaf, as
     ``train_step.checkpoint_tree`` builds it). Paths, shapes and dtypes are
@@ -394,7 +498,10 @@ def load_checkpoint(ckpt_dir: str, template: Dict[str, Any]) -> Dict[str, Any]:
     storage, and every view of it, sees the checkpoint's values); a numpy
     leaf is returned as the array read. The ``rng`` leaf (a JAX PRNG key,
     whose shape depends on the key implementation) keeps the template's
-    value when the shapes differ. Returns {path: restored leaf}."""
+    value when the shapes differ. ``layout`` (a sharded state's
+    ``train_step.checkpoint_layout``): its leaves are this rank's slices of
+    the global shapes it names, read from whatever shards cover them.
+    Returns {path: restored leaf}."""
     resolved = _resolve_ckpt_dir(ckpt_dir)
     if resolved == ckpt_dir:
         _cleanup_stale_siblings(ckpt_dir)
@@ -412,7 +519,8 @@ def load_checkpoint(ckpt_dir: str, template: Dict[str, Any]) -> Dict[str, Any]:
             raise ValueError(f"Leaf path mismatch: template {path} vs "
                              f"checkpoint {meta['path']}")
         shape = tuple(tmpl.shape) if isinstance(tmpl, torch.Tensor) else np.shape(tmpl)
-        if tuple(meta["shape"]) != tuple(shape):
+        gshape, axis = (layout or {}).get(path, (shape, None))
+        if tuple(meta["shape"]) != tuple(gshape):
             if path == "rng":
                 logger.warning("Checkpoint rng leaf has shape %s, the template "
                                "%s; keeping the template's.",
@@ -421,14 +529,18 @@ def load_checkpoint(ckpt_dir: str, template: Dict[str, Any]) -> Dict[str, Any]:
                 continue
             raise ValueError(
                 f"Checkpoint leaf '{meta['path']}' has shape "
-                f"{tuple(meta['shape'])} but the model expects {tuple(shape)} "
+                f"{tuple(meta['shape'])} but the model expects {tuple(gshape)} "
                 "— wrong model size/config for this checkpoint.")
         if meta["dtype"] != _dtype_name(tmpl):
             raise ValueError(
                 f"Checkpoint leaf '{meta['path']}' has dtype "
                 f"{meta['dtype']} but the model expects {_dtype_name(tmpl)} "
                 "— was the checkpoint written with a different --data_type?")
-        arr = _read_leaf(ckpt_dir, meta)
+        if axis is None:
+            arr = _read_leaf(ckpt_dir, meta)
+        else:
+            bounds = shard_bounds(gshape, axis, coll.world())[coll.rank()]
+            arr = _read_leaf_slice(ckpt_dir, meta, bounds)
         if isinstance(tmpl, torch.Tensor):
             with torch.no_grad():
                 tmpl.copy_(numpy_to_torch(arr, meta["dtype"]))

@@ -117,13 +117,17 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, params: Flat, grads: Flat, state: AdamState,
-             grad_norm: torch.Tensor | None = None) -> dict:
+             grad_norm: torch.Tensor | None = None,
+             norm: Callable[[Flat], torch.Tensor] = None) -> dict:
         """Update ``params`` (and ``state``) in place from ``grads`` (which
         are clipped in place; ``grad_norm`` their global norm when the
         caller has it). Returns the pre-clip global ``grad_norm``, the
         global ``update_norm`` of the applied updates (0-d device tensors
         in the gradients' dtype, not synchronised) and the ``lr`` used (a
-        float)."""
+        float). A sharded step passes the rank's slices (every formula is
+        elementwise, so a slice's update is the whole leaf's, bit for bit),
+        the global ``grad_norm``, and ``norm``, the global norm of a tree
+        of slices (``global_norm`` by default)."""
         b1, b2 = self.b1, self.b2
         if grad_norm is None:
             grad_norm = global_norm(grads)
@@ -161,4 +165,5 @@ class AdamW:
             u.mul_(r(-lr))
             p.add_(u)
             updates[name] = u
-        return dict(grad_norm=grad_norm, update_norm=global_norm(updates), lr=lr)
+        return dict(grad_norm=grad_norm, update_norm=(norm or global_norm)(updates),
+                    lr=lr)

@@ -11,9 +11,12 @@ Master parameters stay in the model's dtype; the train step casts a
 compute copy of every leaf to ``compute_dtype`` for the forward and the
 backward, and the gradients reach the masters through the cast in the
 masters' dtype. ``reduce_dtype`` is the dtype of cross-device gradient
-reductions, which a single-device step does not make: ``bf16_hybrid``
-(fp32 compute, bf16 reductions) is an fp32 step on one device, as the
-JAX single-device step is. The fp16 policy carries dynamic loss scaling
+reductions: the sharded step (``train_step.make_sharded_train_step``)
+casts every gradient to it before the all-reduce or reduce-scatter when
+the world has more than one rank, so ``bf16_hybrid`` (fp32 compute, bf16
+reductions) moves bf16 gradients between ranks. One device reduces
+nothing, and there ``bf16_hybrid`` is an fp32 step, as the JAX
+single-device step is. The fp16 policy carries dynamic loss scaling
 (``training/train_step.py``).
 """
 

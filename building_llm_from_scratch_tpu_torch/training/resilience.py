@@ -1,24 +1,27 @@
 """Fault tolerance (the port's copy of the JAX package's
-``training/resilience.py``, one process): a preemption-safe stop,
-checkpoint integrity, resume discovery, retention and a loss watchdog.
+``training/resilience.py``): a preemption-safe stop, checkpoint integrity,
+resume discovery, retention and a loss watchdog.
 
   - ``GracefulStopper``: SIGTERM/SIGINT set a flag; the trainer polls it at
     step boundaries, writes an ``interrupted`` checkpoint and returns
     cleanly (the CLI exits 0). A second SIGINT raises ``KeyboardInterrupt``.
+    With several ranks the stop is agreed: every ``STOP_SYNC_EVERY`` polls
+    the flags are all-reduced (MAX), so a signal to one rank stops every
+    rank at the same step, at most ``STOP_SYNC_EVERY - 1`` steps late.
   - ``validate_checkpoint`` / ``find_latest_valid_checkpoint``: the
     manifest's per-shard ``bytes``/``sha256`` records are checked (manifests
     without them validate on the files' existence); auto-resume walks the
     checkpoints newest first and falls back, loudly, past corrupt ones.
-  - ``resolve_resume``: the ``--resume auto|off|<dir>`` policy.
+  - ``resolve_resume``: the ``--resume auto|off|<dir>`` policy;
+    ``resolve_resume_agreed`` lets rank 0 choose and broadcasts its
+    choice, so every rank restores the same checkpoint.
   - ``prune_checkpoints``: ``--keep_ckpts N`` retention; only step-tagged
     ``model_pg_<step>`` dirs are pruned, ``interrupted``/``final`` never.
   - ``LossWatchdog``: halts on a non-finite train loss or a spike above a
     multiple of the running median, with the step, the loss and the recent
     losses in the message.
 
-Not ported: the multi-process stop agreement and resume choice
-(``resolve_resume_agreed``) and the events of the metrics sink
-(observability, ROADMAP queue 1).
+Not ported: the events of the metrics sink (observability, ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -54,6 +57,10 @@ class TrainingDivergedError(RuntimeError):
 # graceful stop (SIGTERM/SIGINT -> stop at the next step boundary)
 # ---------------------------------------------------------------------------
 
+#: with several ranks, the stop flags are agreed every this many polls
+STOP_SYNC_EVERY = 8
+
+
 class GracefulStopper:
     """Context manager that turns SIGTERM/SIGINT into a polled flag. The
     first signal only records the request: the training loop finishes its
@@ -66,6 +73,7 @@ class GracefulStopper:
         self._previous = {}
         self._sigint_seen = False
         self.requested = False
+        self._calls = 0
 
     def _handle(self, signum, frame):
         # only a second Ctrl-C aborts: a SIGINT after a SIGTERM must not
@@ -97,7 +105,18 @@ class GracefulStopper:
         return False
 
     def should_stop(self) -> bool:
-        return self.requested
+        """The stop decision. One rank: the local flag. Several: every rank
+        calls this once per step; every ``STOP_SYNC_EVERY``-th call
+        all-reduces the flags (any rank's request stops all), the others
+        return False, so no rank ever stops without its peers."""
+        from building_llm_from_scratch_tpu_torch.parallel import collectives
+
+        if collectives.world() == 1:
+            return self.requested
+        self._calls += 1
+        if self._calls % STOP_SYNC_EVERY:
+            return False
+        return collectives.agree(self.requested, "max")
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +237,24 @@ def resolve_resume(resume: Optional[str], resume_from: Optional[str],
     if found is not None:
         logger.info("--resume auto: found checkpoint %s", found)
     return found
+
+
+def resolve_resume_agreed(resume: Optional[str], resume_from: Optional[str],
+                          output_dir: str, predicate=None) -> Optional[str]:
+    """``resolve_resume`` for several ranks: rank 0 alone runs discovery
+    and validation (one hash pass, not one per rank) and broadcasts its
+    choice, so every rank restores the same checkpoint even while another
+    is still landing. One rank: ``resolve_resume``."""
+    from building_llm_from_scratch_tpu_torch.parallel import collectives
+
+    if collectives.world() == 1:
+        return resolve_resume(resume, resume_from, output_dir,
+                              predicate=predicate)
+    choice = None
+    if collectives.is_coordinator():
+        choice = resolve_resume(resume, resume_from, output_dir,
+                                predicate=predicate)
+    return collectives.broadcast_object(choice)
 
 
 # ---------------------------------------------------------------------------

@@ -39,8 +39,19 @@ worker (``training/async_checkpoint.py``), pruning on commit; ``final``
 and ``interrupted`` wait until durable. The prefetchers and the writer
 close in a ``finally``.
 
-Not ported yet: sharded plans, profiling, the stall detector and the
-metrics sink (obs/).
+A mesh ``plan`` (``parallel.MeshPlan``: dp, fsdp or zero1, one process per
+device) places the state (``init_train_state(plan=)``) and takes the
+sharded step (``make_sharded_train_step``); the loader hands each rank its
+rows of the global batch, so ``tokens_seen`` counts the rank's share, as
+in the JAX trainer, while the cursor (a global batch index) is the same on
+every rank. Evaluation losses are the global batches' (all-reduced sums).
+Samples, the final export and the adapter export gather the whole masters
+on every rank (a collective) before rank 0 alone generates or writes;
+checkpoints are written shard by shard by their owners (rank 0 commits
+and prunes), and with several ranks saves are synchronous.
+
+Not ported yet: profiling, the stall detector and the metrics sink
+(obs/).
 """
 
 from __future__ import annotations
@@ -71,6 +82,9 @@ from building_llm_from_scratch_tpu_torch.models.lora import (
     save_adapter,
 )
 from building_llm_from_scratch_tpu_torch.models.transformer import Transformer
+from building_llm_from_scratch_tpu_torch.parallel.collectives import (
+    is_coordinator,
+)
 from building_llm_from_scratch_tpu_torch.training.async_checkpoint import (
     AsyncCheckpointer,
 )
@@ -88,9 +102,12 @@ from building_llm_from_scratch_tpu_torch.training.resilience import (
     prune_checkpoints,
 )
 from building_llm_from_scratch_tpu_torch.training.train_step import (
+    checkpoint_layout,
     checkpoint_tree,
+    gather_params,
     init_train_state,
     make_eval_step,
+    make_sharded_train_step,
     make_train_step,
     restore_train_state,
 )
@@ -112,8 +129,8 @@ class Trainer:
     ``lora_params`` (an adapter tree, with ``lora_alpha`` and
     ``lora_rank``) the adapter is trained and the model stays frozen.
     ``resume_from`` names a train-state checkpoint to continue from;
-    ``policy``, ``grad_accum``, ``prefetch`` and ``async_ckpt`` are the
-    module docstring's."""
+    ``policy``, ``grad_accum``, ``prefetch``, ``async_ckpt`` and ``plan``
+    are the module docstring's."""
 
     def __init__(self, cfg: ModelConfig, model: Transformer, tokenizer, loader,
                  *, output_dir: str = "model_checkpoints",
@@ -127,7 +144,7 @@ class Trainer:
                  resume_from: Optional[str] = None, keep_ckpts: int = 0,
                  watchdog=None, stopper=None, policy=None,
                  grad_accum: int = 1, prefetch: int = 0,
-                 async_ckpt: bool = False):
+                 async_ckpt: bool = False, plan=None):
         if (lora_params is None) != (lora_rank is None):
             raise ValueError(
                 "lora_params and lora_rank must be passed together "
@@ -157,6 +174,7 @@ class Trainer:
         self.policy = policy
         self.grad_accum = grad_accum
         self.prefetch = prefetch
+        self.plan = plan
         self._stager = DeviceStager(model.device)
         self._async_ckpt = AsyncCheckpointer() if async_ckpt else None
         #: prefetch stalls over the run (the windows' are in window_logs)
@@ -181,8 +199,9 @@ class Trainer:
         self.track_tokens_seen: List[int] = []
         #: training tokens/s of each evaluation window (sample time left out)
         self.throughput_tokens_per_s: List[float] = []
-        #: sample texts, in order (the warm-up sample first)
+        #: sample texts, in order (the warm-up sample first; rank 0's)
         self.samples: List[str] = []
+        self._warmed_up = False
         #: per-step metrics as host floats (step, loss, grad_norm,
         #: update_norm, lr, tokens; loss_scale and skipped with loss
         #: scaling), fetched at the evaluation cadence
@@ -229,10 +248,10 @@ class Trainer:
         if self.use_lora:
             self.state = init_train_state(self.lora_params, self.optimizer,
                                           self.seed, frozen=self.model,
-                                          policy=self.policy)
+                                          policy=self.policy, plan=self.plan)
         else:
             self.state = init_train_state(self.model, self.optimizer, self.seed,
-                                          policy=self.policy)
+                                          policy=self.policy, plan=self.plan)
         if self.resume_from is not None:
             t0 = time.perf_counter()
             restore_train_state(self.state, self.resume_from)
@@ -252,9 +271,14 @@ class Trainer:
                         if self._resume_cursor else "")
         kw = dict(lora_alpha=self.lora_alpha, lora_rank=self.lora_rank,
                   policy=self.policy)
-        self.train_step = make_train_step(self.cfg, self.optimizer,
-                                          grad_accum=self.grad_accum, **kw)
-        self.eval_step = make_eval_step(self.cfg, **kw)
+        if self.plan is None:
+            self.train_step = make_train_step(self.cfg, self.optimizer,
+                                              grad_accum=self.grad_accum, **kw)
+        else:
+            self.train_step = make_sharded_train_step(
+                self.cfg, self.optimizer, self.plan,
+                grad_accum=self.grad_accum, **kw)
+        self.eval_step = make_eval_step(self.cfg, plan=self.plan, **kw)
 
     def _staged_item(self, arrays):
         """What a batch stream yields: (inputs, targets[, loss weights])
@@ -301,9 +325,17 @@ class Trainer:
         return (self.calc_loss_loader(train_batches, EVAL_ITERS),
                 self.calc_loss_loader(val_batches, EVAL_ITERS))
 
+    def _gather_masters(self) -> None:
+        """Under fsdp, the whole masters gathered into the model (and the
+        adapter) on every rank: a collective that every rank runs before
+        rank 0 samples or writes. A no-op otherwise."""
+        if self.state is not None:
+            gather_params(self.state, exact=True)
+
     def _full_params(self) -> Dict[str, torch.Tensor]:
         """The model's flat parameters, with the adapter merged in a LoRA
         run."""
+        self._gather_masters()
         params = self.model.flat_params()
         if self.use_lora:
             with torch.no_grad():
@@ -312,7 +344,13 @@ class Trainer:
         return params
 
     def generate_and_print_sample(self, start_context: str,
-                                  max_new_tokens: int = 50) -> str:
+                                  max_new_tokens: int = 50) -> Optional[str]:
+        """A greedy sample from ``start_context``, logged and kept in
+        ``samples``; under a plan every rank gathers, rank 0 alone
+        generates (the others return None)."""
+        self._gather_masters()
+        if not is_coordinator():
+            return None
         ids = text_to_token_ids(start_context, self.tokenizer)
         ids = ids[:, -self.cfg.context_length:]
         # with LoRA, merge-free: the adapter rides every projection
@@ -366,12 +404,13 @@ class Trainer:
                     "schedule_horizon": self._schedule_horizon}
         if cursor is not None:
             metadata["cursor"] = cursor
-        prune = prune_after and self.keep_ckpts > 0
+        # rank 0 prunes, after the save's commit barrier
+        prune = prune_after and self.keep_ckpts > 0 and is_coordinator()
         record = dict(tag=tag, step=self.global_step)
         self.checkpoint_saves.append(record)
-        tree = checkpoint_tree(self.state)
+        tree, layout = checkpoint_tree(self.state), checkpoint_layout(self.state)
         if self._async_ckpt is None:
-            record.update(save_checkpoint(path, tree, metadata))
+            record.update(save_checkpoint(path, tree, metadata, layout))
             logger.info("Saved checkpoint %s (%d bytes in %.2f s)", path,
                         record["bytes"], record["seconds"])
             if prune:
@@ -384,7 +423,8 @@ class Trainer:
                 prune_checkpoints(self.output_dir, keep=self.keep_ckpts)
 
         record["snapshot_s"] = self._async_ckpt.save(path, tree, metadata,
-                                                     on_commit=on_commit)
+                                                     on_commit=on_commit,
+                                                     layout=layout)
         if tag in ("final", "interrupted"):
             self._async_ckpt.wait()
         return path
@@ -423,7 +463,9 @@ class Trainer:
         """One pass over one file's batches with the cadence work;
         ``skip_batches`` starts a resumed run at its cursor (the stream is
         cut there before a prefetcher wraps it)."""
-        if self.global_step == 0 and not self.samples:
+        if self.global_step == 0 and not self._warmed_up:
+            # the same decision on every rank (the sample gathers)
+            self._warmed_up = True
             self.generate_and_print_sample(start_context)
         stream, prefetcher = self._batch_stream(
             train_batches_fn(epoch, skip_batches), self.prefetch,
@@ -593,9 +635,13 @@ class Trainer:
 
     def export_final(self, filename: str = "model_pg_final.npz") -> str:
         """Final single-file parameter export (the JAX ``export_params``
-        format); a LoRA run writes the merged weights."""
-        return export_params(os.path.join(self.output_dir, filename),
-                             self._full_params())
+        format); a LoRA run writes the merged weights. Under a plan every
+        rank gathers and rank 0 writes."""
+        path = os.path.join(self.output_dir, filename)
+        params = self._full_params()
+        if is_coordinator():
+            export_params(path, params)
+        return path
 
     def export_adapter(self, path: str) -> str:
         """``--save_adapter``: the trained adapter as a standalone artifact
@@ -604,6 +650,9 @@ class Trainer:
         if not self.use_lora:
             raise ValueError("export_adapter needs a LoRA run "
                              "(no adapter tree to export)")
+        self._gather_masters()
+        if not is_coordinator():
+            return path
         save_adapter(path, self.lora_params, rank=self.lora_rank,
                      alpha=self.lora_alpha, cfg=self.cfg)
         logger.info("Exported LoRA adapter to %s (rank %d, alpha %s, %s "

@@ -234,11 +234,37 @@ exits non-zero):
      joins to it, B5 = layers x ticks; the hold rule on a split character;
      the tick with a tokenizer against the tick without (alternating
      windows). Launches exact; no train state or export is written.
+  10d. data parallelism, FSDP and ZeRO-1 (``parallel/``). The CLI with
+     ``--run_type multi_chip`` on the one card, where the launcher forms a
+     one-rank NCCL group: LLaMA-3.2-1B bf16 pretraining (B 4 x T 1024, 10
+     steps) under dp, fsdp and zero1, and its LoRA SFT (rank 16) under
+     fsdp, each against the single_chip run of the same flags: per-step
+     losses and evaluations bit for bit, launches exact, the group NCCL
+     with one rank and its collectives counted; step ms beside
+     single_chip's. Then two ranks on the one card over gloo (NCCL refuses
+     two ranks on one device), spawned and driven through the library API
+     (``initialize_distributed(backend="gloo")``, the plan, the sharded
+     step), each on cuda:0: GPT-2-124M fp32 (12 layers, B 4 x T 1024 a
+     rank, B4 on, dropout 0), 3 steps under dp, zero1, fsdp and a control
+     that steps each rank alone on its rows; rank 0 also one rank on the
+     global batch (B 8). Gates: zero1 bit-equal to dp; dp, fsdp and zero1
+     within 1e-5 of the one rank (losses; the parameters' relative L2, all
+     leaves as one vector) and every leaf within 1e-3 of its own norm; the
+     control outside the 1e-5; each rank's moment bytes half of dp's up to
+     the final norm's; the memory each rank holds between steps (its
+     allocated bytes after the steps) smaller under fsdp than under zero1,
+     and under zero1 than under dp (the peak is printed beside it); one
+     bf16_hybrid fsdp step reducing every gradient in
+     bf16; one step with dropout 0.1 on the same rows on both ranks whose
+     loss shares differ (the rank folded into the seed); B1-B4 launches
+     exact per rank. The step ms there are gloo's host staging, labelled
+     so.
   9. the bytes the script wrote to disk, the ``kernels`` line (one row
      per kernel and shape, each with the launches of the run at that
      shape; B6 by projection shape from phase 4c; B5's rows add 8w's and
-     9t's CLI launches, the training rows 8r's, 6m's, 6h's and 9t's), then
-     the card line and the result line.
+     9t's CLI launches, the training rows 8r's, 6m's, 6h's, 9t's and
+     10d's, per rank for the gloo ranks), then the card line and the
+     result line.
 
 It exits non-zero without printing a result when no CUDA device is present
 or when the package is not beside it.
@@ -1541,10 +1567,12 @@ def main_path(torch, xent_kernel: bool):
     kernels = train_kernels()
     events, supervised, starts = [], [], []
     make_train_step = ttr.make_train_step
+    make_sharded_train_step = ttr.make_sharded_train_step
 
-    def timed_make_train_step(*args, **kwargs):
-        step = make_train_step(*args, **kwargs)
+    def timed(make):
+        return lambda *args, **kwargs: timed_step_of(make(*args, **kwargs))
 
+    def timed_step_of(step):
         def timed_step(state, batch):
             starts.append(time.perf_counter())
             pair = (torch.cuda.Event(enable_timing=True),
@@ -1563,7 +1591,8 @@ def main_path(torch, xent_kernel: bool):
     os.environ["BLLM_XENT_PALLAS"] = "1" if xent_kernel else "0"
     for f in kernels.values():
         f.launches = 0                              # the main path's count
-    ttr.make_train_step = timed_make_train_step
+    ttr.make_train_step = timed(make_train_step)
+    ttr.make_sharded_train_step = timed(make_sharded_train_step)
     facts = {}
     t0 = time.perf_counter()
     try:
@@ -1571,6 +1600,7 @@ def main_path(torch, xent_kernel: bool):
         torch.cuda.synchronize()
     finally:
         ttr.make_train_step = make_train_step
+        ttr.make_sharded_train_step = make_sharded_train_step
         if env is None:
             os.environ.pop("BLLM_XENT_PALLAS")
         else:
@@ -4993,6 +5023,370 @@ def phase_text(torch, card: dict, workdir: str) -> dict:
     return dict(pretrain=pretrain, sft=sft, served=served)
 
 
+# ---------------------------------------------------------------------------
+# phase 10d: data-parallel, FSDP and ZeRO-1 training (parallel/)
+# ---------------------------------------------------------------------------
+
+#: the world-1 NCCL runs: LLaMA-3.2-1B bf16 at phase 6's shape, 10 steps
+SHARD_TRAIN = dict(model="llama3_2", size="1B", dtype="bf16", batch=4,
+                   context=1024, steps=10, export=False)
+SHARD_SFT = dict(model="llama3_2", size="1B", dtype="bf16", batch=4,
+                 context=1024, steps=10, rank=16, alpha=32.0)
+#: the two ranks over gloo on the one card: GPT-2-124M at its default dtype
+#: (fp32), 12 layers, B 4 x T 1024 per rank against one rank at B 8
+GLOO = dict(model="GPT2", size="124M", batch=4, context=1024, steps=3,
+            seed=5, timeout_s=420)
+
+
+@contextlib.contextmanager
+def group_watch():
+    """Around a ``--run_type multi_chip`` CLI run: the collectives counted
+    from 0, and the group's backend and world size as the first sharded
+    step saw them (the launcher destroys the group when the run ends)."""
+    import torch.distributed as dist
+
+    import building_llm_from_scratch_tpu_torch.training.trainer as ttr
+    from building_llm_from_scratch_tpu_torch.parallel import collectives
+
+    seen = {}
+    make = ttr.make_sharded_train_step
+
+    def watched(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def watched_step(state, batch):
+            if "backend" not in seen:
+                seen.update(backend=dist.get_backend(),
+                            world=dist.get_world_size(),
+                            mode=state.plan.shard_mode)
+            return step(state, batch)
+        return watched_step
+
+    collectives.reset_counters()
+    ttr.make_sharded_train_step = watched
+    try:
+        yield seen
+    finally:
+        ttr.make_sharded_train_step = make
+        seen["counters"] = collectives.counters()
+
+
+def shard_sft_run(torch, t: dict, workdir: str, flags: list) -> dict:
+    """LLaMA-3.2-1B LoRA SFT through the CLI on phase 6s's Alpaca records
+    sized for t["steps"] steps, ``flags`` added; the launches of phase 6's
+    rule, finite losses; nothing written (checkpoint and export
+    counted)."""
+    from building_llm_from_scratch_tpu_torch import main as tmain
+
+    data_dir = os.path.join(workdir, "data")
+    os.makedirs(data_dir, exist_ok=True)
+    data = os.path.join(data_dir, "alpaca.json")
+    write_alpaca(data, math.ceil(t["steps"] * t["batch"] / 0.9))
+    argv = ["--mode", "train", "--model", t["model"], "--num_params", t["size"],
+            *dtype_flags(t), "--byte_tokenizer", "--finetune", "--dataset", "alpaca",
+            "--use_lora", "--lora_rank", str(t["rank"]), "--lora_alpha", str(t["alpha"]),
+            "--seed", str(SFT_SEED), "--data_dir", data_dir,
+            "--output_dir", os.path.join(workdir, "out"), "--n_epochs", "1",
+            "--batch_size", str(t["batch"]), "--eval_freq", str(t["steps"]),
+            "--print_sample_iter", str(t["steps"]), *flags]
+    with main_path(torch, False) as run, final_checkpoint_unwritten(), \
+            export_unwritten(False):
+        trainer = tmain.run(argv)
+    cfg, loader = trainer.cfg, trainer.loader
+    with open(data) as f:
+        tr_ds, va_ds = loader.create_datasets(json.load(f))
+    eval_batches = len(trainer.train_losses) * (
+        min(5, loader.num_batches(tr_ds)) + min(5, loader.num_batches(va_ds)))
+    want = expected_launches(cfg, trainer.global_step, eval_batches, False, lora=True)
+    losses = [m["loss"] for m in trainer.step_metrics]
+    if trainer.global_step != t["steps"] or run["launches"] != want or \
+            not all(map(math.isfinite, losses)):
+        raise AssertionError(f"phase 10d SFT {flags}: {trainer.global_step} steps, "
+                             f"launches {run['launches']} != {want}, losses {losses}")
+    return dict(losses=losses, launches=run["launches"], expected=want,
+                run_step_ms=run["run_step_ms"], wall_s=run["wall_s"],
+                peak_gb=run["peak_gb"], evals=trainer.train_losses + trainer.val_losses)
+
+
+def phase_shard_world1(torch, card: dict, workdir: str) -> dict:
+    """10d, part 1: the CLI with ``--run_type multi_chip`` on the one card
+    (a one-rank NCCL group the launcher forms) under dp, fsdp and zero1
+    (LLaMA-3.2-1B bf16 pretraining) and fsdp (its LoRA SFT), each against
+    the ``single_chip`` run of the same flags: per-step losses and
+    evaluations bit for bit, the launches exact, the group NCCL with one
+    rank and its collectives counted; the step ms beside single_chip's
+    (the cost of the collectives at world 1)."""
+    import gc
+
+    runs = {}
+    base_trainer, base = train_run(torch, dict(SHARD_TRAIN),
+                                   os.path.join(workdir, "single"))
+    base_evals = base_trainer.train_losses + base_trainer.val_losses
+    del base_trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_ms = statistics.median(base["run_step_ms"][1:])
+    for mode in ("dp", "fsdp", "zero1"):
+        flags = ["--run_type", "multi_chip", "--shard_mode", mode]
+        with group_watch() as seen:
+            trainer, facts = train_run(torch, dict(SHARD_TRAIN, flags=flags),
+                                       os.path.join(workdir, mode))
+        evals = trainer.train_losses + trainer.val_losses
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        ms = statistics.median(facts["run_step_ms"][1:])
+        row = dict(mode=mode, backend=seen.get("backend"), world=seen.get("world"),
+                   counters=seen["counters"], losses_bit_equal=facts["losses"] == base["losses"],
+                   evals_bit_equal=evals == base_evals, launches=facts["launches"],
+                   expected=facts["expected"], step_ms=ms, single_chip_step_ms=base_ms,
+                   collective_cost_ms=ms - base_ms, peak_gb=facts["peak_gb"],
+                   losses=facts["losses"], single_chip_losses=base["losses"])
+        emit("shard_world1", card=card["card_line"], model="llama3_2-1B",
+             dtype="bf16", B=SHARD_TRAIN["batch"], T=SHARD_TRAIN["context"],
+             steps=SHARD_TRAIN["steps"], **row)
+        if (seen.get("backend") != "nccl" or seen.get("world") != 1
+                or not any(c["calls"] for c in seen["counters"].values())
+                or not row["losses_bit_equal"] or not row["evals_bit_equal"]):
+            raise AssertionError(f"phase 10d world-1 {mode}: {row}")
+        runs[mode] = row
+    sft_base = shard_sft_run(torch, SHARD_SFT, os.path.join(workdir, "sft-single"), [])
+    flags = ["--run_type", "multi_chip", "--shard_mode", "fsdp"]
+    with group_watch() as seen:
+        sft = shard_sft_run(torch, SHARD_SFT, os.path.join(workdir, "sft-fsdp"), flags)
+    ms, b_ms = (statistics.median(r["run_step_ms"][1:]) for r in (sft, sft_base))
+    row = dict(mode="fsdp", backend=seen.get("backend"), world=seen.get("world"),
+               counters=seen["counters"], losses_bit_equal=sft["losses"] == sft_base["losses"],
+               evals_bit_equal=sft["evals"] == sft_base["evals"],
+               launches=sft["launches"], expected=sft["expected"], step_ms=ms,
+               single_chip_step_ms=b_ms, collective_cost_ms=ms - b_ms,
+               losses=sft["losses"], single_chip_losses=sft_base["losses"])
+    emit("shard_world1_sft", card=card["card_line"], model="llama3_2-1B", dtype="bf16",
+         rank=SHARD_SFT["rank"], B=SHARD_SFT["batch"], T=SHARD_SFT["context"],
+         steps=SHARD_SFT["steps"], **row)
+    if (seen.get("backend") != "nccl" or seen.get("world") != 1
+            or not any(c["calls"] for c in seen["counters"].values())
+            or not row["losses_bit_equal"] or not row["evals_bit_equal"]):
+        raise AssertionError(f"phase 10d world-1 SFT fsdp: {row}")
+    runs["sft-fsdp"] = row
+    return runs
+
+
+def _rel_l2(torch, a: dict, b: dict) -> dict:
+    """The relative L2 distance of the parameters ``a`` from ``b`` (all
+    leaves as one vector), and the leaf whose own relative distance is the
+    largest (zero-initialised biases move by a few updates only, so theirs
+    magnifies the roundings that Adam's g / sqrt(v) turns into steps)."""
+    diff = sum(float((a[k].double() - v.double()).square().sum()) for k, v in b.items())
+    norm = sum(float(v.double().square().sum()) for v in b.values())
+    leaf = {k: float((a[k].double() - v.double()).norm() / v.double().norm().clamp_min(1e-30))
+            for k, v in b.items()}
+    worst = max(leaf, key=leaf.get)
+    return dict(rel_l2=(diff / norm) ** 0.5, worst_leaf=worst, worst_leaf_rel_l2=leaf[worst])
+
+
+def gloo_rank(rank: int, spec: dict) -> None:
+    """One of 10d's two ranks on the one card (``torch.multiprocessing``
+    spawn): a gloo group on ``cuda:0`` through the library API, GPT-2-124M
+    fp32 sharded steps per mode on the rank's rows, rank 0 also one rank on
+    the global batch; writes ``rank<r>.json`` into spec["out"]."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, spec["root"])
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+    from building_llm_from_scratch_tpu_torch.models.transformer import build_model
+    from building_llm_from_scratch_tpu_torch.parallel import collectives
+    from building_llm_from_scratch_tpu_torch.parallel import mesh
+    from building_llm_from_scratch_tpu_torch.parallel.sharding import build_mesh_plan
+    from building_llm_from_scratch_tpu_torch.training import optim as topt
+    from building_llm_from_scratch_tpu_torch.training import train_step as tts
+    from building_llm_from_scratch_tpu_torch.training.precision import get_policy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["BLLM_XENT_PALLAS"] = "1"
+    dev = torch.device(spec.get("device", "cuda:0"))
+    mesh.initialize_distributed(backend="gloo", init_method=spec["init"], rank=rank,
+                                world_size=2, device=dev, timeout_s=spec["timeout_s"])
+    kernels = train_kernels()
+    g = spec["gloo"]
+    cfg0 = dataclasses.replace(get_config(g["model"], g["size"]), drop_rate=0.0,
+                               **g.get("cut", {}))
+    T = cfg0.context_length
+    rng = np.random.default_rng(g["seed"])
+    x = torch.from_numpy(rng.integers(0, cfg0.vocab_size, (g["steps"], 2 * g["batch"], T + 1)))
+    mine = slice(rank, None, 2)
+
+    def run(mode, rows=mine, policy=None, cfg=cfg0, steps=g["steps"]):
+        # this rank's memory from here on: what the run allocates on top of
+        # what earlier runs left (their parameters, kept for the comparison)
+        cuda = dev.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        allocated = lambda: torch.cuda.memory_allocated(dev) if cuda else 0  # noqa: E731
+        base = allocated()
+        model = build_model(cfg, g["seed"], dev)
+        opt = topt.AdamW(topt.warmup_cosine_schedule(5e-4, 1e-5, 1e-6, 2, 10))
+        plan = build_mesh_plan(mode) if mode in ("dp", "fsdp", "zero1") else None
+        state = tts.init_train_state(model, opt, policy=get_policy(policy), plan=plan)
+        step = (tts.make_sharded_train_step(cfg, opt, plan, policy=get_policy(policy))
+                if plan else tts.make_train_step(cfg, opt, policy=get_policy(policy)))
+        for f in kernels.values():
+            f.launches = 0
+        collectives.reset_counters()
+        losses, wall = [], []
+        for i in range(steps):
+            batch = {"inputs": x[i, rows, :-1].to(dev), "targets": x[i, rows, 1:].to(dev)}
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(m["loss"].item())
+            wall.append((time.perf_counter() - t0) * 1e3)
+        # between steps (fsdp has freed its working copy and gradients)
+        # and at the peak of the steps
+        memory = dict(resident_gb=(allocated() - base) / 1e9,
+                      peak_gb=((torch.cuda.max_memory_allocated(dev) if cuda else 0)
+                               - base) / 1e9)
+        tts.gather_params(state)
+        out = dict(losses=losses, step_ms=wall, counters=collectives.counters(),
+                   **memory,
+                   leaves=len(state.full),
+                   launches={k: f.launches for k, f in kernels.items()},
+                   expected=expected_launches(cfg, steps, 0, True),
+                   moment_bytes=sum(t.numel() * t.element_size() for d in (
+                       state.opt_state.mu, state.opt_state.nu) for t in d.values()))
+        return out, {k: v.detach().clone() for k, v in state.full.items()}
+
+    res, params = {}, {}
+    for mode in ("dp", "zero1", "fsdp", "control"):
+        res[mode], params[mode] = run(mode)
+    if rank == 0:
+        res["reference"], params["reference"] = run("reference", rows=slice(None))
+        ref = params["reference"]
+        res["compare"] = dict(
+            zero1_bit_equal_dp=all(torch.equal(params["zero1"][k], v)
+                                   for k, v in params["dp"].items()),
+            **{f"{m}_params": _rel_l2(torch, params[m], ref)
+               for m in ("dp", "fsdp", "zero1", "control")},
+            **{f"{m}_loss_rel": max(abs(a / b - 1.0) for a, b in zip(
+                res[m]["losses"], res["reference"]["losses"]))
+               for m in ("dp", "fsdp", "zero1")})
+    del params
+    torch.cuda.empty_cache()
+    res["bf16_hybrid"], _ = run("fsdp", policy="bf16_hybrid", steps=1)
+    # one step with dropout 0.1 on the SAME rows on both ranks: each rank's
+    # own loss share (before the all-reduce) shows whether its masks differ
+    shares = []
+    loss = tts._Collectives.loss
+    tts._Collectives.loss = lambda self, v: shares.append(float(v.detach())) or loss(self, v)
+    try:
+        res["dropout"], _ = run("dp", rows=slice(0, g["batch"]), steps=1,
+                                cfg=dataclasses.replace(cfg0, drop_rate=0.1))
+    finally:
+        tts._Collectives.loss = loss
+    res["dropout"]["local_share"] = shares[0]
+    res["dropout"]["expected"] = expected_launches(
+        dataclasses.replace(cfg0, drop_rate=0.1), 1, 0, True)
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    mesh.shutdown_distributed()
+
+
+def phase_shard_gloo(torch, card: dict, workdir: str) -> dict:
+    """10d, part 2: two ranks on the one card over gloo (NCCL refuses two
+    ranks on one device), GPT-2-124M fp32 at full width (12 layers), B 4
+    per rank, 3 steps a mode, dropout 0, B4 on (module docstring gates)."""
+    import torch.multiprocessing as mp
+
+    out = os.path.join(workdir, "gloo")
+    os.makedirs(out, exist_ok=True)
+    spec = dict(root=os.path.dirname(os.path.abspath(__file__)), out=out,
+                init=f"file://{out}/rendezvous", gloo=GLOO,
+                timeout_s=GLOO["timeout_s"])
+    ctx = mp.start_processes(gloo_rank, args=(spec,), nprocs=2, join=False,
+                             start_method="spawn")
+    deadline = time.perf_counter() + GLOO["timeout_s"]
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise AssertionError("phase 10d: the two gloo ranks did not finish "
+                                     f"in {GLOO['timeout_s']} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    res = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    cmp_ = res[0]["compare"]
+    small = 2 * 2 * 768 * 4           # the final norm's scale and bias: mu, nu
+    fails = []
+    if not cmp_["zero1_bit_equal_dp"]:
+        fails.append("zero1 != dp")
+    for m in ("dp", "fsdp", "zero1"):
+        # all leaves as one vector within 1e-5, and every leaf within 1e-3
+        # of its own norm (zero-initialised biases have small norms)
+        if cmp_[f"{m}_params"]["rel_l2"] > 1e-5 or cmp_[f"{m}_loss_rel"] > 1e-5 \
+                or cmp_[f"{m}_params"]["worst_leaf_rel_l2"] > 1e-3:
+            fails.append(f"{m} vs one rank")
+    if not cmp_["control_params"]["rel_l2"] > 1e-5:
+        fails.append("the no-reduce control passed the bound")
+    for r, rr in enumerate(res):
+        for m in ("zero1", "fsdp"):
+            if abs(rr[m]["moment_bytes"] - rr["dp"]["moment_bytes"] / 2) > small:
+                fails.append(f"rank {r} {m} moments not halved")
+        if not rr["fsdp"]["resident_gb"] < rr["zero1"]["resident_gb"] \
+                < rr["dp"]["resident_gb"]:
+            fails.append(f"rank {r} held between steps: fsdp, zero1, dp not in "
+                         "increasing order")
+        for m in ("dp", "zero1", "fsdp", "control", "dropout"):
+            if rr[m]["launches"] != rr[m]["expected"]:
+                fails.append(f"rank {r} {m} launches {rr[m]['launches']}")
+        hyb = rr["bf16_hybrid"]["counters"]
+        n_bf16 = sum(hyb.get(f"{op}/bf16", {}).get("calls", 0)
+                     for op in ("all_reduce", "reduce_scatter"))
+        if n_bf16 != rr["bf16_hybrid"]["leaves"] or "reduce_scatter/fp32" in hyb:
+            fails.append(f"rank {r} bf16_hybrid reduces {hyb}")
+    masks_differ = res[0]["dropout"]["local_share"] != res[1]["dropout"]["local_share"]
+    if not masks_differ:
+        fails.append("both ranks drew the same dropout masks")
+    row = dict(card=card["card_line"], model="gpt2-124M", dtype="fp32", layers=12,
+               B_per_rank=GLOO["batch"], T=GLOO["context"], steps=GLOO["steps"],
+               compare=cmp_, masks_differ=masks_differ,
+               dropout_local_shares=[rr["dropout"]["local_share"] for rr in res],
+               moment_bytes={m: [rr[m]["moment_bytes"] for rr in res]
+                             for m in ("dp", "zero1", "fsdp")},
+               memory_gb={m: {k: [rr[m][k] for rr in res]
+                              for k in ("resident_gb", "peak_gb")}
+                          for m in ("dp", "zero1", "fsdp", "control")},
+               launches={m: res[0][m]["launches"] for m in
+                         ("dp", "zero1", "fsdp", "control", "dropout")},
+               counters={m: res[0][m]["counters"] for m in ("dp", "zero1", "fsdp",
+                                                           "bf16_hybrid")},
+               gloo_host_staging_step_ms={m: res[0][m]["step_ms"] for m in
+                                          ("dp", "zero1", "fsdp", "bf16_hybrid")},
+               one_rank_b8_step_ms=res[0]["reference"]["step_ms"],
+               no_reduce_step_ms=res[0]["control"]["step_ms"], fails=fails)
+    emit("shard_gloo", **row)
+    if fails:
+        raise AssertionError(f"phase 10d two gloo ranks: {fails}")
+    return dict(launches=row["launches"])
+
+
+def phase_shard(torch, card: dict, workdir: str) -> dict:
+    """Phase 10d: world 1 over NCCL through the CLI, then two ranks over
+    gloo on the one card."""
+    world1 = phase_shard_world1(torch, card, os.path.join(workdir, "world1"))
+    return dict(world1=world1, gloo=phase_shard_gloo(torch, card, workdir))
+
+
 def main() -> int:
     try:
         import torch
@@ -5059,6 +5453,9 @@ def main() -> int:
     # text in and out: BPE tokenizers, the token cache, text serving (9t)
     with tempfile.TemporaryDirectory(dir=here) as workdir:
         text = phase_text(torch, card, workdir)
+    # dp / fsdp / zero1: one NCCL rank through the CLI, two gloo ranks (10d)
+    with tempfile.TemporaryDirectory(dir=here) as workdir:
+        sharded = phase_shard(torch, card, workdir)
 
     def shape_of(r: dict) -> tuple:
         return (r["S"], r["Hq"], r["Hkv"], r["hd"], r["Tmax"], r["dtype"])
@@ -5155,6 +5552,13 @@ def main() -> int:
                                   for k in ("first", "relaunch")}
         if shape == "gpt2-124M-train-fp32":
             row["launches_9t"] = text["sft"]["launches"][counter]
+        # phase 10d: LLaMA's world-1 NCCL runs; GPT-2 fp32 per gloo rank
+        if shape == "llama3_2-1B-train":
+            row["launches_10d"] = {k: r["launches"][counter]
+                                   for k, r in sharded["world1"].items()}
+        if shape == "gpt2-124M-train-fp32":
+            row["launches_10d"] = {k: r[counter] for k, r in
+                                   sharded["gloo"]["launches"].items()}
 
     for r in attn_rows + drop_attn_rows:
         kname, where = replaces[r["kernel"]]
@@ -5198,6 +5602,8 @@ def main() -> int:
             kernels[-1]["launches_6m"] = {
                 "gpt2-fp32-accum2": mixed["gpt2-fp32-accum2"]["launches"]["xent_fwd"]}
             kernels[-1]["launches_9t"] = text["sft"]["launches"]["xent_fwd"]
+            kernels[-1]["launches_10d"] = {k: r["xent_fwd"] for k, r in
+                                           sharded["gloo"]["launches"].items()}
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its main path")

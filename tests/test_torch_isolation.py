@@ -41,6 +41,12 @@ def test_entry_points_import_no_jax():
         "import building_llm_from_scratch_tpu_torch.weights\n"
         "import building_llm_from_scratch_tpu_torch.build_components\n"
         "import building_llm_from_scratch_tpu_torch.data.pretrain\n"
+        "import building_llm_from_scratch_tpu_torch.parallel\n"
+        "import building_llm_from_scratch_tpu_torch.parallel.mesh\n"
+        "import building_llm_from_scratch_tpu_torch.parallel.sharding\n"
+        "import building_llm_from_scratch_tpu_torch.parallel.collectives\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_dist_worker\n"
         "import building_llm_from_scratch_tpu_torch.ops.fused_attention\n"
         "import building_llm_from_scratch_tpu_torch.ops._kernels\n"
         "import building_llm_from_scratch_tpu_torch.data.tokenizers as t\n"

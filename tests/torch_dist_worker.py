@@ -1,0 +1,296 @@
+"""One rank of the port's multi-rank CPU tests (``test_torch_distributed.py``).
+
+    python tests/torch_dist_worker.py SPEC.json RANK
+
+runs one rank of a gloo group (``file://`` rendezvous named in the spec),
+on the CPU or the spec's ``device`` (two ranks on one card: gloo stages
+through the host), and writes what it measured to ``<out>/rank<RANK>.pt``;
+``launch`` starts the ranks and collects their results. It
+imports torch and the port only, never JAX or the JAX package (the
+isolation test checks its modules). Scenarios:
+
+  ``steps``  the sharded train step under each (mode, policy) of the spec
+             on the rank's rows (``[rank::world]``) of the spec's global
+             batches, from the spec's initial weights (an export ``.npz``)
+             and optional LoRA adapter; per-step metrics, the collective
+             counters, the rank's moment bytes, what it holds between
+             steps and the whole final parameters. ``control``: each rank steps alone on its rows
+             with the single-device step (no gradient reduce). ``overflow``
+             poisons one rank's reduced gradient shard at one step;
+             ``contiguous_rows`` gives rank r the r-th contiguous block of
+             each global batch (a JAX mesh's rows) instead of the loader's
+             ``[rank::world]``.
+             ``save``/``load``: a checkpoint of the final state written,
+             or a state restored from one and dumped whole.
+  ``cli``    ``main.run`` under torchrun's environment (``WORLD_SIZE``,
+             ``RANK``, ``BLLM_INIT_METHOD``) for each argv of the spec,
+             each in a group of its own; ``sigterm`` sends SIGTERM to one
+             rank after a given step of one run.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+from building_llm_from_scratch_tpu_torch import configs as tcfgs  # noqa: E402
+from building_llm_from_scratch_tpu_torch.parallel import (  # noqa: E402
+    collectives as coll,
+)
+from building_llm_from_scratch_tpu_torch.parallel import mesh  # noqa: E402
+from building_llm_from_scratch_tpu_torch.parallel.sharding import (  # noqa: E402
+    build_mesh_plan,
+)
+from building_llm_from_scratch_tpu_torch.training import optim as topt  # noqa: E402
+from building_llm_from_scratch_tpu_torch.training import precision  # noqa: E402
+from building_llm_from_scratch_tpu_torch.training import train_step as tts  # noqa: E402
+from building_llm_from_scratch_tpu_torch.training.checkpoint import (  # noqa: E402
+    load_exported_params,
+    save_checkpoint,
+)
+
+torch.set_num_threads(1)
+
+
+def _cfg(d: dict) -> tcfgs.ModelConfig:
+    d = dict(d)
+    if d.get("rope_scaling") is not None:
+        d["rope_scaling"] = tcfgs.RopeScaling(**d["rope_scaling"])
+    return tcfgs.ModelConfig(**d)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy().copy()
+
+
+def _lora(spec: dict, device):
+    from building_llm_from_scratch_tpu_torch.models.lora import load_adapter
+
+    from building_llm_from_scratch_tpu_torch.models.lora import unflatten_lora
+    from building_llm_from_scratch_tpu_torch.models.lora import flatten_lora
+
+    lora, _ = load_adapter(spec["path"])
+    return unflatten_lora({k: v.to(device) for k, v in flatten_lora(lora).items()})
+
+
+def _state(spec: dict, cfg, mode, policy_name, rank: int, world: int):
+    """(plan or None, state, step fn, eval fn) of one run."""
+    policy = precision.get_policy(policy_name)
+    model = load_exported_params(spec["params"], cfg, spec.get("device", "cpu"))
+    opt = topt.AdamW(topt.warmup_cosine_schedule(*spec["sched"]))
+    lspec = spec.get("lora")
+    kw = dict(policy=policy)
+    plan = None if mode == "control" else build_mesh_plan(mode)
+    if lspec:
+        kw.update(lora_alpha=lspec["alpha"], lora_rank=lspec["rank"])
+        state = tts.init_train_state(_lora(lspec, model.device), opt,
+                                     seed=spec["seed"],
+                                     frozen=model, policy=policy, plan=plan)
+    else:
+        state = tts.init_train_state(model, opt, seed=spec["seed"],
+                                     policy=policy, plan=plan)
+    accum = spec.get("grad_accum", 1)
+    if plan is None:
+        step = tts.make_train_step(cfg, opt, grad_accum=accum, **kw)
+    else:
+        step = tts.make_sharded_train_step(cfg, opt, plan, grad_accum=accum, **kw)
+    return plan, state, step, tts.make_eval_step(cfg, plan=plan, **kw)
+
+
+def _whole(state) -> dict:
+    """The state's trainable leaves and moments, whole (gathered)."""
+    tts.gather_params(state, exact=True)
+    out = {f"trainable/{k}": _np(v) for k, v in state.full.items()}
+    for name, moments in (("mu", state.opt_state.mu), ("nu", state.opt_state.nu)):
+        for k, m in moments.items():
+            out[f"{name}/{k}"] = _np(coll.gather_full(m, state.opt_axes.get(k)))
+    if state.lora is not None:
+        out.update({f"frozen/{k}": _np(v) for k, v in state.model.stacked.items()})
+    return out
+
+
+def _held(state) -> dict:
+    """What the rank holds between steps: the sharded leaves, those of them
+    whose working copy and gradient buffer hold no memory, and the bytes of
+    every distinct storage of the state's tensors."""
+    tensors = [*state.full.values(), *state.grads.values(), *state.params.values(),
+               *state.opt_state.mu.values(), *state.opt_state.nu.values()]
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tensors}
+    sharded = sorted(k for k, a in state.param_axes.items() if a is not None)
+    freed = [k for k in sharded if state.full[k].untyped_storage().nbytes() == 0
+             and state.grads[k].untyped_storage().nbytes() == 0]
+    return dict(sharded=sharded, freed=freed,
+                resident_bytes=sum(n for p, n in storages.items() if p))
+
+
+def _batch(data, i: int, rows: slice, device) -> dict:
+    batch = {"inputs": torch.from_numpy(data["inputs"][i][rows]).long(),
+             "targets": torch.from_numpy(data["targets"][i][rows]).long()}
+    if "weights" in data:
+        batch["weights"] = torch.from_numpy(data["weights"][i][rows])
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def run_steps(spec: dict, rank: int, world: int) -> dict:
+    cfg = _cfg(spec["cfg"])
+    data = np.load(spec["batches"])
+    results = {}
+    for label, mode, policy_name, *opts in spec["runs"]:
+        opts = dict(spec, **(opts[0] if opts else {}))
+        coll.reset_counters()
+        plan, state, step, eval_step = _state(spec, cfg, mode, policy_name,
+                                              rank, world)
+        if spec.get("load"):
+            tts.restore_train_state(state, spec["load"])
+            results[label] = dict(whole=_whole(state), step=state.step,
+                                  count=state.opt_state.count)
+            continue
+        overflow = spec.get("overflow")
+        if overflow and plan is not None:
+            comm_reduce = tts._Collectives.reduce
+
+            def reduce(self, st, grads, _orig=comm_reduce):
+                out = _orig(self, st, grads)
+                if st.step == overflow["step"] and rank == overflow["rank"]:
+                    k = next(k for k, a in st.param_axes.items() if a is not None)
+                    out[k].view(-1)[0] = float("inf")
+                return out
+            tts._Collectives.reduce = reduce
+        dev = state.model.device
+        rows = slice(rank, None, world)
+        if opts.get("contiguous_rows"):
+            # the rows a 2-device JAX mesh gives each device: contiguous
+            n = data["inputs"].shape[1] // world
+            rows = slice(rank * n, (rank + 1) * n)
+        metrics = []
+        for i in range(spec["steps"]):
+            batch = _batch(data, i, rows, dev)
+            state, m = step(state, batch)
+            metrics.append({k: (float(v) if torch.is_tensor(v) else v)
+                            for k, v in m.items()})
+        if overflow and plan is not None:
+            tts._Collectives.reduce = comm_reduce
+        held = _held(state)
+        ev = None
+        if spec.get("eval"):
+            ev = float(eval_step(state, _batch(data, 0, rows, dev)))
+        moment_bytes = sum(t.numel() * t.element_size()
+                           for d in (state.opt_state.mu, state.opt_state.nu)
+                           for t in d.values())
+        if spec.get("save") and plan is not None:
+            save_checkpoint(os.path.join(spec["save"], label),
+                            tts.checkpoint_tree(state),
+                            {"global_step": state.step},
+                            tts.checkpoint_layout(state))
+        results[label] = dict(metrics=metrics, counters=coll.counters(),
+                              moment_bytes=moment_bytes, eval=ev, **held,
+                              whole=None if mode == "control" else _whole(state),
+                              rank_params={k: _np(v) for k, v in state.full.items()})
+    return results
+
+
+def run_cli(spec: dict, rank: int, world: int) -> dict:
+    from building_llm_from_scratch_tpu_torch import main as tmain
+    from building_llm_from_scratch_tpu_torch.training import trainer as ttr
+
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank))
+    if spec.get("deterministic"):
+        torch.use_deterministic_algorithms(True)
+    results = {}
+    for i, (label, argv) in enumerate(spec["runs"]):
+        os.environ[mesh.INIT_METHOD_ENV] = f"{spec['init']}-{i}"
+        kill = spec.get("sigterm")
+        orig = ttr.make_sharded_train_step
+        if kill and kill["run"] == label and kill["rank"] == rank:
+            def make(*a, _orig=orig, **kw):
+                step = _orig(*a, **kw)
+
+                def killing(state, batch):
+                    out = step(state, batch)
+                    if state.step == kill["after_step"]:
+                        os.kill(os.getpid(), signal.SIGTERM)
+                    return out
+                return killing
+            ttr.make_sharded_train_step = make
+        coll.reset_counters()
+        try:
+            tr = tmain.run(argv)
+        finally:
+            ttr.make_sharded_train_step = orig
+        results[label] = dict(
+            losses=[m["loss"] for m in tr.step_metrics],
+            steps=[m["step"] for m in tr.step_metrics],
+            train_losses=tr.train_losses, val_losses=tr.val_losses,
+            tokens_seen=tr.tokens_seen, global_step=tr.global_step,
+            preempted=tr.preempted, samples=tr.samples,
+            restored=tr.restored, counters=coll.counters(),
+            cursor=tr._cursor,
+            moment_bytes=sum(t.numel() * t.element_size()
+                             for d in (tr.state.opt_state.mu, tr.state.opt_state.nu)
+                             for t in d.values()))
+    return results
+
+
+def launch(spec: dict, world: int, out: str, timeout: float = 120) -> list:
+    """Run ``world`` processes of this worker on ``spec`` (written to
+    ``out``); their results by rank. A failed rank, or a group that
+    outlives ``timeout``, raises ``RuntimeError`` after every process is
+    killed."""
+    import subprocess
+
+    spec = dict(spec, world=world, out=out,
+                init=spec.get("init") or f"file://{out}/rendezvous")
+    path = os.path.join(out, "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), path,
+                               str(r)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise RuntimeError(f"the {world}-rank group did not finish in {timeout} s")
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"rank {r} failed:\n{log[-4000:]}")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def main() -> None:
+    with open(sys.argv[1]) as f:
+        spec = json.load(f)
+    rank, world = int(sys.argv[2]), spec["world"]
+    if spec["scenario"] == "cli":
+        out = run_cli(spec, rank, world)
+    else:
+        mesh.initialize_distributed(backend="gloo", init_method=spec["init"],
+                                    rank=rank, world_size=world,
+                                    device=spec.get("device", "cpu"),
+                                    timeout_s=120)
+        try:
+            out = run_steps(spec, rank, world)
+        finally:
+            mesh.shutdown_distributed()
+    torch.save(dict(out, modules=sorted(sys.modules)),
+               os.path.join(spec["out"], f"rank{rank}.pt"))
+
+
+if __name__ == "__main__":
+    main()
