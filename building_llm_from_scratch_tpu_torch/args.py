@@ -8,13 +8,15 @@ watchdog, the precision policies (``--mixed_precision``, ``--data_type
 fp16`` with loss scaling), gradient accumulation, activation
 checkpointing, batch prefetch and asynchronous checkpoint writes, and
 the tokenizers (``--tokenizer_path``, the on-disk token cache
-``--tokenizer_cache_dir``), and data-parallel, FSDP and ZeRO-1 training
-(``--run_type multi_chip --shard_mode dp|fsdp|zero1``).
+``--tokenizer_cache_dir``), and sharded training (``--run_type multi_chip
+--shard_mode dp|fsdp|zero1|tp|tp_fsdp``, ``--tp`` for tensor parallelism,
+``--sp`` for sequence parallelism with ring attention), with the JAX CLI's
+checks and messages.
 
-Flags of the JAX CLI that the port does not carry yet, and the shard modes
-tp, tp_fsdp and pp, are rejected by name (not ignored) with the ROADMAP item
-that brings them, so a command line written for the JAX package fails
-loudly here instead of silently doing something else.
+Flags of the JAX CLI that the port does not carry yet, and the shard mode
+pp, are rejected by name (not ignored) with the ROADMAP item that brings
+them, so a command line written for the JAX package fails loudly here
+instead of silently doing something else.
 """
 
 from __future__ import annotations
@@ -36,20 +38,18 @@ UNPORTED_FLAGS = (
     "--fleet_jobs", "--fleet_rows_per_job", "--fleet_capacity",
     "--fleet_export_dir", "--fleet_style",
     "--metrics_jsonl", "--log_every", "--compile_cache_dir",
-    "--stall_timeout", "--pp", "--pp_micro", "--tp", "--sp",
+    "--stall_timeout", "--pp", "--pp_micro",
     "--attn_impl",
     "--profile", "--profile_steps", "--warnings",
 )
 
-_TP_SP_PP = "queue 1 item 14c, tensor, sequence and pipeline parallelism"
+_PP = "queue 1 item 14c, pipeline parallelism"
 
 #: the ROADMAP queue item that brings an unported flag or shard mode
 QUEUE_ITEMS = {
     "--serve_kv_quant": "queue 1 item 5, int8 KV",
     "--serve_spec_k": "queue 1 item 8, speculative decoding",
-    "--tp": _TP_SP_PP, "--sp": _TP_SP_PP, "--pp": _TP_SP_PP,
-    "--pp_micro": _TP_SP_PP,
-    "tp": _TP_SP_PP, "tp_fsdp": _TP_SP_PP, "pp": _TP_SP_PP,
+    "--pp": _PP, "--pp_micro": _PP, "pp": _PP,
 }
 
 #: the JAX package's shard modes; the port runs ``parallel.SHARD_MODES``
@@ -81,8 +81,15 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=list(JAX_SHARD_MODES),
                    help="multi_chip strategy: dp (replicated, gradient "
                         "all-reduce), fsdp (parameters and optimizer state "
-                        "sharded) or zero1 (optimizer state sharded); tp, "
-                        "tp_fsdp and pp are not ported.")
+                        "sharded), zero1 (optimizer state sharded), tp "
+                        "(Megatron tensor parallelism over --tp ranks) or "
+                        "tp_fsdp (tp, then fsdp on the data axis); pp is "
+                        "not ported.")
+    p.add_argument("--tp", type=int, default=1,
+                   help="Tensor-parallel degree (model mesh axis).")
+    p.add_argument("--sp", type=int, default=1,
+                   help="Sequence-parallel degree (seq mesh axis; ring "
+                        "attention for long contexts).")
     p.add_argument("--model", type=str, default="GPT2",
                    choices=list(MODEL_PARAMS_MAPPING))
     p.add_argument("--num_params", type=str, default="124M")
@@ -321,7 +328,7 @@ _TRAIN_ONLY_DEFAULTS = (
     ("watchdog_window", 50), ("grad_accum", 1), ("prefetch", 2),
     ("async_ckpt", "off"), ("use_actv_ckpt", False), ("mixed_precision", None),
     ("tokenizer_cache_dir", None), ("run_type", "single_chip"),
-    ("shard_mode", "dp"),
+    ("shard_mode", "dp"), ("tp", 1), ("sp", 1),
 )
 
 #: the serve flags and their defaults (the stray-flag rule)
@@ -406,6 +413,31 @@ def _check_serve(args) -> None:
                 "chunk scatters land on page boundaries.")
 
 
+def _check_tp_sp(args) -> None:
+    """The JAX CLI's checks of ``--tp`` and ``--sp``, in its words."""
+    if args.tp < 1 or args.sp < 1:
+        raise ValueError("--tp and --sp must be >= 1.")
+    if args.tp > 1 and args.shard_mode not in ("tp", "tp_fsdp", "pp"):
+        raise ValueError(
+            "--tp > 1 requires --shard_mode tp, tp_fsdp or pp.")
+    if args.shard_mode in ("tp", "tp_fsdp") and args.tp < 2:
+        raise ValueError(
+            f"--shard_mode {args.shard_mode} requires --tp >= 2.")
+    if (args.mixed_precision == "bf16_hybrid"
+            and args.shard_mode in ("tp", "tp_fsdp")):
+        raise ValueError(
+            f"--mixed_precision bf16_hybrid is not supported "
+            f"with --shard_mode {args.shard_mode} (dp/fsdp/zero1 only): "
+            "tensor-parallel activation reductions run under GSPMD, which "
+            "would silently ignore the policy's reduce dtype.")
+    if args.sp > 1 and args.run_type != "multi_chip":
+        raise ValueError("--sp > 1 requires --run_type multi_chip.")
+    if args.shard_mode in ("tp", "tp_fsdp") and args.use_lora:
+        raise ValueError(
+            f"--use_lora does not compose with --shard_mode {args.shard_mode} "
+            "in the PyTorch port (the adapter multiplies the whole weights).")
+
+
 def _check_train(args) -> None:
     if not os.path.exists(args.data_dir):
         raise FileNotFoundError(
@@ -423,6 +455,7 @@ def _check_train(args) -> None:
     if args.run_type == "single_chip" and args.shard_mode != "dp":
         raise ValueError(
             f"--shard_mode {args.shard_mode} requires --run_type multi_chip.")
+    _check_tp_sp(args)
     if args.grad_accum < 1:
         raise ValueError("--grad_accum must be >= 1.")
     if args.grad_accum > 1:

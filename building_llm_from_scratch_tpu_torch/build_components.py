@@ -4,7 +4,8 @@ an ``.npz`` export, or pretrained weights from ``--weights_dir``),
 tokenizer, with ``--use_lora`` the adapter, the precision policy
 (``--mixed_precision``; ``--data_type fp16`` alone gets the fp16 policy, so
 it trains with loss scaling), and with ``--run_type multi_chip`` the mesh
-plan (``build_plan``: dp, fsdp or zero1 over the process group).
+plan (``build_plan``: dp, fsdp, zero1, tp or tp_fsdp over a (data, sp,
+tp) mesh of the process group).
 
 Every rank builds the same whole model from the same seed; the trainer
 then keeps the rank's slices as the plan says.
@@ -72,11 +73,12 @@ def build_config(args) -> ModelConfig:
 
 def build_plan(args) -> Optional[MeshPlan]:
     """Flags -> the mesh plan of ``--run_type multi_chip`` over the process
-    group (``parallel.initialize_distributed`` joined it first), or None
-    on a single chip (the JAX ``build_plan`` without pp)."""
+    group (``parallel.initialize_distributed`` joined it first): a (data,
+    ``--sp``, ``--tp``) mesh, or None on a single chip (the JAX
+    ``build_plan`` without pp)."""
     if args.run_type != "multi_chip":
         return None
-    return build_mesh_plan(args.shard_mode)
+    return build_mesh_plan(args.shard_mode, tp=args.tp, sp=args.sp)
 
 
 def build_params(args, cfg: ModelConfig, device: torch.device) -> Transformer:

@@ -184,7 +184,7 @@ attn_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tmQ,
         for (int nt = 0; nt < BQ / 8; ++nt) {
           bool keep[2][2] = {{true, true}, {true, true}};
           if (kDrop)
-            attn_keep_cols(keep, drop.seed_lo, drop.seed_hi, drop.threshold, b, h,
+            attn_keep_cols(keep, drop.seed_lo, drop.seed_hi, drop.threshold, b, h + static_cast<int>(drop.h0),
                            q0 + nt * 8 + 2 * t, kpos0, g & 1);
 #pragma unroll
           for (int e = 0; e < 2; ++e) {

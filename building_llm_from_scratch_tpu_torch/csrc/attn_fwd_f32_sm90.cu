@@ -191,7 +191,7 @@ attn_fwd_f32_kernel(const __grid_constant__ CUtensorMap tmQ,
       for (int nt = 0; nt < BN / 8; ++nt) {
         bool keep[2][2] = {{true, true}, {true, true}};
         if (kDrop)
-          attn_keep_rows(keep, drop.seed_lo, drop.seed_hi, drop.threshold, b, h, row0,
+          attn_keep_rows(keep, drop.seed_lo, drop.seed_hi, drop.threshold, b, h + static_cast<int>(drop.h0), row0,
                          j * BN + nt * 8 + 2 * t, g & 1);
 #pragma unroll
         for (int rr = 0; rr < 2; ++rr)

@@ -25,10 +25,13 @@ namespace bllm {
 namespace attn {
 
 // the dropout parameters of a launch: keep = Philox word >= threshold (no
-// mask at all when threshold is 0), kept terms scaled by inv_keep = 1/(1-p)
+// mask at all when threshold is 0), kept terms scaled by inv_keep = 1/(1-p);
+// h0 is the global index of the launch's first query head (a tensor-parallel
+// rank's heads draw the whole model's masks)
 struct Drop {
   uint32_t threshold, seed_lo, seed_hi;
   float inv_keep;
+  uint32_t h0;
 };
 
 struct Args {

@@ -70,12 +70,13 @@ extern "C" {
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16. All tensors contiguous:
 // q, out (B, T, Hq, hd); k, v (B, T, Hkv, hd); lse (B, Hq, T) fp32.
 // Dropout: keep = Philox word >= threshold (threshold 0: no dropout), kept
-// terms times inv_keep = 1/(1-p); the seed is (seed_hi << 32) | seed_lo.
+// terms times inv_keep = 1/(1-p); the seed is (seed_hi << 32) | seed_lo;
+// h0: the global index of query head 0 (the mask's head counter is h0 + h).
 int bllm_attn_fwd(int dtype, int hd, int B, int T, int Hq, int Hkv, float scale,
                   unsigned threshold, float inv_keep, unsigned seed_lo, unsigned seed_hi,
-                  const void* q, const void* k, const void* v, void* out, void* lse,
-                  void* stream) {
-  Args a{B, T, Hq, Hkv, scale, Drop{threshold, seed_lo, seed_hi, inv_keep}, q, k, v,
+                  unsigned h0, const void* q, const void* k, const void* v, void* out,
+                  void* lse, void* stream) {
+  Args a{B, T, Hq, Hkv, scale, Drop{threshold, seed_lo, seed_hi, inv_keep, h0}, q, k, v,
          nullptr, nullptr, nullptr, out, lse, static_cast<cudaStream_t>(stream)};
   return dispatch(bllm::attn::fwd_f32_sm90, bllm::attn::fwd_sm90, dtype, hd, a);
 }
@@ -83,9 +84,9 @@ int bllm_attn_fwd(int dtype, int hd, int B, int T, int Hq, int Hkv, float scale,
 // dout, dq (B, T, Hq, hd); lse, delta (B, Hq, T) fp32.
 int bllm_attn_bwd_dq(int dtype, int hd, int B, int T, int Hq, int Hkv, float scale,
                      unsigned threshold, float inv_keep, unsigned seed_lo, unsigned seed_hi,
-                     const void* q, const void* k, const void* v, const void* dout,
+                     unsigned h0, const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dq, void* stream) {
-  Args a{B, T, Hq, Hkv, scale, Drop{threshold, seed_lo, seed_hi, inv_keep}, q, k, v, dout,
+  Args a{B, T, Hq, Hkv, scale, Drop{threshold, seed_lo, seed_hi, inv_keep, h0}, q, k, v, dout,
          lse, delta, dq, nullptr, static_cast<cudaStream_t>(stream)};
   return dispatch(bllm::attn::dq_f32_sm90, bllm::attn::dq_sm90, dtype, hd, a);
 }
@@ -94,10 +95,10 @@ int bllm_attn_bwd_dq(int dtype, int hd, int B, int T, int Hq, int Hkv, float sca
 // work: unused (every kernel sums the heads in place); pass null.
 int bllm_attn_bwd_dkv(int dtype, int hd, int B, int T, int Hq, int Hkv, float scale,
                       unsigned threshold, float inv_keep, unsigned seed_lo, unsigned seed_hi,
-                      const void* q, const void* k, const void* v, const void* dout,
+                      unsigned h0, const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dk, void* dv, void* work,
                       void* stream) {
-  Args a{B, T, Hq, Hkv, scale, Drop{threshold, seed_lo, seed_hi, inv_keep}, q, k, v, dout,
+  Args a{B, T, Hq, Hkv, scale, Drop{threshold, seed_lo, seed_hi, inv_keep, h0}, q, k, v, dout,
          lse, delta, dk, dv, static_cast<cudaStream_t>(stream)};
   (void)work;
   return dispatch(bllm::attn::dkv_f32_sm90, bllm::attn::dkv_sm90, dtype, hd, a);

@@ -11,7 +11,10 @@
 //   backward   dh = keep ? g * inv : 0 (and dx = g, taken by the wrapper).
 // The keep bit of flat element i is word i & 3 of Philox4x32-10 at counter
 // i >> 2 (csrc/philox.cuh), regenerated in the backward from the seed, so
-// nothing mask-shaped is ever stored. The TPU kernel seeds per 512-row tile;
+// nothing mask-shaped is ever stored. A Layout maps the tensor's group g to
+// the group (g / chunk) * stride + offset + g % chunk of a larger tensor it
+// is a block of (a sequence-parallel rank's T block of (B, T, D): its
+// elements draw the whole tensor's bits); chunk 0 is the identity. The TPU kernel seeds per 512-row tile;
 // the mask here depends on the element alone.
 //
 // What bounds it: bytes. fused_dropout_add at GPT-2-124M's (8 x 1024, 768)
@@ -78,6 +81,18 @@ struct alignas(4 * sizeof(T)) Vec4 {
   T v[4];
 };
 
+// the group of the whole tensor that a block's group g is (see the top)
+struct Layout {
+  long long chunk, stride, offset;
+};
+
+__device__ __forceinline__ uint64_t global_group(uint64_t g, const Layout& lay) {
+  if (lay.chunk == 0) return g;
+  const uint64_t c = static_cast<uint64_t>(lay.chunk);
+  return (g / c) * static_cast<uint64_t>(lay.stride) + static_cast<uint64_t>(lay.offset) +
+         g % c;
+}
+
 // [x +] (keep ? h * inv : 0) in T, rounded as the Pallas kernel rounds
 template <typename T, bool kAdd>
 __device__ __forceinline__ T drop(T h, T x, bool keep, float inv) {
@@ -89,7 +104,7 @@ template <typename T, bool kAdd>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 dropout_kernel(const T* __restrict__ x, const T* __restrict__ h, T* __restrict__ out,
                long long n_vec, int tail, uint32_t threshold, float inv, uint32_t seed_lo,
-               uint32_t seed_hi) {
+               uint32_t seed_hi, Layout lay) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kCalls = kVec / 4;              // Philox calls a vector
   const float inv_f = bllm::to_f(bllm::from_f<T>(inv));   // exact: inv is a value of T
@@ -123,7 +138,8 @@ dropout_kernel(const T* __restrict__ x, const T* __restrict__ h, T* __restrict__
 #pragma unroll
       for (int c = 0; c < kCalls; ++c) {
         const uint4 r = kDraw ? bllm::flat_bits(seed_lo, seed_hi,
-                                                static_cast<uint64_t>(v) * kCalls + c)
+                                                global_group(static_cast<uint64_t>(v) * kCalls + c,
+                                                             lay))
                               : make_uint4(~0u, ~0u, ~0u, ~0u);
         if (kMove) {
 #pragma unroll
@@ -143,7 +159,7 @@ dropout_kernel(const T* __restrict__ x, const T* __restrict__ h, T* __restrict__
     const long long g = n_vec * kCalls;
     const Vec4<T> ht = reinterpret_cast<const Vec4<T>*>(h)[g];
     const Vec4<T> xt = kAdd ? reinterpret_cast<const Vec4<T>*>(x)[g] : Vec4<T>{};
-    const uint4 r = bllm::flat_bits(seed_lo, seed_hi, static_cast<uint64_t>(g));
+    const uint4 r = bllm::flat_bits(seed_lo, seed_hi, global_group(static_cast<uint64_t>(g), lay));
     Vec4<T> o;
 #pragma unroll
     for (int e = 0; e < 4; ++e)
@@ -154,7 +170,7 @@ dropout_kernel(const T* __restrict__ x, const T* __restrict__ h, T* __restrict__
 
 template <typename T>
 int run(const void* x, const void* h, void* out, long long n, int blocks, unsigned threshold,
-        float inv, unsigned seed_lo, unsigned seed_hi, cudaStream_t stream) {
+        float inv, unsigned seed_lo, unsigned seed_hi, Layout lay, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const long long n_vec = n / kVec;
   const int tail = static_cast<int>(n - n_vec * kVec);
@@ -163,10 +179,11 @@ int run(const void* x, const void* h, void* out, long long n, int blocks, unsign
   T* op = static_cast<T*>(out);
   if (x != nullptr)
     dropout_kernel<T, true><<<blocks, kThreads, 0, stream>>>(xp, hp, op, n_vec, tail, threshold,
-                                                             inv, seed_lo, seed_hi);
+                                                             inv, seed_lo, seed_hi, lay);
   else
     dropout_kernel<T, false><<<blocks, kThreads, 0, stream>>>(xp, hp, op, n_vec, tail,
-                                                              threshold, inv, seed_lo, seed_hi);
+                                                              threshold, inv, seed_lo, seed_hi,
+                                                              lay);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -178,17 +195,20 @@ extern "C" {
 // the backward dh = dropout(g) with h = g and x = null; all 16-byte aligned.
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16; ``blocks`` of 256 threads
 // (ops/fused_dropout.dropout_plan); inv = 1/(1-p) as a value of the dtype;
-// the seed is (seed_hi << 32) | seed_lo.
+// the seed is (seed_hi << 32) | seed_lo; chunk, stride, offset: the Layout
+// (in groups of four elements; chunk 0 for a whole tensor).
 int bllm_dropout(int dtype, long long n, int blocks, unsigned threshold, float inv,
-                 unsigned seed_lo, unsigned seed_hi, const void* x, const void* h, void* out,
-                 void* stream) {
-  if (n < 0 || n % 4 != 0 || blocks < 1) return kUnsupported;
+                 unsigned seed_lo, unsigned seed_hi, long long chunk, long long stride,
+                 long long offset, const void* x, const void* h, void* out, void* stream) {
+  if (n < 0 || n % 4 != 0 || blocks < 1 || chunk < 0) return kUnsupported;
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Layout lay{chunk, stride, offset};
   switch (dtype) {
-    case 0: return run<float>(x, h, out, n, blocks, threshold, inv, seed_lo, seed_hi, s);
-    case 1: return run<__half>(x, h, out, n, blocks, threshold, inv, seed_lo, seed_hi, s);
-    case 2: return run<__nv_bfloat16>(x, h, out, n, blocks, threshold, inv, seed_lo, seed_hi, s);
+    case 0: return run<float>(x, h, out, n, blocks, threshold, inv, seed_lo, seed_hi, lay, s);
+    case 1: return run<__half>(x, h, out, n, blocks, threshold, inv, seed_lo, seed_hi, lay, s);
+    case 2:
+      return run<__nv_bfloat16>(x, h, out, n, blocks, threshold, inv, seed_lo, seed_hi, lay, s);
     default: return kUnsupported;
   }
 }

@@ -18,7 +18,8 @@ and the same command resumes it. Without matplotlib the run logs one
 warning and goes on without the plot. Not ported: the stall detector
 (ROADMAP queue 1, serving operations).
 
-``--run_type multi_chip`` (``--shard_mode dp|fsdp|zero1``) trains with one
+``--run_type multi_chip`` (``--shard_mode dp|fsdp|zero1|tp|tp_fsdp``,
+``--tp``, ``--sp``) trains with one
 process per device, as the reference's ``mp.spawn`` did and as the JAX
 mesh spans every local device: under torchrun's environment (``RANK``,
 ``WORLD_SIZE``, ...) the process joins that group; otherwise one process
@@ -26,7 +27,8 @@ is started per visible card (none extra with one card, or on the CPU,
 where the run is one rank). The group forms first (NCCL on ``cuda``, gloo
 on ``cpu``; ``parallel.initialize_distributed``), each rank takes
 ``cuda:<local rank>``, rank 0 makes the output directory before a
-barrier, the loaders hand each rank its rows, and only rank 0 logs,
+barrier, the loaders hand each data rank its rows (the seq and model ranks
+of a data index share them), and only rank 0 logs,
 samples and draws ``losses.pdf``; checkpoints and exports are collective.
 A caller that already formed a group (tests, chip_smoke) keeps it.
 """
@@ -79,10 +81,14 @@ def run_train(args):
     if not files:
         raise FileNotFoundError("No training files found in specified directory.")
     logger.info("Total training files detected: %d", len(files))
+    # each data rank takes its rows; the seq and model ranks of one data
+    # index share them
+    plan = comps.plan
     loader_kwargs = dict(batch_size=args.batch_size,
                          max_length=cfg.context_length, train_ratio=0.9,
-                         seed=args.seed, process_index=collectives.rank(),
-                         process_count=collectives.world())
+                         seed=args.seed,
+                         process_index=plan.data_rank if plan else collectives.rank(),
+                         process_count=plan.n_data if plan else collectives.world())
     if args.finetune:
         # the pad id is the config's eos, as in the JAX package
         loader = InstructLoader(comps.tokenizer, pad_token_id=cfg.eos_id,

@@ -20,10 +20,18 @@ fused flash kernels for the shapes they take). With a seed and
 output, the attention weights and both residual branches of every block,
 each site with its own seed (``utils.seeding.site_seed``); residual and
 embedding dropout go through the fused kernel B3 (``ops/fused_dropout.py``)
-for the shapes it takes. A config with ``use_actv_ckpt`` recomputes each
-block in the backward (``torch.utils.checkpoint``, the JAX ``jax.remat``
-of the block), with the same seeds, so the recomputed values are the
-saved ones bit for bit. ``params=`` hands the forward stand-ins for any
+for the shapes it takes. Under autograd each block keeps only what its
+backward needs (``remat_mode``): by default the JAX selective-save policy
+(post-RoPE q, k, v, the attention's output and lse, resid_mid, up_out,
+gate_out; ``_BlockFn``), whose backward recomputes the norms, the
+activations and the residual adds onto those tensors and runs no GEMM or
+attention forward again; with ``use_actv_ckpt`` the block's input alone
+(the JAX ``jax.remat`` of the block), the whole block recomputed; with
+``_SAVE_ALL`` (the comparison run) every activation. The seeds are the same, so the
+three give the same loss and gradients bit for bit. ``par=`` (a
+``parallel.tensor.Parallel``) runs a tensor-parallel rank's heads and
+features, a sequence-parallel rank's T block (ring attention), and fsdp's
+per-layer weight gathers. ``params=`` hands the forward stand-ins for any
 of the model's leaves, stacked as the model holds them: a LoRA train step
 passes the merged projection weights (W + s A@B,
 ``models.lora.merge_lora``), a precision policy's step the cast copy of
@@ -58,7 +66,6 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from building_llm_from_scratch_tpu_torch.configs import ModelConfig
 from building_llm_from_scratch_tpu_torch.models.lora import apply_lora, lora_delta
@@ -84,6 +91,7 @@ from building_llm_from_scratch_tpu_torch.ops.norms import layernorm, rmsnorm
 from building_llm_from_scratch_tpu_torch.ops.philox import flat_keep_mask
 from building_llm_from_scratch_tpu_torch.ops.rope import (
     apply_rope,
+    apply_rope_backward,
     precompute_rope_params,
 )
 from building_llm_from_scratch_tpu_torch.ops.xent_fwd import matmul_fp32
@@ -210,9 +218,10 @@ class Transformer(nn.Module):
 
     ``flat`` maps JAX paths to tensors (stacked ``blocks/...`` leaves); the
     per-layer modules hold views of those tensors, so building the model
-    copies nothing."""
+    copies nothing. ``shapes`` False takes leaves of other shapes than the
+    config's (a tensor-parallel rank's slices of them)."""
 
-    def __init__(self, cfg: ModelConfig, flat: Flat):
+    def __init__(self, cfg: ModelConfig, flat: Flat, shapes: bool = True):
         super().__init__()
         expected = param_shapes(cfg)
         if set(flat) != set(expected):
@@ -220,7 +229,7 @@ class Transformer(nn.Module):
                            f"{sorted(set(expected) - set(flat))}, unexpected "
                            f"{sorted(set(flat) - set(expected))}")
         for k, shape in expected.items():
-            if tuple(flat[k].shape) != shape:
+            if shapes and tuple(flat[k].shape) != shape:
                 raise ValueError(f"{k}: shape {tuple(flat[k].shape)} != {shape}")
         self.cfg = cfg
         #: the stacked JAX-layout leaves; every parameter below is one of
@@ -460,50 +469,26 @@ def _lora_layers(lora: Optional[dict], scaling, n_layers: int):
     return layers, lora["head"]["weight"]
 
 
-class _Weights:
-    """One layer's projection group read from stacked stand-in leaves (a
-    LoRA step's merged weights, a policy's cast copy), the layer's own
-    ``ParamGroup`` for the rest: the same attribute-by-JAX-name and
-    ``has()`` interface."""
-
-    def __init__(self, group: ParamGroup, leaves: Dict[str, torch.Tensor]):
-        self._group, self._leaves = group, leaves
-
-    def __getattr__(self, name: str):
-        leaves = self.__dict__["_leaves"]
-        return leaves[name] if name in leaves else getattr(self.__dict__["_group"], name)
-
-    def has(self, name: str) -> bool:
-        return self._group.has(name)
-
-
-def _layer_groups(model: Transformer, params: Optional[Flat]) -> list:
-    """(norm1, attn, norm2, mlp) of every layer: the norms as callables,
-    the projections as weight groups. ``params``' stacked ``blocks/...``
-    leaves replace the model's: each is split into its layers by one
+def _layer_weights(model: Transformer, params: Optional[Flat]) -> list:
+    """Every layer's weights by "<group>/<leaf>" ("norm1/scale", "attn/wq",
+    ...): the model's per-layer parameters, with ``params``' stacked
+    ``blocks/...`` leaves in their place, each split into its layers by one
     ``unbind(0)``, whose backward writes one stacked gradient (a per-layer
-    index would allocate a zero stack per layer). Its other keys (the
-    embeddings, the final norm and the head) are read where they are
+    index would allocate a zero stack per layer). ``params``' other keys
+    (the embeddings, the final norm and the head) are read where they are
     used."""
-    if not params:
-        return [(blk.norm1, blk.attn, blk.norm2, blk.mlp) for blk in model.blocks]
-    per = [{"norm1": {}, "attn": {}, "norm2": {}, "mlp": {}} for _ in model.blocks]
-    for key, t in params.items():
+    per = [{} for _ in model.blocks]
+    for l, blk in enumerate(model.blocks):
+        for group in ("norm1", "attn", "norm2", "mlp"):
+            for name, p in getattr(blk, group).named_parameters():
+                per[l][f"{group}/{name}"] = p
+    for key, t in (params or {}).items():
         root, *rest = key.split("/")
         if root != "blocks":
             continue
-        group, leaf = rest
         for l, view in enumerate(t.unbind(0)):
-            per[l][group][leaf] = view
-
-    def norm(module: Norm, leaves: Flat):
-        if not leaves:
-            return module
-        return lambda x: module(x, leaves.get("scale"), leaves.get("bias"))
-
-    return [(norm(blk.norm1, p["norm1"]), _Weights(blk.attn, p["attn"]),
-             norm(blk.norm2, p["norm2"]), _Weights(blk.mlp, p["mlp"]))
-            for blk, p in zip(model.blocks, per)]
+            per[l]["/".join(rest)] = view
+    return per
 
 
 # ---------------------------------------------------------------------------
@@ -511,51 +496,481 @@ def _layer_groups(model: Transformer, params: Optional[Flat]) -> list:
 # ---------------------------------------------------------------------------
 
 def _dropout(x: torch.Tensor, rate: float, seed: Optional[int],
-             deterministic: bool) -> torch.Tensor:
+             deterministic: bool, layout=None) -> torch.Tensor:
     """dropout(x): the fused kernel B3 for the shapes it takes (its twin on
     the CPU), else ``x / (1 - rate)`` on the kept elements, rounded in x's
-    dtype as the JAX ``_dropout`` does, with the same mask function."""
+    dtype as the JAX ``_dropout`` does, with the same mask function.
+    ``layout``: x is a sequence-parallel block, whose mask is its part of
+    the whole activation's (``parallel.tensor.Parallel.drop_layout``)."""
     if rate <= 0.0 or deterministic:
         return x
     if dropout_supports_shape(x.shape):
-        return fused_dropout(x, rate, seed)
-    keep = flat_keep_mask(seed, x.shape, rate, x.device)
+        return fused_dropout(x, rate, seed, layout)
+    keep = flat_keep_mask(seed, x.shape, rate, x.device, layout)
     scale = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype,
                                                     device=x.device))
 
 
 def _residual_dropout(x: torch.Tensor, h: torch.Tensor, rate: float,
-                      seed: Optional[int], deterministic: bool) -> torch.Tensor:
+                      seed: Optional[int], deterministic: bool,
+                      layout=None) -> torch.Tensor:
     """x + dropout(h), the pre-norm residual update: one fused kernel for
     the shapes B3 takes."""
     if rate <= 0.0 or deterministic:
         return x + h
     if dropout_supports_shape(h.shape):
-        return fused_dropout_add(x, h, rate, seed)
-    return x + _dropout(h, rate, seed, deterministic)
+        return fused_dropout_add(x, h, rate, seed, layout)
+    return x + _dropout(h, rate, seed, deterministic, layout)
 
 
 # ---------------------------------------------------------------------------
 # full-sequence forward (training / evaluation)
 # ---------------------------------------------------------------------------
 
+# the training block: one pre-norm layer, written once over an ``ops``
+# object that says how each of its expensive steps runs (autograd, a record
+# of the named tensors, or a rebuild from them)
+
+#: the tensors a block keeps for its backward under selective-save remat
+#: (the JAX ``save_only_these_names`` policy); "attn_lse" with "attn_out"
+#: is the fused kernel's or the ring's log-sum-exp
+SAVED_NAMES = ("q", "k", "v", "attn_out", "attn_lse", "resid_mid", "up_out",
+               "gate_out")
+
+
+#: save every activation instead (remat mode "none"): the comparison run
+#: that the tests and ``chip_smoke.py`` switch on; no flag sets it
+_SAVE_ALL = False
+
+
+def remat_mode(cfg: ModelConfig) -> str:
+    """How a training block keeps what its backward needs: "full" with the
+    config's ``use_actv_ckpt`` (recompute the block), else "selective" (the
+    JAX policy: save ``SAVED_NAMES``, recompute the norms, activations and
+    residual adds), or "none" (save every activation) where ``_SAVE_ALL``
+    is set."""
+    if cfg.use_actv_ckpt:
+        return "full"
+    return "none" if _SAVE_ALL else "selective"
+
+
+class _Env:
+    """What one layer's block needs besides its input and weights."""
+
+    def __init__(self, cfg, layer, rope, positions, rate, deterministic, seeds,
+                 par, adp=None):
+        self.cfg, self.layer, self.rope, self.positions = cfg, layer, rope, positions
+        self.rate, self.deterministic, self.par, self.adp = (rate, deterministic,
+                                                             par, adp)
+        self.seeds = seeds
+
+    def seed(self, site: str) -> Optional[int]:
+        return self.seeds(self.layer, site)
+
+    def attention_kind(self, q: torch.Tensor, k: torch.Tensor) -> str:
+        """"ring" under sp, "flash" for the shapes B1/B2 take, else "xla"."""
+        from building_llm_from_scratch_tpu_torch.ops.fused_attention import (
+            supports_shape,
+        )
+
+        if self.par.sp:
+            return "ring"
+        return "flash" if supports_shape(q.shape[1], k.shape[1], q.shape[3]) else "xla"
+
+    def _attn_args(self, q: torch.Tensor) -> dict:
+        rate = 0.0 if self.deterministic else self.rate
+        return dict(rate=rate, seed=int(self.seed("attention") or 0),
+                    h0=self.par.head_offset(q.shape[2]))
+
+    def _ring(self, q: torch.Tensor) -> dict:
+        a = self._attn_args(q)
+        return dict(group=self.par.seq_group, n=self.par.n_seq,
+                    rank=self.par.seq_rank, **a)
+
+    def attend(self, q, k, v) -> torch.Tensor:
+        """Differentiable attention (autograd saves its residuals)."""
+        kind = self.attention_kind(q, k)
+        if kind == "ring":
+            from building_llm_from_scratch_tpu_torch.ops.ring_attention import (
+                RingAttention,
+            )
+
+            return RingAttention.apply(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), self._ring(q))
+        a = self._attn_args(q)
+        return causal_attention(q, k, v, dropout_rate=a["rate"],
+                                seed=self.seed("attention"),
+                                deterministic=self.deterministic, h0=a["h0"])
+
+    def attend_fwd(self, q, k, v):
+        """(out, lse) of the kernel or the ring (no graph)."""
+        if self.attention_kind(q, k) == "ring":
+            from building_llm_from_scratch_tpu_torch.ops.ring_attention import (
+                ring_attention_fwd,
+            )
+
+            return ring_attention_fwd(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), **self._ring(q))
+        from building_llm_from_scratch_tpu_torch.ops.fused_attention import (
+            flash_attention_fwd,
+        )
+
+        a = self._attn_args(q)
+        return flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   a["rate"], a["seed"], a["h0"])
+
+    def attend_bwd(self, q, k, v, out, lse, do):
+        if self.attention_kind(q, k) == "ring":
+            from building_llm_from_scratch_tpu_torch.ops.ring_attention import (
+                ring_attention_bwd,
+            )
+
+            return ring_attention_bwd(q, k, v, out, lse, do, **self._ring(q))
+        from building_llm_from_scratch_tpu_torch.ops.fused_attention import (
+            flash_backward,
+        )
+
+        a = self._attn_args(q)
+        return flash_backward(q, k, v, out, lse, do, a["rate"], a["seed"], a["h0"])
+
+    def resid(self, x, h, site: str) -> torch.Tensor:
+        return _residual_dropout(x, h, self.rate, self.seed(site), self.deterministic,
+                                 self.par.drop_layout(h.shape))
+
+
+class _Plain:
+    """Every step through autograd (save-all, full remat's recompute,
+    evaluation); under ``no_grad``, a block's plain forward."""
+
+    def __init__(self, env: _Env):
+        self.env = env
+
+    def enter(self, h):
+        return self.env.par.copy_to_model(h)
+
+    def linear(self, x, w, node=None, s=None):
+        return apply_lora(x, w, node, s)
+
+    def name(self, t, name: str):
+        return t
+
+    def rope(self, t):
+        cos, sin = self.env.rope
+        return apply_rope(t, cos, sin, self.env.positions)
+
+    def attention(self, q, k, v):
+        return self.env.attend(q, k, v)
+
+    def leave(self, a):
+        return self.env.par.reduce_from_model(a)
+
+    def resid(self, x, h, site: str):
+        return self.env.resid(x, h, site)
+
+
+class _Record(_Plain):
+    """The forward of a selective block (under ``no_grad``), keeping the
+    named tensors, the attention's out and lse among them."""
+
+    def __init__(self, env: _Env):
+        super().__init__(env)
+        self.saved: Flat = {}
+
+    def name(self, t, name: str):
+        self.saved[name] = t
+        return t
+
+    def attention(self, q, k, v):
+        if self.env.attention_kind(q, k) == "xla":
+            # no kernel residuals: the backward recomputes it from q, k, v
+            return self.env.attend(q, k, v)
+        out, lse = self.env.attend_fwd(q, k, v)
+        self.saved["attn_lse"] = lse
+        return out
+
+
+class _Value(torch.autograd.Function):
+    """A named tensor in the rebuilt graph: its recorded value forward,
+    the identity backward."""
+
+    @staticmethod
+    def forward(ctx, t, value):
+        return value.view_as(value)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Linear(torch.autograd.Function):
+    """``x @ w`` in the rebuilt graph: an unused placeholder forward (the
+    value that matters comes from a ``_Value`` after it), the matmul's
+    backward: dx = g w^T, dw = x^T g on the 2-d folds, as autograd's own
+    mm backward computes them."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return x.new_empty(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = g2.mm(w.t()).view(x.shape) if ctx.needs_input_grad[0] else None
+        dw = x.reshape(-1, x.shape[-1]).t().mm(g2) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+class _Rope(torch.autograd.Function):
+    """RoPE in the rebuilt graph: an unused placeholder forward (a
+    ``_Value`` gives q and k their values), the rotation's backward, which
+    needs only the tables."""
+
+    @staticmethod
+    def forward(ctx, t, env):
+        ctx.env = env
+        return torch.empty_like(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        cos, sin = ctx.env.rope
+        return apply_rope_backward(g, cos, sin, ctx.env.positions), None
+
+
+class _Attention(torch.autograd.Function):
+    """The attention in the rebuilt graph: the recorded output forward, the
+    kernel's (or the ring's) backward from the recorded q, k, v, out and
+    lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, env, saved):
+        ctx.env, ctx.saved = env, saved
+        out = saved["attn_out"]
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, do):
+        s = ctx.saved
+        dq, dk, dv = ctx.env.attend_bwd(s["q"], s["k"], s["v"], s["attn_out"],
+                                        s["attn_lse"], do.contiguous())
+        return dq, dk, dv, None, None
+
+
+class _Resid(torch.autograd.Function):
+    """x + dropout(h) in the rebuilt graph: an unused placeholder forward
+    (a ``_Value`` gives resid_mid its value), the backward dx = g and dh
+    = B3's backward (or the plain mask's, or g without dropout)."""
+
+    @staticmethod
+    def forward(ctx, x, h, env, site):
+        ctx.env, ctx.site = env, site
+        return torch.empty_like(h)
+
+    @staticmethod
+    def backward(ctx, g):
+        env = ctx.env
+        if env.rate <= 0.0 or env.deterministic:
+            dh = g
+        elif dropout_supports_shape(g.shape):
+            from building_llm_from_scratch_tpu_torch.ops.fused_dropout import (
+                dropout_bwd,
+            )
+
+            dh = dropout_bwd(g.contiguous(), env.seed(ctx.site), env.rate,
+                             env.par.drop_layout(g.shape))
+        else:
+            # the plain mask's backward, through autograd as the forward ran
+            with torch.enable_grad():
+                hl = torch.zeros_like(g).requires_grad_(True)
+                y = _dropout(hl, env.rate, env.seed(ctx.site), False,
+                             env.par.drop_layout(g.shape))
+                (dh,) = torch.autograd.grad(y, hl, g)
+        return (g if ctx.needs_input_grad[0] else None), dh, None, None
+
+
+class _Recompute(_Plain):
+    """The backward's graph of a fully rematerialised block: every step
+    recomputed by autograd, but the last residual add, whose value nothing
+    in the backward reads (its dropout is not drawn again)."""
+
+    def resid(self, x, h, site: str):
+        if site == "residual2":
+            return _Resid.apply(x, h, self.env, site)
+        return super().resid(x, h, site)
+
+
+class _Rebuild(_Plain):
+    """The backward's graph of a selective block: the norms, activations
+    and residual adds recomputed by autograd, every matmul and the
+    attention grafted onto the recorded tensors, so no GEMM and no
+    attention kernel runs forward again."""
+
+    def __init__(self, env: _Env, saved: Flat):
+        super().__init__(env)
+        self.saved = saved
+
+    def linear(self, x, w, node=None, s=None):
+        return _Linear.apply(x, w)
+
+    def name(self, t, name: str):
+        return _Value.apply(t, self.saved[name])
+
+    def rope(self, t):
+        return _Rope.apply(t, self.env)
+
+    def attention(self, q, k, v):
+        if "attn_lse" not in self.saved:
+            return self.env.attend(q, k, v)
+        return _Attention.apply(q, k, v, self.env, self.saved)
+
+    def leave(self, a):
+        # g's backward is the identity, and the value is a placeholder
+        return a
+
+    def resid(self, x, h, site: str):
+        return _Resid.apply(x, h, self.env, site)
+
+
+def _norm(cfg: ModelConfig, x: torch.Tensor, w: Flat, group: str) -> torch.Tensor:
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, w[f"{group}/scale"], eps=cfg.rmsnorm_eps)
+    return layernorm(x, w[f"{group}/scale"], w.get(f"{group}/bias"),
+                     eps=cfg.layernorm_eps)
+
+
+def _block(env: _Env, x: torch.Tensor, w: Flat, ops) -> torch.Tensor:
+    """One pre-norm block (the JAX ``_block``): attention and MLP, each with
+    its residual dropout; Megatron's f before the column-parallel
+    projections and g after the row-parallel ones under tp, their
+    replicated biases added once, after g."""
+    cfg = env.cfg
+    B, T, _ = x.shape
+    hd = cfg.head_dim
+    adp = env.adp or {}
+    a_n, a_s = _adp_nodes(adp.get("attn"))
+    m_n, m_s = _adp_nodes(adp.get("mlp"))
+    h = ops.enter(_norm(cfg, x, w, "norm1"))
+    q = ops.linear(h, w["attn/wq"], a_n("wq"), a_s)
+    k = ops.linear(h, w["attn/wk"], a_n("wk"), a_s)
+    v = ops.linear(h, w["attn/wv"], a_n("wv"), a_s)
+    if "attn/bq" in w:
+        q, k, v = q + w["attn/bq"], k + w["attn/bk"], v + w["attn/bv"]
+    q, k, v = (t.reshape(B, T, -1, hd) for t in (q, k, v))
+    if env.rope is not None:
+        q, k = ops.rope(q), ops.rope(k)
+    q, k, v = ops.name(q, "q"), ops.name(k, "k"), ops.name(v, "v")
+    out = ops.name(ops.attention(q, k, v), "attn_out")
+    a = ops.leave(ops.linear(out.reshape(B, T, -1), w["attn/wo"], a_n("wo"), a_s))
+    if "attn/bo" in w:
+        a = a + w["attn/bo"]
+    x = ops.name(ops.resid(x, a, "residual1"), "resid_mid")
+    h = ops.enter(_norm(cfg, x, w, "norm2"))
+    if cfg.activation == "swiglu":
+        g = ops.name(ops.linear(h, w["mlp/gate"], m_n("gate"), m_s), "gate_out")
+        u = ops.name(ops.linear(h, w["mlp/up"], m_n("up"), m_s), "up_out")
+        h = silu(g) * u
+    else:
+        u = ops.linear(h, w["mlp/up"], m_n("up"), m_s)
+        if "mlp/b_up" in w:
+            u = u + w["mlp/b_up"]
+        h = gelu(ops.name(u, "up_out"))
+    d = ops.leave(ops.linear(h, w["mlp/down"], m_n("down"), m_s))
+    if "mlp/b_down" in w:
+        d = d + w["mlp/b_down"]
+    return ops.resid(x, d, "residual2")
+
+
+class _BlockRun:
+    """One layer's block under ``_BlockFn``: the layer's weights by name
+    (``keys``, in the order of the Function's tensor inputs), fsdp's
+    per-layer weight source for the rest, and the remat mode."""
+
+    def __init__(self, env: _Env, keys: list, source, selective: bool):
+        self.env, self.keys, self.source, self.selective = env, keys, source, selective
+
+    def weights(self, tensors) -> Flat:
+        w = dict(zip(self.keys, tensors))
+        if self.source is not None:
+            w.update(self.source.acquire(self.env.layer))
+        return w
+
+
+class _BlockFn(torch.autograd.Function):
+    """A block that keeps only what its backward needs: under selective
+    remat the named tensors (``SAVED_NAMES``), under full remat its input
+    alone; the backward rebuilds the block's graph (grafted onto the
+    record, or recomputed) and differentiates it. Under fsdp the source
+    gathers the layer's sharded weights before the forward and again before
+    the backward, and reduce-scatters their gradients as soon as the
+    layer's backward has made them."""
+
+    @staticmethod
+    def forward(ctx, x, run: _BlockRun, *tensors):
+        ops = _Record(run.env) if run.selective else _Plain(run.env)
+        with torch.no_grad():
+            y = _block(run.env, x, run.weights(tensors), ops)
+        saved = ops.saved if run.selective else {}
+        ctx.run, ctx.names, ctx.n = run, list(saved), len(tensors)
+        ctx.save_for_backward(x, *tensors, *saved.values())
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        run = ctx.run
+        x, *rest = ctx.saved_tensors
+        tensors, saved = rest[:ctx.n], dict(zip(ctx.names, rest[ctx.n:]))
+        needs = ctx.needs_input_grad
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(needs[0])
+            leaves = [t.detach().requires_grad_(need)
+                      for t, need in zip(tensors, needs[2:])]
+            w = dict(zip(run.keys, leaves))
+            held = {}
+            if run.source is not None:
+                held = {k: t.detach().requires_grad_(True)
+                        for k, t in run.source.acquire(run.env.layer).items()}
+                w.update(held)
+            ops = _Rebuild(run.env, saved) if run.selective else _Recompute(run.env)
+            y = _block(run.env, xr, w, ops)
+            inputs = ([xr] if needs[0] else []) + [t for t in leaves if t.requires_grad]
+            grads = list(torch.autograd.grad(y, inputs + list(held.values()), g,
+                                             allow_unused=True))
+        dx = grads.pop(0) if needs[0] else None
+        dws = [grads.pop(0) if t.requires_grad else None for t in leaves]
+        if run.source is not None:
+            run.source.reduce(run.env.layer, dict(zip(held, grads)))
+        return (dx, None, *dws)
+
+
 def forward_hidden(model: Transformer, tokens: torch.Tensor, *,
                    seed: Optional[int] = None,
                    deterministic: bool = True,
                    params: Optional[Flat] = None,
                    lora: Optional[dict] = None,
-                   lora_scaling=1.0) -> torch.Tensor:
+                   lora_scaling=1.0,
+                   par=None) -> torch.Tensor:
     """(B, T) token ids -> the final-normed (B, T, D) hidden states before
     the head (the JAX ``forward_hidden``). ``seed`` is the step's 64-bit
     dropout seed (None: deterministic); each dropout site draws from its own
     ``site_seed(seed, layer, site)``, as the JAX package splits its rng.
     ``params``: stacked leaves that stand in for the model's (any of them;
-    ``_layer_groups``). ``lora``: one unmerged adapter tree applied at
+    ``_layer_weights``). ``lora``: one unmerged adapter tree applied at
     every adapted block projection with ``lora_scaling`` (alpha / rank).
-    With the config's ``use_actv_ckpt`` and autograd on, each block is
-    recomputed in the backward."""
+    ``par`` (``parallel.tensor.Parallel``): this rank's part of a tensor-
+    or sequence-parallel forward (its heads and features, its T block at
+    global positions) and fsdp's per-layer weight source.
+
+    With autograd on, each block keeps what ``remat_mode`` says: the named
+    tensors (selective, the default), its input alone (full remat,
+    ``use_actv_ckpt``) or every activation; the first two run through
+    ``_BlockFn``, whose backward rebuilds the block with the same seeds, so
+    every mode gives the same loss and gradients bit for bit."""
+    from building_llm_from_scratch_tpu_torch.parallel.tensor import SINGLE
+
     cfg = model.cfg
+    par = par or SINGLE
     B, T = tokens.shape
     if seed is None:
         deterministic = True
@@ -566,32 +981,31 @@ def forward_hidden(model: Transformer, tokens: torch.Tensor, *,
 
     params = params or {}
     adp, _ = _lora_layers(lora, lora_scaling, cfg.n_layers)
-    positions = torch.arange(T, device=tokens.device)
-    x = _dropout(_embed(model, tokens, positions, params), rate,
-                 sites(-1, "embedding"), deterministic)
+    positions = par.positions(T, tokens.device)
+    tok_emb = params.get("tok_emb/weight", model.tok_emb)
+    x = (par.vocab_embed(tok_emb, tokens) if par.vocab_parallel_emb
+         else tok_emb[tokens])
+    if model.pos_emb is not None:
+        x = x + params.get("pos_emb/weight", model.pos_emb)[positions]
+    x = _dropout(x, rate, sites(-1, "embedding"), deterministic, par.drop_layout(x.shape))
 
-    def block(x, layer, norm1, attn, norm2, mlp):
-        q, k, v = _qkv_proj(cfg, attn, norm1(x), model.rope, positions,
-                            _layer_adp(adp, layer, "attn"))
-        out = causal_attention(q, k, v, dropout_rate=rate,
-                               seed=sites(layer, "attention"),
-                               deterministic=deterministic)
-        x = _residual_dropout(
-            x, _attn_out_proj(attn, out, B, T, _layer_adp(adp, layer, "attn")),
-            rate, sites(layer, "residual1"), deterministic)
-        return _residual_dropout(
-            x, _mlp(cfg, mlp, norm2(x), _layer_adp(adp, layer, "mlp")),
-            rate, sites(layer, "residual2"), deterministic)
-
-    remat = cfg.use_actv_ckpt and torch.is_grad_enabled()
-    for layer, groups in enumerate(_layer_groups(model, params)):
-        if remat:
-            # the masks are keyed on (seed, element), not on torch's RNG,
-            # so the recompute needs no RNG state
-            x = checkpoint(block, x, layer, *groups, use_reentrant=False,
-                           preserve_rng_state=False)
-        else:
-            x = block(x, layer, *groups)
+    source = par.layers
+    mode = remat_mode(cfg)
+    grad = torch.is_grad_enabled()
+    if source is not None and mode == "none":
+        raise ValueError("save-all remat keeps every layer's gathered weights; "
+                         "fsdp's per-layer gathers need selective or full remat")
+    for layer, w in enumerate(_layer_weights(model, params)):
+        env = _Env(cfg, layer, model.rope, positions, rate, deterministic, sites,
+                   par, None if adp is None else adp[layer])
+        if grad and adp is None and mode != "none":
+            keys = [k for k in w if source is None or k not in source.names]
+            run = _BlockRun(env, keys, source, mode == "selective")
+            x = _BlockFn.apply(x, run, *(w[k] for k in keys))
+            continue
+        if source is not None:
+            w = dict(w, **source.acquire(layer))
+        x = _block(env, x, w, _Plain(env))
     return model.final_norm(x, params.get("final_norm/scale"),
                             params.get("final_norm/bias"))
 

@@ -103,14 +103,16 @@ def load_library() -> ctypes.CDLL:
                                   ctypes.c_void_p)
             # dtype, hd, S, Hq, Hkv, Tmax, split length, splits
             lib.bllm_fused_decode_step.argtypes = [i32] * 8 + [ptr] * 9
-            # dtype, hd, B, T, Hq, Hkv, scale, threshold, 1/(1-p), seed words
-            head = [i32] * 6 + [f32, u32, f32, u32, u32]
+            # dtype, hd, B, T, Hq, Hkv, scale, threshold, 1/(1-p), seed
+            # words, first head's global index
+            head = [i32] * 6 + [f32, u32, f32, u32, u32, u32]
             lib.bllm_attn_fwd.argtypes = head + [ptr] * 6
             lib.bllm_attn_bwd_dq.argtypes = head + [ptr] * 8
             lib.bllm_attn_bwd_dkv.argtypes = head + [ptr] * 10
-            # dtype, n, blocks, threshold, 1/(1-p), seed words
+            # dtype, n, blocks, threshold, 1/(1-p), seed words, layout
+            # (chunk, stride, offset)
             lib.bllm_dropout.argtypes = [i32, ctypes.c_longlong, i32, u32, f32, u32,
-                                         u32] + [ptr] * 4
+                                         u32] + [ctypes.c_longlong] * 3 + [ptr] * 4
             # N, D, V, splits
             lib.bllm_xent_fwd_f32_sm90.argtypes = [i32] * 4 + [ptr] * 11
             # dtype, N, D, V, padded V, splits

@@ -33,7 +33,7 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   q_positions: Optional[torch.Tensor] = None,
                   kv_length: Optional[torch.Tensor] = None,
                   dropout_rate: float = 0.0, seed: Optional[int] = None,
-                  deterministic: bool = True) -> torch.Tensor:
+                  deterministic: bool = True, h0: int = 0) -> torch.Tensor:
     """Masked attention over (B, Tkv, Hkv, D) k/v for (B, Tq, Hq, D) queries
     (the JAX ``_xla_attention``).
 
@@ -42,7 +42,7 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scalar or (B,) valid key prefix. With ``dropout_rate > 0`` and not
     ``deterministic``, the softmax weights are dropped and scaled by
     1/(1-rate) with the fused kernels' keep mask for ``seed``
-    (``ops/philox.py``), over query heads."""
+    (``ops/philox.py``), over query heads h0 ... h0 + Hq - 1."""
     B, Tq, Hq, D = q.shape
     _, Tkv, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -67,7 +67,7 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dropout_rate > 0.0 and not deterministic:
         if seed is None:
             raise ValueError("attention dropout requires a seed")
-        keep = attention_keep_mask(seed, B, Hq, Tq, Tkv, dropout_rate, dev)
+        keep = attention_keep_mask(seed, B, Hq, Tq, Tkv, dropout_rate, dev, h0=h0)
         weights = torch.where(keep.reshape(B, Hkv, G, Tq, Tkv),
                               weights / (1.0 - dropout_rate), 0.0)
     out = _value_product(weights, v, "bhgqk,bkhd->bqhgd")
@@ -107,7 +107,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      dropout_rate: float = 0.0, seed: Optional[int] = None,
-                     deterministic: bool = True) -> torch.Tensor:
+                     deterministic: bool = True, h0: int = 0) -> torch.Tensor:
     """Full-sequence causal self-attention for training and evaluation (the
     JAX ``causal_attention`` with ``impl='auto'``), with attention-weight
     dropout at ``dropout_rate`` unless ``deterministic``: the fused kernels
@@ -115,7 +115,9 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     whatever the device (on the CPU they compute their twins), and
     ``xla_attention`` for the rest, as the JAX package runs its XLA path for
     such shapes. Both draw the same mask for a seed. On CUDA the fused path
-    launches the kernels or raises."""
+    launches the kernels or raises. ``h0``: the global index of the first
+    query head (a tensor-parallel rank's heads draw the whole model's
+    masks)."""
     from building_llm_from_scratch_tpu_torch.ops.fused_attention import (
         fused_causal_attention,
         supports_shape,
@@ -123,6 +125,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     rate = 0.0 if deterministic else dropout_rate
     if supports_shape(q.shape[1], k.shape[1], q.shape[3]):
-        return fused_causal_attention(q, k, v, dropout_rate=rate, seed=seed)
+        return fused_causal_attention(q, k, v, dropout_rate=rate, seed=seed,
+                                      h0=h0)
     return xla_attention(q, k, v, dropout_rate=rate, seed=seed,
-                         deterministic=deterministic)
+                         deterministic=deterministic, h0=h0)

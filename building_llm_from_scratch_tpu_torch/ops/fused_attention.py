@@ -102,17 +102,18 @@ def attention_scale(D: int) -> float:
 
 
 def keep_mask(seed: int, B: int, H: int, T: int, rate: float,
-              device=None) -> torch.Tensor:
+              device=None, h0: int = 0) -> torch.Tensor:
     """The (B, H, T, T) bool keep mask the kernels draw for ``seed`` and
-    ``rate`` over query heads (the role of the JAX test's mask dump)."""
-    return attention_keep_mask(seed, B, H, T, T, rate, device)
+    ``rate`` over query heads h0 ... h0 + H - 1 (the role of the JAX test's
+    mask dump)."""
+    return attention_keep_mask(seed, B, H, T, T, rate, device, h0=h0)
 
 
-def _grouped_mask(seed: int, rate: float, q: torch.Tensor, Hkv: int
-                  ) -> torch.Tensor:
+def _grouped_mask(seed: int, rate: float, q: torch.Tensor, Hkv: int,
+                  h0: int = 0) -> torch.Tensor:
     """keep_mask in the twins' grouped (B, Hkv, G, T, T) layout."""
     B, T, Hq, _ = q.shape
-    return keep_mask(seed, B, Hq, T, rate, q.device).reshape(
+    return keep_mask(seed, B, Hq, T, rate, q.device, h0).reshape(
         B, Hkv, Hq // Hkv, T, T)
 
 
@@ -142,7 +143,7 @@ def _probs(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
 
 def fused_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, rate: float = 0.0, seed: int = 0,
-                              *, einsum: Callable = torch.einsum
+                              *, einsum: Callable = torch.einsum, h0: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1's twin: (out (B, T, Hq, D) in q's dtype, lse (B, Hq, T) fp32).
     The exp terms (times the keep mask) are rounded to v's dtype before P.V
@@ -160,7 +161,7 @@ def fused_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     if rate > 0.0:
-        p = torch.where(_grouped_mask(seed, rate, q, Hkv), p, 0.0)
+        p = torch.where(_grouped_mask(seed, rate, q, Hkv, h0), p, 0.0)
     acc = einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
     out = acc / l.permute(0, 3, 1, 2, 4)
     if rate > 0.0:
@@ -170,24 +171,24 @@ def fused_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def _dropped(dp: torch.Tensor, q: torch.Tensor, Hkv: int, rate: float,
-             seed: int) -> torch.Tensor:
+             seed: int, h0: int = 0) -> torch.Tensor:
     """M * dp / (1-rate): the kernels' dp~ (dp itself without dropout)."""
     if rate <= 0.0:
         return dp
-    return torch.where(_grouped_mask(seed, rate, q, Hkv),
+    return torch.where(_grouped_mask(seed, rate, q, Hkv, h0),
                        dp * (1.0 / (1.0 - rate)), 0.0)
 
 
 def fused_attention_dq_plain(q, k, v, do, lse, delta, rate: float = 0.0,
-                             seed: int = 0, *, einsum: Callable = torch.einsum
-                             ) -> torch.Tensor:
+                             seed: int = 0, *, einsum: Callable = torch.einsum,
+                             h0: int = 0) -> torch.Tensor:
     """B2a's twin: dq (B, T, Hq, D) in q's dtype, with dS rounded to the
     model dtype before dS.K."""
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
     p = _probs(q, k, lse, einsum)
     dp = einsum("bqhgd,bkhd->bhgqk", _grouped(do, Hkv), v.float())
-    dp = _dropped(dp, q, Hkv, rate, seed)
+    dp = _dropped(dp, q, Hkv, rate, seed, h0)
     ds = p * (dp - delta.reshape(B, Hkv, Hq // Hkv, T)[..., None])
     ds = ds * attention_scale(D)
     dq = einsum("bhgqk,bkhd->bqhgd", ds.to(q.dtype).float(), k.float())
@@ -195,18 +196,18 @@ def fused_attention_dq_plain(q, k, v, do, lse, delta, rate: float = 0.0,
 
 
 def fused_attention_dkv_plain(q, k, v, do, lse, delta, rate: float = 0.0,
-                              seed: int = 0, *, einsum: Callable = torch.einsum
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+                              seed: int = 0, *, einsum: Callable = torch.einsum,
+                              h0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """B2b's twin: per-QUERY-head (dk, dv), each (B, T, Hq, D) in the model
     dtype, with P M / (1-rate) and dS rounded to it before their products."""
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
     p = _probs(q, k, lse, einsum)
     dog = _grouped(do, Hkv)
-    pt = _dropped(p, q, Hkv, rate, seed)
+    pt = _dropped(p, q, Hkv, rate, seed, h0)
     dv = einsum("bhgqk,bqhgd->bkhgd", pt.to(do.dtype).float(), dog)
     dp = _dropped(einsum("bqhgd,bkhd->bhgqk", dog, v.float()), q, Hkv,
-                  rate, seed)
+                  rate, seed, h0)
     ds = p * (dp - delta.reshape(B, Hkv, Hq // Hkv, T)[..., None])
     ds = ds * attention_scale(D)
     dk = einsum("bhgqk,bqhgd->bkhgd", ds.to(q.dtype).float(),
@@ -252,11 +253,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rest) -> None:
 
 
 def _launch(name: str, fn_name: str, tensors: dict, q: torch.Tensor,
-            Hkv: int, rate: float, seed: int) -> None:
+            Hkv: int, rate: float, seed: int, h0: int = 0) -> None:
     """Check what the kernel takes, then launch ``fn_name`` with the
     tensors in order (dtype, hd, B, T, Hq, Hkv, scale, dropout threshold,
-    1/(1-rate), seed words, pointers..., stream); None passes a null
-    pointer."""
+    1/(1-rate), seed words, first head's global index, pointers...,
+    stream); None passes a null pointer."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
     B, T, Hq, D = q.shape
@@ -283,48 +284,50 @@ def _launch(name: str, fn_name: str, tensors: dict, q: torch.Tensor,
                                 ctypes.c_float(attention_scale(D)),
                                 keep_threshold(rate) if rate > 0.0 else 0,
                                 ctypes.c_float(1.0 / (1.0 - rate)),
-                                seed_lo, seed_hi, *ptrs, ctypes.c_void_p(stream))
+                                seed_lo, seed_hi, h0, *ptrs,
+                                ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.bllm_error_string(err).decode()}")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        rate: float = 0.0, seed: int = 0
+                        rate: float = 0.0, seed: int = 0, h0: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1: (out (B, T, Hq, D), lse (B, Hq, T) fp32), attention dropout at
-    ``rate`` with the mask of ``seed``. CUDA tensors launch the kernel (one
-    count on ``flash_attention_fwd.launches``), CPU tensors compute
+    ``rate`` with the mask of ``seed`` (its heads h0 ... h0 + Hq - 1: a
+    tensor-parallel rank's). CUDA tensors launch the kernel (one count on
+    ``flash_attention_fwd.launches``), CPU tensors compute
     ``fused_attention_fwd_plain``."""
     _check(q, k, v)
     if q.device.type == "cpu":
-        return fused_attention_fwd_plain(q, k, v, rate, seed)
+        return fused_attention_fwd_plain(q, k, v, rate, seed, h0=h0)
     B, T, Hq, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(B, Hq, T, dtype=torch.float32, device=q.device)
     _launch("flash_attention_fwd", "bllm_attn_fwd",
-            dict(q=q, k=k, v=v, out=out, lse=lse), q, k.shape[2], rate, seed)
+            dict(q=q, k=k, v=v, out=out, lse=lse), q, k.shape[2], rate, seed, h0)
     flash_attention_fwd.launches += 1
     return out, lse
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, rate: float = 0.0,
-                       seed: int = 0) -> torch.Tensor:
+                       seed: int = 0, h0: int = 0) -> torch.Tensor:
     """B2a: dq (B, T, Hq, D); kernel on CUDA (counted on
     ``flash_attention_dq.launches``), twin on the CPU."""
     _check(q, k, v, do, lse, delta)
     if q.device.type == "cpu":
-        return fused_attention_dq_plain(q, k, v, do, lse, delta, rate, seed)
+        return fused_attention_dq_plain(q, k, v, do, lse, delta, rate, seed, h0=h0)
     dq = torch.empty_like(q)
     _launch("flash_attention_dq", "bllm_attn_bwd_dq",
             dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta, dq=dq), q,
-            k.shape[2], rate, seed)
+            k.shape[2], rate, seed, h0)
     flash_attention_dq.launches += 1
     return dq
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, rate: float = 0.0,
-                        seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                        seed: int = 0, h0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """B2b: (dk, dv), each (B, T, Hkv, D): every query head's gradient
     rounded to the model dtype and summed over the G query heads of its kv
     head in fp32 (the JAX ``_bwd``'s rounding). On CUDA one launch sums in
@@ -333,14 +336,15 @@ def flash_attention_dkv(q, k, v, do, lse, delta, rate: float = 0.0,
     followed by ``group_sum``."""
     _check(q, k, v, do, lse, delta)
     if q.device.type == "cpu":
-        dk, dv = fused_attention_dkv_plain(q, k, v, do, lse, delta, rate, seed)
+        dk, dv = fused_attention_dkv_plain(q, k, v, do, lse, delta, rate, seed,
+                                           h0=h0)
         Hkv = k.shape[2]
         return group_sum(dk, Hkv), group_sum(dv, Hkv)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch("flash_attention_dkv", "bllm_attn_bwd_dkv",
             dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta, dk=dk, dv=dv,
-                 work=None), q, k.shape[2], rate, seed)
+                 work=None), q, k.shape[2], rate, seed, h0)
     flash_attention_dkv.launches += 1
     return dk, dv
 
@@ -358,30 +362,37 @@ class FusedCausalAttention(torch.autograd.Function):
     query heads."""
 
     @staticmethod
-    def forward(ctx, q, k, v, rate, seed):
-        out, lse = flash_attention_fwd(q, k, v, rate, seed)
+    def forward(ctx, q, k, v, rate, seed, h0):
+        out, lse = flash_attention_fwd(q, k, v, rate, seed, h0)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.rate, ctx.seed = rate, seed
+        ctx.rate, ctx.seed, ctx.h0 = rate, seed, h0
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        do = do.contiguous()
-        delta = attention_delta(out, do)
-        dq = flash_attention_dq(q, k, v, do, lse, delta, ctx.rate, ctx.seed)
-        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, ctx.rate,
-                                     ctx.seed)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_backward(q, k, v, out, lse, do, ctx.rate, ctx.seed,
+                                    ctx.h0)
+        return dq, dk, dv, None, None, None
+
+
+def flash_backward(q, k, v, out, lse, do, rate: float, seed: int, h0: int = 0):
+    """(dq, dk, dv) from B1's saved residuals: delta, then B2a and B2b."""
+    do = do.contiguous()
+    delta = attention_delta(out, do)
+    dq = flash_attention_dq(q, k, v, do, lse, delta, rate, seed, h0)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, rate, seed, h0)
+    return dq, dk, dv
 
 
 def fused_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, dropout_rate: float = 0.0,
-                           seed: int | None = None) -> torch.Tensor:
+                           seed: int | None = None, h0: int = 0) -> torch.Tensor:
     """Causal attention of (B, T, Hq, D) queries over (B, T, Hkv, D) keys and
     values through the fused kernels, differentiable, with attention-weight
     dropout at ``dropout_rate`` drawn from the 64-bit ``seed`` (required
-    when the rate is positive, as the JAX op requires its rng)."""
+    when the rate is positive, as the JAX op requires its rng) for heads
+    h0 ... h0 + Hq - 1."""
     T, D = q.shape[1], q.shape[3]
     if not supports_shape(T, k.shape[1], D):
         raise ValueError(f"fused attention needs a supports_shape shape; got "
@@ -390,4 +401,4 @@ def fused_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("dropout_rate > 0 requires a seed")
     return FusedCausalAttention.apply(q.contiguous(), k.contiguous(),
                                       v.contiguous(), float(dropout_rate),
-                                      int(seed or 0))
+                                      int(seed or 0), int(h0))

@@ -91,17 +91,20 @@ def dropout_plan(n: int, dtype: torch.dtype, sms: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def dropout_fwd_plain(x: Optional[torch.Tensor], h: torch.Tensor, seed: int,
-                      rate: float) -> torch.Tensor:
-    """[x +] where(keep, h * inv, 0), every operation rounded to h's dtype."""
-    keep = flat_keep_mask(seed, h.shape, rate, h.device)
+                      rate: float, layout=None) -> torch.Tensor:
+    """[x +] where(keep, h * inv, 0), every operation rounded to h's dtype.
+    ``layout``: h is a block of a larger tensor whose bits it draws
+    (``ops/philox.flat_keep_mask``)."""
+    keep = flat_keep_mask(seed, h.shape, rate, h.device, layout)
     inv = torch.tensor(inv_keep(rate, h.dtype), dtype=h.dtype, device=h.device)
     out = torch.where(keep, h * inv, torch.zeros((), dtype=h.dtype, device=h.device))
     return out if x is None else x + out
 
 
-def dropout_bwd_plain(g: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def dropout_bwd_plain(g: torch.Tensor, seed: int, rate: float,
+                      layout=None) -> torch.Tensor:
     """dh = where(keep, g * inv, 0) with the forward's mask."""
-    return dropout_fwd_plain(None, g, seed, rate)
+    return dropout_fwd_plain(None, g, seed, rate, layout)
 
 
 # ---------------------------------------------------------------------------
@@ -109,7 +112,7 @@ def dropout_bwd_plain(g: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _launch(name: str, x: Optional[torch.Tensor], h: torch.Tensor, seed: int,
-            rate: float) -> torch.Tensor:
+            rate: float, layout=None) -> torch.Tensor:
     ts = [h] if x is None else [x, h]
     if h.dtype not in _DTYPE_CODES or any(t.dtype != h.dtype for t in ts):
         raise TypeError(f"{name} takes one dtype of {list(_DTYPE_CODES)}; got "
@@ -133,9 +136,10 @@ def _launch(name: str, x: Optional[torch.Tensor], h: torch.Tensor, seed: int,
     stream = torch.cuda.current_stream(h.device).cuda_stream
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
     plan = dropout_plan(h.numel(), h.dtype, sms)
+    chunk, stride, offset = layout or (0, 0, 0)
     err = lib.bllm_dropout(_DTYPE_CODES[h.dtype], h.numel(), plan["blocks"],
                            keep_threshold(rate),
-                           inv_keep(rate, h.dtype), lo, hi,
+                           inv_keep(rate, h.dtype), lo, hi, chunk, stride, offset,
                            None if x is None else ctypes.c_void_p(x.data_ptr()),
                            ctypes.c_void_p(h.data_ptr()),
                            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
@@ -146,26 +150,29 @@ def _launch(name: str, x: Optional[torch.Tensor], h: torch.Tensor, seed: int,
 
 
 def dropout_fwd(x: Optional[torch.Tensor], h: torch.Tensor, seed: int,
-                rate: float) -> torch.Tensor:
+                rate: float, layout=None) -> torch.Tensor:
     """B3a: [x +] dropout(h). Kernel on CUDA (counted on
-    ``dropout_fwd.launches``), ``dropout_fwd_plain`` on the CPU."""
+    ``dropout_fwd.launches``), ``dropout_fwd_plain`` on the CPU.
+    ``layout``: the mask of a block of a larger tensor
+    (``ops/philox.flat_keep_mask``)."""
     if h.device.type == "cpu":
-        return dropout_fwd_plain(x, h, seed, rate)
+        return dropout_fwd_plain(x, h, seed, rate, layout)
     if h.device.type != "cuda":
         raise ValueError(f"dropout_fwd runs on cpu or cuda, not {h.device}")
-    out = _launch("dropout_fwd", x, h, seed, rate)
+    out = _launch("dropout_fwd", x, h, seed, rate, layout)
     dropout_fwd.launches += 1
     return out
 
 
-def dropout_bwd(g: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def dropout_bwd(g: torch.Tensor, seed: int, rate: float,
+                layout=None) -> torch.Tensor:
     """B3b: dh = dropout(g) with the forward's mask. Kernel on CUDA (counted
     on ``dropout_bwd.launches``), ``dropout_bwd_plain`` on the CPU."""
     if g.device.type == "cpu":
-        return dropout_bwd_plain(g, seed, rate)
+        return dropout_bwd_plain(g, seed, rate, layout)
     if g.device.type != "cuda":
         raise ValueError(f"dropout_bwd runs on cpu or cuda, not {g.device}")
-    out = _launch("dropout_bwd", None, g, seed, rate)
+    out = _launch("dropout_bwd", None, g, seed, rate, layout)
     dropout_bwd.launches += 1
     return out
 
@@ -180,24 +187,25 @@ class _FusedDropout(torch.autograd.Function):
     kept for the backward."""
 
     @staticmethod
-    def forward(ctx, x, h, seed, rate):
-        ctx.seed, ctx.rate, ctx.add = seed, rate, x is not None
-        return dropout_fwd(x, h, seed, rate)
+    def forward(ctx, x, h, seed, rate, layout):
+        ctx.seed, ctx.rate, ctx.add, ctx.layout = seed, rate, x is not None, layout
+        return dropout_fwd(x, h, seed, rate, layout)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous()
-        return (g if ctx.add else None, dropout_bwd(g, ctx.seed, ctx.rate),
-                None, None)
+        return (g if ctx.add else None,
+                dropout_bwd(g, ctx.seed, ctx.rate, ctx.layout), None, None, None)
 
 
-def fused_dropout(h: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def fused_dropout(h: torch.Tensor, rate: float, seed: int,
+                  layout=None) -> torch.Tensor:
     """dropout(h) with the mask drawn in the kernel (never stored)."""
-    return _FusedDropout.apply(None, h.contiguous(), int(seed), float(rate))
+    return _FusedDropout.apply(None, h.contiguous(), int(seed), float(rate), layout)
 
 
 def fused_dropout_add(x: torch.Tensor, h: torch.Tensor, rate: float,
-                      seed: int) -> torch.Tensor:
+                      seed: int, layout=None) -> torch.Tensor:
     """x + dropout(h), the pre-norm residual update, in one pass."""
     return _FusedDropout.apply(x.contiguous(), h.contiguous(), int(seed),
-                               float(rate))
+                               float(rate), layout)

@@ -65,29 +65,43 @@ def philox4x32_10(c0, c1, c2, c3, seed: int) -> Tuple[torch.Tensor, ...]:
 
 
 def attention_keep_mask(seed: int, B: int, H: int, Tq: int, Tk: int,
-                        rate: float, device=None) -> torch.Tensor:
+                        rate: float, device=None, *, q0: int = 0, k0: int = 0,
+                        h0: int = 0) -> torch.Tensor:
     """(B, H, Tq, Tk) bool keep mask of the attention weights: element
     (b, h, q, k) is word 2 (q & 1) + (k & 1) of counter (k >> 1, q >> 1, h,
-    b). Query head h is the model's head index (kv head h // G under GQA)."""
+    b). Query head h is the model's head index (kv head h // G under GQA).
+    ``q0``, ``k0``, ``h0``: the global index of the first query, key and
+    head (a sequence-parallel block, a tensor-parallel rank's heads), so a
+    block draws its part of the whole mask."""
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
-    Q2, K2 = (Tq + 1) // 2, (Tk + 1) // 2
-    words = philox4x32_10(ar(K2)[None, None, None, :], ar(Q2)[None, None, :, None],
-                          ar(H)[None, :, None, None], ar(B)[:, None, None, None],
-                          seed)
+    qa, ka = q0 - q0 % 2, k0 - k0 % 2
+    Q2, K2 = (Tq + q0 - qa + 1) // 2, (Tk + k0 - ka + 1) // 2
+    words = philox4x32_10(ar(K2)[None, None, None, :] + ka // 2,
+                          ar(Q2)[None, None, :, None] + qa // 2,
+                          ar(H)[None, :, None, None] + h0,
+                          ar(B)[:, None, None, None], seed)
     thr = keep_threshold(rate)
     keep = torch.stack([w >= thr for w in words], dim=-1)      # (B, H, Q2, K2, 4)
     keep = keep.reshape(B, H, Q2, K2, 2, 2).permute(0, 1, 2, 4, 3, 5)
-    return keep.reshape(B, H, 2 * Q2, 2 * K2)[:, :, :Tq, :Tk]
+    keep = keep.reshape(B, H, 2 * Q2, 2 * K2)
+    return keep[:, :, q0 - qa:q0 - qa + Tq, k0 - ka:k0 - ka + Tk]
 
 
-def flat_keep_mask(seed: int, shape, rate: float, device=None) -> torch.Tensor:
+def flat_keep_mask(seed: int, shape, rate: float, device=None,
+                   layout=None) -> torch.Tensor:
     """Keep mask of a tensor of ``shape`` whose element at flat (row-major)
-    index i is word i & 3 of counter (i >> 2 low word, i >> 2 high word, 0,
-    0): the residual and embedding dropout sites."""
+    index i is word i & 3 of counter (g low word, g high word, 0, 0) for
+    its group g = i >> 2: the residual and embedding dropout sites.
+    ``layout`` (chunk, stride, offset), in groups: the tensor is a block of
+    a larger one, its group g that one's (g // chunk) * stride + offset +
+    g % chunk (a sequence-parallel rank's T block)."""
     n = 1
     for d in shape:
         n *= int(d)
     g = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    if layout is not None:
+        chunk, stride, offset = layout
+        g = torch.div(g, chunk, rounding_mode="floor") * stride + offset + g % chunk
     words = philox4x32_10(g & _MASK32, g >> 32, 0, 0, seed)
     thr = keep_threshold(rate)
     keep = torch.stack([w >= thr for w in words], dim=-1).reshape(-1)

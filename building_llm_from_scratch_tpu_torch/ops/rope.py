@@ -47,25 +47,40 @@ def precompute_rope_params(
     return torch.cos(angles), torch.sin(angles)
 
 
+def _tables(t: int, cos: torch.Tensor, sin: torch.Tensor,
+            positions: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin at ``positions`` (None: arange(t)), shaped to broadcast
+    over (batch, seq, heads, head_dim)."""
+    if positions is None:
+        return cos[:t][None, :, None, :], sin[:t][None, :, None, :]
+    cos_t, sin_t = cos[positions], sin[positions]
+    if positions.ndim == 1:
+        return cos_t[None, :, None, :], sin_t[None, :, None, :]
+    return cos_t[:, :, None, :], sin_t[:, :, None, :]
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (batch, seq, heads, head_dim); positions: None (= arange(seq)),
     (seq,) or per-row (batch, seq) absolute positions."""
     _, t, _, d = x.shape
-    if positions is None:
-        cos_t = cos[:t][None, :, None, :]
-        sin_t = sin[:t][None, :, None, :]
-    else:
-        cos_t = cos[positions]
-        sin_t = sin[positions]
-        if positions.ndim == 1:
-            cos_t = cos_t[None, :, None, :]
-            sin_t = sin_t[None, :, None, :]
-        else:
-            cos_t = cos_t[:, :, None, :]
-            sin_t = sin_t[:, :, None, :]
+    cos_t, sin_t = _tables(t, cos, sin, positions)
     x1 = x[..., : d // 2]
     x2 = x[..., d // 2:]
     rotated = torch.cat([-x2, x1], dim=-1)
     out = x.float() * cos_t + rotated.float() * sin_t
     return out.to(x.dtype)
+
+
+def apply_rope_backward(g: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                        positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The gradient of ``apply_rope``'s input from its output's gradient
+    ``g``, with autograd's own operations on it (the rotation is linear,
+    so the input's values are not needed): bit for bit what autograd
+    gives."""
+    _, t, _, d = g.shape
+    cos_t, sin_t = _tables(t, cos, sin, positions)
+    gf = g.float()
+    da = (gf * cos_t).to(g.dtype)
+    db = (gf * sin_t).to(g.dtype)
+    return da + torch.cat([db[..., d // 2:], -db[..., : d // 2]], dim=-1)

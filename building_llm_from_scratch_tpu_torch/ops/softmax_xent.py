@@ -26,6 +26,21 @@ that ``SoftmaxXent`` (and B4) return, so neither changes.
 (sum(nll * w), sum(w)) in fp32 (w = 1 without weights), for the
 accumulating step, which divides once over all its microbatches.
 
+Under tensor parallelism with the vocabulary split over the model axis
+(``parallel/sharding.py``: LLaMA-3.2-1B's 128,256 at tp 2),
+``vocab_parallel_cross_entropy`` takes each rank's fp32 logits over its
+V / tp columns: the max and the sum of exps are all-reduced over the
+model group, and the target's logit comes from the rank that holds it
+(the others add 0). Asked for B4 (``BLLM_XENT_PALLAS=1``) by a config
+that takes this module's chunked loss, the train step gives that loss the
+head all-gathered over the model axis instead
+(``parallel.tensor.Parallel.gather_vocab``), so B4 runs on the whole
+vocabulary. On the card it raises where B4 would not then run
+(``kernel_refusal``: more than one visible card, as under NCCL, or a shape
+B4 does not take): the gather is never paid for the plain loss. A config
+on the dense loss (``emb_dim > 1024``: LLaMA-3.2-1B) never takes B4, so the
+opt-in leaves its vocab-parallel loss as it is.
+
 Not ported: ``BLLM_XENT_CHUNK`` / ``BLLM_XENT_FWD_CHUNK`` (the chunk is an
 argument).
 """
@@ -47,15 +62,29 @@ from building_llm_from_scratch_tpu_torch.ops.xent_fwd import (
 DEFAULT_CHUNK = 51200
 
 
+def xent_kernel_requested() -> bool:
+    """Whether B4 is asked for (``BLLM_XENT_PALLAS=1``, the JAX switch)."""
+    return os.environ.get("BLLM_XENT_PALLAS", "0") == "1"
+
+
+def kernel_refusal(x2: torch.Tensor, V: int) -> Optional[str]:
+    """Why B4 would not run on the CUDA hidden states ``x2`` (N, D) under a
+    (D, V) head, or None when it runs: the JAX rule of one device and its
+    ``supports_shape``."""
+    if torch.cuda.device_count() != 1:
+        return f"B4 runs on one device only ({torch.cuda.device_count()} are visible)"
+    N, D = x2.shape
+    if not supports_shape(N, D, V):
+        return f"B4 does not take (N, D, V) = ({N}, {D}, {V})"
+    return None
+
+
 def _use_kernel_fwd(x2: torch.Tensor, V: int) -> bool:
     """B4 is opt-in (``BLLM_XENT_PALLAS=1``), single-device, and gated by
     its ``supports_shape``; otherwise the chunked forward below."""
-    if os.environ.get("BLLM_XENT_PALLAS", "0") != "1":
+    if not xent_kernel_requested() or x2.device.type != "cuda":
         return False
-    if x2.device.type != "cuda" or torch.cuda.device_count() != 1:
-        return False
-    N, D = x2.shape
-    return supports_shape(N, D, V)
+    return kernel_refusal(x2, V) is None
 
 
 def xent_fwd_impl(x2: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
@@ -152,3 +181,43 @@ def fused_cross_entropy_loss(hidden: torch.Tensor, w_head: torch.Tensor,
     nll = softmax_xent(hidden.reshape(B * T, D), w_head,
                        targets.reshape(B * T), chunk)
     return weighted_mean(nll, weights)
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    """Per-token nll from each rank's (N, V / tp) fp32 logits: the global
+    max and sum of exps all-reduced over the model group, the target's
+    logit from its owner. Backward: softmax - onehot on the rank's columns,
+    times the nll's cotangent."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, lo, group):
+        from building_llm_from_scratch_tpu_torch.parallel import collectives as coll
+
+        label = "model"
+        m = coll.all_reduce(logits.amax(dim=-1), op="max", group=group, label=label)
+        s = coll.all_reduce(torch.exp(logits - m[:, None]).sum(dim=-1), group=group,
+                            label=label)
+        lse = m + torch.log(s)
+        local = targets.long() - lo
+        inside = (local >= 0) & (local < logits.shape[1])
+        idx = torch.where(inside, local, torch.zeros_like(local))
+        t = torch.where(inside, logits.gather(1, idx[:, None])[:, 0],
+                        torch.zeros((), dtype=logits.dtype, device=logits.device))
+        t = coll.all_reduce(t, group=group, label=label)
+        ctx.save_for_backward(logits, lse, idx, inside)
+        return lse - t
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx, inside = ctx.saved_tensors
+        d = torch.exp(logits - lse[:, None])
+        d.scatter_add_(1, idx[:, None], -inside.to(d.dtype)[:, None])
+        return d * g[:, None], None, None, None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                                 lo: int, group=None) -> torch.Tensor:
+    """Per-token negative log-likelihood (N,) fp32 of global ``targets``
+    (N,) from this rank's fp32 logits (N, V_local) over vocabulary columns
+    [lo, lo + V_local); a collective over the model ``group``."""
+    return _VocabParallelXent.apply(logits.float(), targets, int(lo), group)

@@ -1,6 +1,7 @@
-"""Parallelism: the process group and mesh, the sharding rule table
-(dp / fsdp / zero1) and the explicit collectives (port of the JAX
-package's ``parallel/``; tensor, sequence and pipeline parallelism are not
+"""Parallelism: the process group and the (data, seq, model) mesh, the
+sharding rule table (dp / fsdp / zero1 / tp / tp_fsdp), the explicit
+collectives and the tensor- and sequence-parallel forward's operators
+(port of the JAX package's ``parallel/``; pipeline parallelism is not
 ported)."""
 
 from building_llm_from_scratch_tpu_torch.parallel.collectives import (

@@ -18,9 +18,15 @@ ask for ``gloo`` on ``cuda`` by name (two ranks on one card: NCCL refuses
 two ranks on one device); nothing picks gloo, or the CPU, on its own, and a
 failed NCCL init raises.
 
-The mesh is ``(data, seq, model)`` as in the JAX package, with data = the
-world size and seq = model = 1: sequence and tensor parallelism are not
-ported.
+The mesh is ``(data, seq, model)`` as in the JAX package
+(``make_mesh(data=-1, seq=, model=)``): global rank ``r`` sits at
+``(r // (seq * model), (r // model) % seq, r % model)``, the JAX
+``reshape(data, seq, model)`` of the device list. With seq = model = 1 the
+data axis is the whole group (the default process group, as dp / fsdp /
+zero1 ran before). Otherwise ``Mesh.group(axis)`` is this rank's
+``torch.distributed`` subgroup along one axis (or over data and seq
+together, ``"data_seq"``): every rank builds every line's group once, in
+one order, as ``new_group`` requires.
 """
 
 from __future__ import annotations
@@ -108,31 +114,103 @@ def initialize_distributed(backend: Optional[str] = None,
 
 
 def shutdown_distributed() -> None:
-    """Leave the process group, if there is one."""
+    """Leave the process group, if there is one (its subgroups with it)."""
+    _GROUPS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
 
+#: the axes a rank's subgroups run along; "data_seq" is the data and seq
+#: axes together (the ranks that share one model index)
+GROUP_AXES = (DATA_AXIS, SEQ_AXIS, MODEL_AXIS, "data_seq")
+
+#: (data, seq, model) -> {axis: this rank's group}, built once per group
+_GROUPS: dict = {}
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The (data, seq, model) mesh over the process group's ranks: data
-    parallel over every rank, seq = model = 1 (sequence and tensor
-    parallelism are not ported)."""
+    """The (data, seq, model) mesh over the process group's ranks."""
 
     data: int
+    seq: int = 1
+    model: int = 1
 
     @property
     def shape(self) -> dict:
-        return {DATA_AXIS: self.data, SEQ_AXIS: 1, MODEL_AXIS: 1}
+        return {DATA_AXIS: self.data, SEQ_AXIS: self.seq, MODEL_AXIS: self.model}
+
+    @property
+    def size(self) -> int:
+        return self.data * self.seq * self.model
+
+    def coords(self, rank: int) -> dict:
+        """The (data, seq, model) indices of global rank ``rank``."""
+        return {DATA_AXIS: rank // (self.seq * self.model),
+                SEQ_AXIS: (rank // self.model) % self.seq,
+                MODEL_AXIS: rank % self.model}
+
+    def rank_of(self, data: int, seq: int, model: int) -> int:
+        return (data * self.seq + seq) * self.model + model
+
+    def line(self, rank: int, axis: str) -> list:
+        """The global ranks of ``rank``'s line along ``axis`` (in axis
+        order; "data_seq": data-major over both)."""
+        c = self.coords(rank)
+        d, s, m = c[DATA_AXIS], c[SEQ_AXIS], c[MODEL_AXIS]
+        if axis == DATA_AXIS:
+            return [self.rank_of(i, s, m) for i in range(self.data)]
+        if axis == SEQ_AXIS:
+            return [self.rank_of(d, i, m) for i in range(self.seq)]
+        if axis == MODEL_AXIS:
+            return [self.rank_of(d, s, i) for i in range(self.model)]
+        return [self.rank_of(i, j, m) for i in range(self.data)
+                for j in range(self.seq)]
+
+    def group(self, axis: str):
+        """This rank's process group along ``axis``: None (the default
+        group) when the axis spans the whole world, its subgroup
+        otherwise. A one-rank line's group is never used for a collective
+        (the callers skip axes of size 1)."""
+        if len(self.line(0, axis)) == self.size:
+            return None
+        key = (self.data, self.seq, self.model)
+        if key not in _GROUPS:
+            _GROUPS[key] = self._build_groups()
+        return _GROUPS[key][axis]
+
+    def _build_groups(self) -> dict:
+        """Every line's group on every rank, in one order; this rank's
+        kept."""
+        me = dist.get_rank()
+        mine = {}
+        for axis in GROUP_AXES:
+            seen = set()
+            for r in range(self.size):
+                ranks = tuple(self.line(r, axis))
+                if ranks in seen:
+                    continue
+                seen.add(ranks)
+                g = dist.new_group(list(ranks))
+                if me in ranks:
+                    mine[axis] = g
+        return mine
 
 
-def make_mesh(data: int = -1, world_size: Optional[int] = None) -> Mesh:
-    """The mesh over ``world_size`` ranks (the group's, else 1). ``data=-1``
-    takes the whole world; any other data size raises."""
+def make_mesh(data: int = -1, seq: int = 1, model: int = 1,
+              world_size: Optional[int] = None) -> Mesh:
+    """The (data, seq, model) mesh over ``world_size`` ranks (the group's,
+    else 1). ``data=-1`` takes what seq x model leaves of the world (the
+    JAX ``make_mesh``); a product that is not the world raises."""
     if world_size is None:
         world_size = dist.get_world_size() if dist.is_initialized() else 1
+    if seq < 1 or model < 1:
+        raise ValueError(f"mesh seq={seq} and model={model} must be >= 1")
     if data == -1:
-        data = world_size
-    if data != world_size:
-        raise ValueError(f"mesh data={data} != {world_size} ranks")
-    return Mesh(data=data)
+        if world_size % (seq * model) != 0:
+            raise ValueError(f"{world_size} ranks not divisible by "
+                             f"seq*model={seq * model}")
+        data = world_size // (seq * model)
+    if data * seq * model != world_size:
+        raise ValueError(f"mesh {data}x{seq}x{model} != {world_size} ranks")
+    return Mesh(data=data, seq=seq, model=model)

@@ -24,11 +24,13 @@ manifest without its shards; a save cut between the two renames leaves
 two complete neighbours, which ``load_checkpoint`` falls back to.
 
 Sharded states (``parallel.MeshPlan``, more than one rank): the tree holds
-each rank's slices and ``layout`` maps their paths to (global shape,
-sharded dimension). Every rank writes the shards it owns, as the JAX
-processes do: shard ``k`` of a sharded leaf (rank ``k``'s slice, so the
-manifest's indices are the JAX save's) and, from rank 0, every replicated
-leaf. After a barrier rank 0 hashes the other ranks' files, writes the
+each rank's slices and ``layout`` maps their paths to
+``MeshPlan.leaf_layout``'s (global shape, unique shards' indices in the
+JAX save's order, the shard this rank writes or None, this rank's own
+indices). Every rank writes the shards it owns, as the JAX processes do:
+each unique shard once, by the lowest rank holding it (so the manifest's
+indices are the JAX save's, on one mesh axis or two) and, from rank 0,
+every replicated leaf. After a barrier rank 0 hashes the other ranks' files, writes the
 manifest and commits; a second barrier holds every rank until the commit
 is visible. A restore reads each rank's slice from whatever shards cover
 it, so a checkpoint of one world size restores onto another.
@@ -62,7 +64,6 @@ from building_llm_from_scratch_tpu_torch.models.transformer import (
     param_shapes,
 )
 from building_llm_from_scratch_tpu_torch.parallel import collectives as coll
-from building_llm_from_scratch_tpu_torch.parallel.sharding import shard_bounds
 
 logger = logging.getLogger(__name__)
 
@@ -332,7 +333,7 @@ def _save_ranks(ckpt_dir: str, tree: Dict[str, Any],
                 extra_metadata: Optional[dict], layout: Dict[str, tuple]) -> dict:
     """The multi-rank save (module docstring): owned shards from every
     rank, then rank 0's hashes, manifest and commit, between barriers."""
-    rank, world = coll.rank(), coll.world()
+    rank = coll.rank()
     ckpt_dir = ckpt_dir.rstrip("/")
     tmp_dir = ckpt_dir + ".tmp"
     if rank == 0:
@@ -346,10 +347,11 @@ def _save_ranks(ckpt_dir: str, tree: Dict[str, Any],
     for i, path in enumerate(_tree_order(tree)):
         leaf = tree[path]
         shape = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else np.shape(leaf)
-        gshape, axis = layout.get(path, (shape, None))
+        whole = [[0, int(d)] for d in shape]
+        gshape, bounds, mine, _ = layout.get(
+            path, (shape, [whole], 0 if rank == 0 else None, whole))
         shards = [{"file": f"leaf_{i:05d}.shard_{k:03d}.npy", "index": b}
-                  for k, b in enumerate(shard_bounds(gshape, axis, world))]
-        mine = rank if axis is not None else (0 if rank == 0 else None)
+                  for k, b in enumerate(bounds)]
         if mine is not None:
             fname = shards[mine]["file"]
             written[fname] = _write_shard_hashed(os.path.join(tmp_dir, fname),
@@ -519,7 +521,8 @@ def load_checkpoint(ckpt_dir: str, template: Dict[str, Any],
             raise ValueError(f"Leaf path mismatch: template {path} vs "
                              f"checkpoint {meta['path']}")
         shape = tuple(tmpl.shape) if isinstance(tmpl, torch.Tensor) else np.shape(tmpl)
-        gshape, axis = (layout or {}).get(path, (shape, None))
+        entry = (layout or {}).get(path)
+        gshape = shape if entry is None else entry[0]
         if tuple(meta["shape"]) != tuple(gshape):
             if path == "rng":
                 logger.warning("Checkpoint rng leaf has shape %s, the template "
@@ -536,11 +539,10 @@ def load_checkpoint(ckpt_dir: str, template: Dict[str, Any],
                 f"Checkpoint leaf '{meta['path']}' has dtype "
                 f"{meta['dtype']} but the model expects {_dtype_name(tmpl)} "
                 "— was the checkpoint written with a different --data_type?")
-        if axis is None:
+        if entry is None:
             arr = _read_leaf(ckpt_dir, meta)
         else:
-            bounds = shard_bounds(gshape, axis, coll.world())[coll.rank()]
-            arr = _read_leaf_slice(ckpt_dir, meta, bounds)
+            arr = _read_leaf_slice(ckpt_dir, meta, entry[3])
         if isinstance(tmpl, torch.Tensor):
             with torch.no_grad():
                 tmpl.copy_(numpy_to_torch(arr, meta["dtype"]))

@@ -49,58 +49,80 @@ them: sum(nll * w) / max(sum(w), 1).
 it in place from a checkpoint of either package.
 
 ``make_sharded_train_step`` is the step of a ``parallel.MeshPlan`` (dp,
-fsdp, zero1; one process per device, the JAX ``make_sharded_train_step``).
-Every collective is explicit and owns its dtype:
+fsdp, zero1, tp, tp_fsdp, each with sequence parallelism when the mesh's
+seq axis is > 1; one process per device, the JAX ``make_train_step`` on a
+GSPMD mesh and, for a policy that reduces in another dtype than it
+computes (bf16_hybrid), ``make_sharded_train_step``). Every collective is
+explicit and owns its dtype:
 
-  1. fsdp: every sharded master is cast to the compute dtype (the
-     policy's, else its own) and all-gathered into the model's full-size
-     working copy (``gather_params``; dp and zero1 hold whole parameters);
-  2. the global weight sum (an all-reduce) scales the rank's loss: its
-     weighted mean times its share of the weights, so the sum over ranks
-     is the global weighted mean (the JAX step's ``nll_sum / w_global``)
-     and the reduced gradients are the global batch's. Prompt-masked SFT
-     batches give ranks unequal shares; a mean of per-rank means would be
-     wrong there;
-  3. the backward on the rank's rows, with the rank folded into the
-     dropout seed (the JAX step folds ``axis_index(data)``);
+  1. fsdp: the leaves outside the blocks (embeddings, head, final norm)
+     are cast to the compute dtype and all-gathered whole over the data
+     axis (``gather_params``); the blocks' sharded leaves are gathered
+     layer by layer, as the JAX GSPMD step slices them inside its layer
+     scan (``_LayerGather``: layer l's slice, cast, into one of two
+     buffers just before block l's forward, and again before its
+     backward; its gradients reduce-scattered as soon as the block's
+     backward has made them). bf16_hybrid, whose JAX step is the explicit
+     one, and LoRA runs (whose merge needs the whole adapter) gather the
+     whole working copy;
+  2. the global weight sum (an all-reduce over data and seq) scales the
+     rank's loss: its weighted mean times its share of the weights, so
+     the sum over ranks is the global weighted mean (the JAX step's
+     ``nll_sum / w_global``) and the reduced gradients are the global
+     batch's. Prompt-masked SFT batches give ranks unequal shares; a mean
+     of per-rank means would be wrong there;
+  3. the backward on the rank's rows (under sp its T block), with the
+     data index folded into the dropout seed (the JAX step folds
+     ``axis_index(data)``); the seq and model ranks of one data index draw
+     one run's masks, keyed on global heads and positions;
   4. the gradients (unscaled first under loss scaling, as the JAX step
      does) are cast to the policy's ``reduce_dtype`` (bf16 under
      bf16_hybrid; the gradient's own dtype without a policy), all-reduced
-     (dp, zero1, fsdp's replicated leaves) or reduce-scattered onto the
-     rank's shard (fsdp), and cast back;
+     over data and seq (dp, zero1, the replicated leaves) or
+     reduce-scattered onto the rank's data shard (fsdp, then summed over
+     seq), and cast back. Nothing reduces over the model axis: Megatron's
+     f and g (``parallel/tensor.py``) sum the activations' partial
+     products and gradients inside the forward and the backward, so every
+     model rank holds its slices' whole gradients and the replicated
+     leaves' identical ones;
   5. the clipping norm: from the whole reduced gradients under dp and zero1
-     (so zero1 is bit-equal to dp); under fsdp each leaf's fp32 sum of
-     squares over the rank's shard, all-reduced as one vector, then
-     rounded and summed in leaf order as ``optim.global_norm`` does. Under
-     loss scaling the skip decision is agreed (all-reduce MIN);
+     (so zero1 is bit-equal to dp); each leaf's fp32 sum of squares over
+     the rank's shard (fsdp) or slice (tp), all-reduced as one vector over
+     the axis it is split on, then rounded and summed in leaf order as
+     ``optim.global_norm`` does. Under loss scaling the skip decision is
+     agreed (all-reduce MIN);
   6. AdamW on the rank's slice with its slice of ``mu`` / ``nu`` (zero1,
-     fsdp), the same ``AdamW.step`` formulas; zero1 then all-gathers the
-     updated slices into the whole parameters.
+     fsdp, tp), the same ``AdamW.step`` formulas; zero1 then all-gathers
+     the updated slices into the whole parameters.
 
 At a world of one the step is the single-device step: the collectives are
 identities on one rank, the loss share is exactly 1, no reduce-dtype cast
 and no rank fold happen, so its losses equal ``make_train_step``'s bit for
-bit. ``grad_accum`` microbatches reduce once per step. The metrics' loss is
-the global one; ``tokens`` counts the global batch.
+bit. ``grad_accum`` microbatches reduce once per step (fsdp then adds each
+layer's gradients into the full-size buffers). The metrics' loss is the
+global one; ``tokens`` counts the global batch.
 
 Under a plan the state (``init_train_state(plan=)``) holds the rank's
 masters in ``params`` (fsdp: contiguous shards of the sharded leaves),
-the full-size working leaves in ``full`` (the model's stacked leaves or
-the adapter's; autograd's leaves, with full-size gradient buffers), and
-the moments sharded as ``plan.opt_spec`` says. A LoRA run's frozen base
-stays whole in the model; under fsdp its checkpoint leaves are the rank's
-slices. fsdp frees the sharded leaves' working copy and their full-size
-gradient buffers once the gradients are reduced (``release_params``), so
-between steps a rank holds its masters and moments only; inside a step it
-holds the whole working copy and gradients, as zero1 does (the JAX step
-under XLA may gather layer by layer; that is not ported).
+the rank's working leaves in ``full`` (the model's stacked leaves or the
+adapter's; autograd's leaves, with their gradient buffers; under tp /
+tp_fsdp the rank's model-axis slices, in a model of the rank's shapes,
+while ``whole`` is the whole model that samples and exports gather into,
+``gather_whole``), and the moments sharded as ``plan.opt_spec`` says. A
+LoRA run's frozen base stays whole in the model; under fsdp its
+checkpoint leaves are the rank's slices. fsdp frees the sharded leaves'
+working copy and their full-size gradient buffers once the gradients are
+reduced (``release_params``), so between steps a rank holds its masters
+and moments only, and inside a step at most two layers' gathered block
+weights.
 
-Not ported here: tensor, sequence and pipeline parallelism and the
-per-layer-group ``health`` bundle.
+Not ported here: pipeline parallelism and the per-layer-group ``health``
+bundle.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -120,14 +142,23 @@ from building_llm_from_scratch_tpu_torch.models.transformer import (
 from building_llm_from_scratch_tpu_torch.ops.softmax_xent import (
     fused_cross_entropy_loss,
     fused_cross_entropy_sums,
+    kernel_refusal,
+    vocab_parallel_cross_entropy,
     weighted_mean,
     weighted_sums,
+    xent_kernel_requested,
 )
 from building_llm_from_scratch_tpu_torch.parallel import collectives as coll
+from building_llm_from_scratch_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    SEQ_AXIS,
+)
 from building_llm_from_scratch_tpu_torch.parallel.sharding import (
     MeshPlan,
     spec_axis,
 )
+from building_llm_from_scratch_tpu_torch.parallel.tensor import Parallel
 from building_llm_from_scratch_tpu_torch.training.optim import (
     AdamState,
     AdamW,
@@ -230,12 +261,16 @@ class TrainState:
     finite steps, kept on the host.
 
     Under a ``plan`` (module docstring): ``params`` holds the rank's
-    masters, ``full`` the full-size working leaves (``params`` itself
-    without a plan), ``param_axes`` / ``opt_axes`` / ``frozen_axes`` each
-    leaf's sharded dimension (None: whole on every rank) for the masters,
-    the moments and a LoRA run's frozen base, and ``gathered`` the (step,
-    exact) of the working copy's last fsdp gather (exact: the masters
-    themselves, not their compute-dtype casts)."""
+    masters, ``full`` the rank's working leaves (``params`` itself without
+    a plan; under tp / tp_fsdp the rank's model-axis slices, the leaves of
+    ``model``, a model of the rank's shapes, while ``whole`` is the whole
+    model that samples and exports gather into), ``param_axes`` /
+    ``opt_axes`` / ``frozen_axes`` each leaf's data-sharded dimension
+    (None: whole on every data rank) for the masters, the moments and a
+    LoRA run's frozen base, ``tp_axes`` each leaf's model-sharded dimension
+    (in the whole leaf's shape), and ``gathered`` the (step, exact) of the
+    working copy's last fsdp gather (exact: the masters themselves, not
+    their compute-dtype casts)."""
 
     model: Transformer
     params: Flat
@@ -251,9 +286,12 @@ class TrainState:
     param_axes: Dict[str, Optional[int]] = field(default_factory=dict)
     opt_axes: Dict[str, Optional[int]] = field(default_factory=dict)
     frozen_axes: Dict[str, Optional[int]] = field(default_factory=dict)
+    tp_axes: Dict[str, Optional[int]] = field(default_factory=dict)
     gathered: Optional[Tuple[int, bool]] = None
     #: the policy's compute dtype, which fsdp's step gathers in
     compute_dtype: Optional[torch.dtype] = None
+    #: the whole model (under tp / tp_fsdp; ``model`` otherwise)
+    whole: Optional[Transformer] = None
 
 
 def _local_shape(shape, axis: Optional[int], n: int) -> tuple:
@@ -276,7 +314,17 @@ def init_train_state(trainable, optimizer: AdamW, seed: int = 0,
     adapter's leaves get gradient buffers and the optimizer sees them
     alone, the model none. The fp16 policy adds the loss scale. ``plan``:
     the rank's masters, moments and axes as the plan places them (the
-    TrainState docstring)."""
+    TrainState docstring); under tp / tp_fsdp the rank trains a model of
+    its slices, and the whole model keeps no memory until a sample or an
+    export gathers it (``gather_whole``)."""
+    whole = None
+    if plan is not None and plan.n_model > 1 and plan.shard_mode in ("tp", "tp_fsdp"):
+        if frozen is not None:
+            raise ValueError("LoRA does not compose with --shard_mode tp / tp_fsdp "
+                             "in the port (the adapter multiplies the whole "
+                             "weights)")
+        whole = trainable
+        trainable = _model_slices(whole, plan)
     if frozen is None:
         model = trainable
         params = model.stacked
@@ -301,9 +349,15 @@ def init_train_state(trainable, optimizer: AdamW, seed: int = 0,
         lora = trainable
     if plan is None:
         state = TrainState(model, params, grads, optimizer.init(params),
-                           seed=seed, lora=lora, full=params)
+                           seed=seed, lora=lora, full=params, whole=model)
     else:
         state = _placed_state(model, params, grads, optimizer, seed, lora, plan)
+        state.whole = whole or model
+        if whole is not None:
+            state.tp_axes = {k: spec_axis(plan.param_spec(_names(k), tuple(v.shape)),
+                                          MODEL_AXIS)
+                             for k, v in whole.stacked.items()}
+            _release(whole.stacked.values())
         if policy is not None:
             state.compute_dtype = policy.torch_compute_dtype
     if policy is not None and policy.loss_scaling:
@@ -311,15 +365,31 @@ def init_train_state(trainable, optimizer: AdamW, seed: int = 0,
     return state
 
 
+def _names(k: str) -> tuple:
+    return tuple(k.split("/"))
+
+
+def _model_slices(whole: Transformer, plan: MeshPlan) -> Transformer:
+    """A model of this rank's model-axis slices of ``whole``'s leaves (the
+    Megatron rule of ``plan``), in storage of its own."""
+    flat = {}
+    for k, v in whole.stacked.items():
+        axis = spec_axis(plan.param_spec(_names(k), tuple(v.shape)), MODEL_AXIS)
+        flat[k] = plan.local_model(v.detach(), axis).clone()
+    return Transformer(whole.cfg, flat, shapes=False)
+
+
 def _placed_state(model: Transformer, full: Flat, grads: Flat,
                   optimizer: AdamW, seed: int, lora, plan: MeshPlan) -> TrainState:
     """The TrainState of ``plan``'s rank: fsdp masters cloned from the
-    rank's slices, the moments made at their slices' shapes."""
-    names = lambda k: tuple(k.split("/"))  # noqa: E731
-    param_axes = {k: spec_axis(plan.param_spec(names(k), tuple(v.shape)))
-                  for k, v in full.items()}
-    opt_axes = {k: spec_axis(plan.opt_spec(names(k), tuple(v.shape)))
-                for k, v in full.items()}
+    rank's slices, the moments made at their slices' shapes. The specs
+    are the whole leaves'; the data axis is the same dimension of the
+    rank's model-axis slice."""
+    whole_shape = _whole_shapes(model, full, plan)
+    param_axes = {k: spec_axis(plan.param_spec(_names(k), whole_shape[k]))
+                  for k in full}
+    opt_axes = {k: spec_axis(plan.opt_spec(_names(k), whole_shape[k]))
+                for k in full}
     params = {k: v if param_axes[k] is None
               else plan.local(v.detach(), param_axes[k]).clone()
               for k, v in full.items()}
@@ -330,7 +400,7 @@ def _placed_state(model: Transformer, full: Flat, grads: Flat,
                     nu={k: zeros(k, v) for k, v in full.items()})
     frozen_axes = {}
     if lora is not None:
-        frozen_axes = {k: spec_axis(plan.param_spec(names(k), tuple(v.shape)))
+        frozen_axes = {k: spec_axis(plan.param_spec(_names(k), tuple(v.shape)))
                        for k, v in model.stacked.items()}
     return TrainState(model, params, grads, opt, seed=seed, lora=lora,
                       plan=plan, full=full, param_axes=param_axes,
@@ -338,29 +408,57 @@ def _placed_state(model: Transformer, full: Flat, grads: Flat,
                       gathered=(0, True))
 
 
-def gather_params(state: TrainState, exact: bool = True) -> None:
+def _whole_shapes(model: Transformer, full: Flat, plan: MeshPlan) -> dict:
+    """Each working leaf's whole shape (a model-axis slice's times the
+    model size along its tp axis)."""
+    from building_llm_from_scratch_tpu_torch.models.transformer import param_shapes
+
+    if plan.n_model == 1 or model.cfg is None:
+        return {k: tuple(v.shape) for k, v in full.items()}
+    shapes = param_shapes(model.cfg)
+    return {k: shapes.get(k, tuple(v.shape)) for k, v in full.items()}
+
+
+def gather_params(state: TrainState, exact: bool = True, skip=()) -> None:
     """Make the working copy (``state.full``) current: under fsdp, every
-    sharded master all-gathered into it, on every rank (a collective:
-    every rank calls it at the same point). ``exact`` False casts the
-    shards to the policy's compute dtype first (the train step's gather);
-    True gathers the masters as they are (samples, exports, evaluation
-    outside a policy). A no-op without sharded masters or when the copy is
-    already current."""
+    sharded master all-gathered into it over the data axis, on every rank
+    (a collective: every rank calls it at the same point). ``exact`` False
+    casts the shards to the policy's compute dtype first (the train step's
+    gather); True gathers the masters as they are (samples, exports,
+    evaluation outside a policy). A no-op without sharded masters or when
+    the copy is already current. ``skip``: leaves left to fsdp's per-layer
+    gathers (the copy then counts as not gathered)."""
     if state.plan is None or not any(a is not None for a in state.param_axes.values()):
         return
     if state.gathered is not None and state.gathered[0] == state.step \
             and (state.gathered[1] or not exact):
         return
     dtype = None if exact else state.compute_dtype
+    group = state.plan.group(DATA_AXIS)
     with torch.no_grad():
         for k, axis in state.param_axes.items():
-            if axis is None:
+            if axis is None or k in skip:
                 continue
             src = state.params[k]
             if dtype is not None and src.is_floating_point() and src.dtype != dtype:
                 src = src.to(dtype)
-            coll.gather_full(src, axis, out=_allocated(state.full[k]))
-    state.gathered = (state.step, exact or dtype is None)
+            coll.gather_full(src, axis, out=_allocated(state.full[k]), group=group)
+    state.gathered = None if skip else (state.step, exact or dtype is None)
+
+
+def gather_whole(state: TrainState) -> Transformer:
+    """The whole model with the masters' current values, on every rank (a
+    collective): the working copy gathered (``gather_params``), and under
+    tp / tp_fsdp every model-axis slice gathered into ``state.whole``."""
+    gather_params(state, exact=True)
+    if not state.tp_axes:
+        return state.whole or state.model
+    group = state.plan.group(MODEL_AXIS)
+    with torch.no_grad():
+        for k, v in state.whole.stacked.items():
+            coll.gather_full(state.full[k], state.tp_axes[k], out=_allocated(v),
+                             group=group, label=MODEL_AXIS)
+    return state.whole
 
 
 def _allocated(t: torch.Tensor) -> torch.Tensor:
@@ -372,41 +470,49 @@ def _allocated(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _release(tensors) -> None:
+    """Free the storage of each tensor that owns its whole storage (one a
+    torch may resize: not a numpy array's); the tensors stay, with no
+    memory behind them until ``_allocated``."""
+    for t in tensors:
+        st = t.untyped_storage()
+        if st.resizable() and t.storage_offset() == 0 \
+                and st.nbytes() == t.numel() * t.element_size():
+            st.resize_(0)
+
+
 def release_params(state: TrainState) -> None:
     """fsdp, once the gradients are reduced: free the storage of the
     sharded leaves' working copy and of their full-size gradient buffers.
     The tensors (and the model's per-layer views of them) stay, with no
     memory behind them until ``gather_params`` and the next step allocate
-    it again. Only a tensor that owns its whole storage, and a storage
-    torch may resize (not a numpy array's), is freed."""
-    for k, axis in state.param_axes.items():
-        if axis is None:
-            continue
-        for t in (state.full[k], state.grads[k]):
-            st = t.untyped_storage()
-            if st.resizable() and t.storage_offset() == 0 \
-                    and st.nbytes() == t.numel() * t.element_size():
-                st.resize_(0)
+    it again."""
+    sharded = [k for k, axis in state.param_axes.items() if axis is not None]
+    _release([state.full[k] for k in sharded] + [state.grads[k] for k in sharded])
     state.gathered = None
 
 
-def checkpoint_layout(state: TrainState) -> Dict[str, Tuple[tuple, int]]:
-    """{checkpoint path: (global shape, sharded dimension)} of the leaves
-    that ``checkpoint_tree`` holds as this rank's slices (empty without a
+def checkpoint_layout(state: TrainState) -> Dict[str, tuple]:
+    """{checkpoint path: ``MeshPlan.leaf_layout``} of the leaves that
+    ``checkpoint_tree`` holds as this rank's slices (empty without a
     plan)."""
     if state.plan is None:
         return {}
-    out = {}
-    for k, v in state.full.items():
-        shape = tuple(v.shape)
-        if state.param_axes.get(k) is not None:
-            out[f"trainable/{k}"] = (shape, state.param_axes[k])
-        if state.opt_axes.get(k) is not None:
-            out[f"opt_state/1/mu/{k}"] = (shape, state.opt_axes[k])
-            out[f"opt_state/1/nu/{k}"] = (shape, state.opt_axes[k])
+    plan, out = state.plan, {}
+    shapes = _whole_shapes(state.model, state.full, plan)
+    for k in state.full:
+        shape = shapes[k]
+        spec = plan.param_spec(_names(k), shape)
+        if spec:
+            out[f"trainable/{k}"] = plan.leaf_layout(shape, spec)
+        ospec = plan.opt_spec(_names(k), shape)
+        if ospec:
+            for m in ("mu", "nu"):
+                out[f"opt_state/1/{m}/{k}"] = plan.leaf_layout(shape, ospec)
     for k, axis in state.frozen_axes.items():
         if axis is not None:
-            out[f"frozen/{k}"] = (tuple(state.model.stacked[k].shape), axis)
+            shape = tuple(state.model.stacked[k].shape)
+            out[f"frozen/{k}"] = plan.leaf_layout(shape, plan.param_spec(_names(k), shape))
     return out
 
 
@@ -476,7 +582,8 @@ def restore_train_state(state: TrainState, ckpt_dir: str) -> TrainState:
                 if axis is not None:
                     full = state.model.stacked[k]
                     coll.gather_full(state.plan.local(full, axis).clone(),
-                                     axis, out=full)
+                                     axis, out=full,
+                                     group=state.plan.group(DATA_AXIS))
     opt.count = int(restored["opt_state/1/count"])
     state.step = int(restored["step"])
     if state.loss_scale is not None:
@@ -488,17 +595,18 @@ def restore_train_state(state: TrainState, ckpt_dir: str) -> TrainState:
 def make_full_params_fn(lora_alpha: Optional[float] = None,
                         lora_rank: Optional[int] = None,
                         policy: Optional[PrecisionPolicy] = None) -> Callable:
-    """``full_params(state) -> Flat``: the weights the step's forward and
-    loss run on instead of the model's own (the JAX
+    """``full_params(state, skip=()) -> Flat``: the weights the step's
+    forward and loss run on instead of the model's own (the JAX
     ``make_full_params_fn``), built anew in every call so that autograd
     reaches the trainable leaves. Without LoRA or a policy none; with LoRA
     the merged adapted weights; with a policy every leaf (the merged ones
-    included) cast to its compute dtype."""
+    included) cast to its compute dtype, but those in ``skip`` (fsdp's
+    per-layer leaves, which its gathers cast)."""
     if lora_rank is None and policy is None:
-        return lambda state: {}
+        return lambda state, skip=(): {}
 
-    def full_params(state: TrainState) -> Flat:
-        base = state.model.stacked
+    def full_params(state: TrainState, skip=()) -> Flat:
+        base = {k: v for k, v in state.model.stacked.items() if k not in skip}
         params = base
         if lora_rank is not None:
             names = {"/".join(p[:-1]) for p in flatten_lora(state.lora)}
@@ -510,12 +618,6 @@ def make_full_params_fn(lora_alpha: Optional[float] = None,
         return params
 
     return full_params
-
-
-def _hidden(full_params: Callable, state: TrainState, inputs: torch.Tensor,
-            **fwd):
-    params = full_params(state)
-    return params, forward_hidden(state.model, inputs, params=params, **fwd)
 
 
 def _update_loss_scale(state: TrainState, finite: bool,
@@ -538,68 +640,86 @@ def _update_loss_scale(state: TrainState, finite: bool,
 class _Collectives:
     """The sharded step's communication (module docstring, steps 1-6) for
     ``plan``: every method is a collective, called by every rank at the
-    same point of the step."""
+    same point of the step. The data rank's replicas (the ranks of one
+    data index along seq and model) share the weights; gradients and the
+    loss reduce over data and seq, never over model."""
 
     def __init__(self, plan: MeshPlan, policy: Optional[PrecisionPolicy]):
         self.plan = plan
         self.world = plan.n_data
+        self.replicas = plan.n_data * plan.n_seq
         # one rank reduces nothing: no reduce-dtype round trip there
         self.reduce_dtype = (DTYPE_MAP[policy.reduce_dtype]
-                             if policy is not None and self.world > 1 else None)
+                             if policy is not None and self.replicas > 1 else None)
+
+    def _reduce(self, t: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
+        """All-reduce ``t`` over this rank's line along ``axis`` (none on a
+        line of one rank inside a larger mesh)."""
+        mesh = self.plan.mesh
+        if mesh.size > 1 and len(mesh.line(self.plan.rank, axis)) == 1:
+            return t
+        label = None if axis in (DATA_AXIS, "data_seq") else axis
+        return coll.all_reduce(t, op=op, group=self.plan.group(axis), label=label)
 
     def seed(self, seed: int) -> int:
-        """The rank's dropout seed: the step's with the rank folded in."""
-        return derive_seed(seed, self.plan.rank) if self.world > 1 else seed
+        """The rank's dropout seed: the step's with the data index folded
+        in (seq and model ranks of one data index draw one run's masks)."""
+        return derive_seed(seed, self.plan.data_rank) if self.world > 1 else seed
 
     def share(self, inputs: torch.Tensor, weights: Optional[torch.Tensor]):
         """The rank's share of the global weighted mean: its weight sum over
-        the global one (an all-reduce; each floored at 1, as the mean's
-        denominator; without weights every token weighs 1)."""
+        the global one (an all-reduce over data and seq; each floored at 1,
+        as the mean's denominator; without weights every token weighs 1)."""
         if weights is None:
             local = torch.full((), float(inputs.numel()), dtype=torch.float32,
                                device=inputs.device)
         else:
             local = weights.float().sum()
-        total = coll.all_reduce(local.clone())
+        total = self._reduce(local.clone(), "data_seq")
         return local.clamp_min(1.0) / total.clamp_min(1.0)
 
     def loss(self, loss: torch.Tensor) -> torch.Tensor:
         """The global loss: the sum of the ranks' shares."""
-        return coll.all_reduce(loss.detach().clone())
+        return self._reduce(loss.detach().clone(), "data_seq")
+
+    def reduce_leaf(self, g: torch.Tensor, axis: Optional[int]) -> torch.Tensor:
+        """One gradient cast to the reduce dtype, all-reduced over data and
+        seq (``axis`` None) or reduce-scattered onto the rank's data shard
+        along ``axis`` (then summed over seq), cast back to its dtype."""
+        x = g if self.reduce_dtype in (None, g.dtype) else g.to(self.reduce_dtype)
+        if axis is None:
+            self._reduce(x, "data_seq")
+            return g.copy_(x) if x is not g else g
+        n = g.shape[axis] // self.world
+        shard = torch.empty(_local_shape(g.shape, axis, self.world),
+                            dtype=x.dtype, device=x.device)
+        # rank r's part contiguous: the sharded dimension split into
+        # (world, n) and the world factor moved in front
+        coll.reduce_scatter_into(
+            shard, x.unflatten(axis, (self.world, n)).movedim(axis, 0),
+            group=self.plan.group(DATA_AXIS))
+        if self.plan.n_seq > 1:
+            self._reduce(shard, SEQ_AXIS)
+        return shard if shard.dtype == g.dtype else shard.to(g.dtype)
 
     def reduce(self, state: TrainState, grads: Flat) -> Flat:
-        """The global gradients: each leaf cast to the reduce dtype,
-        all-reduced or reduce-scattered onto the rank's shard (fsdp), cast
-        back to its dtype."""
-        out = {}
-        for k, g in grads.items():
-            x = g if self.reduce_dtype in (None, g.dtype) else g.to(self.reduce_dtype)
-            axis = state.param_axes[k]
-            if axis is None:
-                coll.all_reduce(x)
-                out[k] = g.copy_(x) if x is not g else g
-                continue
-            n = g.shape[axis] // self.world
-            shard = torch.empty(_local_shape(g.shape, axis, self.world),
-                                dtype=x.dtype, device=x.device)
-            # rank r's part contiguous: the sharded dimension split into
-            # (world, n) and the world factor moved in front
-            coll.reduce_scatter_into(
-                shard, x.unflatten(axis, (self.world, n)).movedim(axis, 0))
-            out[k] = shard if shard.dtype == g.dtype else shard.to(g.dtype)
-        return out
+        """The global gradients of ``grads`` (``reduce_leaf`` each)."""
+        return {k: self.reduce_leaf(g, state.param_axes[k]) for k, g in grads.items()}
 
-    def norm(self, tree: Flat, axes: Dict[str, Optional[int]]) -> torch.Tensor:
+    def norm(self, tree: Flat, axes: Dict[str, Optional[int]],
+             tp_axes: Dict[str, Optional[int]]) -> torch.Tensor:
         """``optim.global_norm`` of a tree whose ``axes`` leaves are this
-        rank's shards: their fp32 sums of squares all-reduced as one
-        vector, then rounded and summed in leaf order."""
+        rank's data shards and ``tp_axes`` leaves its model slices: their
+        fp32 sums of squares all-reduced (one vector per mesh axis), then
+        rounded and summed in leaf order."""
         sums = [torch.linalg.vector_norm(t, dtype=torch.float32).square()
                 for t in tree.values()]
-        idx = [i for i, k in enumerate(tree) if axes.get(k) is not None]
-        if idx:
-            vec = coll.all_reduce(torch.stack([sums[i] for i in idx]))
-            for j, i in enumerate(idx):
-                sums[i] = vec[j]
+        for mesh_axis, where in ((DATA_AXIS, axes), (MODEL_AXIS, tp_axes)):
+            idx = [i for i, k in enumerate(tree) if where.get(k) is not None]
+            if idx:
+                vec = self._reduce(torch.stack([sums[i] for i in idx]), mesh_axis)
+                for j, i in enumerate(idx):
+                    sums[i] = vec[j]
         total = None
         for sq, t in zip(sums, tree.values()):
             sq = sq.to(t.dtype)
@@ -612,8 +732,8 @@ class _Collectives:
         all-gathered into the whole parameters."""
         if grad_norm is None:
             # the clipping norm: of the whole gradients under dp and zero1,
-            # of the shards under fsdp
-            grad_norm = self.norm(grads, state.param_axes)
+            # of the shards under fsdp and the slices under tp
+            grad_norm = self.norm(grads, state.param_axes, state.tp_axes)
         zero1 = {k: a for k, a in state.opt_axes.items()
                  if a is not None and state.param_axes[k] is None}
         params = {k: self.plan.local(p, zero1.get(k))
@@ -621,11 +741,77 @@ class _Collectives:
         g = {k: self.plan.local(v, zero1.get(k)) for k, v in grads.items()}
         metrics = optimizer.step(
             params, g, state.opt_state, grad_norm=grad_norm,
-            norm=lambda u: self.norm(u, state.opt_axes))
+            norm=lambda u: self.norm(u, state.opt_axes, state.tp_axes))
         with torch.no_grad():
             for k, axis in zero1.items():
-                coll.gather_full(params[k], axis, out=state.params[k])
+                coll.gather_full(params[k], axis, out=state.params[k],
+                                 group=self.plan.group(DATA_AXIS))
         return metrics
+
+
+class _LayerGather:
+    """fsdp's per-layer working copy of the sharded block leaves (the JAX
+    GSPMD step slices them inside its layer scan, so XLA gathers them
+    layer by layer): ``acquire(l)`` all-gathers layer l's slice of each
+    sharded master over the data axis (cast to the compute dtype under a
+    policy) into one of two buffers used in turn, and ``reduce(l, grads)``
+    reduce-scatters layer l's full-size gradients onto the rank's shards
+    as soon as the layer's backward has made them (loss scale divided out
+    first, in the reduce dtype, as the whole-tree reduce does). With
+    ``defer`` (gradient accumulation: one reduce a step) the gradients add
+    into the full-size buffers instead and reduce with the rest."""
+
+    def __init__(self, state: TrainState, comm: _Collectives, defer: bool):
+        self.state, self.comm, self.defer = state, comm, defer
+        self.keys = [k for k, a in state.param_axes.items()
+                     if a is not None and k.startswith("blocks/")]
+        self.names = {k[len("blocks/"):] for k in self.keys}
+        self.slots: Dict[int, Tuple[int, Flat]] = {}
+        self.shard_grads: Flat = {}
+        #: (layer acquired, the layers whose weights the slots then hold)
+        #: at each acquire
+        self.held: list = []
+
+    def acquire(self, layer: int) -> Flat:
+        slot = self.slots.get(layer % 2)
+        if slot is not None and slot[0] == layer:
+            self.held.append((layer, sorted(s[0] for s in self.slots.values())))
+            return slot[1]
+        bufs = {} if slot is None else slot[1]
+        st, dtype = self.state, self.state.compute_dtype
+        group = st.plan.group(DATA_AXIS)
+        with torch.no_grad():
+            for k in self.keys:
+                src = st.params[k][layer]
+                if dtype is not None and src.is_floating_point() and src.dtype != dtype:
+                    src = src.to(dtype)
+                name = k[len("blocks/"):]
+                if name not in bufs:
+                    bufs[name] = torch.empty(st.full[k].shape[1:], dtype=src.dtype,
+                                             device=src.device)
+                coll.gather_full(src, st.param_axes[k] - 1, out=bufs[name], group=group)
+        self.slots[layer % 2] = (layer, bufs)
+        self.held.append((layer, sorted(s[0] for s in self.slots.values())))
+        return bufs
+
+    def reduce(self, layer: int, grads: Flat) -> None:
+        st = self.state
+        for name, g in grads.items():
+            k = f"blocks/{name}"
+            g = g.to(st.grads[k].dtype)
+            if self.defer:
+                st.grads[k][layer].add_(g)
+                continue
+            if st.loss_scale is not None:
+                g = g.float().div_(st.loss_scale)
+            shard = self.comm.reduce_leaf(g, st.param_axes[k] - 1)
+            if k not in self.shard_grads:
+                self.shard_grads[k] = torch.zeros(st.params[k].shape, dtype=shard.dtype,
+                                                  device=shard.device)
+            self.shard_grads[k][layer].copy_(shard)
+
+    def close(self) -> None:
+        self.slots.clear()
 
 
 def make_sharded_train_step(cfg: ModelConfig, optimizer: AdamW,
@@ -635,10 +821,11 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: AdamW,
                             lora_rank: Optional[int] = None,
                             policy: Optional[PrecisionPolicy] = None,
                             grad_accum: int = 1) -> Callable:
-    """The train step of ``plan`` (dp, fsdp or zero1) on a state made with
-    ``init_train_state(plan=plan)``: the rank's rows in, the global loss
-    and an identical update on every rank out (module docstring). The
-    arguments are ``make_train_step``'s."""
+    """The train step of ``plan`` (dp, fsdp, zero1, tp, tp_fsdp; with seq >
+    1 sequence parallel) on a state made with ``init_train_state(plan=
+    plan)``: the data rank's rows in (under sp the step keeps the rank's
+    T block), the global loss and an identical update on every replica out
+    (module docstring). The arguments are ``make_train_step``'s."""
     return _build_train_step(cfg, optimizer, use_fused_xent,
                              lora_alpha=lora_alpha, lora_rank=lora_rank,
                              policy=policy, grad_accum=grad_accum, plan=plan)
@@ -663,6 +850,52 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW,
                              policy=policy, grad_accum=grad_accum)
 
 
+def _parallel_losses(cfg: ModelConfig, use_fused_xent: Optional[bool],
+                     par: Parallel):
+    """The (loss, sums) functions of a rank of ``par``: the config's
+    (``make_loss_fns``), or with a vocab-parallel head the vocab-parallel
+    cross entropy over the rank's columns (``ops/softmax_xent.py``), or,
+    when B4 is asked for (``BLLM_XENT_PALLAS=1``) and the config takes the
+    chunked loss, that loss on the head all-gathered over the model axis,
+    which raises on the card where B4 would not run."""
+    loss_fn = make_loss_fns(cfg, use_fused_xent)
+    sums_fn = make_sums_fn(cfg, use_fused_xent)
+    if not par.vocab_parallel_head:
+        return loss_fn, sums_fn
+    gathered = xent_kernel_requested() and _auto_fused_xent(cfg, use_fused_xent)
+
+    def head_of(model, head, hidden):
+        w = model.head if head is None else head
+        if gathered and hidden.is_cuda:
+            why = kernel_refusal(hidden.reshape(-1, hidden.shape[-1]), w.shape[1] * par.n_model)
+            if why is not None:
+                raise ValueError(f"BLLM_XENT_PALLAS=1 gathers the vocab-parallel head "
+                                 f"for B4, but {why}; unset it for the vocab-parallel loss")
+        return w
+
+    def vocab_parallel_nll(hidden, w, targets):
+        # f before the column-parallel head: the hidden states' gradient
+        # sums every rank's columns
+        logits = _head_logits(par.copy_to_model(hidden), w)
+        V = w.shape[1]
+        return vocab_parallel_cross_entropy(logits.reshape(-1, V), targets.reshape(-1),
+                                            par.model_rank * V, par.model_group)
+
+    def loss(model, hidden, targets, weights=None, head=None):
+        w = head_of(model, head, hidden)
+        if gathered:
+            return loss_fn(model, hidden, targets, weights, head=par.gather_vocab(w))
+        return weighted_mean(vocab_parallel_nll(hidden, w, targets), weights)
+
+    def sums(model, hidden, targets, weights=None, head=None):
+        w = head_of(model, head, hidden)
+        if gathered:
+            return sums_fn(model, hidden, targets, weights, head=par.gather_vocab(w))
+        return weighted_sums(vocab_parallel_nll(hidden, w, targets), weights)
+
+    return loss, sums
+
+
 def _build_train_step(cfg: ModelConfig, optimizer: AdamW,
                       use_fused_xent: Optional[bool], *,
                       lora_alpha: Optional[float], lora_rank: Optional[int],
@@ -670,12 +903,16 @@ def _build_train_step(cfg: ModelConfig, optimizer: AdamW,
                       plan: Optional[MeshPlan] = None) -> Callable:
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    loss_fn = make_loss_fns(cfg, use_fused_xent)
-    sums_fn = make_sums_fn(cfg, use_fused_xent)
+    base_par = Parallel.of(plan, cfg)
+    loss_fn, sums_fn = _parallel_losses(cfg, use_fused_xent, base_par)
     full_params = make_full_params_fn(lora_alpha, lora_rank, policy)
     deterministic = cfg.drop_rate <= 0.0
     comm = _Collectives(plan, policy) if plan is not None else None
-    world = 1 if comm is None else comm.world
+    replicas = 1 if comm is None else comm.replicas
+    # the JAX trainer's GSPMD step slices fsdp's block leaves inside its
+    # layer scan; a policy that reduces in another dtype than it computes
+    # (bf16_hybrid) takes the explicit step, which gathers them whole
+    by_layer = policy is None or policy.reduce_dtype == policy.compute_dtype
 
     def check(state: TrainState) -> None:
         if (state.plan is None) != (plan is None) or (
@@ -696,7 +933,7 @@ def _build_train_step(cfg: ModelConfig, optimizer: AdamW,
                 raise ValueError("a loss-scaled state needs its fp16 policy "
                                  "in make_train_step(policy=)")
             grad_norm = (global_norm(grads) if comm is None
-                         else comm.norm(grads, state.param_axes))
+                         else comm.norm(grads, state.param_axes, state.tp_axes))
             finite = bool(torch.isfinite(grad_norm) & torch.isfinite(loss))
             if comm is not None:
                 # every rank must take the same branch: a rank that skipped
@@ -714,44 +951,83 @@ def _build_train_step(cfg: ModelConfig, optimizer: AdamW,
             _update_loss_scale(state, finite, policy)
             metrics.update(loss_scale=state.loss_scale, skipped=int(not finite))
         state.step += 1
-        metrics.update(loss=loss.detach(), tokens=n_tokens * world)
+        metrics.update(loss=loss.detach(), tokens=n_tokens * replicas)
         return state, metrics
 
     def unscaled(state: TrainState, grads: Flat) -> Flat:
         """The gradients in fp32 with the loss scale divided out."""
         if state.loss_scale is None:
             return grads
-        return {k: g.float().div_(state.loss_scale) for k, g in grads.items()}
+        return {k: None if g is None else g.float().div_(state.loss_scale)
+                for k, g in grads.items()}
 
-    def start(state: TrainState) -> int:
-        """Zero the gradient buffers, (fsdp) gather the working copy;
-        returns the step's dropout seed."""
+    def start(state: TrainState, defer: bool):
+        """Zero the gradient buffers, (fsdp) gather the working copy: the
+        whole leaves, and for the sharded block leaves the per-layer
+        source; returns the step's dropout seed and the rank's forward
+        context."""
         check(state)
-        for g in state.grads.values():
-            _allocated(g).zero_()
+        gather = None
+        if comm is not None and by_layer and state.lora is None and any(
+                a is not None and k.startswith("blocks/")
+                for k, a in state.param_axes.items()):
+            # the blocks' working copy is gathered layer by layer: what a
+            # sample or an evaluation gathered whole goes first
+            release_params(state)
+            gather = _LayerGather(state, comm, defer)
+        for k, g in state.grads.items():
+            if gather is None or k not in gather.keys or defer:
+                _allocated(g).zero_()
         seed = step_seed(state.seed, state.step)
+        par = dataclasses.replace(base_par, layers=gather)
         if comm is None:
-            return seed
-        gather_params(state, exact=False)
-        return comm.seed(seed)
+            return seed, par
+        gather_params(state, exact=False, skip=gather.keys if gather else ())
+        return comm.seed(seed), par
+
+    def params_of(state: TrainState, par: Parallel) -> Flat:
+        skip = par.layers.keys if par.layers is not None else ()
+        return full_params(state, skip)
+
+    def reduced(state: TrainState, grads: Flat, par: Parallel) -> Flat:
+        """The global gradients: the per-layer source's shards, the rest
+        reduced here; then the working copy and gradients freed."""
+        layered = par.layers is not None and not par.layers.defer
+        rest = {k: g for k, g in grads.items()
+                if not (layered and k in par.layers.keys)}
+        out = comm.reduce(state, rest)
+        if layered:
+            out.update(par.layers.shard_grads)
+            par.layers.close()
+            out = {k: out[k] for k in grads}
+        release_params(state)
+        return out
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        seed = start(state)
+        seed, par = start(state, defer=False)
+        if plan is not None:
+            batch = plan.shard_batch(batch)
         weights = batch.get("weights")
-        params, hidden = _hidden(full_params, state, batch["inputs"],
-                                 seed=seed, deterministic=deterministic)
+        params = params_of(state, par)
+        hidden = forward_hidden(state.model, batch["inputs"], params=params,
+                                seed=seed, deterministic=deterministic, par=par)
         loss = loss_fn(state.model, hidden, batch["targets"], weights,
                        head=params.get("head/weight"))
         if comm is not None:
             loss = loss * comm.share(batch["inputs"], weights)
         (loss if state.loss_scale is None else loss * state.loss_scale).backward()
-        grads = unscaled(state, state.grads)
-        if comm is not None:
-            grads, loss = comm.reduce(state, grads), comm.loss(loss)
-            release_params(state)
+        if comm is None:
+            return finish(state, loss, unscaled(state, state.grads),
+                          batch["inputs"].numel())
+        layered = par.layers.keys if par.layers is not None else ()
+        grads = unscaled(state, {k: None if k in layered else g
+                                 for k, g in state.grads.items()})
+        grads, loss = reduced(state, grads, par), comm.loss(loss)
         return finish(state, loss, grads, batch["inputs"].numel())
 
     def train_step_accum(state: TrainState, batch: Dict[str, torch.Tensor]):
+        if plan is not None:
+            batch = plan.shard_batch(batch)
         inputs, targets = batch["inputs"], batch["targets"]
         B = inputs.shape[0]
         if B % grad_accum:
@@ -763,7 +1039,7 @@ def _build_train_step(cfg: ModelConfig, optimizer: AdamW,
             weights = torch.ones(targets.shape, dtype=torch.float32,
                                  device=targets.device)
         scale = state.loss_scale
-        seed = start(state)
+        seed, par = start(state, defer=True)
         # fp32 gradients sum in their own buffers (autograd adds each
         # microbatch's in place); 16-bit ones are widened into fp32 sums
         wide = {k: torch.zeros_like(g, dtype=torch.float32)
@@ -774,9 +1050,10 @@ def _build_train_step(cfg: ModelConfig, optimizer: AdamW,
             rows = slice(i * mb, (i + 1) * mb)
             # each microbatch's dropout stream: the step's seed folded
             # with the microbatch index, as the step's is folded with the step
-            params, hidden = _hidden(full_params, state, inputs[rows],
-                                     seed=step_seed(seed, i),
-                                     deterministic=deterministic)
+            params = params_of(state, par)
+            hidden = forward_hidden(state.model, inputs[rows], params=params,
+                                    seed=step_seed(seed, i),
+                                    deterministic=deterministic, par=par)
             nll, w = sums_fn(state.model, hidden, targets[rows], weights[rows],
                              head=params.get("head/weight"))
             (nll if scale is None else nll * scale).backward()
@@ -788,7 +1065,7 @@ def _build_train_step(cfg: ModelConfig, optimizer: AdamW,
         grads = {k: wide.get(k, g) for k, g in state.grads.items()}
         if comm is not None:
             # the global batch's weight sum is the mean's denominator
-            w_sum = coll.all_reduce(w_sum.detach().clone())
+            w_sum = comm._reduce(w_sum.detach().clone(), "data_seq")
         denom = w_sum.clamp_min(1.0)
         if scale is not None:
             # the gradients carry the loss scale: divide it out with the
@@ -798,8 +1075,7 @@ def _build_train_step(cfg: ModelConfig, optimizer: AdamW,
             g.div_(denom)
         loss = nll_sum / w_sum.clamp_min(1.0)
         if comm is not None:
-            grads, loss = comm.reduce(state, grads), comm.loss(loss)
-            release_params(state)
+            grads, loss = reduced(state, grads, par), comm.loss(loss)
         return finish(state, loss, grads, inputs.numel())
 
     return train_step if grad_accum == 1 else train_step_accum
@@ -813,8 +1089,9 @@ def make_eval_step(cfg: ModelConfig, *, lora_alpha: Optional[float] = None,
     gradients, no dropout; the train step's loss route, weights and
     policy cast). Under a ``plan`` the loss is the global batch's: each
     rank's weighted mean times its share of the weights, summed over the
-    ranks (fsdp gathers the working copy first)."""
-    loss_fn = make_loss_fns(cfg)
+    data and seq ranks (fsdp gathers the working copy first)."""
+    par = Parallel.of(plan, cfg)
+    loss_fn, _ = _parallel_losses(cfg, None, par)
     full_params = make_full_params_fn(lora_alpha, lora_rank, policy)
     comm = _Collectives(plan, policy) if plan is not None else None
 
@@ -822,7 +1099,9 @@ def make_eval_step(cfg: ModelConfig, *, lora_alpha: Optional[float] = None,
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if comm is not None:
             gather_params(state, exact=False)
-        params, hidden = _hidden(full_params, state, batch["inputs"])
+            batch = plan.shard_batch(batch)
+        params = full_params(state)
+        hidden = forward_hidden(state.model, batch["inputs"], params=params, par=par)
         loss = loss_fn(state.model, hidden, batch["targets"],
                        batch.get("weights"), head=params.get("head/weight"))
         if comm is None:

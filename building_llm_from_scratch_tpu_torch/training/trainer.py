@@ -39,12 +39,13 @@ worker (``training/async_checkpoint.py``), pruning on commit; ``final``
 and ``interrupted`` wait until durable. The prefetchers and the writer
 close in a ``finally``.
 
-A mesh ``plan`` (``parallel.MeshPlan``: dp, fsdp or zero1, one process per
-device) places the state (``init_train_state(plan=)``) and takes the
-sharded step (``make_sharded_train_step``); the loader hands each rank its
-rows of the global batch, so ``tokens_seen`` counts the rank's share, as
-in the JAX trainer, while the cursor (a global batch index) is the same on
-every rank. Evaluation losses are the global batches' (all-reduced sums).
+A mesh ``plan`` (``parallel.MeshPlan``: dp, fsdp, zero1, tp or tp_fsdp
+over a (data, seq, model) mesh, one process per device) places the state
+(``init_train_state(plan=)``) and takes the sharded step
+(``make_sharded_train_step``); the loader hands each data rank its rows of
+the global batch (its seq and model ranks share them), so ``tokens_seen``
+counts the data rank's share, as in the JAX trainer, while the cursor (a
+global batch index) is the same on every rank. Evaluation losses are the global batches' (all-reduced sums).
 Samples, the final export and the adapter export gather the whole masters
 on every rank (a collective) before rank 0 alone generates or writes;
 checkpoints are written shard by shard by their owners (rank 0 commits
@@ -104,7 +105,7 @@ from building_llm_from_scratch_tpu_torch.training.resilience import (
 from building_llm_from_scratch_tpu_torch.training.train_step import (
     checkpoint_layout,
     checkpoint_tree,
-    gather_params,
+    gather_whole,
     init_train_state,
     make_eval_step,
     make_sharded_train_step,
@@ -326,11 +327,11 @@ class Trainer:
                 self.calc_loss_loader(val_batches, EVAL_ITERS))
 
     def _gather_masters(self) -> None:
-        """Under fsdp, the whole masters gathered into the model (and the
-        adapter) on every rank: a collective that every rank runs before
-        rank 0 samples or writes. A no-op otherwise."""
+        """Under fsdp and tp, the whole masters gathered into the model (and
+        the adapter) on every rank: a collective that every rank runs
+        before rank 0 samples or writes. A no-op otherwise."""
         if self.state is not None:
-            gather_params(self.state, exact=True)
+            gather_whole(self.state)
 
     def _full_params(self) -> Dict[str, torch.Tensor]:
         """The model's flat parameters, with the adapter merged in a LoRA

@@ -259,12 +259,38 @@ exits non-zero):
      loss shares differ (the rank folded into the seed); B1-B4 launches
      exact per rank. The step ms there are gloo's host staging, labelled
      so.
+  6r. selective-save remat: LLaMA-3.2-1B bf16 (B 4 x T 1024) and
+     GPT-2-124M fp32 (B 8 x T 1024, p 0.1), 4 steps of the library's train
+     step each under save-all (the model's ``_SAVE_ALL``), selective (the default,
+     which every other phase runs) and full remat (use_actv_ckpt): losses
+     bit-equal across the three, launches exact (B1 twice a layer only
+     under full remat), selective's peak below save-all's; step ms and
+     each peak (``max_memory_allocated``). Phase 10d also gates fsdp's
+     step peak per gloo rank below zero1's (it gathers the blocks layer by
+     layer).
+  10t / 10s. tensor and sequence parallelism on gloo ranks on the one card
+     (``phase_mesh``: spawned ranks on cuda:0, the library API), full
+     width, 2 steps: GPT-2-124M fp32 (12 layers) at tp 2 with p 0 and p
+     0.1, LLaMA-3.2-1B bf16 at tp 2 (8 layers; the vocab-parallel head
+     and loss), GPT-2 fp32 p 0.1 and LLaMA bf16 (8 layers) at sp 2 (the
+     ring, T 512 a rank), and GPT-2 tp_fsdp on four ranks (2, 1, 2). Each
+     against one rank on the global batch: every rank's losses equal, the
+     losses' largest relative difference and the parameters' relative L2
+     within the run's bounds (fp32 1e-5; bf16 pinned beside the control),
+     and a control outside them (tp: the row-parallel all-reduce skipped;
+     sp: the k / v blocks never passed on); launches exact per rank (B1/B2
+     at the rank's heads under tp, none under sp). The ring's ms a step and
+     every step's gloo-staged ms. Before them, B3 on a sequence block with
+     its layout: bit-equal to the twins and to the whole tensor's mask.
+     Phases 5 and 5b also hold B1/B2 at a tp rank's heads (LLaMA Hq 16
+     Hkv 4 bf16; GPT-2 H 6 fp32, with dropout at rank 1's head offset 6,
+     whose mask is heads 6-11 of the whole model's).
   9. the bytes the script wrote to disk, the ``kernels`` line (one row
      per kernel and shape, each with the launches of the run at that
      shape; B6 by projection shape from phase 4c; B5's rows add 8w's and
-     9t's CLI launches, the training rows 8r's, 6m's, 6h's, 9t's and
-     10d's, per rank for the gloo ranks), then the card line and the
-     result line.
+     9t's CLI launches, the training rows 8r's, 6m's, 6h's, 6r's, 9t's,
+     10d's and 10s's, per rank for the gloo ranks; the tp-shape rows read
+     10t's rank 0), then the card line and the result line.
 
 It exits non-zero without printing a result when no CUDA device is present
 or when the package is not beside it.
@@ -852,6 +878,10 @@ ATTN_SHAPES = [
     ("llama3_2-1B-ref", 1, 32, 8, 256, 64, "fp32"),
     ("llama3_2-1B-ref-bf16", 1, 32, 8, 256, 64, "bf16"),
     ("gpt2-124M-train-fp16", 8, 12, 12, 1024, 64, "fp16"),
+    # a tensor-parallel rank's heads at tp 2 (phase 10t): LLaMA-3.2-1B bf16
+    # Hq 16, Hkv 4; GPT-2-124M fp32 H 6 (B 4, the global batch)
+    ("llama3_2-1B-tp2", 4, 16, 4, 1024, 64, "bf16"),
+    ("gpt2-124M-tp2-fp32", 4, 6, 6, 1024, 64, "fp32"),
 ]
 
 # max |kernel - ref| / max |ref| per tensor (lse: absolute), against the
@@ -1068,8 +1098,13 @@ DROPOUT_ATTN_SHAPES = [
     ("gpt2-124M-train-fp32", 8, 12, 12, 1024, 64, "fp32"),
     ("gpt2-124M-ref", 1, 12, 12, 256, 64, "fp32"),
     ("gpt2-124M-train-fp16", 8, 12, 12, 1024, 64, "fp16"),
+    # rank 1's heads of GPT-2-124M at tp 2 (phase 10t, p 0.1): their masks
+    # are heads 6-11 of the whole model's (ATTN_H0)
+    ("gpt2-124M-tp2-fp32", 4, 6, 6, 1024, 64, "fp32"),
 ]
 DROP_RATE = 0.1
+#: the global index of a shape's first head (a tensor-parallel rank's)
+ATTN_H0 = {"gpt2-124M-tp2-fp32": 6}
 
 
 def dense_dropout_oracle(torch, q, k, v, do, keep, rate):
@@ -1111,6 +1146,7 @@ def phase_attention_dropout(torch, card: dict) -> list:
     for shape, B, Hq, Hkv, T, hd, dt in DROPOUT_ATTN_SHAPES:
         dtype = DTYPE_MAP[dt]
         seed = 0x5EED0000ABCD + T
+        h0 = ATTN_H0.get(shape, 0)
         rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)  # noqa: E731
         q, k, v = rnd(B, T, Hq, hd), rnd(B, T, Hkv, hd), rnd(B, T, Hkv, hd)
         do = rnd(B, T, Hq, hd)
@@ -1119,19 +1155,22 @@ def phase_attention_dropout(torch, card: dict) -> list:
                  grouped_dkv_plain)
 
         def run(fwd, dq_fn, dkv_fn, s=seed):
-            out, lse = fwd(q, k, v, DROP_RATE, s)
+            out, lse = fwd(q, k, v, DROP_RATE, s, h0=h0)
             delta = tfa.attention_delta(out, do)
-            return (out, lse, dq_fn(q, k, v, do, lse, delta, DROP_RATE, s)) + tuple(
-                dkv_fn(q, k, v, do, lse, delta, DROP_RATE, s))
+            return (out, lse, dq_fn(q, k, v, do, lse, delta, DROP_RATE, s, h0=h0)) + tuple(
+                dkv_fn(q, k, v, do, lse, delta, DROP_RATE, s, h0=h0))
 
         got = run(*kern)
         torch.cuda.synchronize()
         twin = run(*plain)
-        keep = tfa.keep_mask(seed, B, Hq, T, DROP_RATE, dev)
+        keep = tfa.keep_mask(seed, B, Hq, T, DROP_RATE, dev, h0)
+        if h0 and not torch.equal(keep, tfa.keep_mask(seed, B, h0 + Hq, T, DROP_RATE,
+                                                      dev)[:, h0:]):
+            raise AssertionError(f"{shape}: heads {h0}.. are not the whole model's")
         causal = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
         keep_fraction = keep[:, :, causal].float().mean().item()
-        same = torch.equal(keep, tfa.keep_mask(seed, B, Hq, T, DROP_RATE, dev))
-        differ = (keep != tfa.keep_mask(seed + 1, B, Hq, T, DROP_RATE, dev)
+        same = torch.equal(keep, tfa.keep_mask(seed, B, Hq, T, DROP_RATE, dev, h0))
+        differ = (keep != tfa.keep_mask(seed + 1, B, Hq, T, DROP_RATE, dev, h0)
                   ).float().mean().item()
         oracle = dense_dropout_oracle(torch, q, k, v, do, keep, DROP_RATE)
         del keep
@@ -1163,12 +1202,12 @@ def phase_attention_dropout(torch, card: dict) -> list:
         out, lse = got[0], got[1]
         delta = tfa.attention_delta(out, do)
         calls = {
-            "fwd": (lambda: kern[0](q, k, v, DROP_RATE, seed),
-                    lambda: plain[0](q, k, v, DROP_RATE, seed)),
-            "dq": (lambda: kern[1](q, k, v, do, lse, delta, DROP_RATE, seed),
-                   lambda: plain[1](q, k, v, do, lse, delta, DROP_RATE, seed)),
-            "dkv": (lambda: kern[2](q, k, v, do, lse, delta, DROP_RATE, seed),
-                    lambda: plain[2](q, k, v, do, lse, delta, DROP_RATE, seed)),
+            "fwd": (lambda: kern[0](q, k, v, DROP_RATE, seed, h0=h0),
+                    lambda: plain[0](q, k, v, DROP_RATE, seed, h0=h0)),
+            "dq": (lambda: kern[1](q, k, v, do, lse, delta, DROP_RATE, seed, h0=h0),
+                   lambda: plain[1](q, k, v, do, lse, delta, DROP_RATE, seed, h0=h0)),
+            "dkv": (lambda: kern[2](q, k, v, do, lse, delta, DROP_RATE, seed, h0=h0),
+                    lambda: plain[2](q, k, v, do, lse, delta, DROP_RATE, seed, h0=h0)),
         }
         lib = sdpa_timings(torch, F, q, k, v, do, DROP_RATE, flush)
         del lib["sdpa_out"]
@@ -2223,12 +2262,16 @@ def phase_train_reference(torch, spec: dict) -> dict:
             ttf.Transformer(cfg, {k: v.clone() for k, v in cpu_flat.items()}))
         cpu_s = time.perf_counter() - t_cpu
         if spec["control"] == "no_attention":
+            # the model without attention: every block through autograd
+            # (save-all), whose attention is causal_attention's
             attention = ttf.causal_attention
             ttf.causal_attention = lambda q, k, v, **kw: torch.zeros_like(q)
+            ttf._SAVE_ALL = True
             try:
                 ctl_loss, ctl_grads = one_step(ttf.Transformer(cfg, cpu_flat))
             finally:
                 ttf.causal_attention = attention
+                ttf._SAVE_ALL = False
         else:
             ctl_loss, ctl_grads = one_step(ttf.Transformer(cfg, cpu_flat),
                                            seed=REF_SEED + 1)
@@ -5346,6 +5389,11 @@ def phase_shard_gloo(torch, card: dict, workdir: str) -> dict:
                 < rr["dp"]["resident_gb"]:
             fails.append(f"rank {r} held between steps: fsdp, zero1, dp not in "
                          "increasing order")
+        # fsdp gathers and reduce-scatters the blocks layer by layer: its
+        # step's peak is below zero1's
+        if not rr["fsdp"]["peak_gb"] < rr["zero1"]["peak_gb"]:
+            fails.append(f"rank {r} step peak: fsdp {rr['fsdp']['peak_gb']} not "
+                         f"below zero1 {rr['zero1']['peak_gb']}")
         for m in ("dp", "zero1", "fsdp", "control", "dropout"):
             if rr[m]["launches"] != rr[m]["expected"]:
                 fails.append(f"rank {r} {m} launches {rr[m]['launches']}")
@@ -5385,6 +5433,406 @@ def phase_shard(torch, card: dict, workdir: str) -> dict:
     gloo on the one card."""
     world1 = phase_shard_world1(torch, card, os.path.join(workdir, "world1"))
     return dict(world1=world1, gloo=phase_shard_gloo(torch, card, workdir))
+
+
+# ---------------------------------------------------------------------------
+# phase 6r: selective-save remat, save-all and full remat
+# ---------------------------------------------------------------------------
+
+#: the two training shapes of phase 6r: LLaMA-3.2-1B bf16 (B 4 x T 1024)
+#: and GPT-2-124M fp32 (B 8 x T 1024, dropout 0.1), a few steps each
+REMAT = [dict(model="llama3_2", size="1B", dtype="bf16", batch=4, context=1024,
+              steps=4, drop=None, seed=31),
+         dict(model="GPT2", size="124M", dtype="fp32", batch=8, context=1024,
+              steps=4, drop=0.1, seed=32)]
+REMAT_MODES = ("none", "selective", "full")
+
+
+def remat_run(torch, t: dict, mode: str) -> dict:
+    """t["steps"] steps of the library's train step from one seeded model
+    and batches in remat ``mode`` (the model's ``_SAVE_ALL`` for "none",
+    use_actv_ckpt for "full"): the losses, each step's ms (host clock around a synchronised
+    step), the peak of allocated memory (reset before the model is built)
+    and every kernel's launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+    from building_llm_from_scratch_tpu_torch.models.transformer import build_model
+    from building_llm_from_scratch_tpu_torch.training import optim as topt
+    from building_llm_from_scratch_tpu_torch.training import train_step as tts
+
+    from building_llm_from_scratch_tpu_torch.models import transformer as ttf
+
+    dev = torch.device("cuda")
+    ttf._SAVE_ALL = mode == "none"
+    cfg = get_config(t["model"], t["size"], dtype=t["dtype"],
+                     use_actv_ckpt=mode == "full")
+    if t["drop"] is not None:
+        cfg = dataclasses.replace(cfg, drop_rate=t["drop"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, t["seed"], dev)
+    opt = topt.AdamW(topt.warmup_cosine_schedule(5e-4, 1e-5, 1e-6, 2, 10))
+    state = tts.init_train_state(model, opt, seed=t["seed"])
+    step = tts.make_train_step(cfg, opt)
+    x = torch.from_numpy(np.random.default_rng(t["seed"]).integers(
+        0, cfg.vocab_size, (t["steps"], t["batch"], t["context"] + 1))).to(dev)
+    kernels = train_kernels()
+    for f in kernels.values():
+        f.launches = 0
+    losses, ms = [], []
+    try:
+        for i in range(t["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, {"inputs": x[i, :, :-1], "targets": x[i, :, 1:]})
+            losses.append(m["loss"].item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        ttf._SAVE_ALL = False
+    out = dict(losses=losses, step_ms=ms, steady_ms=statistics.median(ms[1:]),
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               launches={k: f.launches for k, f in kernels.items()},
+               expected=expected_launches(cfg, t["steps"], 0, False))
+    del state, model, step, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_remat(torch, card: dict) -> dict:
+    """Phase 6r: each of REMAT's shapes under save-all, selective (the
+    default) and full remat: per-step losses bit-equal across the three,
+    launches exact (B1 once a layer and step without full remat, twice
+    with it), selective's peak below save-all's; step ms and peaks."""
+    out = {}
+    for t in REMAT:
+        runs = {mode: remat_run(torch, t, mode) for mode in REMAT_MODES}
+        name = f"{t['model']}-{t['size']}-{t['dtype']}"
+        fails = []
+        for mode, r in runs.items():
+            if r["losses"] != runs["none"]["losses"]:
+                fails.append(f"{mode} losses differ from save-all's")
+            if r["launches"] != r["expected"]:
+                fails.append(f"{mode} launches {r['launches']} != {r['expected']}")
+            if not all(map(math.isfinite, r["losses"])):
+                fails.append(f"{mode} losses not finite")
+        if not runs["selective"]["peak_gb"] < runs["none"]["peak_gb"]:
+            fails.append("selective's peak is not below save-all's")
+        emit("remat", card=card["card_line"], model=name, B=t["batch"], T=t["context"],
+             steps=t["steps"], drop=t["drop"],
+             **{mode: {k: r[k] for k in ("losses", "step_ms", "steady_ms", "peak_gb",
+                                         "launches")} for mode, r in runs.items()},
+             fails=fails)
+        if fails:
+            raise AssertionError(f"phase 6r {name}: {fails}")
+        out[name] = runs
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 10t and 10s: tensor and sequence parallelism on gloo ranks
+# ---------------------------------------------------------------------------
+
+#: the runs of a group: name, model, size, dtype (None: fp32), mode, tp,
+#: sp, the global batch, dropout (None: the config's), steps, and the
+#: bounds against one rank on the global batch (the losses' largest
+#: relative difference and the parameters' relative L2, all leaves as one
+#: vector), pinned beside the control's (the row-parallel all-reduce
+#: skipped under tp, the ring's hops under sp)
+MESH_RUNS = {
+    2: [dict(name="gpt2-tp2", model="GPT2", size="124M", dtype=None, mode="tp", tp=2,
+             sp=1, batch=4, drop=0.0, steps=2, loss_tol=1e-5, param_tol=1e-5),
+        dict(name="gpt2-tp2-p0.1", model="GPT2", size="124M", dtype=None, mode="tp",
+             tp=2, sp=1, batch=4, drop=0.1, steps=2, loss_tol=1e-5, param_tol=1e-5),
+        # bf16: each row-parallel output sums two bf16 partial products
+        # (one rank rounds one GEMM); at this cut (8 layers, 2 steps)
+        # measured 3.6e-5 / 1.87e-3 against the control's 3.2e-4 / 2.43e-2
+        # (NVIDIA H100 80GB HBM3, 700.00 W): the bounds sit near the
+        # geometric middles, so the control fails both
+        dict(name="llama-tp2", model="llama3_2", size="1B", dtype="bf16", mode="tp",
+             tp=2, sp=1, batch=4, drop=None, steps=2, layers=8, loss_tol=1.5e-4,
+             param_tol=6e-3),
+        dict(name="gpt2-sp2-p0.1", model="GPT2", size="124M", dtype=None, mode="dp",
+             tp=1, sp=2, batch=4, drop=0.1, steps=2, loss_tol=1e-5, param_tol=1e-5),
+        # bf16: the ring's fp32 scores and P.V against B1's bf16 P; at this
+        # cut measured 1.6e-5 / 1.83e-3 against the control's 1.5e-3 /
+        # 2.5e-2 (the same card), bounds as above
+        dict(name="llama-sp2", model="llama3_2", size="1B", dtype="bf16", mode="dp",
+             tp=1, sp=2, batch=4, drop=None, steps=2, layers=8, loss_tol=1.5e-4,
+             param_tol=6e-3)],
+    4: [dict(name="gpt2-tp_fsdp", model="GPT2", size="124M", dtype=None, mode="tp_fsdp",
+             tp=2, sp=1, batch=8, drop=0.0, steps=2, loss_tol=1e-5, param_tol=1e-5)],
+}
+MESH = dict(seed=13, timeout_s=900)
+
+
+def mesh_config(r: dict):
+    """A mesh run's config: full width, its depth cut to r["layers"] where
+    it names one (the gloo staging of the gradients and the gathers scales
+    with it), its dropout rate where it names one."""
+    import dataclasses
+
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+
+    cfg = get_config(r["model"], r["size"], dtype=r["dtype"])
+    if r["drop"] is not None:
+        cfg = dataclasses.replace(cfg, drop_rate=r["drop"])
+    if r.get("layers"):
+        cfg = dataclasses.replace(cfg, n_layers=r["layers"])
+    return cfg
+
+
+def _mesh_control(kind: str):
+    """The control of a mesh run: the row-parallel outputs left unreduced
+    (tp), or the ring's k/v blocks never passed on (sp)."""
+    from building_llm_from_scratch_tpu_torch.parallel import collectives as coll
+    from building_llm_from_scratch_tpu_torch.parallel import tensor as ptensor
+
+    if kind == "tp":
+        saved = ptensor.Parallel.reduce_from_model
+        ptensor.Parallel.reduce_from_model = lambda self, x: x
+
+        def undo():
+            ptensor.Parallel.reduce_from_model = saved
+    else:
+        shift = coll.ring_shift
+        coll.ring_shift = lambda ts, group=None, label=None: [t.clone() for t in ts]
+
+        def undo():
+            coll.ring_shift = shift
+    return undo
+
+
+def _ring_timer(torch):
+    """Wrap the ring's forward and backward with synchronised host timers;
+    returns (the list of ms, undo)."""
+    from building_llm_from_scratch_tpu_torch.ops import ring_attention as ra
+
+    spent, orig = [], (ra.ring_attention_fwd, ra.ring_attention_bwd)
+
+    def timed(fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+    ra.ring_attention_fwd, ra.ring_attention_bwd = timed(orig[0]), timed(orig[1])
+
+    def undo():
+        ra.ring_attention_fwd, ra.ring_attention_bwd = orig
+    return spent, undo
+
+
+def mesh_rank(rank: int, spec: dict) -> None:
+    """One rank of a 10t / 10s group on cuda:0 over gloo: each run of
+    MESH_RUNS[world] on the mesh, then its control; rank 0 then runs one
+    rank on the global batch and compares. Writes ``rank<r>.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, spec["root"])
+    from building_llm_from_scratch_tpu_torch.models.transformer import build_model
+    from building_llm_from_scratch_tpu_torch.parallel import collectives
+    from building_llm_from_scratch_tpu_torch.parallel import mesh
+    from building_llm_from_scratch_tpu_torch.parallel.sharding import build_mesh_plan
+    from building_llm_from_scratch_tpu_torch.training import optim as topt
+    from building_llm_from_scratch_tpu_torch.training import train_step as tts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    world = spec["world"]
+    mesh.initialize_distributed(backend="gloo", init_method=spec["init"], rank=rank,
+                                world_size=world, device=dev, timeout_s=spec["timeout_s"])
+    kernels = train_kernels()
+    res = {}
+    for r in MESH_RUNS[world]:
+        cfg = mesh_config(r)
+        T = cfg.context_length
+        x = torch.from_numpy(np.random.default_rng(spec["seed"]).integers(
+            0, cfg.vocab_size, (r["steps"], r["batch"], T + 1)))
+
+        def run(plan_args, control=None):
+            model = build_model(cfg, spec["seed"], dev)
+            opt = topt.AdamW(topt.warmup_cosine_schedule(5e-4, 1e-5, 1e-6, 2, 10))
+            plan = build_mesh_plan(**plan_args) if plan_args else None
+            state = tts.init_train_state(model, opt, plan=plan)
+            step = (tts.make_sharded_train_step(cfg, opt, plan) if plan
+                    else tts.make_train_step(cfg, opt))
+            rows = slice(None)
+            if plan is not None:
+                rows = slice(plan.data_rank, None, plan.n_data)
+            undo = _mesh_control(control) if control else None
+            ring_ms, ring_undo = _ring_timer(torch) if plan and plan.n_seq > 1 else ([], None)
+            for f in kernels.values():
+                f.launches = 0
+            collectives.reset_counters()
+            losses, wall = [], []
+            try:
+                for i in range(r["steps"]):
+                    batch = {"inputs": x[i, rows, :-1].to(dev), "targets": x[i, rows, 1:].to(dev)}
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    state, m = step(state, batch)
+                    losses.append(m["loss"].item())
+                    wall.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                if undo:
+                    undo()
+                if ring_undo:
+                    ring_undo()
+            facts = dict(losses=losses, step_ms=wall, counters=collectives.counters(),
+                         launches={k: f.launches for k, f in kernels.items()},
+                         ring_ms_per_step=sum(ring_ms) / r["steps"] if ring_ms else None,
+                         peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+            whole = tts.gather_whole(state)
+            params = ({k: v.detach().clone() for k, v in whole.stacked.items()}
+                      if rank == 0 else None)
+            del state, model, whole, step
+            gc.collect()
+            torch.cuda.empty_cache()
+            return facts, params
+
+        args = dict(shard_mode=r["mode"], tp=r["tp"], sp=r["sp"])
+        mine, params = run(args)
+        control, cparams = run(args, "tp" if r["tp"] > 1 else "sp")
+        out = dict(run=mine, control=control)
+        if rank == 0:
+            ref, rparams = run(None)
+            diff = {}
+            for label, ps in (("run", params), ("control", cparams)):
+                d = sum(float((ps[k].double() - v.double()).square().sum())
+                        for k, v in rparams.items())
+                n = sum(float(v.double().square().sum()) for v in rparams.values())
+                ps.clear()
+                diff[label] = dict(
+                    params_rel_l2=(d / n) ** 0.5,
+                    loss_rel=max(abs(a / b - 1.0) for a, b in
+                                 zip(out[label]["losses"], ref["losses"])))
+            out.update(reference=ref, compare=diff)
+            del params, cparams, rparams
+        dist.barrier()
+        res[r["name"]] = out
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    mesh.shutdown_distributed()
+
+
+def mesh_group(torch, world: int, workdir: str) -> list:
+    """MESH_RUNS[world] on ``world`` spawned gloo ranks on the one card;
+    every rank's results."""
+    import torch.multiprocessing as mp
+
+    out = os.path.join(workdir, f"mesh{world}")
+    os.makedirs(out, exist_ok=True)
+    spec = dict(root=os.path.dirname(os.path.abspath(__file__)), out=out, world=world,
+                init=f"file://{out}/rendezvous", **MESH)
+    ctx = mp.start_processes(mesh_rank, args=(spec,), nprocs=world, join=False,
+                             start_method="spawn")
+    deadline = time.perf_counter() + MESH["timeout_s"]
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase 10t/10s: the {world} gloo ranks did not "
+                                     f"finish in {MESH['timeout_s']} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    res = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    return res
+
+
+def phase_mesh(torch, card: dict, workdir: str) -> dict:
+    """Phases 10t and 10s: MESH_RUNS on two and four gloo ranks on the one
+    card. Gates per run: every rank reports the same losses; against one
+    rank on the global batch, the losses and the parameters within the
+    run's bounds while the control falls outside them; launches exact per
+    rank (B1/B2 at the rank's heads under tp, none under sp: the ring)."""
+    out = {}
+    for world in (2, 4):
+        res = mesh_group(torch, world, workdir)
+        for r in MESH_RUNS[world]:
+            name, fails = r["name"], []
+            cmp_ = res[0][name]["compare"]
+            for rr in res[1:]:
+                if rr[name]["run"]["losses"] != res[0][name]["run"]["losses"]:
+                    fails.append("the ranks' losses differ")
+            if cmp_["run"]["loss_rel"] > r["loss_tol"] or \
+                    cmp_["run"]["params_rel_l2"] > r["param_tol"]:
+                fails.append(f"off one rank: {cmp_['run']}")
+            if not (cmp_["control"]["loss_rel"] > r["loss_tol"]
+                    or cmp_["control"]["params_rel_l2"] > r["param_tol"]):
+                fails.append(f"the control passed the bounds: {cmp_['control']}")
+            cfg = mesh_config(r)
+            want = expected_launches(cfg, r["steps"], 0, False)
+            if r["sp"] > 1:
+                want.update(fwd=0, dq=0, dkv=0)
+            for k, rr in enumerate(res):
+                if rr[name]["run"]["launches"] != want:
+                    fails.append(f"rank {k} launches {rr[name]['run']['launches']} != {want}")
+            row = dict(card=card["card_line"], run=name, world=world, mode=r["mode"],
+                       tp=r["tp"], sp=r["sp"], batch=r["batch"], steps=r["steps"],
+                       layers=cfg.n_layers,
+                       loss_tol=r["loss_tol"], param_tol=r["param_tol"], compare=cmp_,
+                       losses=res[0][name]["run"]["losses"],
+                       one_rank_losses=res[0][name]["reference"]["losses"],
+                       launches=res[0][name]["run"]["launches"], expected=want,
+                       counters=res[0][name]["run"]["counters"],
+                       gloo_host_staging_step_ms=res[0][name]["run"]["step_ms"],
+                       one_rank_step_ms=res[0][name]["reference"]["step_ms"],
+                       ring_ms_per_step=res[0][name]["run"]["ring_ms_per_step"],
+                       peak_gb=[rr[name]["run"]["peak_gb"] for rr in res], fails=fails)
+            emit("mesh_sp" if r["sp"] > 1 else "mesh_tp", **row)
+            if fails:
+                raise AssertionError(f"phase 10t/10s {name}: {fails}")
+            out[name] = row
+    return out
+
+
+def sp_dropout_check(torch) -> dict:
+    """B3 on a sequence-parallel rank's block (B 4, T 512 of 1024, D 768,
+    fp32): forward with the residual add and backward bit-equal to the
+    twins with the same layout, and the block's mask the whole tensor's
+    (the twin's output on the whole tensor, sliced)."""
+    from building_llm_from_scratch_tpu_torch.ops import fused_dropout as tfd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    B, T, D, n = 4, 1024, 768, 2
+    xw = torch.randn(B, T, D, generator=gen, device=dev)
+    hw = torch.randn(B, T, D, generator=gen, device=dev)
+    whole = tfd.dropout_fwd_plain(xw, hw, 1234, 0.1)
+    out = {}
+    for s in range(n):
+        blk = slice(s * T // n, (s + 1) * T // n)
+        x, h = xw[:, blk].contiguous(), hw[:, blk].contiguous()
+        row = T // n * D
+        layout = (row // 4, row * n // 4, s * row // 4)
+        k_fwd = tfd.dropout_fwd(x, h, 1234, 0.1, layout)
+        k_bwd = tfd.dropout_bwd(h, 1234, 0.1, layout)
+        ok = (torch.equal(k_fwd, tfd.dropout_fwd_plain(x, h, 1234, 0.1, layout))
+              and torch.equal(k_bwd, tfd.dropout_bwd_plain(h, 1234, 0.1, layout))
+              and torch.equal(k_fwd, whole[:, blk]))
+        out[f"block{s}"] = ok
+    emit("sp_dropout_kernel", B=B, T=T, D=D, blocks=n, **out)
+    if not all(out.values()):
+        raise AssertionError(f"B3 on a sequence block: {out}")
+    return out
 
 
 def main() -> int:
@@ -5431,6 +5879,8 @@ def main() -> int:
         mixed = phase_mixed(torch, card, os.path.join(workdir, "mixed"),
                             dict(llama=trained, gpt2_fp32=trained_gpt2_fp32))
         overlap = phase_host_overlap(torch, os.path.join(workdir, "overlap"))
+    # save-all, selective-save (the default) and full remat (6r)
+    remat = phase_remat(torch, card)
     # LoRA SFT (phase 6s); the LLaMA run's adapter is served (phase 4c);
     # one SFT step against the CPU (phase 7s)
     with tempfile.TemporaryDirectory(dir=here) as workdir:
@@ -5456,6 +5906,10 @@ def main() -> int:
     # dp / fsdp / zero1: one NCCL rank through the CLI, two gloo ranks (10d)
     with tempfile.TemporaryDirectory(dir=here) as workdir:
         sharded = phase_shard(torch, card, workdir)
+    # tensor and sequence parallelism on gloo ranks (10t, 10s)
+    sp_dropout_check(torch)
+    with tempfile.TemporaryDirectory(dir=here) as workdir:
+        meshed = phase_mesh(torch, card, workdir)
 
     def shape_of(r: dict) -> tuple:
         return (r["S"], r["Hq"], r["Hkv"], r["hd"], r["Tmax"], r["dtype"])
@@ -5523,7 +5977,12 @@ def main() -> int:
                  "gpt2-124M-train": trained_gpt2["main"],
                  "gpt2-124M-train-fp32": trained_gpt2_fp32["main"],
                  "gpt2-124M-ref": reference_gpt2["fp32"]["launches"],
-                 "gpt2-124M-train-fp16": mixed["gpt2-fp16-policy"]["launches"]}
+                 "gpt2-124M-train-fp16": mixed["gpt2-fp16-policy"]["launches"],
+                 # phase 10t, rank 0's heads (every rank launches the same)
+                 "llama3_2-1B-tp2": meshed["llama-tp2"]["launches"],
+                 "gpt2-124M-tp2-fp32": meshed["gpt2-tp2"]["launches"]}
+    # the p 0.1 rows of a shape whose p 0 rows read another run
+    drop_attn_runs = {"gpt2-124M-tp2-fp32": meshed["gpt2-tp2-p0.1"]["launches"]}
     source = "building_llm_from_scratch_tpu_torch/csrc/"
     from building_llm_from_scratch_tpu_torch.configs import DTYPE_MAP
     from building_llm_from_scratch_tpu_torch.ops.fused_attention import kernel_source
@@ -5559,14 +6018,23 @@ def main() -> int:
         if shape == "gpt2-124M-train-fp32":
             row["launches_10d"] = {k: r[counter] for k, r in
                                    sharded["gloo"]["launches"].items()}
+            # phase 10s: a seq rank's (B 4, T 512) blocks of GPT-2 fp32
+            row["launches_10s_B4_T512"] = meshed["gpt2-sp2-p0.1"]["launches"][counter]
+        # phase 6r: the same shapes' save-all, selective and full remat runs
+        by_shape = {"llama3_2-1B-train": "llama3_2-1B-bf16",
+                    "gpt2-124M-train-fp32": "GPT2-124M-fp32"}
+        if shape in by_shape:
+            row["launches_6r"] = {m: r["launches"][counter]
+                                  for m, r in remat[by_shape[shape]].items()}
 
     for r in attn_rows + drop_attn_rows:
         kname, where = replaces[r["kernel"]]
         tag = f"{r['shape']}-p{r['rate']}" if "rate" in r else r["shape"]
         src = kernel_source(DTYPE_MAP[r["dtype"]], r["kernel"])
+        runs = drop_attn_runs if "rate" in r and r["shape"] in drop_attn_runs else attn_runs
         kernels.append(dict(
             name=f"{kname}[{tag}]", route="cuda", source=source + src,
-            replaces=where, launches=attn_runs[r["shape"]][r["kernel"]],
+            replaces=where, launches=runs[r["shape"]][r["kernel"]],
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
@@ -5590,7 +6058,12 @@ def main() -> int:
         other_launches(kernels[-1], r["shape"], counter)
     xent_runs = {"gpt2-124M-train": trained_gpt2["xent_kernel"],
                  "gpt2-124M-train-fp32": trained_gpt2_fp32["xent_kernel"],
-                 "gpt2-124M-train-fp16": mixed["gpt2-fp16-policy"]["launches"]}
+                 "gpt2-124M-train-fp16": mixed["gpt2-fp16-policy"]["launches"],
+                 # phase 10t, rank 0's heads (every rank launches the same)
+                 "llama3_2-1B-tp2": meshed["llama-tp2"]["launches"],
+                 "gpt2-124M-tp2-fp32": meshed["gpt2-tp2"]["launches"]}
+    # the p 0.1 rows of a shape whose p 0 rows read another run
+    drop_attn_runs = {"gpt2-124M-tp2-fp32": meshed["gpt2-tp2-p0.1"]["launches"]}
     for r in xent_rows:
         kernels.append(dict(
             name=f"xent_fwd[{r['shape']}]", route="cuda", source=source + r["route"],

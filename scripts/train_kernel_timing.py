@@ -189,7 +189,8 @@ def floor_library(level: int):
                     "-o", str(out), str(src)], check=True)
     lib = ctypes.CDLL(str(out))
     i32, u32, f32, ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p
-    lib.bllm_dropout.argtypes = [i32, ctypes.c_longlong, i32, u32, f32, u32, u32] + [ptr] * 4
+    lib.bllm_dropout.argtypes = ([i32, ctypes.c_longlong, i32, u32, f32, u32, u32]
+                                 + [ctypes.c_longlong] * 3 + [ptr] * 4)
     lib.bllm_dropout.restype = i32
     return lib
 

@@ -509,9 +509,10 @@ def flash_inputs(dev, B, T, Hq, Hkv, hd, dtype, seed=0):
             rnd(B, T, Hq, hd))
 
 
-def grouped_dkv_plain(q, k, v, do, lse, delta, rate=0.0, seed=0):
-    """B2b's twin: the per-query-head twin, then the group sum."""
-    dk, dv = tfa.fused_attention_dkv_plain(q, k, v, do, lse, delta, rate, seed)
+def grouped_dkv_plain(q, k, v, do, lse, delta, rate=0.0, seed=0, **kw):
+    """B2b's twin: the per-query-head twin, then the group sum (``kw``:
+    the twin's ``h0``)."""
+    dk, dv = tfa.fused_attention_dkv_plain(q, k, v, do, lse, delta, rate, seed, **kw)
     return tfa.group_sum(dk, k.shape[2]), tfa.group_sum(dv, k.shape[2])
 
 
@@ -1522,3 +1523,119 @@ def test_two_gloo_ranks_on_one_card(cuda, tmp_path):
                 r["dp"]["moment_bytes"], rel=0.01)
         # fsdp's working copy and gradients of its sharded leaves are freed
         assert r["fsdp"]["sharded"] and r["fsdp"]["freed"] == r["fsdp"]["sharded"]
+
+
+# ---------------------------------------------------------------------------
+# tensor and sequence parallelism's kernels, selective remat on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,Hq,Hkv,dtype,h0", [(1, 16, 4, torch.bfloat16, 16),
+                                               (2, 6, 6, torch.float32, 6)])
+def test_flash_kernels_at_a_tp_ranks_heads(cuda, rate, B, Hq, Hkv, dtype, h0):
+    """B1/B2 at a tensor-parallel rank's heads (LLaMA-3.2-1B at tp 2: Hq
+    16, Hkv 4; GPT-2-124M: H 6) with rank 1's head offset: within
+    FLASH_TOL of the twins at that offset, whose mask is heads h0.. of the
+    whole model's; with dropout the twin at offset 0 fails the bound."""
+    import functools
+
+    seed, T, hd = 424242, 1024, 64
+    q, k, v, do = flash_inputs(cuda, B, T, Hq, Hkv, hd, dtype, seed=5)
+    at = lambda fn: functools.partial(fn, h0=h0)  # noqa: E731
+    got = flash_all(q, k, v, do, at(tfa.flash_attention_fwd), at(tfa.flash_attention_dq),
+                    at(tfa.flash_attention_dkv), rate, seed)
+    torch.cuda.synchronize()
+    twin = flash_all(q, k, v, do, *(at(f) for f in PLAIN), rate, seed)
+    for i, name in enumerate(("out", "lse", "dq", "dk", "dv")):
+        tol = FLASH_TOL[dtype][0 if name in ("out", "lse") else 1]
+        err = ((got[i] - twin[i]).abs().max().item() if name == "lse"
+               else _rel(got[i], twin[i]))
+        assert err <= tol, (name, err)
+    whole = tfa.keep_mask(seed, B, h0 + Hq, T, 0.1, cuda)
+    assert torch.equal(tfa.keep_mask(seed, B, Hq, T, 0.1, cuda, h0), whole[:, h0:])
+    if rate:
+        control = flash_all(q, k, v, do, *PLAIN, rate, seed)
+        assert _rel(control[0], twin[0]) > FLASH_TOL[dtype][0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_kernel_on_a_sequence_block(cuda, dtype):
+    """B3 on a sequence-parallel rank's (B, T / 2, D) block with its
+    layout: forward (with the add) and backward bit-equal to the twins,
+    and the forward the whole tensor's, sliced."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    B, T, D, seed = 3, 512, 768, 77
+    x = torch.randn(B, T, D, generator=gen, device=cuda).to(dtype)
+    h = torch.randn(B, T, D, generator=gen, device=cuda).to(dtype)
+    whole = tfd.dropout_fwd_plain(x, h, seed, 0.1)
+    row = T // 2 * D
+    for s in range(2):
+        blk = slice(s * T // 2, (s + 1) * T // 2)
+        xs, hs = x[:, blk].contiguous(), h[:, blk].contiguous()
+        layout = (row // 4, 2 * row // 4, s * row // 4)
+        fwd = tfd.dropout_fwd(xs, hs, seed, 0.1, layout)
+        bwd = tfd.dropout_bwd(hs, seed, 0.1, layout)
+        torch.cuda.synchronize()
+        assert torch.equal(fwd, tfd.dropout_fwd_plain(xs, hs, seed, 0.1, layout))
+        assert torch.equal(bwd, tfd.dropout_bwd_plain(hs, seed, 0.1, layout))
+        assert torch.equal(fwd, whole[:, blk])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ring_hop_math_on_the_card(cuda, rate):
+    """The ring's forward and backward on one seq rank (one hop: the causal
+    diagonal) on CUDA tensors equal the port's one-rank attention (fp32
+    scores, the same dropout mask) and its autograd gradients."""
+    from building_llm_from_scratch_tpu_torch.ops.attention import xla_attention
+    from building_llm_from_scratch_tpu_torch.ops.ring_attention import (
+        ring_attention_bwd,
+        ring_attention_fwd,
+    )
+
+    q, k, v, do = flash_inputs(cuda, 2, 256, 8, 2, 64, torch.float32, seed=6)
+    kw = dict(n=1, rank=0, rate=rate, seed=99)
+    out, lse = ring_attention_fwd(q, k, v, **kw)
+    dq, dk, dv = ring_attention_bwd(q, k, v, out, lse, do, **kw)
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ref = xla_attention(qr, kr, vr, dropout_rate=rate, seed=99, deterministic=False)
+    ref.backward(do)
+    assert _rel(out, ref) <= 1e-5
+    for a, b in ((dq, qr.grad), (dk, kr.grad), (dv, vr.grad)):
+        assert _rel(a, b) <= 1e-4
+
+
+def test_selective_remat_is_bit_equal_on_the_card(cuda, monkeypatch):
+    """A 2-layer LLaMA bf16 and a 2-layer GPT-2 fp32 with dropout 0.1 at
+    T 1024 (the kernels): the loss and every gradient of selective remat
+    equal those of save-all and of full remat bit for bit, and B1 runs
+    once a layer without full remat, twice with it."""
+    import dataclasses
+
+    from building_llm_from_scratch_tpu_torch.models import transformer as tfm
+    from building_llm_from_scratch_tpu_torch.training import optim as topt
+    from building_llm_from_scratch_tpu_torch.training import train_step as tts
+
+    for model, size, dtype, drop in (("llama3_2", "1B", "bf16", 0.0),
+                                     ("GPT2", "124M", "fp32", 0.1)):
+        cfg = dataclasses.replace(get_config(model, size, dtype=dtype), n_layers=2,
+                                  drop_rate=drop)
+        x = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, cfg.context_length + 1))).to(cuda)
+        out = {}
+        for mode in ("none", "selective", "full"):
+            monkeypatch.setattr(tfm, "_SAVE_ALL", mode == "none")
+            c = dataclasses.replace(cfg, use_actv_ckpt=mode == "full")
+            m = tfm.build_model(c, 1, cuda)
+            opt = topt.AdamW(lambda count: 0.0)
+            state = tts.init_train_state(m, opt, seed=3)
+            n0 = tfa.flash_attention_fwd.launches
+            _, met = tts.make_train_step(c, opt)(state, {"inputs": x[:, :-1],
+                                                         "targets": x[:, 1:]})
+            out[mode] = (met["loss"].item(), {k: g.clone() for k, g in state.grads.items()},
+                         tfa.flash_attention_fwd.launches - n0)
+        for mode in ("none", "full"):
+            assert out[mode][0] == out["selective"][0], (model, mode)
+            for k, g in out["selective"][1].items():
+                assert torch.equal(out[mode][1][k], g), (model, mode, k)
+        assert out["none"][2] == out["selective"][2] == 2
+        assert out["full"][2] == 4

@@ -1,6 +1,7 @@
 """The port's parallel tier in one process: the sharding rules against the
 JAX ``MeshPlan`` on every leaf of GPT-2-124M and LLaMA-3.2-1B (and their
-LoRA adapters) at data sizes 2, 4 and 8, the loaders' per-rank rows
+LoRA adapters) at data sizes 2, 4 and 8 and on tp / tp_fsdp meshes, the
+mesh's rank layout against JAX's, the loaders' per-rank rows
 against the JAX loaders', the flags, and the sharded step at a world of
 one, which must be the single-device step bit for bit. The multi-process
 runs are ``test_torch_distributed.py``."""
@@ -35,7 +36,6 @@ from building_llm_from_scratch_tpu_torch.parallel import collectives as coll
 from building_llm_from_scratch_tpu_torch.parallel.mesh import Mesh, make_mesh
 from building_llm_from_scratch_tpu_torch.parallel.sharding import (
     MeshPlan,
-    shard_bounds,
     spec_axis,
 )
 from building_llm_from_scratch_tpu_torch.training import optim as topt
@@ -94,6 +94,27 @@ def test_specs_equal_the_jax_plan(model, size, n, mode):
         assert small or model != "GPT2"     # GPT-2's final norm: 768
 
 
+@pytest.mark.parametrize("model,size", MODELS)
+@pytest.mark.parametrize("mode,data,tp", [("tp", 1, 2), ("tp", 2, 4), ("tp_fsdp", 2, 2),
+                                          ("tp_fsdp", 4, 2)])
+def test_tp_specs_equal_the_jax_plan(model, size, mode, data, tp):
+    """tp and tp_fsdp specs of every leaf equal the JAX plan's on a (data,
+    1, tp) mesh: the Megatron rules, GPT-2's odd vocabulary left whole on
+    the model axis while LLaMA's splits, tp_fsdp's data axis never the tp
+    one."""
+    n = data * tp
+    jplan = JPlan(jmake_mesh(data=data, model=tp, devices=jax.devices()[:n]),
+                  shard_mode=mode)
+    plan = MeshPlan(Mesh(data, 1, tp), shard_mode=mode)
+    for path, shape in _jax_leaves(model, size).items():
+        names = tuple(path.split("/"))
+        assert plan.param_spec(names, shape) == tuple(jplan.param_spec(names, shape)), path
+        assert plan.opt_spec(names, shape) == tuple(jplan.opt_spec(names, shape)), path
+    cfg = get_config(model, size)
+    split = plan.param_spec(("head", "weight"), (cfg.emb_dim, cfg.vocab_size))
+    assert (spec_axis(split, "model") == 1) == (model != "GPT2")
+
+
 def test_state_index_and_local_slices():
     plan = MeshPlan(Mesh(4), "fsdp", rank=2)
     shape = (12, 768, 2304)
@@ -103,19 +124,46 @@ def test_state_index_and_local_slices():
     t = torch.arange(8 * 6).reshape(8, 6)
     assert torch.equal(MeshPlan(Mesh(2), "fsdp", rank=1).local(t, 1), t[:, 3:])
     assert plan.local(t, None) is t
-    assert shard_bounds((5,), None, 4) == [[[0, 5]]]
-    assert shard_bounds((4, 6), 1, 2) == [[[0, 4], [0, 3]], [[0, 4], [3, 6]]]
+    # the unique shards in the JAX save's order, the rank's own and whether
+    # it writes one (the lowest rank holding a shard does)
+    assert MeshPlan(Mesh(4), "fsdp", rank=2).leaf_layout((5,), ()) == \
+        ((5,), [[[0, 5]]], None, [[0, 5]])
+    assert MeshPlan(Mesh(2), "fsdp", rank=1).leaf_layout((4, 6), (None, "data")) == \
+        ((4, 6), [[[0, 4], [0, 3]], [[0, 4], [3, 6]]], 1, [[0, 4], [3, 6]])
+    # on (2, 1, 2): a model-sharded leaf's shards are written by the data-0 ranks
+    assert MeshPlan(Mesh(2, 1, 2), "tp", rank=3).leaf_layout((4, 6), (None, "model")) == \
+        ((4, 6), [[[0, 4], [0, 3]], [[0, 4], [3, 6]]], None, [[0, 4], [3, 6]])
+    # a rank of a (2, 1, 2) tp_fsdp mesh holds its data and model slices
+    tp = MeshPlan(Mesh(2, 1, 2), "tp_fsdp", rank=3)
+    assert tp.state_index("trainable/blocks/attn/wq", shape) == \
+        [[0, 12], [384, 768], [1152, 2304]]
+    assert tp.state_index("trainable/blocks/attn/wo", (12, 2304, 768)) == \
+        [[0, 12], [1152, 2304], [384, 768]]
     with pytest.raises(ValueError):
-        MeshPlan(Mesh(2), "tp")
+        MeshPlan(Mesh(2), "pp")
     with pytest.raises(ValueError):
         MeshPlan(Mesh(2), "dp", rank=2)
 
 
-def test_make_mesh_takes_data_parallel_only():
+def test_make_mesh_lays_ranks_out_as_jax():
+    """``make_mesh(data=-1, seq, model)`` takes the JAX sizes and rank
+    order (the devices reshaped to (data, seq, model)); a product that is
+    not the world raises."""
     assert make_mesh(world_size=4).shape == {"data": 4, "seq": 1, "model": 1}
     assert make_mesh().data == 1
+    mesh = make_mesh(seq=2, model=2, world_size=8)
+    assert mesh.shape == {"data": 2, "seq": 2, "model": 2}
+    jmesh = jmake_mesh(data=-1, seq=2, model=2, devices=jax.devices()[:8])
+    ids = np.vectorize(lambda d: d.id)(jmesh.devices)
+    for r in range(8):
+        c = mesh.coords(r)
+        assert ids[c["data"], c["seq"], c["model"]] == r
+    assert mesh.line(5, "model") == [4, 5] and mesh.line(5, "data") == [1, 5]
+    assert mesh.line(5, "data_seq") == [1, 3, 5, 7]
     with pytest.raises(ValueError):
         make_mesh(data=3, world_size=4)
+    with pytest.raises(ValueError):
+        make_mesh(model=3, world_size=4)
 
 
 def test_collectives_without_a_group_are_identities():
@@ -222,19 +270,47 @@ def _base(extra):
 
 
 @pytest.mark.parametrize("flag", ["--tp", "--sp", "--pp", "--pp_micro"])
-def test_parallel_flags_not_ported_are_refused_by_name(flag, capsys):
-    with pytest.raises(SystemExit):
-        targs.get_args(_base(["--run_type", "multi_chip", flag, "2"]))
-    err = capsys.readouterr().err
-    assert flag in err and "ROADMAP queue 1 item 14c" in err
+def test_parallel_flags_take_the_jax_checks_or_are_refused(flag, capsys):
+    """--tp and --sp are taken with the JAX CLI's checks and words; --pp
+    and --pp_micro stay refused by name, with their ROADMAP item."""
+    multi = ["--run_type", "multi_chip"]
+    if flag == "--tp":
+        args = targs.get_args(_base(multi + ["--shard_mode", "tp", "--tp", "2"]))
+        assert (args.shard_mode, args.tp, args.sp) == ("tp", 2, 1)
+        with pytest.raises(ValueError, match=r"--tp > 1 requires --shard_mode tp, "
+                                             r"tp_fsdp or pp\."):
+            targs.get_args(_base(multi + ["--tp", "2"]))
+    elif flag == "--sp":
+        args = targs.get_args(_base(multi + ["--shard_mode", "fsdp", "--sp", "2"]))
+        assert (args.shard_mode, args.sp) == ("fsdp", 2)
+        with pytest.raises(ValueError, match=r"--sp > 1 requires --run_type "
+                                             r"multi_chip\."):
+            targs.get_args(_base(["--sp", "2"]))
+    else:
+        with pytest.raises(SystemExit):
+            targs.get_args(_base(multi + [flag, "2"]))
+        err = capsys.readouterr().err
+        assert flag in err and "ROADMAP queue 1 item 14c, pipeline parallelism" in err
 
 
 @pytest.mark.parametrize("mode", ["tp", "tp_fsdp", "pp"])
-def test_shard_modes_not_ported_are_refused_by_name(mode, capsys):
-    with pytest.raises(SystemExit):
-        targs.get_args(_base(["--run_type", "multi_chip", "--shard_mode", mode]))
-    err = capsys.readouterr().err
-    assert f"--shard_mode {mode}" in err and "ROADMAP queue 1 item 14c" in err
+def test_shard_modes_take_the_jax_checks_or_are_refused(mode, capsys):
+    """tp and tp_fsdp are taken with --tp >= 2, and refused in the JAX
+    CLI's words with --tp 1 and with bf16_hybrid; pp stays refused by
+    name."""
+    multi = ["--run_type", "multi_chip", "--shard_mode", mode]
+    if mode == "pp":
+        with pytest.raises(SystemExit):
+            targs.get_args(_base(multi))
+        err = capsys.readouterr().err
+        assert "--shard_mode pp" in err and "ROADMAP queue 1 item 14c, pipeline" in err
+        return
+    assert targs.get_args(_base(multi + ["--tp", "2"])).shard_mode == mode
+    with pytest.raises(ValueError, match=f"--shard_mode {mode} requires --tp >= 2."):
+        targs.get_args(_base(multi))
+    with pytest.raises(ValueError, match="bf16_hybrid is not supported with "
+                                         f"--shard_mode {mode}"):
+        targs.get_args(_base(multi + ["--tp", "2", "--mixed_precision", "bf16_hybrid"]))
 
 
 def test_shard_mode_flags_checks():

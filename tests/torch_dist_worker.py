@@ -19,9 +19,15 @@ isolation test checks its modules). Scenarios:
              poisons one rank's reduced gradient shard at one step;
              ``contiguous_rows`` gives rank r the r-th contiguous block of
              each global batch (a JAX mesh's rows) instead of the loader's
-             ``[rank::world]``.
+             ``[rank::world]``; ``all_rows`` every row (one rank's run);
+             ``skip_reduce`` leaves the row-parallel outputs unreduced (the
+             tp control); ``census`` keeps, for each block boundary of
+             fsdp's per-layer gathers, the layers whose weights it held.
              ``save``/``load``: a checkpoint of the final state written,
              or a state restored from one and dumped whole.
+  ``ring``   ring attention on a (data, seq) mesh: each rank's block of the
+             output and of the gradients (``run_ring``).
+  ``parts``  several of the above in one group, one after the other.
   ``cli``    ``main.run`` under torchrun's environment (``WORLD_SIZE``,
              ``RANK``, ``BLLM_INIT_METHOD``) for each argv of the spec,
              each in a group of its own; ``sigterm`` sends SIGTERM to one
@@ -83,14 +89,17 @@ def _lora(spec: dict, device):
     return unflatten_lora({k: v.to(device) for k, v in flatten_lora(lora).items()})
 
 
-def _state(spec: dict, cfg, mode, policy_name, rank: int, world: int):
-    """(plan or None, state, step fn, eval fn) of one run."""
+def _state(spec: dict, cfg, mode, policy_name, rank: int, world: int,
+           opts: dict):
+    """(plan or None, state, step fn, eval fn) of one run (``opts``: the
+    run's ``tp`` and ``sp`` sizes)."""
     policy = precision.get_policy(policy_name)
     model = load_exported_params(spec["params"], cfg, spec.get("device", "cpu"))
     opt = topt.AdamW(topt.warmup_cosine_schedule(*spec["sched"]))
     lspec = spec.get("lora")
     kw = dict(policy=policy)
-    plan = None if mode == "control" else build_mesh_plan(mode)
+    plan = None if mode == "control" else build_mesh_plan(
+        mode, tp=opts.get("tp", 1), sp=opts.get("sp", 1))
     if lspec:
         kw.update(lora_alpha=lspec["alpha"], lora_rank=lspec["rank"])
         state = tts.init_train_state(_lora(lspec, model.device), opt,
@@ -108,12 +117,17 @@ def _state(spec: dict, cfg, mode, policy_name, rank: int, world: int):
 
 
 def _whole(state) -> dict:
-    """The state's trainable leaves and moments, whole (gathered)."""
-    tts.gather_params(state, exact=True)
-    out = {f"trainable/{k}": _np(v) for k, v in state.full.items()}
+    """The state's trainable leaves and moments, whole (gathered over the
+    data axis, then the model axis)."""
+    whole = tts.gather_whole(state)
+    full = state.full if state.lora is not None else whole.stacked
+    out = {f"trainable/{k}": _np(v) for k, v in full.items()}
+    plan = state.plan
     for name, moments in (("mu", state.opt_state.mu), ("nu", state.opt_state.nu)):
         for k, m in moments.items():
-            out[f"{name}/{k}"] = _np(coll.gather_full(m, state.opt_axes.get(k)))
+            m = coll.gather_full(m, state.opt_axes.get(k), group=plan.group("data"))
+            m = coll.gather_full(m, state.tp_axes.get(k), group=plan.group("model"))
+            out[f"{name}/{k}"] = _np(m)
     if state.lora is not None:
         out.update({f"frozen/{k}": _np(v) for k, v in state.model.stacked.items()})
     return out
@@ -149,8 +163,15 @@ def run_steps(spec: dict, rank: int, world: int) -> dict:
     for label, mode, policy_name, *opts in spec["runs"]:
         opts = dict(spec, **(opts[0] if opts else {}))
         coll.reset_counters()
+        # B4 asked for (BLLM_XENT_PALLAS=1) while the step is built
+        xent_env = os.environ.get("BLLM_XENT_PALLAS")
+        os.environ["BLLM_XENT_PALLAS"] = "1" if opts.get("xent_kernel") else "0"
         plan, state, step, eval_step = _state(spec, cfg, mode, policy_name,
-                                              rank, world)
+                                              rank, world, opts)
+        if xent_env is None:
+            del os.environ["BLLM_XENT_PALLAS"]
+        else:
+            os.environ["BLLM_XENT_PALLAS"] = xent_env
         if spec.get("load"):
             tts.restore_train_state(state, spec["load"])
             results[label] = dict(whole=_whole(state), step=state.step,
@@ -168,11 +189,31 @@ def run_steps(spec: dict, rank: int, world: int) -> dict:
                 return out
             tts._Collectives.reduce = reduce
         dev = state.model.device
-        rows = slice(rank, None, world)
+        # the data rank's rows (its seq and model ranks share them)
+        d, nd = (plan.data_rank, plan.n_data) if plan is not None else (rank, world)
+        if opts.get("all_rows"):
+            d, nd = 0, 1
+        rows = slice(d, None, nd)
+        if opts.get("skip_reduce"):
+            # the control: the row-parallel outputs left unreduced
+            from building_llm_from_scratch_tpu_torch.parallel import tensor as ptensor
+
+            saved_reduce = ptensor.Parallel.reduce_from_model
+            ptensor.Parallel.reduce_from_model = lambda self, x: x
         if opts.get("contiguous_rows"):
-            # the rows a 2-device JAX mesh gives each device: contiguous
-            n = data["inputs"].shape[1] // world
-            rows = slice(rank * n, (rank + 1) * n)
+            # the rows a JAX mesh gives each data index: contiguous
+            n = data["inputs"].shape[1] // nd
+            rows = slice(d * n, (d + 1) * n)
+        gathers = []
+        if opts.get("census"):
+            # every per-layer fsdp source of the run's steps, kept to read
+            # which layers' weights it held at each block boundary
+            init = tts._LayerGather.__init__
+
+            def keep(self, *a, _init=init, **kw):
+                _init(self, *a, **kw)
+                gathers.append(self)
+            tts._LayerGather.__init__ = keep
         metrics = []
         for i in range(spec["steps"]):
             batch = _batch(data, i, rows, dev)
@@ -181,6 +222,10 @@ def run_steps(spec: dict, rank: int, world: int) -> dict:
                             for k, v in m.items()})
         if overflow and plan is not None:
             tts._Collectives.reduce = comm_reduce
+        if opts.get("skip_reduce"):
+            ptensor.Parallel.reduce_from_model = saved_reduce
+        if opts.get("census"):
+            tts._LayerGather.__init__ = init
         held = _held(state)
         ev = None
         if spec.get("eval"):
@@ -194,6 +239,7 @@ def run_steps(spec: dict, rank: int, world: int) -> dict:
                             {"global_step": state.step},
                             tts.checkpoint_layout(state))
         results[label] = dict(metrics=metrics, counters=coll.counters(),
+                              layers_held=[g.held for g in gathers],
                               moment_bytes=moment_bytes, eval=ev, **held,
                               whole=None if mode == "control" else _whole(state),
                               rank_params={k: _np(v) for k, v in state.full.items()})
@@ -242,6 +288,57 @@ def run_cli(spec: dict, rank: int, world: int) -> dict:
     return results
 
 
+def run_ring(spec: dict, rank: int, world: int) -> dict:
+    """Ring attention on a (data, seq) mesh of ``spec["sp"]`` seq ranks: the
+    data rank's rows of the global q, k, v, do (an ``.npz``), this rank's T
+    block through ``ring_causal_attention`` (fp32 or the spec's dtype) and
+    the gradients of sum(out * do), and whether a second forward repeats
+    the first bit for bit (the dropout masks regenerated)."""
+    from building_llm_from_scratch_tpu_torch.ops.ring_attention import (
+        ring_causal_attention,
+    )
+
+    plan = build_mesh_plan("dp", sp=spec["sp"])
+    d = np.load(spec["qkv"])
+    dtype = getattr(torch, spec.get("dtype", "float32"))
+    rows = slice(plan.data_rank, None, plan.n_data)
+    T = d["q"].shape[1]
+    n = T // plan.n_seq
+    cols = slice(plan.seq_rank * n, (plan.seq_rank + 1) * n)
+    t = {k: torch.from_numpy(d[k][rows, cols]).to(dtype).requires_grad_(k != "do")
+         for k in ("q", "k", "v", "do")}
+    kw = dict(group=plan.group("seq"), n=plan.n_seq, rank=plan.seq_rank,
+              dropout_rate=spec.get("rate", 0.0), seed=spec.get("seed", 0))
+    coll.reset_counters()
+    out = ring_causal_attention(t["q"], t["k"], t["v"], **kw)
+    (out.float() * t["do"].float()).sum().backward()
+    res = dict(out=_np(out), dq=_np(t["q"].grad), dk=_np(t["k"].grad),
+               dv=_np(t["v"].grad), rows=[plan.data_rank, plan.n_data],
+               cols=[cols.start, cols.stop], counters=coll.counters())
+    with torch.no_grad():
+        res["repeat_equal"] = torch.equal(
+            out, ring_causal_attention(t["q"], t["k"], t["v"], **kw))
+    return res
+
+
+def run_xent(spec: dict, rank: int, world: int) -> dict:
+    """The vocab-parallel cross entropy over a model axis of every rank:
+    this rank's columns of the spec's fp32 logits, the per-token nll and
+    the gradient of its sum against the weights ``w``."""
+    from building_llm_from_scratch_tpu_torch.ops.softmax_xent import (
+        vocab_parallel_cross_entropy,
+    )
+
+    plan = build_mesh_plan("tp", tp=world)
+    d = np.load(spec["xent"])
+    V = d["logits"].shape[1] // world
+    logits = torch.from_numpy(d["logits"][:, rank * V:(rank + 1) * V]).requires_grad_()
+    nll = vocab_parallel_cross_entropy(logits, torch.from_numpy(d["targets"]),
+                                       rank * V, plan.group("model"))
+    (nll * torch.from_numpy(d["w"])).sum().backward()
+    return dict(nll=_np(nll), grad=_np(logits.grad))
+
+
 def launch(spec: dict, world: int, out: str, timeout: float = 120) -> list:
     """Run ``world`` processes of this worker on ``spec`` (written to
     ``out``); their results by rank. A failed rank, or a group that
@@ -285,7 +382,14 @@ def main() -> None:
                                     device=spec.get("device", "cpu"),
                                     timeout_s=120)
         try:
-            out = run_steps(spec, rank, world)
+            if spec["scenario"] == "parts":
+                # several scenarios in one group, in the same order on every
+                # rank (each mesh's subgroups are made once, collectively)
+                runs = {"ring": run_ring, "xent": run_xent, "steps": run_steps}
+                out = {p["name"]: runs[p["scenario"]](dict(spec, **p), rank, world)
+                       for p in spec["parts"]}
+            else:
+                out = run_steps(spec, rank, world)
         finally:
             mesh.shutdown_distributed()
     torch.save(dict(out, modules=sorted(sys.modules)),
