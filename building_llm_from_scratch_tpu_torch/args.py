@@ -8,7 +8,8 @@ watchdog, the precision policies (``--mixed_precision``, ``--data_type
 fp16`` with loss scaling), gradient accumulation, activation
 checkpointing, batch prefetch and asynchronous checkpoint writes, and
 the tokenizers (``--tokenizer_path``, the on-disk token cache
-``--tokenizer_cache_dir``), and sharded training (``--run_type multi_chip
+``--tokenizer_cache_dir``), speculative decoding (``--serve_spec_k``) and
+int8 KV (``--serve_kv_quant int8``) in serving, and sharded training (``--run_type multi_chip
 --shard_mode dp|fsdp|zero1|tp|tp_fsdp``, ``--tp`` for tensor parallelism,
 ``--sp`` for sequence parallelism with ring attention), with the JAX CLI's
 checks and messages.
@@ -33,8 +34,7 @@ UNPORTED_FLAGS = (
     "--serve_tp", "--serve_sp", "--serve_max_prompt", "--serve_port",
     "--serve_host", "--drain_timeout", "--serve_tick_timeout",
     "--serve_max_restarts", "--serve_deadline_s",
-    "--serve_metrics_every", "--serve_kv_quant",
-    "--serve_spec_k",
+    "--serve_metrics_every",
     "--fleet_jobs", "--fleet_rows_per_job", "--fleet_capacity",
     "--fleet_export_dir", "--fleet_style",
     "--metrics_jsonl", "--log_every", "--compile_cache_dir",
@@ -44,11 +44,12 @@ UNPORTED_FLAGS = (
 )
 
 _PP = "queue 1 item 14c, pipeline parallelism"
+_OPS = "queue 1 item 9, serving operations"
 
 #: the ROADMAP queue item that brings an unported flag or shard mode
 QUEUE_ITEMS = {
-    "--serve_kv_quant": "queue 1 item 5, int8 KV",
-    "--serve_spec_k": "queue 1 item 8, speculative decoding",
+    "--serve_deadline_s": _OPS, "--serve_max_restarts": _OPS,
+    "--serve_tick_timeout": _OPS, "--drain_timeout": _OPS,
     "--pp": _PP, "--pp_micro": _PP, "pp": _PP,
 }
 
@@ -252,6 +253,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve_kv_page_tokens", type=int, default=16,
                    help="Tokens per KV page when --serve_kv_paged on; the "
                         "prefill chunk must be a whole number of pages.")
+    p.add_argument("--serve_kv_quant", type=str, default="model",
+                   choices=["model", "int8"],
+                   help="Slot KV-cache dtype: 'model' stores k/v in the model "
+                        "dtype; 'int8' quantizes every append (one fp32 scale "
+                        "per position and head, folded into decode "
+                        "attention), halving KV data bytes against bf16 at a "
+                        "small logit error.")
+    p.add_argument("--serve_spec_k", type=int, default=0,
+                   help="Speculative decoding draft length: each tick an "
+                        "n-gram drafter proposes this many tokens per slot "
+                        "from the slot's own history and one verify forward "
+                        "scores all k+1 positions, so a slot commits 1..k+1 "
+                        "tokens a tick; the tokens are those of spec-off "
+                        "decoding. Requests opt out with \"spec\": false. "
+                        "0 disables (default).")
     p.add_argument("--serve_adapters", type=str, default=None,
                    help="Multi-tenant LoRA serving: comma-separated name=path "
                         "pairs of adapter artifacts (models.lora.save_adapter "
@@ -339,7 +355,8 @@ _SERVE_DEFAULTS = (
     ("serve_prefix_cache", "off"), ("serve_prefill_chunk", 0),
     ("serve_prefix_budget_mb", 256.0), ("serve_kv_paged", "off"),
     ("serve_kv_page_tokens", 16), ("serve_adapters", None),
-    ("serve_adapter_slots", 0),
+    ("serve_adapter_slots", 0), ("serve_kv_quant", "model"),
+    ("serve_spec_k", 0),
 )
 
 
@@ -386,6 +403,9 @@ def _check_serve(args) -> None:
         raise ValueError("--serve_prefix_budget_mb must be > 0.")
     if args.serve_kv_page_tokens < 1:
         raise ValueError("--serve_kv_page_tokens must be >= 1.")
+    if args.serve_spec_k < 0:
+        raise ValueError("--serve_spec_k must be >= 0 "
+                         "(0 disables speculative decoding).")
     if args.serve_adapter_slots < 0:
         raise ValueError("--serve_adapter_slots must be >= 0 "
                          "(0 = sized to the listed adapters).")

@@ -1,6 +1,7 @@
 """Token sampling (port of the JAX package's ``generate.py``): the serving
-engine's per-row temperature / top-k / seed sampling and the prompt-length
-buckets, and the one-shot ``generate()`` the trainer samples with.
+engine's per-row temperature / top-k / seed sampling, the speculative
+verify's per-position sampling and accept rule, the prompt-length buckets,
+and the one-shot ``generate()`` the trainer samples with.
 
 Randomness: JAX folds the token index into the request's key
 (``token_rng(PRNGKey(seed), i)``); here token i of a request is drawn from a
@@ -65,6 +66,50 @@ def sample_tokens_dynamic(logits: torch.Tensor, seeds: np.ndarray,
             drawn.append((logits[s] / float(temperature[s]) + gumbel).argmax())
         tokens[torch.as_tensor(rows, device=dev)] = torch.stack(drawn)
     return tokens
+
+
+def sample_tokens_multi(logits: torch.Tensor, seeds: np.ndarray,
+                        token_index: np.ndarray, temperature: np.ndarray,
+                        top_k: np.ndarray, max_top_k: int,
+                        generator: torch.Generator) -> torch.Tensor:
+    """Per-position sampling of the speculative verify's ``logits`` (S, Tq,
+    V): position j of row s is row s*Tq + j of one flattened
+    ``sample_tokens_dynamic`` call, drawn with ``token_seed(seeds[s],
+    token_index[s] + j)`` under row s's temperature and top-k: the token
+    the one-token decode tick would draw for that token index from the same
+    logits (every step of the sampler is row-wise). Returns (S, Tq) int64."""
+    S, Tq, V = logits.shape
+    rep = lambda a: np.repeat(np.asarray(a), Tq)  # noqa: E731  (s, j) -> s*Tq + j
+    index = (np.asarray(token_index)[:, None] + np.arange(Tq)[None, :]).reshape(-1)
+    flat = sample_tokens_dynamic(logits.reshape(S * Tq, V), rep(seeds), index,
+                                 rep(temperature), rep(top_k), max_top_k,
+                                 generator)
+    return flat.reshape(S, Tq)
+
+
+def accept_draft_tokens(logits: torch.Tensor, drafts: torch.Tensor,
+                        seeds: np.ndarray, token_index: np.ndarray,
+                        temperature: np.ndarray, top_k: np.ndarray,
+                        max_top_k: int, generator: torch.Generator) -> tuple:
+    """The speculative accept rule (the JAX ``accept_draft_tokens``):
+    ``logits`` (S, k+1, V) from ``verify_slots``, ``drafts`` (S, k) the
+    proposed tokens. Each position's own token t_j is drawn first
+    (``sample_tokens_multi``, argmax at temperature 0); draft d_{j+1} is
+    accepted iff it equals t_j, and the longest accepted run is committed
+    as t_0 .. t_{n_acc}. For point-mass drafts this exact match is
+    rejection sampling, and the committed tokens are the ones the spec-off
+    engine would draw, since t_j rides the same per-token seed.
+
+    A non-finite position stops the acceptance chain before it (committing
+    t_j needs finite logits at j); ``ok`` is position 0's finiteness, which
+    retires the row as the spec-off guard does. Returns (tokens (S, k+1),
+    n_accepted (S,), ok (S,) bool), on the logits' device."""
+    toks = sample_tokens_multi(logits, seeds, token_index, temperature, top_k,
+                               max_top_k, generator)
+    finite = torch.isfinite(logits).all(dim=-1)                 # (S, k+1)
+    match = (toks[:, :-1] == drafts.to(toks.dtype)) & finite[:, 1:]
+    n_acc = torch.cumprod(match.long(), dim=1).sum(dim=1)     # leading run
+    return toks, n_acc, finite[:, 0]
 
 
 def _bucket(n: int, step: int = 64, lo: int = 32) -> int:

@@ -42,13 +42,16 @@ every adapted projection and the head (``forward``, ``forward_with_cache``
 and ``generate``: the trainer's merge-free sampling).
 
 The serving functions (``prefill_into_slot``, ``prefill_chunk_into_slot``,
-``decode_slots`` and their paged siblings ``paged_prefill_chunk_into_slot``
-and ``paged_decode_slots``) mirror the JAX ones: the same masks, the same
+``decode_slots``, the speculative ``verify_slots`` and the paged siblings
+``paged_prefill_chunk_into_slot``, ``paged_decode_slots`` and
+``paged_verify_slots``) mirror the JAX ones: the same masks, the same
 zeroed pads, the same fp32 logits. The contiguous decode step goes through
 the fused kernel B5 and the paged one through the paged attention kernel B7
-(``ops/decode_step.py``) for caches on the card, and through their plain
-twins on the CPU. The paged k/v scatters and the chunks' attention are
-plain tensor code, as the JAX package leaves them to XLA.
+(``ops/decode_step.py``) for model-dtype caches on the card, and through
+their plain twins on the CPU. The paged k/v scatters, the chunks' and the
+verify's attention and every read of an int8 cache (quantized on write,
+its scales folded into ``decode_attention``) are plain tensor code, as the
+JAX package leaves them to XLA.
 The serving functions take an optional ``adapter`` (a stacked pool of
 LoRA adapters and each row's pool row, ``serving/adapters.py``) applied
 unmerged at every adapted projection and the head. ``decode_slots`` sends
@@ -57,7 +60,7 @@ the JAX package's ``_bgmv_block_adp`` does; the other slot functions
 gather each row's adapter and apply it with plain products, as the JAX
 package does by default. ``forward_with_cache`` is the one-shot
 ``generate()``'s cached forward, with ``decode_attention`` over the cache
-as the JAX default does. No int8 caches.
+as the JAX default does (model-dtype caches only).
 """
 
 from __future__ import annotations
@@ -81,6 +84,8 @@ from building_llm_from_scratch_tpu_torch.ops.decode_step import (
     paged_decode_attention,
     paged_decode_attention_plain,
     paged_view,
+    quantize_kv,
+    slot_cache_append,
 )
 from building_llm_from_scratch_tpu_torch.ops.fused_dropout import (
     fused_dropout,
@@ -95,6 +100,10 @@ from building_llm_from_scratch_tpu_torch.ops.rope import (
     precompute_rope_params,
 )
 from building_llm_from_scratch_tpu_torch.ops.xent_fwd import matmul_fp32
+from building_llm_from_scratch_tpu_torch.serving.kvcache import (
+    DEFAULT_POLICY,
+    cache_is_quantized,
+)
 from building_llm_from_scratch_tpu_torch.utils.seeding import site_seed
 
 Flat = Dict[str, torch.Tensor]
@@ -1028,12 +1037,46 @@ def init_slot_cache(cfg: ModelConfig, n_slots: int, max_length: int,
                     device: torch.device | str, policy=None) -> dict:
     """Per-layer k/v buffers as ``policy`` (serving/kvcache.KVCachePolicy,
     default contiguous) lays them out: (n_slots, Hkv, Tmax, hd) rows, or a
-    paged policy's (n_pages, Hkv, P, hd) pool."""
-    from building_llm_from_scratch_tpu_torch.serving.kvcache import (
-        DEFAULT_POLICY,
-    )
-
+    paged policy's (n_pages, Hkv, P, hd) pool; an int8 policy adds the
+    ``k_scale`` / ``v_scale`` sidecars."""
     return (policy or DEFAULT_POLICY).alloc(cfg, n_slots, max_length, device)
+
+
+def _slot_write(cache: dict, l: int, k: torch.Tensor, v: torch.Tensor,
+                index: tuple) -> None:
+    """Write one layer's cache-native (Hkv, T, hd) k/v panes at ``index``
+    of its buffers, IN PLACE; an int8 cache gets the codes and their scale
+    sidecars (``quantize_kv``: one scale per written position and head),
+    as the JAX ``_slot_write``."""
+    for name, pane in (("k", k), ("v", v)):
+        if cache_is_quantized(cache):
+            pane, scale = quantize_kv(pane)
+            cache[name + "_scale"][l][index] = scale
+        buf = cache[name][l]
+        buf[index] = pane.to(buf.dtype)
+
+
+def _slot_append_kv(cache: dict, l: int, k: torch.Tensor, v: torch.Tensor,
+                    lengths: torch.Tensor) -> None:
+    """Append one layer's fresh k/v (model layout (S, Tq, Hkv, hd)) at each
+    row's offset ``lengths`` (S,), quantizing on write for an int8 cache:
+    the one append rule of ``decode_slots``' plain path (Tq 1) and
+    ``verify_slots`` (Tq k+1), as the JAX ``_slot_append_kv``."""
+    for name, new in (("k", k), ("v", v)):
+        new = new.transpose(1, 2)
+        if cache_is_quantized(cache):
+            new, scale = quantize_kv(new)
+            slot_cache_append(cache[name + "_scale"][l], scale, lengths)
+        slot_cache_append(cache[name][l], new, lengths)
+
+
+def _layer_scales(cache: dict, l: int, rows: slice = slice(None)) -> dict:
+    """``decode_attention``'s scale arguments for layer ``l`` (empty for an
+    unquantized cache), for the slot rows ``rows``."""
+    if not cache_is_quantized(cache):
+        return {}
+    return {"k_scale": cache["k_scale"][l][rows],
+            "v_scale": cache["v_scale"][l][rows]}
 
 
 @torch.no_grad()
@@ -1042,9 +1085,11 @@ def prefill_into_slot(model: Transformer, tokens: torch.Tensor,
                       adapter: Optional[dict] = None) -> torch.Tensor:
     """Run one prompt (``tokens`` (1, Tpb), right-padded to its bucket) and
     write its k/v panes into row ``slot`` of ``cache`` IN PLACE (positions
-    [0, Tpb); pad positions are written as zeros, as in the JAX package).
-    ``adapter`` (ids (1,)): the request's LoRA adapter, gathered. Returns
-    the fp32 logits (V,) at the last real position."""
+    [0, Tpb); pad positions are written as zeros, as in the JAX package;
+    an int8 cache quantizes them on write, after the prompt attended to its
+    own unquantized k/v). ``adapter`` (ids (1,)): the request's LoRA
+    adapter, gathered. Returns the fp32 logits (V,) at the last real
+    position."""
     cfg = model.cfg
     _, Tpb = tokens.shape
     dev = tokens.device
@@ -1052,16 +1097,16 @@ def prefill_into_slot(model: Transformer, tokens: torch.Tensor,
     x = _embed(model, tokens, positions)
     valid = (positions < prompt_len)[None, :, None, None]
     kv_len = torch.tensor(prompt_len, device=dev)
+    zero = torch.zeros((), dtype=x.dtype, device=dev)
     adp, head_node, head_s = _slot_adapter_layers(adapter, cfg)
-    for l, (blk, K, V) in enumerate(zip(model.blocks, cache["k"], cache["v"])):
+    for l, blk in enumerate(model.blocks):
         h = blk.norm1(x)
         q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions,
                             _layer_adp(adp, l, "attn"))
         out = xla_attention(q, k, v, q_positions=positions, kv_length=kv_len)
-        k = torch.where(valid, k, torch.zeros((), dtype=k.dtype, device=dev))
-        v = torch.where(valid, v, torch.zeros((), dtype=v.dtype, device=dev))
-        K[slot, :, :Tpb] = k[0].transpose(0, 1)
-        V[slot, :, :Tpb] = v[0].transpose(0, 1)
+        _slot_write(cache, l, torch.where(valid, k, zero)[0].transpose(0, 1),
+                    torch.where(valid, v, zero)[0].transpose(0, 1),
+                    (slot, slice(None), slice(0, Tpb)))
         x = x + _attn_out_proj(blk.attn, out, 1, Tpb, _layer_adp(adp, l, "attn"))
         x = x + _mlp(cfg, blk.mlp, blk.norm2(x), _layer_adp(adp, l, "mlp"))
     x = model.final_norm(x)
@@ -1099,11 +1144,12 @@ def prefill_chunk_into_slot(model: Transformer, tokens: torch.Tensor,
     past ``prompt_len``, run against row ``slot`` whose positions
     [0, chunk_start) already hold valid k/v (earlier chunks or a copied
     prefix pane). The chunk's k/v are written IN PLACE (pad positions as
-    zeros; the write start clamps so the chunk fits, like the JAX
-    dynamic-update-slice) and the chunk attends over the slot's whole row
-    with ``kv_length = min(chunk_start + C, prompt_len)``. ``adapter`` (ids
-    (1,)): the request's LoRA adapter, gathered. Returns the fp32 logits
-    (V,) at position ``prompt_len - 1`` (clamped into the chunk)."""
+    zeros, quantized on write for an int8 cache; the write start clamps so
+    the chunk fits, like the JAX dynamic-update-slice) and the chunk
+    attends over the slot's whole row with ``kv_length = min(chunk_start +
+    C, prompt_len)``. ``adapter`` (ids (1,)): the request's LoRA adapter,
+    gathered. Returns the fp32 logits (V,) at position ``prompt_len - 1``
+    (clamped into the chunk)."""
     cfg = model.cfg
     _, C = tokens.shape
     dev = tokens.device
@@ -1113,15 +1159,18 @@ def prefill_chunk_into_slot(model: Transformer, tokens: torch.Tensor,
     kv_len = torch.tensor([min(chunk_start + C, prompt_len)], device=dev)
     start = min(max(chunk_start, 0), cache["k"][0].shape[2] - C)
     zero = torch.zeros((), dtype=x.dtype, device=dev)
+    row = slice(slot, slot + 1)
     adp, head_node, head_s = _slot_adapter_layers(adapter, cfg)
-    for l, (blk, K, V) in enumerate(zip(model.blocks, cache["k"], cache["v"])):
+    for l, blk in enumerate(model.blocks):
         h = blk.norm1(x)
         q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, lookup,
                             _layer_adp(adp, l, "attn"))
-        K[slot, :, start:start + C] = torch.where(valid, k, zero)[0].transpose(0, 1)
-        V[slot, :, start:start + C] = torch.where(valid, v, zero)[0].transpose(0, 1)
-        out = decode_attention(q, K[slot:slot + 1], V[slot:slot + 1],
-                               q_positions=positions[None, :], kv_length=kv_len)
+        _slot_write(cache, l, torch.where(valid, k, zero)[0].transpose(0, 1),
+                    torch.where(valid, v, zero)[0].transpose(0, 1),
+                    (slot, slice(None), slice(start, start + C)))
+        out = decode_attention(q, cache["k"][l][row], cache["v"][l][row],
+                               q_positions=positions[None, :], kv_length=kv_len,
+                               **_layer_scales(cache, l, row))
         x = x + _attn_out_proj(blk.attn, out, 1, C, _layer_adp(adp, l, "attn"))
         x = x + _mlp(cfg, blk.mlp, blk.norm2(x), _layer_adp(adp, l, "mlp"))
     return _chunk_logits(model, x, chunk_start, prompt_len, head_node, head_s)
@@ -1133,41 +1182,99 @@ def decode_slots(model: Transformer, tokens: torch.Tensor,
                  adapter: Optional[dict] = None) -> torch.Tensor:
     """One decode tick for the whole slot batch: ``tokens`` (S, 1) are each
     slot's last accepted token and ``lengths`` (S,) int32 its valid prefix.
-    Each layer appends its k/v at the row's length and attends, in one fused
-    step: the kernel for a cache on the card (which raises on a shape it
-    cannot take), its plain twin for a cache on the CPU. The caches are
-    updated IN PLACE. ``adapter`` (ids (S,) int32): per-slot LoRA adapters;
-    every block projection's delta goes through B6 (``lora_bgmv``: the
-    kernel for a pool on the card, the twin for one on the CPU), the head's
-    through the gathered path. Returns fp32 logits (S, V). Free slots
-    compute rows the engine ignores; the shapes never change."""
+    Each layer appends its k/v at the row's length and attends. For a cache
+    in the model dtype that is one fused step: the kernel B5 for a cache on
+    the card (which raises on a shape it cannot take), its plain twin for a
+    cache on the CPU. An int8 cache takes the plain path on either device,
+    as in the JAX package, where the kernel takes no int8: the append
+    quantizes on write and ``decode_attention`` reads the scales. The
+    caches are updated IN PLACE. ``adapter`` (ids (S,) int32): per-slot
+    LoRA adapters; every block projection's delta goes through B6
+    (``lora_bgmv``: the kernel for a pool on the card, the twin for one on
+    the CPU), whatever the cache holds, the head's through the gathered
+    path. Returns fp32 logits (S, V). Free slots compute rows the engine
+    ignores; the shapes never change."""
     cfg = model.cfg
     S = tokens.shape[0]
     positions = lengths.long()[:, None]
     x = _embed(model, tokens, positions)
+    quantized = cache_is_quantized(cache)
     step = (fused_decode_step if cache["k"][0].is_cuda
             else fused_decode_step_plain)
     adp, head_node, head_s = (_bgmv_adapter_layers(adapter, cfg)
                               if adapter is not None else (None, None, None))
-    for l, (blk, K, V) in enumerate(zip(model.blocks, cache["k"], cache["v"])):
+    for l, blk in enumerate(model.blocks):
         h = blk.norm1(x)
         q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions,
                             _layer_adp(adp, l, "attn"))
-        out, _, _ = step(q.contiguous(), k.to(K.dtype).contiguous(),
-                         v.to(V.dtype).contiguous(), K, V, lengths)
+        K, V = cache["k"][l], cache["v"][l]
+        if quantized:
+            _slot_append_kv(cache, l, k, v, lengths)
+            out = decode_attention(q, K, V, q_positions=positions,
+                                   kv_length=lengths + 1,
+                                   **_layer_scales(cache, l))
+        else:
+            out, _, _ = step(q.contiguous(), k.to(K.dtype).contiguous(),
+                             v.to(V.dtype).contiguous(), K, V, lengths)
         x = x + _attn_out_proj(blk.attn, out, S, 1, _layer_adp(adp, l, "attn"))
         x = x + _mlp(cfg, blk.mlp, blk.norm2(x), _layer_adp(adp, l, "mlp"))
     x = model.final_norm(x)
     return _logits(x, model.head, head_node, head_s)[:, 0]
 
 
+def _verify_positions(cfg: ModelConfig, lengths: torch.Tensor, Tq: int
+                      ) -> torch.Tensor:
+    """(S, Tq) positions of the verify candidates, clamped to the context:
+    near capacity the tail candidates (never committable, since prompt plus
+    budget fits the slot) would index past the position tables."""
+    pos = lengths.long()[:, None] + torch.arange(Tq, device=lengths.device)
+    return pos.clamp(max=cfg.context_length - 1)
+
+
+@torch.no_grad()
+def verify_slots(model: Transformer, tokens: torch.Tensor,
+                 lengths: torch.Tensor, cache: dict,
+                 adapter: Optional[dict] = None) -> torch.Tensor:
+    """Speculative verify, the Tq = k+1 sibling of ``decode_slots`` (the JAX
+    ``verify_slots``): ``tokens`` (S, Tq) are each slot's last accepted
+    token and its k drafts. One forward scores every position; position j
+    conditions on the cache and tokens[:, :j+1], so its logits are the
+    model's next-token distribution exactly when the drafts before it were
+    all accepted, which is all the accept rule commits. All Tq candidates'
+    k/v are appended at lengths .. lengths + k (quantized on write for an
+    int8 cache); the engine advances a row by its accepted count only, so a
+    rejected tail lies past the valid prefix, masked and overwritten next
+    tick. Query j attends the keys at positions <= lengths + j. Attention is
+    plain ``decode_attention`` on either device: no kernel takes Tq > 1.
+    ``adapter`` (ids (S,)): per-slot LoRA adapters, gathered (B6 is
+    single-token). Returns fp32 logits (S, Tq, V)."""
+    cfg = model.cfg
+    S, Tq = tokens.shape
+    positions = _verify_positions(cfg, lengths, Tq)
+    x = _embed(model, tokens, positions)
+    adp, head_node, head_s = _slot_adapter_layers(adapter, cfg)
+    for l, blk in enumerate(model.blocks):
+        h = blk.norm1(x)
+        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions,
+                            _layer_adp(adp, l, "attn"))
+        _slot_append_kv(cache, l, k, v, lengths)
+        out = decode_attention(q, cache["k"][l], cache["v"][l],
+                               q_positions=positions, kv_length=lengths + Tq,
+                               **_layer_scales(cache, l))
+        x = x + _attn_out_proj(blk.attn, out, S, Tq, _layer_adp(adp, l, "attn"))
+        x = x + _mlp(cfg, blk.mlp, blk.norm2(x), _layer_adp(adp, l, "mlp"))
+    x = model.final_norm(x)
+    return _logits(x, model.head, head_node, head_s)
+
+
 # ---------------------------------------------------------------------------
 # paged KV: the slot rows' positions live in pages of one shared pool
-# ((n_pages, Hkv, P, hd) per layer), addressed through a per-slot page
-# table (S, M). Table entry 0 is the trash page: unallocated positions (a
-# free row's garbage append, a chunk's pad tail) scatter there and are only
-# ever read masked. The scatters are plain tensor indexing, as the JAX
-# package leaves them to XLA.
+# ((n_pages, Hkv, P, hd) per layer, and (n_pages, Hkv, P, 1) scale pages
+# for an int8 pool), addressed through a per-slot page table (S, M). Table
+# entry 0 is the trash page: unallocated positions (a free row's garbage
+# append, a chunk's pad tail) scatter there and are only ever read masked.
+# The scatters are plain tensor indexing, as the JAX package leaves them to
+# XLA.
 # ---------------------------------------------------------------------------
 
 def _paged_scatter(leaf: torch.Tensor, vals: torch.Tensor,
@@ -1178,6 +1285,32 @@ def _paged_scatter(leaf: torch.Tensor, vals: torch.Tensor,
     assignment."""
     hd = leaf.shape[-1]
     leaf.view(-1, hd).index_copy_(0, rows, vals.reshape(-1, hd).to(leaf.dtype))
+
+
+def _paged_store(cache: dict, l: int, k: torch.Tensor, v: torch.Tensor,
+                 rows: torch.Tensor) -> None:
+    """Scatter one layer's k/v (R, Hkv, hd) at the pool rows ``rows``,
+    quantizing on write for an int8 pool (codes and scale pages at the same
+    rows: the contiguous layout's values, as the JAX ``_paged_scatter``)."""
+    for name, vals in (("k", k), ("v", v)):
+        if cache_is_quantized(cache):
+            vals, scale = quantize_kv(vals)
+            _paged_scatter(cache[name + "_scale"][l], scale, rows)
+        _paged_scatter(cache[name][l], vals, rows)
+
+
+def _paged_layer_views(cache: dict, l: int, page_table: torch.Tensor,
+                       cache_len: int) -> tuple:
+    """(K, V, scale arguments) of layer ``l`` as (rows, Hkv, cache_len, ..)
+    row views gathered through ``page_table``: what the JAX package's
+    ``decode_attention`` reads on its plain paged path."""
+    K = paged_view(cache["k"][l], page_table, cache_len)
+    V = paged_view(cache["v"][l], page_table, cache_len)
+    scales = {}
+    if cache_is_quantized(cache):
+        scales = {"k_scale": paged_view(cache["k_scale"][l], page_table, cache_len),
+                  "v_scale": paged_view(cache["v_scale"][l], page_table, cache_len)}
+    return K, V, scales
 
 
 def _paged_rows(page_table: torch.Tensor, pos: torch.Tensor, P: int, Hkv: int,
@@ -1199,11 +1332,14 @@ def paged_decode_slots(model: Transformer, tokens: torch.Tensor,
                        adapter: Optional[dict] = None) -> torch.Tensor:
     """Paged sibling of ``decode_slots``: each layer scatters the rows' new
     k/v at their lengths through ``page_table`` ((S, M) int32) and attends
-    over each row's pages. For pools on the card the attention is always
-    the paged kernel B7 (which raises on what it cannot take); on the CPU
-    its twin over the ``cache_len``-long row views, whose logits are
-    bit-equal to the contiguous ``decode_slots``' without adapters.
-    ``adapter`` (ids (S,)): per-slot LoRA adapters, gathered (as the JAX
+    over each row's pages. For a model-dtype pool on the card the attention
+    is always the paged kernel B7 (which raises on what it cannot take); on
+    the CPU its twin over the ``cache_len``-long row views, whose logits
+    are bit-equal to the contiguous ``decode_slots``' without adapters. An
+    int8 pool takes the plain path on either device (the JAX package gates
+    int8 pools out of its kernel): the scatter quantizes on write and
+    ``decode_attention`` reads the gathered scale pages. ``adapter`` (ids
+    (S,)): per-slot LoRA adapters, gathered (as the JAX
     ``paged_decode_slots``). Returns fp32 logits (S, V)."""
     cfg = model.cfg
     S = tokens.shape[0]
@@ -1211,24 +1347,61 @@ def paged_decode_slots(model: Transformer, tokens: torch.Tensor,
     x = _embed(model, tokens, positions)
     K0 = cache["k"][0]
     rows = _paged_rows(page_table, positions, K0.shape[2], K0.shape[1], cache_len)
-    if K0.is_cuda:
-        attend = paged_decode_attention
-    else:
-        def attend(q, K, V, table, lens):
-            return paged_decode_attention_plain(q, K, V, table, lens,
-                                                cache_len=cache_len)
+    kernel = K0.is_cuda and not cache_is_quantized(cache)
     adp, head_node, head_s = _slot_adapter_layers(adapter, cfg)
-    for l, (blk, K, V) in enumerate(zip(model.blocks, cache["k"], cache["v"])):
+    for l, blk in enumerate(model.blocks):
         h = blk.norm1(x)
         q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions,
                             _layer_adp(adp, l, "attn"))
-        _paged_scatter(K, k[:, 0], rows)
-        _paged_scatter(V, v[:, 0], rows)
-        out = attend(q.contiguous(), K, V, page_table, lengths)
+        _paged_store(cache, l, k[:, 0], v[:, 0], rows)
+        if kernel:
+            out = paged_decode_attention(q.contiguous(), cache["k"][l],
+                                         cache["v"][l], page_table, lengths)
+        elif not cache_is_quantized(cache):
+            out = paged_decode_attention_plain(q, cache["k"][l], cache["v"][l],
+                                               page_table, lengths,
+                                               cache_len=cache_len)
+        else:
+            K, V, scales = _paged_layer_views(cache, l, page_table, cache_len)
+            out = decode_attention(q, K, V, q_positions=positions,
+                                   kv_length=lengths + 1, **scales)
         x = x + _attn_out_proj(blk.attn, out, S, 1, _layer_adp(adp, l, "attn"))
         x = x + _mlp(cfg, blk.mlp, blk.norm2(x), _layer_adp(adp, l, "mlp"))
     x = model.final_norm(x)
     return _logits(x, model.head, head_node, head_s)[:, 0]
+
+
+@torch.no_grad()
+def paged_verify_slots(model: Transformer, tokens: torch.Tensor,
+                       lengths: torch.Tensor, page_table: torch.Tensor,
+                       cache: dict, cache_len: int,
+                       adapter: Optional[dict] = None) -> torch.Tensor:
+    """Paged sibling of ``verify_slots`` (the JAX ``paged_verify_slots``):
+    the Tq = k+1 candidates' k/v scatter at lengths .. lengths + k through
+    ``page_table`` (positions clamped to ``cache_len - 1``; quantized on
+    write for an int8 pool) and every query attends the gathered row views
+    with plain ``decode_attention``. Returns fp32 logits (S, Tq, V)."""
+    cfg = model.cfg
+    S, Tq = tokens.shape
+    positions = _verify_positions(cfg, lengths, Tq)
+    x = _embed(model, tokens, positions)
+    K0 = cache["k"][0]
+    write = lengths.long()[:, None] + torch.arange(Tq, device=lengths.device)
+    rows = _paged_rows(page_table, write, K0.shape[2], K0.shape[1], cache_len)
+    adp, head_node, head_s = _slot_adapter_layers(adapter, cfg)
+    for l, blk in enumerate(model.blocks):
+        h = blk.norm1(x)
+        q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, positions,
+                            _layer_adp(adp, l, "attn"))
+        _paged_store(cache, l, k.reshape(S * Tq, *k.shape[2:]),
+                     v.reshape(S * Tq, *v.shape[2:]), rows)
+        K, V, scales = _paged_layer_views(cache, l, page_table, cache_len)
+        out = decode_attention(q, K, V, q_positions=positions,
+                               kv_length=lengths + Tq, **scales)
+        x = x + _attn_out_proj(blk.attn, out, S, Tq, _layer_adp(adp, l, "attn"))
+        x = x + _mlp(cfg, blk.mlp, blk.norm2(x), _layer_adp(adp, l, "mlp"))
+    x = model.final_norm(x)
+    return _logits(x, model.head, head_node, head_s)
 
 
 @torch.no_grad()
@@ -1240,10 +1413,11 @@ def paged_prefill_chunk_into_slot(model: Transformer, tokens: torch.Tensor,
     """Paged sibling of ``prefill_chunk_into_slot``: the chunk's C positions
     scatter into the slot's pages through ``row_table`` ((1, M), the slot's
     table row), pad positions as zeros and positions past the allocated
-    frontier onto the trash page, and the chunk attends over the slot's
-    gathered ``cache_len``-long row view (plain ``decode_attention``, as in
-    the JAX package). ``adapter`` (ids (1,)): the request's LoRA adapter,
-    gathered. Returns the fp32 logits (V,) at ``prompt_len - 1``."""
+    frontier onto the trash page (quantized on write for an int8 pool), and
+    the chunk attends over the slot's gathered ``cache_len``-long row view
+    (plain ``decode_attention``, as in the JAX package). ``adapter`` (ids
+    (1,)): the request's LoRA adapter, gathered. Returns the fp32 logits
+    (V,) at ``prompt_len - 1``."""
     cfg = model.cfg
     _, C = tokens.shape
     dev = tokens.device
@@ -1256,15 +1430,15 @@ def paged_prefill_chunk_into_slot(model: Transformer, tokens: torch.Tensor,
                        cache_len)
     zero = torch.zeros((), dtype=x.dtype, device=dev)
     adp, head_node, head_s = _slot_adapter_layers(adapter, cfg)
-    for l, (blk, K, V) in enumerate(zip(model.blocks, cache["k"], cache["v"])):
+    for l, blk in enumerate(model.blocks):
         h = blk.norm1(x)
         q, k, v = _qkv_proj(cfg, blk.attn, h, model.rope, lookup,
                             _layer_adp(adp, l, "attn"))
-        _paged_scatter(K, torch.where(valid, k, zero)[0], rows)
-        _paged_scatter(V, torch.where(valid, v, zero)[0], rows)
-        out = decode_attention(q, paged_view(K, row_table, cache_len),
-                               paged_view(V, row_table, cache_len),
-                               q_positions=positions[None, :], kv_length=kv_len)
+        _paged_store(cache, l, torch.where(valid, k, zero)[0],
+                     torch.where(valid, v, zero)[0], rows)
+        K, V, scales = _paged_layer_views(cache, l, row_table, cache_len)
+        out = decode_attention(q, K, V, q_positions=positions[None, :],
+                               kv_length=kv_len, **scales)
         x = x + _attn_out_proj(blk.attn, out, 1, C, _layer_adp(adp, l, "attn"))
         x = x + _mlp(cfg, blk.mlp, blk.norm2(x), _layer_adp(adp, l, "mlp"))
     return _chunk_logits(model, x, chunk_start, prompt_len, head_node, head_s)
@@ -1313,5 +1487,6 @@ def build_model(cfg: ModelConfig, seed: int,
 __all__ = ["Transformer", "build_model", "decode_slots", "forward",
            "forward_hidden", "forward_with_cache", "init_params",
            "init_slot_cache", "paged_decode_slots",
-           "paged_prefill_chunk_into_slot", "param_shapes",
-           "prefill_chunk_into_slot", "prefill_into_slot"]
+           "paged_prefill_chunk_into_slot", "paged_verify_slots",
+           "param_shapes", "prefill_chunk_into_slot", "prefill_into_slot",
+           "verify_slots"]

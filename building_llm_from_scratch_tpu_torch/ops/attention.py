@@ -77,10 +77,21 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, *,
                      q_positions: torch.Tensor,
-                     kv_length: torch.Tensor) -> torch.Tensor:
+                     kv_length: torch.Tensor,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention over a cache in its own (B, Hkv, Tmax, D) layout for
     (B, Tq, Hq, D) queries at absolute ``q_positions`` ((Tq,) or (B, Tq)),
-    with ``kv_length`` (scalar or (B,)) valid positions per row."""
+    with ``kv_length`` (scalar or (B,)) valid positions per row.
+
+    ``k_scale`` / ``v_scale`` ((B, Hkv, Tmax, 1) fp32) read an int8 cache
+    (``serving/kvcache.py``'s int8 policy) without a dequantized copy: a
+    position's scale is constant over D, so it multiplies that position's
+    scores (``q . (k8 s) = (q . k8) s``) and its probability before the
+    value product (``sum p (v8 s) = sum (p s) v8``), as in the JAX
+    package. The value product is then fp32 on fp32 operands; the result
+    is cast to the queries' dtype (JAX's einsum leaves it fp32, which only
+    differs for a 16-bit model)."""
     B, Tq, Hq, D = q.shape
     _, Hkv, Tkv, _ = k_cache.shape
     G = Hq // Hkv
@@ -89,6 +100,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     qg = q.reshape(B, Tq, Hkv, G, D).permute(0, 2, 3, 1, 4)
     scores = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(),
                           k_cache.float()) * scale
+    if k_scale is not None:
+        scores = scores * k_scale[:, :, :, 0][:, :, None, None, :]
     kv_pos = torch.arange(Tkv, device=dev)
     kv_length = torch.as_tensor(kv_length, device=dev)
     if q_positions.ndim == 2:
@@ -101,7 +114,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         mask = mask[None, None, None]
     scores = torch.where(mask, scores, torch.full((), _NEG_INF, device=dev))
     weights = torch.softmax(scores, dim=-1)
-    out = _value_product(weights, v_cache, "bhgqk,bhkd->bhgqd")
+    if v_scale is None:
+        out = _value_product(weights, v_cache, "bhgqk,bhkd->bhgqd")
+    else:
+        weights = weights * v_scale[:, :, :, 0][:, :, None, None, :]
+        out = torch.einsum("bhgqk,bhkd->bhgqd", weights,
+                           v_cache.float()).to(q.dtype)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, Hq, D)
 
 

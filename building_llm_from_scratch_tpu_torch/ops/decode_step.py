@@ -49,6 +49,30 @@ def _workspace(device: torch.device, stream: int, numel: int) -> torch.Tensor:
     return ws
 
 
+#: int8 KV quantization floor: an all-zero position (a zeroed pad, a row
+#: never written) gets scale EPS and zero codes, so it reads back as zeros
+KV_QUANT_EPS = 1e-8
+
+
+def quantize_kv(x: torch.Tensor) -> tuple:
+    """Symmetric int8 quantization over the trailing head-dim axis, one fp32
+    scale per (..., position) written (the JAX ``quantize_kv``, with its
+    arithmetic: a true division by the scale and round-half-even), taken at
+    append time so later appends never rescale earlier ones. Returns (codes
+    int8 (..., hd), scales fp32 (..., 1)) with ``codes * scales ~= x``."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax / 127.0, min=KV_QUANT_EPS)
+    codes = torch.clamp(torch.round(xf / scale), -127.0, 127.0)
+    return codes.to(torch.int8), scale
+
+
+def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``quantize_kv`` (fp32). Attention never calls it on a
+    cache: ``decode_attention`` folds the scales into its products."""
+    return codes.float() * scale
+
+
 def slot_cache_append(cache: torch.Tensor, new: torch.Tensor,
                       lengths: torch.Tensor) -> torch.Tensor:
     """Write ``new`` (B, Hkv, Tq, hd) into ``cache`` (B, Hkv, Tmax, hd) at the

@@ -9,6 +9,16 @@ slots at tick boundaries and retired the moment they finish. One tick:
     -> one decode step over ALL slots (B5, or B7 through the page table,
        one launch per layer) -> per-row finite guard -> accept / finish
 
+With ``spec_k=k`` (speculative decoding, ``serving/spec.py``) the decode
+step is replaced by a verify step: the drafter proposes k tokens per
+decoding slot from the slot's own history (host numpy), one forward
+(``verify_slots`` / ``paged_verify_slots``, plain attention: no kernel
+takes k+1 queries) scores all k+1 positions, and each row commits 1..k+1
+tokens by the exact accept rule (``generate.accept_draft_tokens``), the
+same tokens the spec-off engine draws. Rows whose request opted out
+(``SamplingParams.spec=False``) commit one. Each slot's cache row carries
+k positions of headroom past ``max_len`` for the candidates.
+
 The ``KVCachePolicy`` (``serving/kvcache.py``) picks the prefill tier and
 the layout:
   - the default policy prefills each prompt in one bucketed pass
@@ -24,7 +34,10 @@ the layout:
     through a host-owned page table. Admission reserves a request's
     worst-case page need and bounces the queue head (FCFS kept) while the
     pool cannot promise it; a request that can never fit fails with
-    ``page_pool_too_small``.
+    ``page_pool_too_small``;
+  - ``kv_quant="int8"`` stores int8 codes with fp32 scale sidecars,
+    quantized at every write; its ticks attend with plain
+    ``decode_attention`` (B5 and B7 take no int8, as in the JAX package).
 
 With an ``AdapterRegistry`` (``adapters=``, ``serving/adapters.py``) each
 request may name a LoRA adapter: its pool row is resolved at admission and
@@ -52,8 +65,8 @@ to the device in one transfer and reads back once: the sampled tokens
 together with the finite flags. Only a final prefill chunk reads anything
 back.
 
-Not ported yet: int8 KV, speculative decoding, deadlines, drain,
-the supervisor and restarts, fault-injection hooks and the telemetry sink.
+Not ported yet: deadlines, drain, the supervisor and restarts,
+fault-injection hooks and the telemetry sink.
 """
 
 from __future__ import annotations
@@ -67,6 +80,7 @@ import torch
 
 from building_llm_from_scratch_tpu_torch.generate import (
     _bucket,
+    accept_draft_tokens,
     sample_tokens_dynamic,
 )
 from building_llm_from_scratch_tpu_torch.models.lora import adapter_fingerprint
@@ -76,8 +90,10 @@ from building_llm_from_scratch_tpu_torch.models.transformer import (
     init_slot_cache,
     paged_decode_slots,
     paged_prefill_chunk_into_slot,
+    paged_verify_slots,
     prefill_chunk_into_slot,
     prefill_into_slot,
+    verify_slots,
 )
 from building_llm_from_scratch_tpu_torch.ops.decode_step import (
     check_kernel_shape,
@@ -92,6 +108,7 @@ from building_llm_from_scratch_tpu_torch.serving.kvcache import (
     KVCachePolicy,
     PagePool,
     PrefixStore,
+    cache_nbytes,
     copy_prefix_into_slot,
     extract_prefix_panes,
 )
@@ -114,6 +131,7 @@ from building_llm_from_scratch_tpu_torch.serving.request import (
     resolve_eos,
 )
 from building_llm_from_scratch_tpu_torch.serving.scheduler import Scheduler
+from building_llm_from_scratch_tpu_torch.serving.spec import NgramDrafter
 
 
 class DecodeEngine:
@@ -128,7 +146,8 @@ class DecodeEngine:
                  max_top_k: int = 64, default_max_new_tokens: int = 128,
                  warmup_prompt_cap: int = 256,
                  kv_policy: Optional[KVCachePolicy] = None,
-                 adapters: Optional[AdapterRegistry] = None):
+                 adapters: Optional[AdapterRegistry] = None,
+                 spec_k: int = 0, drafter=None):
         cfg = model.cfg
         self.cfg = cfg
         self.model = model
@@ -141,16 +160,32 @@ class DecodeEngine:
         self.max_len = min(int(max_len or cfg.context_length),
                            cfg.context_length)
         self.max_prompt = self.max_len - 1
-        #: logical row length (the JAX ``_cache_len``; no spec headroom)
-        self._cache_len = self.max_len
+        #: speculative decoding: k drafted tokens per slot per tick, scored
+        #: by one verify forward (0 = off, the plain decode tick)
+        self.spec_k = int(spec_k)
+        if self.spec_k < 0:
+            raise ValueError("spec_k must be >= 0")
+        if self.spec_k >= self.max_len:
+            raise ValueError(f"spec_k={self.spec_k} must be < the slot "
+                             f"capacity {self.max_len}")
+        self.drafter = (drafter or NgramDrafter()) if self.spec_k else None
+        #: logical row length (the JAX ``_cache_len``): ``spec_k`` positions
+        #: of headroom past max_len hold the verify's candidates, which a
+        #: row at its last position would otherwise write over committed
+        #: k/v (the append's start clamps to fit)
+        self._cache_len = self.max_len + self.spec_k
         self._chunk = self.kv_policy.prefill_chunk
         self._paged = self.kv_policy.paged
         if self._chunk > self._cache_len:
             raise ValueError(f"prefill_chunk {self._chunk} exceeds the slot "
                              f"capacity {self._cache_len}")
-        if self.device.type == "cuda":
-            # every decode tick launches a kernel: refuse a model or a slot
-            # length it cannot take now, not at the first tick
+        # the decode tick launches B5 (B7 when paged) only for a model-dtype
+        # cache without speculation; int8 caches and the verify tick attend
+        # with plain decode_attention, as in the JAX package
+        decode_kernel = not (self.spec_k or self.kv_policy.quantized)
+        if self.device.type == "cuda" and decode_kernel:
+            # refuse a model or a slot length the kernel cannot take now,
+            # not at the first tick
             if self._paged:
                 check_paged_kernel_shape(cfg.head_dim, cfg.torch_dtype)
             else:
@@ -167,7 +202,9 @@ class DecodeEngine:
             if pool_device != self.device:
                 raise ValueError(f"the adapter pool is on {pool_device}, "
                                  f"the engine on {self.device}")
-            if self.device.type == "cuda":
+            if self.device.type == "cuda" and not self.spec_k:
+                # the decode tick's deltas go through B6; the verify tick
+                # gathers them (B6 is single-token)
                 check_lora_kernel_shape(adapters.max_rank, cfg.torch_dtype)
         self.max_top_k = min(int(max_top_k), cfg.vocab_size)
         self.default_max_new_tokens = int(default_max_new_tokens)
@@ -216,6 +253,11 @@ class DecodeEngine:
         self._topks = np.zeros((S,), np.int32)          # guarded-by: _lock
         #: per-slot adapter pool row; -1 = base model (exact zero delta)
         self._adapter_ids = np.full((S,), -1, np.int32)  # guarded-by: _lock
+        #: per-slot committed ids (prompt + generated), the drafter's
+        #: haystack; kept only when speculation is on
+        self._hist = (np.zeros((S, self.max_len), np.int32)
+                      if self.spec_k else None)          # guarded-by: _lock
+        self._hist_len = np.zeros((S,), np.int32)        # guarded-by: _lock
         #: adapter name ("base" for un-adapted traffic) -> {finished,
         #: failed, tokens}
         self._adapter_counts: dict = {}                 # guarded-by: _lock
@@ -240,6 +282,10 @@ class DecodeEngine:
         self.prefill_seconds = 0.0          # guarded-by: _lock
         self.decode_seconds = 0.0           # guarded-by: _lock
         self.detok_seconds = 0.0            # guarded-by: _lock
+        #: speculation: k drafted per opted-in decoding row and tick, and
+        #: the drafts the accept rule took (before eos / budget truncation)
+        self.spec_tokens_drafted = 0        # guarded-by: _lock
+        self.spec_tokens_accepted = 0       # guarded-by: _lock
 
     def _bucket_len(self, n: int) -> int:
         return min(_bucket(n), self.max_len)
@@ -375,6 +421,10 @@ class DecodeEngine:
         self._seeds[slot] = p.seed
         self._temps[slot] = p.temperature
         self._topks[slot] = p.top_k or 0
+        if self._hist is not None:
+            Tp = int(req.prompt_ids.size)
+            self._hist[slot, :Tp] = req.prompt_ids
+            self._hist_len[slot] = Tp
 
     # holds: _lock
     def _first_token(self, logits: torch.Tensor, req: Request) -> tuple:
@@ -590,10 +640,10 @@ class DecodeEngine:
 
     # holds: _lock
     def _page_need(self, req: Request) -> int:
-        """Worst-case pages of one request: prompt plus max_new_tokens,
-        capped at the slot's row."""
-        toks = min(int(req.prompt_ids.size) + req.params.max_new_tokens,
-                   self._cache_len)
+        """Worst-case pages of one request: prompt plus max_new_tokens plus
+        the spec headroom, capped at the slot's row."""
+        toks = min(int(req.prompt_ids.size) + req.params.max_new_tokens
+                   + self.spec_k, self._cache_len)
         return -(-toks // self.kv_policy.page_tokens)
 
     # holds: _lock
@@ -710,6 +760,9 @@ class DecodeEngine:
                         if s not in self._prefill_state]
             if not decoding:
                 return True
+            if self.spec_k:
+                self._verify_tick(decoding)
+                return True
             if self._paged:
                 # the append lands at column lengths // P, which must map a
                 # page (mid-prefill rows append into the trash page)
@@ -757,6 +810,77 @@ class DecodeEngine:
         return paged_decode_slots(self.model, tokens, lengths, table,
                                   self.cache, self._cache_len, adapter=adapter)
 
+    # holds: _lock
+    def _verify_tick(self, decoding: list) -> None:
+        """One speculative tick (the JAX ``_verify_tick``): k drafts per
+        opted-in decoding slot from its own history, one verify forward
+        over every slot, and each row's longest accepted run committed,
+        1..k+1 tokens, cut at eos or the budget. Opted-out rows ride the
+        same forward and commit one token. Mid-prefill and free rows ride as
+        ignored rows, as in the decode tick. One device->host read: the
+        tokens, accepted counts and finite flags together."""
+        S, k = self.n_slots, self.spec_k
+        drafts = np.zeros((S, k), np.int32)
+        for slot, req in decoding:
+            if req.params.spec:
+                drafts[slot] = self.drafter.propose(
+                    self._hist[slot, :self._hist_len[slot]], k)
+        if self._paged:
+            # the candidates land at lengths .. lengths + k; the headroom
+            # keeps those columns inside the slot's table
+            for slot, _ in decoding:
+                self._ensure_pages(slot, int(self._lengths[slot]) + 1 + k)
+        t0 = time.perf_counter()
+        tokens_in = np.concatenate([self._last_tokens[:, None], drafts], axis=1)
+        parts = [tokens_in.reshape(-1), self._lengths, self._adapter_ids]
+        if self._paged:
+            parts.append(self._page_table.reshape(-1))
+        host = torch.from_numpy(np.concatenate(parts)).to(self.device)
+        n = S * (k + 1)
+        tokens = host[:n].long().view(S, k + 1)
+        lengths = host[n:n + S]
+        adapter = self._adapter_arg(host[n + S:n + 2 * S])
+        if self._paged:
+            table = host[n + 2 * S:].view(S, -1)
+            logits = paged_verify_slots(self.model, tokens, lengths, table,
+                                        self.cache, self._cache_len,
+                                        adapter=adapter)
+        else:
+            logits = verify_slots(self.model, tokens, lengths, self.cache,
+                                  adapter=adapter)
+        toks, n_acc, ok = accept_draft_tokens(
+            logits, tokens[:, 1:], self._seeds, self._n_gen, self._temps,
+            self._topks, self.max_top_k, self._generator)
+        back = torch.cat([toks.reshape(-1), n_acc, ok.long()]).cpu().numpy()
+        toks_host = back[:n].reshape(S, k + 1)
+        n_acc_host, ok_host = back[n:n + S], back[n + S:]
+        self.decode_seconds += time.perf_counter() - t0
+        self.n_ticks += 1
+        for slot, req in decoding:
+            if not ok_host[slot]:
+                self._fail_request(
+                    slot, req,
+                    f"non-finite logits at token {len(req.output_ids)}",
+                    non_finite=True)
+                continue
+            n_commit = 1
+            if req.params.spec:
+                accepted = int(n_acc_host[slot])
+                n_commit += accepted
+                req.spec_drafted += k
+                req.spec_accepted += accepted
+                self.spec_tokens_drafted += k
+                self.spec_tokens_accepted += accepted
+            for j in range(n_commit):
+                # each commit advances the row's valid prefix by one: this
+                # tick appended position j's k/v; the rejected tail lies
+                # past the prefix, masked and overwritten next tick
+                self._lengths[slot] += 1
+                self.decode_tokens += 1
+                self._accept_token(slot, req, int(toks_host[slot, j]))
+                if req.done:
+                    break           # eos, budget or a failed callback
+
     def run_until_idle(self) -> None:
         while self.step():
             pass
@@ -773,6 +897,11 @@ class DecodeEngine:
         req.output_ids.append(tok)
         self._last_tokens[slot] = tok
         self._n_gen[slot] = len(req.output_ids)
+        if self._hist is not None:
+            # a committed token joins the drafter's haystack (a dropped eos
+            # never does)
+            self._hist[slot, self._hist_len[slot]] = tok
+            self._hist_len[slot] += 1
         self.tokens_generated += 1
         piece = ""
         if self.tokenizer is not None or req.on_token is not None:
@@ -831,6 +960,7 @@ class DecodeEngine:
         self._temps[slot] = 0.0
         self._topks[slot] = 0
         self._adapter_ids[slot] = -1
+        self._hist_len[slot] = 0
 
     # holds: _lock
     def _fail_request(self, slot: Optional[int], req: Request, msg: str,
@@ -917,6 +1047,25 @@ class DecodeEngine:
         elif drain:
             self.run_until_idle()
 
+    # holds: _lock
+    def _cache_component_bytes(self) -> dict:
+        """Device bytes of the live cache (the JAX engine's ledger parts):
+        contiguous rows split into ``slot_kv`` (k/v data of the first
+        max_len positions), ``kv_scales`` (their int8 scale sidecars) and
+        ``spec_headroom`` (the spec_k positions past max_len, every leaf);
+        a paged pool is one ``page_pool`` part. The parts sum to the
+        cache's bytes exactly (each leaf's bytes divide by its time
+        extent)."""
+        if self._paged:
+            return {"page_pool": cache_nbytes(self.cache)}
+        kv = cache_nbytes({k: self.cache[k] for k in ("k", "v")})
+        scales = cache_nbytes({k: v for k, v in self.cache.items()
+                               if k.endswith("_scale")})
+        slot_kv = kv * self.max_len // self._cache_len
+        kv_scales = scales * self.max_len // self._cache_len
+        return {"slot_kv": slot_kv, "kv_scales": kv_scales,
+                "spec_headroom": kv + scales - slot_kv - kv_scales}
+
     def stats(self) -> dict:
         with self._lock:
             out = {
@@ -929,7 +1078,16 @@ class DecodeEngine:
                 "prefill_seconds": self.prefill_seconds,
                 "decode_seconds": self.decode_seconds,
                 "kv_policy": self.kv_policy.describe(),
+                "kv_bytes": self._cache_component_bytes(),
             }
+            if self.spec_k:
+                out["spec_k"] = self.spec_k
+                out["drafter"] = self.drafter.describe()
+                out["spec_tokens_drafted"] = self.spec_tokens_drafted
+                out["spec_tokens_accepted"] = self.spec_tokens_accepted
+                if self.spec_tokens_drafted:
+                    out["spec_acceptance_ratio"] = round(
+                        self.spec_tokens_accepted / self.spec_tokens_drafted, 6)
             if self.tokenizer is not None:
                 out["detok_seconds"] = self.detok_seconds
             if self._adapter_counts:

@@ -4,8 +4,10 @@ JSONL half of the JAX package's ``serving/frontend.py``).
 One request per line: ``{"prompt": "text"}`` (with a tokenizer) or
 ``{"prompt_ids": [...]}``, and ``{"max_new_tokens": 32,
 "temperature": 0.7, "top_k": 40, "seed": 1, "eos_id": 7, "ignore_eos":
-true, "adapter": "tenant-a"}``; ``adapter`` names one of the LoRA adapters
-``--serve_adapters name=path,...`` loaded (omitted: the base model).
+true, "adapter": "tenant-a", "spec": false}``; ``adapter`` names one of the
+LoRA adapters ``--serve_adapters name=path,...`` loaded (omitted: the base
+model); ``"spec": false`` opts a request out of speculative decoding on a
+``--serve_spec_k`` engine (its tokens are the same either way).
 Results go to ``--serve_out`` (default stdout), one line per request in
 submission order, each flushed as soon as its request is done.
 Each line carries the request's ``token_ids`` and their ``text`` ("" when
@@ -63,6 +65,8 @@ def params_from_record(rec: dict, default_max_new: int) -> SamplingParams:
         # by registry name; an unknown name is refused at submit
         adapter=(str(rec["adapter"]) if rec.get("adapter") is not None
                  else None),
+        # per-request speculative opt-out; the tokens are the same either way
+        spec=bool(rec.get("spec", True)),
     )
 
 
@@ -117,8 +121,9 @@ def serve_jsonl(engine: DecodeEngine, prompts_path: str,
 
 def kv_policy_from_args(args) -> KVCachePolicy:
     """The engine's KV policy from the flags (the JAX ``run_serve``'s):
-    the prefix cache and paging imply chunked prefill, 64 tokens a chunk
-    unless ``--serve_prefill_chunk`` says otherwise."""
+    the cache dtype (``--serve_kv_quant``); the prefix cache and paging
+    imply chunked prefill, 64 tokens a chunk unless
+    ``--serve_prefill_chunk`` says otherwise."""
     prefix_on = args.serve_prefix_cache == "on"
     paged_on = args.serve_kv_paged == "on"
     chunk = args.serve_prefill_chunk
@@ -127,6 +132,7 @@ def kv_policy_from_args(args) -> KVCachePolicy:
         logger.info("--serve_%s on: defaulting --serve_prefill_chunk to 64.",
                     "prefix_cache" if prefix_on else "kv_paged")
     return KVCachePolicy(
+        kv_quant=args.serve_kv_quant,
         prefix_cache=prefix_on, prefill_chunk=chunk,
         prefix_budget_bytes=int(args.serve_prefix_budget_mb * 1024 ** 2),
         paged=paged_on, page_tokens=args.serve_kv_page_tokens)
@@ -173,7 +179,8 @@ def run_serve(args) -> DecodeEngine:
         max_len=(args.serve_max_len or None),
         max_queue=args.serve_max_queue, max_top_k=args.serve_max_top_k,
         default_max_new_tokens=args.serve_max_new_tokens,
-        kv_policy=kv_policy_from_args(args), adapters=adapters)
+        kv_policy=kv_policy_from_args(args), adapters=adapters,
+        spec_k=args.serve_spec_k)
     engine.start()
     try:
         serve_jsonl(engine, args.serve_prompts, args.serve_out,

@@ -14,11 +14,17 @@ One ``KVCachePolicy`` decides the slot cache's layout and the prefill tier:
   - **paged KV** (``paged=True``): the slot rows map their positions onto
     fixed-size pages of one shared pool through a host-owned per-slot page
     table. A prefix hit becomes a refcounted table write (no copy), freed
-    pages recycle across requests, and admission checks free pages.
+    pages recycle across requests, and admission checks free pages;
+  - **int8 slot KV** (``kv_quant="int8"``): every append is quantized on
+    write (``ops/decode_step.quantize_kv``: int8 codes and one fp32 scale
+    per (row, head, position), in (.., Hkv, T, 1) sidecars ``k_scale`` /
+    ``v_scale``, paged pools included), and ``decode_attention`` folds the
+    scales into its products. KV data bytes are exactly half of bf16's;
+    the sidecars add 2 / head_dim (6.25% at head_dim 64).
 
-``kv_quant="int8"`` is not ported (ROADMAP queue 1 item 5). The JAX
-module's telemetry events and memory-ledger hooks have no counterpart yet
-(queue 1 item 10); the counters ``stats()`` reports are kept.
+The JAX module's telemetry events and memory-ledger hooks have no
+counterpart yet (queue 1 item 10); the counters ``stats()`` reports are
+kept.
 """
 
 from __future__ import annotations
@@ -38,14 +44,14 @@ from building_llm_from_scratch_tpu_torch.models.lora import (  # noqa: F401
     adapter_fingerprint,
 )
 
-KV_QUANT_CHOICES = ("model",)
+KV_QUANT_CHOICES = ("model", "int8")
 
 
 @dataclass(frozen=True)
 class KVCachePolicy:
     """Layout and prefix policy of the slot KV cache, fixed per engine."""
 
-    kv_quant: str = "model"          # "model" (cfg dtype); int8 not ported
+    kv_quant: str = "model"          # "model" (cfg dtype) | "int8"
     prefix_cache: bool = False
     prefill_chunk: int = 0           # 0 = monolithic bucketed prefill
     prefix_budget_bytes: int = 256 * 1024 ** 2
@@ -54,10 +60,6 @@ class KVCachePolicy:
     pool_pages: int = 0              # usable pool pages; 0 = n_slots full
 
     def __post_init__(self):
-        if self.kv_quant == "int8":
-            raise ValueError(
-                "kv_quant='int8' is not ported to the PyTorch package yet "
-                "(ROADMAP queue 1 item 5, int8 KV)")
         if self.kv_quant not in KV_QUANT_CHOICES:
             raise ValueError(f"kv_quant must be one of {KV_QUANT_CHOICES}, "
                              f"got '{self.kv_quant}'")
@@ -89,20 +91,36 @@ class KVCachePolicy:
 
     # -- layout ------------------------------------------------------------
 
+    @property
+    def quantized(self) -> bool:
+        return self.kv_quant == "int8"
+
+    def cache_dtype(self, cfg: ModelConfig) -> torch.dtype:
+        return torch.int8 if self.quantized else cfg.torch_dtype
+
     def alloc(self, cfg: ModelConfig, n_rows: int, max_length: int,
               device: torch.device | str) -> dict:
-        """Per-layer k/v buffers in the model dtype: (n_rows, Hkv,
-        max_length, hd) rows, or for a paged policy a pool of
-        (total_pool_pages, Hkv, page_tokens, hd) pages, page 0 the trash
-        page."""
+        """Per-layer k/v buffers: (n_rows, Hkv, max_length, hd) rows, or for
+        a paged policy a pool of (total_pool_pages, Hkv, page_tokens, hd)
+        pages, page 0 the trash page; in the model dtype, or int8 with fp32
+        ``k_scale`` / ``v_scale`` sidecars of the same shape and a trailing
+        axis of 1 (one scale per written position and head)."""
         if self.paged:
-            shape = (self.total_pool_pages(n_rows, max_length),
-                     cfg.n_kv_groups, self.page_tokens, cfg.head_dim)
+            rows = (self.total_pool_pages(n_rows, max_length),
+                    cfg.n_kv_groups, self.page_tokens)
         else:
-            shape = (n_rows, cfg.n_kv_groups, max_length, cfg.head_dim)
-        mk = lambda: [torch.zeros(shape, dtype=cfg.torch_dtype, device=device)  # noqa: E731
-                      for _ in range(cfg.n_layers)]
-        return {"k": mk(), "v": mk()}
+            rows = (n_rows, cfg.n_kv_groups, max_length)
+
+        def mk(width: int, dtype: torch.dtype) -> list:
+            return [torch.zeros(rows + (width,), dtype=dtype, device=device)
+                    for _ in range(cfg.n_layers)]
+
+        dt = self.cache_dtype(cfg)
+        cache = {"k": mk(cfg.head_dim, dt), "v": mk(cfg.head_dim, dt)}
+        if self.quantized:
+            cache["k_scale"] = mk(1, torch.float32)
+            cache["v_scale"] = mk(1, torch.float32)
+        return cache
 
     # -- paged layout --------------------------------------------------------
 
@@ -119,18 +137,23 @@ class KVCachePolicy:
         return usable + 1
 
     def page_bytes(self, cfg: ModelConfig) -> int:
-        """Device bytes of one page across every layer, k and v."""
-        width = torch.empty((), dtype=cfg.torch_dtype).element_size()
-        return (2 * cfg.n_layers * cfg.n_kv_groups * self.page_tokens
-                * cfg.head_dim * width)
+        """Device bytes of one page across every layer, k and v and their
+        scale sidecars: total cache bytes = total_pool_pages x page_bytes."""
+        width = torch.empty((), dtype=self.cache_dtype(cfg)).element_size()
+        per = 2 * cfg.n_layers * cfg.n_kv_groups * self.page_tokens
+        return per * cfg.head_dim * width + (per * 4 if self.quantized else 0)
 
     def bytes_per_slot(self, cfg: ModelConfig, max_length: int) -> Dict[str, int]:
-        """One contiguous slot's cache bytes (k and v, every layer)."""
-        width = torch.empty((), dtype=cfg.torch_dtype).element_size()
+        """One contiguous slot's cache bytes: ``kv_bytes`` the k and v data
+        of every layer (int8 halves bf16's exactly), ``scale_bytes`` the
+        fp32 sidecars (0 unquantized)."""
+        width = torch.empty((), dtype=self.cache_dtype(cfg)).element_size()
         kv = (2 * cfg.n_layers * max_length * cfg.n_kv_groups * cfg.head_dim
               * width)
-        return {"kv_bytes": kv, "scale_bytes": 0, "total_bytes": kv,
-                "bytes_per_token": kv // max_length}
+        scale = (2 * cfg.n_layers * max_length * cfg.n_kv_groups * 4
+                 if self.quantized else 0)
+        return {"kv_bytes": kv, "scale_bytes": scale, "total_bytes": kv + scale,
+                "bytes_per_token": (kv + scale) // max_length}
 
     def describe(self) -> dict:
         out = {"kv_quant": self.kv_quant, "prefix_cache": self.prefix_cache,
@@ -142,6 +165,13 @@ class KVCachePolicy:
 
 
 DEFAULT_POLICY = KVCachePolicy()
+
+
+def cache_is_quantized(cache: dict) -> bool:
+    """Whether appends to ``cache`` quantize and attention reads scales:
+    the cache itself says so (its scale sidecars), so the model code never
+    needs the policy."""
+    return "k_scale" in cache
 
 
 def cache_nbytes(cache: dict) -> int:
@@ -271,10 +301,11 @@ class PagePool:
 
 @torch.no_grad()
 def copy_prefix_into_slot(cache: dict, panes: dict, slot: int) -> dict:
-    """Write a stored prefix's stacked (L, Hkv, pane_len, hd) panes into
-    row ``slot`` of the slot cache, IN PLACE: the whole compute of a
-    contiguous prefix hit (no forward for the cached span). The pane
-    starts at position 0 (pane_len <= Tmax)."""
+    """Write a stored prefix's stacked (L, Hkv, pane_len, hd) panes (and
+    (L, Hkv, pane_len, 1) scale panes of an int8 cache) into row ``slot``
+    of the slot cache, IN PLACE: the whole compute of a contiguous prefix
+    hit (no forward for the cached span). The pane starts at position 0
+    (pane_len <= Tmax)."""
     for name, bufs in cache.items():
         pane = panes[name]
         for layer, buf in enumerate(bufs):
@@ -286,8 +317,8 @@ def copy_prefix_into_slot(cache: dict, panes: dict, slot: int) -> dict:
 def extract_prefix_panes(cache: dict, slot: int, n_valid: int, *,
                          pane_len: int) -> dict:
     """Row ``slot``'s first ``pane_len`` positions as stacked (L, Hkv,
-    pane_len, hd) panes (new tensors), every position >= ``n_valid``
-    ZEROED: past the span lies request-private state (the donor's suffix,
+    pane_len, hd) panes (new tensors; an int8 cache's scales as (L, Hkv,
+    pane_len, 1) panes beside them), every position >= ``n_valid`` ZEROED: past the span lies request-private state (the donor's suffix,
     a previous occupant's tail) that must never become shareable, and the
     clamp makes a stored pane a function of the prefix tokens alone."""
     keep = (torch.arange(pane_len, device=cache["k"][0].device)

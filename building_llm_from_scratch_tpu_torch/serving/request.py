@@ -38,7 +38,11 @@ class SamplingParams:
     whatever runs beside it. ``temperature`` 0 is greedy argmax; ``top_k``
     None disables the filter. ``eos_id`` None means the model's eos;
     ``ignore_eos`` decodes to the token budget. ``adapter`` names a LoRA
-    adapter of the engine's ``AdapterRegistry`` (None: the base model)."""
+    adapter of the engine's ``AdapterRegistry`` (None: the base model).
+    ``spec`` False opts the request out of speculative decoding on a
+    ``spec_k`` engine: its row commits one token a tick (the tokens are the
+    same either way; the opt-out saves drafting where acceptance is low).
+    It does nothing on a spec-off engine."""
 
     max_new_tokens: int = 128
     temperature: float = 0.0
@@ -47,6 +51,7 @@ class SamplingParams:
     eos_id: Optional[int] = None
     ignore_eos: bool = False
     adapter: Optional[str] = None
+    spec: bool = True
 
 
 class Request:
@@ -66,6 +71,10 @@ class Request:
         self._detok_start = 0    # first output_ids index not yet in text
         self.slot: Optional[int] = None
         self.error: Optional[str] = None
+        # speculative decoding (spec engines only): k drafted a decode tick,
+        # and the drafts the accept rule took
+        self.spec_drafted = 0
+        self.spec_accepted = 0
         # time.monotonic: submit -> admit -> first token -> finish
         self.t_submit = time.monotonic()
         self.t_admit: Optional[float] = None
@@ -131,6 +140,9 @@ class Request:
         }
         if self.params.adapter is not None:
             out["adapter"] = self.params.adapter
+        if self.spec_drafted:
+            out["spec_drafted"] = self.spec_drafted
+            out["spec_accepted"] = self.spec_accepted
         for name, fn in (("ttft_s", self.ttft_s), ("tpot_s", self.tpot_s),
                          ("e2e_s", self.e2e_s)):
             v = fn()

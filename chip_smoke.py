@@ -76,6 +76,32 @@ exits non-zero):
      prompt decoding 4,200 tokens (its row ends past 8,192) beside a
      512-token one decoding 64. Every budget finishes, B5 = layers x
      ticks, every tick's logits are finite.
+     After phase 6s, the trained adapter's serving (4c), 4d, and 4s / 4q's
+     gates run while phases 7s / 7 / 7m run in a second process
+     (``chip_smoke.py --references``, ``references_beside``); they take
+     no timing there, and 4s / 4q's times are taken after it ends.
+     4s. speculative decoding: LLaMA-3.2-1B (bf16) and GPT-2-124M (fp32)
+     at full depth, 8 slots of 1024, 8 templated requests (a shared
+     128-token system span, a 24-token field repeated three times) of 128
+     new tokens, every fourth seeded-sampled, spec_k 4; contiguous, and
+     paged with the prefix cache (the system span a hit). The spec-off
+     engine first (B5 / B7 = layers x ticks), then the n-gram, oracle and
+     never-right drafters: (a) all three commit the same tokens, (b) the
+     oracle accepts more than half its drafts and the never-right fewer
+     than a fifth, (c) a control whose verify mask lets query j see the
+     drafts after it commits other tokens (contiguous), (d) each request's first token
+     where spec on and spec off part, with the top-2 margin of the logits
+     there (B5 and the plain verify differ in arithmetic). No verify tick
+     launches B5 or B7. Then, alone on the host and with 64 new tokens on
+     contiguous slots: tick ms, tokens a tick, decode tokens/s and
+     acceptance, spec on against off (B5), and int8's.
+     4q. int8 KV: the same models and requests (64 new tokens), contiguous
+     and paged: B5 = B7 = B6 = 0 on the int8 ticks, the KV data bytes
+     exactly 1 / element size of the model dtype's, logits within the JAX
+     package's 0.15 of the model-dtype cache on the same prompt (B5 / B7
+     there, teacher-forced), the slots an 8 GB KV budget holds under each
+     policy; LLaMA-3.2-1B int8 with phase 4c's three adapters on the
+     contiguous tick: B6 = adapted projections x layers x ticks, by shape.
   5. flash-attention kernels vs twins: forward (B1), dq (B2a) and dk/dv
      summed over each kv head's query heads (B2b, (B, T, Hkv, D); its twin
      is the per-query-head twin followed by group_sum) at LLaMA-3.2-1B's
@@ -123,7 +149,7 @@ exits non-zero):
      + eval batches), B2a = B2b = layers x steps, B3 forward and backward =
      (1 + 2 x layers) x steps with dropout, B4 = 0), every loss finite,
      the last below the first; the export loads back bit for bit and is
-     served by the CLI. The run's own rate (all steps over their wall time,
+     served by the CLI (LLaMA fp32's is counted, not written). The run's own rate (all steps over their wall time,
      the trainer's window) and each step's device time (CUDA events around
      every step, step 1 apart); then steady step time, tokens/s, MFU, peak
      memory and a profiled window over re-runs of one batch (with the
@@ -285,10 +311,11 @@ exits non-zero):
      Phases 5 and 5b also hold B1/B2 at a tp rank's heads (LLaMA Hq 16
      Hkv 4 bf16; GPT-2 H 6 fp32, with dropout at rank 1's head offset 6,
      whose mask is heads 6-11 of the whole model's).
-  9. the bytes the script wrote to disk, the ``kernels`` line (one row
-     per kernel and shape, each with the launches of the run at that
-     shape; B6 by projection shape from phase 4c; B5's rows add 8w's and
-     9t's CLI launches, the training rows 8r's, 6m's, 6h's, 6r's, 9t's,
+  9. the bytes the script and its reference process wrote to disk, the
+     ``kernels`` line (one row per kernel and shape, each with the launches
+     of the run at that shape; B6 by projection shape from phase 4c, with
+     4q's int8 adapter run as ``launches_4q``; B5's and B7's rows add 4s's
+     spec-off runs as ``launches_4s``, B5's 8w's and 9t's CLI launches, the training rows 8r's, 6m's, 6h's, 6r's, 9t's,
      10d's and 10s's, per rank for the gloo ranks; the tp-shape rows read
      10t's rank 0), then the card line and the result line.
 
@@ -308,6 +335,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -358,6 +386,23 @@ def card_figures(name: str) -> tuple:
 # phase 1
 # ---------------------------------------------------------------------------
 
+def physical_cores() -> int:
+    """Distinct (package, core) pairs in /proc/cpuinfo (0 when unreadable)."""
+    cores, pkg = set(), None
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, val = line.partition(":")
+                key = key.strip()
+                if key == "physical id":
+                    pkg = val.strip()
+                elif key == "core id":
+                    cores.add((pkg, val.strip()))
+    except OSError:
+        return 0
+    return len(cores)
+
+
 def phase_env(torch) -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -369,7 +414,8 @@ def phase_env(torch) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     figure_name, figures = card_figures(name)
-    emit("env", nvidia_smi=card_line, device=name,
+    emit("env", nvidia_smi=card_line, device=name, host_cpus=os.cpu_count(),
+         host_cores=physical_cores(),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, capability=list(cap),
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
@@ -1468,7 +1514,7 @@ TRAIN_GPT2 = dict(model="GPT2", size="124M", dtype="bf16", batch=8, context=1024
 TRAIN_GPT2_FP32 = dict(model="GPT2", size="124M", dtype=None, batch=8, context=1024,
                        steps=20, xent_run=True)
 TRAIN_FP32 = dict(model="llama3_2", size="1B", dtype="fp32", batch=4, context=1024,
-                  steps=20)
+                  steps=20, export=False)
 
 
 def dtype_flags(t: dict) -> list:
@@ -1800,26 +1846,29 @@ def phase_train(torch, card: dict, workdir: str, t: dict) -> dict:
                      val_loss=trainer.val_losses, peak_gb=facts["peak_gb"],
                      later_steps_median_ms=statistics.median(
                          facts["run_step_ms"][1:]))
-    export = os.path.join(facts["out_dir"], "model_pg_final.npz")
-    check_export(torch, trainer, facts["out_dir"])
-
-    # the export served by the CLI (--mode serve --init_params_from)
-    req = os.path.join(workdir, "req.jsonl")
-    with open(req, "w") as f:
-        for text in ("Every ", "effort "):
-            ids = trainer.tokenizer.encode(text)
-            f.write(json.dumps({"prompt_ids": ids, "max_new_tokens": 8}) + "\n")
-    served_out = os.path.join(workdir, "served.jsonl")
-    eng = tmain.run(["--mode", "serve", "--model", t["model"], "--num_params",
-                     t["size"], *dtype_flags(t), "--init_params_from",
-                     export, "--serve_prompts", req, "--serve_out", served_out,
-                     "--serve_slots", "2"])
-    with open(served_out) as f:
-        served = [json.loads(line) for line in f]
-    if eng.stats()["requests_finished"] != 2 or any(
-            len(r["token_ids"]) != 8 for r in served):
-        raise AssertionError(f"serving the export failed: {served}")
-    del eng
+    served = []
+    if t.get("export", True):
+        # the export loads back and is served by the CLI (--mode serve
+        # --init_params_from); LLaMA fp32's 4.9 GB export is counted, not
+        # written (its run is here for the fp32 flash rows' launches)
+        export = os.path.join(facts["out_dir"], "model_pg_final.npz")
+        check_export(torch, trainer, facts["out_dir"])
+        req = os.path.join(workdir, "req.jsonl")
+        with open(req, "w") as f:
+            for text in ("Every ", "effort "):
+                ids = trainer.tokenizer.encode(text)
+                f.write(json.dumps({"prompt_ids": ids, "max_new_tokens": 8}) + "\n")
+        served_out = os.path.join(workdir, "served.jsonl")
+        eng = tmain.run(["--mode", "serve", "--model", t["model"], "--num_params",
+                         t["size"], *dtype_flags(t), "--init_params_from",
+                         export, "--serve_prompts", req, "--serve_out", served_out,
+                         "--serve_slots", "2"])
+        with open(served_out) as f:
+            served = [json.loads(line) for line in f]
+        if eng.stats()["requests_finished"] != 2 or any(
+                len(r["token_ids"]) != 8 for r in served):
+            raise AssertionError(f"serving the export failed: {served}")
+        del eng
 
     # the run's own rate: the trainer's window (every step up to the
     # evaluation, sample time left out), step 1 apart from the rest
@@ -1862,6 +1911,8 @@ def phase_train(torch, card: dict, workdir: str, t: dict) -> dict:
                   grad_norms=[m["grad_norm"] for m in trainer.step_metrics],
                   lrs=trainer.track_lrs, sample=trainer.samples[-1][:120],
                   served_tokens=[r["token_ids"] for r in served], **run_rate,
+                  export_bytes_unwritten=getattr(trainer, "export_unwritten_bytes",
+                                                 None),
                   step_ms=step_ms, step_ms_all=step_times, tokens_per_s=tps,
                   flops_per_token=fpt, mfu=tps * fpt / peak,
                   mfu_basis="flops_per_token = 6 x non-embedding params (head "
@@ -3911,6 +3962,527 @@ def phase_serve_sft_adapter(torch, adapter: str, workdir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 4s / 4q: speculative decoding and int8 KV
+# ---------------------------------------------------------------------------
+
+#: full width and depth, seeded weights: 8 slots of 1024, SPEC_REQUESTS
+#: templated requests of SPEC_NEW new tokens, spec_k SPEC_K. Engines keep
+#: a SPEC_PANE-token prefix pane (warmup_prompt_cap) so the shared system
+#: span is what a paged prefix hit serves.
+SPEC_MODELS = [
+    dict(label="llama3_2-1B", model="llama3_2", size="1B", dtype="bf16",
+         context=1024, slots=8),
+    dict(label="gpt2-124M", model="GPT2", size="124M", dtype="fp32",
+         context=1024, slots=8),
+]
+SPEC_K, SPEC_NEW, SPEC_REQUESTS, SPEC_PANE = 4, 128, 8, 128
+#: new tokens of the timing runs (the gates' requests, shorter)
+SPEC_TIMING_NEW = 64
+#: the int8 runs' budget, and the KV byte budget whose slots 4q prints
+INT8_NEW, KV_BUDGET_GB = 64, 8
+#: the JAX package's pinned int8-vs-model-dtype logits bound
+INT8_LOGITS_ATOL = 0.15
+
+
+def spec_requests(cfg, seed: int) -> list:
+    """SPEC_REQUESTS templated prompts, as in extraction or code work: a
+    shared SPEC_PANE-token system span (a prefix hit when paged), then a
+    24-token field repeated three times between 8-token fillers (216
+    tokens in all); SPEC_NEW new tokens, eos ignored; every fourth row
+    sampled (T 0.8, top-k 40, seeded), the rest greedy."""
+    import numpy as np
+
+    from building_llm_from_scratch_tpu_torch.serving.request import (
+        SamplingParams,
+    )
+
+    rng = np.random.default_rng(seed)
+    V = cfg.vocab_size
+    system = rng.integers(0, V, SPEC_PANE)
+    out = []
+    for i in range(SPEC_REQUESTS):
+        field = rng.integers(0, V, 24)
+        body = np.concatenate([field, rng.integers(0, V, 8), field,
+                               rng.integers(0, V, 8), field])
+        sampled = i % 4 == 3
+        sp = SamplingParams(max_new_tokens=SPEC_NEW,
+                            temperature=0.8 if sampled else 0.0,
+                            top_k=40 if sampled else None, seed=3000 + i,
+                            ignore_eos=True)
+        out.append((np.concatenate([system, body]).tolist(), sp))
+    return out
+
+
+def spec_drafters(sequences) -> dict:
+    """The oracle (drafts the continuation of recorded sequences) and the
+    never-right drafter (always token 3), beside which the n-gram drafter
+    runs."""
+    import numpy as np
+
+    from building_llm_from_scratch_tpu_torch.serving.spec import Drafter
+
+    class Oracle(Drafter):
+        def __init__(self):
+            self.seqs = [np.asarray(s, np.int32) for s in sequences]
+
+        def propose(self, history, k):
+            L = history.shape[0]
+            for seq in self.seqs:
+                if L <= seq.shape[0] and np.array_equal(seq[:L], history):
+                    cont = seq[L:L + k]
+                    return np.concatenate([cont, np.full(
+                        (k - cont.shape[0],), history[-1], np.int32)])
+            return super().propose(history, k)
+
+    class NeverRight(Drafter):
+        def propose(self, history, k):
+            return np.full((k,), 3, np.int32)
+
+    return {"oracle": Oracle(), "never_right": NeverRight()}
+
+
+@contextlib.contextmanager
+def leaky_verify_mask():
+    """The 4s control: the verify's attention with every query at its row's
+    last candidate position, so query j sees the drafts after it. Only the
+    verify's Tq = SPEC_K + 1 calls change (chunks are wider)."""
+    import building_llm_from_scratch_tpu_torch.models.transformer as ttf
+
+    attend = ttf.decode_attention
+
+    def leaky(q, k_cache, v_cache, *, q_positions, kv_length, **kw):
+        if q.shape[1] == SPEC_K + 1:
+            q_positions = q_positions.amax(dim=1, keepdim=True).expand_as(q_positions)
+        return attend(q, k_cache, v_cache, q_positions=q_positions,
+                      kv_length=kv_length, **kw)
+
+    ttf.decode_attention = leaky
+    try:
+        yield
+    finally:
+        ttf.decode_attention = attend
+
+
+def spec_engine(model, m: dict, paged: bool, kv_quant: str = "model", **kw):
+    """An engine of ``m``'s slots: contiguous, or paged with the prefix
+    cache (chunks of PREFILL_CHUNK, pages of PAGE_TOKENS)."""
+    from building_llm_from_scratch_tpu_torch.serving.engine import DecodeEngine
+    from building_llm_from_scratch_tpu_torch.serving.kvcache import KVCachePolicy
+
+    pol = KVCachePolicy(kv_quant=kv_quant, prefix_cache=paged, paged=paged,
+                        prefill_chunk=PREFILL_CHUNK if paged else 0,
+                        page_tokens=PAGE_TOKENS)
+    return DecodeEngine(model, n_slots=m["slots"], max_len=m["context"],
+                        max_queue=64, warmup_prompt_cap=SPEC_PANE,
+                        kv_policy=pol, **kw)
+
+
+def spec_run(torch, model, m: dict, requests: list, paged: bool, **kw) -> dict:
+    """Serve ``requests`` through a fresh engine; the tokens, finish
+    reasons, stats and the decode kernels' launches counted from 0."""
+    from building_llm_from_scratch_tpu_torch.ops import decode_step as tds
+
+    engine = spec_engine(model, m, paged, **kw)
+    for f in (tds.fused_decode_step, tds.paged_decode_attention, tds.lora_bgmv):
+        f.launches = 0
+    handles = serve(engine, requests)
+    torch.cuda.synchronize()
+    st = engine.stats()
+    out = dict(tokens=[list(h.output_ids) for h in handles],
+               reasons=[h.finish_reason for h in handles], stats=st,
+               b5=tds.fused_decode_step.launches,
+               b7=tds.paged_decode_attention.launches,
+               b6=tds.lora_bgmv.launches, engine=engine)
+    for (_, sp), toks, why in zip(requests, out["tokens"], out["reasons"]):
+        if why != "length" or len(toks) != sp.max_new_tokens:
+            raise AssertionError(f"{m['label']}: a request ended {why} after "
+                                 f"{len(toks)}/{sp.max_new_tokens} tokens")
+    return out
+
+
+def spec_rates(st: dict) -> dict:
+    """A run's acceptance, tokens a tick (the engine's, and a decoding
+    row's: 1 spec off; with spec on each row's verify ticks are its
+    drafted / spec_k), tick ms and decode tokens/s."""
+    ticks = st["n_ticks"]
+    out = dict(ticks=ticks, tokens_per_tick=st["decode_tokens"] / ticks,
+               tokens_per_row_tick=1.0,
+               tick_ms=st["decode_seconds"] / ticks * 1e3,
+               decode_tokens_per_s=st["decode_tokens"] / st["decode_seconds"])
+    if "spec_k" in st:
+        out["acceptance"] = st.get("spec_acceptance_ratio", 0.0)
+        out["tokens_per_row_tick"] = (st["decode_tokens"] * st["spec_k"]
+                                      / st["spec_tokens_drafted"])
+    return out
+
+
+def first_divergence(torch, model, cfg, prompt, a: list, b: list):
+    """(index, top-2 margin) of the first token where ``a`` and ``b`` part,
+    the margin of the logits a one-shot prefill of prompt + a[:index] gives
+    at that position; (None, None) when they agree."""
+    from building_llm_from_scratch_tpu_torch.generate import _bucket
+    from building_llm_from_scratch_tpu_torch.models.transformer import (
+        init_slot_cache,
+        prefill_into_slot,
+    )
+
+    idx = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if idx is None:
+        return None, None
+    ids = list(prompt) + list(a[:idx])
+    Tpb = min(_bucket(len(ids)), cfg.context_length)
+    tokens = torch.zeros((1, Tpb), dtype=torch.long, device=model.device)
+    tokens[0, :len(ids)] = torch.tensor(ids, device=model.device)
+    cache = init_slot_cache(cfg, 1, Tpb, model.device)
+    top = prefill_into_slot(model, tokens, len(ids), 0, cache).topk(2).values
+    return idx, (top[0] - top[1]).item()
+
+
+def phase_serve_spec(torch) -> dict:
+    """Phase 4s's gates (no timing: phases 7s / 7 / 7m run beside them in
+    another process). For each model, contiguous and paged with a prefix
+    hit: the spec-off engine (B5 / B7 counted), then spec_k SPEC_K under
+    the n-gram, oracle and never-right drafters and the control."""
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+    from building_llm_from_scratch_tpu_torch.models.transformer import build_model
+
+    served = {}
+    for m in SPEC_MODELS:
+        cfg = get_config(m["model"], m["size"], dtype=m["dtype"],
+                         target_context_length=m["context"])
+        model = build_model(cfg, seed=0, device="cuda")
+        requests = spec_requests(cfg, seed=9)
+        for paged in (False, True):
+            label = f"{m['label']}-{'paged' if paged else 'contiguous'}"
+            off = spec_run(torch, model, m, requests, paged)
+            ticks, L = off["stats"]["n_ticks"], cfg.n_layers
+            if (off["b5"], off["b7"]) != ((0, L * ticks) if paged else (L * ticks, 0)):
+                raise AssertionError(f"{label}: spec off, B5/B7 {off['b5']}/"
+                                     f"{off['b7']} for {L} x {ticks} ticks")
+            ngram = spec_run(torch, model, m, requests, paged, spec_k=SPEC_K)
+            seqs = [p + t for (p, _), t in zip(requests, ngram["tokens"])]
+            runs = {"ngram": ngram}
+            for name, drafter in spec_drafters(seqs).items():
+                runs[name] = spec_run(torch, model, m, requests, paged,
+                                      spec_k=SPEC_K, drafter=drafter)
+            control = None
+            if not paged:           # the control once a model
+                with leaky_verify_mask():
+                    control = spec_run(torch, model, m, requests, paged,
+                                       spec_k=SPEC_K)
+            for name, r in runs.items():
+                # the verify tick never launches B5 or B7
+                if (r["b5"], r["b7"]) != (0, 0):
+                    raise AssertionError(f"{label} {name}: B5/B7 {r['b5']}/{r['b7']}")
+                if r["tokens"] != ngram["tokens"]:
+                    raise AssertionError(f"{label}: the {name} drafter committed "
+                                         "other tokens than the n-gram drafter")
+            acc = {k: r["stats"]["spec_acceptance_ratio"] for k, r in runs.items()}
+            if not (acc["oracle"] > 0.5 and acc["never_right"] < 0.2):
+                raise AssertionError(f"{label}: acceptance {acc}")
+            control_differs = control and sum(
+                a != b for a, b in zip(control["tokens"], ngram["tokens"]))
+            if control and not control_differs:
+                raise AssertionError(f"{label}: the leaky-mask control commits the "
+                                     "sound verify's tokens: gate (a) cannot fail")
+            hits = off["stats"].get("prefix_store", {}).get("hits")
+            if paged and not (hits and ngram["stats"]["prefix_store"]["hits"]):
+                raise AssertionError(f"{label}: no prefix hit: {off['stats']}")
+            divergence = []
+            for i, ((p, sp), a, b) in enumerate(zip(requests, ngram["tokens"],
+                                                     off["tokens"])):
+                idx, margin = first_divergence(torch, model, cfg, p, a, b)
+                divergence.append(dict(request=i, greedy=sp.temperature == 0,
+                                       first_diverging=idx, top2_margin=margin))
+            emit("serve_spec", label=label, model=cfg.name, dtype=m["dtype"],
+                 layers=L, slots=m["slots"], max_len=m["context"], paged=paged,
+                 spec_k=SPEC_K, requests=len(requests), new_tokens=SPEC_NEW,
+                 prompt_tokens=len(requests[0][0]),
+                 spec_off_launches=dict(b5=off["b5"], b7=off["b7"], ticks=ticks),
+                 acceptance=acc,
+                 drafted={k: r["stats"]["spec_tokens_drafted"] for k, r in runs.items()},
+                 ticks={k: r["stats"]["n_ticks"] for k, r in runs.items()},
+                 prefix_hits=hits, drafters_agree=True,
+                 control_requests_differing=control_differs,
+                 control_acceptance=control and control["stats"]["spec_acceptance_ratio"],
+                 spec_vs_off_divergence=divergence,
+                 spec_equals_off=sum(d["first_diverging"] is None for d in divergence),
+                 kv_bytes=ngram["stats"]["kv_bytes"],
+                 note="gates only; phases 7s / 7 / 7m ran beside them")
+            served[label] = dict(launches=off["b7"] if paged else off["b5"],
+                                 shape=m["label"], paged=paged)
+        del model, runs, ngram, off, control        # the engines hold caches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return served
+
+
+def int8_logits_check(torch, model, cfg, paged: bool) -> dict:
+    """The same 200-token prompt prefilled into a model-dtype cache and an
+    int8 one through the card's serving functions, then 8 decode ticks of
+    2 rows on each, teacher-forced on the model-dtype greedy tokens (B5, or
+    B7 paged, against the plain int8 attention): the largest logit
+    difference, beside the logits' rms."""
+    from building_llm_from_scratch_tpu_torch.models import transformer as ttf
+    from building_llm_from_scratch_tpu_torch.serving.kvcache import KVCachePolicy
+
+    dev = model.device
+    gen = torch.Generator().manual_seed(17)
+    Tp, S, T = 200, 2, 256
+    prompt = torch.randint(0, cfg.vocab_size, (1, T), generator=gen).to(dev)
+    lengths = torch.full((S,), Tp, dtype=torch.int32, device=dev)
+    logits = {}
+    for quant in ("model", "int8"):
+        if paged:
+            pol = KVCachePolicy(kv_quant=quant, paged=True, page_tokens=PAGE_TOKENS,
+                                prefill_chunk=PREFILL_CHUNK)
+            cache = pol.alloc(cfg, S, T, dev)
+            M = pol.pages_per_slot(T)
+            table = torch.arange(1, S * M + 1, dtype=torch.int32,
+                                 device=dev).view(S, M).flip(1).contiguous()
+            for s in range(S):
+                for lo in range(0, Tp, PREFILL_CHUNK):
+                    last = ttf.paged_prefill_chunk_into_slot(
+                        model, prompt[:, lo:lo + PREFILL_CHUNK], lo, Tp,
+                        table[s:s + 1], cache, T)
+        else:
+            cache = KVCachePolicy(kv_quant=quant).alloc(cfg, S, T, dev)
+            for s in range(S):
+                last = ttf.prefill_into_slot(model, prompt, Tp, s, cache)
+        rows = [last]
+        toks = logits.get("model", rows)[0].argmax().view(1, 1).repeat(S, 1)
+        lens = lengths.clone()
+        for _ in range(8):
+            out = (ttf.paged_decode_slots(model, toks, lens, table, cache, T)
+                   if paged else ttf.decode_slots(model, toks, lens, cache))
+            rows.append(out[0])
+            toks = (logits["model"][len(rows) - 1].argmax().view(1, 1).repeat(S, 1)
+                    if quant == "int8" else out.argmax(-1).view(S, 1))
+            lens += 1
+        logits[quant] = rows
+    delta = max((a - b).abs().max().item()
+                for a, b in zip(logits["int8"], logits["model"]))
+    rms = min(b.pow(2).mean().sqrt().item() for b in logits["model"])
+    if not (0 < delta <= INT8_LOGITS_ATOL):
+        raise AssertionError(f"{cfg.name} {'paged' if paged else 'contiguous'}: "
+                             f"int8 logits {delta} from the model-dtype cache's "
+                             f"(bound {INT8_LOGITS_ATOL})")
+    return dict(max_abs_diff=delta, logits_rms_min=rms, ticks=8, prompt=Tp,
+                bound=INT8_LOGITS_ATOL)
+
+
+def phase_serve_int8(torch, workdir: str) -> dict:
+    """Phase 4q's gates (no timing; phases 7s / 7 / 7m run beside them):
+    each model contiguous and paged on int8 KV (SPEC_REQUESTS requests of
+    INT8_NEW tokens), then LLaMA-3.2-1B int8 with phase 4c's three adapters
+    on the contiguous tick."""
+    import dataclasses
+
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+    from building_llm_from_scratch_tpu_torch.models.transformer import build_model
+    from building_llm_from_scratch_tpu_torch.ops import decode_step as tds
+    from building_llm_from_scratch_tpu_torch.serving.adapters import (
+        AdapterRegistry,
+    )
+    from building_llm_from_scratch_tpu_torch.serving.kvcache import (
+        KVCachePolicy,
+        cache_nbytes,
+    )
+
+    out = {}
+    for m in SPEC_MODELS:
+        cfg = get_config(m["model"], m["size"], dtype=m["dtype"],
+                         target_context_length=m["context"])
+        model = build_model(cfg, seed=0, device="cuda")
+        requests = [(p, dataclasses.replace(sp, max_new_tokens=INT8_NEW))
+                    for p, sp in spec_requests(cfg, seed=9)]
+        width = torch.empty((), dtype=cfg.torch_dtype).element_size()
+        for paged in (False, True):
+            label = f"{m['label']}-{'paged' if paged else 'contiguous'}-int8"
+            run = spec_run(torch, model, m, requests, paged, kv_quant="int8")
+            st, eng = run["stats"], run["engine"]
+            if (run["b5"], run["b7"], run["b6"]) != (0, 0, 0) or st["n_ticks"] == 0:
+                raise AssertionError(f"{label}: B5/B7/B6 {run['b5']}/{run['b7']}/"
+                                     f"{run['b6']} on int8 ticks")
+            # the same engine's k/v in the model dtype, from its policy
+            model_pol = dataclasses.replace(eng.kv_policy, kv_quant="model")
+            model_kv = (eng.page_pool.n_pages * model_pol.page_bytes(cfg) if paged
+                        else m["slots"] * model_pol.bytes_per_slot(
+                            cfg, eng._cache_len)["kv_bytes"])
+            kv = cache_nbytes({k: eng.cache[k] for k in ("k", "v")})
+            if kv * width != model_kv:
+                raise AssertionError(f"{label}: int8 KV data {kv} bytes, the "
+                                     f"model dtype's {model_kv}")
+            emit("serve_int8", label=label, model=cfg.name, dtype=m["dtype"],
+                 layers=cfg.n_layers, slots=m["slots"], max_len=m["context"],
+                 paged=paged, requests=len(requests), new_tokens=INT8_NEW,
+                 decode_ticks=st["n_ticks"], b5_launches=run["b5"],
+                 b7_launches=run["b7"], b6_launches=run["b6"],
+                 kv_data_bytes=kv, model_dtype_kv_bytes=model_kv,
+                 kv_fraction_of_model_dtype=kv / model_kv,
+                 cache_bytes=st["kv_bytes"],
+                 logits=int8_logits_check(torch, model, cfg, paged),
+                 note="gates only; phases 7s / 7 / 7m ran beside them")
+            del run, eng
+        # the KV byte budget's slots (1024 tokens a slot) under each policy
+        fits = {}
+        for quant in ("model", "int8"):
+            pol = KVCachePolicy(kv_quant=quant)
+            b = pol.bytes_per_slot(cfg, m["context"])
+            fits[quant] = dict(bytes_per_slot=b["total_bytes"],
+                               kv_bytes_per_slot=b["kv_bytes"],
+                               scale_bytes_per_slot=b["scale_bytes"],
+                               slots=int(KV_BUDGET_GB * 1e9 // b["total_bytes"]))
+        emit("serve_int8_budget", model=cfg.name, dtype=m["dtype"],
+             budget_gb=KV_BUDGET_GB, tokens_per_slot=m["context"], policies=fits)
+        out[m["label"]] = dict(fits=fits)
+        if m["model"] == "llama3_2":
+            # int8 with adapters: the contiguous tick still sends every
+            # projection's delta through B6
+            names = ["a", "b", "c", None]
+            specs, _ = write_adapters(torch, model, cfg, {"a": 8, "b": 16, "c": 16},
+                                      workdir, "int8")
+            reg = AdapterRegistry.from_artifacts(cfg, specs, capacity=LORA_POOL,
+                                                 device="cuda")
+            launch = tds.lora_bgmv
+            counted = ShapeTally(launch)
+            tds.lora_bgmv = counted
+            try:
+                run = spec_run(torch, model, m, [
+                    (p, dataclasses.replace(sp, adapter=names[i % 4]))
+                    for i, (p, sp) in enumerate(requests)], False,
+                    kv_quant="int8", adapters=reg)
+            finally:
+                tds.lora_bgmv = launch
+            ticks, shapes = run["stats"]["n_ticks"], _projection_shapes(cfg)
+            want = {}
+            for d_in_out in shapes.values():
+                want[d_in_out] = want.get(d_in_out, 0) + cfg.n_layers * ticks
+            if (run["b5"], run["b7"]) != (0, 0) or counted.by_shape != want \
+                    or run["b6"] != len(shapes) * cfg.n_layers * ticks:
+                raise AssertionError(f"int8 + adapters: B5 {run['b5']}, B6 "
+                                     f"{run['b6']} ({counted.by_shape}) for "
+                                     f"{len(shapes)} x {cfg.n_layers} x {ticks}")
+            emit("serve_int8_lora", model=cfg.name, dtype=m["dtype"],
+                 adapters={"a": 8, "b": 16, "c": 16}, pool_rows=reg.capacity,
+                 pool_rank=reg.max_rank, decode_ticks=ticks,
+                 b5_launches=run["b5"], b6_launches=run["b6"],
+                 b6_launches_by_shape={f"{d}x{o}": n
+                                       for (d, o), n in counted.by_shape.items()},
+                 per_adapter=run["stats"]["per_adapter"])
+            out["lora"] = dict(tally=dict(counted.by_shape),
+                               dims=(m["slots"], reg.capacity, reg.max_rank,
+                                     m["dtype"]))
+            del run, reg
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_spec_timing(torch) -> None:
+    """Phase 4s / 4q's times, taken with nothing else running: for each
+    model on contiguous slots, the spec-off engine (B5) against spec_k
+    SPEC_K (n-gram drafter) and int8 KV (spec off), on the gates'
+    requests cut to SPEC_TIMING_NEW new tokens: tick ms, tokens a tick,
+    decode tokens/s and acceptance."""
+    import dataclasses
+
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+    from building_llm_from_scratch_tpu_torch.models.transformer import build_model
+
+    for m in SPEC_MODELS:
+        cfg = get_config(m["model"], m["size"], dtype=m["dtype"],
+                         target_context_length=m["context"])
+        model = build_model(cfg, seed=0, device="cuda")
+        requests = [(p, dataclasses.replace(sp, max_new_tokens=SPEC_TIMING_NEW))
+                    for p, sp in spec_requests(cfg, seed=9)]
+        rates = {}
+        for name, kw in (("spec_off", {}), ("spec_on", dict(spec_k=SPEC_K)),
+                         ("int8", dict(kv_quant="int8"))):
+            run = spec_run(torch, model, m, requests, False, **kw)
+            rates[name] = spec_rates(run["stats"])
+            del run
+        emit("serve_spec_timing", model=cfg.name, dtype=m["dtype"],
+             layers=cfg.n_layers, slots=m["slots"], spec_k=SPEC_K,
+             requests=len(requests), new_tokens=SPEC_TIMING_NEW, rates=rates,
+             # a decoding row's tokens a second, spec on over spec off
+             row_rate_ratio=rates["spec_on"]["tokens_per_row_tick"]
+             * rates["spec_off"]["tick_ms"] / rates["spec_on"]["tick_ms"])
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 7s / 7 / 7m in a second process, beside 4c (SFT adapter), 4d, 4s, 4q
+# ---------------------------------------------------------------------------
+
+#: CPU threads of the reference process (the card's machine has 8 CPUs;
+#: two are left to the host-bound serving phases beside it)
+REFERENCE_THREADS = 6
+
+
+def reference_phases(torch) -> dict:
+    """Phases 7s, 7 and 7m (each one step on the card against the CPU)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here) as workdir:
+        for spec in SFT_REFERENCES:
+            phase_sft_reference(torch, spec, workdir)
+    reference = phase_train_reference(torch, REFERENCES[0])
+    reference_gpt2 = phase_train_reference(torch, REFERENCES[1])
+    with tempfile.TemporaryDirectory(dir=here) as workdir:
+        phase_mixed_reference(torch, workdir)
+    return dict(reference=reference, reference_gpt2=reference_gpt2)
+
+
+@contextlib.contextmanager
+def references_beside():
+    """Run ``reference_phases`` in a child process (``chip_smoke.py
+    --references``) for the body's duration: its lines go to a file and are
+    printed after it ends, its results come back as JSON. The body must
+    take no timing: the child keeps the host's cores busy. A failure on
+    either side stops the child."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    box: dict = {}
+    with tempfile.TemporaryDirectory(dir=here) as tmp:
+        lines, result = os.path.join(tmp, "lines.jsonl"), os.path.join(tmp, "out.json")
+        with open(lines, "w") as sink:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--references", result,
+                 str(time.perf_counter() - _T0)], stdout=sink, cwd=here)
+            try:
+                yield box
+                rc = proc.wait(timeout=900)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        with open(lines) as f:
+            sys.stdout.write(f.read())
+        sys.stdout.flush()
+        if rc != 0:
+            raise AssertionError(f"the reference phases (7s / 7 / 7m) exited {rc}")
+        with open(result) as f:
+            box.update(json.load(f))
+
+
+def references_main(torch, result: str, t0: float) -> int:
+    """The child of ``references_beside``: TF32 off as phase 1 sets it, the
+    kernels already built by the parent, ``t_s`` on the parent's clock."""
+    global _T0
+    _T0 = time.perf_counter() - t0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(REFERENCE_THREADS)
+    out = reference_phases(torch)
+    out["io"] = written_bytes()
+    with open(result, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # phase 8w: pretrained weights from a local directory, at full width
 # ---------------------------------------------------------------------------
 
@@ -5850,8 +6422,8 @@ def main() -> int:
         print(f"chip_smoke: the port package is not beside this script: {e}",
               file=sys.stderr)
         return 4
-
-    import tempfile
+    if sys.argv[1:2] == ["--references"]:          # references_beside's child
+        return references_main(torch, sys.argv[2], float(sys.argv[3]))
 
     card = phase_env(torch)
     phase_build()
@@ -5861,7 +6433,6 @@ def main() -> int:
     # serving runs before training: its ticks are host-bound, and a clean
     # process keeps them comparable with earlier runs
     served = phase_serve(torch)
-    served.update(phase_serve_longctx(torch))
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(dir=here) as workdir:
         served_paged = phase_serve_paged(torch, workdir)
@@ -5881,20 +6452,22 @@ def main() -> int:
         overlap = phase_host_overlap(torch, os.path.join(workdir, "overlap"))
     # save-all, selective-save (the default) and full remat (6r)
     remat = phase_remat(torch, card)
-    # LoRA SFT (phase 6s); the LLaMA run's adapter is served (phase 4c);
-    # one SFT step against the CPU (phase 7s)
+    # LoRA SFT (phase 6s)
     with tempfile.TemporaryDirectory(dir=here) as workdir:
         sft = phase_sft(torch, card, os.path.join(workdir, "llama"), SFT[0],
                         trained["pretrain"])
-        phase_serve_sft_adapter(torch, sft["adapter"], workdir)
         phase_sft(torch, card, os.path.join(workdir, "gpt2"), SFT[1],
                   trained_gpt2_fp32["pretrain"])
-        for spec in SFT_REFERENCES:
-            phase_sft_reference(torch, spec, workdir)
-    reference = phase_train_reference(torch, REFERENCES[0])
-    reference_gpt2 = phase_train_reference(torch, REFERENCES[1])
-    with tempfile.TemporaryDirectory(dir=here) as workdir:
-        phase_mixed_reference(torch, workdir)
+        # the CPU reference phases 7s / 7 / 7m in a second process, beside
+        # the phases that take no timing: the LLaMA SFT adapter served
+        # (phase 4c), 4d, and the gates of 4s and 4q
+        with references_beside() as refs:
+            phase_serve_sft_adapter(torch, sft["adapter"], workdir)
+            served.update(phase_serve_longctx(torch))
+            served_spec = phase_serve_spec(torch)
+            served_int8 = phase_serve_int8(torch, workdir)
+    reference, reference_gpt2 = refs["reference"], refs["reference_gpt2"]
+    phase_serve_spec_timing(torch)
     # pretrained weights from local files (8w), then train-state checkpoints
     # and resume through the CLI (8r, the LoRA run from 8w's LLaMA files)
     with tempfile.TemporaryDirectory(dir=here) as workdir:
@@ -5927,7 +6500,11 @@ def main() -> int:
                     kernel_ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"]) for r in rows]
+    spec_off = {v["shape"]: v["launches"] for v in served_spec.values()
+                if not v["paged"]}
     for k, r in zip(kernels, rows):                 # phase 8w's CLI serving
+        if r["shape"] in spec_off:                  # phase 4s, spec off
+            k["launches_4s"] = spec_off[r["shape"]]
         if r["shape"] in weights["launches"]:
             k["launches_8w"] = weights["launches"][r["shape"]]
         text_served = text["served"].get(r["shape"])  # phase 9t's text prompts
@@ -5950,7 +6527,9 @@ def main() -> int:
             launches=run["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            b5_contiguous_ms=r["b5_contiguous_ms"]))
+            b5_contiguous_ms=r["b5_contiguous_ms"],
+            launches_4s=next(v["launches"] for v in served_spec.values()
+                             if v["paged"] and v["shape"] == r["shape"])))
     for r in lora_rows:
         run = served_lora[r["shape"]]
         if run["dims"] != (r["S"], r["N"], r["r"], r["dtype"]):
@@ -5964,6 +6543,9 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], projections=r["projections"]))
+        if run["dims"] == served_int8["lora"]["dims"]:      # phase 4q, int8
+            kernels[-1]["launches_4q"] = served_int8["lora"]["tally"].get(
+                (r["D"], r["O"]), 0)
     replaces = {"fwd": ("flash_attention_fwd",
                         "building_llm_from_scratch_tpu/ops/fused_attention.py:75"),
                 "dq": ("flash_attention_dq",
@@ -6098,7 +6680,9 @@ def main() -> int:
             or any(v < 1 for v in text["sft"]["launches"].values()) \
             or any(v["launches"] < 1 for v in text["served"].values()):
         raise AssertionError("phase 9t: a kernel was not launched")
-    emit("io", **written_bytes())
+    io = written_bytes()
+    emit("io", **io, references_process=refs["io"],
+         total={k: io[k] + refs["io"][k] for k in io})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card["card_line"], flush=True)
     print(json.dumps({"ok": True, "device": {

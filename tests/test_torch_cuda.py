@@ -251,6 +251,53 @@ def test_engine_on_the_card(cuda):
         assert h.output_ids == handles[i].output_ids
 
 
+@pytest.mark.parametrize("paged", [False, True])
+def test_spec_and_int8_engines_on_the_card(cuda, paged):
+    """Speculative decoding and int8 KV on the card (fp32, head dim 64),
+    contiguous and paged: spec_k 4 under the n-gram drafter and a drafter
+    that never matches commits the same tokens, and no verify or int8 tick
+    launches B5 or B7; the int8 cache's k/v are int8 with fp32 scales and
+    its requests finish their budgets."""
+    from building_llm_from_scratch_tpu_torch.serving.kvcache import (
+        KVCachePolicy,
+    )
+    from building_llm_from_scratch_tpu_torch.serving.spec import Drafter
+
+    class Never(Drafter):
+        def propose(self, history, k):
+            return np.full((k,), 3, np.int32)
+
+    cfg = _paged_cfg()
+    model = build_model(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(2)
+    span = rng.integers(0, 512, 12).tolist()
+    reqs = [(span * 3 + rng.integers(0, 512, n).tolist(),
+             SamplingParams(max_new_tokens=m, temperature=0.7 if i == 2 else 0.0,
+                            top_k=8, seed=i, ignore_eos=True))
+            for i, (n, m) in enumerate([(3, 30), (9, 24), (5, 16)])]
+    pol = dict(paged=True, page_tokens=8, prefill_chunk=16) if paged else {}
+
+    def run(**kw):
+        quant = kw.pop("kv_quant", "model")
+        eng = DecodeEngine(model, n_slots=3, max_len=128,
+                           kv_policy=KVCachePolicy(kv_quant=quant, **pol), **kw)
+        tds.fused_decode_step.launches = tds.paged_decode_attention.launches = 0
+        handles = [eng.submit(p, sp) for p, sp in reqs]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        assert tds.fused_decode_step.launches == tds.paged_decode_attention.launches == 0
+        assert [len(h.output_ids) for h in handles] == [30, 24, 16]
+        return eng, [h.output_ids for h in handles]
+
+    ngram, out = run(spec_k=4)
+    never, out_never = run(spec_k=4, drafter=Never())
+    assert out == out_never
+    assert never.stats()["spec_tokens_accepted"] < ngram.stats()["spec_tokens_drafted"]
+    eng, _ = run(kv_quant="int8")
+    assert eng.cache["k"][0].dtype == torch.int8
+    assert eng.cache["k_scale"][0].dtype == torch.float32
+
+
 def test_engine_serves_text_prompts_on_the_card(cuda, tmp_path):
     """Three text prompts through the engine with a synthetic LLaMA-3 BPE
     (``scripts/build_local_bpe.py``, 300 merges, unpadded so its ids fit a

@@ -109,8 +109,9 @@ def test_policy_validation():
         KVCachePolicy(paged=True, prefill_chunk=12, page_tokens=8)
     with pytest.raises(ValueError):
         KVCachePolicy(paged=True, prefill_chunk=16, page_tokens=0)
-    with pytest.raises(ValueError, match="item 5"):
-        KVCachePolicy(kv_quant="int8")
+    with pytest.raises(ValueError, match="kv_quant must be one of"):
+        KVCachePolicy(kv_quant="fp8")
+    assert KVCachePolicy(kv_quant="int8").quantized
     assert DEFAULT_POLICY.paged is False and KVCachePolicy().prefill_chunk == 0
 
 
@@ -345,8 +346,18 @@ def test_serve_flags_outside_serve_mode_are_refused(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--serve_kv_quant=int8", "--serve_spec_k=2"])
 def test_int8_kv_and_speculation_stay_refused_by_name(tmp_path, capsys, flag):
-    with pytest.raises(SystemExit):
-        get_args(["--mode", "serve", "--serve_prompts", _req_file(tmp_path),
-                  "--serve_kv_paged", "on", flag])
-    err = capsys.readouterr().err
-    assert flag.split("=")[0] in err and "ROADMAP" in err
+    """Both flags are ported: with paging they parse into the policy and
+    the engine's spec_k; a value they do not take is still refused, by the
+    flag's name."""
+    base = ["--mode", "serve", "--serve_prompts", _req_file(tmp_path),
+            "--serve_kv_paged", "on"]
+    args = get_args(base + [flag])
+    name, value = flag[2:].split("=")
+    assert str(getattr(args, name)) == value
+    policy = kv_policy_from_args(args)
+    assert policy.paged and policy.quantized == (name == "serve_kv_quant")
+    bad = {"serve_kv_quant": "int4", "serve_spec_k": "-1"}[name]
+    with pytest.raises((SystemExit, ValueError)) as e:
+        get_args(base + [f"--{name}={bad}"])
+    said = capsys.readouterr().err if e.type is SystemExit else str(e.value)
+    assert f"--{name}" in said
