@@ -9,7 +9,11 @@ fp16`` with loss scaling), gradient accumulation, activation
 checkpointing, batch prefetch and asynchronous checkpoint writes, and
 the tokenizers (``--tokenizer_path``, the on-disk token cache
 ``--tokenizer_cache_dir``), speculative decoding (``--serve_spec_k``) and
-int8 KV (``--serve_kv_quant int8``) in serving, and sharded training (``--run_type multi_chip
+int8 KV (``--serve_kv_quant int8``) in serving, the serving operations
+(``--serve_port`` / ``--serve_host``, ``--serve_deadline_s``,
+``--serve_tick_timeout`` / ``--serve_max_restarts``, ``--drain_timeout``,
+``--metrics_jsonl`` / ``--serve_metrics_every``, ``--stall_timeout``; the
+last two in serve mode only), and sharded training (``--run_type multi_chip
 --shard_mode dp|fsdp|zero1|tp|tp_fsdp``, ``--tp`` for tensor parallelism,
 ``--sp`` for sequence parallelism with ring attention), with the JAX CLI's
 checks and messages.
@@ -31,27 +35,28 @@ from building_llm_from_scratch_tpu_torch.configs import MODEL_PARAMS_MAPPING
 #: flags of the JAX package's CLI that this port does not take yet
 UNPORTED_FLAGS = (
     "--serve_replicas", "--serve_workers",
-    "--serve_tp", "--serve_sp", "--serve_max_prompt", "--serve_port",
-    "--serve_host", "--drain_timeout", "--serve_tick_timeout",
-    "--serve_max_restarts", "--serve_deadline_s",
-    "--serve_metrics_every",
+    "--serve_tp", "--serve_sp", "--serve_max_prompt",
     "--fleet_jobs", "--fleet_rows_per_job", "--fleet_capacity",
     "--fleet_export_dir", "--fleet_style",
-    "--metrics_jsonl", "--log_every", "--compile_cache_dir",
-    "--stall_timeout", "--pp", "--pp_micro",
+    "--log_every", "--compile_cache_dir",
+    "--pp", "--pp_micro",
     "--attn_impl",
     "--profile", "--profile_steps", "--warnings",
 )
 
 _PP = "queue 1 item 14c, pipeline parallelism"
-_OPS = "queue 1 item 9, serving operations"
+_TELEMETRY = "queue 1 item 10, telemetry"
 
 #: the ROADMAP queue item that brings an unported flag or shard mode
 QUEUE_ITEMS = {
-    "--serve_deadline_s": _OPS, "--serve_max_restarts": _OPS,
-    "--serve_tick_timeout": _OPS, "--drain_timeout": _OPS,
+    "--log_every": _TELEMETRY, "--profile": _TELEMETRY,
+    "--profile_steps": _TELEMETRY, "--warnings": _TELEMETRY,
     "--pp": _PP, "--pp_micro": _PP, "pp": _PP,
 }
+
+#: flags the port takes in --mode serve only; --mode train refuses them by
+#: name (the training telemetry is not ported)
+SERVE_ONLY_TELEMETRY = (("metrics_jsonl", None), ("stall_timeout", 0.0))
 
 #: the JAX package's shard modes; the port runs ``parallel.SHARD_MODES``
 JAX_SHARD_MODES = ("dp", "fsdp", "zero1", "tp", "tp_fsdp", "pp")
@@ -229,6 +234,44 @@ def build_parser() -> argparse.ArgumentParser:
                         "'prompt_ids'.")
     p.add_argument("--serve_out", type=str, default=None,
                    help="JSONL results (default stdout).")
+    p.add_argument("--serve_port", type=int, default=0,
+                   help="Serve the stdlib HTTP endpoint on this port (POST "
+                        "/generate, GET /healthz, GET /metrics). 0 disables.")
+    p.add_argument("--serve_host", type=str, default="127.0.0.1",
+                   help="Bind address of --serve_port: loopback by default "
+                        "(the endpoint is unauthenticated); pass 0.0.0.0 to "
+                        "expose it deliberately.")
+    p.add_argument("--drain_timeout", type=float, default=30.0,
+                   help="Graceful drain on SIGTERM/SIGINT: admission closes, "
+                        "in-flight and queued requests get this many seconds "
+                        "to finish, the rest fail 'preempted'.")
+    p.add_argument("--serve_tick_timeout", type=float, default=0.0,
+                   help="Fault supervisor: a decode tick without progress "
+                        "for this many seconds dumps a flight record, fails "
+                        "the in-flight requests and restarts the loop with "
+                        "bounded backoff (queue kept, no kernel rebuilt). "
+                        "0 disables.")
+    p.add_argument("--serve_max_restarts", type=int, default=3,
+                   help="Supervisor restart budget; past it the engine fails "
+                        "loudly.")
+    p.add_argument("--serve_deadline_s", type=float, default=0.0,
+                   help="Default per-request deadline (seconds from "
+                        "submission) for requests without 'deadline_s': "
+                        "expired requests are shed from the queue (HTTP 504) "
+                        "and admission refuses a predicted miss (429 + "
+                        "Retry-After). 0 = none.")
+    p.add_argument("--serve_metrics_every", type=int, default=32,
+                   help="Decode ticks between --metrics_jsonl metrics rows "
+                        "(decode rate, gauges, the tick-phase breakdown). "
+                        "0 disables.")
+    p.add_argument("--metrics_jsonl", type=str, default=None,
+                   help="Write serving telemetry (header, cadence metrics, "
+                        "events, one span per request) to this JSONL file "
+                        "(--mode serve only).")
+    p.add_argument("--stall_timeout", type=float, default=0.0,
+                   help="Flight recorder (--mode serve only): dump every "
+                        "thread's stack and the device memory when no tick "
+                        "completes within this many seconds. 0 disables.")
     p.add_argument("--serve_prefix_cache", type=str, default="off",
                    choices=["on", "off"],
                    help="KV prefix caching: requests sharing a prompt prefix "
@@ -299,6 +342,13 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         parser.error(f"--shard_mode {args.shard_mode}: a shard mode of the "
                      "JAX package that the PyTorch port does not support yet "
                      f"(ROADMAP {QUEUE_ITEMS[args.shard_mode]})")
+    if args.mode == "train":
+        telemetry = [f"--{name}" for name, default in SERVE_ONLY_TELEMETRY
+                     if getattr(args, name) != default]
+        if telemetry:
+            parser.error(f"{', '.join(telemetry)}: flag(s) the PyTorch port "
+                         "takes in --mode serve only; training telemetry is "
+                         f"not ported yet (ROADMAP {_TELEMETRY})")
     if args.mode == "serve":
         train_only = [f"--{name}" for name, default in _TRAIN_ONLY_DEFAULTS
                       if getattr(args, name) != default]
@@ -356,7 +406,10 @@ _SERVE_DEFAULTS = (
     ("serve_prefix_budget_mb", 256.0), ("serve_kv_paged", "off"),
     ("serve_kv_page_tokens", 16), ("serve_adapters", None),
     ("serve_adapter_slots", 0), ("serve_kv_quant", "model"),
-    ("serve_spec_k", 0),
+    ("serve_spec_k", 0), ("serve_port", 0), ("serve_host", "127.0.0.1"),
+    ("drain_timeout", 30.0), ("serve_tick_timeout", 0.0),
+    ("serve_max_restarts", 3), ("serve_deadline_s", 0.0),
+    ("serve_metrics_every", 32),
 )
 
 
@@ -386,10 +439,28 @@ def _check_weights(args) -> None:
 
 
 def _check_serve(args) -> None:
-    if not args.serve_prompts:
-        raise ValueError("--mode serve needs --serve_prompts <requests.jsonl>")
-    if not os.path.isfile(args.serve_prompts):
+    if not (args.serve_prompts or args.serve_port):
+        raise ValueError("--mode serve needs a workload: --serve_prompts "
+                         "<requests.jsonl> and/or --serve_port <port>.")
+    if args.serve_prompts and not os.path.isfile(args.serve_prompts):
         raise ValueError(f"--serve_prompts '{args.serve_prompts}' does not exist.")
+    if args.serve_port < 0:
+        raise ValueError("--serve_port must be >= 0 (0 disables).")
+    if args.drain_timeout <= 0:
+        raise ValueError("--drain_timeout must be > 0 seconds.")
+    if args.serve_tick_timeout < 0:
+        raise ValueError("--serve_tick_timeout must be >= 0 "
+                         "(0 disables the supervisor).")
+    if args.serve_max_restarts < 0:
+        raise ValueError("--serve_max_restarts must be >= 0.")
+    if args.serve_deadline_s < 0:
+        raise ValueError("--serve_deadline_s must be >= 0 "
+                         "(0 = no default deadline).")
+    if args.serve_metrics_every < 0:
+        raise ValueError("--serve_metrics_every must be >= 0 "
+                         "(0 disables the tick cadence rows).")
+    if args.stall_timeout < 0:
+        raise ValueError("--stall_timeout must be >= 0 (0 disables).")
     for flag in ("serve_slots", "serve_max_queue", "serve_max_new_tokens",
                  "serve_max_top_k"):
         if getattr(args, flag) < 1:

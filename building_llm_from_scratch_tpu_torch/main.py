@@ -15,8 +15,9 @@ LoRA run) and, with ``--save_adapter``, the adapter artifact. A run
 stopped by a signal has written its ``interrupted`` checkpoint; it skips
 the plot, the final checkpoint and exports and returns normally (exit 0),
 and the same command resumes it. Without matplotlib the run logs one
-warning and goes on without the plot. Not ported: the stall detector
-(ROADMAP queue 1, serving operations).
+warning and goes on without the plot. Not ported: the training
+telemetry (``--metrics_jsonl`` and ``--stall_timeout`` in train mode,
+``--log_every``, ``--profile``; ROADMAP queue 1 item 10).
 
 ``--run_type multi_chip`` (``--shard_mode dp|fsdp|zero1|tp|tp_fsdp``,
 ``--tp``, ``--sp``) trains with one

@@ -27,6 +27,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+#: nvcc builds and library loads in this process: a serving restart must
+#: add none (the loaded library outlives the engine's loop and cache)
+STATS = {"builds": 0, "loads": 0}
 
 
 def sources() -> list:
@@ -90,6 +93,7 @@ def build() -> dict:
     if failed:
         raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log[-4000:]}")
     os.replace(tmp, path)        # atomic: a concurrent loader sees all or nothing
+    STATS["builds"] += 1
     return dict(path=str(path), built=True, seconds=seconds, log=log)
 
 
@@ -99,6 +103,7 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build()["path"])
+            STATS["loads"] += 1
             i32, u32, f32, ptr = (ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
                                   ctypes.c_void_p)
             # dtype, hd, S, Hq, Hkv, Tmax, split length, splits

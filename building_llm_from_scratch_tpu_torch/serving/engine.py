@@ -65,12 +65,37 @@ to the device in one transfer and reads back once: the sampled tokens
 together with the finite flags. Only a final prefill chunk reads anything
 back.
 
-Not ported yet: deadlines, drain, the supervisor and restarts,
-fault-injection hooks and the telemetry sink.
+Operations (the JAX engine's resilience, ``serving/supervisor.py``):
+
+  - deadlines: ``SamplingParams.deadline_s`` (or the engine's default);
+    an expired request is shed when it reaches the queue head, without
+    taking a slot (``expired``, HTTP 504), and ``submit`` refuses up front
+    when the backlog already predicts a miss (``SLOShedError``, 429);
+  - fault isolation: a prefill that raises, a raising callback or a
+    NaN-poisoned slot fails that request alone; a slot failed for
+    non-finite logits is zeroed before its rows (contiguous) or private
+    pages (paged) are reused, so the next occupant never multiplies a
+    masked zero by a stale NaN (the plain-torch ticks do);
+  - the tick watchdog: a hung tick dumps a flight record and the loop
+    restarts (generation-guarded: the abandoned thread commits nothing),
+    failing the in-flight requests, keeping the queue and allocating a
+    fresh cache, with no new kernel build;
+  - ``cancel`` and ``drain`` (admission closed, in-flight and queued work
+    finishes within the timeout, the rest ``preempted``);
+  - telemetry: ``request_*`` events and one span row per request through
+    ``obs/metrics.py``, latency histograms, the tick-phase breakdown every
+    ``metrics_every`` decode ticks, the memory ledger, and the
+    ``/metrics`` and ``/healthz`` payloads.
+
+``n_ticks`` counts decode ticks, so a kernel's launches are layers x
+``n_ticks`` (the JAX engine also counts ticks where every active row was
+still prefilling).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
 import threading
 import time
 from typing import Optional, Sequence
@@ -84,6 +109,14 @@ from building_llm_from_scratch_tpu_torch.generate import (
     sample_tokens_dynamic,
 )
 from building_llm_from_scratch_tpu_torch.models.lora import adapter_fingerprint
+from building_llm_from_scratch_tpu_torch.obs.memory import MemoryLedger
+from building_llm_from_scratch_tpu_torch.obs.metrics import (
+    Histogram,
+    RollingRatio,
+    get_metrics,
+    render_prometheus,
+)
+from building_llm_from_scratch_tpu_torch.obs.schema import TICK_PHASES
 from building_llm_from_scratch_tpu_torch.models.transformer import (
     Transformer,
     decode_slots,
@@ -113,16 +146,23 @@ from building_llm_from_scratch_tpu_torch.serving.kvcache import (
     extract_prefix_panes,
 )
 from building_llm_from_scratch_tpu_torch.serving.queue import (
+    EngineDrainingError,
     PromptTooLongError,
     QueueFullError,
     RequestQueue,
+    SLOShedError,
 )
 from building_llm_from_scratch_tpu_torch.serving.request import (
+    FINISH_CANCELLED,
     FINISH_EOS,
     FINISH_ERROR,
+    FINISH_EXPIRED,
     FINISH_LENGTH,
+    FINISH_PREEMPTED,
     FINISH_REJECTED,
+    FINISH_SHED,
     FINISHED,
+    QUEUED,
     REJECTED,
     RUNNING,
     Request,
@@ -132,6 +172,12 @@ from building_llm_from_scratch_tpu_torch.serving.request import (
 )
 from building_llm_from_scratch_tpu_torch.serving.scheduler import Scheduler
 from building_llm_from_scratch_tpu_torch.serving.spec import NgramDrafter
+from building_llm_from_scratch_tpu_torch.serving.supervisor import (
+    EngineSupervisor,
+    FaultHooks,
+)
+
+logger = logging.getLogger(__name__)
 
 
 class DecodeEngine:
@@ -147,7 +193,11 @@ class DecodeEngine:
                  warmup_prompt_cap: int = 256,
                  kv_policy: Optional[KVCachePolicy] = None,
                  adapters: Optional[AdapterRegistry] = None,
-                 spec_k: int = 0, drafter=None):
+                 spec_k: int = 0, drafter=None, metrics_every: int = 32,
+                 default_deadline_s: Optional[float] = None,
+                 tick_timeout_s: float = 0.0, max_restarts: int = 3,
+                 restart_backoff_s: float = 0.5,
+                 hooks: Optional[FaultHooks] = None):
         cfg = model.cfg
         self.cfg = cfg
         self.model = model
@@ -209,6 +259,16 @@ class DecodeEngine:
         self.max_top_k = min(int(max_top_k), cfg.vocab_size)
         self.default_max_new_tokens = int(default_max_new_tokens)
         self.warmup_prompt_cap = min(int(warmup_prompt_cap), self.max_len)
+        #: decode ticks between cadence rows (0: none)
+        self.metrics_every = int(metrics_every)
+        self.default_deadline_s = default_deadline_s
+        self.hooks = hooks or FaultHooks()
+        self.max_restarts = int(max_restarts)
+        self.restart_backoff_s = float(restart_backoff_s)
+        self.supervisor = (EngineSupervisor(self, tick_timeout_s,
+                                            max_restarts=max_restarts,
+                                            backoff_s=restart_backoff_s)
+                           if tick_timeout_s > 0 else None)
         self.queue = RequestQueue(max_queue)
         self.scheduler = Scheduler(self.n_slots)
 
@@ -267,10 +327,54 @@ class DecodeEngine:
         self._work = threading.Condition()
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
-        self._error: Optional[str] = None
+        # written by _fail_all / drain; their racy reads are the design:
+        # submit repeats its decision after the queue's barrier
+        self._dead: Optional[str] = None    # guarded-by: _lock [writes]
+        self._draining = False              # guarded-by: _lock [writes]
+        # bumped by every restart; a loop thread abandoned before the bump
+        # sees it at its next commit point and returns committing nothing
+        self._restart_lock = threading.Lock()
+        self._generation = 0        # guarded-by: _restart_lock [writes]
+        self.n_restarts = 0         # guarded-by: _restart_lock [writes]
+        self.warmed_up = False
         if adapters is not None:
             # a load must not reuse a pool row an active slot decodes against
             adapters.set_in_use_probe(self._adapter_rows_in_use)
+        #: KV bytes a token of a slot row holds (the telemetry's unit)
+        self._kv_bytes_per_token = self.kv_policy.bytes_per_slot(
+            cfg, self._cache_len)["bytes_per_token"]
+        self._param_bytes = sum(t.numel() * t.element_size()
+                                for t in model.flat_params().values())
+        # kernel builds and loads before serving: a restart adds none
+        self._kernel_base = self._kernel_count()
+        #: the service-time EWMAs of SLO admission (finished requests)
+        self._tpot_ewma: Optional[float] = None     # guarded-by: _lock
+        self._tokens_ewma: Optional[float] = None   # guarded-by: _lock
+        self.ttft_hist = Histogram()
+        self.tpot_hist = Histogram()
+        self.queue_wait_hist = Histogram()
+        self.e2e_hist = Histogram()
+        #: prefill + prefix-copy wall of each tick that did prefill work
+        self.tick_prefill_hist = Histogram(bounds=(
+            0.0002, 0.0005, 0.001, 0.002, 0.004, 0.008, 0.015, 0.03,
+            0.06, 0.12, 0.2, 0.3, 0.45, 0.7, 1.0, 1.5, 2.2, 3.3, 5.0,
+            7.5, 11.0, 17.0, 26.0, 40.0, 60.0))
+        self.slo_window = RollingRatio(window_s=300.0)
+        self._t_start_mono = time.monotonic()
+        # the tick-phase wall (perf_counter only): this cadence window's
+        # sums and the totals /metrics exports
+        self._tick_acc = {ph: 0.0 for ph in TICK_PHASES}   # guarded-by: _lock
+        self._tick_acc_total = 0.0                         # guarded-by: _lock
+        self.tick_phase_totals = {ph: 0.0 for ph in TICK_PHASES}  # guarded-by: _lock
+        self.tick_seconds_total = 0.0                      # guarded-by: _lock
+        self._tick_pf0 = 0.0                               # guarded-by: _lock
+        self._window_ticks = 0                             # guarded-by: _lock
+        self._window_tokens = 0                            # guarded-by: _lock
+        self._window_t0 = time.monotonic()                 # guarded-by: _lock
+        self._win_t0_wall = time.time()                    # guarded-by: _lock
+        self._window_prefill_chunks = 0                    # guarded-by: _lock
+        self._window_spec_drafted = 0                      # guarded-by: _lock
+        self._window_spec_accepted = 0                     # guarded-by: _lock
 
         self.n_ticks = 0                    # decode ticks   guarded-by: _lock
         self.tokens_generated = 0           # guarded-by: _lock
@@ -278,6 +382,8 @@ class DecodeEngine:
         self.requests_finished = 0          # guarded-by: _lock
         self.requests_rejected = 0          # guarded-by: _lock
         self.requests_failed = 0            # guarded-by: _lock
+        self.requests_shed = 0              # guarded-by: _lock
+        self.requests_expired = 0           # guarded-by: _lock
         self.prefill_chunks = 0             # guarded-by: _lock
         self.prefill_seconds = 0.0          # guarded-by: _lock
         self.decode_seconds = 0.0           # guarded-by: _lock
@@ -286,9 +392,118 @@ class DecodeEngine:
         #: the drafts the accept rule took (before eos / budget truncation)
         self.spec_tokens_drafted = 0        # guarded-by: _lock
         self.spec_tokens_accepted = 0       # guarded-by: _lock
+        self.memory_ledger = self._build_memory_ledger()
 
     def _bucket_len(self, n: int) -> int:
         return min(_bucket(n), self.max_len)
+
+    # -- telemetry ----------------------------------------------------------
+
+    @staticmethod
+    def _ev(kind: str, **fields) -> None:
+        get_metrics().event(kind, **fields)
+
+    @staticmethod
+    def _emit_span(req: Request) -> None:
+        """The request's one ``span`` row, at its terminal transition."""
+        get_metrics().log_span(**req.trace_row())
+
+    @staticmethod
+    def _kernel_count() -> int:
+        from building_llm_from_scratch_tpu_torch.ops import _kernels
+
+        return _kernels.STATS["builds"] + _kernels.STATS["loads"]
+
+    @property
+    def n_recompiles(self) -> int:
+        """Kernel builds and library loads since the engine was warmed up
+        (or made): the port's counterpart of the JAX engine's recompiles,
+        0 through restarts."""
+        return self._kernel_count() - self._kernel_base
+
+    def _build_memory_ledger(self) -> MemoryLedger:
+        """The device-memory components this engine owns, measured from the
+        live tensors at each read (a restart's fresh cache or pool is
+        followed), with their exact expected sizes."""
+        ledger = MemoryLedger(emit=self._ev, source="engine",
+                              device=self.device)
+        ledger.register("model_params", lambda: self._param_bytes)
+        bps = self.kv_policy.bytes_per_slot(self.cfg, self.max_len)
+        n = self.n_slots
+        if self._paged:
+            ledger.register("page_pool", lambda: cache_nbytes(self.cache),
+                            expected=lambda: (self.page_pool.n_pages
+                                              * self.page_pool.page_bytes))
+        else:
+            parts = self._cache_component_bytes
+            ledger.register("slot_kv", lambda: parts()["slot_kv"],
+                            expected=lambda: bps["kv_bytes"] * n)
+            if bps["scale_bytes"]:
+                ledger.register("kv_scales", lambda: parts()["kv_scales"],
+                                expected=lambda: bps["scale_bytes"] * n)
+            if self.spec_k:
+                full = self.kv_policy.bytes_per_slot(self.cfg, self._cache_len)
+                ledger.register(
+                    "spec_headroom", lambda: parts()["spec_headroom"],
+                    expected=lambda: (full["total_bytes"]
+                                      - bps["total_bytes"]) * n)
+        if self.prefix_store is not None:
+            store = self.prefix_store
+            # paged entries reference pool pages: attribution only
+            ledger.register("prefix_store", lambda: store.bytes_total,
+                            device=not self._paged)
+        if self.adapters is not None:
+            ledger.register("adapter_pool", self.adapters.pool_nbytes)
+            ledger.register_labeled("adapter_pool_bytes", "tenant",
+                                    self.adapters.bytes_by_adapter)
+        ledger.register_labeled("kv_live_bytes", "tenant",
+                                self._kv_live_by_tenant)
+        return ledger
+
+    # holds: _lock
+    def _kv_live_by_tenant(self) -> dict:
+        """Each occupied slot's KV bytes by tenant (adapter name, "base"):
+        mapped pages when paged, committed length x bytes a token else."""
+        out: dict = {}
+        for slot, req in self.scheduler.active():
+            nm = req.params.adapter or BASE_ADAPTER
+            if self._paged:
+                live = int(self._slot_cols[slot]) * self.page_pool.page_bytes
+            else:
+                live = int(self._lengths[slot]) * self._kv_bytes_per_token
+            out[nm] = out.get(nm, 0) + live
+        return out
+
+    # holds: _lock
+    def _tick_add(self, phase: str, dt: float) -> None:
+        """Wall seconds into one tick phase (window and totals)."""
+        self._tick_acc[phase] += dt
+        self.tick_phase_totals[phase] += dt
+
+    # holds: _lock
+    def _prefill_total(self) -> float:
+        return (self.tick_phase_totals["prefill"]
+                + self.tick_phase_totals["prefill_shard"]
+                + self.tick_phase_totals["prefix_copy"])
+
+    # holds: _lock
+    def _nested_acc(self) -> float:
+        """Window seconds of the phases nested inside admission."""
+        return (self._tick_acc["prefill"] + self._tick_acc["prefill_shard"]
+                + self._tick_acc["prefix_copy"]
+                + self._tick_acc["callback_detok"])
+
+    # holds: _lock
+    def _book_tick_wall(self, t0: float) -> None:
+        """A tick's wall into the window and the totals, on every exit of
+        ``step``'s timed part (generation aborts too, so the phases never
+        sum past it), and its prefill wall into ``tick_prefill_hist``."""
+        dt = time.perf_counter() - t0
+        self._tick_acc_total += dt
+        self.tick_seconds_total += dt
+        pf = self._prefill_total() - self._tick_pf0
+        if pf > 0:
+            self.tick_prefill_hist.observe(pf)
 
     # -- adapters -----------------------------------------------------------
 
@@ -355,13 +570,33 @@ class DecodeEngine:
         """Enqueue one request, text or token ids (thread-safe), with an
         optional ``on_token(req, tok, piece)`` called at every generated
         token (``piece`` the text it committed, "" while held or without
-        a tokenizer). ``block=False``
-        rejects with ``QueueFullError`` when the queue is full;
-        ``block=True`` waits for space."""
-        if self._error is not None:
-            raise RuntimeError(f"engine is dead: {self._error}")
+        a tokenizer). ``block=False`` rejects with ``QueueFullError`` when
+        the queue is full; ``block=True`` waits for space. Raises
+        ``EngineDrainingError`` once ``drain()`` closed admission and
+        ``SLOShedError`` when the backlog predicts a missed deadline."""
+        if self._dead is not None:
+            raise RuntimeError(f"engine is dead: {self._dead}")
+        if self._draining:
+            # the estimate reads the EWMAs under the lock; a timed acquire,
+            # since a wedged tick may hold it (Retry-After is best effort)
+            retry = None
+            lock = self._lock
+            locked = lock.acquire(timeout=0.5)
+            try:
+                if locked:
+                    retry = self.estimate_queue_clear_s()
+            finally:
+                if locked:
+                    lock.release()
+            raise EngineDrainingError("engine is draining: admission closed",
+                                      retry_after_s=retry)
         params = params or SamplingParams(
             max_new_tokens=self.default_max_new_tokens)
+        if params.deadline_s is None and self.default_deadline_s:
+            params = dataclasses.replace(params,
+                                         deadline_s=self.default_deadline_s)
+        if params.deadline_s is not None and params.deadline_s <= 0:
+            raise ValueError("deadline_s must be > 0")
         ids = self.encode_prompt(prompt)
         if params.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
@@ -393,7 +628,11 @@ class DecodeEngine:
                 f"prompt ({ids.size}) + max_new_tokens "
                 f"({params.max_new_tokens}) = {total} exceeds the engine's "
                 f"slot capacity {self.max_len}")
+        # the Request exists before any shed or reject: every terminal
+        # outcome carries a request id and closes a span tree
         req = Request(next_request_id(), ids, params, on_token=on_token)
+        if params.deadline_s is not None:
+            self._shed_if_unmeetable(req)
         try:
             self.queue.put(req, block=block, timeout=timeout)
         except QueueFullError:
@@ -402,11 +641,147 @@ class DecodeEngine:
             req.t_finish = time.monotonic()
             with self._lock:
                 self.requests_rejected += 1
+            self._ev("request_rejected", request_id=req.id,
+                     reason="queue_full", queue_depth=len(self.queue))
+            self._emit_span(req)
             req._mark_done()
             raise
+        if self._dead is not None or self._draining:
+            # raced _fail_all / drain: a blocked put can be woken by their
+            # queue sweep and land in an engine that will never serve it
+            msg = self._dead or "engine is draining"
+            if self.queue.remove(req):
+                req.error = msg
+                req.finish_reason = (FINISH_ERROR if self._dead
+                                     else FINISH_PREEMPTED)
+                req.state = FINISHED
+                req._mark_done()
+            elif self._draining and self._dead is None:
+                # the loop admitted it first: the drain lets it finish
+                with self._work:
+                    self._work.notify()
+                return req
+            if self._dead is not None:
+                raise RuntimeError(f"engine is dead: {self._dead}")
+            raise EngineDrainingError("engine is draining: admission closed")
         with self._work:
             self._work.notify()
         return req
+
+    def _shed_if_unmeetable(self, req: Request) -> None:
+        """SLO admission: raise ``SLOShedError`` (and finish ``req`` as
+        shed) when the estimated completion already exceeds its deadline.
+        The decision reads the EWMAs under the lock, acquired with a
+        timeout: past it (a wedged tick) the request is admitted
+        optimistically and the queue's expiry still guards its deadline."""
+        deadline = req.params.deadline_s
+        shed, est, retry = False, None, None
+        lock = self._lock
+        locked = lock.acquire(timeout=1.0)
+        try:
+            if locked:
+                est = self.estimate_completion_s(len(self.queue),
+                                                 req.params.max_new_tokens)
+                shed = est is not None and est > deadline
+                if shed:
+                    self.requests_shed += 1
+                    retry = round(max(self.estimate_queue_clear_s() or 0.0,
+                                      0.001), 3)
+        finally:
+            if locked:
+                lock.release()
+        if not shed:
+            return
+        self.slo_window.observe(miss=True)
+        req.error = (f"shed at submit: estimated completion {est:.2f}s > "
+                     f"deadline {deadline}s")
+        req.finish_reason = FINISH_SHED
+        req.state = REJECTED
+        req.t_finish = time.monotonic()
+        self._ev("request_shed", request_id=req.id,
+                 reason="slo_predicted_miss", queue_depth=len(self.queue),
+                 deadline_s=deadline, estimated_e2e_s=round(est, 4),
+                 retry_after_s=retry)
+        self._emit_span(req)
+        req._mark_done()
+        raise SLOShedError(f"deadline {deadline}s unmeetable: estimated "
+                           f"completion {est:.2f}s at queue depth "
+                           f"{len(self.queue)}", retry_after_s=retry)
+
+    def service_snapshot(self) -> dict:
+        """Load and liveness in one read (timed acquire: a wedged engine
+        answers with stale but safe values)."""
+        lock = self._lock
+        locked = lock.acquire(timeout=0.2)
+        try:
+            return {"queue_depth": len(self.queue),
+                    "queue_capacity": self.queue.max_size,
+                    "n_active": self.scheduler.n_active,
+                    "n_slots": self.n_slots, "tpot_ewma": self._tpot_ewma,
+                    "tokens_ewma": self._tokens_ewma,
+                    "draining": self._draining,
+                    "dead": self._dead is not None}
+        finally:
+            if locked:
+                lock.release()
+
+    # -- the SLO service estimate -------------------------------------------
+
+    # holds: _lock
+    def estimate_completion_s(self, queue_depth: int,
+                              max_new_tokens: int) -> Optional[float]:
+        """Predicted submit-to-finish seconds at ``queue_depth``
+        (``service_estimate``); None before any request finished."""
+        return service_estimate(queue_depth, self.scheduler.n_active,
+                                self.n_slots, self._tpot_ewma,
+                                self._tokens_ewma, max_new_tokens)
+
+    # holds: _lock
+    def estimate_queue_clear_s(self) -> Optional[float]:
+        """Rough seconds until the backlog drains (Retry-After)."""
+        return queue_clear_estimate(len(self.queue), self.scheduler.n_active,
+                                    self.n_slots, self._tpot_ewma,
+                                    self._tokens_ewma)
+
+    # holds: _lock
+    def _observe_service_time(self, req: Request) -> None:
+        """Fold a normally finished request into the TPOT and length EWMAs
+        (alpha 0.2)."""
+        tpot = req.tpot_s()
+        n_tok = len(req.output_ids)
+        if tpot is None or n_tok < 1:
+            return
+        alpha = 0.2
+        self._tpot_ewma = (tpot if self._tpot_ewma is None
+                           else (1 - alpha) * self._tpot_ewma + alpha * tpot)
+        self._tokens_ewma = (float(n_tok) if self._tokens_ewma is None
+                             else (1 - alpha) * self._tokens_ewma
+                             + alpha * n_tok)
+
+    # holds: _lock
+    def _admission_skip(self, req: Request) -> bool:
+        """The scheduler's skip hook: a cancelled or expired request at the
+        queue head is finished there, without taking a slot."""
+        if req._cancelled:
+            self._fail_request(None, req, "cancelled while queued",
+                               reason="cancelled", finish=FINISH_CANCELLED)
+            return True
+        if not req.expired():
+            return False
+        self.requests_expired += 1
+        self.slo_window.observe(miss=True)
+        waited = time.monotonic() - req.t_submit
+        req.error = (f"deadline {req.params.deadline_s}s passed after "
+                     f"{waited:.2f}s in queue")
+        req.finish_reason = FINISH_EXPIRED
+        req.state = FINISHED
+        req.t_finish = time.monotonic()
+        self._ev("request_expired", request_id=req.id,
+                 reason="deadline_expired", deadline_s=req.params.deadline_s,
+                 queue_wait_s=round(waited, 4), queue_depth=len(self.queue))
+        self._emit_span(req)
+        req._mark_done()
+        return True
 
     # holds: _lock
     def _prime_slot(self, slot: int, req: Request, length: int,
@@ -441,11 +816,14 @@ class DecodeEngine:
         return int(tok_host), bool(ok_host)
 
     # holds: _lock
-    def _admit(self, slot: int, req: Request) -> None:
+    def _admit(self, slot: int, req: Request, gen: int, cache: dict) -> None:
         """Prefill one request into ``slot`` and take its first token, or
-        with a chunked policy queue it for the chunk pump. The request's
-        adapter is resolved by name again here: one evicted while the
-        request was queued fails that request alone."""
+        with a chunked policy queue it for the chunk pump. Fault-isolated:
+        a prefill that raises fails this request alone. The adapter is
+        resolved by name again here: one evicted while the request was
+        queued fails that request alone. ``gen`` and ``cache`` are the
+        tick's (see ``step``): an abandoned thread that returns from the
+        hook or the prefill commits nothing."""
         adapter_row = -1
         if req.params.adapter is not None:
             row = (self.adapters.lookup(req.params.adapter)
@@ -453,35 +831,57 @@ class DecodeEngine:
             if row is None:
                 self._fail_request(
                     slot, req, f"adapter_not_loaded: adapter "
-                    f"'{req.params.adapter}' evicted while queued")
+                    f"'{req.params.adapter}' evicted while queued",
+                    reason="adapter_not_loaded")
                 return
             adapter_row = row
+        try:
+            self.hooks.before_prefill(req)
+        except Exception as e:  # noqa: BLE001 — a poison request, isolate it
+            if self._generation != gen:
+                return          # the restart already failed this request
+            self._fail_request(slot, req, f"prefill failed: {e!r}",
+                               reason="prefill_error")
+            return
+        if self._generation != gen:
+            return              # a hook that returned after a restart
         if self._chunk > 0:
-            self._admit_chunked(slot, req, adapter_row)
+            self._admit_chunked(slot, req, adapter_row, cache)
             return
         Tp = int(req.prompt_ids.size)
         Tpb = self._bucket_len(Tp)
-        padded = np.zeros((1, Tpb), np.int64)
-        padded[0, :Tp] = req.prompt_ids
+        padded = np.zeros((Tpb,), np.int64)
+        padded[:Tp] = req.prompt_ids
         t0 = time.perf_counter()
-        tokens = torch.from_numpy(padded).to(self.device)
+        tokens = self._to_device([padded])[None]
         adapter = (self._adapter_arg(torch.tensor(
             [adapter_row], dtype=torch.int32, device=self.device))
             if self.adapters is not None else None)
-        logits = prefill_into_slot(self.model, tokens, Tp, slot, self.cache,
+        logits = prefill_into_slot(self.model, tokens, Tp, slot, cache,
                                    adapter=adapter)
         tok, ok = self._first_token(logits, req)
-        self.prefill_seconds += time.perf_counter() - t0
+        if self._generation != gen:
+            return              # abandoned mid-prefill: commit nothing
+        dt = time.perf_counter() - t0
+        self.prefill_seconds += dt
+        self._tick_add("prefill", dt)
         self._prime_slot(slot, req, Tp, adapter_row)
-        if not ok:
-            self._fail_request(slot, req, "non-finite logits in prefill")
+        poison = self.hooks.poison_nan(req)
+        if self._generation != gen:
             return
-        self._accept_token(slot, req, tok)
+        if poison:
+            self._poison_slot_cache(slot, cache)    # fault injection
+        if not ok:
+            self._fail_non_finite(slot, req, "non-finite logits in prefill",
+                                  cache)
+            return
+        self._accept_token(slot, req, tok, gen)
 
     # -- chunked prefill + prefix cache ------------------------------------
 
     # holds: _lock
-    def _admit_chunked(self, slot: int, req: Request, adapter_row: int) -> None:
+    def _admit_chunked(self, slot: int, req: Request, adapter_row: int,
+                       cache: dict) -> None:
         """Chunked admission: probe the prefix store, apply a hit (pane
         copy, or a page-table write when paged), and queue the rest of the
         prompt for ``_chunk_tick``. The row's length is its next write
@@ -492,7 +892,7 @@ class DecodeEngine:
         if tag is not None:
             span, entry = self.prefix_store.match(req.prompt_ids, tag)
             if entry is not None:
-                self._apply_prefix_hit(slot, span, entry)
+                self._apply_prefix_hit(slot, req, span, entry, cache)
                 pos = span
         self._prime_slot(slot, req, pos, adapter_row)
         self._prefill_state[slot] = {"req": req, "pos": pos,
@@ -500,15 +900,20 @@ class DecodeEngine:
                                      "stored": False}
 
     # holds: _lock
-    def _apply_prefix_hit(self, slot: int, span: int, entry) -> None:
-        """Serve the span of a matched (pinned) entry from the store."""
+    def _apply_prefix_hit(self, slot: int, req: Request, span: int, entry,
+                          cache: dict, prev_pos: int = 0) -> None:
+        """Serve the span of a matched (pinned) entry from the store;
+        ``prev_pos`` is what the slot had prefilled already (a late hit)."""
+        req.prefix_bytes_saved += (span - prev_pos) * self._kv_bytes_per_token
         if self._paged:
             self._apply_paged_hit(slot, entry)
             return
+        t0 = time.perf_counter()
         try:
-            copy_prefix_into_slot(self.cache, entry.panes, slot)
+            copy_prefix_into_slot(cache, entry.panes, slot)
         finally:
             self.prefix_store.release(entry)
+        self._tick_add("prefix_copy", time.perf_counter() - t0)
         self.pane_copies += 1
 
     # holds: _lock
@@ -536,10 +941,14 @@ class DecodeEngine:
             self._pages_reserved[slot] -= refund
 
     # holds: _lock
-    def _chunk_tick(self) -> None:
-        """One prefill chunk for every mid-prefill slot, in slot order."""
+    def _chunk_tick(self, gen: int, cache: dict) -> bool:
+        """One prefill chunk for every mid-prefill slot, in slot order.
+        False on a generation abort (the caller books the tick and
+        returns)."""
         C = self._chunk
         for slot in sorted(self._prefill_state):
+            if self._generation != gen:
+                return False
             st = self._prefill_state[slot]
             req: Request = st["req"]
             Tp = st["Tp"]
@@ -555,7 +964,8 @@ class DecodeEngine:
                 span, entry = self.prefix_store.match(
                     req.prompt_ids, tag, min_span=st["pos"], count_miss=False)
                 if entry is not None:
-                    self._apply_prefix_hit(slot, span, entry)
+                    self._apply_prefix_hit(slot, req, span, entry, cache,
+                                           prev_pos=st["pos"])
                     st["pos"] = span
                     self._lengths[slot] = span
             t0 = time.perf_counter()
@@ -565,34 +975,51 @@ class DecodeEngine:
                 # back the chunk's real columns with pages; the pad tail's
                 # columns stay unmapped and scatter into the trash page
                 self._ensure_pages(slot, hi)
-            logits = self._run_chunk(slot, req, lo, hi, Tp)
+            logits = self._run_chunk(slot, req, lo, hi, Tp, cache)
+            if self._generation != gen:
+                return False    # abandoned mid-chunk: commit nothing
             st["pos"] = lo + C
             self.prefill_chunks += 1
+            self._window_prefill_chunks += 1
             # early insertion: the moment the chunk covering the storable
             # span lands, store it, so co-admitted sharers catch up now
             if (self.prefix_store is not None and not st["stored"]
                     and 0 < span_cap <= st["pos"]):
                 st["stored"] = True
-                self._maybe_store_prefix(slot, req)
+                self._maybe_store_prefix(slot, req, cache)
             if st["pos"] < Tp:
                 self._lengths[slot] = st["pos"]
-                self.prefill_seconds += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                self.prefill_seconds += dt
+                self._tick_add("prefill", dt)
                 continue
             # final chunk: the request's first token (the one chunk that
             # reads back)
             tok, ok = self._first_token(logits, req)
-            self.prefill_seconds += time.perf_counter() - t0
+            if self._generation != gen:
+                return False
+            dt = time.perf_counter() - t0
+            self.prefill_seconds += dt
+            self._tick_add("prefill", dt)
             del self._prefill_state[slot]
             self._lengths[slot] = Tp
+            poison = self.hooks.poison_nan(req)
+            if self._generation != gen:
+                return False
+            if poison:
+                self._poison_slot_cache(slot, cache)    # fault injection
             if not ok:
-                self._fail_request(slot, req, "non-finite logits in prefill",
-                                   non_finite=True)
+                self._fail_non_finite(slot, req,
+                                      "non-finite logits in prefill", cache)
                 continue
-            self._accept_token(slot, req, tok)
+            self._accept_token(slot, req, tok, gen)
+            if self._generation != gen:
+                return False
+        return True
 
     # holds: _lock
     def _run_chunk(self, slot: int, req: Request, lo: int, hi: int,
-                   Tp: int) -> torch.Tensor:
+                   Tp: int, cache: dict) -> torch.Tensor:
         """Prefill prompt positions [lo, hi) as one C-token chunk; returns
         its logits. Paged: the chunk's tokens and the slot's table row go to
         the device in one copy."""
@@ -602,18 +1029,19 @@ class DecodeEngine:
         parts = [chunk, self._adapter_ids[slot:slot + 1]]
         if self._paged:
             parts.append(self._page_table[slot])
-        host = torch.from_numpy(np.concatenate(parts)).to(self.device)
+        host = self._to_device(parts)
         tokens = host[:C].long()[None]
         adapter = self._adapter_arg(host[C:C + 1])
         if not self._paged:
             return prefill_chunk_into_slot(self.model, tokens, lo, Tp, slot,
-                                           self.cache, adapter=adapter)
+                                           cache, adapter=adapter)
         return paged_prefill_chunk_into_slot(
-            self.model, tokens, lo, Tp, host[None, C + 1:], self.cache,
+            self.model, tokens, lo, Tp, host[None, C + 1:], cache,
             self._cache_len, adapter=adapter)
 
     # holds: _lock
-    def _maybe_store_prefix(self, slot: int, req: Request) -> None:
+    def _maybe_store_prefix(self, slot: int, req: Request,
+                            cache: dict) -> None:
         """Store the slot's chunk-aligned prefix (miss path only; a stored
         key is just touched): the slot's own leading pages when paged (the
         store increfs them), else a zero-clamped pane copy."""
@@ -632,7 +1060,7 @@ class DecodeEngine:
             pages = [int(p) for p in self._page_table[slot, :n_cols]]
             self.prefix_store.insert_pages(prefix_ids, tag, pages)
             return
-        panes = extract_prefix_panes(self.cache, slot, span,
+        panes = extract_prefix_panes(cache, slot, span,
                                      pane_len=self._prefix_pane_len)
         self.prefix_store.insert(prefix_ids, tag, panes)
 
@@ -662,7 +1090,7 @@ class DecodeEngine:
                 f"page_pool_too_small: request needs up to {need} KV pages "
                 f"but the pool holds {pool.n_pages - 1}: shorten the "
                 "request or size pool_pages for at least one worst-case "
-                "request")
+                "request", reason="page_pool_too_small")
             return None
         if pool.available() < need:
             return False
@@ -701,30 +1129,70 @@ class DecodeEngine:
         self._pages_reserved[slot] = 0
 
     # holds: _lock
-    def _rewrite_slot_pages(self, slot: int, value: float) -> None:
-        """Overwrite the slot's PRIVATE pages (refcount 1) with ``value`` in
-        every layer. Zero is the scrub of a non-finite failure: a freed
-        page is read (masked) by whichever slot draws it next, and
-        0 x NaN is NaN."""
+    def _rewrite_slot_pages(self, slot: int, value: float,
+                            cache: dict) -> None:
+        """Overwrite the float leaves of the slot's PRIVATE pages (refcount
+        1; shared pages belong to co-sharers too) in every layer: NaN is
+        the fault-injection poison, zero the scrub of a non-finite failure
+        (a freed page is read, masked, by whichever slot draws it next,
+        and 0 x NaN is NaN). int8 codes hold no NaN: the poison and the
+        scrub ride the scale sidecars."""
         mine = [int(p) for p in self._page_table[slot, :self._slot_cols[slot]]
                 if int(p) != 0 and self.page_pool.refcount(int(p)) == 1]
         if not mine:
             return
         idx = torch.tensor(mine, device=self.device)
-        for bufs in self.cache.values():
+        for bufs in cache.values():
             for buf in bufs:
-                buf[idx] = value
+                if buf.is_floating_point():
+                    buf[idx] = value
+
+    # holds: _lock
+    def _poison_slot_cache(self, slot: int, cache: dict) -> None:
+        """NaN into one slot's KV (the ``poison_nan`` hook): its next decode
+        tick's logits go non-finite on the device, through the same
+        kernels, and no other row reads them. Contiguous: the slot's rows
+        of every float leaf (the scales of an int8 cache); paged: the
+        slot's private pages only (shared ones would fail co-sharers)."""
+        if self._paged:
+            self._rewrite_slot_pages(slot, float("nan"), cache)
+            return
+        for bufs in cache.values():
+            for buf in bufs:
+                if buf.is_floating_point():
+                    buf[slot] = float("nan")
+
+    # holds: _lock
+    def _fail_non_finite(self, slot: int, req: Request, msg: str,
+                         cache: dict) -> None:
+        """Fail a request for non-finite logits, zeroing its slot first:
+        its private pages (paged) or its rows (contiguous). B5 and B7 never
+        read past a row's length, but the plain-torch ticks (the CPU, the
+        verify and int8 ticks) weigh every masked position by an exact 0,
+        and 0 x NaN is NaN: without the scrub a stale NaN tail would fail
+        the slot's next occupant."""
+        if self.scheduler.slots[slot] is req:
+            if self._paged:
+                self._rewrite_slot_pages(slot, 0.0, cache)
+            else:
+                for bufs in cache.values():
+                    for buf in bufs:
+                        buf[slot] = 0
+        self._fail_request(slot, req, msg, reason="non_finite_logits")
 
     # -- the tick ---------------------------------------------------------
 
     # holds: _lock
-    def _admit_queued(self) -> None:
+    def _admit_queued(self, gen: int, cache: dict) -> bool:
         """Admit from the queue until no progress: a request may finish
         during its own admission (eos first, or max_new_tokens=1) and free
-        a slot. A paged request the pool cannot promise goes back to the
-        queue head with everything popped behind it, in order."""
+        a slot. Expired and cancelled heads are finished without a slot. A
+        paged request the pool cannot promise goes back to the queue head
+        with everything popped behind it, in order. False on a generation
+        abort."""
         while True:
-            admitted = self.scheduler.admit_from(self.queue)
+            admitted = self.scheduler.admit_from(self.queue,
+                                                 skip=self._admission_skip)
             bounced = None
             for i, (slot, req) in enumerate(admitted):
                 ok = self._admit_pages(slot, req)
@@ -733,66 +1201,134 @@ class DecodeEngine:
                 if not ok:
                     bounced = i
                     break
-                self._admit(slot, req)
+                self._admit(slot, req, gen, cache)
+                if self._generation != gen:
+                    return False
             if bounced is not None:
                 for slot, req in reversed(admitted[bounced:]):
                     self.scheduler.retire(slot)
                     self.queue.put_front(req)
-                return
+                return True
             if not admitted:
-                return
+                return True
 
     def step(self) -> bool:
-        """One tick: admit into free slots, one prefill chunk per
-        mid-prefill slot, then one decode step over the slot batch when a
-        row is decoding. Returns False when idle (no active slot, nothing
-        queued)."""
+        """One tick: admit into free slots, retire cancelled requests, one
+        prefill chunk per mid-prefill slot, then one decode step over the
+        slot batch when a row is decoding. Returns False when idle (no
+        active slot, nothing queued).
+
+        Generation-guarded: ``_restart`` bumps ``_generation`` and replaces
+        the lock, so a tick that returns after the supervisor abandoned it
+        sees the bump at its next check and commits nothing. The tick takes
+        the cache once, here, and every launch writes that one: a thread
+        that wakes past its last check (a host-to-device copy waits for the
+        device) writes only the cache the restart abandoned with it, never
+        the new one the restarted loop fills."""
+        gen = self._generation
         with self._lock:
-            self._admit_queued()
-            if self._prefill_state:
-                self._chunk_tick()
+            # the restart bumps the generation before it swaps the cache,
+            # so a cache read before a passing check is this generation's
+            cache = self.cache
+            if self._generation != gen or self._dead is not None:
+                return False
+            t_tick0 = time.perf_counter()
+            self._tick_pf0 = self._prefill_total()
+            self.hooks.before_tick(self)       # injected hang / fault point
+            if self._generation != gen:
+                self._book_tick_wall(t_tick0)
+                return False
+            # ``admit`` is the admission remainder: the nested prefill,
+            # prefix-copy and callback seconds book into their own phases
+            nested0 = self._nested_acc()
+            t_adm0 = time.perf_counter()
+            if not self._admit_queued(gen, cache):
+                self._book_tick_wall(t_tick0)
+                return False
+            # cancellations retire at the tick boundary: the slot frees now
+            # instead of decoding to max_new_tokens for nobody
+            for slot, req in self.scheduler.active():
+                if req._cancelled:
+                    self._fail_request(slot, req, "cancelled by client",
+                                       reason="cancelled",
+                                       finish=FINISH_CANCELLED)
+            self._tick_add("admit", max(time.perf_counter() - t_adm0
+                                        - (self._nested_acc() - nested0), 0.0))
+            if self._prefill_state and not self._chunk_tick(gen, cache):
+                self._book_tick_wall(t_tick0)
+                return False
             active = self.scheduler.active()
             if not active:
                 # a first-token eos in the chunk pump can free the last
                 # slot with requests still queued
+                self._book_tick_wall(t_tick0)
                 return len(self.queue) > 0
             decoding = [(s, r) for s, r in active
                         if s not in self._prefill_state]
             if not decoding:
+                self._book_tick_wall(t_tick0)
                 return True
             if self.spec_k:
-                self._verify_tick(decoding)
-                return True
+                return self._verify_tick(decoding, gen, t_tick0, cache)
             if self._paged:
                 # the append lands at column lengths // P, which must map a
                 # page (mid-prefill rows append into the trash page)
                 for slot, _ in decoding:
                     self._ensure_pages(slot, int(self._lengths[slot]) + 1)
             t0 = time.perf_counter()
-            logits = self._decode()
+            logits = self._decode(cache)
+            if self._generation == gen:
+                # the tick's kernels are launched: count it with them
+                self.n_ticks += 1
             nxt = sample_tokens_dynamic(logits, self._seeds, self._n_gen,
                                         self._temps, self._topks,
                                         self.max_top_k, self._generator)
             ok = torch.isfinite(logits).all(dim=-1)
+            packed = torch.stack([nxt, ok.long()])
+            self._tick_add("decode_dispatch", time.perf_counter() - t0)
+            if self._generation != gen:
+                self._book_tick_wall(t_tick0)
+                return False
             # the tick's one device->host read: tokens and finite flags
-            nxt_host, ok_host = torch.stack([nxt, ok.long()]).cpu().numpy()
+            t_fetch = time.perf_counter()
+            nxt_host, ok_host = packed.cpu().numpy()
+            self._tick_add("host_fetch", time.perf_counter() - t_fetch)
             self.decode_seconds += time.perf_counter() - t0
-            self.n_ticks += 1
+            cb0 = self._tick_acc["callback_detok"]
+            t_commit = time.perf_counter()
             for slot, req in decoding:
+                # a slow client inside _accept_token is a wedge point the
+                # supervisor may abandon: stop the moment it moves on
+                if self._generation != gen:
+                    self._book_tick_wall(t_tick0)
+                    return False
                 # this tick wrote the slot's previous token at _lengths
                 self._lengths[slot] += 1
                 if not ok_host[slot]:
-                    self._fail_request(
+                    self._fail_non_finite(
                         slot, req,
                         f"non-finite logits at token {len(req.output_ids)}",
-                        non_finite=True)
+                        cache)
                     continue
                 self.decode_tokens += 1
-                self._accept_token(slot, req, int(nxt_host[slot]))
+                self._accept_token(slot, req, int(nxt_host[slot]), gen)
+            self._tick_add("sample_commit", max(
+                time.perf_counter() - t_commit
+                - (self._tick_acc["callback_detok"] - cb0), 0.0))
+            self._window_ticks += 1
+            self._book_tick_wall(t_tick0)
+            self._maybe_log_metrics()
             return True
 
     # holds: _lock
-    def _decode(self) -> torch.Tensor:
+    def _to_device(self, parts: list) -> torch.Tensor:
+        """The host arrays of one launch in one host-to-device copy. From
+        pageable memory the copy waits for the stream's earlier work, so a
+        busy device holds the tick here, past its last generation check."""
+        return torch.from_numpy(np.concatenate(parts)).to(self.device)
+
+    # holds: _lock
+    def _decode(self, cache: dict) -> torch.Tensor:
         """One decode step over every slot; tokens, lengths, the adapter
         rows (and the page table) go to the device in one copy. Returns fp32
         logits (S, V)."""
@@ -800,31 +1336,35 @@ class DecodeEngine:
         parts = [self._last_tokens, self._lengths, self._adapter_ids]
         if self._paged:
             parts.append(self._page_table.reshape(-1))
-        host = torch.from_numpy(np.concatenate(parts)).to(self.device)
+        host = self._to_device(parts)
         tokens, lengths = host[:S].long()[:, None], host[S:2 * S]
         adapter = self._adapter_arg(host[2 * S:3 * S])
         if not self._paged:
-            return decode_slots(self.model, tokens, lengths, self.cache,
+            return decode_slots(self.model, tokens, lengths, cache,
                                 adapter=adapter)
         table = host[3 * S:].view(S, -1)
         return paged_decode_slots(self.model, tokens, lengths, table,
-                                  self.cache, self._cache_len, adapter=adapter)
+                                  cache, self._cache_len, adapter=adapter)
 
     # holds: _lock
-    def _verify_tick(self, decoding: list) -> None:
+    def _verify_tick(self, decoding: list, gen: int, t_tick0: float,
+                     cache: dict) -> bool:
         """One speculative tick (the JAX ``_verify_tick``): k drafts per
         opted-in decoding slot from its own history, one verify forward
         over every slot, and each row's longest accepted run committed,
         1..k+1 tokens, cut at eos or the budget. Opted-out rows ride the
         same forward and commit one token. Mid-prefill and free rows ride as
         ignored rows, as in the decode tick. One device->host read: the
-        tokens, accepted counts and finite flags together."""
+        tokens, accepted counts and finite flags together. False on a
+        generation abort."""
         S, k = self.n_slots, self.spec_k
+        t_draft = time.perf_counter()
         drafts = np.zeros((S, k), np.int32)
         for slot, req in decoding:
             if req.params.spec:
                 drafts[slot] = self.drafter.propose(
                     self._hist[slot, :self._hist_len[slot]], k)
+        self._tick_add("draft", time.perf_counter() - t_draft)
         if self._paged:
             # the candidates land at lengths .. lengths + k; the headroom
             # keeps those columns inside the slot's table
@@ -835,7 +1375,7 @@ class DecodeEngine:
         parts = [tokens_in.reshape(-1), self._lengths, self._adapter_ids]
         if self._paged:
             parts.append(self._page_table.reshape(-1))
-        host = torch.from_numpy(np.concatenate(parts)).to(self.device)
+        host = self._to_device(parts)
         n = S * (k + 1)
         tokens = host[:n].long().view(S, k + 1)
         lengths = host[n:n + S]
@@ -843,25 +1383,38 @@ class DecodeEngine:
         if self._paged:
             table = host[n + 2 * S:].view(S, -1)
             logits = paged_verify_slots(self.model, tokens, lengths, table,
-                                        self.cache, self._cache_len,
+                                        cache, self._cache_len,
                                         adapter=adapter)
         else:
-            logits = verify_slots(self.model, tokens, lengths, self.cache,
+            logits = verify_slots(self.model, tokens, lengths, cache,
                                   adapter=adapter)
+        if self._generation == gen:
+            self.n_ticks += 1
         toks, n_acc, ok = accept_draft_tokens(
             logits, tokens[:, 1:], self._seeds, self._n_gen, self._temps,
             self._topks, self.max_top_k, self._generator)
-        back = torch.cat([toks.reshape(-1), n_acc, ok.long()]).cpu().numpy()
+        packed = torch.cat([toks.reshape(-1), n_acc, ok.long()])
+        self._tick_add("decode_dispatch", time.perf_counter() - t0)
+        if self._generation != gen:
+            self._book_tick_wall(t_tick0)
+            return False
+        t_fetch = time.perf_counter()
+        back = packed.cpu().numpy()
+        self._tick_add("host_fetch", time.perf_counter() - t_fetch)
         toks_host = back[:n].reshape(S, k + 1)
         n_acc_host, ok_host = back[n:n + S], back[n + S:]
         self.decode_seconds += time.perf_counter() - t0
-        self.n_ticks += 1
+        cb0 = self._tick_acc["callback_detok"]
+        t_commit = time.perf_counter()
         for slot, req in decoding:
+            if self._generation != gen:
+                self._book_tick_wall(t_tick0)
+                return False
             if not ok_host[slot]:
-                self._fail_request(
+                self._fail_non_finite(
                     slot, req,
                     f"non-finite logits at token {len(req.output_ids)}",
-                    non_finite=True)
+                    cache)
                 continue
             n_commit = 1
             if req.params.spec:
@@ -871,22 +1424,35 @@ class DecodeEngine:
                 req.spec_accepted += accepted
                 self.spec_tokens_drafted += k
                 self.spec_tokens_accepted += accepted
+                self._window_spec_drafted += k
+                self._window_spec_accepted += accepted
             for j in range(n_commit):
                 # each commit advances the row's valid prefix by one: this
                 # tick appended position j's k/v; the rejected tail lies
                 # past the prefix, masked and overwritten next tick
                 self._lengths[slot] += 1
                 self.decode_tokens += 1
-                self._accept_token(slot, req, int(toks_host[slot, j]))
+                self._accept_token(slot, req, int(toks_host[slot, j]), gen)
+                if self._generation != gen:
+                    self._book_tick_wall(t_tick0)
+                    return False
                 if req.done:
                     break           # eos, budget or a failed callback
+        self._tick_add("sample_commit", max(
+            time.perf_counter() - t_commit
+            - (self._tick_acc["callback_detok"] - cb0), 0.0))
+        self._window_ticks += 1
+        self._book_tick_wall(t_tick0)
+        self._maybe_log_metrics()
+        return True
 
     def run_until_idle(self) -> None:
         while self.step():
             pass
 
     # holds: _lock
-    def _accept_token(self, slot: int, req: Request, tok: int) -> None:
+    def _accept_token(self, slot: int, req: Request, tok: int,
+                      gen: int) -> None:
         eos = resolve_eos(req.params, self.cfg.eos_id)
         if eos is not None and tok == eos:
             # the eos token is dropped and the slot frees at this boundary
@@ -903,24 +1469,40 @@ class DecodeEngine:
             self._hist[slot, self._hist_len[slot]] = tok
             self._hist_len[slot] += 1
         self.tokens_generated += 1
+        self._window_tokens += 1
+        t0 = time.perf_counter()
         piece = ""
-        if self.tokenizer is not None or req.on_token is not None:
-            t0 = time.perf_counter()
-            try:
-                # the request's own host path: a fault here (a raising
-                # on_token, a tokenizer error on this output) fails it alone
+        try:
+            # the request's own host path: a fault here (a raising
+            # on_token, a tokenizer error on this output) fails it alone
+            if self.tokenizer is not None or req.on_token is not None:
                 piece = self._detok_piece(req)
                 if req.on_token is not None:
                     req.on_token(req, tok, piece)
-            except Exception as e:  # noqa: BLE001 — the client's fault, isolate it
-                self._fail_request(slot, req, f"token callback failed: {e!r}")
-                return
-            finally:
-                self.detok_seconds += time.perf_counter() - t0
-            if piece:
-                req._push_piece(piece)
+            self.hooks.after_token(req, tok)   # injected slow-client point
+        except Exception as e:  # noqa: BLE001 — the client's fault, isolate it
+            self._book_callback(req, t0)
+            if self._generation != gen:
+                return          # the restart already failed this request
+            self._fail_request(slot, req, f"token callback failed: {e!r}",
+                               reason="callback_error")
+            return
+        self._book_callback(req, t0)
+        if self._generation != gen:
+            # the callback is a wedge point: a thread returning from it
+            # after a restart must not finish or free slots it lost
+            return
+        if piece:
+            req._push_piece(piece)
         if len(req.output_ids) >= req.params.max_new_tokens:
             self._finish(slot, req, FINISH_LENGTH)
+
+    # holds: _lock
+    def _book_callback(self, req: Request, t0: float) -> None:
+        dt = time.perf_counter() - t0
+        self._tick_add("callback_detok", dt)
+        if self.tokenizer is not None or req.on_token is not None:
+            self.detok_seconds += dt
 
     #: tokens a partial multi-byte character may hold detokenization back
     #: before it commits anyway (bounds the tail decoded again per token)
@@ -964,20 +1546,26 @@ class DecodeEngine:
 
     # holds: _lock
     def _fail_request(self, slot: Optional[int], req: Request, msg: str,
-                      non_finite: bool = False) -> None:
-        """Fail ONE request and free its slot; the engine keeps serving. A
-        paged slot failed for non-finite logits has its private pages
-        zeroed before they return to the pool."""
+                      reason: str, finish: str = FINISH_ERROR) -> None:
+        """Fail ONE request and free its slot; the engine keeps serving.
+        ``reason`` is the machine-readable cause of the ``request_failed``
+        event (``_fail_non_finite`` scrubs the slot first)."""
         if slot is not None and self.scheduler.slots[slot] is req:
-            if self._paged and non_finite:
-                self._rewrite_slot_pages(slot, 0.0)
             self._free_slot(slot)
         req.error = msg
-        req.finish_reason = FINISH_ERROR
+        req.finish_reason = finish
         req.state = FINISHED
         req.t_finish = time.monotonic()
         self.requests_failed += 1
         self._count_adapter(req, "failed")
+        if req.params.deadline_s is not None and finish != FINISH_CANCELLED:
+            # a failure misses the SLO; a client's cancel does not count
+            self.slo_window.observe(miss=True)
+        self._ev("request_failed", request_id=req.id, reason=reason,
+                 error=msg, slot=slot, n_tokens=len(req.output_ids),
+                 adapter=req.params.adapter)
+        self._emit_span(req)
+        logger.warning("Request %d failed (%s): %s", req.id, reason, msg)
         req._mark_done()
         with self._work:
             self._work.notify_all()
@@ -992,28 +1580,147 @@ class DecodeEngine:
         req.finish_reason = reason
         req.t_finish = time.monotonic()
         if self.scheduler.slots[slot] is req:
+            # the final committed length is the request's peak
+            req.kv_bytes_peak = (int(self._lengths[slot])
+                                 * self._kv_bytes_per_token)
             self._free_slot(slot)
         self.requests_finished += 1
         self._count_adapter(req, "finished")
+        self._observe_service_time(req)
+        for hist, val in ((self.ttft_hist, req.ttft_s()),
+                          (self.tpot_hist, req.tpot_s()),
+                          (self.queue_wait_hist, req.queue_wait_s()),
+                          (self.e2e_hist, req.e2e_s())):
+            if val is not None:
+                hist.observe(val)
+        if req.params.deadline_s is not None:
+            # a completion past its deadline is a miss too
+            self.slo_window.observe(
+                miss=(req.e2e_s() or 0.0) > req.params.deadline_s)
+        sink = get_metrics()
+        self._ev("request_done", **req.summary())
+        self._emit_span(req)
+        sink.gauge("slot_occupancy", self.scheduler.occupancy())
+        sink.gauge("queue_depth", len(self.queue))
         req._mark_done()
         with self._work:
             self._work.notify_all()
 
-    # -- background loop --------------------------------------------------
+    # holds: _lock
+    def _maybe_log_metrics(self) -> None:
+        """Every ``metrics_every`` decode ticks: one ``metrics`` row (the
+        window's decode rate and tick-phase breakdown, the gauges) and the
+        memory ledger's snapshot. Host arithmetic only."""
+        if self.metrics_every <= 0 or self.n_ticks % self.metrics_every:
+            return
+        now, now_wall = time.monotonic(), time.time()
+        dt = max(now - self._window_t0, 1e-9)
+        sink = get_metrics()
+        sink.gauge("slot_occupancy", self.scheduler.occupancy())
+        sink.gauge("queue_depth", len(self.queue))
+        sink.gauge("draining", 1.0 if self._draining else 0.0)
+        slo = self.slo_window.ratio()
+        if slo is not None:
+            sink.gauge("slo_miss_ratio", round(slo, 6))
+        phases = {f"tick_{ph}_s": round(self._tick_acc[ph], 6)
+                  for ph in TICK_PHASES}
+        kv = {}
+        if self._chunk > 0:
+            kv["prefill_chunks"] = self._window_prefill_chunks
+        if self.spec_k:
+            kv["spec_drafted"] = self._window_spec_drafted
+            kv["spec_accepted"] = self._window_spec_accepted
+        sink.log_metrics(self.n_ticks,
+                         serve_tok_s=round(self._window_tokens / dt, 2),
+                         requests_finished=self.requests_finished,
+                         tokens_generated=self.tokens_generated,
+                         ticks_in_window=self._window_ticks,
+                         win_t0=round(self._win_t0_wall, 6),
+                         win_dur_s=round(now_wall - self._win_t0_wall, 6),
+                         tick_total_s=round(self._tick_acc_total, 6),
+                         **phases, **kv)
+        self._window_tokens = 0
+        self._window_t0 = now
+        self._window_ticks = 0
+        self._win_t0_wall = now_wall
+        self._window_prefill_chunks = 0
+        self._window_spec_drafted = 0
+        self._window_spec_accepted = 0
+        self._tick_acc = {ph: 0.0 for ph in TICK_PHASES}
+        self._tick_acc_total = 0.0
+        self.memory_ledger.observe(self.n_ticks)
+
+    # -- warm-up and the background loop ------------------------------------
+
+    def warmup(self) -> None:
+        """Load (building if needed) the kernel library before serving, so
+        the first request pays no nvcc, and re-base ``n_recompiles``: from
+        here a build or load counts as one. Emits ``serve_warmup``."""
+        t0 = time.monotonic()
+        if self.device.type == "cuda":
+            from building_llm_from_scratch_tpu_torch.ops._kernels import (
+                load_library,
+            )
+
+            load_library()
+        with self._lock:
+            self._kernel_base = self._kernel_count()
+            self._window_t0 = time.monotonic()
+            self._win_t0_wall = time.time()
+            self._window_tokens = 0
+            self.warmed_up = True
+        kv_fields = self.kv_policy.describe()
+        if self._paged:
+            kv_fields["pool_pages"] = self.page_pool.n_pages - 1
+        spec = ({"spec_k": self.spec_k, "drafter": self.drafter.describe()}
+                if self.spec_k else {})
+        self._ev("serve_warmup", seconds=round(time.monotonic() - t0, 3),
+                 n_slots=self.n_slots, max_len=self.max_len,
+                 kv_bytes_per_slot=self.kv_policy.bytes_per_slot(
+                     self.cfg, self._cache_len)["total_bytes"],
+                 **kv_fields, **spec)
 
     def start(self) -> None:
-        """Run ticks on one background thread until ``shutdown()``."""
+        """Run ticks on one background thread until ``shutdown()`` (with
+        the supervisor's watchdog when ``tick_timeout_s`` > 0)."""
         if self._thread is not None:
             return
         self._stop.clear()
+        if self.supervisor is not None:
+            self.supervisor.start()
+        self._spawn_loop()
+
+    #: an external per-tick heartbeat (``--stall_timeout``'s flight
+    #: recorder without the supervisor)
+    _heartbeat = None
+
+    def set_heartbeat(self, fn) -> None:
+        self._heartbeat = fn
+
+    def _spawn_loop(self) -> None:
+        """Start one loop thread bound to the current generation; a thread
+        a restart superseded returns at its next check."""
+        gen = self._generation
 
         def loop():
-            while not self._stop.is_set():
+            while not self._stop.is_set() and self._generation == gen:
+                if self.supervisor is not None:
+                    self.supervisor.notify_tick()
+                if self._heartbeat is not None:
+                    self._heartbeat()
                 try:
                     progressed = self.step()
-                except Exception as e:  # noqa: BLE001 — fail loudly, not silently
-                    self._fail_all(f"engine loop error: {e!r}")
-                    raise
+                except Exception as e:  # noqa: BLE001 — never die silently
+                    if self._generation != gen:
+                        return          # superseded: not ours to handle
+                    logger.exception("decode-engine loop died")
+                    # a batch-wide fault: with a supervisor and budget left
+                    # fail the in-flight batch and come back up
+                    if self.supervisor is None or not self._restart(
+                            reason="loop_error",
+                            detail=f"engine loop error: {e!r}"):
+                        self._fail_all(f"engine loop error: {e!r}")
+                    return
                 if not progressed:
                     with self._work:
                         self._work.wait(timeout=0.05)
@@ -1022,20 +1729,208 @@ class DecodeEngine:
                                         daemon=True)
         self._thread.start()
 
+    def _restart(self, reason: str, detail: str = "") -> bool:
+        """The supervisor's recovery: abandon the (possibly wedged) loop
+        thread, fail the in-flight requests, keep the queue, allocate a
+        fresh cache (and, paged, a fresh pool with an emptied prefix
+        store) under fresh sync primitives, and start a new loop after an
+        exponential backoff. The loaded kernel library is kept: no build.
+        False once the budget is spent (the caller escalates to
+        ``_fail_all``)."""
+        with self._restart_lock:
+            if self._dead is not None or self._stop.is_set():
+                return False
+            if self.n_restarts >= self.max_restarts:
+                return False
+            self.n_restarts += 1
+            n_restart = self.n_restarts
+            # bump first: the wedged thread checks it at every commit point
+            self._generation += 1
+            # the abandoned thread may hold the old lock forever
+            self._lock = threading.RLock()
+            self._work = threading.Condition()
+            failed_ids = []
+            with self._lock:
+                for slot, req in self.scheduler.active():
+                    self._fail_request(
+                        slot, req, f"engine restarted ({reason}): {detail}",
+                        reason="engine_restart")
+                    failed_ids.append(req.id)
+                for a in (self._lengths, self._last_tokens, self._n_gen,
+                          self._seeds, self._temps, self._topks,
+                          self._hist_len):
+                    a[:] = 0
+                self._adapter_ids[:] = -1
+                self._prefill_state.clear()
+                # the old cache may be half-written; the new one has the
+                # same shapes, so every kernel takes it as it took the old
+                self.cache = init_slot_cache(self.cfg, self.n_slots,
+                                             self._cache_len, self.device,
+                                             policy=self.kv_policy)
+                if self._paged:
+                    # stored entries reference the old pool's pages
+                    if self.prefix_store is not None:
+                        self.prefix_store.clear()
+                    self.page_pool = PagePool(
+                        self.kv_policy.total_pool_pages(self.n_slots,
+                                                        self._cache_len),
+                        self.kv_policy.page_bytes(self.cfg))
+                    if self.prefix_store is not None:
+                        self.prefix_store.page_pool = self.page_pool
+                    self._page_table[:] = 0
+                    self._slot_cols[:] = 0
+                    self._pages_reserved[:] = 0
+            backoff = self.restart_backoff_s * (2.0 ** (n_restart - 1))
+            self._ev("engine_restart", reason=reason, detail=detail,
+                     n_restart=n_restart, max_restarts=self.max_restarts,
+                     backoff_s=round(backoff, 3),
+                     n_inflight_failed=len(failed_ids),
+                     failed_request_ids=failed_ids,
+                     queue_depth=len(self.queue))
+            logger.error("Engine restart %d/%d (%s): failed %d in-flight "
+                         "request(s), kept %d queued; backoff %.2fs.",
+                         n_restart, self.max_restarts, reason,
+                         len(failed_ids), len(self.queue), backoff)
+            time.sleep(backoff)
+            if self._thread is not None:
+                self._spawn_loop()
+        return True
+
     def _fail_all(self, msg: str) -> None:
-        with self._lock:
-            self._error = msg
+        """Fail every in-flight and queued request and mark the engine dead
+        (later ``submit`` calls raise). A timed acquire: the supervisor's
+        escalation runs while a wedged tick holds the lock; on timeout the
+        wedged loop is retired by a generation bump and fresh primitives."""
+        lock = self._lock
+        locked = lock.acquire(timeout=5.0)
+        try:
+            if not locked:
+                with self._restart_lock:
+                    self._generation += 1
+                    self._lock = threading.RLock()
+                    self._work = threading.Condition()
+            self._dead = msg
+            failed_ids = []
+
+            def kill(req, slot=None):
+                req.error = msg
+                req.finish_reason = FINISH_ERROR
+                req.state = FINISHED
+                req.t_finish = time.monotonic()
+                self.requests_failed += 1
+                self._ev("request_failed", request_id=req.id,
+                         reason="engine_dead", error=msg, slot=slot,
+                         n_tokens=len(req.output_ids))
+                self._emit_span(req)
+                req._mark_done()
+                failed_ids.append(req.id)
+
             for slot, req in self.scheduler.active():
-                self._fail_request(slot, req, msg)
+                self.scheduler.retire(slot)
+                kill(req, slot)
             while (req := self.queue.get_nowait()) is not None:
-                self._fail_request(None, req, msg)
+                kill(req)
+            self._ev("serve_error", error=msg, n_failed=len(failed_ids),
+                     failed_request_ids=failed_ids)
+        finally:
+            if locked:
+                lock.release()
+        with self._work:
+            self._work.notify_all()
+
+    # -- cancel and graceful drain ------------------------------------------
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def cancel(self, req: Request) -> bool:
+        """The client gave up on ``req``: a queued request fails now, a
+        running one is retired at the next tick boundary. False when it is
+        already done. The queued path takes the lock with a timeout: on
+        timeout (a wedged tick) the request, already out of the queue, is
+        failed without it."""
+        if req.done:
+            return False
+        req._cancelled = True
+        if req.state == QUEUED and self.queue.remove(req):
+            lock = self._lock
+            locked = lock.acquire(timeout=2.0)
+            try:
+                self._fail_request(None, req, "cancelled while queued",
+                                   reason="cancelled", finish=FINISH_CANCELLED)
+            finally:
+                if locked:
+                    lock.release()
+        with self._work:
+            self._work.notify()
+        return True
+
+    def drain(self, timeout: float = 30.0) -> dict:
+        """Graceful drain: close admission (``submit`` raises
+        ``EngineDrainingError``), let in-flight and queued work finish
+        within ``timeout`` seconds, then fail the rest ``preempted``.
+        Idempotent, from any thread. The sweep's lock is taken with a
+        timeout: a wedged tick is retired by a generation bump instead of
+        hanging the drain. Returns the ``drain`` end event's fields."""
+        t0 = time.monotonic()
+        already = self._draining
+        self._draining = True           # a bool store: wedge-safe
+        if not already:
+            self._ev("drain", phase="start", timeout_s=timeout,
+                     n_active=self.scheduler.n_active,
+                     queue_depth=len(self.queue))
+            logger.warning("Draining: admission closed; finishing %d "
+                           "in-flight + %d queued request(s) within %.1fs.",
+                           self.scheduler.n_active, len(self.queue), timeout)
+        deadline = t0 + timeout
+        if self._thread is not None:
+            while (time.monotonic() < deadline
+                   and (self.scheduler.n_active or len(self.queue))
+                   and self._thread.is_alive() and self._dead is None):
+                time.sleep(0.01)
+        else:
+            while time.monotonic() < deadline and self.step():
+                pass
+        preempted = 0
+        lock = self._lock
+        lock_wait = min(5.0, max(0.1, timeout))
+        locked = lock.acquire(timeout=lock_wait)
+        try:
+            if not locked:
+                logger.error("Drain: decode tick wedged (lock held > %.1fs); "
+                             "abandoning it.", lock_wait)
+                with self._restart_lock:
+                    self._generation += 1
+                    self._lock = threading.RLock()
+                    self._work = threading.Condition()
+            msg = f"preempted: drain timeout {timeout}s elapsed"
+            for slot, req in self.scheduler.active():
+                self._fail_request(slot, req, msg, reason="preempted",
+                                   finish=FINISH_PREEMPTED)
+                preempted += 1
+            while (req := self.queue.get_nowait()) is not None:
+                self._fail_request(None, req, msg, reason="preempted",
+                                   finish=FINISH_PREEMPTED)
+                preempted += 1
+        finally:
+            if locked:
+                lock.release()
+        summary = {"phase": "end", "n_preempted": preempted,
+                   "seconds": round(time.monotonic() - t0, 3),
+                   "requests_finished": self.requests_finished}
+        self._ev("drain", **summary)
+        logger.warning("Drain complete in %.2fs (%d preempted).",
+                       summary["seconds"], preempted)
+        return summary
 
     def shutdown(self, drain: bool = True) -> None:
-        """Stop the loop; with ``drain`` finish everything queued first."""
+        """Stop the loop (and the supervisor); with ``drain`` finish
+        everything queued first. Emits ``serve_summary``."""
         if self._thread is not None:
             if drain:
                 while ((self.scheduler.n_active or len(self.queue))
-                       and self._thread.is_alive()):
+                       and self._thread.is_alive() and self._dead is None):
                     time.sleep(0.005)
             self._stop.set()
             with self._work:
@@ -1046,6 +1941,9 @@ class DecodeEngine:
             self._thread = None
         elif drain:
             self.run_until_idle()
+        if self.supervisor is not None:
+            self.supervisor.stop()
+        self._ev("serve_summary", **self.stats())
 
     # holds: _lock
     def _cache_component_bytes(self) -> dict:
@@ -1072,13 +1970,19 @@ class DecodeEngine:
                 "requests_finished": self.requests_finished,
                 "requests_rejected": self.requests_rejected,
                 "requests_failed": self.requests_failed,
+                "requests_shed": self.requests_shed,
+                "requests_expired": self.requests_expired,
                 "tokens_generated": self.tokens_generated,
                 "decode_tokens": self.decode_tokens,
                 "n_ticks": self.n_ticks,
+                "n_recompiles": self.n_recompiles,
+                "n_restarts": self.n_restarts,
+                "draining": self._draining,
                 "prefill_seconds": self.prefill_seconds,
                 "decode_seconds": self.decode_seconds,
                 "kv_policy": self.kv_policy.describe(),
                 "kv_bytes": self._cache_component_bytes(),
+                "memory": self.memory_ledger.describe(),
             }
             if self.spec_k:
                 out["spec_k"] = self.spec_k
@@ -1102,4 +2006,170 @@ class DecodeEngine:
                 out["page_pool"] = self.page_pool.stats()
             if self.prefix_store is not None:
                 out["prefix_store"] = self.prefix_store.stats()
-            return out
+            slo = self.slo_window.ratio()
+            if slo is not None:
+                out["slo_miss_ratio"] = round(slo, 6)
+        for name, hist in (("ttft_s", self.ttft_hist),
+                           ("tpot_s", self.tpot_hist),
+                           ("queue_wait_s", self.queue_wait_hist),
+                           ("e2e_s", self.e2e_hist)):
+            pct = hist.percentiles((50, 95, 99))
+            if pct:
+                out[name] = pct
+        return out
+
+    def uptime_s(self) -> float:
+        return time.monotonic() - self._t_start_mono
+
+    def queue_capacity(self) -> int:
+        """The bounded queue's capacity (the 429 payload's field)."""
+        return self.queue.max_size
+
+    def metrics_snapshot(self) -> tuple:
+        """(counters, gauges, histograms) of ``/metrics`` and ``/healthz``
+        (the JAX engine's keys). A timed acquire: a wedged tick holding the
+        lock must not hang the scrape (the reads are then stale but
+        safe)."""
+        lock = self._lock
+        locked = lock.acquire(timeout=0.5)
+        try:
+            counters = {
+                "requests_finished": self.requests_finished,
+                "requests_failed": self.requests_failed,
+                "requests_rejected": self.requests_rejected,
+                "requests_shed": self.requests_shed,
+                "requests_expired": self.requests_expired,
+                "tokens_generated": self.tokens_generated,
+                "engine_restarts": self.n_restarts,
+                "engine_ticks": self.n_ticks,
+                "recompiles": self.n_recompiles,
+                "tick_busy_seconds": round(self.tick_seconds_total, 6),
+            }
+            for ph in TICK_PHASES:
+                counters[f"tick_{ph}_seconds"] = round(
+                    self.tick_phase_totals[ph], 6)
+            store = self.prefix_store
+            if store is not None:
+                counters["prefix_hits"] = store.n_hits
+                counters["prefix_misses"] = store.n_misses
+                counters["prefix_evictions"] = store.n_evictions
+                counters["prefix_inserts"] = store.n_inserts
+            if self.spec_k:
+                counters["spec_tokens_drafted"] = self.spec_tokens_drafted
+                counters["spec_tokens_accepted"] = self.spec_tokens_accepted
+            adapter_active: dict = {}
+            for _slot, r in self.scheduler.active():
+                nm = r.params.adapter or BASE_ADAPTER
+                adapter_active[nm] = adapter_active.get(nm, 0) + 1
+            for nm, c in sorted(self._adapter_counts.items()):
+                lbl = f'{{adapter="{nm}"}}'
+                counters[f"adapter_requests_finished{lbl}"] = c["finished"]
+                counters[f"adapter_requests_failed{lbl}"] = c["failed"]
+                counters[f"adapter_tokens_generated{lbl}"] = c["tokens"]
+            gauges = {
+                "slot_occupancy": self.scheduler.occupancy(),
+                "slots_active": self.scheduler.n_active,
+                "slots_total": self.n_slots,
+                "queue_depth": len(self.queue),
+                "queue_capacity": self.queue.max_size,
+                "draining": 1.0 if self._draining else 0.0,
+                "engine_up": 0.0 if self._dead is not None else 1.0,
+                "uptime_seconds": round(self.uptime_s(), 3),
+            }
+            for nm, n_act in sorted(adapter_active.items()):
+                gauges[f'adapter_slots_active{{adapter="{nm}"}}'] = n_act
+            if self.adapters is not None:
+                gauges["adapters_loaded"] = self.adapters.n_loaded
+                gauges["adapter_capacity"] = self.adapters.capacity
+            gauges["kv_bytes_per_slot"] = self.kv_policy.bytes_per_slot(
+                self.cfg, self._cache_len)["total_bytes"]
+            if self._paged:
+                ps = self.page_pool.stats()
+                gauges["kv_pages_total"] = ps["n_pages"]
+                gauges["kv_pages_used"] = ps["used"]
+                gauges["kv_pages_free"] = ps["free"]
+                gauges["kv_pages_reserved"] = ps["reserved"]
+                gauges["kv_pages_peak_used"] = ps["peak_used"]
+                gauges["kv_page_bytes"] = ps["page_bytes"]
+            if self.spec_k:
+                gauges["spec_k"] = self.spec_k
+                gauges["spec_acceptance_ratio"] = round(
+                    self.spec_tokens_accepted
+                    / max(self.spec_tokens_drafted, 1), 6)
+            if store is not None:
+                looked = store.n_hits + store.n_misses
+                gauges["prefix_hit_ratio"] = (
+                    round(store.n_hits / looked, 6) if looked else 0.0)
+                gauges["prefix_entries"] = store.n_entries
+                gauges["prefix_bytes"] = store.bytes_total
+            self.memory_ledger.snapshot()
+            gauges.update(self.memory_ledger.gauges())
+            slo = self.slo_window.ratio()
+            gauges["slo_miss_ratio"] = round(slo, 6) if slo is not None else 0.0
+            hists = {"ttft_seconds": self.ttft_hist,
+                     "tpot_seconds": self.tpot_hist,
+                     "queue_wait_seconds": self.queue_wait_hist,
+                     "e2e_seconds": self.e2e_hist,
+                     "tick_prefill_seconds": self.tick_prefill_hist}
+        finally:
+            if locked:
+                lock.release()
+        return counters, gauges, hists
+
+    def prometheus_text(self) -> str:
+        """The ``GET /metrics`` body (Prometheus text exposition 0.0.4)."""
+        counters, gauges, hists = self.metrics_snapshot()
+        return render_prometheus(counters, gauges, hists, prefix="bllm_serve_")
+
+    def healthz_payload(self) -> dict:
+        """The ``GET /healthz`` body: serving, draining or dead, and a
+        structured snapshot."""
+        if self._dead is not None:
+            status = "dead"
+        elif self._draining:
+            status = "draining"
+        else:
+            status = "serving"
+        counters, gauges, _ = self.metrics_snapshot()
+        return {
+            "status": status,
+            "slots": self.n_slots,
+            "active": self.scheduler.n_active,
+            "queue_depth": len(self.queue),
+            "queue_capacity": self.queue.max_size,
+            "warmed_up": self.warmed_up,
+            "draining": self._draining,
+            "restarts": self.n_restarts,
+            "uptime_s": round(self.uptime_s(), 3),
+            "n_ticks": counters["engine_ticks"],
+            "occupancy": self.scheduler.occupancy(),
+            "slo_miss_ratio": gauges.get("slo_miss_ratio"),
+            "counters": counters,
+        }
+
+
+def service_estimate(queue_depth: int, n_active: int, n_slots: int,
+                     tpot_ewma: Optional[float], tokens_ewma: Optional[float],
+                     max_new_tokens: int) -> Optional[float]:
+    """The SLO completion estimate (the JAX formula): the backlog (queue
+    position plus the running requests, counted half done) spread over the
+    slots times the EWMA service time of a request, plus the request's own
+    budget at the EWMA TPOT. None without service history (admission stays
+    optimistic)."""
+    if tpot_ewma is None or tokens_ewma is None:
+        return None
+    per_request = tokens_ewma * tpot_ewma
+    backlog = queue_depth + 0.5 * n_active
+    wait = (backlog / max(n_slots, 1)) * per_request
+    return wait + max_new_tokens * tpot_ewma
+
+
+def queue_clear_estimate(queue_depth: int, n_active: int, n_slots: int,
+                         tpot_ewma: Optional[float],
+                         tokens_ewma: Optional[float]) -> Optional[float]:
+    """Rough seconds until a backlog drains (the Retry-After value)."""
+    if tpot_ewma is None or tokens_ewma is None:
+        return None
+    per_request = tokens_ewma * tpot_ewma
+    backlog = queue_depth + n_active
+    return round((backlog / max(n_slots, 1)) * per_request, 3)

@@ -488,6 +488,18 @@ class PrefixStore:
             for p in victim.pages:
                 self.page_pool.decref(p)
 
+    def clear(self) -> None:
+        """Drop every entry, returning paged entries' page references. The
+        paged engine's restart calls it: the entries reference pages of
+        the pool being replaced (a contiguous store's own pane copies
+        survive a restart)."""
+        with self._lock:
+            victims = list(self._entries.values())
+            self._entries.clear()
+            self.bytes_total = 0
+        for victim in victims:
+            self._release_victim_pages(victim)
+
     @property
     def n_entries(self) -> int:
         with self._lock:

@@ -1,10 +1,10 @@
 """Bounded FIFO request queue with explicit backpressure (port of the JAX
-package's ``serving/queue.py``, without the drain and SLO-shed errors, and
-without ``remove``/``peek``).
+package's ``serving/queue.py``).
 
-``put`` on a full queue either rejects at once (``QueueFullError``) or
-blocks until admission drains the queue (the JSONL frontend's
-backpressure)."""
+``put`` on a full queue either rejects at once (``QueueFullError``, HTTP
+429) or blocks until admission drains the queue (the JSONL frontend's
+backpressure). ``remove`` takes one queued request out (a client's
+cancel); the typed errors carry what the HTTP frontend maps to a status."""
 
 from __future__ import annotations
 
@@ -17,6 +17,27 @@ from building_llm_from_scratch_tpu_torch.serving.request import Request
 
 class QueueFullError(Exception):
     """The bounded request queue is at capacity."""
+
+
+class SLOShedError(Exception):
+    """Admission predicted the request would miss its deadline (queue
+    position x the live service estimate), so ``submit`` refused it: a
+    429 now instead of a 504 later. ``retry_after_s`` estimates when the
+    backlog will have drained enough to try again."""
+
+    def __init__(self, msg: str, retry_after_s: Optional[float] = None):
+        super().__init__(msg)
+        self.retry_after_s = retry_after_s
+
+
+class EngineDrainingError(Exception):
+    """The engine is draining (SIGTERM or shutdown): admission is closed
+    while in-flight work finishes. The HTTP frontend answers 503 with
+    Retry-After."""
+
+    def __init__(self, msg: str, retry_after_s: Optional[float] = None):
+        super().__init__(msg)
+        self.retry_after_s = retry_after_s
 
 
 class PromptTooLongError(ValueError):
@@ -77,3 +98,18 @@ class RequestQueue:
             req = self._q.popleft()
             self._not_full.notify()
             return req
+
+    def remove(self, req: Request) -> bool:
+        """Drop one queued request (a client's cancel). False when it is not
+        queued (already admitted or popped)."""
+        with self._not_full:
+            try:
+                self._q.remove(req)
+            except ValueError:
+                return False
+            self._not_full.notify()
+            return True
+
+    def peek(self) -> Optional[Request]:
+        with self._lock:
+            return self._q[0] if self._q else None

@@ -11,7 +11,7 @@ under load.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 from building_llm_from_scratch_tpu_torch.serving.queue import RequestQueue
 from building_llm_from_scratch_tpu_torch.serving.request import Request
@@ -34,14 +34,24 @@ class Scheduler:
     def active(self) -> List[Tuple[int, Request]]:
         return [(i, r) for i, r in enumerate(self.slots) if r is not None]
 
-    def admit_from(self, queue: RequestQueue) -> List[Tuple[int, Request]]:
+    def occupancy(self) -> float:
+        return self.n_active / self.n_slots
+
+    def admit_from(self, queue: RequestQueue,
+                   skip: Optional[Callable[[Request], bool]] = None
+                   ) -> List[Tuple[int, Request]]:
         """FCFS: fill free slots from the queue head; returns the
-        (slot, request) pairs admitted this boundary."""
+        (slot, request) pairs admitted this boundary. ``skip`` is the
+        admission-boundary shed hook: a popped request for which it returns
+        True is dropped without taking a slot (the engine's deadline expiry
+        and cancel; the hook finishes the request)."""
         admitted: List[Tuple[int, Request]] = []
         while self._free:
             req = queue.get_nowait()
             if req is None:
                 break
+            if skip is not None and skip(req):
+                continue
             slot = self._free.pop(0)
             self.slots[slot] = req
             admitted.append((slot, req))

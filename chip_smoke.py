@@ -76,10 +76,10 @@ exits non-zero):
      prompt decoding 4,200 tokens (its row ends past 8,192) beside a
      512-token one decoding 64. Every budget finishes, B5 = layers x
      ticks, every tick's logits are finite.
-     After phase 6s, the trained adapter's serving (4c), 4d, and 4s / 4q's
-     gates run while phases 7s / 7 / 7m run in a second process
+     After phase 6s, the trained adapter's serving (4c), 4d, and 4s / 4q /
+     4o's gates run while phases 7s / 7 / 7m run in a second process
      (``chip_smoke.py --references``, ``references_beside``); they take
-     no timing there, and 4s / 4q's times are taken after it ends.
+     no timing there, and 4s / 4q / 4o's times are taken after it ends.
      4s. speculative decoding: LLaMA-3.2-1B (bf16) and GPT-2-124M (fp32)
      at full depth, 8 slots of 1024, 8 templated requests (a shared
      128-token system span, a 24-token field repeated three times) of 128
@@ -102,6 +102,31 @@ exits non-zero):
      there, teacher-forced), the slots an 8 GB KV budget holds under each
      policy; LLaMA-3.2-1B int8 with phase 4c's three adapters on the
      contiguous tick: B6 = adapted projections x layers x ticks, by shape.
+     4o. serving operations, LLaMA-3.2-1B bf16 at full depth, 8 slots of
+     1024: contiguous then paged, 8 greedy requests fault-free and again
+     beside a poison prefill and a NaN-poisoned slot (``FaultHooks``):
+     each poison fails alone, the co-residents' tokens are the fault-free
+     run's bit for bit, a request re-served in the freed slot gets its
+     tokens, B5 / B7 = layers x ticks; the HTTP frontend on loopback probed
+     row by row against the JAX frontend's status map (413, 400, 404, 429
+     with Retry-After, 503 while draining, 200); a hung tick with no
+     restart budget turns ``/healthz`` to ``dead`` (POST 500); the paged
+     engine's eviction under a byte budget holding one system prompt, its
+     admission bounce on a pool of two worst-case rows (greedy tokens those
+     of the unconstrained run) and adapter hot-load and evict under load
+     (B6 = 7 x layers x ticks by shape; an evicted adapter's in-flight rows
+     bit-equal to it served alone, its queued request failed alone, a
+     submit naming it refused); GPT-2-124M fp32 through ``--mode serve
+     --metrics_jsonl`` in a child process, SIGTERM after the first line:
+     exit 0, every line written, a ``drain`` start / end in the JSONL.
+     After the references: the hung tick under the watchdog
+     (``--serve_tick_timeout`` 1 s) contiguous and paged: 8 in-flight
+     failed, 2 queued served with their fault-free tokens, 0 kernel builds
+     or loads, seconds from the fire to the first token, the peak it adds;
+     tick ms with the supervisor on and off (off / on / on / off), drain
+     seconds over 16 requests, the HTTP round trip against a direct submit
+     and the ``/metrics`` scrape. The card tests hold B5 and B7 against
+     their twins with a NaN row and NaN tails (tests/test_torch_cuda.py).
   5. flash-attention kernels vs twins: forward (B1), dq (B2a) and dk/dv
      summed over each kv head's query heads (B2b, (B, T, Hkv, D); its twin
      is the per-query-head twin followed by group_sum) at LLaMA-3.2-1B's
@@ -314,8 +339,10 @@ exits non-zero):
   9. the bytes the script and its reference process wrote to disk, the
      ``kernels`` line (one row per kernel and shape, each with the launches
      of the run at that shape; B6 by projection shape from phase 4c, with
-     4q's int8 adapter run as ``launches_4q``; B5's and B7's rows add 4s's
-     spec-off runs as ``launches_4s``, B5's 8w's and 9t's CLI launches, the training rows 8r's, 6m's, 6h's, 6r's, 9t's,
+     4q's int8 adapter run as ``launches_4q`` and 4o's hot-load run as
+     ``launches_4o``; B5's and B7's rows add 4s's spec-off runs as
+     ``launches_4s`` and 4o's isolation and restart runs as
+     ``launches_4o``, B5's 8w's and 9t's CLI launches, the training rows 8r's, 6m's, 6h's, 6r's, 9t's,
      10d's and 10s's, per rank for the gloo ranks; the tp-shape rows read
      10t's rank 0), then the card line and the result line.
 
@@ -4415,6 +4442,755 @@ def phase_serve_spec_timing(torch) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4o: serving operations
+# ---------------------------------------------------------------------------
+
+#: LLaMA-3.2-1B bf16 at full depth on 8 slots of 1024, phase 4's weights;
+#: the GPT-2-124M fp32 CLI run; the gates' requests and the watchdog
+OPS_MODEL = dict(label="llama3_2-1B", model="llama3_2", size="1B", dtype="bf16",
+                 context=1024, slots=8)
+OPS_CLI = dict(model="GPT2", size="124M", dtype="fp32", context=1024, slots=8,
+               requests=24, new=64)
+OPS_NEW, OPS_TICK_TIMEOUT = 32, 1.0
+#: first prompt token of the poison requests (the gates' prompts start >= 16)
+OPS_POISON_PREFILL, OPS_POISON_NAN = 3, 5
+#: the JAX frontend's status for each probe of ``http_status_map``
+#: (``tests/test_torch_serving_ops.py`` holds the two frontends equal)
+HTTP_MAP = [413, 400, 400, 400, 400, 400, 413, 400, 200, 404, 429, 503]
+
+
+def ops_requests(cfg, seed: int, n: int = 8, new: int = OPS_NEW) -> list:
+    """n greedy requests, prompts of 16-256 tokens (first token >= 16),
+    ``new`` new tokens, eos ignored."""
+    import numpy as np
+
+    from building_llm_from_scratch_tpu_torch.serving.request import (
+        SamplingParams,
+    )
+
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(16, cfg.vocab_size, int(rng.integers(16, 257))).tolist(),
+             SamplingParams(max_new_tokens=new, seed=3000 + i, ignore_eos=True))
+            for i in range(n)]
+
+
+def ops_hooks():
+    """Fault hooks of the gates: the two poison marks, a hang the next tick
+    takes (``hang`` set; it waits on ``release``), and a gate at the first
+    accepted token (``first`` set; that thread waits for ``go``)."""
+    import threading
+
+    from building_llm_from_scratch_tpu_torch.serving.supervisor import (
+        FaultHooks,
+    )
+
+    class Hooks(FaultHooks):
+        def __init__(self, gate_first=False):
+            self.hang, self.release = threading.Event(), threading.Event()
+            self.first, self.go = threading.Event(), threading.Event()
+            self.gate_first = gate_first
+
+        def before_tick(self, engine):
+            if self.hang.is_set():
+                self.hang.clear()
+                self.release.wait(60)
+
+        def before_prefill(self, req):
+            if int(req.prompt_ids[0]) == OPS_POISON_PREFILL:
+                raise RuntimeError("injected prefill fault")
+
+        def poison_nan(self, req):
+            return int(req.prompt_ids[0]) == OPS_POISON_NAN
+
+        def after_token(self, req, tok):
+            if self.gate_first and not self.first.is_set():
+                self.first.set()
+                self.go.wait(60)
+
+    return Hooks
+
+
+def ops_engine(model, policy=None, **kw):
+    from building_llm_from_scratch_tpu_torch.serving.engine import DecodeEngine
+
+    return DecodeEngine(model, n_slots=OPS_MODEL["slots"],
+                        max_len=OPS_MODEL["context"], max_queue=64,
+                        kv_policy=policy, **kw)
+
+
+def ops_isolation(torch, model, cfg, paged: bool, requests: list) -> dict:
+    """A fault-free run, then the same traffic with a poison prefill and a
+    NaN-poisoned slot admitted after the first tick: each fails alone, the
+    co-residents' tokens are the fault-free run's bit for bit, a request
+    re-served in the freed slots gets its fault-free tokens, and B5 (B7
+    when paged) = layers x decode ticks in both runs."""
+    from building_llm_from_scratch_tpu_torch.ops import decode_step as tds
+    from building_llm_from_scratch_tpu_torch.serving.request import (
+        SamplingParams,
+    )
+
+    kernel = tds.paged_decode_attention if paged else tds.fused_decode_step
+    other = tds.fused_decode_step if paged else tds.paged_decode_attention
+    policy = paged_policy(True) if paged else None
+    Hooks = ops_hooks()
+
+    def run(poison: bool):
+        eng = ops_engine(model, policy, hooks=Hooks())
+        kernel.launches = other.launches = 0
+        hs = [eng.submit(p, sp) for p, sp in requests[:4]]
+        eng.step()
+        bad = []
+        if poison:
+            for mark in (OPS_POISON_PREFILL, OPS_POISON_NAN):
+                bad.append(eng.submit([mark] + requests[0][0][1:40],
+                                      SamplingParams(max_new_tokens=16,
+                                                     ignore_eos=True)))
+        hs += [eng.submit(p, sp) for p, sp in requests[4:]]
+        eng.run_until_idle()
+        again = eng.submit(*requests[0])
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        st = eng.stats()
+        if kernel.launches != cfg.n_layers * st["n_ticks"] or other.launches \
+                or st["n_ticks"] == 0:
+            raise AssertionError(f"4o isolation (paged={paged}): {kernel.launches} "
+                                 f"launches for {cfg.n_layers} x {st['n_ticks']} "
+                                 f"ticks, the other kernel {other.launches}")
+        return [h.output_ids for h in hs], bad, again, st, kernel.launches
+
+    clean, _, _, _, n0 = run(False)
+    toks, bad, again, st, n = run(True)
+    reasons = [(h.finish_reason, h.error or "") for h in bad]
+    if not (reasons[0][0] == "error" and "prefill" in reasons[0][1]
+            and reasons[1][0] == "error" and "non-finite" in reasons[1][1]):
+        raise AssertionError(f"4o isolation (paged={paged}): poison outcomes {reasons}")
+    if toks != clean or again.output_ids != clean[0] or st["requests_failed"] != 2:
+        raise AssertionError(f"4o isolation (paged={paged}): co-residents differ "
+                             "from the fault-free run")
+    return dict(launches=n, launches_fault_free=n0, decode_ticks=st["n_ticks"],
+                poison=[r[0] for r in reasons], coresidents_bit_equal=len(clean))
+
+
+def http_status_map(torch, model, cfg) -> list:
+    """Probe the HTTP frontend on loopback (port 0) with one request per
+    row of the status map; returns the statuses."""
+    import http.client
+    import threading
+
+    from building_llm_from_scratch_tpu_torch.serving.frontend import (
+        make_http_server,
+    )
+
+    def post(port, body, path="/generate"):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("POST", path, body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        resp.read()
+        headers = dict(resp.getheaders())
+        conn.close()
+        return resp.status, headers
+
+    eng = ops_engine(model)
+    eng.warmup()
+    eng.start()
+    server = make_http_server(eng, 0, host="127.0.0.1", max_body_bytes=4096)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    ok = {"prompt_ids": [16, 17], "max_new_tokens": 4, "ignore_eos": True}
+    codes, retry = [], {}
+    try:
+        for body in (b"x" * 5000, b"{not json", b"[1, 2, 3]",
+                     json.dumps({"prompt_ids": [16], "top_k": [1]}).encode(),
+                     json.dumps({"prompt_ids": [16, cfg.vocab_size]}).encode(),
+                     json.dumps({"max_new_tokens": 2}).encode(),
+                     json.dumps({"prompt_ids": [16] * OPS_MODEL["context"]}).encode(),
+                     json.dumps(dict(ok, deadline_s=0)).encode(),
+                     json.dumps(ok).encode()):
+            codes.append(post(port, body)[0])
+        codes.append(post(port, b"{}", path="/nowhere")[0])
+        with eng._lock:             # a backlog the deadline cannot meet
+            eng._tpot_ewma, eng._tokens_ewma = 10.0, 100.0
+        status, headers = post(port, json.dumps(dict(ok, deadline_s=1)).encode())
+        codes.append(status)
+        retry["429"] = headers.get("Retry-After")
+        eng.drain(timeout=30.0)
+        status, headers = post(port, json.dumps(ok).encode())
+        codes.append(status)
+        retry["503"] = headers.get("Retry-After")
+    finally:
+        server.shutdown()
+        server.server_close()
+        eng.shutdown()
+    if codes != HTTP_MAP or None in retry.values():
+        raise AssertionError(f"4o HTTP: {codes} (the JAX map {HTTP_MAP}), "
+                             f"Retry-After {retry}")
+    return codes
+
+
+def ops_dead_healthz(torch, model) -> dict:
+    """A hung tick with no restart budget left: the watchdog's escalation
+    fails every request and ``/healthz`` reads ``dead``; a POST gets 500."""
+    import http.client
+    import threading
+
+    from building_llm_from_scratch_tpu_torch.serving.frontend import (
+        make_http_server,
+    )
+
+    hooks = ops_hooks()(gate_first=True)
+    eng = ops_engine(model, hooks=hooks, tick_timeout_s=OPS_TICK_TIMEOUT,
+                     max_restarts=0)
+    eng.warmup()
+    eng.start()
+    server = make_http_server(eng, 0, host="127.0.0.1")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    try:
+        cfg = model.cfg
+        h = eng.submit(*ops_requests(cfg, seed=40, n=1)[0])
+        if not hooks.first.wait(60):
+            raise AssertionError("4o dead: no first token")
+        hooks.hang.set()
+        hooks.go.set()
+        try:
+            h.result(timeout=60)
+        except RuntimeError:
+            pass
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.request("POST", "/generate", body=json.dumps(
+            {"prompt_ids": [16, 17], "max_new_tokens": 2}).encode())
+        status = conn.getresponse().status
+        conn.close()
+    finally:
+        hooks.release.set()
+        server.shutdown()
+        server.server_close()
+        eng._stop.set()
+        if eng.supervisor is not None:
+            eng.supervisor.stop()
+    if health["status"] != "dead" or status != 500 or h.finish_reason != "error":
+        raise AssertionError(f"4o dead: /healthz {health['status']}, POST {status}, "
+                             f"request {h.finish_reason}")
+    return dict(healthz=health["status"], post=status, restarts=health["restarts"])
+
+
+def ops_cli_sigterm(torch, workdir: str) -> dict:
+    """``--mode serve`` in a child process at GPT-2-124M fp32 with
+    ``--metrics_jsonl``: SIGTERM after the first result line drains it; it
+    exits 0 with every request's line written and a drain in the JSONL."""
+    import signal
+
+    m = OPS_CLI
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+
+    cfg = get_config(m["model"], m["size"], dtype=m["dtype"],
+                     target_context_length=m["context"])
+    src = os.path.join(workdir, "ops_cli.jsonl")
+    mj = os.path.join(workdir, "ops_cli_metrics.jsonl")
+    with open(src, "w") as f:
+        for p, sp in ops_requests(cfg, seed=41, n=m["requests"], new=m["new"]):
+            f.write(json.dumps({"prompt_ids": p, "max_new_tokens": sp.max_new_tokens,
+                                "ignore_eos": True, "seed": sp.seed}) + "\n")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "building_llm_from_scratch_tpu_torch", "--mode",
+         "serve", "--model", m["model"], "--num_params", m["size"],
+         "--data_type", m["dtype"], "--serve_slots", str(m["slots"]),
+         "--serve_max_len", str(m["context"]), "--serve_prompts", src,
+         "--metrics_jsonl", mj, "--serve_metrics_every", "16",
+         "--drain_timeout", "300"],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        lines = [proc.stdout.readline()]
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        lines += proc.stdout.readlines()
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    recs = [json.loads(ln) for ln in lines if ln.strip()]
+    with open(mj) as f:
+        rows = [json.loads(ln) for ln in f]
+    drains = [r for r in rows if r.get("event") == "drain"]
+    if rc != 0 or len(recs) != m["requests"] or any(
+            r.get("finish_reason") != "length" for r in recs) \
+            or [d["phase"] for d in drains] != ["start", "end"]:
+        raise AssertionError(f"4o CLI: rc {rc}, {len(recs)} lines, drains {drains}")
+    return dict(rc=rc, lines=len(recs), drain=drains[-1],
+                metrics_rows=sum(r["type"] == "metrics" for r in rows),
+                device_kind=rows[0].get("device_kind"),
+                wall_s=time.perf_counter() - t0,
+                sigterm_to_exit_s=time.perf_counter() - t_sig)
+
+
+def ops_paged_queue3(torch, model, cfg) -> dict:
+    """The paged engine's three behaviours the CPU tests alone ran: prefix
+    entries evicted under a byte budget that holds one system prompt, and
+    admission bounced by a pool of two worst-case rows; every request
+    finishes with the greedy tokens of the unconstrained run."""
+    import dataclasses
+
+    from building_llm_from_scratch_tpu_torch.ops import decode_step as tds
+
+    requests = [(p, dataclasses.replace(sp, max_new_tokens=OPS_NEW))
+                for p, sp in make_shared_requests(cfg, seed=42, n=8)]
+    base = paged_policy(True)
+
+    def run(policy):
+        eng = ops_engine(model, policy)
+        bounced = []
+        admit_pages = eng._admit_pages
+
+        def counted(slot, req):
+            ok = admit_pages(slot, req)
+            if ok is False:
+                bounced.append(req.id)
+            return ok
+
+        eng._admit_pages = counted
+        tds.paged_decode_attention.launches = 0
+        hs = [eng.submit(p, sp) for p, sp in requests]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        st = eng.stats()
+        if any(h.finish_reason != "length" for h in hs) or \
+                tds.paged_decode_attention.launches != cfg.n_layers * st["n_ticks"]:
+            raise AssertionError(f"4o queue 3 ({policy}): {st}")
+        greedy = [h.output_ids for h, (_, sp) in zip(hs, requests)
+                  if sp.temperature == 0]
+        return greedy, st, len(bounced)
+
+    ref, _, _ = run(base)
+    span_bytes = SYSTEM_TOKENS // PAGE_TOKENS * base.page_bytes(cfg)
+    evicting = dataclasses.replace(base, prefix_budget_bytes=int(span_bytes * 1.5))
+    got_e, st_e, _ = run(evicting)
+    worst = base.pages_per_slot(OPS_MODEL["context"])
+    bouncing = dataclasses.replace(base, pool_pages=2 * worst)
+    got_b, st_b, n_bounced = run(bouncing)
+    if st_e["prefix_store"]["evictions"] < 1 or n_bounced < 1 \
+            or got_e != ref or got_b != ref:
+        raise AssertionError(f"4o queue 3: evictions {st_e['prefix_store']}, "
+                             f"bounces {n_bounced}, tokens equal "
+                             f"{got_e == ref}/{got_b == ref}")
+    return dict(evictions=st_e["prefix_store"]["evictions"],
+                budget_bytes=evicting.prefix_budget_bytes,
+                bounces=n_bounced, pool_pages=bouncing.pool_pages,
+                peak_pages_used=st_b["page_pool"]["peak_used"],
+                greedy_equal=len(ref))
+
+
+def ops_adapter_hot_load(torch, model, cfg, workdir: str) -> dict:
+    """Multi-LoRA under load (contiguous, B6 on every tick): with a and b
+    loaded and their requests decoding, b is evicted (its in-flight rows
+    finish on the kept row), c is hot-loaded into a free row and served, a
+    request naming b is refused at submit, and one naming a that waits in
+    the queue when a is evicted fails alone. B6 = 7 x layers x ticks, and
+    the in-flight b requests' tokens equal those of b served alone."""
+    import dataclasses
+
+    from building_llm_from_scratch_tpu_torch.ops import decode_step as tds
+    from building_llm_from_scratch_tpu_torch.serving.adapters import (
+        AdapterRegistry,
+    )
+
+    paths, _ = write_adapters(torch, model, cfg, {"a": 8, "b": 16, "c": 16},
+                              workdir, "ops")
+    reg = AdapterRegistry.from_artifacts(cfg, {k: paths[k] for k in ("a", "b")},
+                                         capacity=LORA_POOL, device="cuda")
+    reqs = ops_requests(cfg, seed=43, n=8)
+    named = [(p, dataclasses.replace(sp, adapter=("a", "b", None, "b")[i % 4]))
+             for i, (p, sp) in enumerate(reqs)]
+    eng = ops_engine(model, adapters=reg)
+    launch = tds.lora_bgmv
+    counted = ShapeTally(launch)
+    tds.lora_bgmv = counted
+    try:
+        tds.lora_bgmv.launches = 0
+        hs = [eng.submit(p, sp) for p, sp in named]
+        queued_a = eng.submit(*named[0])     # the ninth: it waits for a slot
+        for _ in range(3):
+            eng.step()
+        reg.evict("b")
+        reg.load("c", paths["c"])
+        try:
+            eng.submit(named[1][0], named[1][1])
+            refused = False
+        except ValueError:
+            refused = True
+        hc = [eng.submit(p, dataclasses.replace(sp, adapter="c"))
+              for p, sp in reqs[:2]]
+        reg.evict("a")                   # queued_a still waits for a slot
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+    finally:
+        tds.lora_bgmv = launch
+    st = eng.stats()
+    layers, ticks, n_b6 = cfg.n_layers, st["n_ticks"], tds.lora_bgmv.launches
+    ok = (refused and all(h.finish_reason == "length" for h in hs + hc)
+          and queued_a.finish_reason == "error"
+          and "adapter_not_loaded" in (queued_a.error or "")
+          and n_b6 == 7 * layers * ticks)
+    reg_b = AdapterRegistry.from_artifacts(cfg, {"b": paths["b"]},
+                                           capacity=LORA_POOL, device="cuda")
+    alone = ops_engine(model, adapters=reg_b)
+    hb = [alone.submit(p, sp) for p, sp in named if sp.adapter == "b"]
+    alone.run_until_idle()
+    b_equal = [h.output_ids for h in hb] == [h.output_ids for h, (_, sp) in
+                                             zip(hs, named) if sp.adapter == "b"]
+    if not (ok and b_equal):
+        raise AssertionError(f"4o adapters: refused {refused}, outcomes "
+                             f"{[h.finish_reason for h in hs + hc]}, queued a "
+                             f"{queued_a.finish_reason} {queued_a.error}, B6 "
+                             f"{n_b6} for 7 x {layers} x {ticks}, "
+                             f"b alone equal {b_equal}")
+    return dict(b6_launches=n_b6, decode_ticks=ticks,
+                b6_by_shape=dict(counted.by_shape),
+                per_adapter=st["per_adapter"], refused_evicted=refused,
+                queued_evicted=queued_a.finish_reason, evicted_b_bit_equal=b_equal)
+
+
+def ops_kernel_nan_gates(torch, cfg) -> dict:
+    """B5's and B7's serving gates at the ops model's decode shape (8 slots
+    of 1024, its heads, bf16), each against its plain twin at TWIN_TOL: one
+    slot's KV all NaN (B7: its pages) makes that row, and only it,
+    non-finite, the twin's row mask, the other rows within the bound; NaN
+    past every row's length (B7: and in the trash page) leaves every row
+    finite and within the bound of the twin on the clean cache. Controls
+    that must fail: the twin over the NaN tails (it weighs masked positions
+    by an exact 0), and NaN inside one row's length in the kernel."""
+    from building_llm_from_scratch_tpu_torch.configs import DTYPE_MAP
+    from building_llm_from_scratch_tpu_torch.ops import decode_step as tds
+
+    dt = OPS_MODEL["dtype"]
+    dtype, dev = DTYPE_MAP[dt], torch.device("cuda")
+    S, T, P = OPS_MODEL["slots"], OPS_MODEL["context"], PAGE_TOKENS
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_groups, cfg.head_dim
+    atol, rtol = TWIN_TOL[dt]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(47)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)  # noqa: E731
+    lens = torch.tensor([0, 5, 300, T - 24, 17, 511, 64, 1000][:S],
+                        dtype=torch.int32, device=dev)
+    nan = float("nan")
+
+    def rows(out):
+        return torch.isfinite(out.float()).flatten(1).all(1).tolist()
+
+    def err(a, b, keep=slice(None)):
+        return (a[keep].float() - b[keep].float()).abs().max().item()
+
+    def gate(name, out, ref, ref_rows, keep, tail_out, tail_ref, tail_twin, ctrl):
+        res = dict(poison_rows=rows(out), twin_poison_rows=rows(ref),
+                   poison_err=err(out, ref, keep), tail_finite=all(rows(tail_out)),
+                   tail_err=err(tail_out, tail_ref),
+                   twin_tail_finite_rows=sum(rows(tail_twin)), control_rows=rows(ctrl))
+        ok = (res["poison_rows"] == res["twin_poison_rows"] == ref_rows
+              and torch.allclose(out[keep].float(), ref[keep].float(), atol=atol, rtol=rtol)
+              and res["tail_finite"]
+              and torch.allclose(tail_out.float(), tail_ref.float(), atol=atol, rtol=rtol)
+              and res["twin_tail_finite_rows"] == 0 and res["control_rows"][2] is False)
+        if not ok:
+            raise AssertionError(f"4o {name} NaN gates: {res}")
+        return res
+
+    want = [s != 1 for s in range(S)]
+    keep = torch.tensor([s for s in range(S) if s != 1], device=dev)
+    q, kn, vn = rnd(S, 1, Hq, hd), rnd(S, 1, Hkv, hd), rnd(S, 1, Hkv, hd)
+    K, V = rnd(S, Hkv, T, hd), rnd(S, Hkv, T, hd)
+
+    def b5(Kx, Vx):
+        out = tds.fused_decode_step(q, kn, vn, Kx.clone(), Vx.clone(), lens)[0]
+        torch.cuda.synchronize()
+        return out
+
+    def b5_twin(Kx, Vx):
+        return tds.fused_decode_step_plain(q, kn, vn, Kx.clone(), Vx.clone(), lens)[0]
+
+    Kp, Vp = K.clone(), V.clone()
+    Kp[1], Vp[1] = nan, nan
+    tail = (torch.arange(T, device=dev)[None, :] > lens[:, None].long())[:, None, :, None]
+    Kt, Vt = torch.where(tail, nan, K), torch.where(tail, nan, V)
+    Vc = V.clone()
+    Vc[2, :, 299] = nan                                 # inside row 2's length
+    out = dict(B5=gate("B5", b5(Kp, Vp), b5_twin(Kp, Vp), want, keep, b5(Kt, Vt),
+                       b5_twin(K, V), b5_twin(Kt, Vt), b5(K, Vc)))
+    del K, V, Kp, Vp, Kt, Vt, Vc, tail
+
+    M = T // P
+    N = S * M + 1
+    K, V = rnd(N, Hkv, P, hd), rnd(N, Hkv, P, hd)
+    pages = (torch.randperm(N - 1, generator=gen, device=dev) + 1).view(S, M)
+    col = torch.arange(M, device=dev)[None, :]
+    table = torch.where(col < (lens.long() // P + 1)[:, None], pages, 0)
+    table = table.to(torch.int32).contiguous()
+
+    def b7(Kx, Vx):
+        out = tds.paged_decode_attention(q, Kx, Vx, table, lens)
+        torch.cuda.synchronize()
+        return out
+
+    def b7_twin(Kx, Vx):
+        return tds.paged_decode_attention_plain(q, Kx, Vx, table, lens)
+
+    mine = table[1][table[1] > 0].long()
+    Kp, Vp = K.clone(), V.clone()
+    Kp[mine], Vp[mine] = nan, nan
+    Kt, Vt = K.clone(), V.clone()
+    Kt[0], Vt[0] = nan, nan                             # the trash page
+    for s in range(S):
+        t = int(lens[s])
+        page = int(table[s, t // P])
+        Kt[page, :, t % P + 1:], Vt[page, :, t % P + 1:] = nan, nan
+    Vc = V.clone()
+    Vc[int(table[2, 0]), :, 0] = nan                    # row 2's position 0
+    out["B7"] = gate("B7", b7(Kp, Vp), b7_twin(Kp, Vp), want, keep, b7(Kt, Vt),
+                     b7_twin(K, V), b7_twin(Kt, Vt), b7(K, Vc))
+    return dict(shape=dict(S=S, Hq=Hq, Hkv=Hkv, hd=hd, Tmax=T, page=P, dtype=dt),
+                lengths=lens.tolist(), tol=dict(atol=atol, rtol=rtol), **out)
+
+
+def phase_serve_ops(torch, workdir: str) -> dict:
+    """Phase 4o's gates (no timing; phases 7s / 7 / 7m run beside them):
+    B5's and B7's NaN gates, fault isolation contiguous then paged, the
+    HTTP status map, a hung tick
+    with no budget left, the GPT-2 CLI's SIGTERM drain, and the paged
+    eviction, admission bounce and adapter hot-load under load. Returns the
+    launch counts and the model for ``phase_serve_ops_timing``."""
+    from building_llm_from_scratch_tpu_torch.configs import get_config
+    from building_llm_from_scratch_tpu_torch.models.transformer import build_model
+
+    m = OPS_MODEL
+    cfg = get_config(m["model"], m["size"], dtype=m["dtype"],
+                     target_context_length=m["context"])
+    model = build_model(cfg, seed=0, device="cuda")
+    emit("serve_ops_nan_gates", model=cfg.name, **ops_kernel_nan_gates(torch, cfg))
+    requests = ops_requests(cfg, seed=39)
+    out = dict(model=model)
+    for paged in (False, True):
+        res = ops_isolation(torch, model, cfg, paged, requests)
+        emit("serve_ops_isolation", model=cfg.name, dtype=m["dtype"],
+             layers=cfg.n_layers, slots=m["slots"], max_len=m["context"],
+             paged=paged, kernel="B7" if paged else "B5", **res,
+             note="gates only; phases 7s / 7 / 7m ran beside them")
+        out["b7" if paged else "b5"] = res["launches"]
+    emit("serve_ops_http", model=cfg.name, statuses=http_status_map(torch, model, cfg),
+         jax_map=HTTP_MAP)
+    emit("serve_ops_dead", model=cfg.name, **ops_dead_healthz(torch, model))
+    emit("serve_ops_queue3", model=cfg.name, **ops_paged_queue3(torch, model, cfg))
+    hot = ops_adapter_hot_load(torch, model, cfg, workdir)
+    out["b6"] = hot.pop("b6_by_shape")
+    emit("serve_ops_adapters", model=cfg.name, **hot,
+         b6_launches_by_shape={f"{d}x{o}": n for (d, o), n in out["b6"].items()})
+    emit("serve_ops_cli", model=f"{OPS_CLI['model']}-{OPS_CLI['size']}",
+         dtype=OPS_CLI["dtype"], **ops_cli_sigterm(torch, workdir))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ops_restart(torch, model, cfg, paged: bool, requests: list, clean: list) -> dict:
+    """A hung tick under the watchdog (``OPS_TICK_TIMEOUT``): the 8 in-flight
+    requests fail, the 2 queued are kept and served with their fault-free
+    tokens, no kernel is built or loaded again, the abandoned thread once
+    released commits nothing, and launches = layers x ticks. Seconds from
+    the watchdog's fire to the first token after the restart, and the
+    device peak it adds (two caches live)."""
+    from building_llm_from_scratch_tpu_torch.ops import _kernels
+    from building_llm_from_scratch_tpu_torch.ops import decode_step as tds
+
+    kernel = tds.paged_decode_attention if paged else tds.fused_decode_step
+    hooks = ops_hooks()(gate_first=True)
+    eng = ops_engine(model, paged_policy(True) if paged else None, hooks=hooks,
+                     tick_timeout_s=OPS_TICK_TIMEOUT, max_restarts=1,
+                     restart_backoff_s=0.05)
+    eng.warmup()
+    builds0 = dict(_kernels.STATS)
+    fired = []
+    on_stall = eng.supervisor.detector.on_stall
+
+    def timed(elapsed, thr):
+        fired.append(time.monotonic())
+        on_stall(elapsed, thr)
+
+    eng.supervisor.detector.on_stall = timed
+    kernel.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    inflight = [eng.submit(p, sp) for p, sp in requests]
+    queued = [eng.submit(p, sp) for p, sp in requests[:2]]
+    eng.start()
+    try:
+        if not hooks.first.wait(60):
+            raise AssertionError("4o restart: no first token")
+        hooks.hang.set()
+        hooks.go.set()
+        for h in queued:
+            h.result(timeout=120)
+        peak = torch.cuda.max_memory_allocated() - base
+        hooks.release.set()
+        again = eng.submit(*requests[0])
+        again.result(timeout=120)
+        eng.shutdown()
+    finally:
+        hooks.release.set()
+        hooks.go.set()
+    torch.cuda.synchronize()
+    st = eng.stats()
+    failed = [h.finish_reason for h in inflight]
+    ok = (eng.n_restarts == 1 and eng.n_recompiles == 0
+          and dict(_kernels.STATS) == builds0
+          and failed == ["error"] * len(inflight)
+          and [h.output_ids for h in queued] == clean[:2]
+          and again.output_ids == clean[0]
+          and kernel.launches == cfg.n_layers * st["n_ticks"] and fired)
+    if not ok:
+        raise AssertionError(f"4o restart (paged={paged}): restarts {eng.n_restarts}, "
+                             f"builds {builds0} -> {_kernels.STATS}, in-flight "
+                             f"{failed}, queued equal "
+                             f"{[h.output_ids for h in queued] == clean[:2]}, "
+                             f"launches {kernel.launches} for {st['n_ticks']} ticks")
+    return dict(restart_s=queued[0].t_first_token - fired[0],
+                inflight_failed=len(failed), queued_served=len(queued),
+                kernel_builds=_kernels.STATS["builds"] - builds0["builds"],
+                library_loads=_kernels.STATS["loads"] - builds0["loads"],
+                launches=kernel.launches, decode_ticks=st["n_ticks"],
+                peak_added_gb=peak / 1e9,
+                cache_gb=sum(t.numel() * t.element_size()
+                             for v in eng.cache.values() for t in v) / 1e9)
+
+
+def phase_serve_ops_timing(torch, ops: dict) -> dict:
+    """Phase 4o's times, with nothing else running (LLaMA-3.2-1B bf16, 8
+    slots): the restart gate contiguous and paged with its seconds; the
+    loop's wall a decode tick with the supervisor on against off (8 runs,
+    off / on / on / off twice; medians) and one heartbeat's cost in a
+    tight loop; drain seconds over a full batch; the HTTP round trip
+    against a direct submit on the same engine; and the ``/metrics``
+    scrape."""
+    import http.client
+    import statistics as stats
+    import threading
+
+    from building_llm_from_scratch_tpu_torch.serving.frontend import (
+        make_http_server,
+    )
+    from building_llm_from_scratch_tpu_torch.serving.supervisor import (
+        EngineSupervisor,
+    )
+
+    model = ops.pop("model")
+    cfg = model.cfg
+    requests = ops_requests(cfg, seed=39)
+    clean = {}
+    for paged in (False, True):
+        eng = ops_engine(model, paged_policy(True) if paged else None)
+        hs = [eng.submit(p, sp) for p, sp in requests]
+        eng.run_until_idle()
+        clean[paged] = [h.output_ids for h in hs]
+    restart = {("paged" if paged else "contiguous"):
+               ops_restart(torch, model, cfg, paged, requests, clean[paged])
+               for paged in (False, True)}
+    emit("serve_ops_restart", model=cfg.name, tick_timeout_s=OPS_TICK_TIMEOUT,
+         **restart)
+
+    long = ops_requests(cfg, seed=44, new=64)
+    ticks = {"off": [], "on": []}
+    for label in ("off", "on", "on", "off") * 2:
+        eng = ops_engine(model, tick_timeout_s=30.0 if label == "on" else 0.0)
+        eng.warmup()
+        hs = [eng.submit(p, sp) for p, sp in long]
+        eng.start()
+        for h in hs:
+            h.result(timeout=300)
+        eng.shutdown()
+        # decode ticks only: the request admitted last finishes last, and
+        # from its first token to its finish the loop ran new - 1 decode
+        # ticks and admitted nothing
+        window = (max(h.t_finish for h in hs)
+                  - max(h.t_first_token for h in hs))
+        ticks[label].append(window / (len(hs[0].output_ids) - 1) * 1e3)
+    # the heartbeat alone, its watchdog thread polling beside it
+    sup = EngineSupervisor(eng, tick_timeout_s=30.0).start()
+    n_beats = 200_000
+    t0 = time.perf_counter()
+    for _ in range(n_beats):
+        sup.notify_tick()
+    notify_us = (time.perf_counter() - t0) / n_beats * 1e6
+    sup.stop()
+
+    hooks = ops_hooks()(gate_first=True)
+    eng = ops_engine(model, hooks=hooks)
+    eng.warmup()
+    eng.start()
+    hs = [eng.submit(p, sp) for p, sp in long + ops_requests(cfg, seed=45, new=64)]
+    hooks.first.wait(60)
+    hooks.go.set()
+    drain = eng.drain(timeout=300.0)
+    eng.shutdown()
+    drain["tokens_finished"] = sum(len(h.output_ids) for h in hs)
+
+    eng = ops_engine(model)
+    eng.warmup()
+    eng.start()
+    server = make_http_server(eng, 0, host="127.0.0.1")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    probe = [(p[:64], sp) for p, sp in ops_requests(cfg, seed=46, n=8, new=8)]
+    http_ms, direct_ms, scrape_ms = [], [], []
+    try:
+        for p, sp in probe * 2:
+            body = json.dumps({"prompt_ids": p, "max_new_tokens": sp.max_new_tokens,
+                               "ignore_eos": True, "seed": sp.seed}).encode()
+            t0 = time.perf_counter()
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            conn.request("POST", "/generate", body=body)
+            resp = conn.getresponse()
+            resp.read()
+            conn.close()
+            http_ms.append((time.perf_counter() - t0) * 1e3)
+            if resp.status != 200:
+                raise AssertionError(f"4o timing: POST {resp.status}")
+            t0 = time.perf_counter()
+            eng.submit(p, sp).result(timeout=120)
+            direct_ms.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(20):
+            t0 = time.perf_counter()
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            conn.request("GET", "/metrics")
+            text = conn.getresponse().read()
+            conn.close()
+            scrape_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        server.shutdown()
+        server.server_close()
+        eng.shutdown()
+    emit("serve_ops_timing", model=cfg.name, dtype=OPS_MODEL["dtype"],
+         layers=cfg.n_layers, slots=OPS_MODEL["slots"], requests=len(long),
+         new_tokens=64, decode_tick_ms=ticks,
+         decode_tick_ms_median={k: stats.median(v) for k, v in ticks.items()},
+         decode_tick_ms_spread={k: max(v) - min(v) for k, v in ticks.items()},
+         supervisor_tick_ms_on_minus_off=stats.median(ticks["on"])
+         - stats.median(ticks["off"]),
+         notify_tick_us=notify_us, notify_tick_calls=n_beats,
+         drain=drain, http_ms_median=stats.median(http_ms),
+         direct_ms_median=stats.median(direct_ms),
+         http_overhead_ms=stats.median(http_ms) - stats.median(direct_ms),
+         http_samples=len(http_ms), scrape_ms_median=stats.median(scrape_ms),
+         scrape_ms_max=max(scrape_ms), scrape_bytes=len(text))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return restart
+
+
+# ---------------------------------------------------------------------------
 # phases 7s / 7 / 7m in a second process, beside 4c (SFT adapter), 4d, 4s, 4q
 # ---------------------------------------------------------------------------
 
@@ -6466,8 +7242,10 @@ def main() -> int:
             served.update(phase_serve_longctx(torch))
             served_spec = phase_serve_spec(torch)
             served_int8 = phase_serve_int8(torch, workdir)
+            served_ops = phase_serve_ops(torch, workdir)
     reference, reference_gpt2 = refs["reference"], refs["reference_gpt2"]
     phase_serve_spec_timing(torch)
+    ops_restart_runs = phase_serve_ops_timing(torch, served_ops)
     # pretrained weights from local files (8w), then train-state checkpoints
     # and resume through the CLI (8r, the LoRA run from 8w's LLaMA files)
     with tempfile.TemporaryDirectory(dir=here) as workdir:
@@ -6505,6 +7283,10 @@ def main() -> int:
     for k, r in zip(kernels, rows):                 # phase 8w's CLI serving
         if r["shape"] in spec_off:                  # phase 4s, spec off
             k["launches_4s"] = spec_off[r["shape"]]
+        if r["shape"] == OPS_MODEL["label"]:        # phase 4o, contiguous
+            k["launches_4o"] = dict(
+                isolation=served_ops["b5"],
+                restart=ops_restart_runs["contiguous"]["launches"])
         if r["shape"] in weights["launches"]:
             k["launches_8w"] = weights["launches"][r["shape"]]
         text_served = text["served"].get(r["shape"])  # phase 9t's text prompts
@@ -6530,6 +7312,10 @@ def main() -> int:
             b5_contiguous_ms=r["b5_contiguous_ms"],
             launches_4s=next(v["launches"] for v in served_spec.values()
                              if v["paged"] and v["shape"] == r["shape"])))
+        if r["shape"] == OPS_MODEL["label"]:        # phase 4o, paged
+            kernels[-1]["launches_4o"] = dict(
+                isolation=served_ops["b7"],
+                restart=ops_restart_runs["paged"]["launches"])
     for r in lora_rows:
         run = served_lora[r["shape"]]
         if run["dims"] != (r["S"], r["N"], r["r"], r["dtype"]):
@@ -6546,6 +7332,8 @@ def main() -> int:
         if run["dims"] == served_int8["lora"]["dims"]:      # phase 4q, int8
             kernels[-1]["launches_4q"] = served_int8["lora"]["tally"].get(
                 (r["D"], r["O"]), 0)
+            # phase 4o: hot-load and evict under load, the same pool shape
+            kernels[-1]["launches_4o"] = served_ops["b6"].get((r["D"], r["O"]), 0)
     replaces = {"fwd": ("flash_attention_fwd",
                         "building_llm_from_scratch_tpu/ops/fused_attention.py:75"),
                 "dq": ("flash_attention_dq",

@@ -4,8 +4,10 @@ fused-dropout and vocab-streamed cross-entropy kernels against their plain
 twins, the serving engine (contiguous, paged and with LoRA adapters),
 LLaMA and GPT-2 training steps on the card (the fp16 policy with remat
 and accumulation among them), the batch stager's copy stream and the
-asynchronous checkpoint's snapshot, and text prompts served with a BPE
-tokenizer. They skip on a machine without
+asynchronous checkpoint's snapshot, text prompts served with a BPE
+tokenizer, and the serving operations' kernel gates (a NaN-poisoned row
+stays alone in B5 and B7, a NaN tail past a row's length never reaches
+its output) and fault isolation on the card. They skip on a machine without
 CUDA. This file imports neither JAX nor the JAX package, so
 it also runs where JAX is not installed:
 
@@ -428,6 +430,155 @@ def _paged_cfg(**kw):
     return get_config("llama3_2", "1B", dtype="fp32").replace(
         emb_dim=256, n_heads=4, n_kv_groups=2, n_layers=2, hidden_dim=512,
         vocab_size=512, context_length=128).replace(**kw)
+
+
+def _finite_rows(out):
+    return torch.isfinite(out.float()).flatten(1).all(1).tolist()
+
+
+@pytest.mark.parametrize("dtype,Hq,Hkv", [(torch.bfloat16, 32, 8),
+                                          (torch.float32, 12, 12)])
+def test_decode_kernel_isolates_nan_rows_and_ignores_nan_tails(cuda, dtype, Hq, Hkv):
+    """B5's two serving-operations gates: one row's cache all NaN makes that
+    row's output, and only it, non-finite (the twin's mask); NaN past each
+    row's length (a freed slot's stale tail) leaves every output finite and
+    within the twin's bounds on the clean cache, because the split pass
+    reads V only up to the length. Controls: NaN inside a length reaches
+    that row's output, and the twin itself (which weighs masked positions
+    by an exact 0) turns every row with a NaN tail non-finite."""
+    S, Tmax, hd = 4, 1024, 64
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=cuda).to(dtype)  # noqa: E731
+    q, kn, vn = rnd(S, 1, Hq, hd), rnd(S, 1, Hkv, hd), rnd(S, 1, Hkv, hd)
+    K, V = rnd(S, Hkv, Tmax, hd), rnd(S, Hkv, Tmax, hd)
+    lens = torch.tensor([0, 5, 300, Tmax - 24], dtype=torch.int32, device=cuda)
+    nan = torch.full((), float("nan"), dtype=dtype, device=cuda)
+
+    def kernel(Kx, Vx):
+        out, _, _ = tds.fused_decode_step(q, kn, vn, Kx.clone(), Vx.clone(), lens)
+        torch.cuda.synchronize()
+        return out
+
+    def twin(Kx, Vx):
+        return tds.fused_decode_step_plain(q, kn, vn, Kx.clone(), Vx.clone(), lens)[0]
+
+    atol, rtol = TWIN_TOL[dtype]
+    Kp, Vp = K.clone(), V.clone()
+    Kp[1], Vp[1] = nan, nan
+    out, ref = kernel(Kp, Vp), twin(Kp, Vp)
+    assert _finite_rows(out) == _finite_rows(ref) == [True, False, True, True]
+    keep = torch.tensor([0, 2, 3], device=cuda)
+    torch.testing.assert_close(out[keep].float(), ref[keep].float(), atol=atol, rtol=rtol)
+    tail = (torch.arange(Tmax, device=cuda)[None, :] > lens[:, None].long())
+    tail = tail[:, None, :, None]
+    Kt, Vt = torch.where(tail, nan, K), torch.where(tail, nan, V)
+    out = kernel(Kt, Vt)
+    assert _finite_rows(out) == [True] * S
+    torch.testing.assert_close(out.float(), twin(K, V).float(), atol=atol, rtol=rtol)
+    assert not any(_finite_rows(twin(Kt, Vt)))
+    Vc = V.clone()
+    Vc[2, :, 299] = nan                                  # inside row 2's length
+    assert _finite_rows(kernel(K, Vc)) == [True, True, False, True]
+
+
+@pytest.mark.parametrize("dtype,Hq,Hkv", [(torch.bfloat16, 32, 8),
+                                          (torch.float32, 12, 12)])
+def test_paged_kernel_isolates_nan_rows_and_ignores_nan_tails(cuda, dtype, Hq, Hkv):
+    """B7's gates, on a table whose rows share no page: one row's pages all
+    NaN make that row alone non-finite; NaN in every position past each
+    row's length and in the whole trash page leaves every output finite
+    and within the twin's bounds on the clean pool; NaN inside a length
+    reaches that row (the control)."""
+    S, P, M, hd = 5, 16, 64, 64
+    q, K, V, _, lens = paged_inputs(cuda, S, Hq, Hkv, hd, P, M, dtype, seed=5)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    ids = (torch.randperm(S * M, generator=gen, device=cuda) + 1).to(torch.int32)
+    table = ids.view(S, M).clone()
+    for s in range(S):
+        table[s, int(lens[s]) // P + 1:] = 0
+    table = table.contiguous()
+    nan = float("nan")
+
+    def kernel(Kx, Vx):
+        out = tds.paged_decode_attention(q, Kx, Vx, table, lens)
+        torch.cuda.synchronize()
+        return out
+
+    def twin(Kx, Vx):
+        return tds.paged_decode_attention_plain(q, Kx, Vx, table, lens)
+
+    atol, rtol = TWIN_TOL[dtype]
+    mine = table[1][table[1] > 0].long()
+    Kp, Vp = K.clone(), V.clone()
+    Kp[mine], Vp[mine] = nan, nan
+    out, ref = kernel(Kp, Vp), twin(Kp, Vp)
+    want = [s != 1 for s in range(S)]
+    assert _finite_rows(out) == _finite_rows(ref) == want
+    keep = torch.tensor([s for s in range(S) if s != 1], device=cuda)
+    torch.testing.assert_close(out[keep].float(), ref[keep].float(), atol=atol, rtol=rtol)
+    Kt, Vt = K.clone(), V.clone()
+    Kt[0], Vt[0] = nan, nan                              # the trash page
+    for s in range(S):
+        t = int(lens[s])
+        col, off = t // P, t % P
+        page = int(table[s, col])
+        Kt[page, :, off + 1:], Vt[page, :, off + 1:] = nan, nan
+    out = kernel(Kt, Vt)
+    assert _finite_rows(out) == [True] * S
+    torch.testing.assert_close(out.float(), twin(K, V).float(), atol=atol, rtol=rtol)
+    Vc = V.clone()
+    Vc[int(table[2, 0]), :, 0] = nan                     # row 2's position 0
+    assert _finite_rows(kernel(K, Vc))[2] is False
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_poisoned_request_fails_alone_on_the_card(cuda, paged):
+    """The engine on the card with a ``poison_nan`` hook: the poisoned
+    request fails on non-finite logits, its co-residents' tokens equal a
+    fault-free run's, the slot's next occupant is served, and every decode
+    tick launched B5 (contiguous) or B7 (paged) once per layer."""
+    from building_llm_from_scratch_tpu_torch.serving.kvcache import (
+        KVCachePolicy,
+    )
+    from building_llm_from_scratch_tpu_torch.serving.supervisor import (
+        FaultHooks,
+    )
+
+    class Poison(FaultHooks):
+        def poison_nan(self, req):
+            return int(req.prompt_ids[0]) == 7
+
+    cfg = _paged_cfg()
+    model = build_model(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(4)
+    reqs = [(rng.integers(10, 512, n).tolist(),
+             SamplingParams(max_new_tokens=m, seed=i, ignore_eos=True))
+            for i, (n, m) in enumerate([(20, 16), (33, 12), (9, 20)])]
+    pol = KVCachePolicy(paged=True, page_tokens=16, prefill_chunk=16) if paged \
+        else None
+
+    def run(hooks=None, poison=False):
+        eng = DecodeEngine(model, n_slots=3, max_len=128, kv_policy=pol,
+                           hooks=hooks)
+        tds.fused_decode_step.launches = tds.paged_decode_attention.launches = 0
+        hs = [eng.submit(*reqs[0])]
+        eng.step()
+        bad = eng.submit([7, 8, 9], SamplingParams(max_new_tokens=8,
+                                                   ignore_eos=True)) if poison else None
+        hs += [eng.submit(*r) for r in reqs[1:]]
+        eng.run_until_idle()
+        again = eng.submit(*reqs[2])
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        kernel = tds.paged_decode_attention if paged else tds.fused_decode_step
+        assert kernel.launches == cfg.n_layers * eng.n_ticks > 0
+        return [h.output_ids for h in hs], bad, again
+
+    clean, _, _ = run()
+    toks, bad, again = run(Poison(), poison=True)
+    assert bad.finish_reason == "error" and "non-finite" in bad.error
+    assert toks == clean
+    assert again.output_ids == clean[2]
 
 
 def test_paged_decode_slots_launches_b7_per_layer(cuda):

@@ -122,9 +122,21 @@ def test_cli_rejects_unported_jax_flags_by_name(tmp_path, capsys):
     req = str(_requests(tmp_path))
     with pytest.raises(SystemExit):
         get_args(["--mode", "serve", "--serve_prompts", req,
-                  "--serve_port", "8000", "--serve_deadline_s=5"])
+                  "--serve_replicas", "2", "--pp=2"])
     err = capsys.readouterr().err
-    assert "--serve_port" in err and "--serve_deadline_s" in err
+    assert "--serve_replicas" in err and "--pp" in err
+    assert "queue 1 item 14c" in err
+    # the training telemetry is refused by name in train mode
+    with pytest.raises(SystemExit):
+        get_args(["--mode", "train", "--data_dir", str(tmp_path),
+                  "--metrics_jsonl", str(tmp_path / "m.jsonl")])
+    err = capsys.readouterr().err
+    assert "--metrics_jsonl" in err and "queue 1 item 10, telemetry" in err
+    # the serving-operations flags are ported
+    args = get_args(["--mode", "serve", "--serve_prompts", req,
+                     "--serve_port", "8000", "--serve_deadline_s=5",
+                     "--metrics_jsonl", str(tmp_path / "m.jsonl")])
+    assert (args.serve_port, args.serve_deadline_s) == (8000, 5.0)
     with pytest.raises(ValueError, match="not ported"):
         get_args(["--mode", "finetune_fleet", "--serve_prompts", req])
     args = get_args(["--mode", "serve", "--serve_prompts", req])

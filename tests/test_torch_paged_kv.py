@@ -200,15 +200,15 @@ def record_logits(eng) -> list:
     seen = []
     decode, chunk = eng._decode, eng._run_chunk
 
-    def rec_decode():
-        out = decode()
+    def rec_decode(cache):
+        out = decode(cache)
         rows = [s for s, _ in eng.scheduler.active()
                 if s not in eng._prefill_state]
         seen.append(("decode", rows, out[rows].clone()))
         return out
 
-    def rec_chunk(slot, req, lo, hi, Tp):
-        out = chunk(slot, req, lo, hi, Tp)
+    def rec_chunk(slot, req, lo, hi, Tp, cache):
+        out = chunk(slot, req, lo, hi, Tp, cache)
         seen.append(("chunk", slot, lo, out.clone()))
         return out
 
@@ -262,7 +262,7 @@ def test_non_finite_failure_scrubs_private_pages(models):
     while bad.slot is None or bad.slot in eng._prefill_state:
         eng.step()
     pages = [int(p) for p in eng._page_table[bad.slot, :eng._slot_cols[bad.slot]]]
-    eng._rewrite_slot_pages(bad.slot, float("nan"))
+    eng._rewrite_slot_pages(bad.slot, float("nan"), eng.cache)
     eng.run_until_idle()
     assert bad.finish_reason == "error" and "non-finite" in bad.error
     for bufs in eng.cache.values():
