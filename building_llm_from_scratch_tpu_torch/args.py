@@ -14,14 +14,15 @@ int8 KV (``--serve_kv_quant int8``) in serving, the serving operations
 ``--serve_tick_timeout`` / ``--serve_max_restarts``, ``--drain_timeout``,
 ``--metrics_jsonl`` / ``--serve_metrics_every``, ``--stall_timeout``; the
 last two in serve mode only), and sharded training (``--run_type multi_chip
---shard_mode dp|fsdp|zero1|tp|tp_fsdp``, ``--tp`` for tensor parallelism,
-``--sp`` for sequence parallelism with ring attention), with the JAX CLI's
-checks and messages.
+--shard_mode dp|fsdp|zero1|tp|tp_fsdp|pp``, ``--tp`` for tensor parallelism,
+``--sp`` for sequence parallelism with ring attention, ``--pp`` and
+``--pp_micro`` for pipeline parallelism), with the JAX CLI's checks and
+messages.
 
-Flags of the JAX CLI that the port does not carry yet, and the shard mode
-pp, are rejected by name (not ignored) with the ROADMAP item that brings
-them, so a command line written for the JAX package fails loudly here
-instead of silently doing something else.
+Flags of the JAX CLI that the port does not carry yet are rejected by name
+(not ignored) with the ROADMAP item that brings them, so a command line
+written for the JAX package fails loudly here instead of silently doing
+something else.
 """
 
 from __future__ import annotations
@@ -39,26 +40,28 @@ UNPORTED_FLAGS = (
     "--fleet_jobs", "--fleet_rows_per_job", "--fleet_capacity",
     "--fleet_export_dir", "--fleet_style",
     "--log_every", "--compile_cache_dir",
-    "--pp", "--pp_micro",
     "--attn_impl",
     "--profile", "--profile_steps", "--warnings",
 )
 
-_PP = "queue 1 item 14c, pipeline parallelism"
 _TELEMETRY = "queue 1 item 10, telemetry"
+_FLEET = "queue 1 item 14b, fleet and fused finetuning"
 
-#: the ROADMAP queue item that brings an unported flag or shard mode
+#: the ROADMAP queue item that brings an unported flag
 QUEUE_ITEMS = {
     "--log_every": _TELEMETRY, "--profile": _TELEMETRY,
     "--profile_steps": _TELEMETRY, "--warnings": _TELEMETRY,
-    "--pp": _PP, "--pp_micro": _PP, "pp": _PP,
+    **{f: _FLEET for f in ("--serve_replicas", "--serve_workers", "--serve_tp",
+                           "--serve_sp", "--serve_max_prompt", "--fleet_jobs",
+                           "--fleet_rows_per_job", "--fleet_capacity",
+                           "--fleet_export_dir", "--fleet_style")},
 }
 
 #: flags the port takes in --mode serve only; --mode train refuses them by
 #: name (the training telemetry is not ported)
 SERVE_ONLY_TELEMETRY = (("metrics_jsonl", None), ("stall_timeout", 0.0))
 
-#: the JAX package's shard modes; the port runs ``parallel.SHARD_MODES``
+#: the JAX package's shard modes: ``parallel.SHARD_MODES`` and pp
 JAX_SHARD_MODES = ("dp", "fsdp", "zero1", "tp", "tp_fsdp", "pp")
 
 
@@ -88,14 +91,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi_chip strategy: dp (replicated, gradient "
                         "all-reduce), fsdp (parameters and optimizer state "
                         "sharded), zero1 (optimizer state sharded), tp "
-                        "(Megatron tensor parallelism over --tp ranks) or "
-                        "tp_fsdp (tp, then fsdp on the data axis); pp is "
-                        "not ported.")
+                        "(Megatron tensor parallelism over --tp ranks), "
+                        "tp_fsdp (tp, then fsdp on the data axis) or pp "
+                        "(GPipe pipeline over --pp stages, composable with "
+                        "--tp).")
     p.add_argument("--tp", type=int, default=1,
                    help="Tensor-parallel degree (model mesh axis).")
     p.add_argument("--sp", type=int, default=1,
                    help="Sequence-parallel degree (seq mesh axis; ring "
                         "attention for long contexts).")
+    p.add_argument("--pp", type=int, default=0,
+                   help="Pipeline stages for --shard_mode pp (0 = one stage "
+                        "per device over --tp; the data axis takes the rest).")
+    p.add_argument("--pp_micro", type=int, default=None,
+                   help="Microbatches per step for --shard_mode pp (default "
+                        "8); --batch_size must be divisible by it. Bubble "
+                        "fraction is (S-1)/(M+S-1).")
     p.add_argument("--model", type=str, default="GPT2",
                    choices=list(MODEL_PARAMS_MAPPING))
     p.add_argument("--num_params", type=str, default="124M")
@@ -338,10 +349,6 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                      + (f" ({'; '.join(where)})" if where else ""))
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
-    if args.shard_mode in QUEUE_ITEMS:
-        parser.error(f"--shard_mode {args.shard_mode}: a shard mode of the "
-                     "JAX package that the PyTorch port does not support yet "
-                     f"(ROADMAP {QUEUE_ITEMS[args.shard_mode]})")
     if args.mode == "train":
         telemetry = [f"--{name}" for name, default in SERVE_ONLY_TELEMETRY
                      if getattr(args, name) != default]
@@ -394,7 +401,7 @@ _TRAIN_ONLY_DEFAULTS = (
     ("watchdog_window", 50), ("grad_accum", 1), ("prefetch", 2),
     ("async_ckpt", "off"), ("use_actv_ckpt", False), ("mixed_precision", None),
     ("tokenizer_cache_dir", None), ("run_type", "single_chip"),
-    ("shard_mode", "dp"), ("tp", 1), ("sp", 1),
+    ("shard_mode", "dp"), ("tp", 1), ("sp", 1), ("pp", 0), ("pp_micro", None),
 )
 
 #: the serve flags and their defaults (the stray-flag rule)
@@ -523,10 +530,42 @@ def _check_tp_sp(args) -> None:
             "would silently ignore the policy's reduce dtype.")
     if args.sp > 1 and args.run_type != "multi_chip":
         raise ValueError("--sp > 1 requires --run_type multi_chip.")
-    if args.shard_mode in ("tp", "tp_fsdp") and args.use_lora:
+    if args.use_lora and (args.shard_mode in ("tp", "tp_fsdp")
+                          or (args.shard_mode == "pp" and args.tp > 1)):
+        mode = args.shard_mode + (f" --tp {args.tp}" if args.shard_mode == "pp" else "")
         raise ValueError(
-            f"--use_lora does not compose with --shard_mode {args.shard_mode} "
+            f"--use_lora does not compose with --shard_mode {mode} "
             "in the PyTorch port (the adapter multiplies the whole weights).")
+
+
+def _check_pp(args) -> None:
+    """The JAX CLI's checks of ``--shard_mode pp``, ``--pp`` and
+    ``--pp_micro``, in its words (``pp_micro`` defaults to 8 there)."""
+    if args.shard_mode != "pp" and (args.pp != 0 or args.pp_micro is not None):
+        raise ValueError("--pp/--pp_micro only take effect with --shard_mode pp.")
+    if args.shard_mode != "pp":
+        return
+    if args.pp_micro is None:
+        args.pp_micro = 8
+    if args.pp_micro < 1:
+        raise ValueError("--pp_micro must be >= 1.")
+    if args.pp < 0:
+        raise ValueError("--pp must be >= 0 (0 = one stage/device).")
+    if args.mixed_precision in ("fp16", "bf16_hybrid"):
+        raise ValueError(
+            "--shard_mode pp supports --mixed_precision bf16/fp32 only "
+            "(no loss-scaling state; the pipelined loss owns its psum "
+            "dtypes).")
+    if args.data_type == "fp16":
+        raise ValueError(
+            "--shard_mode pp does not support fp16 (the pipelined loss "
+            "has no loss-scaling state yet); use bf16.")
+    if args.sp > 1:
+        raise ValueError("--shard_mode pp does not compose with --sp.")
+    if args.batch_size % args.pp_micro != 0:
+        raise ValueError(
+            f"--batch_size {args.batch_size} must be divisible by "
+            f"--pp_micro {args.pp_micro}.")
 
 
 def _check_train(args) -> None:
@@ -547,6 +586,7 @@ def _check_train(args) -> None:
         raise ValueError(
             f"--shard_mode {args.shard_mode} requires --run_type multi_chip.")
     _check_tp_sp(args)
+    _check_pp(args)
     if args.grad_accum < 1:
         raise ValueError("--grad_accum must be >= 1.")
     if args.grad_accum > 1:
@@ -554,6 +594,10 @@ def _check_train(args) -> None:
             raise ValueError(
                 f"--batch_size {args.batch_size} must be divisible by "
                 f"--grad_accum {args.grad_accum}.")
+        if args.shard_mode == "pp":
+            raise ValueError(
+                "--grad_accum does not compose with --shard_mode pp "
+                "(pipeline microbatching is --pp_micro).")
         if args.mixed_precision == "bf16_hybrid":
             raise ValueError(
                 "--grad_accum does not compose with --mixed_precision "

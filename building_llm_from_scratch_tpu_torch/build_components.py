@@ -5,7 +5,7 @@ tokenizer, with ``--use_lora`` the adapter, the precision policy
 (``--mixed_precision``; ``--data_type fp16`` alone gets the fp16 policy, so
 it trains with loss scaling), and with ``--run_type multi_chip`` the mesh
 plan (``build_plan``: dp, fsdp, zero1, tp or tp_fsdp over a (data, sp,
-tp) mesh of the process group).
+tp) mesh of the process group, or pp over a (data, stage, tp) one).
 
 Every rank builds the same whole model from the same seed; the trainer
 then keeps the rank's slices as the plan says.
@@ -74,10 +74,27 @@ def build_config(args) -> ModelConfig:
 def build_plan(args) -> Optional[MeshPlan]:
     """Flags -> the mesh plan of ``--run_type multi_chip`` over the process
     group (``parallel.initialize_distributed`` joined it first): a (data,
-    ``--sp``, ``--tp``) mesh, or None on a single chip (the JAX
-    ``build_plan`` without pp)."""
+    ``--sp``, ``--tp``) mesh; under pp a (data, stage, ``--tp``) one of
+    ``--pp`` stages (0: the world over ``--tp``), refused at build time
+    unless each of the ``--pp_micro`` microbatches' rows divides the data
+    axis; None on a single chip (the JAX ``build_plan``)."""
     if args.run_type != "multi_chip":
         return None
+    if args.shard_mode == "pp":
+        from building_llm_from_scratch_tpu_torch.parallel import collectives
+        from building_llm_from_scratch_tpu_torch.parallel.pipeline import (
+            build_pp_plan,
+        )
+
+        n_micro = args.pp_micro or 8
+        plan = build_pp_plan(args.pp, n_micro=n_micro, tp=args.tp)
+        d = plan.n_data
+        if args.batch_size % n_micro != 0 or (args.batch_size // n_micro) % d != 0:
+            raise ValueError(
+                f"--batch_size {args.batch_size} must split into --pp_micro "
+                f"{n_micro} microbatches whose rows divide the mesh data axis {d} "
+                f"({collectives.world()} devices / {plan.n_stages} stages).")
+        return plan
     return build_mesh_plan(args.shard_mode, tp=args.tp, sp=args.sp)
 
 

@@ -19,8 +19,8 @@ warning and goes on without the plot. Not ported: the training
 telemetry (``--metrics_jsonl`` and ``--stall_timeout`` in train mode,
 ``--log_every``, ``--profile``; ROADMAP queue 1 item 10).
 
-``--run_type multi_chip`` (``--shard_mode dp|fsdp|zero1|tp|tp_fsdp``,
-``--tp``, ``--sp``) trains with one
+``--run_type multi_chip`` (``--shard_mode dp|fsdp|zero1|tp|tp_fsdp|pp``,
+``--tp``, ``--sp``, ``--pp``, ``--pp_micro``) trains with one
 process per device, as the reference's ``mp.spawn`` did and as the JAX
 mesh spans every local device: under torchrun's environment (``RANK``,
 ``WORLD_SIZE``, ...) the process joins that group; otherwise one process
@@ -29,7 +29,8 @@ where the run is one rank). The group forms first (NCCL on ``cuda``, gloo
 on ``cpu``; ``parallel.initialize_distributed``), each rank takes
 ``cuda:<local rank>``, rank 0 makes the output directory before a
 barrier, the loaders hand each data rank its rows (the seq and model ranks
-of a data index share them), and only rank 0 logs,
+of a data index share them; under pp every rank the same global rows), and
+only rank 0 logs,
 samples and draws ``losses.pdf``; checkpoints and exports are collective.
 A caller that already formed a group (tests, chip_smoke) keeps it.
 """
@@ -83,13 +84,17 @@ def run_train(args):
         raise FileNotFoundError("No training files found in specified directory.")
     logger.info("Total training files detected: %d", len(files))
     # each data rank takes its rows; the seq and model ranks of one data
-    # index share them
+    # index share them. Under pp every rank takes the same global rows: the
+    # schedule cuts each data column's rows out of every microbatch
     plan = comps.plan
+    if plan is not None and plan.shard_mode == "pp":
+        shard = dict(process_index=0, process_count=1)
+    else:
+        shard = dict(process_index=plan.data_rank if plan else collectives.rank(),
+                     process_count=plan.n_data if plan else collectives.world())
     loader_kwargs = dict(batch_size=args.batch_size,
                          max_length=cfg.context_length, train_ratio=0.9,
-                         seed=args.seed,
-                         process_index=plan.data_rank if plan else collectives.rank(),
-                         process_count=plan.n_data if plan else collectives.world())
+                         seed=args.seed, **shard)
     if args.finetune:
         # the pad id is the config's eos, as in the JAX package
         loader = InstructLoader(comps.tokenizer, pad_token_id=cfg.eos_id,

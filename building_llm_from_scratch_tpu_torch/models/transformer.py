@@ -39,7 +39,10 @@ every leaf, so autograd carries their gradients back to the adapter or
 the masters, as the JAX step trains through ``merge_lora`` and
 ``cast_floating``. ``lora=`` instead applies one adapter unmerged at
 every adapted projection and the head (``forward``, ``forward_with_cache``
-and ``generate``: the trainer's merge-free sampling).
+and ``generate``: the trainer's merge-free sampling). ``stage_forward`` is
+one pipeline stage's share of the same forward (``parallel/pipeline.py``):
+the embedding on the first stage, then the stage's blocks through the same
+machinery.
 
 The serving functions (``prefill_into_slot``, ``prefill_chunk_into_slot``,
 ``decode_slots``, the speculative ``verify_slots`` and the paged siblings
@@ -978,26 +981,39 @@ def forward_hidden(model: Transformer, tokens: torch.Tensor, *,
     every mode gives the same loss and gradients bit for bit."""
     from building_llm_from_scratch_tpu_torch.parallel.tensor import SINGLE
 
-    cfg = model.cfg
     par = par or SINGLE
-    B, T = tokens.shape
     if seed is None:
         deterministic = True
-    rate = cfg.drop_rate
 
     def sites(layer: int, site: str) -> Optional[int]:
         return None if deterministic else site_seed(seed, layer, site)
 
     params = params or {}
-    adp, _ = _lora_layers(lora, lora_scaling, cfg.n_layers)
-    positions = par.positions(T, tokens.device)
+    adp, _ = _lora_layers(lora, lora_scaling, model.cfg.n_layers)
+    positions = par.positions(tokens.shape[1], tokens.device)
+    x = _embedding(model, tokens, positions, params, sites, deterministic, par)
+    x = _blocks(model, x, positions, params, sites, deterministic, par, adp)
+    return model.final_norm(x, params.get("final_norm/scale"),
+                            params.get("final_norm/bias"))
+
+
+def _embedding(model: Transformer, tokens: torch.Tensor, positions: torch.Tensor,
+               params: Flat, sites, deterministic: bool, par) -> torch.Tensor:
+    """The token (and position) embedding with its dropout."""
     tok_emb = params.get("tok_emb/weight", model.tok_emb)
     x = (par.vocab_embed(tok_emb, tokens) if par.vocab_parallel_emb
          else tok_emb[tokens])
     if model.pos_emb is not None:
         x = x + params.get("pos_emb/weight", model.pos_emb)[positions]
-    x = _dropout(x, rate, sites(-1, "embedding"), deterministic, par.drop_layout(x.shape))
+    return _dropout(x, model.cfg.drop_rate, sites(-1, "embedding"), deterministic,
+                    par.drop_layout(x.shape))
 
+
+def _blocks(model: Transformer, x: torch.Tensor, positions: torch.Tensor,
+            params: Flat, sites, deterministic: bool, par, adp) -> torch.Tensor:
+    """Every block of ``model`` in turn (``sites(layer, site)``: each
+    dropout site's seed), each keeping what ``remat_mode`` says."""
+    cfg = model.cfg
     source = par.layers
     mode = remat_mode(cfg)
     grad = torch.is_grad_enabled()
@@ -1005,8 +1021,8 @@ def forward_hidden(model: Transformer, tokens: torch.Tensor, *,
         raise ValueError("save-all remat keeps every layer's gathered weights; "
                          "fsdp's per-layer gathers need selective or full remat")
     for layer, w in enumerate(_layer_weights(model, params)):
-        env = _Env(cfg, layer, model.rope, positions, rate, deterministic, sites,
-                   par, None if adp is None else adp[layer])
+        env = _Env(cfg, layer, model.rope, positions, cfg.drop_rate, deterministic,
+                   sites, par, None if adp is None else adp[layer])
         if grad and adp is None and mode != "none":
             keys = [k for k in w if source is None or k not in source.names]
             run = _BlockRun(env, keys, source, mode == "selective")
@@ -1015,8 +1031,32 @@ def forward_hidden(model: Transformer, tokens: torch.Tensor, *,
         if source is not None:
             w = dict(w, **source.acquire(layer))
         x = _block(env, x, w, _Plain(env))
-    return model.final_norm(x, params.get("final_norm/scale"),
-                            params.get("final_norm/bias"))
+    return x
+
+
+def stage_forward(model: Transformer, x: Optional[torch.Tensor] = None, *,
+                  tokens: Optional[torch.Tensor] = None, sites=None,
+                  params: Optional[Flat] = None, par=None) -> torch.Tensor:
+    """One pipeline stage's forward (the JAX pp body's work on one
+    microbatch): ``model`` holds the stage's layers; the first stage
+    embeds ``tokens`` (with embedding dropout), a later one takes the
+    received activation ``x``; then the stage's blocks through
+    ``forward_hidden``'s machinery (so every remat mode gives the same loss
+    and gradients). ``sites(layer, site)``: the microbatch's dropout seeds
+    (``parallel.pipeline.dropout_sites``; None: deterministic). Returns
+    the activation before the final norm."""
+    from building_llm_from_scratch_tpu_torch.parallel.tensor import SINGLE
+
+    par = par or SINGLE
+    params = params or {}
+    deterministic = sites is None
+    seeds = sites or (lambda layer, site: None)
+    T = (tokens if x is None else x).shape[1]
+    device = (tokens if x is None else x).device
+    positions = par.positions(T, device)
+    if x is None:
+        x = _embedding(model, tokens, positions, params, seeds, deterministic, par)
+    return _blocks(model, x, positions, params, seeds, deterministic, par, None)
 
 
 def forward(model: Transformer, tokens: torch.Tensor, *,

@@ -14,6 +14,8 @@ through the thin wrappers below, one process per device:
   ``gather_full``             a sharded leaf's full value on every rank
   ``ring_shift``              tensors sent one hop round a ring, the
                               previous rank's received (ring attention)
+  ``send`` / ``recv``         one tensor to / from one rank (the pipeline's
+                              hops between stages)
   ``broadcast_object``        a picklable object from rank 0
 
 The reductions and gathers take a ``group`` (a mesh axis's subgroup,
@@ -218,6 +220,24 @@ def ring_shift(tensors: list, group=None, label: Optional[str] = None) -> list:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         out.append(recv.to(t.device) if staged else recv)
+    return out
+
+
+def send(t: torch.Tensor, dst: int, label: Optional[str] = None) -> None:
+    """Send ``t`` to global rank ``dst`` (blocking until it is taken)."""
+    _count("send", t, label)
+    src = t.contiguous()
+    dist.send(src.cpu() if _staged(src) else src, dst)
+
+
+def recv(out: torch.Tensor, src: int) -> torch.Tensor:
+    """``out`` <- the tensor global rank ``src`` sends (blocking)."""
+    if _staged(out):
+        host = torch.empty(out.shape, dtype=out.dtype)
+        dist.recv(host, src)
+        out.copy_(host)
+    else:
+        dist.recv(out, src)
     return out
 
 

@@ -124,17 +124,56 @@ def shutdown_distributed() -> None:
 #: axes together (the ranks that share one model index)
 GROUP_AXES = (DATA_AXIS, SEQ_AXIS, MODEL_AXIS, "data_seq")
 
-#: (data, seq, model) -> {axis: this rank's group}, built once per group
+#: (mesh type, shape) -> {axis: this rank's group}, built once per group
 _GROUPS: dict = {}
 
 
+class _Lines:
+    """The subgroups of a mesh that has ``shape``, ``size``, ``line(rank,
+    axis)`` and ``group_axes``: ``group(axis)`` is this rank's
+    ``torch.distributed`` subgroup along one axis (or a pair of axes)."""
+
+    group_axes: tuple = ()
+
+    def group(self, axis: str):
+        """This rank's process group along ``axis``: None (the default
+        group) when the axis spans the whole world, its subgroup
+        otherwise. A one-rank line's group is never used for a collective
+        (the callers skip axes of size 1)."""
+        if len(self.line(0, axis)) == self.size:
+            return None
+        key = (type(self).__name__, tuple(self.shape.values()))
+        if key not in _GROUPS:
+            _GROUPS[key] = self._build_groups()
+        return _GROUPS[key][axis]
+
+    def _build_groups(self) -> dict:
+        """Every line's group on every rank, in one order; this rank's
+        kept."""
+        me = dist.get_rank()
+        mine = {}
+        for axis in self.group_axes:
+            seen = set()
+            for r in range(self.size):
+                ranks = tuple(self.line(r, axis))
+                if ranks in seen:
+                    continue
+                seen.add(ranks)
+                g = dist.new_group(list(ranks))
+                if me in ranks:
+                    mine[axis] = g
+        return mine
+
+
 @dataclasses.dataclass(frozen=True)
-class Mesh:
+class Mesh(_Lines):
     """The (data, seq, model) mesh over the process group's ranks."""
 
     data: int
     seq: int = 1
     model: int = 1
+
+    group_axes = GROUP_AXES
 
     @property
     def shape(self) -> dict:
@@ -166,35 +205,6 @@ class Mesh:
             return [self.rank_of(d, s, i) for i in range(self.model)]
         return [self.rank_of(i, j, m) for i in range(self.data)
                 for j in range(self.seq)]
-
-    def group(self, axis: str):
-        """This rank's process group along ``axis``: None (the default
-        group) when the axis spans the whole world, its subgroup
-        otherwise. A one-rank line's group is never used for a collective
-        (the callers skip axes of size 1)."""
-        if len(self.line(0, axis)) == self.size:
-            return None
-        key = (self.data, self.seq, self.model)
-        if key not in _GROUPS:
-            _GROUPS[key] = self._build_groups()
-        return _GROUPS[key][axis]
-
-    def _build_groups(self) -> dict:
-        """Every line's group on every rank, in one order; this rank's
-        kept."""
-        me = dist.get_rank()
-        mine = {}
-        for axis in GROUP_AXES:
-            seen = set()
-            for r in range(self.size):
-                ranks = tuple(self.line(r, axis))
-                if ranks in seen:
-                    continue
-                seen.add(ranks)
-                g = dist.new_group(list(ranks))
-                if me in ranks:
-                    mine[axis] = g
-        return mine
 
 
 def make_mesh(data: int = -1, seq: int = 1, model: int = 1,

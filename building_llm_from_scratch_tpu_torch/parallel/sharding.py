@@ -266,6 +266,14 @@ class MeshPlan:
         return (tuple(int(d) for d in shape), [list(map(list, k)) for k in keys],
                 mine, self.bounds(shape, spec, self.rank))
 
+    def local_slice(self, t: torch.Tensor, spec: Spec) -> torch.Tensor:
+        """This rank's slice of the whole leaf ``t`` laid out as ``spec``
+        (a view)."""
+        for i, (a, b) in enumerate(self.bounds(t.shape, spec, self.rank)):
+            if b - a != t.shape[i]:
+                t = t.narrow(i, a, b - a)
+        return t
+
     def local(self, t: torch.Tensor, axis: Optional[int]) -> torch.Tensor:
         """This rank's shard of ``t`` along ``axis`` on the data axis (a
         view; ``t`` itself when ``axis`` is None)."""

@@ -95,6 +95,21 @@ explicit and owns its dtype:
      fsdp, tp), the same ``AdamW.step`` formulas; zero1 then all-gathers
      the updated slices into the whole parameters.
 
+``make_pp_train_step`` / ``make_pp_eval_step`` are the steps of a
+``parallel.pipeline.PipelinePlan`` (``--shard_mode pp``; the JAX
+``make_pp_train_step`` / ``make_pp_eval_step``): the rank's stage of the
+model (its L / S blocks, under tp their Megatron slices, and the whole
+embeddings, final norm and head) runs the GPipe schedule
+(``parallel.pipeline.run_gpipe``) on the global batch, the LoRA merge and
+the policy cast made once a step before it (``make_full_params_fn``, so
+gradients reach the adapter alone); then the block gradients are summed
+over the data line and the replicated leaves' over data x stage, the loss
+is sum(nll) / max(sum(w), 1) all-reduced over data x stage, and the finish
+is the other steps': the global-norm clip (the block leaves' squares summed
+over the stage line, each replicated leaf counted once), AdamW, the
+schedule and the tokens (the global batch). fp16 and bf16_hybrid are
+refused (``_check_pp_policy``), as in JAX.
+
 At a world of one the step is the single-device step: the collectives are
 identities on one rank, the loss share is exactly 1, no reduce-dtype cast
 and no rank fold happen, so its losses equal ``make_train_step``'s bit for
@@ -116,8 +131,7 @@ reduced (``release_params``), so between steps a rank holds its masters
 and moments only, and inside a step at most two layers' gathered block
 weights.
 
-Not ported here: pipeline parallelism and the per-layer-group ``health``
-bundle.
+Not ported here: the per-layer-group ``health`` bundle.
 """
 
 from __future__ import annotations
@@ -133,11 +147,13 @@ from building_llm_from_scratch_tpu_torch.configs import DTYPE_MAP, ModelConfig
 from building_llm_from_scratch_tpu_torch.models.lora import (
     flatten_lora,
     merge_lora,
+    unflatten_lora,
 )
 from building_llm_from_scratch_tpu_torch.models.transformer import (
     Transformer,
     _head_logits,
     forward_hidden,
+    stage_forward,
 )
 from building_llm_from_scratch_tpu_torch.ops.softmax_xent import (
     fused_cross_entropy_loss,
@@ -153,6 +169,14 @@ from building_llm_from_scratch_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
     SEQ_AXIS,
+)
+from building_llm_from_scratch_tpu_torch.parallel.pipeline import (
+    STAGE_AXIS,
+    PipelinePlan,
+    check_pp_config,
+    dropout_sites,
+    microbatches,
+    run_gpipe,
 )
 from building_llm_from_scratch_tpu_torch.parallel.sharding import (
     MeshPlan,
@@ -270,7 +294,10 @@ class TrainState:
     LoRA run's frozen base, ``tp_axes`` each leaf's model-sharded dimension
     (in the whole leaf's shape), and ``gathered`` the (step, exact) of the
     working copy's last fsdp gather (exact: the masters themselves, not
-    their compute-dtype casts)."""
+    their compute-dtype casts). Under pp (``init_train_state(plan=)`` with a
+    ``PipelinePlan``) ``model`` is the rank's stage (a model of its L / S
+    layers), ``stage_axes`` says which leaves split over the stages and
+    ``whole`` / ``whole_lora`` are gathered by ``gather_whole``."""
 
     model: Transformer
     params: Flat
@@ -290,8 +317,16 @@ class TrainState:
     gathered: Optional[Tuple[int, bool]] = None
     #: the policy's compute dtype, which fsdp's step gathers in
     compute_dtype: Optional[torch.dtype] = None
-    #: the whole model (under tp / tp_fsdp; ``model`` otherwise)
+    #: the whole model (under tp / tp_fsdp and pp; ``model`` otherwise)
     whole: Optional[Transformer] = None
+    #: each trainable leaf's whole shape (the checkpoint's global shapes)
+    whole_shapes: Dict[str, tuple] = field(default_factory=dict)
+    #: pp: each leaf's stage-split dimension (0 for the blocks, None when
+    #: whole on every stage)
+    stage_axes: Dict[str, Optional[int]] = field(default_factory=dict)
+    #: pp with LoRA: the whole adapter's leaves by flat name (the trainer's
+    #: tree, which samples and exports gather into)
+    whole_lora: Optional[Flat] = None
 
 
 def _local_shape(shape, axis: Optional[int], n: int) -> tuple:
@@ -317,6 +352,8 @@ def init_train_state(trainable, optimizer: AdamW, seed: int = 0,
     TrainState docstring); under tp / tp_fsdp the rank trains a model of
     its slices, and the whole model keeps no memory until a sample or an
     export gathers it (``gather_whole``)."""
+    if isinstance(plan, PipelinePlan):
+        return _pipeline_state(trainable, optimizer, seed, frozen, policy, plan)
     whole = None
     if plan is not None and plan.n_model > 1 and plan.shard_mode in ("tp", "tp_fsdp"):
         if frozen is not None:
@@ -369,6 +406,45 @@ def _names(k: str) -> tuple:
     return tuple(k.split("/"))
 
 
+def _pipeline_state(trainable, optimizer: AdamW, seed: int,
+                    frozen: Optional[Transformer], policy: Optional[PrecisionPolicy],
+                    plan: PipelinePlan) -> TrainState:
+    """The TrainState of a pp rank: the rank's stage of the model (and of a
+    LoRA adapter) in storage of its own, trained as one device trains its
+    model; the whole model and adapter keep no memory until
+    ``gather_whole``."""
+    whole = trainable if frozen is None else frozen
+    check_pp_config(whole.cfg, plan)
+    stage = Transformer(dataclasses.replace(whole.cfg,
+                                            n_layers=whole.cfg.n_layers // plan.n_stages),
+                        _rank_slices(whole.stacked, plan), shapes=False)
+    whole_lora = None
+    local = stage
+    if frozen is not None:
+        whole_lora = {"/".join(p): leaf for p, leaf in flatten_lora(trainable).items()}
+        local = unflatten_lora({tuple(k.split("/")): v for k, v in
+                                _rank_slices(whole_lora, plan).items()})
+    state = init_train_state(local, optimizer, seed,
+                             frozen=None if frozen is None else stage, policy=policy)
+    shapes = {k: tuple(v.shape) for k, v in (whole_lora or whole.stacked).items()}
+    specs = {k: plan.param_spec(_names(k), shape) for k, shape in shapes.items()}
+    state.plan, state.whole, state.whole_lora = plan, whole, whole_lora
+    state.whole_shapes = shapes
+    state.stage_axes = {k: spec_axis(spec, STAGE_AXIS) for k, spec in specs.items()}
+    state.tp_axes = {k: spec_axis(spec, MODEL_AXIS) for k, spec in specs.items()}
+    state.param_axes = dict.fromkeys(shapes)
+    state.opt_axes = dict.fromkeys(shapes)
+    _release(list(whole.stacked.values()) + list((whole_lora or {}).values()))
+    return state
+
+
+def _rank_slices(flat: Flat, plan: MeshPlan) -> Flat:
+    """This rank's slice of every whole leaf of ``flat`` (the plan's
+    specs), each in storage of its own."""
+    return {k: plan.local_slice(v.detach(), plan.param_spec(_names(k), tuple(v.shape))
+                                ).clone() for k, v in flat.items()}
+
+
 def _model_slices(whole: Transformer, plan: MeshPlan) -> Transformer:
     """A model of this rank's model-axis slices of ``whole``'s leaves (the
     Megatron rule of ``plan``), in storage of its own."""
@@ -405,7 +481,7 @@ def _placed_state(model: Transformer, full: Flat, grads: Flat,
     return TrainState(model, params, grads, opt, seed=seed, lora=lora,
                       plan=plan, full=full, param_axes=param_axes,
                       opt_axes=opt_axes, frozen_axes=frozen_axes,
-                      gathered=(0, True))
+                      gathered=(0, True), whole_shapes=whole_shape)
 
 
 def _whole_shapes(model: Transformer, full: Flat, plan: MeshPlan) -> dict:
@@ -451,6 +527,8 @@ def gather_whole(state: TrainState) -> Transformer:
     collective): the working copy gathered (``gather_params``), and under
     tp / tp_fsdp every model-axis slice gathered into ``state.whole``."""
     gather_params(state, exact=True)
+    if state.stage_axes:
+        return _gather_stages(state)
     if not state.tp_axes:
         return state.whole or state.model
     group = state.plan.group(MODEL_AXIS)
@@ -458,6 +536,36 @@ def gather_whole(state: TrainState) -> Transformer:
         for k, v in state.whole.stacked.items():
             coll.gather_full(state.full[k], state.tp_axes[k], out=_allocated(v),
                              group=group, label=MODEL_AXIS)
+    return state.whole
+
+
+def gather_slice(state: TrainState, k: str, local: torch.Tensor,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """pp: the whole value of leaf ``k`` (a parameter or moment of
+    ``whole_shapes``, or a frozen base leaf) from every rank's ``local``
+    slice: gathered over the model line, then over the stage line (a
+    collective)."""
+    plan = state.plan
+    shape = state.whole_shapes.get(k) or tuple(state.whole.stacked[k].shape)
+    spec = plan.param_spec(_names(k), shape)
+    tp, st = spec_axis(spec, MODEL_AXIS), spec_axis(spec, STAGE_AXIS)
+    if tp is not None and plan.n_model > 1:
+        local = coll.gather_full(local, tp, group=plan.group(MODEL_AXIS),
+                                 label=MODEL_AXIS)
+    if st is None or plan.n_stages == 1:
+        return local if out is None else out.copy_(local)
+    return coll.gather_full(local, st, out=out, group=plan.group(STAGE_AXIS),
+                            label=STAGE_AXIS)
+
+
+def _gather_stages(state: TrainState) -> Transformer:
+    """pp's ``gather_whole``: the whole model (and a LoRA run's whole
+    adapter) from every rank's stage, on every rank."""
+    with torch.no_grad():
+        for k, v in state.whole.stacked.items():
+            gather_slice(state, k, state.model.stacked[k], out=_allocated(v))
+        for k, v in (state.whole_lora or {}).items():
+            gather_slice(state, k, state.full[k], out=_allocated(v))
     return state.whole
 
 
@@ -499,7 +607,7 @@ def checkpoint_layout(state: TrainState) -> Dict[str, tuple]:
     if state.plan is None:
         return {}
     plan, out = state.plan, {}
-    shapes = _whole_shapes(state.model, state.full, plan)
+    shapes = state.whole_shapes
     for k in state.full:
         shape = shapes[k]
         spec = plan.param_spec(_names(k), shape)
@@ -509,10 +617,12 @@ def checkpoint_layout(state: TrainState) -> Dict[str, tuple]:
         if ospec:
             for m in ("mu", "nu"):
                 out[f"opt_state/1/{m}/{k}"] = plan.leaf_layout(shape, ospec)
-    for k, axis in state.frozen_axes.items():
-        if axis is not None:
-            shape = tuple(state.model.stacked[k].shape)
-            out[f"frozen/{k}"] = plan.leaf_layout(shape, plan.param_spec(_names(k), shape))
+    if state.lora is not None:
+        for k, v in state.whole.stacked.items():
+            shape = tuple(v.shape)
+            spec = plan.param_spec(_names(k), shape)
+            if spec:
+                out[f"frozen/{k}"] = plan.leaf_layout(shape, spec)
     return out
 
 
@@ -706,15 +816,21 @@ class _Collectives:
         """The global gradients of ``grads`` (``reduce_leaf`` each)."""
         return {k: self.reduce_leaf(g, state.param_axes[k]) for k, g in grads.items()}
 
-    def norm(self, tree: Flat, axes: Dict[str, Optional[int]],
-             tp_axes: Dict[str, Optional[int]]) -> torch.Tensor:
-        """``optim.global_norm`` of a tree whose ``axes`` leaves are this
-        rank's data shards and ``tp_axes`` leaves its model slices: their
-        fp32 sums of squares all-reduced (one vector per mesh axis), then
-        rounded and summed in leaf order."""
+    def splits(self, state: TrainState, moments: bool = False) -> tuple:
+        """(mesh axis, {leaf: its split dimension}) for each axis the rank's
+        parameters (``moments``: its moments) are split on: their data
+        shards and their model slices."""
+        return ((DATA_AXIS, state.opt_axes if moments else state.param_axes),
+                (MODEL_AXIS, state.tp_axes))
+
+    def norm(self, tree: Flat, splits: tuple) -> torch.Tensor:
+        """``optim.global_norm`` of a tree whose leaves are this rank's
+        parts along ``splits`` (``splits()``): their fp32 sums of squares
+        all-reduced (one vector per mesh axis), then rounded and summed in
+        leaf order."""
         sums = [torch.linalg.vector_norm(t, dtype=torch.float32).square()
                 for t in tree.values()]
-        for mesh_axis, where in ((DATA_AXIS, axes), (MODEL_AXIS, tp_axes)):
+        for mesh_axis, where in splits:
             idx = [i for i, k in enumerate(tree) if where.get(k) is not None]
             if idx:
                 vec = self._reduce(torch.stack([sums[i] for i in idx]), mesh_axis)
@@ -733,7 +849,7 @@ class _Collectives:
         if grad_norm is None:
             # the clipping norm: of the whole gradients under dp and zero1,
             # of the shards under fsdp and the slices under tp
-            grad_norm = self.norm(grads, state.param_axes, state.tp_axes)
+            grad_norm = self.norm(grads, self.splits(state))
         zero1 = {k: a for k, a in state.opt_axes.items()
                  if a is not None and state.param_axes[k] is None}
         params = {k: self.plan.local(p, zero1.get(k))
@@ -741,7 +857,7 @@ class _Collectives:
         g = {k: self.plan.local(v, zero1.get(k)) for k, v in grads.items()}
         metrics = optimizer.step(
             params, g, state.opt_state, grad_norm=grad_norm,
-            norm=lambda u: self.norm(u, state.opt_axes, state.tp_axes))
+            norm=lambda u: self.norm(u, self.splits(state, moments=True)))
         with torch.no_grad():
             for k, axis in zero1.items():
                 coll.gather_full(params[k], axis, out=state.params[k],
@@ -896,6 +1012,42 @@ def _parallel_losses(cfg: ModelConfig, use_fused_xent: Optional[bool],
     return loss, sums
 
 
+def _finish(state: TrainState, loss: torch.Tensor, grads: Flat, tokens: int,
+            optimizer: AdamW, comm: Optional["_Collectives"],
+            policy: Optional[PrecisionPolicy]):
+    """The update, or with loss scaling the skip rule (module docstring),
+    then the step count and the metrics (``tokens``: the global batch's)."""
+    update = (optimizer.step if comm is None else
+              lambda p, g, o, **kw: comm.update(optimizer, state, g, **kw))
+    if state.loss_scale is None:
+        metrics = update(state.params, grads, state.opt_state)
+    else:
+        if policy is None or not policy.loss_scaling:
+            raise ValueError("a loss-scaled state needs its fp16 policy "
+                             "in make_train_step(policy=)")
+        grad_norm = (global_norm(grads) if comm is None
+                     else comm.norm(grads, comm.splits(state)))
+        finite = bool(torch.isfinite(grad_norm) & torch.isfinite(loss))
+        if comm is not None:
+            # every rank must take the same branch: a rank that skipped
+            # alone would leave the others in a later collective
+            finite = coll.agree(finite, "min")
+        if finite:
+            metrics = update(state.params, grads, state.opt_state,
+                             grad_norm=grad_norm)
+        else:
+            metrics = dict(grad_norm=grad_norm,
+                           update_norm=torch.full_like(grad_norm, float("nan")))
+        # the JAX metric: the schedule at the step, which runs ahead of the
+        # optimizer's count once a step was skipped
+        metrics["lr"] = optimizer.schedule(state.step)
+        _update_loss_scale(state, finite, policy)
+        metrics.update(loss_scale=state.loss_scale, skipped=int(not finite))
+    state.step += 1
+    metrics.update(loss=loss.detach(), tokens=tokens)
+    return state, metrics
+
+
 def _build_train_step(cfg: ModelConfig, optimizer: AdamW,
                       use_fused_xent: Optional[bool], *,
                       lora_alpha: Optional[float], lora_rank: Optional[int],
@@ -922,37 +1074,8 @@ def _build_train_step(cfg: ModelConfig, optimizer: AdamW,
 
     def finish(state: TrainState, loss: torch.Tensor, grads: Flat,
                n_tokens: int):
-        """The update, or with loss scaling the skip rule (module
-        docstring), then the step count and the metrics."""
-        update = (optimizer.step if comm is None else
-                  lambda p, g, o, **kw: comm.update(optimizer, state, g, **kw))
-        if state.loss_scale is None:
-            metrics = update(state.params, grads, state.opt_state)
-        else:
-            if policy is None or not policy.loss_scaling:
-                raise ValueError("a loss-scaled state needs its fp16 policy "
-                                 "in make_train_step(policy=)")
-            grad_norm = (global_norm(grads) if comm is None
-                         else comm.norm(grads, state.param_axes, state.tp_axes))
-            finite = bool(torch.isfinite(grad_norm) & torch.isfinite(loss))
-            if comm is not None:
-                # every rank must take the same branch: a rank that skipped
-                # alone would leave the others in a later collective
-                finite = coll.agree(finite, "min")
-            if finite:
-                metrics = update(state.params, grads, state.opt_state,
-                                 grad_norm=grad_norm)
-            else:
-                metrics = dict(grad_norm=grad_norm,
-                               update_norm=torch.full_like(grad_norm, float("nan")))
-            # the JAX metric: the schedule at the step, which runs ahead
-            # of the optimizer's count once a step was skipped
-            metrics["lr"] = optimizer.schedule(state.step)
-            _update_loss_scale(state, finite, policy)
-            metrics.update(loss_scale=state.loss_scale, skipped=int(not finite))
-        state.step += 1
-        metrics.update(loss=loss.detach(), tokens=n_tokens * replicas)
-        return state, metrics
+        return _finish(state, loss, grads, n_tokens * replicas, optimizer, comm,
+                       policy)
 
     def unscaled(state: TrainState, grads: Flat) -> Flat:
         """The gradients in fp32 with the loss scale divided out."""
@@ -1107,5 +1230,154 @@ def make_eval_step(cfg: ModelConfig, *, lora_alpha: Optional[float] = None,
         if comm is None:
             return loss
         return comm.loss(loss * comm.share(batch["inputs"], batch.get("weights")))
+
+    return eval_step
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism (--shard_mode pp)
+# ---------------------------------------------------------------------------
+
+def _check_pp_policy(policy: Optional[PrecisionPolicy]) -> None:
+    """The pipelined loss has no loss-scaling state and reduces in the
+    gradients' own dtype, so fp16 (the scaler) and bf16_hybrid (another
+    reduce dtype) are refused here, at the layer that owns the constraint,
+    in the JAX words."""
+    if policy is None:
+        return
+    if policy.compute_dtype == "fp16" or policy.reduce_dtype != policy.compute_dtype:
+        raise ValueError(f"pipeline parallelism supports bf16/fp32 policies only; "
+                         f"got '{policy.name}'")
+
+
+class _PipelineCollectives(_Collectives):
+    """pp's reduces (module docstring): the block gradients over the data
+    line, the replicated leaves' over data x stage (stage 0 holds the
+    embeddings' share, the last stage the final norm's and the head's); the
+    loss's nll sum over data x stage; the clip norm's block squares over
+    the stage line (and the model line under tp), a replicated leaf counted
+    once. Nothing else reduces over the model axis: Megatron's f and g run
+    inside the stage body. A one-rank line reduces nothing."""
+
+    #: the group the replicated leaves' gradients sum over
+    REPLICATED = "data_stage"
+
+    def __init__(self, plan: PipelinePlan):
+        self.plan = plan
+        self.world = plan.n_data
+        self.replicas = 1
+        self.reduce_dtype = None
+
+    def _reduce(self, t: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
+        if len(self.plan.mesh.line(self.plan.rank, axis)) == 1:
+            return t
+        return coll.all_reduce(t, op=op, group=self.plan.group(axis),
+                               label=None if axis == DATA_AXIS else axis)
+
+    def splits(self, state: TrainState, moments: bool = False) -> tuple:
+        return ((STAGE_AXIS, state.stage_axes), (MODEL_AXIS, state.tp_axes))
+
+    def reduce(self, state: TrainState, grads: Flat) -> Flat:
+        for k, g in grads.items():
+            self._reduce(g, DATA_AXIS if state.stage_axes.get(k) is not None
+                         else self.REPLICATED)
+        return grads
+
+    def mean(self, nll: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+        """The global loss: every rank's nll sum over the global weight
+        sum."""
+        return self._reduce(nll.detach().clone(), "data_stage") / total.clamp_min(1.0)
+
+
+def _pp_runner(cfg: ModelConfig, plan: PipelinePlan, full_params: Callable,
+               dropout_stages: Optional[int]) -> Callable:
+    """``run(state, batch, seed, train) -> (nll sum, weight sum)``: one
+    step's schedule on this rank (``parallel.pipeline.run_gpipe``) over the
+    rank's stage, each microbatch's masks from ``dropout_sites``."""
+    check_pp_config(cfg, plan)
+    par = Parallel.of(plan, cfg)
+    per_stage = cfg.n_layers // (dropout_stages or plan.n_stages)
+    layer0 = plan.stage_rank * (cfg.n_layers // plan.n_stages)
+
+    def run(state: TrainState, batch: Dict[str, torch.Tensor], seed: int, train: bool):
+        inputs, targets, weights, total = microbatches(plan, batch)
+        params = full_params(state)
+        model = state.model
+        denom = total.clamp_min(1.0)
+        dropout = train and cfg.drop_rate > 0.0
+
+        def stage(m: int, x: Optional[torch.Tensor]) -> torch.Tensor:
+            sites = (dropout_sites(seed, plan.data_rank, m, layer0, per_stage)
+                     if dropout else None)
+            return stage_forward(model, x, tokens=inputs[m], sites=sites,
+                                 params=params, par=par)
+
+        def sums(m: int, y: torch.Tensor):
+            # the last stage: the final norm and the dense fp32 loss (the JAX
+            # pp body's ``loss_terms``, never the chunked loss)
+            h = model.final_norm(y, params.get("final_norm/scale"),
+                                 params.get("final_norm/bias"))
+            nll, _ = dense_sums(model, h, targets[m],
+                                None if weights is None else weights[m],
+                                head=params.get("head/weight"))
+            return nll / denom, nll.detach()
+
+        act = (inputs.shape[1], inputs.shape[2], cfg.emb_dim)
+        dtype = params.get("tok_emb/weight", model.tok_emb).dtype
+        nll = run_gpipe(plan, act, dtype, inputs.device, stage, sums, train)
+        return nll, total
+
+    return run
+
+
+def _check_pp_state(state: TrainState, plan: PipelinePlan) -> None:
+    if not isinstance(state.plan, PipelinePlan):
+        raise ValueError("the train state was made for another plan "
+                         "(init_train_state(plan=) and the step's must agree)")
+
+
+def make_pp_train_step(cfg: ModelConfig, optimizer: AdamW, plan: PipelinePlan, *,
+                       lora_alpha: Optional[float] = None,
+                       lora_rank: Optional[int] = None,
+                       policy: Optional[PrecisionPolicy] = None,
+                       dropout_stages: Optional[int] = None) -> Callable:
+    """``train_step(state, batch) -> (state, metrics)`` of a pp rank on a
+    state made with ``init_train_state(plan=plan)`` (module docstring; the
+    JAX ``make_pp_train_step``). ``batch`` is the global batch on every
+    rank. ``dropout_stages``: the stage count whose per-stage seeds the
+    masks follow (default the plan's): one rank with a pipelined run's
+    count draws that run's masks, the comparison run."""
+    _check_pp_policy(policy)
+    comm = _PipelineCollectives(plan)
+    run = _pp_runner(cfg, plan, make_full_params_fn(lora_alpha, lora_rank, policy),
+                     dropout_stages)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        _check_pp_state(state, plan)
+        for g in state.grads.values():
+            g.zero_()
+        nll, total = run(state, batch, step_seed(state.seed, state.step), True)
+        grads = comm.reduce(state, state.grads)
+        return _finish(state, comm.mean(nll, total), grads, batch["inputs"].numel(),
+                       optimizer, comm, None)
+
+    return train_step
+
+
+def make_pp_eval_step(cfg: ModelConfig, plan: PipelinePlan, *,
+                      lora_alpha: Optional[float] = None,
+                      lora_rank: Optional[int] = None,
+                      policy: Optional[PrecisionPolicy] = None) -> Callable:
+    """``eval_step(state, batch) -> loss`` on the pipelined forward (no
+    dropout, no gradients; the JAX ``make_pp_eval_step``): the global
+    batch's loss on every rank."""
+    _check_pp_policy(policy)
+    comm = _PipelineCollectives(plan)
+    run = _pp_runner(cfg, plan, make_full_params_fn(lora_alpha, lora_rank, policy), None)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        _check_pp_state(state, plan)
+        return comm.mean(*run(state, batch, 0, False))
 
     return eval_step

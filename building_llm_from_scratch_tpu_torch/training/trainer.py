@@ -45,7 +45,10 @@ over a (data, seq, model) mesh, one process per device) places the state
 (``make_sharded_train_step``); the loader hands each data rank its rows of
 the global batch (its seq and model ranks share them), so ``tokens_seen``
 counts the data rank's share, as in the JAX trainer, while the cursor (a
-global batch index) is the same on every rank. Evaluation losses are the global batches' (all-reduced sums).
+global batch index) is the same on every rank. A ``PipelinePlan``
+(``--shard_mode pp``) takes the pipelined steps (``make_pp_train_step`` /
+``make_pp_eval_step``) on the global batch, which every rank loads, and
+refuses ``--grad_accum`` (its microbatches are ``--pp_micro``). Evaluation losses are the global batches' (all-reduced sums).
 Samples, the final export and the adapter export gather the whole masters
 on every rank (a collective) before rank 0 alone generates or writes;
 checkpoints are written shard by shard by their owners (rank 0 commits
@@ -108,6 +111,8 @@ from building_llm_from_scratch_tpu_torch.training.train_step import (
     gather_whole,
     init_train_state,
     make_eval_step,
+    make_pp_eval_step,
+    make_pp_train_step,
     make_sharded_train_step,
     make_train_step,
     restore_train_state,
@@ -272,6 +277,13 @@ class Trainer:
                         if self._resume_cursor else "")
         kw = dict(lora_alpha=self.lora_alpha, lora_rank=self.lora_rank,
                   policy=self.policy)
+        if self.plan is not None and self.plan.shard_mode == "pp":
+            if self.grad_accum > 1:
+                raise ValueError("--grad_accum composes with the GSPMD step only: pp "
+                                 "has its own microbatching (--pp_micro)")
+            self.train_step = make_pp_train_step(self.cfg, self.optimizer, self.plan, **kw)
+            self.eval_step = make_pp_eval_step(self.cfg, self.plan, **kw)
+            return
         if self.plan is None:
             self.train_step = make_train_step(self.cfg, self.optimizer,
                                               grad_accum=self.grad_accum, **kw)

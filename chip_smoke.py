@@ -292,8 +292,10 @@ exits non-zero):
      fsdp, each against the single_chip run of the same flags: per-step
      losses and evaluations bit for bit, launches exact, the group NCCL
      with one rank and its collectives counted; step ms beside
-     single_chip's. Then two ranks on the one card over gloo (NCCL refuses
-     two ranks on one device), spawned and driven through the library API
+     single_chip's. Two ranks on the one card over gloo (NCCL refuses
+     two ranks on one device; in a thread beside the reference window,
+     before 10t / 10s / 10p's groups), spawned and driven through the
+     library API
      (``initialize_distributed(backend="gloo")``, the plan, the sharded
      step), each on cuda:0: GPT-2-124M fp32 (12 layers, B 4 x T 1024 a
      rank, B4 on, dropout 0), 3 steps under dp, zero1, fsdp and a control
@@ -320,11 +322,13 @@ exits non-zero):
      step peak per gloo rank below zero1's (it gathers the blocks layer by
      layer).
   10t / 10s. tensor and sequence parallelism on gloo ranks on the one card
-     (``phase_mesh``: spawned ranks on cuda:0, the library API), full
-     width, 2 steps: GPT-2-124M fp32 (12 layers) at tp 2 with p 0 and p
-     0.1, LLaMA-3.2-1B bf16 at tp 2 (8 layers; the vocab-parallel head
-     and loss), GPT-2 fp32 p 0.1 and LLaMA bf16 (8 layers) at sp 2 (the
-     ring, T 512 a rank), and GPT-2 tp_fsdp on four ranks (2, 1, 2). Each
+     (``phase_mesh``: spawned ranks on cuda:0, the library API; beside the
+     reference window, ``gloo_groups_beside``), full
+     width, 2 steps: GPT-2-124M fp32 at tp 2 with p 0 and p 0.1,
+     LLaMA-3.2-1B bf16 at tp 2 (8 layers; the vocab-parallel head and
+     loss), GPT-2 fp32 p 0.1 and LLaMA bf16 (8 layers) at sp 2 (the ring,
+     T 512 a rank), and GPT-2 tp_fsdp on four ranks (2, 1, 2); the GPT-2
+     runs at 6 of its 12 layers (10p's time bought back). Each
      against one rank on the global batch: every rank's losses equal, the
      losses' largest relative difference and the parameters' relative L2
      within the run's bounds (fp32 1e-5; bf16 pinned beside the control),
@@ -336,6 +340,24 @@ exits non-zero):
      Phases 5 and 5b also hold B1/B2 at a tp rank's heads (LLaMA Hq 16
      Hkv 4 bf16; GPT-2 H 6 fp32, with dropout at rank 1's head offset 6,
      whose mask is heads 6-11 of the whole model's).
+  10p. pipeline parallelism in the same groups (``MESH_RUNS``' pp runs:
+     the GPipe schedule, ``--shard_mode pp``'s library API): GPT-2-124M
+     fp32 (12 layers, 6 a stage, p 0.1; 2 steps) and LLaMA-3.2-1B bf16 (8
+     layers; 1 step) at pp 2, B 8 x T 1024 in 4 microbatches, then one
+     evaluation, and GPT-2 fp32 p 0 at pp 2 x tp 2 (1, 2, 2) on the four
+     ranks (1 step). Each
+     against one rank on the global batch drawing the same folded masks
+     (``dropout_stages``): every rank's losses equal, the bounds as 10t's
+     (fp32 1e-5; bf16 pinned beside the control), the control outside them
+     (every forward hop's activation zeroed: left unsent); B1 / B2a / B2b /
+     B3a / B3b launches exact per stage rank ((L/S) x M a train step, B1
+     again per evaluation; B3 2 (L/S) x M, plus M on stage 0 for the
+     embedding). The step ms (gloo-staged) and the bubble share (S-1) /
+     (M+S-1). Phase 10d's world-1 NCCL part adds LLaMA-3.2-1B bf16
+     through the CLI with ``--shard_mode pp --pp 1 --pp_micro 4`` against
+     single_chip's losses within a bound pinned beside a control (every
+     step's last microbatch with its gradient zeroed), launches exact.
+     Phases 5, 5b and 5c hold B1-B3 at the pp microbatches' shapes.
   9. the bytes the script and its reference process wrote to disk, the
      ``kernels`` line (one row per kernel and shape, each with the launches
      of the run at that shape; B6 by projection shape from phase 4c, with
@@ -344,7 +366,8 @@ exits non-zero):
      ``launches_4s`` and 4o's isolation and restart runs as
      ``launches_4o``, B5's 8w's and 9t's CLI launches, the training rows 8r's, 6m's, 6h's, 6r's, 9t's,
      10d's and 10s's, per rank for the gloo ranks; the tp-shape rows read
-     10t's rank 0), then the card line and the result line.
+     10t's rank 0, the pp-shape rows 10p's stage 0 and every rank's as
+     ``launches_10p``), then the card line and the result line.
 
 It exits non-zero without printing a result when no CUDA device is present
 or when the package is not beside it.
@@ -363,16 +386,24 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 
 _T0 = time.perf_counter()
 
 
+#: one line at a time from the main thread and ``gloo_groups_beside``'s
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(phase: str, **fields) -> None:
     """One JSON line of a phase, with the script's elapsed seconds."""
-    print(json.dumps({"phase": phase, "t_s": round(time.perf_counter() - _T0, 1),
-                      **fields}), flush=True)
+    line = json.dumps({"phase": phase, "t_s": round(time.perf_counter() - _T0, 1),
+                       **fields})
+    with _EMIT_LOCK:
+        sys.stdout.write(line + "\n")
+        sys.stdout.flush()
 
 
 def written_bytes() -> dict:
@@ -955,6 +986,10 @@ ATTN_SHAPES = [
     # Hq 16, Hkv 4; GPT-2-124M fp32 H 6 (B 4, the global batch)
     ("llama3_2-1B-tp2", 4, 16, 4, 1024, 64, "bf16"),
     ("gpt2-124M-tp2-fp32", 4, 6, 6, 1024, 64, "fp32"),
+    # a pipeline microbatch (phase 10p: B 8 in 4 microbatches): LLaMA-3.2-1B
+    # bf16 at pp 2; GPT-2-124M fp32 at pp 2 x tp 2 (a tp rank's 6 heads)
+    ("llama3_2-1B-pp2", 2, 32, 8, 1024, 64, "bf16"),
+    ("gpt2-124M-pp2-tp2-fp32", 2, 6, 6, 1024, 64, "fp32"),
 ]
 
 # max |kernel - ref| / max |ref| per tensor (lse: absolute), against the
@@ -1174,6 +1209,8 @@ DROPOUT_ATTN_SHAPES = [
     # rank 1's heads of GPT-2-124M at tp 2 (phase 10t, p 0.1): their masks
     # are heads 6-11 of the whole model's (ATTN_H0)
     ("gpt2-124M-tp2-fp32", 4, 6, 6, 1024, 64, "fp32"),
+    # GPT-2-124M's pipeline microbatch at pp 2 (phase 10p, p 0.1)
+    ("gpt2-124M-pp2-fp32", 2, 12, 12, 1024, 64, "fp32"),
 ]
 DROP_RATE = 0.1
 #: the global index of a shape's first head (a tensor-parallel rank's)
@@ -1317,7 +1354,8 @@ def phase_attention_dropout(torch, card: dict) -> list:
 # name (the training run whose launches the row reads), rows, width, dtype
 DROPOUT_SHAPES = [("gpt2-124M-train", 8 * 1024, 768, "bf16"),
                   ("gpt2-124M-train-fp32", 8 * 1024, 768, "fp32"),
-                  ("gpt2-124M-train-fp16", 8 * 1024, 768, "fp16")]
+                  ("gpt2-124M-train-fp16", 8 * 1024, 768, "fp16"),
+                  ("gpt2-124M-pp2-fp32", 2 * 1024, 768, "fp32")]
 
 
 def phase_dropout(torch, card: dict) -> list:
@@ -1641,7 +1679,8 @@ def train_kernels():
 
 
 def expected_launches(cfg, steps: int, eval_batches: int, xent_kernel: bool,
-                      lora: bool = False, grad_accum: int = 1) -> dict:
+                      lora: bool = False, grad_accum: int = 1,
+                      eval_micro: int = 1) -> dict:
     """Each kernel's launches in a run: B1 per layer in every train and
     eval step, B2a/B2b per layer in every train step, B3 forward and
     backward once for the embedding and twice per layer in every train step
@@ -1652,14 +1691,15 @@ def expected_launches(cfg, steps: int, eval_batches: int, xent_kernel: bool,
     backward. With remat (``cfg.use_actv_ckpt``) the backward recomputes
     each block's forward up to its last saved tensor: B1 and the first
     residual's B3 again, not the second residual's (nothing after it is
-    saved)."""
+    saved). ``eval_micro``: the microbatches of an evaluation (pp's
+    ``--pp_micro``, whose train microbatches ``grad_accum`` counts)."""
     L, remat = cfg.n_layers, cfg.use_actv_ckpt
     micro = steps * grad_accum
     drops = (1 + 2 * L) * micro if cfg.drop_rate > 0 else 0
     drops_bwd = drops - micro if lora and drops else drops
     if remat and drops:
         drops += L * micro
-    return dict(fwd=L * ((2 if remat else 1) * micro + eval_batches),
+    return dict(fwd=L * ((2 if remat else 1) * micro + eval_batches * eval_micro),
                 dq=L * micro, dkv=L * micro, dropout_fwd=drops,
                 dropout_bwd=drops_bwd,
                 xent_fwd=(micro + eval_batches) if xent_kernel else 0)
@@ -1678,8 +1718,8 @@ def main_path(torch, xent_kernel: bool):
 
     kernels = train_kernels()
     events, supervised, starts = [], [], []
-    make_train_step = ttr.make_train_step
-    make_sharded_train_step = ttr.make_sharded_train_step
+    makers = {k: getattr(ttr, k) for k in ("make_train_step", "make_sharded_train_step",
+                                            "make_pp_train_step")}
 
     def timed(make):
         return lambda *args, **kwargs: timed_step_of(make(*args, **kwargs))
@@ -1703,16 +1743,16 @@ def main_path(torch, xent_kernel: bool):
     os.environ["BLLM_XENT_PALLAS"] = "1" if xent_kernel else "0"
     for f in kernels.values():
         f.launches = 0                              # the main path's count
-    ttr.make_train_step = timed(make_train_step)
-    ttr.make_sharded_train_step = timed(make_sharded_train_step)
+    for k, make in makers.items():
+        setattr(ttr, k, timed(make))
     facts = {}
     t0 = time.perf_counter()
     try:
         yield facts
         torch.cuda.synchronize()
     finally:
-        ttr.make_train_step = make_train_step
-        ttr.make_sharded_train_step = make_sharded_train_step
+        for k, make in makers.items():
+            setattr(ttr, k, make)
         if env is None:
             os.environ.pop("BLLM_XENT_PALLAS")
         else:
@@ -1826,8 +1866,10 @@ def train_run(torch, t: dict, workdir: str, xent_kernel: bool = False):
     eval_batches = n_evals * (min(5, loader.num_batches(tr_ds))
                               + min(5, loader.num_batches(va_ds)))
     steps = trainer.global_step
+    # pp: every train and eval step runs its --pp_micro microbatches
+    micro = trainer.plan.n_micro if getattr(trainer.plan, "shard_mode", None) == "pp" else 1
     want = expected_launches(cfg, steps, eval_batches, xent_kernel,
-                             grad_accum=trainer.grad_accum)
+                             grad_accum=trainer.grad_accum * micro, eval_micro=micro)
     losses = [m["loss"] for m in trainer.step_metrics]
     check = dict(steps=steps, evals=n_evals, eval_batches=eval_batches,
                  launches=launches, expected=want)
@@ -6440,25 +6482,30 @@ def group_watch():
     from building_llm_from_scratch_tpu_torch.parallel import collectives
 
     seen = {}
-    make = ttr.make_sharded_train_step
+    makers = {k: getattr(ttr, k) for k in ("make_sharded_train_step",
+                                            "make_pp_train_step")}
 
-    def watched(*args, **kwargs):
-        step = make(*args, **kwargs)
+    def watched(make):
+        def build(*args, **kwargs):
+            step = make(*args, **kwargs)
 
-        def watched_step(state, batch):
-            if "backend" not in seen:
-                seen.update(backend=dist.get_backend(),
-                            world=dist.get_world_size(),
-                            mode=state.plan.shard_mode)
-            return step(state, batch)
-        return watched_step
+            def watched_step(state, batch):
+                if "backend" not in seen:
+                    seen.update(backend=dist.get_backend(),
+                                world=dist.get_world_size(),
+                                mode=state.plan.shard_mode)
+                return step(state, batch)
+            return watched_step
+        return build
 
     collectives.reset_counters()
-    ttr.make_sharded_train_step = watched
+    for k, make in makers.items():
+        setattr(ttr, k, watched(make))
     try:
         yield seen
     finally:
-        ttr.make_sharded_train_step = make
+        for k, make in makers.items():
+            setattr(ttr, k, make)
         seen["counters"] = collectives.counters()
 
 
@@ -6497,6 +6544,42 @@ def shard_sft_run(torch, t: dict, workdir: str, flags: list) -> dict:
     return dict(losses=losses, launches=run["launches"], expected=want,
                 run_step_ms=run["run_step_ms"], wall_s=run["wall_s"],
                 peak_gb=run["peak_gb"], evals=trainer.train_losses + trainer.val_losses)
+
+
+#: phase 10d's world-1 pp run (LLaMA-3.2-1B bf16, 4 microbatches of one
+#: row) against single_chip: the per-step losses' largest relative
+#: difference, pinned beside the control's (each step's last microbatch
+#: with its gradient zeroed). The first step's losses agree to 8e-8; the
+#: bf16 gradients of four microbatches add in bf16, so the 10 steps drift
+#: apart: measured 4.9e-3 against the control's 0.232 (NVIDIA H100 80GB
+#: HBM3, 700.00 W), the bound near their geometric middle
+PP_WORLD1 = dict(micro=4, loss_tol=3e-2)
+
+
+@contextlib.contextmanager
+def pp_last_microbatch_unlearned(n_micro: int):
+    """The control of 10d's pp run: every train step's last microbatch keeps
+    its loss but gives no gradient (its backward still runs, on zeros, so
+    the launches stay exact)."""
+    import torch
+
+    import building_llm_from_scratch_tpu_torch.training.train_step as tts
+
+    sums, calls = tts.dense_sums, [0]
+
+    def control(*args, **kwargs):
+        nll, w = sums(*args, **kwargs)
+        if torch.is_grad_enabled():
+            calls[0] += 1
+            if calls[0] % n_micro == 0:
+                nll = nll.detach() + 0.0 * nll
+        return nll, w
+
+    tts.dense_sums = control
+    try:
+        yield
+    finally:
+        tts.dense_sums = sums
 
 
 def phase_shard_world1(torch, card: dict, workdir: str) -> dict:
@@ -6541,6 +6624,41 @@ def phase_shard_world1(torch, card: dict, workdir: str) -> dict:
                 or not row["losses_bit_equal"] or not row["evals_bit_equal"]):
             raise AssertionError(f"phase 10d world-1 {mode}: {row}")
         runs[mode] = row
+    # pp at world 1: one stage, --pp_micro microbatches; the normal entry
+    # point on the card, held to single_chip's losses within a bound that
+    # its control fails
+    flags = ["--run_type", "multi_chip", "--shard_mode", "pp", "--pp", "1",
+             "--pp_micro", str(PP_WORLD1["micro"])]
+    pp = {}
+    for label, control in (("run", contextlib.nullcontext()),
+                           ("control", pp_last_microbatch_unlearned(PP_WORLD1["micro"]))):
+        with group_watch() as seen, control:
+            trainer, facts = train_run(torch, dict(SHARD_TRAIN, flags=flags),
+                                       os.path.join(workdir, f"pp-{label}"))
+        pp[label] = dict(facts, evals=trainer.train_losses + trainer.val_losses,
+                         seen=seen, plan=trainer.plan.shard_mode)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = {k: max(abs(a / b - 1.0) for a, b in zip(v["losses"], base["losses"]))
+           for k, v in pp.items()}
+    ms = statistics.median(pp["run"]["run_step_ms"][1:])
+    row = dict(mode="pp", micro=PP_WORLD1["micro"], backend=pp["run"]["seen"].get("backend"),
+               world=pp["run"]["seen"].get("world"), loss_rel=rel["run"],
+               control_loss_rel=rel["control"], loss_tol=PP_WORLD1["loss_tol"],
+               evals=pp["run"]["evals"], single_chip_evals=base_evals,
+               launches=pp["run"]["launches"], expected=pp["run"]["expected"],
+               control_launches=pp["control"]["launches"], step_ms=ms,
+               single_chip_step_ms=base_ms, peak_gb=pp["run"]["peak_gb"],
+               losses=pp["run"]["losses"], control_losses=pp["control"]["losses"],
+               single_chip_losses=base["losses"])
+    emit("shard_world1_pp", card=card["card_line"], model="llama3_2-1B", dtype="bf16",
+         B=SHARD_TRAIN["batch"], T=SHARD_TRAIN["context"], steps=SHARD_TRAIN["steps"],
+         **row)
+    if (row["backend"] != "nccl" or row["world"] != 1 or pp["run"]["plan"] != "pp"
+            or not rel["run"] <= PP_WORLD1["loss_tol"] < rel["control"]):
+        raise AssertionError(f"phase 10d world-1 pp: {row}")
+    runs["pp"] = row
     sft_base = shard_sft_run(torch, SHARD_SFT, os.path.join(workdir, "sft-single"), [])
     flags = ["--run_type", "multi_chip", "--shard_mode", "fsdp"]
     with group_watch() as seen:
@@ -6768,6 +6886,7 @@ def phase_shard_gloo(torch, card: dict, workdir: str) -> dict:
                                                            "bf16_hybrid")},
                gloo_host_staging_step_ms={m: res[0][m]["step_ms"] for m in
                                           ("dp", "zero1", "fsdp", "bf16_hybrid")},
+               timed_beside="the reference window (gloo_groups_beside)",
                one_rank_b8_step_ms=res[0]["reference"]["step_ms"],
                no_reduce_step_ms=res[0]["control"]["step_ms"], fails=fails)
     emit("shard_gloo", **row)
@@ -6776,11 +6895,32 @@ def phase_shard_gloo(torch, card: dict, workdir: str) -> dict:
     return dict(launches=row["launches"])
 
 
-def phase_shard(torch, card: dict, workdir: str) -> dict:
-    """Phase 10d: world 1 over NCCL through the CLI, then two ranks over
-    gloo on the one card."""
-    world1 = phase_shard_world1(torch, card, os.path.join(workdir, "world1"))
-    return dict(world1=world1, gloo=phase_shard_gloo(torch, card, workdir))
+@contextlib.contextmanager
+def gloo_groups_beside(torch, card: dict):
+    """10d's two gloo ranks, then 10t / 10s / 10p's groups, in a thread of
+    their own for the body's duration (the reference window: its gates take
+    no timing). They run in processes they spawn and are gated as when run
+    alone; their step ms (gloo-staged host numbers) are taken beside the
+    window's phases, and say so. Yields a dict filled on exit (``gloo``,
+    ``mesh``); a failure in the thread is raised on exit."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    box: dict = {}
+    with tempfile.TemporaryDirectory(dir=here) as workdir:
+        def work():
+            try:
+                box["gloo"] = phase_shard_gloo(torch, card, workdir)
+                box["mesh"] = phase_mesh(torch, card, workdir)
+            except BaseException as e:          # raised again on exit
+                box["error"] = e
+
+        thread = threading.Thread(target=work, name="gloo-groups")
+        thread.start()
+        try:
+            yield box
+        finally:
+            thread.join()
+    if "error" in box:
+        raise box["error"]
 
 
 # ---------------------------------------------------------------------------
@@ -6887,16 +7027,20 @@ def phase_remat(torch, card: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 #: the runs of a group: name, model, size, dtype (None: fp32), mode, tp,
-#: sp, the global batch, dropout (None: the config's), steps, and the
-#: bounds against one rank on the global batch (the losses' largest
-#: relative difference and the parameters' relative L2, all leaves as one
-#: vector), pinned beside the control's (the row-parallel all-reduce
-#: skipped under tp, the ring's hops under sp)
+#: sp (pp: the stages and microbatches), the global batch, dropout (None:
+#: the config's), steps, and the bounds against one rank on the global
+#: batch (the losses' largest relative difference and the parameters'
+#: relative L2, all leaves as one vector), pinned beside the control's
+#: (the row-parallel all-reduce skipped under tp, the ring's hops under sp,
+#: the forward hops' activations zeroed under pp)
 MESH_RUNS = {
+    # GPT-2's tp / sp / tp_fsdp runs at 6 of its 12 layers: phase 10p's
+    # time is bought back from them
     2: [dict(name="gpt2-tp2", model="GPT2", size="124M", dtype=None, mode="tp", tp=2,
-             sp=1, batch=4, drop=0.0, steps=2, loss_tol=1e-5, param_tol=1e-5),
+             sp=1, batch=4, drop=0.0, steps=2, layers=6, loss_tol=1e-5, param_tol=1e-5),
         dict(name="gpt2-tp2-p0.1", model="GPT2", size="124M", dtype=None, mode="tp",
-             tp=2, sp=1, batch=4, drop=0.1, steps=2, loss_tol=1e-5, param_tol=1e-5),
+             tp=2, sp=1, batch=4, drop=0.1, steps=2, layers=6, loss_tol=1e-5,
+             param_tol=1e-5),
         # bf16: each row-parallel output sums two bf16 partial products
         # (one rank rounds one GEMM); at this cut (8 layers, 2 steps)
         # measured 3.6e-5 / 1.87e-3 against the control's 3.2e-4 / 2.43e-2
@@ -6906,15 +7050,32 @@ MESH_RUNS = {
              tp=2, sp=1, batch=4, drop=None, steps=2, layers=8, loss_tol=1.5e-4,
              param_tol=6e-3),
         dict(name="gpt2-sp2-p0.1", model="GPT2", size="124M", dtype=None, mode="dp",
-             tp=1, sp=2, batch=4, drop=0.1, steps=2, loss_tol=1e-5, param_tol=1e-5),
+             tp=1, sp=2, batch=4, drop=0.1, steps=2, layers=6, loss_tol=1e-5,
+             param_tol=1e-5),
         # bf16: the ring's fp32 scores and P.V against B1's bf16 P; at this
         # cut measured 1.6e-5 / 1.83e-3 against the control's 1.5e-3 /
         # 2.5e-2 (the same card), bounds as above
         dict(name="llama-sp2", model="llama3_2", size="1B", dtype="bf16", mode="dp",
              tp=1, sp=2, batch=4, drop=None, steps=2, layers=8, loss_tol=1.5e-4,
-             param_tol=6e-3)],
+             param_tol=6e-3),
+        # phase 10p: GPipe at pp 2, B 8 in 4 microbatches of 2 rows, against
+        # one rank holding every layer and drawing the same folded masks.
+        # Each stage runs what the one rank runs on its layers, so both
+        # measured 0 / 0 (bit-equal) against the controls' 1.4e-2 / 2.3e-2
+        # (GPT-2) and 3.3e-2 / 2.7e-2 (LLaMA bf16; NVIDIA H100 80GB HBM3,
+        # 700.00 W): LLaMA takes the fp32 bounds too
+        dict(name="gpt2-pp2", model="GPT2", size="124M", dtype=None, mode="pp", tp=1,
+             sp=1, pp=2, micro=4, batch=8, drop=0.1, steps=2, loss_tol=1e-5,
+             param_tol=1e-5),
+        dict(name="llama-pp2", model="llama3_2", size="1B", dtype="bf16", mode="pp",
+             tp=1, sp=1, pp=2, micro=4, batch=8, drop=None, steps=1, layers=8,
+             loss_tol=1e-5, param_tol=1e-5)],
     4: [dict(name="gpt2-tp_fsdp", model="GPT2", size="124M", dtype=None, mode="tp_fsdp",
-             tp=2, sp=1, batch=8, drop=0.0, steps=2, loss_tol=1e-5, param_tol=1e-5)],
+             tp=2, sp=1, batch=8, drop=0.0, steps=2, layers=6, loss_tol=1e-5,
+             param_tol=1e-5),
+        dict(name="gpt2-pp2-tp2", model="GPT2", size="124M", dtype=None, mode="pp",
+             tp=2, sp=1, pp=2, micro=4, batch=8, drop=0.0, steps=1, loss_tol=1e-5,
+             param_tol=1e-5)],
 }
 MESH = dict(seed=13, timeout_s=900)
 
@@ -6937,11 +7098,19 @@ def mesh_config(r: dict):
 
 def _mesh_control(kind: str):
     """The control of a mesh run: the row-parallel outputs left unreduced
-    (tp), or the ring's k/v blocks never passed on (sp)."""
+    (tp), the ring's k/v blocks never passed on (sp), or every forward hop's
+    activation zeroed, left unsent (pp)."""
     from building_llm_from_scratch_tpu_torch.parallel import collectives as coll
+    from building_llm_from_scratch_tpu_torch.parallel import pipeline
     from building_llm_from_scratch_tpu_torch.parallel import tensor as ptensor
 
-    if kind == "tp":
+    if kind == "pp":
+        hop = pipeline.hop_forward
+        pipeline.hop_forward = lambda y, dst: hop(y.new_zeros(y.shape), dst)
+
+        def undo():
+            pipeline.hop_forward = hop
+    elif kind == "tp":
         saved = ptensor.Parallel.reduce_from_model
         ptensor.Parallel.reduce_from_model = lambda self, x: x
 
@@ -6991,6 +7160,7 @@ def mesh_rank(rank: int, spec: dict) -> None:
     from building_llm_from_scratch_tpu_torch.models.transformer import build_model
     from building_llm_from_scratch_tpu_torch.parallel import collectives
     from building_llm_from_scratch_tpu_torch.parallel import mesh
+    from building_llm_from_scratch_tpu_torch.parallel import pipeline
     from building_llm_from_scratch_tpu_torch.parallel.sharding import build_mesh_plan
     from building_llm_from_scratch_tpu_torch.training import optim as topt
     from building_llm_from_scratch_tpu_torch.training import train_step as tts
@@ -6999,6 +7169,21 @@ def mesh_rank(rank: int, spec: dict) -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     world = spec["world"]
+
+    def steps_of(r, cfg, opt, plan_args):
+        """(plan, train step, eval step or None) of a run: pp's pipelined
+        steps (one rank holding every layer as the reference, drawing the
+        run's masks), else the sharded or the single-device step."""
+        if r["mode"] == "pp":
+            plan = (pipeline.build_pp_plan(r["pp"], n_micro=r["micro"], tp=r["tp"])
+                    if plan_args else
+                    pipeline.PipelinePlan(mesh=pipeline.make_pp_mesh(1, world_size=1),
+                                          n_micro=r["micro"]))
+            return (plan, tts.make_pp_train_step(cfg, opt, plan, dropout_stages=r["pp"]),
+                    tts.make_pp_eval_step(cfg, plan))
+        plan = build_mesh_plan(**plan_args) if plan_args else None
+        return (plan, tts.make_sharded_train_step(cfg, opt, plan) if plan
+                else tts.make_train_step(cfg, opt), None)
     mesh.initialize_distributed(backend="gloo", init_method=spec["init"], rank=rank,
                                 world_size=world, device=dev, timeout_s=spec["timeout_s"])
     kernels = train_kernels()
@@ -7012,12 +7197,10 @@ def mesh_rank(rank: int, spec: dict) -> None:
         def run(plan_args, control=None):
             model = build_model(cfg, spec["seed"], dev)
             opt = topt.AdamW(topt.warmup_cosine_schedule(5e-4, 1e-5, 1e-6, 2, 10))
-            plan = build_mesh_plan(**plan_args) if plan_args else None
+            plan, step, evaluate = steps_of(r, cfg, opt, plan_args)
             state = tts.init_train_state(model, opt, plan=plan)
-            step = (tts.make_sharded_train_step(cfg, opt, plan) if plan
-                    else tts.make_train_step(cfg, opt))
             rows = slice(None)
-            if plan is not None:
+            if plan is not None and r["mode"] != "pp":
                 rows = slice(plan.data_rank, None, plan.n_data)
             undo = _mesh_control(control) if control else None
             ring_ms, ring_undo = _ring_timer(torch) if plan and plan.n_seq > 1 else ([], None)
@@ -7033,12 +7216,15 @@ def mesh_rank(rank: int, spec: dict) -> None:
                     state, m = step(state, batch)
                     losses.append(m["loss"].item())
                     wall.append((time.perf_counter() - t0) * 1e3)
+                # pp: one evaluation of the last batch (its B1 launches count)
+                ev = evaluate(state, batch).item() if evaluate else None
             finally:
                 if undo:
                     undo()
                 if ring_undo:
                     ring_undo()
             facts = dict(losses=losses, step_ms=wall, counters=collectives.counters(),
+                         eval_loss=ev, stage=getattr(plan, "stage_rank", None),
                          launches={k: f.launches for k, f in kernels.items()},
                          ring_ms_per_step=sum(ring_ms) / r["steps"] if ring_ms else None,
                          peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
@@ -7052,11 +7238,14 @@ def mesh_rank(rank: int, spec: dict) -> None:
 
         args = dict(shard_mode=r["mode"], tp=r["tp"], sp=r["sp"])
         mine, params = run(args)
-        control, cparams = run(args, "tp" if r["tp"] > 1 else "sp")
+        control, cparams = run(args, "pp" if r["mode"] == "pp" else
+                               "tp" if r["tp"] > 1 else "sp")
         out = dict(run=mine, control=control)
         if rank == 0:
             ref, rparams = run(None)
             diff = {}
+            if ev_ref := ref.get("eval_loss"):
+                diff["eval_rel"] = abs(mine["eval_loss"] / ev_ref - 1.0)
             for label, ps in (("run", params), ("control", cparams)):
                 d = sum(float((ps[k].double() - v.double()).square().sum())
                         for k, v in rparams.items())
@@ -7104,12 +7293,31 @@ def mesh_group(torch, world: int, workdir: str) -> list:
     return res
 
 
+#: the kernel rows at a pipeline microbatch's shape (phases 5, 5b, 5c) and
+#: the 10p run that launches them
+PP_SHAPES = {"llama3_2-1B-pp2": "llama-pp2", "gpt2-124M-pp2-fp32": "gpt2-pp2",
+             "gpt2-124M-pp2-tp2-fp32": "gpt2-pp2-tp2"}
+
+
+def pp_expected_launches(cfg, r: dict, stage: int) -> dict:
+    """A pp stage rank's launches in a 10p run: each of its L/S layers runs
+    B1 / B2a / B2b once per microbatch of a train step (selective remat)
+    and B1 again per microbatch of the evaluation; with dropout, B3
+    forward and backward twice per layer and microbatch, plus the
+    embedding's once per microbatch on stage 0."""
+    per, M, steps = cfg.n_layers // r["pp"], r["micro"], r["steps"]
+    drops = (2 * per + (stage == 0)) * M * steps if cfg.drop_rate > 0 else 0
+    return dict(fwd=per * M * (steps + 1), dq=per * M * steps, dkv=per * M * steps,
+                dropout_fwd=drops, dropout_bwd=drops, xent_fwd=0)
+
+
 def phase_mesh(torch, card: dict, workdir: str) -> dict:
-    """Phases 10t and 10s: MESH_RUNS on two and four gloo ranks on the one
-    card. Gates per run: every rank reports the same losses; against one
-    rank on the global batch, the losses and the parameters within the
+    """Phases 10t, 10s and 10p: MESH_RUNS on two and four gloo ranks on the
+    one card. Gates per run: every rank reports the same losses; against
+    one rank on the global batch, the losses and the parameters within the
     run's bounds while the control falls outside them; launches exact per
-    rank (B1/B2 at the rank's heads under tp, none under sp: the ring)."""
+    rank (B1/B2 at the rank's heads under tp, none under sp: the ring; per
+    stage under pp, ``pp_expected_launches``)."""
     out = {}
     for world in (2, 4):
         res = mesh_group(torch, world, workdir)
@@ -7126,12 +7334,18 @@ def phase_mesh(torch, card: dict, workdir: str) -> dict:
                     or cmp_["control"]["params_rel_l2"] > r["param_tol"]):
                 fails.append(f"the control passed the bounds: {cmp_['control']}")
             cfg = mesh_config(r)
+            pp = r["mode"] == "pp"
             want = expected_launches(cfg, r["steps"], 0, False)
             if r["sp"] > 1:
                 want.update(fwd=0, dq=0, dkv=0)
+            wants = [pp_expected_launches(cfg, r, rr[name]["run"]["stage"]) if pp else want
+                     for rr in res]
             for k, rr in enumerate(res):
-                if rr[name]["run"]["launches"] != want:
-                    fails.append(f"rank {k} launches {rr[name]['run']['launches']} != {want}")
+                if rr[name]["run"]["launches"] != wants[k]:
+                    fails.append(f"rank {k} launches {rr[name]['run']['launches']} "
+                                 f"!= {wants[k]}")
+            if pp and not cmp_["eval_rel"] <= r["loss_tol"]:
+                fails.append(f"the eval loss off one rank's: {cmp_['eval_rel']}")
             row = dict(card=card["card_line"], run=name, world=world, mode=r["mode"],
                        tp=r["tp"], sp=r["sp"], batch=r["batch"], steps=r["steps"],
                        layers=cfg.n_layers,
@@ -7141,12 +7355,21 @@ def phase_mesh(torch, card: dict, workdir: str) -> dict:
                        launches=res[0][name]["run"]["launches"], expected=want,
                        counters=res[0][name]["run"]["counters"],
                        gloo_host_staging_step_ms=res[0][name]["run"]["step_ms"],
+                       timed_beside="the reference window (gloo_groups_beside)",
                        one_rank_step_ms=res[0][name]["reference"]["step_ms"],
                        ring_ms_per_step=res[0][name]["run"]["ring_ms_per_step"],
                        peak_gb=[rr[name]["run"]["peak_gb"] for rr in res], fails=fails)
-            emit("mesh_sp" if r["sp"] > 1 else "mesh_tp", **row)
+            if pp:
+                S, M = r["pp"], r["micro"]
+                row.update(pp=S, micro=M, bubble_share=(S - 1) / (M + S - 1),
+                           launches=[rr[name]["run"]["launches"] for rr in res],
+                           expected=wants,
+                           stages=[rr[name]["run"]["stage"] for rr in res],
+                           eval_loss=res[0][name]["run"]["eval_loss"],
+                           one_rank_eval_loss=res[0][name]["reference"]["eval_loss"])
+            emit("mesh_pp" if pp else "mesh_sp" if r["sp"] > 1 else "mesh_tp", **row)
             if fails:
-                raise AssertionError(f"phase 10t/10s {name}: {fails}")
+                raise AssertionError(f"phase 10t/10s/10p {name}: {fails}")
             out[name] = row
     return out
 
@@ -7236,8 +7459,9 @@ def main() -> int:
                   trained_gpt2_fp32["pretrain"])
         # the CPU reference phases 7s / 7 / 7m in a second process, beside
         # the phases that take no timing: the LLaMA SFT adapter served
-        # (phase 4c), 4d, and the gates of 4s and 4q
-        with references_beside() as refs:
+        # (phase 4c), 4d, and the gates of 4s, 4q and 4o; and beside them
+        # the gloo groups' processes (10d's two ranks, 10t / 10s / 10p)
+        with references_beside() as refs, gloo_groups_beside(torch, card) as groups:
             phase_serve_sft_adapter(torch, sft["adapter"], workdir)
             served.update(phase_serve_longctx(torch))
             served_spec = phase_serve_spec(torch)
@@ -7254,13 +7478,14 @@ def main() -> int:
     # text in and out: BPE tokenizers, the token cache, text serving (9t)
     with tempfile.TemporaryDirectory(dir=here) as workdir:
         text = phase_text(torch, card, workdir)
-    # dp / fsdp / zero1: one NCCL rank through the CLI, two gloo ranks (10d)
+    # dp / fsdp / zero1 and pp: one NCCL rank through the CLI (10d; its two
+    # gloo ranks ran beside the reference window)
     with tempfile.TemporaryDirectory(dir=here) as workdir:
-        sharded = phase_shard(torch, card, workdir)
-    # tensor and sequence parallelism on gloo ranks (10t, 10s)
+        sharded = dict(world1=phase_shard_world1(torch, card, workdir),
+                       gloo=groups["gloo"])
+    # B3 on a sequence block (10s); the groups' 10t / 10s / 10p results
     sp_dropout_check(torch)
-    with tempfile.TemporaryDirectory(dir=here) as workdir:
-        meshed = phase_mesh(torch, card, workdir)
+    meshed = groups["mesh"]
 
     def shape_of(r: dict) -> tuple:
         return (r["S"], r["Hq"], r["Hkv"], r["hd"], r["Tmax"], r["dtype"])
@@ -7350,7 +7575,9 @@ def main() -> int:
                  "gpt2-124M-train-fp16": mixed["gpt2-fp16-policy"]["launches"],
                  # phase 10t, rank 0's heads (every rank launches the same)
                  "llama3_2-1B-tp2": meshed["llama-tp2"]["launches"],
-                 "gpt2-124M-tp2-fp32": meshed["gpt2-tp2"]["launches"]}
+                 "gpt2-124M-tp2-fp32": meshed["gpt2-tp2"]["launches"],
+                 # phase 10p, stage 0's microbatches (launches_10p: every rank)
+                 **{shape: meshed[run]["launches"][0] for shape, run in PP_SHAPES.items()}}
     # the p 0.1 rows of a shape whose p 0 rows read another run
     drop_attn_runs = {"gpt2-124M-tp2-fp32": meshed["gpt2-tp2-p0.1"]["launches"]}
     source = "building_llm_from_scratch_tpu_torch/csrc/"
@@ -7390,6 +7617,10 @@ def main() -> int:
                                    sharded["gloo"]["launches"].items()}
             # phase 10s: a seq rank's (B 4, T 512) blocks of GPT-2 fp32
             row["launches_10s_B4_T512"] = meshed["gpt2-sp2-p0.1"]["launches"][counter]
+        # phase 10p: the run at a pp microbatch's shape, per rank
+        if shape in PP_SHAPES:
+            row["launches_10p"] = {PP_SHAPES[shape]: [
+                rr[counter] for rr in meshed[PP_SHAPES[shape]]["launches"]]}
         # phase 6r: the same shapes' save-all, selective and full remat runs
         by_shape = {"llama3_2-1B-train": "llama3_2-1B-bf16",
                     "gpt2-124M-train-fp32": "GPT2-124M-fp32"}

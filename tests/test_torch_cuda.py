@@ -5,9 +5,10 @@ twins, the serving engine (contiguous, paged and with LoRA adapters),
 LLaMA and GPT-2 training steps on the card (the fp16 policy with remat
 and accumulation among them), the batch stager's copy stream and the
 asynchronous checkpoint's snapshot, text prompts served with a BPE
-tokenizer, and the serving operations' kernel gates (a NaN-poisoned row
+tokenizer, the serving operations' kernel gates (a NaN-poisoned row
 stays alone in B5 and B7, a NaN tail past a row's length never reaches
-its output) and fault isolation on the card. They skip on a machine without
+its output) and fault isolation on the card, and B1-B3 at a pipeline
+microbatch's shapes and seeds with a one-rank pp step. They skip on a machine without
 CUDA. This file imports neither JAX nor the JAX package, so
 it also runs where JAX is not installed:
 
@@ -1837,3 +1838,89 @@ def test_selective_remat_is_bit_equal_on_the_card(cuda, monkeypatch):
                 assert torch.equal(out[mode][1][k], g), (model, mode, k)
         assert out["none"][2] == out["selective"][2] == 2
         assert out["full"][2] == 4
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism: the kernels at a microbatch's shapes and seeds
+# ---------------------------------------------------------------------------
+
+def _pp_seed(site: str, layer: int) -> int:
+    """The seed of one dropout site of GPT-2-124M's pipelined step at pp 2
+    (6 layers a stage), microbatch 3 of 4, stage 1 (``dropout_sites``)."""
+    from building_llm_from_scratch_tpu_torch.parallel.pipeline import dropout_sites
+    from building_llm_from_scratch_tpu_torch.utils.seeding import step_seed
+
+    return dropout_sites(step_seed(123, 1), 0, 3, 6, 6)(layer, site)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_kernels_at_a_pp_microbatch(cuda, rate):
+    """B1/B2 at GPT-2-124M's pipeline microbatch (a batch of 8 in 4
+    microbatches: Bm 2, H 12, T 1024, hd 64, fp32) with a seed folded per
+    (step, data, stage, micro, layer): within FLASH_TOL of the twins; the
+    kernels launched once each."""
+    seed = _pp_seed("attention", 1)
+    q, k, v, do = flash_inputs(cuda, 2, 1024, 12, 12, 64, torch.float32, seed=9)
+    n0 = (tfa.flash_attention_fwd.launches, tfa.flash_attention_dq.launches,
+          tfa.flash_attention_dkv.launches)
+    got = flash_all(q, k, v, do, tfa.flash_attention_fwd, tfa.flash_attention_dq,
+                    tfa.flash_attention_dkv, rate, seed)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_fwd.launches, tfa.flash_attention_dq.launches,
+            tfa.flash_attention_dkv.launches) == tuple(n + 1 for n in n0)
+    twin = flash_all(q, k, v, do, *PLAIN, rate, seed)
+    for i, name in enumerate(("out", "lse", "dq", "dk", "dv")):
+        tol = FLASH_TOL[torch.float32][0 if name in ("out", "lse") else 1]
+        err = ((got[i] - twin[i]).abs().max().item() if name == "lse"
+               else _rel(got[i], twin[i]))
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.parametrize("site,layer", [("embedding", -1), ("residual1", 0),
+                                        ("residual2", 5)])
+def test_dropout_kernel_at_a_pp_microbatch(cuda, site, layer):
+    """B3 at GPT-2-124M's pipeline microbatch (2 x 1024 rows of 768, fp32,
+    p 0.1) with the microbatch's folded seeds (the embedding's on stage 0,
+    the residuals' on stage 1): forward (alone and with the residual add)
+    and backward bit-equal to the twins."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(2, 1024, 768, generator=gen, device=cuda)
+    h = torch.randn(2, 1024, 768, generator=gen, device=cuda)
+    seed = _pp_seed(site, layer)
+    for a in (None, x):
+        fwd = tfd.dropout_fwd(a, h, seed, 0.1)
+        torch.cuda.synchronize()
+        assert torch.equal(fwd, tfd.dropout_fwd_plain(a, h, seed, 0.1))
+    bwd = tfd.dropout_bwd(h, seed, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(bwd, tfd.dropout_bwd_plain(h, seed, 0.1))
+
+
+def test_pp_step_at_one_stage_launches_per_microbatch(cuda):
+    """A one-rank pp step (no process group: one stage) of GPT-2-124M cut
+    to 2 layers, p 0.1, B 8 in 4 microbatches of T 1024: B1 / B2a / B2b
+    once per layer and microbatch, B3 forward and backward (1 + 2 x 2) per
+    microbatch; finite loss."""
+    import dataclasses
+
+    from building_llm_from_scratch_tpu_torch.parallel.pipeline import (
+        PipelinePlan,
+        make_pp_mesh,
+    )
+    from building_llm_from_scratch_tpu_torch.training import optim as topt
+    from building_llm_from_scratch_tpu_torch.training import train_step as tts
+
+    cfg = dataclasses.replace(get_config("GPT2", "124M"), n_layers=2, drop_rate=0.1)
+    plan = PipelinePlan(mesh=make_pp_mesh(1, world_size=1), n_micro=4)
+    opt = topt.AdamW(topt.warmup_cosine_schedule(5e-4, 1e-5, 1e-6, 2, 10))
+    state = tts.init_train_state(build_model(cfg, 1, cuda), opt, plan=plan)
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, cfg.context_length + 1))).to(cuda)
+    kernels = (tfa.flash_attention_fwd, tfa.flash_attention_dq, tfa.flash_attention_dkv,
+               tfd.dropout_fwd, tfd.dropout_bwd)
+    n0 = [f.launches for f in kernels]
+    _, m = tts.make_pp_train_step(cfg, opt, plan)(state, {"inputs": x[:, :-1],
+                                                          "targets": x[:, 1:]})
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(kernels, n0)] == [8, 8, 8, 20, 20]
+    assert np.isfinite(m["loss"].item())

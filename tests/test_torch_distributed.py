@@ -67,16 +67,31 @@ LOSS_TOL = dict(rtol=2e-4, atol=2e-5)
 PARAM_TOL = dict(rtol=2e-3, atol=2e-5)
 
 
+#: the longest a group waits for another worker's group to finish
+LOCK_WAIT_S = 900
+
+
 @contextlib.contextmanager
-def one_group_at_a_time():
+def one_group_at_a_time(wait_s: float = LOCK_WAIT_S):
     """A lock across test workers: one group of rank processes runs at a
-    time, so the suite's other workers keep their cores."""
+    time, so the suite's other workers keep their cores. Waiting for it
+    longer than ``wait_s`` (every holder's group has its own timeout)
+    fails the test."""
     import fcntl
     import tempfile
+    import time
 
     with open(os.path.join(tempfile.gettempdir(), "bllm_torch_groups.lock"),
               "w") as f:
-        fcntl.flock(f, fcntl.LOCK_EX)
+        deadline = time.monotonic() + wait_s
+        while True:
+            try:
+                fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                break
+            except BlockingIOError:
+                if time.monotonic() > deadline:
+                    pytest.fail(f"waited {wait_s} s for another group's lock")
+                time.sleep(0.2)
         try:
             yield
         finally:

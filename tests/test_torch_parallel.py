@@ -271,8 +271,8 @@ def _base(extra):
 
 @pytest.mark.parametrize("flag", ["--tp", "--sp", "--pp", "--pp_micro"])
 def test_parallel_flags_take_the_jax_checks_or_are_refused(flag, capsys):
-    """--tp and --sp are taken with the JAX CLI's checks and words; --pp
-    and --pp_micro stay refused by name, with their ROADMAP item."""
+    """--tp, --sp, --pp and --pp_micro are taken with the JAX CLI's checks
+    and words: --pp and --pp_micro only with --shard_mode pp."""
     multi = ["--run_type", "multi_chip"]
     if flag == "--tp":
         args = targs.get_args(_base(multi + ["--shard_mode", "tp", "--tp", "2"]))
@@ -287,23 +287,34 @@ def test_parallel_flags_take_the_jax_checks_or_are_refused(flag, capsys):
                                              r"multi_chip\."):
             targs.get_args(_base(["--sp", "2"]))
     else:
-        with pytest.raises(SystemExit):
+        args = targs.get_args(_base(multi + ["--shard_mode", "pp", "--batch_size", "8",
+                                             flag, "2"]))
+        assert args.shard_mode == "pp" and getattr(args, flag[2:]) == 2
+        with pytest.raises(ValueError, match=r"--pp/--pp_micro only take effect with "
+                                             r"--shard_mode pp\."):
             targs.get_args(_base(multi + [flag, "2"]))
-        err = capsys.readouterr().err
-        assert flag in err and "ROADMAP queue 1 item 14c, pipeline parallelism" in err
 
 
 @pytest.mark.parametrize("mode", ["tp", "tp_fsdp", "pp"])
 def test_shard_modes_take_the_jax_checks_or_are_refused(mode, capsys):
     """tp and tp_fsdp are taken with --tp >= 2, and refused in the JAX
-    CLI's words with --tp 1 and with bf16_hybrid; pp stays refused by
-    name."""
+    CLI's words with --tp 1 and with bf16_hybrid; pp is taken (its plan a
+    ``PipelinePlan``), and refused in the JAX words with a batch its
+    default 8 microbatches do not divide and with bf16_hybrid."""
     multi = ["--run_type", "multi_chip", "--shard_mode", mode]
     if mode == "pp":
-        with pytest.raises(SystemExit):
+        from building_llm_from_scratch_tpu_torch.build_components import build_plan
+        from building_llm_from_scratch_tpu_torch.parallel import PipelinePlan
+
+        args = targs.get_args(_base(multi + ["--batch_size", "8"]))
+        plan = build_plan(args)
+        assert isinstance(plan, PipelinePlan) and (plan.n_stages, plan.n_micro) == (1, 8)
+        with pytest.raises(ValueError, match=r"--batch_size 4 must be divisible by "
+                                             r"--pp_micro 8\."):
             targs.get_args(_base(multi))
-        err = capsys.readouterr().err
-        assert "--shard_mode pp" in err and "ROADMAP queue 1 item 14c, pipeline" in err
+        with pytest.raises(ValueError, match="supports --mixed_precision bf16/fp32 only"):
+            targs.get_args(_base(multi + ["--batch_size", "8", "--mixed_precision",
+                                          "bf16_hybrid"]))
         return
     assert targs.get_args(_base(multi + ["--tp", "2"])).shard_mode == mode
     with pytest.raises(ValueError, match=f"--shard_mode {mode} requires --tp >= 2."):

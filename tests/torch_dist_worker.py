@@ -24,14 +24,25 @@ isolation test checks its modules). Scenarios:
              tp control); ``census`` keeps, for each block boundary of
              fsdp's per-layer gathers, the layers whose weights it held.
              ``save``/``load``: a checkpoint of the final state written,
-             or a state restored from one and dumped whole.
+             or a state restored from one and dumped whole; ``resume``: a
+             run restored from a checkpoint that steps on from its step.
+             Mode ``pp`` is the pipelined step on a (data, stage, model)
+             mesh of ``pp`` stages, ``micro`` microbatches and ``tp``
+             (every rank on the whole global batch; ``dropout_stages``:
+             the masks' stage count), ``pp_one`` one stage in each
+             process alone; ``drop_hop`` zeroes every forward hop's
+             activation and ``skip_stage_reduce`` sums the replicated
+             leaves over the data line alone (the pp controls);
+             ``deterministic`` turns on torch's deterministic algorithms and
+             ``save_all`` the save-all remat mode.
   ``ring``   ring attention on a (data, seq) mesh: each rank's block of the
              output and of the gradients (``run_ring``).
   ``parts``  several of the above in one group, one after the other.
   ``cli``    ``main.run`` under torchrun's environment (``WORLD_SIZE``,
              ``RANK``, ``BLLM_INIT_METHOD``) for each argv of the spec,
              each in a group of its own; ``sigterm`` sends SIGTERM to one
-             rank after a given step of one run.
+             rank after a given step of one run. In a ``parts`` spec the
+             ``cli`` parts run last, after the parts' group has closed.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ from building_llm_from_scratch_tpu_torch.parallel import (  # noqa: E402
     collectives as coll,
 )
 from building_llm_from_scratch_tpu_torch.parallel import mesh  # noqa: E402
+from building_llm_from_scratch_tpu_torch.parallel import pipeline  # noqa: E402
 from building_llm_from_scratch_tpu_torch.parallel.sharding import (  # noqa: E402
     build_mesh_plan,
 )
@@ -98,8 +110,15 @@ def _state(spec: dict, cfg, mode, policy_name, rank: int, world: int,
     opt = topt.AdamW(topt.warmup_cosine_schedule(*spec["sched"]))
     lspec = spec.get("lora")
     kw = dict(policy=policy)
-    plan = None if mode == "control" else build_mesh_plan(
-        mode, tp=opts.get("tp", 1), sp=opts.get("sp", 1))
+    if mode == "pp":
+        plan = pipeline.build_pp_plan(opts["pp"], n_micro=opts["micro"],
+                                      tp=opts.get("tp", 1))
+    elif mode == "pp_one":
+        plan = pipeline.PipelinePlan(mesh=pipeline.make_pp_mesh(1, world_size=1),
+                                     n_micro=opts["micro"])
+    else:
+        plan = None if mode == "control" else build_mesh_plan(
+            mode, tp=opts.get("tp", 1), sp=opts.get("sp", 1))
     if lspec:
         kw.update(lora_alpha=lspec["alpha"], lora_rank=lspec["rank"])
         state = tts.init_train_state(_lora(lspec, model.device), opt,
@@ -109,6 +128,10 @@ def _state(spec: dict, cfg, mode, policy_name, rank: int, world: int,
         state = tts.init_train_state(model, opt, seed=spec["seed"],
                                      policy=policy, plan=plan)
     accum = spec.get("grad_accum", 1)
+    if mode in ("pp", "pp_one"):
+        step = tts.make_pp_train_step(cfg, opt, plan,
+                                      dropout_stages=opts.get("dropout_stages"), **kw)
+        return plan, state, step, tts.make_pp_eval_step(cfg, plan, **kw)
     if plan is None:
         step = tts.make_train_step(cfg, opt, grad_accum=accum, **kw)
     else:
@@ -118,8 +141,18 @@ def _state(spec: dict, cfg, mode, policy_name, rank: int, world: int,
 
 def _whole(state) -> dict:
     """The state's trainable leaves and moments, whole (gathered over the
-    data axis, then the model axis)."""
+    data axis, then the model axis; under pp over the model axis, then the
+    stage axis)."""
     whole = tts.gather_whole(state)
+    if state.stage_axes:
+        full = state.whole_lora if state.lora is not None else whole.stacked
+        out = {f"trainable/{k}": _np(v) for k, v in full.items()}
+        for name, moments in (("mu", state.opt_state.mu), ("nu", state.opt_state.nu)):
+            out.update({f"{name}/{k}": _np(tts.gather_slice(state, k, m))
+                        for k, m in moments.items()})
+        if state.lora is not None:
+            out.update({f"frozen/{k}": _np(v) for k, v in whole.stacked.items()})
+        return out
     full = state.full if state.lora is not None else whole.stacked
     out = {f"trainable/{k}": _np(v) for k, v in full.items()}
     plan = state.plan
@@ -172,6 +205,8 @@ def run_steps(spec: dict, rank: int, world: int) -> dict:
             del os.environ["BLLM_XENT_PALLAS"]
         else:
             os.environ["BLLM_XENT_PALLAS"] = xent_env
+        if opts.get("deterministic"):
+            torch.use_deterministic_algorithms(True)
         if spec.get("load"):
             tts.restore_train_state(state, spec["load"])
             results[label] = dict(whole=_whole(state), step=state.step,
@@ -189,9 +224,13 @@ def run_steps(spec: dict, rank: int, world: int) -> dict:
                 return out
             tts._Collectives.reduce = reduce
         dev = state.model.device
+        start = 0
+        if opts.get("resume"):
+            tts.restore_train_state(state, opts["resume"])
+            start = state.step
         # the data rank's rows (its seq and model ranks share them)
         d, nd = (plan.data_rank, plan.n_data) if plan is not None else (rank, world)
-        if opts.get("all_rows"):
+        if opts.get("all_rows") or mode in ("pp", "pp_one"):
             d, nd = 0, 1
         rows = slice(d, None, nd)
         if opts.get("skip_reduce"):
@@ -204,6 +243,15 @@ def run_steps(spec: dict, rank: int, world: int) -> dict:
             # the rows a JAX mesh gives each data index: contiguous
             n = data["inputs"].shape[1] // nd
             rows = slice(d * n, (d + 1) * n)
+        if opts.get("drop_hop"):
+            hop = pipeline.hop_forward
+            pipeline.hop_forward = lambda y, dst: hop(torch.zeros_like(y), dst)
+        if opts.get("skip_stage_reduce"):
+            tts._PipelineCollectives.REPLICATED = "data"
+        if opts.get("save_all"):
+            from building_llm_from_scratch_tpu_torch.models import transformer
+
+            transformer._SAVE_ALL = True
         gathers = []
         if opts.get("census"):
             # every per-layer fsdp source of the run's steps, kept to read
@@ -215,7 +263,7 @@ def run_steps(spec: dict, rank: int, world: int) -> dict:
                 gathers.append(self)
             tts._LayerGather.__init__ = keep
         metrics = []
-        for i in range(spec["steps"]):
+        for i in range(start, opts["steps"]):
             batch = _batch(data, i, rows, dev)
             state, m = step(state, batch)
             metrics.append({k: (float(v) if torch.is_tensor(v) else v)
@@ -226,6 +274,11 @@ def run_steps(spec: dict, rank: int, world: int) -> dict:
             ptensor.Parallel.reduce_from_model = saved_reduce
         if opts.get("census"):
             tts._LayerGather.__init__ = init
+        if opts.get("drop_hop"):
+            pipeline.hop_forward = hop
+        tts._PipelineCollectives.REPLICATED = "data_stage"
+        if opts.get("save_all"):
+            transformer._SAVE_ALL = False
         held = _held(state)
         ev = None
         if spec.get("eval"):
@@ -233,11 +286,13 @@ def run_steps(spec: dict, rank: int, world: int) -> dict:
         moment_bytes = sum(t.numel() * t.element_size()
                            for d in (state.opt_state.mu, state.opt_state.nu)
                            for t in d.values())
-        if spec.get("save") and plan is not None:
-            save_checkpoint(os.path.join(spec["save"], label),
+        if opts.get("save") and plan is not None:
+            save_checkpoint(os.path.join(opts["save"], label),
                             tts.checkpoint_tree(state),
                             {"global_step": state.step},
                             tts.checkpoint_layout(state))
+        if opts.get("deterministic"):
+            torch.use_deterministic_algorithms(False)
         results[label] = dict(metrics=metrics, counters=coll.counters(),
                               layers_held=[g.held for g in gathers],
                               moment_bytes=moment_bytes, eval=ev, **held,
@@ -387,11 +442,14 @@ def main() -> None:
                 # rank (each mesh's subgroups are made once, collectively)
                 runs = {"ring": run_ring, "xent": run_xent, "steps": run_steps}
                 out = {p["name"]: runs[p["scenario"]](dict(spec, **p), rank, world)
-                       for p in spec["parts"]}
+                       for p in spec["parts"] if p["scenario"] != "cli"}
             else:
                 out = run_steps(spec, rank, world)
         finally:
             mesh.shutdown_distributed()
+        for p in spec.get("parts", ()):
+            if p["scenario"] == "cli":
+                out[p["name"]] = run_cli(dict(spec, **p), rank, world)
     torch.save(dict(out, modules=sorted(sys.modules)),
                os.path.join(spec["out"], f"rank{rank}.pt"))
 

@@ -1,5 +1,6 @@
-"""JAX references for the port's tensor- and sequence-parallel tests
-(``test_torch_tensor_parallel.py``), computed in a process of their own:
+"""JAX references for the port's tensor-, sequence- and pipeline-parallel
+tests (``test_torch_tensor_parallel.py``, ``test_torch_pipeline.py``),
+computed in a process of their own:
 
     python tests/torch_jax_refs.py SPEC.json OUT.npz
 
@@ -21,7 +22,12 @@ Jobs:
              gradients of sum(out * do);
   ``cli``    the JAX CLI (``main.run``) on the job's ``flags`` over every
              CPU device: its train and validation losses, tokens seen,
-             global step and the final export's leaves (``params/...``).
+             global step and the final export's leaves (``params/...``);
+  ``pp``     ``make_pp_train_step`` on ``make_pp_mesh(pp, devices[:n_dev],
+             tp)`` with ``micro`` microbatches (and a LoRA adapter file):
+             per-step losses, the final trainable leaves, the pp eval
+             loss on the first batch, and (``save``) the final state
+             written by the JAX ``save_checkpoint``.
 """
 
 from __future__ import annotations
@@ -155,12 +161,57 @@ def cli(job: dict) -> dict:
     return out
 
 
+def pp(job: dict) -> dict:
+    from building_llm_from_scratch_tpu.models import init_params
+    from building_llm_from_scratch_tpu.models.lora import load_adapter
+    from building_llm_from_scratch_tpu.parallel.pipeline import (
+        PipelinePlan,
+        make_pp_eval_step,
+        make_pp_mesh,
+        make_pp_train_step,
+    )
+    from building_llm_from_scratch_tpu.training.checkpoint import save_checkpoint
+
+    cfg = _cfg(job["cfg"])
+    params = load_exported_params(job["params"], init_params(cfg, jax.random.PRNGKey(0)))
+    data = np.load(job["batches"])
+    sched = warmup_cosine_schedule(*job["sched"])
+    opt = build_optimizer(schedule=sched)
+    mesh = make_pp_mesh(job["pp"], jax.devices()[:job["n_dev"]], tp=job.get("tp", 1))
+    plan = PipelinePlan(mesh, n_micro=job["micro"])
+    kw = {}
+    if job.get("lora"):
+        tree, meta = load_adapter(job["lora"])
+        state = init_train_state(tree, opt, jax.random.PRNGKey(0), frozen=params)
+        kw = dict(lora_alpha=float(meta["alpha"]), lora_rank=int(meta["rank"]))
+    else:
+        state = init_train_state(params, opt, jax.random.PRNGKey(0))
+    step = make_pp_train_step(cfg, opt, mesh, n_micro=job["micro"], lr_schedule=sched, **kw)
+    batches = [{"inputs": data["inputs"][i].astype(np.int32),
+                "targets": data["targets"][i].astype(np.int32)}
+               for i in range(job["steps"])]
+    losses = []
+    for batch in batches:
+        state, m = step(plan.shard_state(state), plan.shard_batch(batch))
+        losses.append(float(m["loss"]))
+    state = plan.shard_state(state)
+    ev = make_pp_eval_step(cfg, mesh, n_micro=job["micro"], **kw)(
+        state, plan.shard_batch(batches[0]))
+    if job.get("save"):
+        save_checkpoint(job["save"], state, extra_metadata={"global_step": job["steps"]})
+    out = {f"trainable/{k}": v for k, v in
+           _flat(jax.device_get(state["trainable"])).items()}
+    out.update(losses=np.asarray(losses, np.float64), eval=np.asarray(float(ev)))
+    return out
+
+
 def main() -> None:
     with open(sys.argv[1]) as f:
         spec = json.load(f)
     out = {}
     for job in spec["jobs"]:
-        res = {"steps": steps, "ring": ring, "save": save, "cli": cli}[job["kind"]](job)
+        res = {"steps": steps, "ring": ring, "save": save, "cli": cli,
+               "pp": pp}[job["kind"]](job)
         out.update({f"{job['label']}/{k}": v for k, v in res.items()})
     np.savez(sys.argv[2], **out)
 
