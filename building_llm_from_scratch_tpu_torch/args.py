@@ -12,8 +12,10 @@ the tokenizers (``--tokenizer_path``, the on-disk token cache
 int8 KV (``--serve_kv_quant int8``) in serving, the serving operations
 (``--serve_port`` / ``--serve_host``, ``--serve_deadline_s``,
 ``--serve_tick_timeout`` / ``--serve_max_restarts``, ``--drain_timeout``,
-``--metrics_jsonl`` / ``--serve_metrics_every``, ``--stall_timeout``; the
-last two in serve mode only), and sharded training (``--run_type multi_chip
+``--metrics_jsonl`` / ``--serve_metrics_every``, ``--stall_timeout``), the
+training telemetry (``--metrics_jsonl``, ``--log_every``,
+``--stall_timeout``, ``--profile`` / ``--profile_steps``, ``--warnings``),
+and sharded training (``--run_type multi_chip
 --shard_mode dp|fsdp|zero1|tp|tp_fsdp|pp``, ``--tp`` for tensor parallelism,
 ``--sp`` for sequence parallelism with ring attention, ``--pp`` and
 ``--pp_micro`` for pipeline parallelism), with the JAX CLI's checks and
@@ -22,13 +24,15 @@ messages.
 Flags of the JAX CLI that the port does not carry yet are rejected by name
 (not ignored) with the ROADMAP item that brings them, so a command line
 written for the JAX package fails loudly here instead of silently doing
-something else.
+something else; ``--compile_cache_dir`` (XLA's compilation cache) is
+refused by name as XLA's.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import warnings
 from typing import List, Optional
 
 from building_llm_from_scratch_tpu_torch.configs import MODEL_PARAMS_MAPPING
@@ -39,27 +43,26 @@ UNPORTED_FLAGS = (
     "--serve_tp", "--serve_sp", "--serve_max_prompt",
     "--fleet_jobs", "--fleet_rows_per_job", "--fleet_capacity",
     "--fleet_export_dir", "--fleet_style",
-    "--log_every", "--compile_cache_dir",
+    "--compile_cache_dir",
     "--attn_impl",
-    "--profile", "--profile_steps", "--warnings",
 )
 
-_TELEMETRY = "queue 1 item 10, telemetry"
 _FLEET = "queue 1 item 14b, fleet and fused finetuning"
+
+#: flags of the JAX CLI that belong to XLA and have no meaning in the port
+XLA_ONLY = {
+    "--compile_cache_dir": "XLA's persistent compilation cache; the port "
+                           "builds its CUDA kernels once a source hash "
+                           "into _build/ and compiles no XLA program",
+}
 
 #: the ROADMAP queue item that brings an unported flag
 QUEUE_ITEMS = {
-    "--log_every": _TELEMETRY, "--profile": _TELEMETRY,
-    "--profile_steps": _TELEMETRY, "--warnings": _TELEMETRY,
     **{f: _FLEET for f in ("--serve_replicas", "--serve_workers", "--serve_tp",
                            "--serve_sp", "--serve_max_prompt", "--fleet_jobs",
                            "--fleet_rows_per_job", "--fleet_capacity",
                            "--fleet_export_dir", "--fleet_style")},
 }
-
-#: flags the port takes in --mode serve only; --mode train refuses them by
-#: name (the training telemetry is not ported)
-SERVE_ONLY_TELEMETRY = (("metrics_jsonl", None), ("stall_timeout", 0.0))
 
 #: the JAX package's shard modes: ``parallel.SHARD_MODES`` and pp
 JAX_SHARD_MODES = ("dp", "fsdp", "zero1", "tp", "tp_fsdp", "pp")
@@ -276,13 +279,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "(decode rate, gauges, the tick-phase breakdown). "
                         "0 disables.")
     p.add_argument("--metrics_jsonl", type=str, default=None,
-                   help="Write serving telemetry (header, cadence metrics, "
-                        "events, one span per request) to this JSONL file "
-                        "(--mode serve only).")
+                   help="Write structured telemetry to this JSONL file (rank "
+                        "0): the header, cadence metrics rows, per-layer-"
+                        "group health rows (train), typed events and one "
+                        "span per request (serve). Render it with "
+                        "scripts/summarize_metrics.py, or as a Chrome trace "
+                        "with python -m building_llm_from_scratch_tpu_torch."
+                        "obs.trace.")
+    p.add_argument("--log_every", type=int, default=0,
+                   help="Steps between throughput/MFU/memory/health rows, "
+                        "decoupled from the evaluation. 0 logs at the "
+                        "--eval_freq cadence.")
     p.add_argument("--stall_timeout", type=float, default=0.0,
-                   help="Flight recorder (--mode serve only): dump every "
-                        "thread's stack and the device memory when no tick "
-                        "completes within this many seconds. 0 disables.")
+                   help="Flight recorder: dump every thread's stack and the "
+                        "device memory when no train step (or serving tick) "
+                        "completes within this many seconds (or 10x the "
+                        "median step, floored at 30 s). 0 disables.")
+    p.add_argument("--profile", action="store_true",
+                   help="Record the first --profile_steps training steps "
+                        "with torch.profiler (CUDA kernels on the card) into "
+                        "<output_dir>/profile as Chrome trace JSON.")
+    p.add_argument("--profile_steps", type=int, default=10,
+                   help="Number of steps to profile with --profile.")
+    p.add_argument("--warnings", action="store_true",
+                   help="Enable Python warnings.")
     p.add_argument("--serve_prefix_cache", type=str, default="off",
                    choices=["on", "off"],
                    help="KV prefix caching: requests sharing a prompt prefix "
@@ -344,18 +364,12 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if unported:
         where = [f"{u}: ROADMAP {QUEUE_ITEMS[u]}" for u in unported
                  if u in QUEUE_ITEMS]
+        where += [f"{u}: {XLA_ONLY[u]}" for u in unported if u in XLA_ONLY]
         parser.error(f"{', '.join(unported)}: flag(s) of the JAX package "
                      "that the PyTorch port does not support yet"
                      + (f" ({'; '.join(where)})" if where else ""))
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
-    if args.mode == "train":
-        telemetry = [f"--{name}" for name, default in SERVE_ONLY_TELEMETRY
-                     if getattr(args, name) != default]
-        if telemetry:
-            parser.error(f"{', '.join(telemetry)}: flag(s) the PyTorch port "
-                         "takes in --mode serve only; training telemetry is "
-                         f"not ported yet (ROADMAP {_TELEMETRY})")
     if args.mode == "serve":
         train_only = [f"--{name}" for name, default in _TRAIN_ONLY_DEFAULTS
                       if getattr(args, name) != default]
@@ -367,6 +381,14 @@ def get_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def perform_checks(args) -> None:
+    if not args.warnings:
+        warnings.filterwarnings("ignore")
+    if args.log_every < 0:
+        raise ValueError("--log_every must be >= 0 (0 = eval cadence).")
+    if args.profile_steps < 1:
+        raise ValueError("--profile_steps must be >= 1.")
+    if args.stall_timeout < 0:
+        raise ValueError("--stall_timeout must be >= 0 (0 disables).")
     if args.num_params not in MODEL_PARAMS_MAPPING.get(args.model, []):
         raise ValueError(
             f"Unsupported model configuration: {args.model} with "
@@ -466,8 +488,6 @@ def _check_serve(args) -> None:
     if args.serve_metrics_every < 0:
         raise ValueError("--serve_metrics_every must be >= 0 "
                          "(0 disables the tick cadence rows).")
-    if args.stall_timeout < 0:
-        raise ValueError("--stall_timeout must be >= 0 (0 disables).")
     for flag in ("serve_slots", "serve_max_queue", "serve_max_new_tokens",
                  "serve_max_top_k"):
         if getattr(args, flag) < 1:

@@ -143,6 +143,10 @@ class Prefetcher:
     def alive(self) -> bool:
         return self._thread.is_alive()
 
+    def qsize(self) -> int:
+        """Batches staged in the queue now."""
+        return self._q.qsize()
+
     def counters(self) -> dict:
         """The counters now (the trainer takes window deltas)."""
         return {"stalls": self.stalls, "pops": self.pops,

@@ -15,9 +15,13 @@ LoRA run) and, with ``--save_adapter``, the adapter artifact. A run
 stopped by a signal has written its ``interrupted`` checkpoint; it skips
 the plot, the final checkpoint and exports and returns normally (exit 0),
 and the same command resumes it. Without matplotlib the run logs one
-warning and goes on without the plot. Not ported: the training
-telemetry (``--metrics_jsonl`` and ``--stall_timeout`` in train mode,
-``--log_every``, ``--profile``; ROADMAP queue 1 item 10).
+warning and goes on without the plot. Telemetry: the metrics sink
+(``--metrics_jsonl``) is configured before the build and gets its header
+(run metadata, the mesh) once the components exist; the trainer writes
+its cadence rows every ``--log_every`` steps; ``--stall_timeout`` runs the
+flight recorder around training; ``--profile`` traces the first
+``--profile_steps`` steps into ``<output_dir>/profile``; a run that ends
+normally emits ``run_complete`` and logs the device memory.
 
 ``--run_type multi_chip`` (``--shard_mode dp|fsdp|zero1|tp|tp_fsdp|pp``,
 ``--tp``, ``--sp``, ``--pp``, ``--pp_micro``) trains with one
@@ -58,6 +62,12 @@ def run_train(args):
     from building_llm_from_scratch_tpu_torch.data.instruct import InstructLoader
     from building_llm_from_scratch_tpu_torch.data.pretrain import PretrainLoader
     from building_llm_from_scratch_tpu_torch.device import resolve_device
+    from building_llm_from_scratch_tpu_torch.obs.metrics import (
+        configure_metrics,
+        emit_event,
+        run_metadata,
+    )
+    from building_llm_from_scratch_tpu_torch.obs.stall import StallDetector
     from building_llm_from_scratch_tpu_torch.parallel import collectives
     from building_llm_from_scratch_tpu_torch.parallel.mesh import rank_device
     from building_llm_from_scratch_tpu_torch.training.resilience import (
@@ -69,14 +79,21 @@ def run_train(args):
     from building_llm_from_scratch_tpu_torch.utils.io import (
         discover_training_files,
     )
+    from building_llm_from_scratch_tpu_torch.utils.memory import (
+        log_device_memory,
+    )
     from building_llm_from_scratch_tpu_torch.utils.seeding import set_seed
 
     device = resolve_device(args.device)
     if args.run_type == "multi_chip":
         device = rank_device(device)
     set_seed(args.seed, device)
+    # the sink first (events of the build wait for the header), the header
+    # once the components and the mesh exist
+    sink = configure_metrics(args.metrics_jsonl)
     comps = build_components(args, device)
     cfg = comps.cfg
+    sink.write_header(**run_metadata(args, cfg, plan=comps.plan))
 
     txt_files, json_files = discover_training_files(args.data_dir)
     files = json_files if args.finetune else txt_files
@@ -117,6 +134,7 @@ def run_train(args):
                     comps.policy is not None and comps.policy.name == "fp16")
                 else None)
     stopper = GracefulStopper()
+    stall = StallDetector(args.stall_timeout) if args.stall_timeout > 0 else None
     trainer = Trainer(cfg, comps.model, comps.tokenizer, loader,
                       output_dir=args.output_dir, peak_lr=args.lr,
                       initial_lr=args.initial_lr, min_lr=args.min_lr,
@@ -130,12 +148,24 @@ def run_train(args):
                       resume_from=resume_from, keep_ckpts=args.keep_ckpts,
                       watchdog=watchdog, stopper=stopper, policy=comps.policy,
                       grad_accum=args.grad_accum, prefetch=args.prefetch,
-                      async_ckpt=args.async_ckpt == "on", plan=comps.plan)
-    with stopper:
-        if args.finetune:
-            trainer.finetune_model(files, n_epochs=args.n_epochs)
-        else:
-            trainer.train_model(files, n_epochs=args.n_epochs)
+                      async_ckpt=args.async_ckpt == "on", plan=comps.plan,
+                      log_every=args.log_every, stall=stall,
+                      profile_dir=(os.path.join(args.output_dir, "profile")
+                                   if args.profile else None),
+                      profile_steps=args.profile_steps)
+    # started here, not at construction, so the first step's timer does not
+    # charge the setup
+    try:
+        if stall is not None:
+            stall.start()
+        with stopper:
+            if args.finetune:
+                trainer.finetune_model(files, n_epochs=args.n_epochs)
+            else:
+                trainer.train_model(files, n_epochs=args.n_epochs)
+    finally:
+        if stall is not None:
+            stall.stop()
     if trainer.preempted:
         logger.warning("Run preempted at step %d; interrupted checkpoint "
                        "written. Relaunch the same command to resume "
@@ -144,13 +174,15 @@ def run_train(args):
     if trainer.train_losses and collectives.is_coordinator():
         plot_run_losses(trainer, args.n_epochs, args.output_dir)
     logger.info("Training complete. Final model saved.")
-    if device.type == "cuda":
-        logger.info("Peak device memory — %.2f GB allocated",
-                    torch.cuda.max_memory_allocated(device) / 1e9)
+    log_device_memory(logger, prefix="Peak device memory — ", device=device)
     trainer.save_checkpoint("final")
     trainer.export_final("model_pg_final.npz")
     if args.save_adapter:
         trainer.export_adapter(args.save_adapter)
+    emit_event("run_complete", step=trainer.global_step,
+               tokens_seen=trainer.tokens_seen,
+               final_train_loss=(trainer.train_losses[-1]
+                                 if trainer.train_losses else None))
     return trainer
 
 

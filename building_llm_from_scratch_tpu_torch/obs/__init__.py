@@ -1,6 +1,8 @@
-"""Serving observability (port of the serving half of the JAX package's
-``obs/``): the event registry (``schema.py``), the JSONL metrics sink with
-fixed-bucket histograms, the rolling SLO window and the Prometheus text
-(``metrics.py``), the hung-tick flight recorder (``stall.py``) and the
-serving memory ledger (``memory.py``). The training telemetry (mfu, the
-health bundle, the step timeline, ``--log_every``) is not ported."""
+"""Observability (port of the serving and training halves of the JAX
+package's ``obs/``): the event registry (``schema.py``), the JSONL metrics
+sink with fixed-bucket histograms, the rolling SLO window and the
+Prometheus text (``metrics.py``), the flight recorder (``stall.py``), the
+memory ledger (``memory.py``), the trainer's step timeline
+(``timeline.py``), MFU against the card's peak (``mfu.py``), the
+per-layer-group health bundle (``health.py``) and the metrics-JSONL to
+Chrome-trace export (``trace.py``)."""

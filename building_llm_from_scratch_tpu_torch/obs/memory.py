@@ -1,16 +1,20 @@
-"""The serving memory ledger (port of the serving part of the JAX
-package's ``obs/memory.py`` ``MemoryLedger``).
+"""The memory ledger (port of the JAX package's ``obs/memory.py``
+``MemoryLedger``).
 
-Each device-memory consumer of an engine registers a named component
-whose bytes are measured from the live tensors (``nbytes`` sums: metadata,
-never a device sync): the weights, the slot cache or the page pool, the
-prefix store and the adapter pool. ``observe`` (the engine's metrics
-cadence) snapshots them, checks each against its exact expectation where
-one is registered (``memory_drift``), watches the headroom against the
-card's memory (``memory_pressure``) and emits ``memory_snapshot``;
-``gauges`` feeds ``/metrics``. The allocator's watermark is
-``torch.cuda.max_memory_allocated`` (absent on the CPU). Host RSS tracking
-and the training probes are not ported."""
+Each device-memory consumer registers a named component whose bytes are
+measured from the live tensors (``nbytes`` sums: metadata, never a device
+sync): an engine's weights, slot cache or page pool, prefix store and
+adapter pool; a trainer's ``model_params`` and ``optimizer_state``. Host
+RSS can ride as a component outside the device sum (``track_host_rss``).
+``observe`` (the engine's or the trainer's metrics cadence) snapshots
+them, checks each against its exact expectation where one is registered
+and runs the invariant probes (``memory_drift``), watches the headroom
+against the card's memory (``memory_pressure``) and emits
+``memory_snapshot``; ``gauges`` feeds ``/metrics`` and ``legacy_row`` the
+trainer's ``hbm_bytes_in_use`` / ``hbm_peak_bytes`` / ``host_rss_bytes``.
+The allocator's figures are ``torch.cuda.memory_allocated`` and
+``max_memory_allocated`` (absent on the CPU). The XLA compile temps of the
+JAX trainer have no counterpart."""
 
 from __future__ import annotations
 
@@ -18,6 +22,21 @@ import logging
 from typing import Any, Callable, Dict, Optional, Tuple
 
 logger = logging.getLogger(__name__)
+
+
+def pytree_nbytes(tree: Any) -> int:
+    """Bytes of every tensor or array leaf of ``tree`` (nested dicts,
+    lists and tuples): metadata only, never a sync."""
+    total, stack = 0, [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        elif hasattr(node, "nbytes"):
+            total += int(node.nbytes)
+    return total
 
 
 def _escape_label(value: str) -> str:
@@ -67,6 +86,8 @@ class MemoryLedger:
         self._components: Dict[str, Tuple[Callable[[], int], bool]] = {}
         self._expected: Dict[str, Callable[[], int]] = {}
         self._labeled: Dict[str, Tuple[str, Callable[[], Dict[str, int]]]] = {}
+        self._probes: Dict[str, Callable[[], Optional[Dict[str, Any]]]] = {}
+        self.host_rss: Optional[int] = None
         self.sizes: Dict[str, int] = {}
         self.watermarks: Dict[str, int] = {}
         self.labeled_sizes: Dict[str, Dict[str, int]] = {}
@@ -93,6 +114,22 @@ class MemoryLedger:
         watermarks."""
         self._labeled[series] = (label, provider)
 
+    def register_probe(self, name: str,
+                       probe: Callable[[], Optional[Dict[str, Any]]]) -> None:
+        """An invariant probe run at each ``observe``: a non-None return is
+        a violation, a ``memory_drift`` with ``component=name`` and the
+        probe's fields (its ``reason``, default "invariant")."""
+        self._probes[name] = probe
+
+    def track_host_rss(self) -> None:
+        """Host RSS as a component outside the device sum, so host growth
+        (checkpoint staging, the data pipeline) is attributed."""
+        from building_llm_from_scratch_tpu_torch.utils.memory import (
+            host_rss_bytes,
+        )
+
+        self.register("host_rss", lambda: host_rss_bytes() or 0, device=False)
+
     def snapshot(self) -> Dict[str, int]:
         """Refresh every component; no events, no syncs."""
         for name, (provider, _dev) in self._components.items():
@@ -108,10 +145,15 @@ class MemoryLedger:
                 if size > peaks.get(key, -1):
                     peaks[key] = size
         self.device_stats = _device_stats(self.device)
+        if "host_rss" in self.sizes:
+            self.host_rss = self.sizes["host_rss"]
         return dict(self.sizes)
 
     def device_bytes(self) -> int:
         return sum(s for n, s in self.sizes.items() if self._components[n][1])
+
+    def host_bytes(self) -> int:
+        return sum(s for n, s in self.sizes.items() if not self._components[n][1])
 
     def total_bytes(self) -> int:
         return sum(self.sizes.values())
@@ -131,10 +173,21 @@ class MemoryLedger:
                 self._drift(name, "reconcile", expected_bytes=expected,
                             measured_bytes=measured,
                             delta_bytes=measured - expected)
+        for name, probe in self._probes.items():
+            try:
+                violation = probe()
+            except Exception:
+                logger.exception("memory probe %s raised", name)
+                continue
+            if violation:
+                fields = dict(violation)
+                self._drift(name, fields.pop("reason", "invariant"), **fields)
         self._check_pressure(step)
         fields: Dict[str, Any] = {"source": self.source, "components": comps,
                                   "total_bytes": self.total_bytes(),
                                   "device_bytes": self.device_bytes()}
+        if self.host_bytes():
+            fields["host_bytes"] = self.host_bytes()
         if self.capacity_bytes is not None:
             fields["capacity_bytes"] = self.capacity_bytes
             fields["headroom_bytes"] = self.headroom_bytes()
@@ -207,6 +260,21 @@ class MemoryLedger:
                            ("peak_bytes_in_use", "hbm_peak_bytes")):
             if key in self.device_stats:
                 out[gauge] = self.device_stats[key]
+        if self.host_rss is not None:
+            out["host_rss_bytes"] = self.host_rss
+        return out
+
+    def legacy_row(self) -> Dict[str, int]:
+        """The trainer's metrics-row keys from the ledger's last poll:
+        ``hbm_bytes_in_use`` and ``hbm_peak_bytes`` (the allocator's, on the
+        card) and ``host_rss_bytes``."""
+        out: Dict[str, int] = {}
+        if "bytes_in_use" in self.device_stats:
+            out["hbm_bytes_in_use"] = self.device_stats["bytes_in_use"]
+        if "peak_bytes_in_use" in self.device_stats:
+            out["hbm_peak_bytes"] = self.device_stats["peak_bytes_in_use"]
+        if self.host_rss is not None:
+            out["host_rss_bytes"] = self.host_rss
         return out
 
     def describe(self) -> Dict[str, Any]:

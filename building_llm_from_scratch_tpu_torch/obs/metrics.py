@@ -1,16 +1,19 @@
-"""Serving telemetry: fixed-bucket histograms, the rolling SLO window, the
+"""Telemetry: fixed-bucket histograms, the rolling SLO window, the
 Prometheus text exposition and the JSONL sink (port of the JAX package's
 ``obs/metrics.py``).
 
 JSONL rows (one JSON object a line, ``type`` discriminates): one
-``header`` first (run metadata), ``metrics`` rows at the engine's cadence,
-typed ``event`` rows and one ``span`` row per request at its terminal
-state. A path that already holds a previous run's file is rotated aside
-(``.1``, ``.2``, ...) at the first write, so each file keeps one header.
-Only rank 0 writes. The module-level sink (``configure_metrics`` /
-``get_metrics`` / ``emit_event``) lets any layer emit without a handle; it
-is a no-op until configured. Writes are lock-guarded: the stall detector
-and the HTTP handler threads emit beside the engine loop."""
+``header`` first (run metadata), ``metrics`` rows at the engine's or the
+trainer's cadence, ``health`` rows (the trainer's per-layer-group arrays,
+``obs/health.py``: ``groups`` and parallel lists, kept out of the scalar
+rows), typed ``event`` rows and one ``span`` row per request at its
+terminal state. A path that already holds a previous run's file is
+rotated aside (``.1``, ``.2``, ...) at the first write, so each file keeps
+one header. Only rank 0 writes. The module-level sink
+(``configure_metrics`` / ``get_metrics`` / ``emit_event``) lets any layer
+emit without a handle; it is a no-op until configured. Writes are
+lock-guarded: the stall detector and the HTTP handler threads emit beside
+the engine loop."""
 
 from __future__ import annotations
 
@@ -265,6 +268,7 @@ class MetricLogger:
         self._lock = threading.RLock()
         self.counters: Dict[str, float] = {}      # guarded-by: _lock
         self.gauges: Dict[str, float] = {}        # guarded-by: _lock
+        self._timings: Dict[str, float] = {}      # guarded-by: _lock
         self._file: Optional[IO[str]] = None      # guarded-by: _lock
         self._closed = False                      # guarded-by: _lock
         self._header_written = False              # guarded-by: _lock
@@ -279,6 +283,12 @@ class MetricLogger:
     def gauge(self, name: str, value: float) -> None:
         with self._lock:
             self.gauges[name] = value
+
+    def timing(self, name: str, seconds: float) -> None:
+        """Accumulating timing bucket, drained into the next metrics row
+        as ``<name>_s``."""
+        with self._lock:
+            self._timings[name] = self._timings.get(name, 0.0) + seconds
 
     # holds: _lock
     def _writable(self) -> bool:
@@ -324,11 +334,15 @@ class MetricLogger:
 
     def log_metrics(self, step: int, monotonic: bool = True,
                     **values: Any) -> None:
-        """One ``metrics`` row with the current counters and gauges."""
+        """One ``metrics`` row: the drained timing buckets, the current
+        counters and gauges, then ``values``."""
         with self._lock:
+            timings = {f"{k}_s": round(v, 6) for k, v in self._timings.items()}
+            self._timings.clear()
             extra = dict(self.counters)
             extra.update(self.gauges)
         row = {"type": "metrics", "time": time.time(), "step": int(step)}
+        row.update(timings)
         row.update(extra)
         row.update(values)
         with self._lock:
@@ -336,6 +350,14 @@ class MetricLogger:
                 logger.warning("Metrics row step went backwards (%d < %d)",
                                step, self._last_step)
             self._last_step = max(self._last_step, int(step))
+        self._write_row(row)
+
+    def log_health(self, step: int, groups, **arrays: Any) -> None:
+        """One ``health`` row: the ordered group names and parallel
+        per-group arrays (the ``obs/health.py`` bundle)."""
+        row = {"type": "health", "time": time.time(), "step": int(step),
+               "groups": list(groups)}
+        row.update(arrays)
         self._write_row(row)
 
     def log_span(self, name: str, t0: float, dur_s: float,
@@ -422,9 +444,10 @@ def emit_event(kind: str, step: Optional[int] = None, **fields: Any) -> None:
     _global_logger.event(kind, step=step, **fields)
 
 
-def run_metadata(args=None, cfg=None) -> Dict[str, Any]:
+def run_metadata(args=None, cfg=None, plan=None) -> Dict[str, Any]:
     """The header row's metadata: torch and CUDA versions, the device, the
-    process group, the model config, argv and the flags."""
+    process group, the mesh's shape (``plan``: a ``parallel.MeshPlan``),
+    the model config, argv and the flags."""
     import dataclasses
 
     import torch
@@ -440,9 +463,13 @@ def run_metadata(args=None, cfg=None) -> Dict[str, Any]:
         "device_count": torch.cuda.device_count() if cuda else 1,
         "process_count": collectives.world(),
         "process_index": collectives.rank(),
+        "local_device_count": 1,
         "argv": list(sys.argv),
         "mesh_shape": None,
     }
+    mesh = getattr(plan, "mesh", None)
+    if mesh is not None:
+        meta["mesh_shape"] = {str(k): int(v) for k, v in mesh.shape.items()}
     if cfg is not None:
         meta["model"] = dataclasses.asdict(cfg)
     if args is not None:

@@ -1,7 +1,7 @@
-"""The serving telemetry schema: every event kind, span shape and tick
-phase the port's JSONL sink may emit, declared once (copy of the serving
-part of the JAX package's ``obs/schema.py``; the training, fleet and
-fused-finetuning kinds are not registered).
+"""The telemetry schema: every event kind, span shape, tick phase and
+trainer segment the port's JSONL sink may emit, declared once (copy of the
+serving and training parts of the JAX package's ``obs/schema.py``; the
+fleet and fused-finetuning kinds are not registered).
 
 The field sets are the JAX registry's, so a row the port emits is valid
 under either package's ``validate_event``. Standard library only."""
@@ -26,9 +26,16 @@ TICK_PHASES = ("admit", "prefix_copy", "prefill", "prefill_shard", "draft",
                "decode_dispatch", "host_fetch", "sample_commit",
                "callback_detok")
 
+#: the trainer's ``StepTimeline`` segments (``<segment>_s`` fields of the
+#: training cadence rows; ``obs/timeline.py`` measures them)
+TRAIN_SEGMENTS = ("data_wait", "dispatch", "host_fetch", "eval", "sample",
+                  "checkpoint")
+
 #: event kinds rendered as instants on a trace's incidents track
 INCIDENT_EVENTS = ("engine_restart", "drain", "serve_error", "stall",
-                   "serve_warmup", "memory_pressure", "memory_drift")
+                   "watchdog_halt", "preemption_signal", "preemption_stop",
+                   "checkpoint_fallback", "serve_warmup", "memory_pressure",
+                   "memory_drift")
 
 #: request-lifecycle event kinds, pinned to the request's own track
 REQUEST_EVENTS = ("request_done", "request_rejected", "request_shed",
@@ -71,6 +78,32 @@ def _spec(name: str, required=(), optional=(), open_fields=False,
 
 
 _EVENT_LIST: List[EventSpec] = [
+    # -- run lifecycle ----------------------------------------------------
+    _spec("run_complete", optional=("tokens_seen", "final_train_loss"),
+          doc="training main() reached its normal end"),
+    # -- checkpoints ------------------------------------------------------
+    _spec("checkpoint_save", required=("path",),
+          optional=("seconds", "bytes", "leaves", "writer"),
+          doc="one durable checkpoint commit (sync or async writer)"),
+    _spec("checkpoint_restore", required=("path",),
+          optional=("seconds", "leaves"),
+          doc="checkpoint loaded into the train state"),
+    _spec("checkpoint_fallback", required=("path", "reason"),
+          doc="--resume auto skipped an invalid checkpoint"),
+    _spec("checkpoint_gc", optional=("removed", "keep"),
+          doc="--keep_ckpts retention removed old checkpoints"),
+    _spec("ckpt_async_save", required=("path",),
+          optional=("snapshot_s", "write_s", "overlap_s"),
+          doc="async checkpoint: snapshot/write/overlap seconds"),
+    # -- resilience -------------------------------------------------------
+    _spec("preemption_signal", required=("signal",),
+          doc="SIGTERM/SIGINT observed; stop at the next step boundary"),
+    _spec("preemption_stop", optional=("tokens_seen",),
+          doc="graceful stop checkpoint written at the step boundary"),
+    _spec("watchdog_halt", required=("reason",),
+          optional=("loss", "recent", "median", "spike_factor"),
+          open_fields=True,
+          doc="loss watchdog halt (+ the per-layer-group health context)"),
     _spec("stall", optional=("elapsed_s", "threshold_s", "memory"),
           doc="flight recorder fired: stacks and device memory dumped"),
     _spec("request_done", required=("request_id",),
@@ -93,6 +126,21 @@ _EVENT_LIST: List[EventSpec] = [
     _spec("request_failed", required=("request_id", "reason"),
           optional=("error", "slot", "n_tokens", "adapter", "replica"),
           doc="one request failed in isolation (or engine death/restart)"),
+    # -- serving: multi-tenant LoRA adapters ------------------------------
+    _spec("adapter_load", required=("name",),
+          optional=("path", "row", "rank", "alpha", "seconds",
+                    "n_loaded", "capacity"),
+          doc="registry loaded an adapter into a pool row (same shapes)"),
+    _spec("adapter_evict", required=("name",),
+          optional=("row", "n_loaded"),
+          doc="registry unloaded an adapter (row reused once no active "
+              "slot references it)"),
+    # -- serving: KV-cache policy -----------------------------------------
+    _spec("prefix_evict", required=("key",),
+          optional=("bytes", "span_tokens", "hits", "age_s",
+                    "entries_left", "bytes_left"),
+          doc="LRU eviction under the prefix store's byte budget "
+              "(pinned entries are never evicted)"),
     _spec("serve_warmup",
           optional=("n_prefill_buckets", "buckets", "seconds", "n_slots",
                     "max_len", "kv_quant", "prefix_cache", "prefill_chunk",

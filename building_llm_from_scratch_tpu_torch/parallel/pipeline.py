@@ -303,33 +303,35 @@ def run_gpipe(plan: PipelinePlan, shape: tuple, dtype: torch.dtype, device,
     first, last = s == 0, s == S - 1
     nll_sum = torch.zeros((), dtype=torch.float32, device=device)
     held = []
-    for m in range(plan.n_micro):
-        x = None
-        if not first:
-            x = coll.recv(torch.empty(shape, dtype=dtype, device=device),
-                          plan.stage_peer(-1))
-            x.requires_grad_(train)
-        y = stage(m, x)
-        if last:
-            y, nll = sums(m, y)
-            nll_sum += nll
-        else:
-            hop_forward(y.detach(), plan.stage_peer(1))
-        if train:
-            held.append((x, y))
+    with torch.profiler.record_function("forward"):
+        for m in range(plan.n_micro):
+            x = None
+            if not first:
+                x = coll.recv(torch.empty(shape, dtype=dtype, device=device),
+                              plan.stage_peer(-1))
+                x.requires_grad_(train)
+            y = stage(m, x)
+            if last:
+                y, nll = sums(m, y)
+                nll_sum += nll
+            else:
+                hop_forward(y.detach(), plan.stage_peer(1))
+            if train:
+                held.append((x, y))
     if not train:
         return nll_sum
-    for m in reversed(range(plan.n_micro)):
-        x, y = held[m]
-        # the microbatches' graphs share the step's merged / cast weights:
-        # all but the last backward keep that shared part
-        keep = m > 0
-        if last:
-            y.backward(retain_graph=keep)
-        else:
-            g = coll.recv(torch.empty_like(y), plan.stage_peer(1))
-            y.backward(g, retain_graph=keep)
-        if not first:
-            hop_backward(x.grad, plan.stage_peer(-1))
-        held[m] = None
+    with torch.profiler.record_function("backward"):
+        for m in reversed(range(plan.n_micro)):
+            x, y = held[m]
+            # the microbatches' graphs share the step's merged / cast
+            # weights: all but the last backward keep that shared part
+            keep = m > 0
+            if last:
+                y.backward(retain_graph=keep)
+            else:
+                g = coll.recv(torch.empty_like(y), plan.stage_peer(1))
+                y.backward(g, retain_graph=keep)
+            if not first:
+                hop_backward(x.grad, plan.stage_peer(-1))
+            held[m] = None
     return nll_sum

@@ -25,9 +25,9 @@ checked when the pool is built, before any request.
 
 Concurrency: mutations (``load``/``evict``) serialise on the registry
 lock; the engine's reads (``lookup`` per admission, ``pool_args`` per
-tick) take no lock and read copy-on-write references. The JAX module's
-telemetry events and memory-ledger hooks have no counterpart yet; the
-counters ``stats()`` reports are kept.
+tick) take no lock and read copy-on-write references. A load emits
+``adapter_load`` and an evict ``adapter_evict`` (the JAX events' fields);
+the engine's memory ledger reads ``pool_nbytes`` and ``bytes_by_adapter``.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from __future__ import annotations
 import logging
 import re
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import torch
@@ -48,6 +49,7 @@ from building_llm_from_scratch_tpu_torch.models.lora import (
     load_adapter,
     unflatten_lora,
 )
+from building_llm_from_scratch_tpu_torch.obs.metrics import get_metrics
 from building_llm_from_scratch_tpu_torch.ops.decode_step import (
     check_lora_kernel_shape,
 )
@@ -191,10 +193,12 @@ class AdapterRegistry:
 
     def load(self, name: str, path: str) -> int:
         """Load one artifact into a free pool row; returns the row."""
+        t0 = time.monotonic()
         lora, meta = load_adapter(path)
-        return self._install(name, path, lora, meta)
+        return self._install(name, path, lora, meta, t0)
 
-    def _install(self, name: str, path: str, lora: dict, meta: dict) -> int:
+    def _install(self, name: str, path: str, lora: dict, meta: dict,
+                 t0: Optional[float] = None) -> int:
         """Validate one parsed artifact, write it into a free row, then
         publish its name."""
         if not _NAME_RE.match(name):
@@ -249,6 +253,11 @@ class AdapterRegistry:
             self.n_loads += 1
             self._tags = {**self._tags, name: f"{name}#{self.n_loads}"}
             n_loaded = self.n_loaded
+        get_metrics().event(
+            "adapter_load", name=name, path=path, row=row, rank=rank,
+            alpha=float(meta["alpha"]), n_loaded=n_loaded,
+            capacity=self.capacity,
+            seconds=round(time.monotonic() - t0, 4) if t0 is not None else None)
         logger.info("Adapter '%s' loaded into row %d (rank %d, %d/%d).",
                     name, row, rank, n_loaded, self.capacity)
         return row
@@ -275,6 +284,8 @@ class AdapterRegistry:
             self._tags = {k: v for k, v in self._tags.items() if k != name}
             self.n_evicts += 1
             n_loaded = self.n_loaded
+        get_metrics().event("adapter_evict", name=name, row=row,
+                            n_loaded=n_loaded)
         logger.info("Adapter '%s' evicted from row %d (%d loaded).",
                     name, row, n_loaded)
         return row

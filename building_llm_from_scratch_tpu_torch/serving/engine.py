@@ -452,6 +452,9 @@ class DecodeEngine:
             # paged entries reference pool pages: attribution only
             ledger.register("prefix_store", lambda: store.bytes_total,
                             device=not self._paged)
+            ledger.register_labeled("prefix_store_bytes", "namespace",
+                                    store.bytes_by_tag)
+            ledger.register_probe("prefix_store", self._prefix_pinned_probe)
         if self.adapters is not None:
             ledger.register("adapter_pool", self.adapters.pool_nbytes)
             ledger.register_labeled("adapter_pool_bytes", "tenant",
@@ -459,6 +462,16 @@ class DecodeEngine:
         ledger.register_labeled("kv_live_bytes", "tenant",
                                 self._kv_live_by_tenant)
         return ledger
+
+    def _prefix_pinned_probe(self) -> Optional[dict]:
+        """A prefix entry still pinned at a cadence is leaked (pins span one
+        pane copy under the engine lock): a ``memory_drift`` of
+        ``prefix_store``."""
+        pinned, keys = self.prefix_store.pinned_bytes()
+        if not pinned:
+            return None
+        return {"reason": "pinned_orphan", "pinned_bytes": pinned,
+                "pinned_entries": keys[:8], "measured_bytes": pinned}
 
     # holds: _lock
     def _kv_live_by_tenant(self) -> dict:

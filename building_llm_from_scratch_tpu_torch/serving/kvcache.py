@@ -22,15 +22,17 @@ One ``KVCachePolicy`` decides the slot cache's layout and the prefill tier:
     scales into its products. KV data bytes are exactly half of bf16's;
     the sidecars add 2 / head_dim (6.25% at head_dim 64).
 
-The JAX module's telemetry events and memory-ledger hooks have no
-counterpart yet (queue 1 item 10); the counters ``stats()`` reports are
-kept.
+Telemetry: an LRU eviction emits ``prefix_evict`` (the JAX event's
+fields); the memory ledger reads the store's bytes per adapter namespace
+(``bytes_by_tag``) and its pinned entries (``pinned_bytes``: pins are held
+across one pane copy only, so one still held at a cadence is an orphan).
 """
 
 from __future__ import annotations
 
 import hashlib
 import threading
+import time
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -43,6 +45,7 @@ from building_llm_from_scratch_tpu_torch.configs import ModelConfig
 from building_llm_from_scratch_tpu_torch.models.lora import (  # noqa: F401
     adapter_fingerprint,
 )
+from building_llm_from_scratch_tpu_torch.obs.metrics import get_metrics
 
 KV_QUANT_CHOICES = ("model", "int8")
 
@@ -337,14 +340,20 @@ def extract_prefix_panes(cache: dict, slot: int, n_valid: int, *,
 # ---------------------------------------------------------------------------
 
 class _Entry:
-    __slots__ = ("key", "panes", "nbytes", "pins", "pages")
+    __slots__ = ("key", "panes", "nbytes", "pins", "pages", "span", "tag",
+                 "hits", "t_insert")
 
     def __init__(self, key: str, panes: Optional[dict], nbytes: int,
-                 pages: Optional[List[int]] = None):
+                 pages: Optional[List[int]] = None, span: int = 0,
+                 tag: Optional[str] = None):
         self.key = key
         self.panes = panes
         self.nbytes = nbytes
         self.pins = 0
+        self.span = span
+        self.tag = tag
+        self.hits = 0
+        self.t_insert = time.monotonic()
         # paged layout: the entry owns references to shared pool pages
         # instead of a pane copy (panes is None); nbytes is their footprint
         self.pages = pages
@@ -413,6 +422,7 @@ class PrefixStore:
                 if entry is not None:
                     self._entries.move_to_end(k)
                     entry.pins += 1
+                    entry.hits += 1
                     self.n_hits += 1
                     return span, entry
         if count_miss:
@@ -437,7 +447,8 @@ class PrefixStore:
         entries to fit the budget. Returns the entry's bytes, or 0 when
         skipped (counted) or already stored (not counted)."""
         return self._insert_keyed(self.key(token_ids, tag), panes,
-                                  cache_nbytes(panes))
+                                  cache_nbytes(panes), span=len(token_ids),
+                                  tag=tag)
 
     def insert_pages(self, token_ids, tag: str, pages: List[int]) -> int:
         """Paged insert: store references to the donor slot's pool pages
@@ -448,10 +459,12 @@ class PrefixStore:
                                "PrefixStore")
         return self._insert_keyed(self.key(token_ids, tag), None,
                                   len(pages) * self.page_pool.page_bytes,
-                                  pages=list(pages))
+                                  pages=list(pages), span=len(token_ids),
+                                  tag=tag)
 
     def _insert_keyed(self, k: str, panes: Optional[dict], nbytes: int,
-                      pages: Optional[List[int]] = None) -> int:
+                      pages: Optional[List[int]] = None, span: int = 0,
+                      tag: Optional[str] = None) -> int:
         evicted = []
         with self._lock:
             if k in self._entries:
@@ -475,11 +488,18 @@ class PrefixStore:
                 # references independently when it retires
                 for p in pages:
                     self.page_pool.incref(p)
-            self._entries[k] = _Entry(k, panes, nbytes, pages=pages)
+            self._entries[k] = _Entry(k, panes, nbytes, pages=pages, span=span,
+                                      tag=tag)
             self.bytes_total += nbytes
             self.n_inserts += 1
+            n_entries, bytes_total = len(self._entries), self.bytes_total
         for victim in evicted:
             self._release_victim_pages(victim)
+            get_metrics().event(
+                "prefix_evict", key=victim.key, bytes=victim.nbytes,
+                span_tokens=victim.span, hits=victim.hits,
+                age_s=round(time.monotonic() - victim.t_insert, 3),
+                entries_left=n_entries, bytes_left=bytes_total)
         return nbytes
 
     def _release_victim_pages(self, victim: _Entry) -> None:
@@ -504,6 +524,23 @@ class PrefixStore:
     def n_entries(self) -> int:
         with self._lock:
             return len(self._entries)
+
+    def bytes_by_tag(self) -> Dict[str, int]:
+        """The memory ledger's attribution: adapter tag -> stored bytes."""
+        out: Dict[str, int] = {}
+        with self._lock:
+            for e in self._entries.values():
+                tag = e.tag if e.tag is not None else "external"
+                out[tag] = out.get(tag, 0) + e.nbytes
+        return out
+
+    def pinned_bytes(self) -> Tuple[int, List[str]]:
+        """(bytes, keys) of the entries pinned now: at a cadence boundary
+        any is an orphan (the ledger's ``pinned_orphan`` probe)."""
+        with self._lock:
+            pinned = [(e.key, e.nbytes) for e in self._entries.values()
+                      if e.pins > 0]
+        return sum(nb for _k, nb in pinned), [k for k, _nb in pinned]
 
     def stats(self) -> dict:
         with self._lock:

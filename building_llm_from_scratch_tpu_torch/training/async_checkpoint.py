@@ -33,8 +33,9 @@ Contracts:
 
 ``snapshot_s`` (what the step loop paid), ``write_s`` (the write that ran
 beside training) and ``overlap_s`` (from the snapshot's return to the
-commit) of the last committed save are kept as attributes and logged; the
-port has no event sink yet.
+commit) of the last committed save are kept as attributes, logged and
+emitted as ``ckpt_async_save``, beside the write's ``checkpoint_save``
+(``writer`` "async").
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, Optional
 
+from building_llm_from_scratch_tpu_torch.obs.metrics import emit_event
 from building_llm_from_scratch_tpu_torch.parallel import collectives as coll
 from building_llm_from_scratch_tpu_torch.training import checkpoint as ckpt
 
@@ -81,6 +83,7 @@ class AsyncCheckpointer:
             info = ckpt.save_checkpoint(ckpt_dir, tree, extra_metadata, layout)
             info.update(snapshot_s=info["seconds"], write_s=info["seconds"],
                         overlap_s=0.0)
+            _emit_async(info, extra_metadata)
             self.saves_committed += 1
             if on_commit is not None:
                 on_commit(info)
@@ -97,6 +100,8 @@ class AsyncCheckpointer:
                 now = time.perf_counter()
                 info.update(snapshot_s=snapshot_s, write_s=now - t_w,
                             overlap_s=now - t_resume)
+                ckpt.emit_checkpoint_save(info, extra_metadata, writer="async")
+                _emit_async(info, extra_metadata)
                 self.snapshot_s, self.write_s, self.overlap_s = (
                     snapshot_s, info["write_s"], info["overlap_s"])
                 self.saves_committed += 1
@@ -131,3 +136,13 @@ class AsyncCheckpointer:
         """The trainer's exit hook: drain the writer, logging a failure
         (it runs in a ``finally``)."""
         self.wait(reraise=False)
+
+
+def _emit_async(info: dict, extra_metadata: Optional[dict]) -> None:
+    """The ``ckpt_async_save`` event: the save's snapshot, write and
+    overlap seconds."""
+    emit_event("ckpt_async_save", path=info["path"],
+               step=(extra_metadata or {}).get("global_step"),
+               snapshot_s=round(info["snapshot_s"], 4),
+               write_s=round(info["write_s"], 4),
+               overlap_s=round(info["overlap_s"], 4))

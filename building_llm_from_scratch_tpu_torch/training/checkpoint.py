@@ -41,7 +41,8 @@ buffers, on the current stream, so the copies are ordered before any
 later in-place update of the state) and returns at once; the write waits
 for those copies, then stages, hashes and commits. ``save_checkpoint`` is
 the two in a row; ``training/async_checkpoint.py`` runs the write on a
-worker thread.
+worker thread. A committed save emits ``checkpoint_save``, a restore
+``checkpoint_restore`` (the JAX events' fields).
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ from building_llm_from_scratch_tpu_torch.models.transformer import (
     Transformer,
     param_shapes,
 )
+from building_llm_from_scratch_tpu_torch.obs.metrics import emit_event
 from building_llm_from_scratch_tpu_torch.parallel import collectives as coll
 
 logger = logging.getLogger(__name__)
@@ -326,7 +328,20 @@ def save_checkpoint(ckpt_dir: str, tree: Dict[str, Any],
     else:
         info = write_snapshot(ckpt_dir, snapshot_for_save(tree, extra_metadata))
     info["seconds"] = time.perf_counter() - t0
+    emit_checkpoint_save(info, extra_metadata)
     return info
+
+
+def emit_checkpoint_save(info: dict, extra_metadata: Optional[dict],
+                         writer: Optional[str] = None) -> None:
+    """The ``checkpoint_save`` event of one committed write (``writer``
+    "async" from the asynchronous writer)."""
+    fields = dict(path=info["path"], step=(extra_metadata or {}).get("global_step"),
+                  seconds=round(info["seconds"], 4), bytes=info["bytes"],
+                  leaves=info["leaves"])
+    if writer is not None:
+        fields["writer"] = writer
+    emit_event("checkpoint_save", **fields)
 
 
 def _save_ranks(ckpt_dir: str, tree: Dict[str, Any],
@@ -504,6 +519,7 @@ def load_checkpoint(ckpt_dir: str, template: Dict[str, Any],
     ``train_step.checkpoint_layout``): its leaves are this rank's slices of
     the global shapes it names, read from whatever shards cover them.
     Returns {path: restored leaf}."""
+    t_load = time.perf_counter()
     resolved = _resolve_ckpt_dir(ckpt_dir)
     if resolved == ckpt_dir:
         _cleanup_stale_siblings(ckpt_dir)
@@ -549,6 +565,10 @@ def load_checkpoint(ckpt_dir: str, template: Dict[str, Any],
             out[path] = tmpl
         else:
             out[path] = np.asarray(arr).view(np.dtype(meta["dtype"]))
+    emit_event("checkpoint_restore", path=ckpt_dir,
+               step=manifest.get("metadata", {}).get("global_step"),
+               seconds=round(time.perf_counter() - t_load, 4),
+               leaves=len(manifest["leaves"]))
     return out
 
 

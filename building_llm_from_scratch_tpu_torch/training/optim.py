@@ -118,7 +118,8 @@ class AdamW:
     @torch.no_grad()
     def step(self, params: Flat, grads: Flat, state: AdamState,
              grad_norm: torch.Tensor | None = None,
-             norm: Callable[[Flat], torch.Tensor] = None) -> dict:
+             norm: Callable[[Flat], torch.Tensor] = None,
+             on_updates: Callable[[Flat], None] = None) -> dict:
         """Update ``params`` (and ``state``) in place from ``grads`` (which
         are clipped in place; ``grad_norm`` their global norm when the
         caller has it). Returns the pre-clip global ``grad_norm``, the
@@ -127,7 +128,9 @@ class AdamW:
         float). A sharded step passes the rank's slices (every formula is
         elementwise, so a slice's update is the whole leaf's, bit for bit),
         the global ``grad_norm``, and ``norm``, the global norm of a tree
-        of slices (``global_norm`` by default)."""
+        of slices (``global_norm`` by default). ``on_updates(updates)`` sees
+        the applied updates before they are dropped (the step's health
+        bundle sums them there, without a second copy)."""
         b1, b2 = self.b1, self.b2
         if grad_norm is None:
             grad_norm = global_norm(grads)
@@ -165,5 +168,7 @@ class AdamW:
             u.mul_(r(-lr))
             p.add_(u)
             updates[name] = u
+        if on_updates is not None:
+            on_updates(updates)
         return dict(grad_norm=grad_norm, update_norm=(norm or global_norm)(updates),
                     lr=lr)

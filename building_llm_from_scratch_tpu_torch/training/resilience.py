@@ -19,9 +19,11 @@ resume discovery, retention and a loss watchdog.
     ``model_pg_<step>`` dirs are pruned, ``interrupted``/``final`` never.
   - ``LossWatchdog``: halts on a non-finite train loss or a spike above a
     multiple of the running median, with the step, the loss and the recent
-    losses in the message.
+    losses in the message; ``context_fn`` (the trainer's health digest)
+    names the layer group.
 
-Not ported: the events of the metrics sink (observability, ROADMAP queue 1).
+Events (``obs/metrics``, the JAX field sets): ``preemption_signal``,
+``checkpoint_fallback``, ``checkpoint_gc`` and ``watchdog_halt``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from collections import deque
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from building_llm_from_scratch_tpu_torch.obs.metrics import emit_event
 
 logger = logging.getLogger(__name__)
 
@@ -83,6 +87,7 @@ class GracefulStopper:
                 raise KeyboardInterrupt
             self._sigint_seen = True
         self.requested = True
+        emit_event("preemption_signal", signal=signal.Signals(signum).name)
         logger.warning(
             "Received %s: will checkpoint and stop at the next step "
             "boundary (send SIGINT again to abort immediately).",
@@ -214,6 +219,7 @@ def find_latest_valid_checkpoint(output_dir: str,
         reason = validate_checkpoint(path)
         if reason is None:
             return path
+        emit_event("checkpoint_fallback", step=step, path=path, reason=reason)
         logger.error(
             "Checkpoint %s (step %d) is INVALID: %s — falling back to the "
             "previous checkpoint.", path, step, reason)
@@ -283,6 +289,8 @@ def prune_checkpoints(output_dir: str, keep: int) -> List[str]:
                 if not suffix:
                     removed.append(path)
     if removed:
+        emit_event("checkpoint_gc", removed=[os.path.basename(p) for p in removed],
+                   keep=keep)
         logger.info("Retention: removed %d old checkpoint(s): %s",
                     len(removed), ", ".join(os.path.basename(p)
                                             for p in removed))
@@ -297,33 +305,74 @@ class LossWatchdog:
     """Halt on silent divergence: a non-finite train loss, or a spike above
     ``spike_factor`` x the running median of the last ``window`` steps.
     The spike check arms after ``min_history`` observations (capped at the
-    window, so it can always arm)."""
+    window, so it can always arm). ``context_fn()`` (the trainer's health
+    digest, ``obs/health.describe_health``) adds fields to the
+    ``watchdog_halt`` event and the first non-finite or largest-gradient
+    layer group to the message."""
 
     def __init__(self, spike_factor: float = 10.0, window: int = 50,
-                 min_history: int = 20):
+                 min_history: int = 20, context_fn=None):
         if spike_factor <= 1.0:
             raise ValueError(f"spike_factor must be > 1, got {spike_factor}")
         self.spike_factor = spike_factor
         self.min_history = min(min_history, window)
         self._history: deque = deque(maxlen=window)
+        self.context_fn = context_fn
+
+    def _context(self) -> dict:
+        if self.context_fn is None:
+            return {}
+        try:
+            return dict(self.context_fn() or {})
+        except Exception as e:      # best effort: never mask the halt
+            logger.warning("Watchdog context provider failed: %s", e)
+            return {}
+
+    @staticmethod
+    def _context_note(ctx: dict) -> str:
+        group = ctx.get("first_nonfinite_group")
+        if group:
+            return f" First non-finite layer group: {group}."
+        top = ctx.get("top_grad_norm_groups")
+        if top:
+            return (f" Largest gradient norm: {top[0].get('group')} "
+                    f"({top[0].get('grad_norm')}).")
+        return ""
+
+    @staticmethod
+    def _merge_fields(fields: dict, ctx: dict) -> dict:
+        """Context fields never shadow the event's own."""
+        fields.update({k: v for k, v in ctx.items()
+                       if k not in fields and k not in ("step", "event", "type",
+                                                        "time")})
+        return fields
 
     def observe(self, step: int, loss: float) -> None:
         if not np.isfinite(loss):
+            ctx = self._context()
+            emit_event("watchdog_halt", step=step, **self._merge_fields(
+                dict(loss=float(loss), reason="non_finite", recent=self._tail()),
+                ctx))
             raise TrainingDivergedError(
                 f"Train loss became non-finite ({loss}) by step {step}. "
-                f"Recent losses: {self._tail()}. The model has diverged — "
-                "lower the learning rate, raise warmup, or resume from an "
-                "earlier checkpoint.")
+                f"Recent losses: {self._tail()}.{self._context_note(ctx)} "
+                "The model has diverged — lower the learning rate, raise "
+                "warmup, or resume from an earlier checkpoint.")
         if len(self._history) >= self.min_history:
             median = float(np.median(self._history))
             if np.isfinite(loss) and loss > self.spike_factor * max(median, 1e-8):
+                ctx = self._context()
+                emit_event("watchdog_halt", step=step, **self._merge_fields(
+                    dict(loss=float(loss), reason="spike", median=median,
+                         spike_factor=self.spike_factor, recent=self._tail()),
+                    ctx))
                 raise TrainingDivergedError(
                     f"Train loss {loss:.4f} at step {step} spiked above "
                     f"{self.spike_factor:g}x the running median "
                     f"{median:.4f} (window={self._history.maxlen}). Recent "
-                    f"losses: {self._tail()}. Halting instead of training on "
-                    "a diverged model; resume from an earlier checkpoint "
-                    "with a lower LR.")
+                    f"losses: {self._tail()}.{self._context_note(ctx)} Halting "
+                    "instead of training on a diverged model; resume from an "
+                    "earlier checkpoint with a lower LR.")
         self._history.append(float(loss))
 
     def _tail(self, n: int = 8) -> List[float]:

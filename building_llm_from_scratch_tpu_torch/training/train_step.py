@@ -155,6 +155,10 @@ from building_llm_from_scratch_tpu_torch.models.transformer import (
     forward_hidden,
     stage_forward,
 )
+from building_llm_from_scratch_tpu_torch.obs.health import (
+    GroupLayout,
+    GroupSums,
+)
 from building_llm_from_scratch_tpu_torch.ops.softmax_xent import (
     fused_cross_entropy_loss,
     fused_cross_entropy_sums,
@@ -843,7 +847,7 @@ class _Collectives:
         return total.sqrt()
 
     def update(self, optimizer: AdamW, state: TrainState, grads: Flat,
-               grad_norm: Optional[torch.Tensor] = None) -> dict:
+               grad_norm: Optional[torch.Tensor] = None, on_updates=None) -> dict:
         """AdamW on the rank's slices, then (zero1) the updated slices
         all-gathered into the whole parameters."""
         if grad_norm is None:
@@ -857,7 +861,8 @@ class _Collectives:
         g = {k: self.plan.local(v, zero1.get(k)) for k, v in grads.items()}
         metrics = optimizer.step(
             params, g, state.opt_state, grad_norm=grad_norm,
-            norm=lambda u: self.norm(u, self.splits(state, moments=True)))
+            norm=lambda u: self.norm(u, self.splits(state, moments=True)),
+            on_updates=on_updates)
         with torch.no_grad():
             for k, axis in zero1.items():
                 coll.gather_full(params[k], axis, out=state.params[k],
@@ -1012,37 +1017,82 @@ def _parallel_losses(cfg: ModelConfig, use_fused_xent: Optional[bool],
     return loss, sums
 
 
+def _health_sums(state: TrainState, comm: Optional["_Collectives"]) -> GroupSums:
+    """The step's health accumulator (``obs/health.GroupSums``): the groups
+    of the trainable tree; under a plan each leaf's split axes (the
+    gradients' and parameters', the moments' for the updates) and the
+    plan's reduce; under pp the whole model's layers, this stage's from
+    its first."""
+    if comm is None:
+        return GroupSums(GroupLayout.of(state.params))
+    if state.stage_axes:
+        L = state.whole.cfg.n_layers
+        layout = GroupLayout(list(state.params), L,
+                             state.plan.stage_rank * (L // state.plan.n_stages))
+    else:
+        layout = GroupLayout.of(state.params)
+    return GroupSums(layout, comm.splits(state), comm.splits(state, moments=True),
+                     comm._reduce)
+
+
+def _discarded(state: TrainState) -> TrainState:
+    """A copy of the state's parameters and moments for the update a
+    skipped step discards (the JAX step still reports it in its health
+    bundle)."""
+    opt = state.opt_state
+    clone = lambda d: {k: v.detach().clone() for k, v in d.items()}  # noqa: E731
+    return dataclasses.replace(state, params=clone(state.params),
+                               opt_state=AdamState(opt.count, clone(opt.mu),
+                                                   clone(opt.nu)))
+
+
 def _finish(state: TrainState, loss: torch.Tensor, grads: Flat, tokens: int,
             optimizer: AdamW, comm: Optional["_Collectives"],
             policy: Optional[PrecisionPolicy]):
     """The update, or with loss scaling the skip rule (module docstring),
-    then the step count and the metrics (``tokens``: the global batch's)."""
-    update = (optimizer.step if comm is None else
-              lambda p, g, o, **kw: comm.update(optimizer, state, g, **kw))
-    if state.loss_scale is None:
-        metrics = update(state.params, grads, state.opt_state)
-    else:
-        if policy is None or not policy.loss_scaling:
-            raise ValueError("a loss-scaled state needs its fp16 policy "
-                             "in make_train_step(policy=)")
-        grad_norm = (global_norm(grads) if comm is None
-                     else comm.norm(grads, comm.splits(state)))
-        finite = bool(torch.isfinite(grad_norm) & torch.isfinite(loss))
-        if comm is not None:
-            # every rank must take the same branch: a rank that skipped
-            # alone would leave the others in a later collective
-            finite = coll.agree(finite, "min")
-        if finite:
-            metrics = update(state.params, grads, state.opt_state,
-                             grad_norm=grad_norm)
+    then the step count and the metrics (``tokens``: the global batch's)
+    with the per-layer-group ``health`` bundle: the gradients' sums taken
+    before the clip scales them, the updates' inside the optimizer, the
+    parameters' after it; on a skipped step the update it discards, made
+    on copies."""
+    with torch.profiler.record_function("optimizer"):
+        sums = _health_sums(state, comm)
+        sums.add("grad", grads)
+
+        def update(st: TrainState, **kw) -> dict:
+            kw["on_updates"] = lambda u: sums.add("update", u)
+            if comm is None:
+                return optimizer.step(st.params, grads, st.opt_state, **kw)
+            return comm.update(optimizer, st, grads, **kw)
+
+        after = state
+        if state.loss_scale is None:
+            metrics = update(state)
         else:
-            metrics = dict(grad_norm=grad_norm,
-                           update_norm=torch.full_like(grad_norm, float("nan")))
-        # the JAX metric: the schedule at the step, which runs ahead of the
-        # optimizer's count once a step was skipped
-        metrics["lr"] = optimizer.schedule(state.step)
-        _update_loss_scale(state, finite, policy)
-        metrics.update(loss_scale=state.loss_scale, skipped=int(not finite))
+            if policy is None or not policy.loss_scaling:
+                raise ValueError("a loss-scaled state needs its fp16 policy "
+                                 "in make_train_step(policy=)")
+            grad_norm = (global_norm(grads) if comm is None
+                         else comm.norm(grads, comm.splits(state)))
+            finite = bool(torch.isfinite(grad_norm) & torch.isfinite(loss))
+            if comm is not None:
+                # every rank must take the same branch: a rank that skipped
+                # alone would leave the others in a later collective
+                finite = coll.agree(finite, "min")
+            if finite:
+                metrics = update(state, grad_norm=grad_norm)
+            else:
+                after = _discarded(state)
+                update(after, grad_norm=grad_norm)
+                metrics = dict(grad_norm=grad_norm,
+                               update_norm=torch.full_like(grad_norm, float("nan")))
+            # the JAX metric: the schedule at the step, which runs ahead of the
+            # optimizer's count once a step was skipped
+            metrics["lr"] = optimizer.schedule(state.step)
+            _update_loss_scale(state, finite, policy)
+            metrics.update(loss_scale=state.loss_scale, skipped=int(not finite))
+        sums.add("param", after.params)
+        metrics["health"] = sums.bundle()
     state.step += 1
     metrics.update(loss=loss.detach(), tokens=tokens)
     return state, metrics
@@ -1131,14 +1181,16 @@ def _build_train_step(cfg: ModelConfig, optimizer: AdamW,
         if plan is not None:
             batch = plan.shard_batch(batch)
         weights = batch.get("weights")
-        params = params_of(state, par)
-        hidden = forward_hidden(state.model, batch["inputs"], params=params,
-                                seed=seed, deterministic=deterministic, par=par)
-        loss = loss_fn(state.model, hidden, batch["targets"], weights,
-                       head=params.get("head/weight"))
-        if comm is not None:
-            loss = loss * comm.share(batch["inputs"], weights)
-        (loss if state.loss_scale is None else loss * state.loss_scale).backward()
+        with torch.profiler.record_function("forward"):
+            params = params_of(state, par)
+            hidden = forward_hidden(state.model, batch["inputs"], params=params,
+                                    seed=seed, deterministic=deterministic, par=par)
+            loss = loss_fn(state.model, hidden, batch["targets"], weights,
+                           head=params.get("head/weight"))
+            if comm is not None:
+                loss = loss * comm.share(batch["inputs"], weights)
+        with torch.profiler.record_function("backward"):
+            (loss if state.loss_scale is None else loss * state.loss_scale).backward()
         if comm is None:
             return finish(state, loss, unscaled(state, state.grads),
                           batch["inputs"].numel())
@@ -1173,13 +1225,15 @@ def _build_train_step(cfg: ModelConfig, optimizer: AdamW,
             rows = slice(i * mb, (i + 1) * mb)
             # each microbatch's dropout stream: the step's seed folded
             # with the microbatch index, as the step's is folded with the step
-            params = params_of(state, par)
-            hidden = forward_hidden(state.model, inputs[rows], params=params,
-                                    seed=step_seed(seed, i),
-                                    deterministic=deterministic, par=par)
-            nll, w = sums_fn(state.model, hidden, targets[rows], weights[rows],
-                             head=params.get("head/weight"))
-            (nll if scale is None else nll * scale).backward()
+            with torch.profiler.record_function("forward"):
+                params = params_of(state, par)
+                hidden = forward_hidden(state.model, inputs[rows], params=params,
+                                        seed=step_seed(seed, i),
+                                        deterministic=deterministic, par=par)
+                nll, w = sums_fn(state.model, hidden, targets[rows], weights[rows],
+                                 head=params.get("head/weight"))
+            with torch.profiler.record_function("backward"):
+                (nll if scale is None else nll * scale).backward()
             for k, acc in wide.items():
                 acc += state.grads[k].float()
                 state.grads[k].zero_()

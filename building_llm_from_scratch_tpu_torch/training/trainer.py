@@ -54,8 +54,27 @@ on every rank (a collective) before rank 0 alone generates or writes;
 checkpoints are written shard by shard by their owners (rank 0 commits
 and prunes), and with several ranks saves are synchronous.
 
-Not ported yet: profiling, the stall detector and the metrics sink
-(obs/).
+Telemetry (``obs/``, the JAX trainer's): a ``StepTimeline`` times each
+window's ``data_wait`` (the batch pop), ``dispatch`` (the step's launch),
+``host_fetch`` (the cadence's fetch, where the device catch-up shows) and
+the ``eval`` / ``sample`` / ``checkpoint`` work left out of tok/s. Every
+``log_every`` steps (``eval_freq`` when 0) the process-wide metrics sink
+gets a ``metrics`` row: ``lr``, ``tokens_seen``, ``tok_s``, ``mfu`` (against
+the card's peak for the compute dtype; None on the CPU), ``step_time_s``,
+the timeline's seconds, ``steps_in_window``, the prefetch counters, the
+global ``grad_norm`` / ``update_norm`` from the health bundle, the memory
+ledger's ``hbm_bytes_in_use`` / ``hbm_peak_bytes`` / ``host_rss_bytes``
+(its ``memory_snapshot`` event beside) and, at an evaluation,
+``train_loss`` / ``val_loss``; then a ``health`` row (per-layer-group
+arrays). The steps' health bundles stay device tensors until that fetch;
+the watchdog's halt names the layer group of the step that tripped it.
+``stall`` (``obs/stall.StallDetector``) gets a heartbeat each step.
+``profile_dir`` records the first ``profile_steps`` steps (and a fresh
+run's warm-up sample before them) with
+``torch.profiler`` (CPU, and CUDA kernels on the card) and writes them as
+Chrome trace JSON ``<profile_dir>/trace_rank<r>.json``, the timeline's
+spans and the step's ``forward`` / ``backward`` / ``optimizer`` regions
+among its annotations; on the card a trace without kernel events raises.
 """
 
 from __future__ import annotations
@@ -86,6 +105,24 @@ from building_llm_from_scratch_tpu_torch.models.lora import (
     save_adapter,
 )
 from building_llm_from_scratch_tpu_torch.models.transformer import Transformer
+from building_llm_from_scratch_tpu_torch.obs.health import (
+    describe_health,
+    fetch_health,
+    group_names,
+    health_summary_line,
+    nonfinite_group_name,
+)
+from building_llm_from_scratch_tpu_torch.obs.memory import (
+    MemoryLedger,
+    pytree_nbytes,
+)
+from building_llm_from_scratch_tpu_torch.obs.metrics import get_metrics
+from building_llm_from_scratch_tpu_torch.obs.mfu import compute_mfu, format_mfu
+from building_llm_from_scratch_tpu_torch.obs.timeline import (
+    StepTimeline,
+    window_stats,
+)
+from building_llm_from_scratch_tpu_torch.parallel import collectives
 from building_llm_from_scratch_tpu_torch.parallel.collectives import (
     is_coordinator,
 )
@@ -135,8 +172,9 @@ class Trainer:
     ``lora_params`` (an adapter tree, with ``lora_alpha`` and
     ``lora_rank``) the adapter is trained and the model stays frozen.
     ``resume_from`` names a train-state checkpoint to continue from;
-    ``policy``, ``grad_accum``, ``prefetch``, ``async_ckpt`` and ``plan``
-    are the module docstring's."""
+    ``policy``, ``grad_accum``, ``prefetch``, ``async_ckpt``, ``plan``,
+    ``log_every``, ``stall``, ``profile_dir`` and ``profile_steps`` are the
+    module docstring's."""
 
     def __init__(self, cfg: ModelConfig, model: Transformer, tokenizer, loader,
                  *, output_dir: str = "model_checkpoints",
@@ -150,7 +188,9 @@ class Trainer:
                  resume_from: Optional[str] = None, keep_ckpts: int = 0,
                  watchdog=None, stopper=None, policy=None,
                  grad_accum: int = 1, prefetch: int = 0,
-                 async_ckpt: bool = False, plan=None):
+                 async_ckpt: bool = False, plan=None, log_every: int = 0,
+                 stall=None, profile_dir: Optional[str] = None,
+                 profile_steps: int = 10):
         if (lora_params is None) != (lora_rank is None):
             raise ValueError(
                 "lora_params and lora_rank must be passed together "
@@ -195,6 +235,25 @@ class Trainer:
         self.checkpoint_saves: List[Dict[str, Any]] = []
         #: the restore of a resumed run (path, step, seconds)
         self.restored: Optional[Dict[str, Any]] = None
+        self.log_every = log_every
+        self.stall = stall
+        self.profile_dir = profile_dir
+        self.profile_steps = profile_steps
+        self._profiler = None
+        self._profile_stop_at = 0
+        #: the exported profiler trace (after --profile's steps)
+        self.profile_trace: Optional[str] = None
+        self.timeline = StepTimeline(on_step=self._profiler_step)
+        #: per-layer-group health: the group names, the steps' device
+        #: bundles until the cadence fetch, the fetched ones by step
+        self._health_names: List[str] = []
+        self._pending_health: List[tuple] = []
+        self._health_by_step: Dict[int, Dict[str, Any]] = {}
+        self._last_health: Optional[Dict[str, Any]] = None
+        self._ctx_health: Optional[Dict[str, Any]] = None
+        self._memory_ledger: Optional[MemoryLedger] = None
+        #: the logging windows' training seconds, summed over the run
+        self.step_seconds_total = 0.0
 
         self.state = None
         self.global_step = 0
@@ -213,9 +272,15 @@ class Trainer:
         #: scaling), fetched at the evaluation cadence
         self.step_metrics: List[Dict[str, Any]] = []
         self._pending: List[tuple] = []
-        #: one row per evaluation window: step, tokens_per_s, skipped
-        #: steps and, with prefetch, prefetch_stall and prefetch_fill_ratio
+        #: one row per logging window: step, tokens_per_s, skipped steps
+        #: and, with prefetch, prefetch_stall and prefetch_fill_ratio
         self.window_logs: List[Dict[str, Any]] = []
+
+    @property
+    def metrics_sink(self):
+        """The process-wide metrics sink (resolved per call, so a later
+        ``configure_metrics`` wins; a no-op sink when unconfigured)."""
+        return get_metrics()
 
     # ------------------------------------------------------------------
     # setup
@@ -283,6 +348,7 @@ class Trainer:
                                  "has its own microbatching (--pp_micro)")
             self.train_step = make_pp_train_step(self.cfg, self.optimizer, self.plan, **kw)
             self.eval_step = make_pp_eval_step(self.cfg, self.plan, **kw)
+            self._finalize_steps()
             return
         if self.plan is None:
             self.train_step = make_train_step(self.cfg, self.optimizer,
@@ -292,6 +358,93 @@ class Trainer:
                 self.cfg, self.optimizer, self.plan,
                 grad_accum=self.grad_accum, **kw)
         self.eval_step = make_eval_step(self.cfg, plan=self.plan, **kw)
+        self._finalize_steps()
+
+    def _finalize_steps(self) -> None:
+        """The health bundle's group names (the whole model's layers under
+        pp) and the watchdog's which-layer context."""
+        self._health_names = group_names(self.state.params,
+                                         n_layers=self.cfg.n_layers)
+        if self.watchdog is not None and self.watchdog.context_fn is None:
+            self.watchdog.context_fn = self._watchdog_context
+
+    def _watchdog_context(self) -> Dict[str, Any]:
+        """The health digest of the step whose loss tripped the watchdog
+        (else the latest fetched)."""
+        fetched = (self._ctx_health if self._ctx_health is not None
+                   else self._last_health)
+        if fetched is None or not self._health_names:
+            return {}
+        return describe_health(self._health_names, fetched)
+
+    def _compute_dtype(self) -> str:
+        return self.policy.compute_dtype if self.policy is not None else self.cfg.dtype
+
+    def _mfu_devices(self) -> int:
+        """The cards whose work this process's tokens/s counts: its data
+        rank's replicas (seq and model ranks share its rows), every rank
+        under pp (each counts the global batch), one without a plan."""
+        if self.plan is None:
+            return 1
+        world = collectives.world()
+        return world if self.plan.shard_mode == "pp" else world // self.plan.n_data
+
+    def _build_memory_ledger(self) -> MemoryLedger:
+        """The trainer's ledger: the trainable masters (and a LoRA run's
+        frozen base), the Adam moments, host RSS."""
+        ledger = MemoryLedger(source="trainer", device=self.model.device)
+        ledger.register("model_params", lambda: (
+            pytree_nbytes(self.state.params)
+            + (pytree_nbytes(self.state.model.stacked) if self.use_lora else 0)))
+        ledger.register("optimizer_state", lambda: pytree_nbytes(
+            [self.state.opt_state.mu, self.state.opt_state.nu]))
+        ledger.track_host_rss()
+        return ledger
+
+    # ------------------------------------------------------------------
+    # the profiler (--profile)
+    # ------------------------------------------------------------------
+
+    def _start_profiler(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.model.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=acts)
+        self._profiler.start()
+        self._profile_stop_at = self.global_step + self.profile_steps
+
+    def _profiler_step(self) -> None:
+        if self._profiler is not None:
+            self._profiler.step()
+
+    def _stop_profiler(self) -> None:
+        """Stop the trace and write it as Chrome trace JSON; on the card a
+        trace without one kernel event is an error."""
+        prof, self._profiler = self._profiler, None
+        if prof is None:
+            return
+        if self.model.device.type == "cuda":
+            # the last steps' kernels finish inside the trace
+            torch.cuda.synchronize(self.model.device)
+        prof.stop()
+        self.profile_dir, out_dir = None, self.profile_dir
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"trace_rank{collectives.rank()}.json")
+        prof.export_chrome_trace(path)
+        self.profile_trace = path
+        if self.model.device.type == "cuda":
+            import json
+
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+            if not any(e.get("cat") == "kernel" for e in events):
+                raise RuntimeError(f"--profile: the trace {path} holds no CUDA "
+                                   "kernel event (the profiler saw no device "
+                                   "activity)")
+        logger.info("Profiler trace of %d steps written to %s",
+                    self.profile_steps, path)
 
     def _staged_item(self, arrays):
         """What a batch stream yields: (inputs, targets[, loss weights])
@@ -383,8 +536,10 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _flush_metrics(self, check_watchdog: bool = True) -> None:
-        """Fetch the pending per-step device metrics as host floats; the
-        watchdog sees each step's loss."""
+        """Fetch the pending per-step device metrics as host floats and the
+        pending health bundles as host arrays (kept by step, so the
+        watchdog's context names the layer at the step that tripped it);
+        the watchdog sees each step's loss."""
         pending, self._pending = self._pending, []
         for step, m in pending:
             row = dict(step=step, loss=float(m["loss"]),
@@ -394,9 +549,31 @@ class Trainer:
             if "loss_scale" in m:
                 row.update(loss_scale=m["loss_scale"], skipped=m["skipped"])
             self.step_metrics.append(row)
+        if self._pending_health:
+            health, self._pending_health = self._pending_health, []
+            self._health_by_step = {step: fetch_health(h) for step, h in health}
+            self._last_health = self._health_by_step[health[-1][0]]
         if self.watchdog is not None and check_watchdog:
-            for m in self.step_metrics[len(self.step_metrics) - len(pending):]:
-                self.watchdog.observe(m["step"], m["loss"])
+            try:
+                for m in self.step_metrics[len(self.step_metrics) - len(pending):]:
+                    self._ctx_health = self._health_by_step.get(m["step"])
+                    self.watchdog.observe(m["step"], m["loss"])
+            finally:
+                self._ctx_health = None
+
+    def _emit_health_row(self) -> None:
+        """One ``health`` row a logging window: the group names and the
+        arrays of the window's last step."""
+        h = self._last_health
+        if h is None or not self._health_names:
+            return
+        self.metrics_sink.log_health(
+            self.global_step, self._health_names,
+            grad_norm=[round(float(x), 8) for x in h["grad_norm"]],
+            param_norm=[round(float(x), 8) for x in h["param_norm"]],
+            update_norm=[round(float(x), 8) for x in h["update_norm"]],
+            update_ratio=[round(float(x), 10) for x in h["update_ratio"]],
+            first_nonfinite=nonfinite_group_name(self._health_names, h))
 
     # ------------------------------------------------------------------
     # checkpoints
@@ -476,10 +653,16 @@ class Trainer:
         """One pass over one file's batches with the cadence work;
         ``skip_batches`` starts a resumed run at its cursor (the stream is
         cut there before a prefetcher wraps it)."""
+        if self.profile_dir is not None and self._profiler is None:
+            # armed before the warm-up sample: the tracer's first moments
+            # (CUPTI has been seen to miss a kernel right after it starts)
+            # fall on the sample, not on the first step
+            self._start_profiler()
         if self.global_step == 0 and not self._warmed_up:
             # the same decision on every rank (the sample gathers)
             self._warmed_up = True
-            self.generate_and_print_sample(start_context)
+            with self.timeline.span("sample"):
+                self.generate_and_print_sample(start_context)
         stream, prefetcher = self._batch_stream(
             train_batches_fn(epoch, skip_batches), self.prefetch,
             "train-prefetch")
@@ -494,8 +677,8 @@ class Trainer:
 
     def _window_row(self, tps: float, skipped: int, prefetcher,
                     base: Optional[dict]) -> Dict[str, Any]:
-        """The evaluation window's log row; the prefetch fields are deltas
-        of the prefetcher's counters since ``base``."""
+        """The logging window's row of ``window_logs``; the prefetch fields
+        are deltas of the prefetcher's counters since ``base``."""
         row = dict(step=self.global_step, tokens_per_s=tps, skipped=skipped)
         if prefetcher is not None:
             c = prefetcher.counters()
@@ -506,18 +689,56 @@ class Trainer:
                 if pops else None)
         return row
 
+    def _metrics_row(self, window: dict, stats: dict, tps: float, mfu,
+                     wrow: dict, prefetcher) -> Dict[str, Any]:
+        """The window's ``metrics`` row (the JAX trainer's keys)."""
+        row = {"lr": self.track_lrs[-1] if self.track_lrs else None,
+               "tokens_seen": self.tokens_seen, "tok_s": round(tps, 1),
+               "mfu": mfu, "step_time_s": stats["step_time_s"],
+               "data_wait_s": round(window.get("data_wait", 0.0), 6),
+               "dispatch_s": round(window.get("dispatch", 0.0), 6),
+               "host_fetch_s": round(window.get("host_fetch", 0.0), 6),
+               "steps_in_window": int(window.get("steps", 0))}
+        if prefetcher is not None:
+            row["prefetch_stall"] = wrow["prefetch_stall"]
+            row["prefetch_qdepth"] = prefetcher.qsize()
+            if wrow["prefetch_fill_ratio"] is not None:
+                row["prefetch_fill_ratio"] = round(wrow["prefetch_fill_ratio"], 3)
+        if self._last_health is not None:
+            # the global norms from the fetched bundle: no other fetch
+            for key in ("grad_norm", "update_norm"):
+                row[key] = round(float(np.sqrt(np.sum(np.asarray(
+                    self._last_health[key], np.float64) ** 2))), 8)
+        if self._memory_ledger is None:
+            self._memory_ledger = self._build_memory_ledger()
+        self._memory_ledger.observe(self.global_step)
+        row.update(self._memory_ledger.legacy_row())
+        return row
+
     def _epoch_steps(self, stream, prefetcher, train_batches_fn,
                      val_batches_fn, epoch: int, start_context: str,
                      file_index: int, file_name: str,
                      skip_batches: int) -> None:
         """The step loop of ``_run_epoch`` over (staged batch, tokens)
-        items."""
-        t_tokens, t_start, excluded = 0, time.perf_counter(), 0.0
+        items, with the cadence work (module docstring)."""
+        # segments from outside any window (the warm-up sample, the last
+        # file's trailing cadence work) leave the window opening here
+        self.timeline.drain()
+        t_tokens, t_start = 0, time.perf_counter()
+        log_cadence = self.log_every if self.log_every > 0 else self.eval_freq
         skipped = 0
         base = prefetcher.counters() if prefetcher is not None else None
         batch_in_file = skip_batches
-        for staged, n_tok in stream:
-            self.state, metrics = self.train_step(self.state, staged.ready())
+        items = iter(stream)
+        while True:
+            with self.timeline.span("data_wait"):
+                item = next(items, None)
+                batch = item[0].ready() if item is not None else None
+            if item is None:
+                break
+            n_tok = item[1]
+            with self.timeline.step_span(self.global_step + 1):
+                self.state, metrics = self.train_step(self.state, batch)
             skipped += metrics.get("skipped", 0)
             self.global_step += 1
             batch_in_file += 1
@@ -526,51 +747,90 @@ class Trainer:
             self.tokens_seen += n_tok
             t_tokens += n_tok
             self.track_lrs.append(metrics["lr"])
+            health = metrics.pop("health", None)
+            if health is not None:
+                self._pending_health.append((self.global_step, health))
             self._pending.append((self.global_step, metrics))
+            if self._profiler is not None and self.global_step >= self._profile_stop_at:
+                self._stop_profiler()
 
-            if self.global_step % self.eval_freq == 0:
-                self._flush_metrics()      # waits for the step's device work
-                tps = t_tokens / max(time.perf_counter() - t_start - excluded,
-                                     1e-9)
+            at_eval = self.global_step % self.eval_freq == 0
+            if at_eval or self.global_step % log_cadence == 0:
+                # the fetch waits for the last launched step: the window
+                # measures execution, the catch-up landing in host_fetch
+                with self.timeline.span("host_fetch"):
+                    self._flush_metrics()
+                elapsed = time.perf_counter() - t_start
+                window = self.timeline.drain()
+                stats = window_stats(window, elapsed, t_tokens)
+                tps = stats["tok_s"]
                 self.throughput_tokens_per_s.append(tps)
-                row = self._window_row(tps, skipped, prefetcher, base)
-                self.window_logs.append(row)
-                train_loss, val_loss = self.evaluate_model(
-                    train_batches_fn(epoch), val_batches_fn(epoch))
-                self.train_losses.append(train_loss)
-                self.val_losses.append(val_loss)
-                self.track_tokens_seen.append(self.tokens_seen)
-                logger.info("step %d: train %.3f, val %.3f, lr %.2e, "
-                            "%.0f tok/s%s%s", self.global_step, train_loss,
-                            val_loss, self.track_lrs[-1], tps,
-                            f", {skipped} skipped steps (loss scale "
-                            f"{metrics['loss_scale']:g})"
-                            if "loss_scale" in metrics else "",
-                            f", {row['prefetch_stall']} prefetch stalls, "
-                            f"fill {row['prefetch_fill_ratio']}"
-                            if prefetcher is not None else "")
+                self.step_seconds_total += stats["step_seconds"]
+                # the window reopens here: the evaluation below, and the
+                # sample and checkpoint after it, land in left-out segments
                 t_tokens, t_start = 0, time.perf_counter()
-                excluded, skipped = 0.0, 0
+                mfu = compute_mfu(tps, self.cfg, n_devices=self._mfu_devices(),
+                                  device=self.model.device,
+                                  dtype=self._compute_dtype())
+                wrow = self._window_row(tps, skipped, prefetcher, base)
+                self.window_logs.append(wrow)
+                row = self._metrics_row(window, stats, tps, mfu, wrow, prefetcher)
+                scaled = (f", {skipped} skipped steps (loss scale "
+                          f"{metrics['loss_scale']:g})"
+                          if "loss_scale" in metrics else "")
+                stalls = (f", {wrow['prefetch_stall']} prefetch stalls, fill "
+                          f"{wrow['prefetch_fill_ratio']}"
+                          if prefetcher is not None else "")
+                if at_eval:
+                    with self.timeline.span("eval"):
+                        train_loss, val_loss = self.evaluate_model(
+                            train_batches_fn(epoch), val_batches_fn(epoch))
+                    self.train_losses.append(train_loss)
+                    self.val_losses.append(val_loss)
+                    self.track_tokens_seen.append(self.tokens_seen)
+                    row.update(train_loss=train_loss, val_loss=val_loss)
+                    logger.info("step %d: train %.3f, val %.3f, lr %.2e, "
+                                "%.0f tok/s, %s%s%s", self.global_step,
+                                train_loss, val_loss, self.track_lrs[-1], tps,
+                                format_mfu(mfu), scaled, stalls)
+                    if self._last_health is not None:
+                        logger.info("%s", health_summary_line(
+                            self._health_names, self._last_health))
+                else:
+                    logger.info("step %d: lr %.2e, %.0f tok/s, %s, step %.1fms "
+                                "(data_wait %.1fms)%s%s", self.global_step,
+                                self.track_lrs[-1], tps, format_mfu(mfu),
+                                1e3 * (stats["step_time_s"] or 0.0),
+                                1e3 * window.get("data_wait", 0.0), scaled, stalls)
+                self.metrics_sink.log_metrics(self.global_step, **row)
+                self._emit_health_row()
+                skipped = 0
                 if prefetcher is not None:
                     base = prefetcher.counters()
 
             if self.global_step % self.print_sample_iter == 0:
-                t0 = time.perf_counter()
-                self.generate_and_print_sample(start_context)
-                excluded += time.perf_counter() - t0
+                with self.timeline.span("sample"):
+                    self.generate_and_print_sample(start_context)
 
             if self.global_step % self.save_ckpt_freq == 0:
-                t0 = time.perf_counter()
-                self.save_checkpoint(str(self.global_step), cursor=self._cursor,
-                                     prune_after=True)
-                excluded += time.perf_counter() - t0
+                with self.timeline.span("checkpoint"):
+                    self.save_checkpoint(str(self.global_step), cursor=self._cursor,
+                                         prune_after=True)
 
             if self.stopper is not None and self.stopper.should_stop():
                 logger.warning("Graceful stop requested: writing checkpoint "
                                "at step %d and exiting.", self.global_step)
-                self.save_checkpoint("interrupted", cursor=self._cursor)
+                self.metrics_sink.event("preemption_stop", step=self.global_step,
+                                        tokens_seen=self.tokens_seen)
+                with self.timeline.span("checkpoint"):
+                    self.save_checkpoint("interrupted", cursor=self._cursor)
                 self.preempted = True
                 raise PreemptionStop
+
+            if self.stall is not None:
+                # one heartbeat a step: a loop wedged anywhere (a
+                # collective, the data pipeline, a fetch) stops beating
+                self.stall.notify_step()
 
     def _run_files(self, files: Sequence[str], n_epochs: int, datasets,
                    what: str) -> None:
@@ -611,6 +871,8 @@ class Trainer:
             self._flush_metrics(check_watchdog=False)
             if self._async_ckpt is not None:
                 self._async_ckpt.close()
+            if self._profiler is not None:
+                self._stop_profiler()
 
     def train_model(self, files: Sequence[str], n_epochs: int,
                     start_context: str = "Every effort moves you"):

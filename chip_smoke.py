@@ -183,7 +183,22 @@ exits non-zero):
      cores). For GPT-2, in bf16 and at the default dtype, the same 20
      steps again with BLLM_XENT_PALLAS=1: B4 = steps + eval batches, and
      the step-1 loss equal to the first run's to 1e-5. Each run's ``final``
-     train state is counted, not written (phase 8r writes them).
+     train state is counted, not written (phase 8r writes them). The
+     LLaMA bf16 and GPT-2 fp32 runs carry the training telemetry
+     (``--metrics_jsonl``, ``--log_every 5``, ``--stall_timeout 120``): every
+     row valid under the port's schema, a cadence row every 5 steps with
+     the JAX keys whose MFU equals the by-hand MFU of its window (its
+     tokens over its step seconds, this script's FLOPs a token, the
+     dtype's peak) to 1e-9, ``hbm_peak_bytes`` the allocator's peak once
+     the step returned, finite health rows over L + the top-level groups,
+     no stall; then the health bundle's own device ms on the run's state.
+  6p. ``--profile --profile_steps 3`` on GPT-2-124M fp32 (p 0.1, B 8 x T
+     1024, 3 steps) through the CLI: the exported Chrome trace's regions
+     (data_wait, dispatch, forward, backward, optimizer) and its kernel
+     events, B1 / B2a / B2b at layers x steps and B3 forward and backward
+     at 25 a step, each kernel put in the region around its launch; the
+     device ms a step of forward, backward, optimizer and the health
+     bundle, printed beside the card.
   6m. precision policies, accumulation and remat through the CLI, full
      width: GPT-2-124M (B 8 x T 1024, p 0.1, fp32 masters, 20 steps) with
      --mixed_precision bf16, with --mixed_precision fp16 and B4 on (its
@@ -416,14 +431,6 @@ def written_bytes() -> dict:
     return {k: int(fields[k]) for k in ("wchar", "write_bytes")}
 
 
-# card figures from NVIDIA's data sheets: memory bytes/s and dense peak
-# operations/s for 16-bit and TF32 (tensor cores) and 32-bit float (CUDA
-# cores)
-_CARDS = {
-    "H100 PCIe": dict(bw=2.0e12, peak16=756e12, peak_tf32=378e12, peak32=51e12),
-    "H100 NVL": dict(bw=3.9e12, peak16=835e12, peak_tf32=417.5e12, peak32=60e12),
-    "H100 SXM": dict(bw=3.35e12, peak16=989e12, peak_tf32=495e12, peak32=67e12),
-}
 
 
 def flash_peak(fig: dict, dtype: str) -> float:
@@ -434,10 +441,14 @@ def flash_peak(fig: dict, dtype: str) -> float:
 
 
 def card_figures(name: str) -> tuple:
-    for key in ("H100 PCIe", "H100 NVL"):
-        if key.split()[1] in name:
-            return key, _CARDS[key]
-    return "H100 SXM", _CARDS["H100 SXM"]
+    """(table key, figures) of the card: NVIDIA's data-sheet memory rate
+    and dense peaks (16-bit and TF32 tensor cores, fp32 CUDA cores) from
+    the port's one table, ``obs/mfu.DEVICE_SPECS``; a card it does not name
+    is taken as the H100 SXM."""
+    from building_llm_from_scratch_tpu_torch.obs.mfu import DEVICE_SPECS
+    from building_llm_from_scratch_tpu_torch.obs.mfu import card_figures as figures
+
+    return figures(name) or ("H100 SXM", DEVICE_SPECS["H100 SXM"])
 
 
 # ---------------------------------------------------------------------------
@@ -1568,7 +1579,7 @@ def xent_split_check(torch, x, t, V: int, gen) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN = dict(model="llama3_2", size="1B", dtype="bf16", batch=4, context=1024,
-             steps=20, keep_final=True)
+             steps=20, keep_final=True, telemetry=True)
 # GPT-2-124M as configured (drop_rate 0.1), the chunked cross entropy its
 # width takes; then the same run with the opt-in B4 forward (in both dtypes)
 TRAIN_GPT2 = dict(model="GPT2", size="124M", dtype="bf16", batch=8, context=1024,
@@ -1577,7 +1588,20 @@ TRAIN_GPT2 = dict(model="GPT2", size="124M", dtype="bf16", batch=8, context=1024
 # --data_type (dtype None), and LLaMA-3.2-1B in fp32 (its flash rows'
 # launches)
 TRAIN_GPT2_FP32 = dict(model="GPT2", size="124M", dtype=None, batch=8, context=1024,
-                       steps=20, xent_run=True)
+                       steps=20, xent_run=True, telemetry=True)
+#: phase 6's telemetry (the LLaMA bf16 and GPT-2 fp32 runs): a cadence
+#: row every TELEMETRY_EVERY steps, the flight recorder armed
+TELEMETRY_EVERY = 5
+TELEMETRY_STALL_S = 120
+#: the JAX trainer's cadence-row keys (the XLA-only mfu_hlo / mfu_delta
+#: aside); prefetch_* ride beside them with --prefetch
+TELEMETRY_KEYS = {"step", "lr", "tokens_seen", "tok_s", "mfu", "step_time_s",
+                  "data_wait_s", "dispatch_s", "host_fetch_s", "steps_in_window",
+                  "grad_norm", "update_norm", "hbm_bytes_in_use", "hbm_peak_bytes",
+                  "host_rss_bytes"}
+#: phase 6p: GPT-2-124M fp32 (p 0.1) through the CLI with --profile
+PROFILE_RUN = dict(model="GPT2", size="124M", dtype=None, batch=8, context=1024,
+                   steps=3)
 TRAIN_FP32 = dict(model="llama3_2", size="1B", dtype="fp32", batch=4, context=1024,
                   steps=20, export=False)
 
@@ -1614,6 +1638,10 @@ def train_flops_per_token(cfg) -> int:
             + 12 * cfg.n_layers * cfg.emb_dim * cfg.context_length)
 
 
+#: the train step's profiler regions (``record_function``), not kernels
+STEP_REGIONS = ("forward", "backward", "optimizer", "health")
+
+
 def train_profile(torch, trainer, batch, step_ms: float, n_steps: int = 3) -> dict:
     """Device time by kernel over a few steady train steps (torch.profiler),
     run after the main path; the idle share is taken against the
@@ -1644,6 +1672,10 @@ def train_profile(torch, trainer, batch, step_ms: float, n_steps: int = 3) -> di
                              "profiled steps: B2b must sum the GQA heads itself")
     rows = []
     for ev in prof.key_averages():
+        # the step's named regions show on the device as spans over their
+        # kernels: kernels only, or the busy time counts them twice
+        if getattr(ev, "is_user_annotation", False) or ev.key in STEP_REGIONS:
+            continue
         if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0:
             rows.append((ev.self_device_time_total, ev.key, ev.count))
     rows.sort(reverse=True)
@@ -1713,11 +1745,13 @@ def main_path(torch, xent_kernel: bool):
     enqueues included; no host sync) and each batch's supervised tokens
     (the sum of its loss weights, when it has them). Yields a dict that is
     filled when the run ends: launches, run_step_ms, step_starts (the host
-    clock at each step's call), supervised, wall_s, peak_gb."""
+    clock at each step's call), supervised, wall_s, peak_gb and
+    peak_after_step (the allocator's peak bytes once each step's launch
+    returned)."""
     import building_llm_from_scratch_tpu_torch.training.trainer as ttr
 
     kernels = train_kernels()
-    events, supervised, starts = [], [], []
+    events, supervised, starts, peaks = [], [], [], []
     makers = {k: getattr(ttr, k) for k in ("make_train_step", "make_sharded_train_step",
                                             "make_pp_train_step")}
 
@@ -1733,6 +1767,7 @@ def main_path(torch, xent_kernel: bool):
             out = step(state, batch)
             pair[1].record()
             events.append(pair)
+            peaks.append(torch.cuda.max_memory_allocated())
             if "weights" in batch:
                 supervised.append(batch["weights"].sum())
             return out
@@ -1762,6 +1797,7 @@ def main_path(torch, xent_kernel: bool):
                  step_starts=starts,
                  run_step_ms=[a.elapsed_time(b) for a, b in events],
                  supervised=[float(w) for w in supervised],
+                 peak_after_step=peaks,
                  peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
@@ -1854,6 +1890,8 @@ def train_run(torch, t: dict, workdir: str, xent_kernel: bool = False):
              "--n_epochs", "1", "--batch_size", str(t["batch"]),
              "--eval_freq", str(t["steps"]), "--print_sample_iter", str(t["steps"]),
              *t.get("flags", [])]
+    if t.get("telemetry") and not xent_kernel:
+        flags += telemetry_flags(out_dir)
     with main_path(torch, xent_kernel) as run, final_checkpoint_unwritten(), \
             export_unwritten(t.get("export", True)):
         trainer = tmain.run(flags)
@@ -1887,10 +1925,218 @@ def train_run(torch, t: dict, workdir: str, xent_kernel: bool = False):
     facts = dict(check, wall_s=run["wall_s"], corpus=corpus, corpus_chars=n_chars,
                  out_dir=out_dir, run_step_ms=run_step_ms, peak_gb=run["peak_gb"],
                  losses=losses, tr_ds=tr_ds, final_ckpt=final_ckpt,
-                 step_starts=run["step_starts"],
+                 step_starts=run["step_starts"], peak_after_step=run["peak_after_step"],
                  # main.py draws it with matplotlib, or warns that it did not
                  losses_pdf=os.path.exists(os.path.join(out_dir, "losses.pdf")))
     return trainer, facts
+
+
+def telemetry_flags(out_dir: str) -> list:
+    """Phase 6's telemetry flags: the metrics JSONL in the run's output
+    directory, a row every TELEMETRY_EVERY steps, the flight recorder."""
+    return ["--metrics_jsonl", os.path.join(out_dir, "metrics.jsonl"),
+            "--log_every", str(TELEMETRY_EVERY),
+            "--stall_timeout", str(TELEMETRY_STALL_S)]
+
+
+def check_telemetry(card: dict, t: dict, trainer, facts: dict) -> dict:
+    """The run's metrics JSONL: every row of a registered type and every
+    event valid under the port's schema; a cadence row every
+    TELEMETRY_EVERY steps with the JAX keys, whose ``mfu`` equals the MFU
+    computed here from the row's own window (its steps x B x T tokens over
+    step_time_s x steps, this script's FLOPs a token, the dtype's peak) to
+    1e-9 relative; ``hbm_peak_bytes`` the allocator's peak as it stood once
+    the row's step returned (``torch.cuda.max_memory_allocated``, within
+    16 MiB above it); a health row per cadence row, finite, with L + the
+    top-level names as groups; no ``stall`` event."""
+    from building_llm_from_scratch_tpu_torch.obs import schema
+
+    path = os.path.join(facts["out_dir"], "metrics.jsonl")
+    with open(path) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    cfg = trainer.cfg
+    problems = [r.get("type") for r in rows if r.get("type") not in schema.ROW_TYPES]
+    for r in rows:
+        if r["type"] == "event":
+            problems += schema.validate_event(
+                r["event"], {k: v for k, v in r.items() if k not in ("type", "time",
+                                                                     "event")})
+    metrics = [r for r in rows if r["type"] == "metrics"]
+    health = [r for r in rows if r["type"] == "health"]
+    want_steps = list(range(TELEMETRY_EVERY, t["steps"] + 1, TELEMETRY_EVERY))
+    if [r["step"] for r in metrics] != want_steps or \
+            [r["step"] for r in health] != want_steps:
+        problems.append(f"cadence rows at {[r['step'] for r in metrics]}, health "
+                        f"at {[r['step'] for r in health]}, not {want_steps}")
+    fpt = train_flops_per_token(cfg)
+    dt = t["dtype"] or "fp32"
+    peak = card["figures"]["peak32" if dt == "fp32" else "peak16"]
+    by_hand, mfu_rel, hbm = [], [], []
+    for r in metrics:
+        missing = TELEMETRY_KEYS - set(r)
+        if missing:
+            problems.append(f"row {r['step']} lacks {sorted(missing)}")
+            continue
+        n = r["steps_in_window"]
+        hand = n * t["batch"] * t["context"] / (r["step_time_s"] * n) * fpt / peak
+        by_hand.append(hand)
+        mfu_rel.append(abs(r["mfu"] - hand) / hand)
+        after = facts["peak_after_step"][r["step"] - 1]
+        hbm.append(dict(step=r["step"], row=r["hbm_peak_bytes"], after_step=after))
+        if not after <= r["hbm_peak_bytes"] <= after + (16 << 20):
+            problems.append(f"row {r['step']}: hbm_peak_bytes {r['hbm_peak_bytes']} "
+                            f"against the allocator's {after}")
+    if not mfu_rel or max(mfu_rel) > 1e-9:
+        problems.append(f"mfu against the by-hand MFU: {mfu_rel}")
+    tops = {k.split("/")[0] for k in trainer.state.params} - {"blocks"}
+    groups = cfg.n_layers + len(tops)
+    for r in health:
+        arrays = [r[k] for k in ("grad_norm", "param_norm", "update_norm",
+                                 "update_ratio")]
+        if len(r["groups"]) != groups or any(len(a) != groups for a in arrays) or \
+                not all(isinstance(x, float) and math.isfinite(x)
+                        for a in arrays for x in a) or r["first_nonfinite"] is not None:
+            problems.append(f"health row {r['step']}: {len(r['groups'])} groups "
+                            f"(want {groups}), first_nonfinite {r['first_nonfinite']}")
+    stalls = [r for r in rows if r.get("event") == "stall"]
+    if stalls:
+        problems.append(f"the flight recorder fired: {stalls}")
+    if problems:
+        raise AssertionError(f"{cfg.name} telemetry: {problems}")
+    last = metrics[-1]
+    return dict(rows=len(rows), types=sorted({r["type"] for r in rows}),
+                events=sorted({r["event"] for r in rows if r["type"] == "event"}),
+                cadence_steps=want_steps, mfu=[r["mfu"] for r in metrics],
+                mfu_by_hand=by_hand, mfu_max_rel_diff=max(mfu_rel),
+                tok_s=[r["tok_s"] for r in metrics],
+                step_time_s=[r["step_time_s"] for r in metrics],
+                data_wait_s=[r["data_wait_s"] for r in metrics],
+                dispatch_s=[r["dispatch_s"] for r in metrics],
+                host_fetch_s=[r["host_fetch_s"] for r in metrics],
+                hbm_peak=hbm, host_rss_bytes=last["host_rss_bytes"],
+                grad_norm=[r["grad_norm"] for r in metrics],
+                update_norm=[r["update_norm"] for r in metrics],
+                health_groups=groups, health_first_groups=health[-1]["groups"][:3],
+                max_update_ratio=max(max(r["update_ratio"]) for r in health),
+                stall_events=0, stall_timeout_s=TELEMETRY_STALL_S)
+
+
+def health_bundle_ms(torch, trainer) -> dict:
+    """The health bundle's own device time at the run's width: the step's
+    ``GroupSums`` over the state's gradients, parameters and (a stand-in of
+    the same shapes and dtypes) the parameters again as updates, timed as
+    one call (CUDA events, L2 flushed). Bound: its bytes (each tree read
+    once, the gradients twice: the sums and the finiteness pass) over the
+    memory rate."""
+    from building_llm_from_scratch_tpu_torch.training import train_step as tts
+
+    state = trainer.state
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+
+    def bundle():
+        sums = tts._health_sums(state, None)
+        for kind, tree in (("grad", state.grads), ("update", state.params),
+                           ("param", state.params)):
+            sums.add(kind, tree)
+        return sums.bundle()
+
+    ms = device_time_ms(torch, bundle, flush, runs=10, warmup=2)
+    nbytes = 4 * sum(v.numel() * v.element_size() for v in state.params.values())
+    return dict(health_ms=ms, bytes=nbytes,
+                bound_ms=nbytes / card_figures(torch.cuda.get_device_name(0))[1]["bw"]
+                * 1e3, groups=len(bundle()["grad_norm"]))
+
+
+def phase_profile(torch, card: dict, workdir: str) -> dict:
+    """Phase 6p: GPT-2-124M fp32 (p 0.1, B 8 x T 1024) through the CLI with
+    ``--profile --profile_steps 3`` over its 3 steps. The exported Chrome
+    trace must hold the data_wait / dispatch / forward / backward /
+    optimizer regions and the kernels of the steps at exactly layers x
+    steps: B1 (``attn_fwd_f32_kernel``), B2a (``attn_dq_f32_kernel``), B2b
+    (``attn_dkv_f32_kernel``), and B3's ``dropout_kernel`` at its 25 a step
+    (1 + 2 x layers) under forward (B3a) and under backward (B3b); a
+    kernel belongs to the innermost named region around its launch (the
+    runtime or driver launch call of the same correlation id) on the
+    step's thread, or to backward when autograd's device thread launched
+    it. Prints each region's device ms a step (the health bundle's inside
+    optimizer apart)."""
+    from building_llm_from_scratch_tpu_torch import main as tmain
+
+    t = PROFILE_RUN
+    data_dir = os.path.join(workdir, "data")
+    out_dir = os.path.join(workdir, "out")
+    os.makedirs(data_dir, exist_ok=True)
+    windows = t["steps"] * t["batch"]
+    n_chars = int((windows * t["context"] + t["context"] // 2) / 0.9) - 15
+    write_corpus(os.path.join(data_dir, "corpus.txt"), seed=11, n_chars=n_chars)
+    t0 = time.perf_counter()
+    # the final train state and export are counted, not written (the disk cap)
+    with final_checkpoint_unwritten(), export_unwritten(write=False):
+        trainer = tmain.run(["--mode", "train", "--model", t["model"], "--num_params",
+                             t["size"], "--byte_tokenizer", "--data_dir", data_dir,
+                             "--output_dir", out_dir, "--n_epochs", "1", "--batch_size",
+                             str(t["batch"]), "--eval_freq", "1000",
+                             "--print_sample_iter", "1000", "--save_ckpt_freq", "1000",
+                             "--profile", "--profile_steps", str(t["steps"])])
+    wall_s = time.perf_counter() - t0
+    steps, L = trainer.global_step, trainer.cfg.n_layers
+    with open(trainer.profile_trace) as f:
+        trace_bytes = f.seek(0, 2)
+        f.seek(0)
+        events = json.load(f)["traceEvents"]
+    regions = STEP_REGIONS
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"], e.get("tid")) for e in events
+             if e.get("ph") == "X" and e.get("name") in regions + (
+                 "data_wait", "dispatch")]
+    names = {n for _a, _b, n, _t in spans}
+    main_tid = next(t for _a, _b, n, t in spans if n == "forward")
+    launch = {e["args"]["correlation"]: (e["ts"], e.get("tid")) for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+
+    def region_of(k) -> str:
+        """The innermost named region around the kernel's launch on the
+        step's thread; a launch from another thread is the backward's
+        (autograd's device thread runs the CUDA backward)."""
+        ts, tid = launch.get(k.get("args", {}).get("correlation"), (None, None))
+        if ts is None:
+            return "none"
+        if tid != main_tid:
+            return "backward"
+        inside = [(b - a, n) for a, b, n, t in spans if n in regions and t == tid
+                  and a <= ts <= b]
+        return min(inside)[1] if inside else "none"
+
+    counts, ms = {}, {}
+    for k in kernels:
+        where = region_of(k)
+        ms[where] = ms.get(where, 0.0) + k["dur"] / 1e3
+        for label, key in (("B1", "attn_fwd_f32_kernel"), ("B2a", "attn_dq_f32_kernel"),
+                           ("B2b", "attn_dkv_f32_kernel"), ("B3", "dropout_kernel")):
+            if key in k["name"]:
+                if label == "B3":
+                    label += {"forward": "a", "backward": "b"}.get(where, f"@{where}")
+                counts[label] = counts.get(label, 0) + 1
+    want = {"B1": L * steps, "B2a": L * steps, "B2b": L * steps,
+            "B3a": (1 + 2 * L) * steps, "B3b": (1 + 2 * L) * steps}
+    missing = {"data_wait", "dispatch", "forward", "backward", "optimizer"} - names
+    result = dict(model=trainer.cfg.name, steps=steps, layers=L, wall_s=wall_s,
+                  trace_mb=trace_bytes / 1e6, kernel_events=len(kernels),
+                  counts=counts, expected=want,
+                  ms_per_step={k: v / steps for k, v in sorted(ms.items())})
+    emit("profile", **result)
+    if steps != t["steps"] or missing or counts != want:
+        raise AssertionError(f"phase 6p: {missing} regions missing, kernel "
+                             f"events {counts} against {want}")
+    per = result["ms_per_step"]
+    print(f"profile split (device ms a step, GPT-2-124M fp32): forward "
+          f"{per.get('forward', 0.0):.3f}, backward {per.get('backward', 0.0):.3f}, "
+          f"optimizer {per.get('optimizer', 0.0):.3f}, health "
+          f"{per.get('health', 0.0):.3f}; {card['card_line']}", flush=True)
+    del trainer
+    shutil.rmtree(workdir, ignore_errors=True)
+    return result
 
 
 def phase_train(torch, card: dict, workdir: str, t: dict) -> dict:
@@ -1947,7 +2193,8 @@ def phase_train(torch, card: dict, workdir: str, t: dict) -> dict:
     # cores; fp32 on the CUDA cores (its GEMMs run in full fp32, TF32 off)
     dt = t["dtype"] or "fp32"
     peak = card["figures"]["peak32" if dt == "fp32" else "peak16"]
-    window_tps = trainer.throughput_tokens_per_s[0]
+    # every logging window's tokens over their summed training seconds
+    window_tps = trainer.tokens_seen / trainer.step_seconds_total
     run_step_ms = facts["run_step_ms"]
     run_rate = dict(window_tokens_per_s=window_tps,
                     window_ms_per_step=tokens / window_tps * 1e3,
@@ -1968,6 +2215,13 @@ def phase_train(torch, card: dict, workdir: str, t: dict) -> dict:
     step_ms = statistics.median(step_times[2:])
     tps = tokens / (step_ms / 1e3)
     prof = train_profile(torch, trainer, batch, step_ms)
+    if t.get("telemetry"):
+        tele = dict(check_telemetry(card, t, trainer, facts),
+                    **health_bundle_ms(torch, trainer), step_ms=step_ms)
+        emit("telemetry", model=cfg.name, dtype=dt, card=card["card_line"], **tele)
+        print(f"health bundle {cfg.name} {dt}: {tele['health_ms']:.3f} ms a step "
+              f"(bound {tele['bound_ms']:.3f}, step {step_ms:.2f} ms); "
+              f"{card['card_line']}", flush=True)
     check = {k: facts[k] for k in ("steps", "evals", "eval_batches", "launches",
                                    "expected")}
     result = dict(model=cfg.name, dtype=dt, dtype_flag=t["dtype"], layers=L,
@@ -2650,7 +2904,9 @@ def profile_window(torch, first: int, last: int):
                 prof = out.pop("prof")
                 prof.__exit__(None, None, None)
                 busy_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                              if str(ev.device_type).endswith("CUDA"))
+                              if str(ev.device_type).endswith("CUDA")
+                              and not getattr(ev, "is_user_annotation", False)
+                              and ev.key not in STEP_REGIONS)
                 out.update(steps=last - first, wall_ms=wall_ms,
                            busy_ms=busy_us / 1e3,
                            idle_share=1.0 - busy_us / 1e3 / wall_ms)
@@ -7445,6 +7701,8 @@ def main() -> int:
             phase_train(torch, card, os.path.join(workdir, name), t)
             for name, t in (("llama", TRAIN), ("gpt2", TRAIN_GPT2),
                             ("gpt2-fp32", TRAIN_GPT2_FP32), ("llama-fp32", TRAIN_FP32)))
+        # the --profile trace of three GPT-2 fp32 steps (6p)
+        profiled = phase_profile(torch, card, os.path.join(workdir, "profile"))
         # precision policies, accumulation and remat (6m), host overlap (6h)
         mixed = phase_mixed(torch, card, os.path.join(workdir, "mixed"),
                             dict(llama=trained, gpt2_fp32=trained_gpt2_fp32))
@@ -7621,6 +7879,11 @@ def main() -> int:
         if shape in PP_SHAPES:
             row["launches_10p"] = {PP_SHAPES[shape]: [
                 rr[counter] for rr in meshed[PP_SHAPES[shape]]["launches"]]}
+        # phase 6p: the --profile trace's kernel events of its 3 steps
+        trace_key = {"fwd": "B1", "dq": "B2a", "dkv": "B2b", "dropout_fwd": "B3a",
+                     "dropout_bwd": "B3b"}.get(counter)
+        if shape == "gpt2-124M-train-fp32" and trace_key:
+            row["launches_6p_trace"] = profiled["counts"][trace_key]
         # phase 6r: the same shapes' save-all, selective and full remat runs
         by_shape = {"llama3_2-1B-train": "llama3_2-1B-bf16",
                     "gpt2-124M-train-fp32": "GPT2-124M-fp32"}

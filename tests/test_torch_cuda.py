@@ -8,7 +8,9 @@ asynchronous checkpoint's snapshot, text prompts served with a BPE
 tokenizer, the serving operations' kernel gates (a NaN-poisoned row
 stays alone in B5 and B7, a NaN tail past a row's length never reaches
 its output) and fault isolation on the card, and B1-B3 at a pipeline
-microbatch's shapes and seeds with a one-rank pp step. They skip on a machine without
+microbatch's shapes and seeds with a one-rank pp step, the health bundle
+on the card against the CPU and a ``--profile`` trace's kernel events.
+They skip on a machine without
 CUDA. This file imports neither JAX nor the JAX package, so
 it also runs where JAX is not installed:
 
@@ -1924,3 +1926,54 @@ def test_pp_step_at_one_stage_launches_per_microbatch(cuda):
     torch.cuda.synchronize()
     assert [f.launches - n for f, n in zip(kernels, n0)] == [8, 8, 8, 20, 20]
     assert np.isfinite(m["loss"].item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_health_bundle_on_the_card_matches_the_cpu(cuda, dtype):
+    """The per-layer-group health bundle of the same trees on the card and
+    on the CPU (fp32 sums, another reduction order): within 1e-5 relative,
+    the same group holding an injected NaN, no host sync needed to form it
+    (the bundle's tensors stay on the card)."""
+    from building_llm_from_scratch_tpu_torch.obs.health import group_health
+
+    gen = torch.Generator().manual_seed(0)
+
+    def tree():
+        return {"blocks/attn/wq": torch.randn(3, 64, 64, generator=gen).to(dtype),
+                "blocks/norm1/scale": torch.randn(3, 64, generator=gen).to(dtype),
+                "head/weight": torch.randn(64, 300, generator=gen).to(dtype),
+                "tok_emb/weight": torch.randn(300, 64, generator=gen).to(dtype)}
+    g, p, u = tree(), tree(), tree()
+    g["blocks/attn/wq"][2, 5, 7] = float("nan")
+    on = lambda d: {k: v.to(cuda) for k, v in d.items()}  # noqa: E731
+    card = group_health(on(g), on(p), on(u))
+    cpu = group_health(g, p, u)
+    assert all(v.device.type == "cuda" for v in card.values())
+    assert int(card["first_nonfinite"]) == int(cpu["first_nonfinite"]) == 2
+    for k in ("grad_norm", "param_norm", "update_norm", "update_ratio"):
+        a, b = card[k].cpu().double(), cpu[k].double()
+        fin = torch.isfinite(b)
+        assert torch.equal(torch.isfinite(a), fin), k
+        assert ((a[fin] - b[fin]).abs() / b[fin].abs()).max() <= 1e-5, k
+
+
+def test_profile_trace_holds_kernel_events(cuda, tmp_path):
+    """``--profile`` on the card: the exported Chrome trace holds CUDA
+    kernel events beside the step's named regions (a trace without kernel
+    events raises)."""
+    import json
+
+    from building_llm_from_scratch_tpu_torch import main as tmain
+
+    data = tmp_path / "data"
+    data.mkdir()
+    (data / "c.txt").write_text("Every effort moves you closer to mastery. " * 40)
+    t = tmain.run(["--mode", "train", "--model", "GPT2", "--num_params", "124M",
+                   "--debug", "--byte_tokenizer", "--data_dir", str(data),
+                   "--output_dir", str(tmp_path / "out"), "--batch_size", "4",
+                   "--eval_freq", "1000", "--print_sample_iter", "1000",
+                   "--profile", "--profile_steps", "2"])
+    events = json.loads(open(t.profile_trace).read())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"forward", "backward", "optimizer", "health", "dispatch"} <= names
+    assert sum(e.get("cat") == "kernel" for e in events) > 0

@@ -139,10 +139,11 @@ def _setup(tmp_path, kind="llama", seed=3, n_steps=3, rows=4, weights=None,
 
 
 def _jax_run(jcfg, params, data, mode, n_steps, policy=None, explicit=False,
-             lora=None, n_dev=2):
+             lora=None, n_dev=2, health=None):
     """The JAX step over the global batches on an ``n_dev``-device mesh:
     (losses, final state on the host). The state is placed anew before
-    every step, so the step compiles once."""
+    every step, so the step compiles once. ``health``: a list that gets
+    each step's health bundle on the host."""
     sched = warmup_cosine_schedule(*SCHED)
     opt = build_optimizer(schedule=sched)
     plan = jplan(mode, devices=jax.devices()[:n_dev])
@@ -167,7 +168,16 @@ def _jax_run(jcfg, params, data, mode, n_steps, policy=None, explicit=False,
                             else np.ones(batch["targets"].shape, np.float32))
         state, m = step(plan.shard_state(state), plan.shard_batch(batch))
         losses.append(float(m["loss"]))
+        if health is not None:
+            health.append(jax.device_get(m["health"]))
     return losses, jax.device_get(state)
+
+
+def _health_err(got: dict, want: dict) -> float:
+    """The largest relative error of a health bundle's per-group arrays."""
+    return max(float(np.max(np.abs(got[k].astype(np.float64) - np.asarray(want[k]))
+                            / np.abs(np.asarray(want[k], np.float64)).clip(min=1e-30)))
+               for k in ("grad_norm", "param_norm", "update_norm", "update_ratio"))
 
 
 def _spec(export, bpath, tcfg, runs, steps=3, **kw):
@@ -189,8 +199,11 @@ def test_modes_match_the_jax_gspmd_step(tmp_path):
     replicated small leaves; between steps fsdp has freed its sharded
     leaves' working copy and gradients and holds less than zero1, which
     holds less than dp; the counters show fsdp's gathers and
-    reduce-scatters. Control: each rank stepping alone on its rows (no
-    gradient reduce) fails the parameter bound."""
+    reduce-scatters. Every step's per-layer-group health bundle: the
+    first's within 1e-5 relative of the JAX step's on every rank (fsdp's
+    shards summed over the data axis, replicated leaves once). Control:
+    each rank stepping alone on its rows (no gradient reduce) fails the
+    parameter bound and the health bound."""
     jcfg, tcfg, params, np_params, export, bpath, data = _setup(tmp_path)
     runs = [["dp", "dp", None], ["fsdp", "fsdp", None], ["zero1", "zero1", None],
             ["control", "control", None]]
@@ -198,8 +211,13 @@ def test_modes_match_the_jax_gspmd_step(tmp_path):
     r0, r1 = res
     jax_dp = None
     for mode in ("dp", "fsdp", "zero1"):
-        jl, js = _jax_run(jcfg, params, data, mode, 3)
+        jh = []
+        jl, js = _jax_run(jcfg, params, data, mode, 3, health=jh)
         jax_dp = jax_dp or js
+        for r in res:
+            assert _health_err(r[mode]["metrics"][0]["health"], jh[0]) <= 1e-5, mode
+        if mode == "dp":
+            assert _health_err(r0["control"]["metrics"][0]["health"], jh[0]) > 1e-5
         np.testing.assert_allclose(_losses(r0, mode), jl, **LOSS_TOL)
         assert _losses(r0, mode) == _losses(r1, mode)
         want = flatten_tree(js["trainable"])

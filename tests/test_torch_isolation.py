@@ -33,6 +33,11 @@ def test_entry_points_import_no_jax():
         "import building_llm_from_scratch_tpu_torch.models.lora\n"
         "import building_llm_from_scratch_tpu_torch.training.checkpoint\n"
         "import building_llm_from_scratch_tpu_torch.training.trainer\n"
+        "import building_llm_from_scratch_tpu_torch.obs.health\n"
+        "import building_llm_from_scratch_tpu_torch.obs.mfu\n"
+        "import building_llm_from_scratch_tpu_torch.obs.timeline\n"
+        "import building_llm_from_scratch_tpu_torch.obs.trace\n"
+        "import building_llm_from_scratch_tpu_torch.utils.memory\n"
         "import building_llm_from_scratch_tpu_torch.training.resilience\n"
         "import building_llm_from_scratch_tpu_torch.training.precision\n"
         "import building_llm_from_scratch_tpu_torch.training.async_checkpoint\n"
@@ -128,12 +133,16 @@ def test_cli_rejects_unported_jax_flags_by_name(tmp_path, capsys):
     # name with their item
     assert "--serve_replicas" in err and "queue 1 item 14b, fleet and fused finetuning" in err
     assert "14c" not in err
-    # the training telemetry is refused by name in train mode
+    # XLA's compilation cache is refused by name as XLA's; the training
+    # telemetry is ported
     with pytest.raises(SystemExit):
         get_args(["--mode", "train", "--data_dir", str(tmp_path),
-                  "--metrics_jsonl", str(tmp_path / "m.jsonl")])
+                  "--compile_cache_dir", str(tmp_path / "cc")])
     err = capsys.readouterr().err
-    assert "--metrics_jsonl" in err and "queue 1 item 10, telemetry" in err
+    assert "--compile_cache_dir" in err and "XLA" in err
+    args = get_args(["--mode", "train", "--data_dir", str(tmp_path),
+                     "--metrics_jsonl", str(tmp_path / "m.jsonl")])
+    assert args.metrics_jsonl == str(tmp_path / "m.jsonl")
     # the serving-operations flags are ported
     args = get_args(["--mode", "serve", "--serve_prompts", req,
                      "--serve_port", "8000", "--serve_deadline_s=5",

@@ -12,6 +12,13 @@ one process of their own (``tests/torch_jax_refs.py``, four CPU devices),
 started before the two-rank group and read before the four-rank one.
 
 Tolerances (``test_torch_distributed.py``'s):
+  - against the JAX pp step in bf16 (the LLaMA-like model): the
+    single-device bf16 bounds of ``test_torch_training.py``, each step's
+    loss within 1e-3 relative and each leaf's total update within 0.15 of
+    the JAX update's norm; the replicated leaves' gradients summed without
+    the stage axis fail them;
+  - the first step's health bundle against the JAX pp step's: 1e-5
+    relative per group; each rank's unreduced bundle fails it;
   - against the JAX pp step (fp32): per-step losses rtol 2e-4 atol 2e-5;
     final parameters within 1e-5 relative L2 (all leaves as one vector) and
     each leaf at rtol 2e-3 atol 2e-5; each control fails the relative-L2
@@ -149,6 +156,7 @@ def groups(tmp_path_factory):
     """Both groups' results and the JAX references for them."""
     tmp = tmp_path_factory.mktemp("pp")
     llama = _model_files(tmp, "llama", "llama", 5)
+    llama16 = _model_files(tmp, "llama16", "llama", 5, dtype="bf16")
     gpt2 = _model_files(tmp, "gpt2", "gpt2", 3, vocab_size=511)
     drop = _model_files(tmp, "drop", "gpt2", 4, vocab_size=511, drop_rate=0.1)
     jcfg, tcfg, np_params = llama[:3]
@@ -166,6 +174,7 @@ def groups(tmp_path_factory):
                                    "--save_ckpt_freq", "1000"]
     proc, out = _start_refs(tmp, [
         _jax_job("llama", llama, 2, save=str(tmp / "jax-ck")),
+        _jax_job("llama16", llama16, 2),
         _jax_job("gpt2", gpt2, 2),
         _jax_job("lora", llama, 2, lora=adapter),
         _jax_job("data", llama, 4),
@@ -176,8 +185,13 @@ def groups(tmp_path_factory):
     two = spawn(tmp, dict(scenario="parts", parts=[
         _part("llama", llama, [["pp", "pp", None, pp],
                                ["nohop", "pp", None, dict(pp, drop_hop=True)],
-                               ["noreduce", "pp", None, dict(pp, skip_stage_reduce=True)]],
+                               ["noreduce", "pp", None, dict(pp, skip_stage_reduce=True)],
+                               ["localhealth", "pp", None,
+                                dict(pp, no_health_reduce=True, steps=1)]],
               eval=True, save=str(tmp / "port-ck")),
+        _part("llama16", llama16, [["pp", "pp", None, pp],
+                                   ["noreduce", "pp", None,
+                                    dict(pp, skip_stage_reduce=True)]]),
         _part("gpt2", gpt2, [["pp", "pp", None, pp]]),
         _part("lora", llama, [["pp", "pp", None, pp]], lora=lspec),
         _part("drop", drop, [["pp", "pp", None, pp],
@@ -200,9 +214,12 @@ def groups(tmp_path_factory):
         _part("load", llama, [["tp", "pp", None, dict(pp, tp=2)]],
               load=str(tmp / "jax-ck")),
         dict(name="cli", scenario="cli", runs=[
-            ["pp", flags + ["--device", "cpu", "--output_dir", str(cli_dir / "port")]]]),
+            ["pp", flags + ["--device", "cpu", "--output_dir", str(cli_dir / "port"),
+                            "--metrics_jsonl", str(cli_dir / "port.jsonl"),
+                            "--log_every", "1", "--stall_timeout", "120"]]]),
     ]), world=4, timeout=240)
-    return dict(two=two, four=four, refs=refs, tmp=tmp, llama=llama, cli_dir=cli_dir)
+    return dict(two=two, four=four, refs=refs, tmp=tmp, llama=llama, cli_dir=cli_dir,
+                llama16=llama16)
 
 
 @pytest.mark.parametrize("model", ["llama", "gpt2"])
@@ -413,6 +430,29 @@ def test_cli_pp_matches_the_jax_cli(groups):
         np.testing.assert_allclose(got[k].numpy(), v, **PARAM_TOL, err_msg=k)
 
 
+def test_pp_cli_writes_the_training_telemetry(groups):
+    """The four-rank pp CLI run with ``--metrics_jsonl --log_every 1
+    --stall_timeout``: rank 0 alone writes one header (the (2, 2, 1) mesh),
+    a metrics row and a health row a step, the health rows naming every
+    block of the whole model (each stage's layers assembled over the stage
+    axis), finite; no stall fired."""
+    rows = [json.loads(line) for line in
+            (groups["cli_dir"] / "port.jsonl").read_text().splitlines()]
+    assert [r["type"] for r in rows].count("header") == 1
+    assert rows[0]["mesh_shape"] == {"data": 2, "stage": 2, "model": 1}
+    metrics = [r for r in rows if r["type"] == "metrics"]
+    health = [r for r in rows if r["type"] == "health"]
+    assert [r["step"] for r in metrics] == [r["step"] for r in health] == [1, 2, 3]
+    blocks = [g for g in health[0]["groups"] if g.startswith("block_")]
+    assert blocks == [f"block_{i:02d}" for i in range(len(blocks))] and len(blocks) >= 2
+    for r in health:
+        assert all(np.isfinite(r[k]).all() for k in ("grad_norm", "param_norm",
+                                                     "update_norm"))
+        assert r["first_nonfinite"] is None
+    assert all(r["mfu"] is None and r["steps_in_window"] == 1 for r in metrics)
+    assert not [r for r in rows if r.get("event") == "stall"]
+
+
 # ---------------------------------------------------------------------------
 # one process, no group: the mesh, the rules, the seeds, the flags
 # ---------------------------------------------------------------------------
@@ -575,3 +615,72 @@ def test_build_plan_checks_the_microbatch_rows(monkeypatch, batch, stages, ok):
     plan = build_components.build_plan(args)
     assert plan.n_stages * plan.n_data == 4 and plan.n_micro == 8
     assert plan.stage_rank == plan.n_stages - 1 and plan.shard_mode == "pp"
+
+
+#: the health bundle's per-group norms against the JAX step's, first step
+HEALTH_NORMS = ("grad_norm", "param_norm", "update_norm", "update_ratio")
+HEALTH_RTOL = 1e-5
+
+
+def _health_err(got: dict, ref: dict) -> float:
+    """The largest relative error of the bundle's per-group arrays."""
+    return max(float(np.max(np.abs(got[k].astype(np.float64) - ref[f"health/{k}"])
+                            / np.abs(ref[f"health/{k}"]).clip(min=1e-30)))
+               for k in HEALTH_NORMS)
+
+
+@pytest.mark.parametrize("part,group", [("llama", "two"), ("gpt2", "two"),
+                                        ("lora", "two"), ("data", "four"),
+                                        ("tp", "four")])
+def test_pp_health_matches_the_jax_bundle(groups, part, group):
+    """The first step's per-layer-group health bundle under pp 2 (alone,
+    with LoRA, x data 2, x tp 2) against the JAX pp step's on the same mesh
+    shape: every rank holds the whole model's vector (its stage's layers
+    assembled over the stage axis, each replicated leaf counted once),
+    within 1e-5 relative; no group is non-finite. Control (LLaMA-like):
+    each rank's bundle of its own stage's leaves, unreduced, fails it."""
+    ref = _ref(groups["refs"], part)
+    for r in groups[group]:
+        h = r[part]["pp"]["metrics"][0]["health"]
+        assert h["grad_norm"].shape == ref["health/grad_norm"].shape
+        assert _health_err(h, ref) <= HEALTH_RTOL, (part, _health_err(h, ref))
+        assert int(h["first_nonfinite"]) == int(ref["health/first_nonfinite"]) == -1
+    if part == "llama":
+        local = groups["two"][0]["llama"]["localhealth"]["metrics"][0]["health"]
+        assert _health_err(local, ref) > HEALTH_RTOL
+
+
+def _bf16_errors(part, label, files, ref) -> tuple:
+    """(the largest per-step loss error, the largest leaf's update error):
+    each leaf's ||port - JAX|| over ||JAX - init||, the single-device bf16
+    measure of ``test_torch_training.py``."""
+    init = flatten_tree(files[2])
+    loss = float(np.max(np.abs(np.asarray(_losses(part, label)) - ref["losses"])
+                        / np.abs(ref["losses"])))
+    upd = 0.0
+    for k, v in _params_of(ref).items():
+        v = v.astype(np.float64)
+        moved = np.linalg.norm(v - np.asarray(init[k], np.float64))
+        got = part[label]["whole"][f"trainable/{k}"].astype(np.float64)
+        upd = max(upd, np.linalg.norm(got - v) / moved if moved else
+                  float(np.any(got != v)))
+    return loss, upd
+
+
+def test_pp_bf16_matches_the_jax_pp_step(groups):
+    """pp 2 in bf16 (the LLaMA-like model's parameters, activations and
+    gradients, the microbatch gradients summed in bf16 in reverse
+    microbatch order by both packages) against the JAX pp step in bf16 on
+    2 devices, at the single-device bf16 bounds (``BF16_STEP_TOL``): each
+    step's loss within 1e-3 relative, each leaf's total update within 0.15
+    of the JAX update's norm; both ranks report the same losses. Control:
+    the replicated leaves' gradients summed without the stage axis fail
+    the update bound."""
+    r0, r1 = (r["llama16"] for r in groups["two"])
+    ref = _ref(groups["refs"], "llama16")
+    files = groups["llama16"]
+    loss, upd = _bf16_errors(r0, "pp", files, ref)
+    assert loss <= 1e-3 and upd <= 0.15, (loss, upd)
+    assert _losses(r0, "pp") == _losses(r1, "pp")
+    _, upd_control = _bf16_errors(r0, "noreduce", files, ref)
+    assert upd_control > 0.15, upd_control

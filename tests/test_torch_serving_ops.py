@@ -1001,13 +1001,21 @@ def test_cli_sigterm_drains_and_exits_zero(tmp_path):
 
 
 def test_cli_refuses_training_telemetry_by_name(tmp_path, capsys):
-    for flag in (["--metrics_jsonl", "m.jsonl"], ["--stall_timeout", "5"],
-                 ["--log_every", "5"], ["--profile"], ["--profile_steps", "3"],
-                 ["--warnings"]):
-        with pytest.raises(SystemExit):
-            get_args(["--mode", "train", "--data_dir", str(tmp_path)] + flag)
-        err = capsys.readouterr().err
-        assert flag[0] in err and "queue 1 item 10, telemetry" in err
+    """The training telemetry is ported: each of its flags parses in train
+    mode; only XLA's compilation cache is still refused, by name."""
+    for flag, key, value in ((["--metrics_jsonl", "m.jsonl"], "metrics_jsonl", "m.jsonl"),
+                             (["--stall_timeout", "5"], "stall_timeout", 5.0),
+                             (["--log_every", "5"], "log_every", 5),
+                             (["--profile"], "profile", True),
+                             (["--profile_steps", "3"], "profile_steps", 3),
+                             (["--warnings"], "warnings", True)):
+        args = get_args(["--mode", "train", "--data_dir", str(tmp_path)] + flag)
+        assert getattr(args, key) == value, flag
+    with pytest.raises(SystemExit):
+        get_args(["--mode", "train", "--data_dir", str(tmp_path),
+                  "--compile_cache_dir", "c"])
+    err = capsys.readouterr().err
+    assert "--compile_cache_dir" in err and "XLA" in err
 
 
 def test_scrape_answers_while_a_tick_holds_the_lock(models):

@@ -150,7 +150,9 @@ def two_ranks(tmp_path_factory):
         _steps_part("llama", llama, [["tp", "tp", None, {"tp": 2}],
                                      ["b4", "tp", None, {"tp": 2, "xent_kernel": True}],
                                      ["noreduce", "tp", None,
-                                      {"tp": 2, "skip_reduce": True}]],
+                                      {"tp": 2, "skip_reduce": True}],
+                                     ["localhealth", "tp", None,
+                                      {"tp": 2, "no_health_reduce": True, "steps": 1}]],
                     save=str(save)),
         _steps_part("drop", gpt2_drop, [["tp", "tp", None, {"tp": 2}],
                                         ["one", "control", None, {"all_rows": True}]]),
@@ -408,8 +410,10 @@ def test_cli_tp_matches_the_jax_cli_and_one_rank(tmp_path):
     process) and against the port's single_chip CLI: the evaluations
     within the module's loss bounds, the final export (gathered over the
     model axis) within its parameter bounds, the same tokens seen and
-    steps, the warm-up sample on rank 0 only; launched again from the tp
-    run's sharded final checkpoint, a second epoch resumes at its step."""
+    steps, the warm-up sample on rank 0 only, rank 0's telemetry (with
+    ``--metrics_jsonl --log_every 1 --stall_timeout``: a metrics and a
+    health row a step); launched again from the tp run's sharded final
+    checkpoint, a second epoch resumes at its step."""
     from building_llm_from_scratch_tpu_torch import main as tmain
     from building_llm_from_scratch_tpu_torch.training.checkpoint import (
         load_exported_params,
@@ -431,7 +435,9 @@ def test_cli_tp_matches_the_jax_cli_and_one_rank(tmp_path):
     i = flags.index("--init_params_from")
     fresh = flags[:i] + flags[i + 2:]
     tp = flags + multi + ["--shard_mode", "tp", "--tp", "2",
-                          "--output_dir", str(tmp_path / "tp")]
+                          "--output_dir", str(tmp_path / "tp"),
+                          "--metrics_jsonl", str(tmp_path / "tp.jsonl"),
+                          "--log_every", "1", "--stall_timeout", "120"]
     runs = [["tp", tp],
             ["resumed", fresh + multi + ["--shard_mode", "tp", "--tp", "2",
                                          "--resume_from", str(tmp_path / "tp" / "model_pg_final"),
@@ -463,3 +469,48 @@ def test_cli_tp_matches_the_jax_cli_and_one_rank(tmp_path):
         assert r["resumed"]["restored"]["step"] == one.global_step
         assert r["resumed"]["global_step"] == 2 * one.global_step
         assert r["resumed"]["losses"] and all(np.isfinite(r["resumed"]["losses"]))
+    # the training telemetry of the tp run: rank 0's file, a metrics and a
+    # health row a step over the whole model's groups, no stall
+    rows = [json.loads(line) for line in (tmp_path / "tp.jsonl").read_text().splitlines()]
+    assert rows[0]["type"] == "header" and rows[0]["mesh_shape"]["model"] == 2
+    health = [r for r in rows if r["type"] == "health"]
+    assert [r["step"] for r in rows if r["type"] == "metrics"] == \
+        [r["step"] for r in health] == list(range(1, one.global_step + 1))
+    assert len(health[0]["groups"]) == one.cfg.n_layers + 3
+    assert all(np.isfinite(r["grad_norm"]).all() for r in health)
+    assert not [r for r in rows if r.get("event") == "stall"]
+
+
+#: the health bundle's per-group arrays against the JAX step's, first step
+HEALTH_ARRAYS = ("grad_norm", "param_norm", "update_norm", "update_ratio")
+HEALTH_RTOL = 1e-5
+
+
+def _health_err(got: dict, ref: dict) -> float:
+    return max(float(np.max(np.abs(got[k].astype(np.float64) - ref[f"health/{k}"])
+                            / np.abs(ref[f"health/{k}"]).clip(min=1e-30)))
+               for k in HEALTH_ARRAYS)
+
+
+@pytest.mark.parametrize("group,part,label,ref", [
+    ("two_ranks", "gpt2", "tp", "gpt2"), ("two_ranks", "llama", "tp", "llama"),
+    ("two_ranks", "fsdp", "fsdp", "deep"), ("four_ranks", "tp_fsdp", "tp_fsdp", "tp_fsdp"),
+    ("four_ranks", "sp", "fsdp", "fsdp")])
+def test_health_matches_the_jax_bundle(request, group, part, label, ref):
+    """The first step's per-layer-group health bundle under tp 2 (GPT-2 with
+    the replicated vocabulary, LLaMA vocab-parallel), fsdp 2 (4 layers),
+    tp_fsdp on (2, 1, 2) and fsdp x sp on (2, 2, 1) against the JAX GSPMD
+    step's on the same mesh shape: every rank holds the whole vector (each
+    leaf's slices summed over the axes it is split on, replicated leaves
+    counted once) within 1e-5 relative. Control (LLaMA tp): each rank's
+    bundle of its own slices, unreduced, fails it."""
+    res = request.getfixturevalue(group)
+    want = _ref(res["refs"], ref)
+    for r in res["res"]:
+        h = r[part][label]["metrics"][0]["health"]
+        assert h["grad_norm"].shape == want["health/grad_norm"].shape
+        assert _health_err(h, want) <= HEALTH_RTOL, (part, _health_err(h, want))
+        assert int(h["first_nonfinite"]) == -1
+    if part == "llama":
+        local = res["res"][0]["llama"]["localhealth"]["metrics"][0]["health"]
+        assert _health_err(local, want) > HEALTH_RTOL

@@ -398,11 +398,11 @@ def test_export_is_read_by_the_jax_loader_bit_for_bit(tmp_path, dtype):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--log_every", "5"], SystemExit, None),
+    (["--fleet_jobs", "jobs.json"], SystemExit, None),
     (["--data_type", "fp16", "--mixed_precision", "bf16"], ValueError,
      "requires --mixed_precision fp16"),
     (["--grad_accum", "3"], ValueError, "divisible by --grad_accum"),
-    (["--metrics_jsonl", "m.jsonl"], SystemExit, None),
+    (["--serve_replicas", "2"], SystemExit, None),
     (["--grad_accum", "2", "--mixed_precision", "bf16_hybrid"], ValueError,
      "does not compose"),
     (["--prefetch", "-1"], ValueError, "prefetch"),

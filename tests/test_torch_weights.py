@@ -362,9 +362,9 @@ def test_cli_refuses_what_the_weight_flags_cannot_do(tmp_path, capsys):
         get_args(base + ["--resume_from", str(tmp_path),
                          "--init_params_from", str(tmp_path / "init.npz")])
     with pytest.raises(SystemExit):
-        get_args(base + ["--stall_timeout", "5"])
+        get_args(base + ["--fleet_jobs", "jobs.json"])
     err = capsys.readouterr().err
-    assert "--stall_timeout" in err and "ROADMAP queue 1" in err
+    assert "--fleet_jobs" in err and "ROADMAP queue 1" in err
     assert get_args(base + ["--tokenizer_path", "x"]).tokenizer_path == "x"
     args = get_args(base + ["--async_ckpt", "on", "--prefetch", "0"])
     assert (args.async_ckpt, args.prefetch) == ("on", 0)

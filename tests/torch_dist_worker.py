@@ -262,12 +262,27 @@ def run_steps(spec: dict, rank: int, world: int) -> dict:
                 _init(self, *a, **kw)
                 gathers.append(self)
             tts._LayerGather.__init__ = keep
+        if opts.get("no_health_reduce"):
+            # the health control: each rank's bundle of its own slices
+            from building_llm_from_scratch_tpu_torch.obs import health
+
+            health_init = health.GroupSums.__init__
+
+            def local(self, layout, splits=(), moment_splits=None, reduce=None,
+                      _init=health_init):
+                _init(self, layout, splits, moment_splits,
+                      lambda t, axis: t)
+            health.GroupSums.__init__ = local
         metrics = []
         for i in range(start, opts["steps"]):
             batch = _batch(data, i, rows, dev)
             state, m = step(state, batch)
-            metrics.append({k: (float(v) if torch.is_tensor(v) else v)
+            metrics.append({k: (float(v) if torch.is_tensor(v) else
+                                {hk: hv.cpu().numpy() for hk, hv in v.items()}
+                                if k == "health" else v)
                             for k, v in m.items()})
+        if opts.get("no_health_reduce"):
+            health.GroupSums.__init__ = health_init
         if overflow and plan is not None:
             tts._Collectives.reduce = comm_reduce
         if opts.get("skip_reduce"):

@@ -14,7 +14,8 @@ Jobs:
              ``make_sharded_train_step``) on ``build_mesh_plan(mode, tp=,
              sp=)`` over the first ``n_dev`` CPU devices, from the params
              and global batches of the spec's ``.npz`` files: per-step
-             losses and the final trainable leaves;
+             losses, the final trainable leaves and the first step's
+             health bundle (``health/<array>``);
   ``save``   the initial train state placed on the job's plan, written
              by the JAX ``save_checkpoint`` (the reference layout);
   ``ring``   ``ring_causal_attention`` at ``sp`` (data 1) on the spec's
@@ -25,8 +26,9 @@ Jobs:
              global step and the final export's leaves (``params/...``);
   ``pp``     ``make_pp_train_step`` on ``make_pp_mesh(pp, devices[:n_dev],
              tp)`` with ``micro`` microbatches (and a LoRA adapter file):
-             per-step losses, the final trainable leaves, the pp eval
-             loss on the first batch, and (``save``) the final state
+             per-step losses, the final trainable leaves, the first
+             step's health bundle, the pp eval loss on the first batch,
+             and (``save``) the final state
              written by the JAX ``save_checkpoint``.
 """
 
@@ -100,17 +102,26 @@ def steps(job: dict) -> dict:
     else:
         step = make_train_step(cfg, opt, lr_schedule=sched, policy=policy,
                                sp_mesh=plan.sp_mesh)
-    losses = []
+    losses, health = [], {}
     for i in range(job["steps"]):
         batch = {"inputs": data["inputs"][i].astype(np.int32),
                  "targets": data["targets"][i].astype(np.int32),
                  "weights": np.ones(data["targets"][i].shape, np.float32)}
         state, m = step(plan.shard_state(state), plan.shard_batch(batch))
         losses.append(float(m["loss"]))
+        health = health or _health(m)
     out = {f"trainable/{k}": v for k, v in
            _flat(jax.device_get(state["trainable"])).items()}
     out["losses"] = np.asarray(losses, np.float64)
+    out.update(health)
     return out
+
+
+def _health(metrics) -> dict:
+    """The step's health bundle (the first step's, as the callers keep
+    it) as ``health/<array>``."""
+    return {f"health/{k}": np.asarray(v)
+            for k, v in jax.device_get(metrics["health"]).items()}
 
 
 def ring(job: dict) -> dict:
@@ -190,10 +201,11 @@ def pp(job: dict) -> dict:
     batches = [{"inputs": data["inputs"][i].astype(np.int32),
                 "targets": data["targets"][i].astype(np.int32)}
                for i in range(job["steps"])]
-    losses = []
+    losses, health = [], {}
     for batch in batches:
         state, m = step(plan.shard_state(state), plan.shard_batch(batch))
         losses.append(float(m["loss"]))
+        health = health or _health(m)
     state = plan.shard_state(state)
     ev = make_pp_eval_step(cfg, mesh, n_micro=job["micro"], **kw)(
         state, plan.shard_batch(batches[0]))
@@ -202,6 +214,7 @@ def pp(job: dict) -> dict:
     out = {f"trainable/{k}": v for k, v in
            _flat(jax.device_get(state["trainable"])).items()}
     out.update(losses=np.asarray(losses, np.float64), eval=np.asarray(float(ev)))
+    out.update(health)
     return out
 
 
